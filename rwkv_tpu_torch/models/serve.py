@@ -1,0 +1,280 @@
+"""Serving path for RWKV v7 on one GPU.
+
+Ports the v7 serving side of ``rwkv_tpu.models.serve``:
+
+- ``stack_layer_params`` prepares every layer's weights for a precision --
+  dense f32 or bf16, or w8a8 (rowwise int8 weights, per-row int8
+  activations, kernel K1) -- and stacks them ``[L, ...]``. Projections stay
+  unfused, as they do under w8a8 in the JAX package.
+- ``run_blocks`` / ``forward_stacked`` run the layers as a Python loop over
+  ``models.graph.att_v7`` / ``ffn_v7``. For T > 1 the wkv7 recurrence goes
+  through ``ops.chunked.wkv7_auto`` (kernel K2 on the card).
+- ``ServingModel`` serves it: ``prefill`` splits a prompt into
+  ``PREFILL_BUCKETS``, ``decode`` runs one step for a batch (B = 1 with
+  ``megakernel=True`` in one launch of kernel K3), ``generate`` samples.
+
+State uses the serving layout: ``att_xx`` / ``ffn_xx`` ``[B, L, C]`` and
+``heads`` ``[B, L, H, S_i, S_j]``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from rwkv_tpu_torch.device import resolve_device
+from rwkv_tpu_torch.models import graph as G
+from rwkv_tpu_torch.models.config import ModelConfig
+from rwkv_tpu_torch.models.state import init_state
+from rwkv_tpu_torch.ops.kernels import PackedQuantWeight, quantize_q8_serving
+from rwkv_tpu_torch.ops.parity import layer_norm
+
+# Prefill chunk buckets, largest first; any length is decomposed greedily.
+PREFILL_BUCKETS = (256, 64, 16, 4, 1)
+
+_PRECISIONS = {"f32": "dense", "bf16": "dense", "w8a8": "w8a8"}
+
+
+def _prepare_weight(w: torch.Tensor, dtype, mode: str):
+    """Dense ``[out, in]`` weight -> serving form. 'dense': `w` in `dtype`.
+    'w8a8': rowwise int8 (PackedQuantWeight) when the in-dim is a multiple
+    of 32, else dense in `dtype`."""
+    if mode == "w8a8" and w.shape[-1] % 32 == 0:
+        return quantize_q8_serving(w)
+    return w.to(dtype)
+
+
+_MATRIX_KEYS = frozenset(
+    ["att.key.weight", "att.value.weight", "att.receptance.weight", "att.output.weight",
+     "ffn.key.weight", "ffn.value.weight"]
+    + [f"att.{n}{i}" for n in "wagv" for i in (1, 2)]
+)
+
+
+def _stack(leaves):
+    if isinstance(leaves[0], PackedQuantWeight):
+        return PackedQuantWeight(
+            q=torch.stack([x.q for x in leaves]), d=torch.stack([x.d for x in leaves])
+        )
+    return torch.stack(leaves)
+
+
+def _to(x, device):
+    return x.to(device) if isinstance(x, (torch.Tensor, PackedQuantWeight)) else x
+
+
+def stack_layer_params(
+    params: dict, cfg: ModelConfig, dtype=torch.bfloat16, mode: str = "dense", device=None
+) -> dict:
+    """Prepare and stack per-layer params into ``[L, ...]`` leaves on
+    `device` (default: the card). Layer 0's missing v0/v1/v2 are
+    zero-padded; its value residual is computed and selected away."""
+    dev = resolve_device(device)
+    if cfg.version_major != 7:
+        raise NotImplementedError("the port serves RWKV v7 only")
+    blocks = [dict(b) for b in params["blocks"]]
+    if len(blocks) > 1:
+        for key in ("att.v0", "att.v1", "att.v2"):
+            if key not in blocks[0]:
+                blocks[0][key] = torch.zeros_like(blocks[1][key])
+    stacked = {}
+    for k in sorted(blocks[0].keys()):
+        if k in _MATRIX_KEYS:
+            leaves = [_prepare_weight(b[k], dtype, mode) for b in blocks]
+        else:
+            leaves = [b[k].float() for b in blocks]
+        stacked[k] = _to(_stack(leaves), dev)
+    head = params["head"]
+    return {
+        "emb": params["emb"].to(dtype).to(dev),
+        "ln0": tuple(x.float().to(dev) for x in params["ln0"]),
+        "ln_out": tuple(x.float().to(dev) for x in params["ln_out"]),
+        "head": _to(_prepare_weight(head, dtype, mode), dev),
+        "blocks": stacked,
+    }
+
+
+def _layer(blocks: dict, i: int) -> dict:
+    out = {}
+    for k, v in blocks.items():
+        out[k] = PackedQuantWeight(q=v.q[i], d=v.d[i]) if isinstance(v, PackedQuantWeight) else v[i]
+    return out
+
+
+def run_blocks(
+    blocks: dict,
+    state: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    v_first=None,
+    layer_offset: int = 0,
+    wkv_fn=None,
+):
+    """Run stacked ``[Lb, ...]`` blocks over `x` (post-ln0 activations,
+    ``[T, ...C]``) as a loop over layers. `layer_offset` is the global index
+    of the first layer (the value residual selects v at global layer 0).
+    Returns (x, v_first, new_state)."""
+    n_local = state["att_xx"].shape[0]
+    if v_first is None:
+        v_first = torch.zeros_like(x)
+    att, ffn, heads = [], [], []
+    for i in range(n_local):
+        layer = _layer(blocks, i)
+        dx, att_xx, h, v_first = G.att_v7(
+            layer, x, state["att_xx"][i], state["heads"][i], v_first, cfg,
+            is_first=(layer_offset + i == 0), wkv_fn=wkv_fn,
+        )
+        x = x + dx
+        dx, ffn_xx = G.ffn_v7(layer, x, state["ffn_xx"][i])
+        x = x + dx
+        att.append(att_xx)
+        ffn.append(ffn_xx)
+        heads.append(h)
+    return x, v_first, {
+        "att_xx": torch.stack(att), "ffn_xx": torch.stack(ffn), "heads": torch.stack(heads)
+    }
+
+
+def forward_stacked(
+    params: dict,
+    state: dict,
+    tokens: torch.Tensor,
+    cfg: ModelConfig,
+    compute_logits=True,
+):
+    """Forward over stacked params; same math as ``graph.forward``.
+
+    tokens: [T] (state arrays [L, ...]) or [T, B] (time-major batch, state
+    arrays [L, B, ...]). compute_logits: True (last position), "all"
+    (every position) or False."""
+    emb = params["emb"][tokens]
+    x = layer_norm(emb.float(), *params["ln0"])
+    wkv_fn = None
+    if tokens.shape[0] > 1:
+        from rwkv_tpu_torch.ops.chunked import wkv7_auto
+
+        wkv_fn = wkv7_auto
+    x, _, new_state = run_blocks(params["blocks"], state, x, cfg, wkv_fn=wkv_fn)
+    logits = None
+    if compute_logits == "all":
+        logits = G.mm(layer_norm(x, *params["ln_out"]), params["head"])
+    elif compute_logits:
+        xo = layer_norm(x[-1], *params["ln_out"])
+        if xo.ndim == 1:
+            logits = G.mm(xo[None, :], params["head"])[0]
+        else:
+            logits = G.mm(xo, params["head"])
+    return logits, new_state
+
+
+class ServingModel:
+    """RWKV v7 serving engine on one device."""
+
+    def __init__(
+        self,
+        source,
+        precision: str = "bf16",
+        megakernel: bool = False,
+        device=None,
+    ):
+        """source: ``(cfg, params)`` with params in the port's format
+        (``models.synth.synth_params`` or ``convert.params_from_numpy``).
+        precision: 'f32' | 'bf16' (dense) | 'w8a8'. megakernel=True (w8a8
+        only) runs B=1 decode as one launch of kernel K3. device: default
+        the CUDA card; raises when there is none."""
+        if isinstance(source, str):
+            raise NotImplementedError("loading ggmf files is not ported yet; pass (cfg, params)")
+        cfg, params = source
+        if precision not in _PRECISIONS:
+            raise ValueError(f"precision must be one of {sorted(_PRECISIONS)}, got {precision!r}")
+        if megakernel and precision != "w8a8":
+            raise NotImplementedError("the decode kernel is ported for w8a8 only")
+        self.device = resolve_device(device)
+        self.config = cfg
+        self.precision = precision
+        dtype = torch.float32 if precision == "f32" else torch.bfloat16
+        self.params = stack_layer_params(params, cfg, dtype, _PRECISIONS[precision], self.device)
+        self._mega: Optional[dict] = None
+        if megakernel:
+            from rwkv_tpu_torch.ops.megakernel import build_mega_pack, device_pack
+
+            self._mega = device_pack(
+                build_mega_pack(params, cfg), self.params["emb"], self.params["ln0"], self.device
+            )
+
+    # -- state -------------------------------------------------------------
+    def init_state(self, batch_size: int = 1) -> dict:
+        one = init_state(self.config, self.device)
+        return {k: v[None].repeat(batch_size, *([1] * v.ndim)) for k, v in one.items()}
+
+    # -- steps ---------------------------------------------------------------
+    def _batched(self, state: dict, tokens: torch.Tensor, compute_logits=True):
+        """tokens [B, T]; state [B, L, ...] -> (logits [B, V] or None, state)."""
+        state_lb = {k: v.transpose(0, 1) for k, v in state.items()}
+        logits, new_lb = forward_stacked(self.params, state_lb, tokens.T, self.config, compute_logits)
+        return logits, {k: v.transpose(0, 1).contiguous() for k, v in new_lb.items()}
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        if isinstance(tokens, torch.Tensor):
+            return tokens.to(self.device, torch.int64)
+        return torch.as_tensor(np.asarray(tokens, dtype=np.int64), device=self.device)
+
+    def decode(self, tokens, state: dict):
+        """One decode step for a batch: tokens [B] -> (logits [B, V], state).
+        With megakernel=True, B=1 runs kernel K3 (its plain version on the
+        CPU); every other B runs the per-op path."""
+        tok = self._tokens(tokens).reshape(-1)
+        if self._mega is not None and tok.shape[0] == 1:
+            from rwkv_tpu_torch.ops.megakernel import v7_decode_step
+
+            one = {k: v[0] for k, v in state.items()}
+            logits, new = v7_decode_step(self._mega, one, tok, self.config)
+            return logits[None], {k: v[None] for k, v in new.items()}
+        return self._batched(state, tok[:, None])
+
+    def prefill(self, tokens: Sequence[int], state: Optional[dict] = None,
+                compute_logits: bool = True):
+        """Single-sequence prefill with power-of-two chunk buckets.
+        Returns (logits [V] of the last token or None, state [1, L, ...])."""
+        if state is None:
+            state = self.init_state(1)
+        toks = self._tokens(tokens).reshape(-1)
+        logits = None
+        pos, n = 0, toks.shape[0]
+        while pos < n:
+            size = next(b for b in PREFILL_BUCKETS if b <= n - pos)
+            is_last = pos + size >= n
+            logits, state = self._batched(
+                state, toks[pos : pos + size][None], compute_logits and is_last
+            )
+            pos += size
+        return (logits[0] if logits is not None else None), state
+
+    def generate(
+        self,
+        prompt_tokens: Sequence[int],
+        n_tokens: int,
+        temperature: float = 1.0,
+        seed: int = 0,
+    ):
+        """Prefill, then n_tokens of greedy (temperature <= 0) or
+        temperature sampling (a torch.Generator seeded from `seed`), each
+        token fed through the per-op path at T=1. Returns (tokens
+        np.ndarray [n_tokens], final logits [V], state)."""
+        logits, state = self.prefill(prompt_tokens)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        out = []
+        for _ in range(n_tokens):
+            if temperature <= 0.0:
+                tok = torch.argmax(logits).reshape(1)
+            else:
+                probs = torch.softmax(logits / max(temperature, 1e-6), dim=-1)
+                tok = torch.multinomial(probs, 1, generator=gen)
+            out.append(tok)
+            lg, state = self._batched(state, tok[None])
+            logits = lg[0]
+        toks = torch.cat(out).cpu().numpy() if out else np.zeros((0,), np.int64)
+        return toks, logits, state

@@ -1,0 +1,83 @@
+#!/usr/bin/env python3
+"""Where the port's main path spends its time, from a torch.profiler trace.
+
+    python3 scripts/profile_torch_main_path.py
+
+Builds the 169M v7 model as ``chip_smoke.py`` does (synth seed 0, w8a8,
+``megakernel=True``), warms every path up, then traces one 256-token
+prefill and 8 greedy B=1 decode steps. For each it prints the wall time
+(host clock around synchronised work), the device busy time (the sum of
+the kernels' and copies' durations in the CUDA trace), the number of
+launches the host issued, and the kernels with the most device time.
+Needs a CUDA device; builds the kernels on first use.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+
+def traced(fn, label: str) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        raise RuntimeError("the profiler recorded no device activity")
+    launches = sum(1 for e in events if e.name.startswith(("cudaLaunchKernel", "cudaLaunchCooperativeKernel")))
+    by_name: dict[str, list] = defaultdict(lambda: [0.0, 0])
+    for e in device:
+        by_name[e.name][0] += e.self_device_time_total
+        by_name[e.name][1] += 1
+    busy = sum(t for t, _ in by_name.values())
+    print(f"{label}: wall {wall * 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, "
+          f"{launches} launches")
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"  {t / 1e3:8.3f} ms  x{n:<4d} {name[:90]}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_main_path: no CUDA device", file=sys.stderr)
+        return 1
+    from chip_smoke import card_line
+    from rwkv_tpu_torch.models.serve import ServingModel
+    from rwkv_tpu_torch.models.synth import synth_config, synth_params
+
+    print(card_line())
+    cfg = synth_config("7.0", 12, 768, 65536, 64)
+    model = ServingModel((cfg, synth_params(cfg, seed=0)), precision="w8a8", megakernel=True)
+    prompt = torch.randint(0, cfg.n_vocab, (256,), generator=torch.Generator().manual_seed(0)).numpy()
+    logits, state = model.prefill(prompt)
+    for _ in range(3):
+        lg, state = model.decode(logits.argmax().reshape(1), state)
+        logits = lg[0]
+    traced(lambda: model.prefill(prompt), "prefill 256 tokens")
+    box = {"logits": logits, "state": state}
+
+    def decode8():
+        for _ in range(8):
+            lg, box["state"] = model.decode(box["logits"].argmax().reshape(1), box["state"])
+            box["logits"] = lg[0]
+
+    traced(decode8, "decode 8 tokens at B=1")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,122 @@
+"""Kernels K1-K3 of the PyTorch/CUDA port on the card, against their plain
+PyTorch versions. Every test here needs a CUDA device and nvcc and skips
+without one. The file imports no JAX, so it runs on a GPU machine without
+it, from the repository root:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from rwkv_tpu_torch.models.serve import ServingModel
+from rwkv_tpu_torch.models.synth import synth_config, synth_params
+from rwkv_tpu_torch.ops import chunked as TC
+from rwkv_tpu_torch.ops import kernels as TK
+from rwkv_tpu_torch.ops import megakernel as TM
+
+pytestmark = pytest.mark.cuda
+
+SMALL = ("7.0", 2, 128, 256, 32)  # version, L, C, V, S (H = 4)
+
+
+@pytest.fixture
+def cuda_device():
+    """The card; the test skips where there is none (decided when the test
+    runs, so every machine collects the same tests)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the GPU machine")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def test_quant_matmul_kernel_matches_plain(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for m, k, n in [(1, 768, 65536), (256, 768, 3072), (256, 64, 768), (7, 3072, 768), (20, 32, 200)]:
+        w = TK.PackedQuantWeight(
+            q=torch.randint(-127, 128, (n, k), dtype=torch.int8, device=cuda_device, generator=gen),
+            d=torch.rand((n,), device=cuda_device, generator=gen) * 1e-2)
+        x = torch.randn((m, k), device=cuda_device, generator=gen)
+        before = TK.quant_matmul.launches
+        y = TK.quant_matmul(x, w)
+        assert TK.quant_matmul.launches == before + 1
+        torch.testing.assert_close(y, TK.quant_matmul_plain(x, w), rtol=2e-7, atol=0)
+
+
+def test_quant_matmul_kernel_rejects_unaligned_k(cuda_device):
+    w = TK.PackedQuantWeight(q=torch.zeros((8, 24), dtype=torch.int8, device=cuda_device),
+                             d=torch.ones((8,), device=cuda_device))
+    with pytest.raises(ValueError):
+        TK.quant_matmul(torch.ones((2, 24), device=cuda_device), w)
+
+
+def _wkv7_operands(t, bh, s, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, device=dev, generator=gen) * scale
+
+    r, k, v = (rnd(t, bh, s, scale=0.3) for _ in range(3))
+    w = torch.exp(torch.sigmoid(rnd(t, bh, s)) * -0.606531)
+    kk = rnd(t, bh, s)
+    kk = kk / kk.norm(dim=-1, keepdim=True)
+    gate = torch.sigmoid(rnd(t, bh, s))
+    return rnd(bh, s, s, scale=0.3), r, w, k, v, -kk, kk * gate
+
+
+@pytest.mark.parametrize("t,bh,s", [(256, 12, 64), (64, 8, 32), (3, 2, 128)])
+def test_wkv7_kernel_matches_scan(cuda_device, t, bh, s):
+    ops = _wkv7_operands(t, bh, s, cuda_device, seed=t + s)
+    before = TC.wkv7_recurrence.launches
+    y, s_new = TC.wkv7_recurrence(*ops)
+    assert TC.wkv7_recurrence.launches == before + 1
+    y_ref, s_ref = TC.wkv7_recurrence_plain(*ops)
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(s_new, s_ref, rtol=1e-4, atol=1e-5)
+
+
+def test_decode_kernel_matches_ref(cuda_device):
+    tc = synth_config(*SMALL)
+    tp = synth_params(tc, seed=7, lora_dim=32)
+    dp = TM.device_pack(TM.build_mega_pack(tp, tc), tp["emb"].to(torch.bfloat16), tp["ln0"], cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    L, h, s, c = tc.n_layer, tc.head_count, tc.head_size, tc.n_embed
+    state = {"att_xx": torch.randn((L, c), device=cuda_device, generator=gen),
+             "ffn_xx": torch.randn((L, c), device=cuda_device, generator=gen),
+             "heads": torch.randn((L, h, s, s), device=cuda_device, generator=gen) * 0.1}
+    tok = torch.tensor([5], device=cuda_device)
+    before = TM.v7_decode_step.launches
+    logits, new = TM.v7_decode_step(dp, state, tok, tc)
+    assert TM.v7_decode_step.launches == before + 1
+    ref_logits, ref_new = TM.v7_decode_step_ref(dp, state, tok, tc)
+    torch.testing.assert_close(logits, ref_logits, rtol=2e-2, atol=2e-2)
+    assert int(logits.argmax()) == int(ref_logits.argmax())
+    for k in new:
+        torch.testing.assert_close(new[k], ref_new[k], rtol=2e-2, atol=2e-2)
+
+
+def test_card_serving_matches_cpu_and_goes_through_kernels(cuda_device):
+    tc = synth_config(*SMALL)
+    tp = synth_params(tc, seed=11, lora_dim=32)
+    gpu = ServingModel((tc, tp), precision="w8a8", megakernel=True, device=cuda_device)
+    cpu = ServingModel((tc, tp), precision="w8a8", megakernel=True, device="cpu")
+    counts = (TK.quant_matmul.launches, TC.wkv7_recurrence.launches, TM.v7_decode_step.launches)
+    prompt = list(np.random.default_rng(0).integers(0, tc.n_vocab, 20))
+    lg, sg = gpu.prefill(prompt)
+    lc, sc = cpu.prefill(prompt)
+    for _ in range(3):
+        tok = [int(lc.argmax())]
+        torch.testing.assert_close(lg.cpu(), lc, rtol=2e-2, atol=2e-2)
+        assert int(lg.argmax()) == tok[0]
+        lg, sg = gpu.decode(tok, sg)
+        lc, sc = cpu.decode(tok, sc)
+        lg, lc = lg[0], lc[0]
+    torch.testing.assert_close(lg.cpu(), lc, rtol=2e-2, atol=2e-2)
+    for k in sc:
+        torch.testing.assert_close(sg[k].cpu(), sc[k], rtol=2e-2, atol=2e-2)
+    after = (TK.quant_matmul.launches, TC.wkv7_recurrence.launches, TM.v7_decode_step.launches)
+    assert after[0] - counts[0] == 2 * 14 * tc.n_layer + 1  # two prefill chunks, one head
+    assert after[1] - counts[1] == 2 * tc.n_layer
+    assert after[2] - counts[2] == 3
