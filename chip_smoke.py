@@ -3,28 +3,47 @@
 
     python3 chip_smoke.py
 
-1. Prints the card (nvidia-smi name and power limit), builds the three
-   hand-written kernels from ``rwkv_tpu_torch/csrc`` and prints build times.
+1. Prints the card (nvidia-smi name and power limit), builds the four
+   hand-written kernels from ``rwkv_tpu_torch/csrc`` (one nvcc each, all at
+   once) and prints build times and ptxas registers.
 2. Holds each kernel against its plain PyTorch version on the card, at the
-   main path's shapes, and times kernel, plain version, the card's bound
+   main paths' shapes, and times kernel, plain version, the card's bound
    and (K1 only) ``torch._int_mm`` as a yardstick:
    - K1 ``quant_matmul`` (w8a8): M in {1, 256} x the 169M (K, N) set;
      every element equal or at most one float32 ulp apart.
    - K2 ``wkv7_recurrence``: T=256, H=12, S=64; rtol 1e-4 / atol 1e-5
      against the token recurrence, rtol 3e-4 / atol 3e-5 against the
      chunked form.
-   - K3 ``v7_decode_step``: the 169M pack after a 256-token prefill;
-     logits and state within 2e-2, equal argmax.
-3. Drives the main path: RWKV v7 169M (synth, seed 0) under w8a8 with
-   ``megakernel=True``: prefill of a 256-token prompt, then 64 greedy
-   decode steps at B=1. Launch counters are zeroed just before and read
-   just after; every kernel must have launched.
-4. Holds the card's serving path against the CPU's plain path on a small
-   model (prefill 20 tokens, 4 decode steps): logits within 2e-2, equal
-   argmax.
+   - K3 ``v7_decode_step``: the 169M w8a8 and w4a8 packs after a 256-token
+     prefill; logits and state within 2e-2, equal argmax.
+   - K4 ``v7_decode_batched``: the 169M w8a8 pack at B = 1, 8 and 64 and
+     the w4a8 pack at B = 8, from states of a seeded batched prefill, and
+     B=1 at the 1.5B width (C=2048, F=8192; depth cut from 24 to 2);
+     x and state within 2e-2 but for a few sequences whose int8 codes
+     flipped (``check_k4``), and both packs cut to their first layer at
+     B=64 under tighter limits; two launches, a sequence in a batch of 64
+     and of 8, and eight lanes fed identical inputs agree bit for bit.
+     Beside it, the w8a8 decode step at B = 8 and 64 through K4 and the
+     head, and through the per-op path (the card's crossover).
+3. Drives the main paths, each with the launch counters zeroed just before
+   and read just after; every kernel of a path must have launched:
+   - RWKV v7 169M (synth, seed 0) under w8a8 and under w4a8 with
+     ``megakernel=True``: prefill of a 256-token prompt, then 64 greedy
+     decode steps at B=1 (K1, K2, K3);
+   - ``ContinuousBatcher(max_batch=8, sync_every=8).run(on_device=True)``
+     over the 169M w8a8 model: 16 requests, prompts of 8 to 256 tokens
+     (seeded), greedy and sampled (temperature 1, top_p 0.8), two with
+     penalties and two with stop tokens (K1, K2, K4); then a shorter one
+     over the w4a8 model (8 requests);
+   and checks their outputs: finite logits and state, tokens in range,
+   every request finished within its limits.
+4. Holds the card against the CPU on a small model (L=2, C=128): the
+   serving path's logits (prefill 20 tokens, 4 decode steps), and the
+   batcher's token streams on the card, its device loop against its host
+   loop (greedy with penalties).
 5. Prints the ``{"kernels": [...]}`` JSON line (times per launch, in ms;
-   K1's are the mean over the main path's 169 launches per prefill), the
-   card line again, and last ``{"ok": true, "device": {...}}``.
+   K1's are the mean over the w8a8 path's 169 launches per prefill, K4's
+   at B=8), the card line again, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero. Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no
@@ -34,69 +53,17 @@ result.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 # H100 SXM data-sheet peaks (dense): HBM bandwidth, int8 tensor-core rate,
 # float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_FLOPS_PER_S = 67e12
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def device_ms(fn, reps: int = 20, warmup: int = 2) -> float:
-    """Mean device time of fn() in ms. The timed calls are queued behind a
-    spin kernel that outlasts their enqueue, so the device runs them back
-    to back and the CUDA events between them hold no host time. fn must not
-    synchronise with the host."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int((2 * host_ms + 2) * _spin_cycles_per_ms()))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-_SPIN: list = []
-
-
-def _spin_cycles_per_ms() -> float:
-    """Cycles of torch.cuda._sleep per millisecond on this card."""
-    import torch
-
-    if not _SPIN:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        torch.cuda._sleep(10_000_000)
-        end.record()
-        torch.cuda.synchronize()
-        _SPIN.append(10_000_000 / start.elapsed_time(end))
-    return _SPIN[0]
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float):
@@ -138,6 +105,7 @@ def phase_k1(cfg, d_lora: int, f_dim: int, t: int, dev):
     from rwkv_tpu_torch.ops.kernels import (
         PackedQuantWeight, quant_matmul, quant_matmul_plain,
     )
+    from rwkv_tpu_torch.tools.card import device_ms
 
     gen = torch.Generator(device=dev).manual_seed(1)
     calls = k1_calls(cfg.n_layer, cfg.n_embed, d_lora, f_dim, cfg.n_vocab, t)
@@ -167,8 +135,8 @@ def phase_k1(cfg, d_lora: int, f_dim: int, t: int, dev):
         x = torch.randn((m, k), device=dev, generator=gen)
         kern = device_ms(lambda: quant_matmul(x, w))
         plain = device_ms(lambda: quant_matmul_plain(x, w), reps=5)
-        # yardstick: the int8 GEMM alone (cuBLASLt), rows padded to the 17
-        # it requires
+        # yardstick: the int8 GEMM alone (cuBLASLt), rows padded to 32 (it
+        # refuses M <= 16)
         mp = max(m, 32)
         x8 = torch.randint(-127, 128, (mp, k), dtype=torch.int8, device=dev, generator=gen)
         qt = q.t()
@@ -217,6 +185,7 @@ def phase_k2(t: int, bh: int, s: int, dev):
     from rwkv_tpu_torch.ops.chunked import (
         wkv7_chunked, wkv7_recurrence, wkv7_recurrence_plain,
     )
+    from rwkv_tpu_torch.tools.card import device_ms
 
     ops = wkv7_operands(t, bh, s, dev)
     y, s_t = wkv7_recurrence(*ops)
@@ -254,10 +223,28 @@ def pack_bytes(pack: dict, cfg) -> int:
     return n + c * 2 + 2 * state + cfg.n_vocab * 4
 
 
-def phase_k3(model, state, token, cfg):
+def layer_codes(pack: dict) -> int:
+    """Weight codes of the layers (int4 codes count one each)."""
+    from rwkv_tpu_torch.ops.megakernel import MAT_KEYS, W4_MATS
+
+    return sum(pack[k].numel() * (2 if pack["w4"] and k in W4_MATS else 1) for k in MAT_KEYS)
+
+
+def batched_bytes(pack: dict, cfg, b: int) -> int:
+    """Bytes one K4 step for b sequences must move: every layer weight,
+    scale and vector once, b embedding rows and tokens, b states read and
+    written, x [b, C] written."""
+    n = sum(pack[k].numel() * pack[k].element_size() for k in ("mats", "scales", "vecs", "ln0"))
+    c, l = cfg.n_embed, cfg.n_layer
+    state = (2 * l * c + l * cfg.head_count * cfg.head_size ** 2) * 4
+    return n + b * (c * 2 + 4 + 2 * state + c * 4)
+
+
+def phase_k3(model, state, token, cfg, name="K3"):
     import torch
 
     from rwkv_tpu_torch.ops.megakernel import v7_decode_step, v7_decode_step_ref
+    from rwkv_tpu_torch.tools.card import device_ms
 
     pack = model._mega
     one = {k: v[0] for k, v in state.items()}
@@ -267,18 +254,20 @@ def phase_k3(model, state, token, cfg):
     err = float((logits - logits_ref).abs().max())
     for k in new:
         err = max(err, float((new[k] - new_ref[k]).abs().max()))
-    print(f"K3: max abs err {err:.3e}, argmax {int(logits.argmax())} vs {int(logits_ref.argmax())}")
+    print(f"{name}: max abs err {err:.3e}, argmax {int(logits.argmax())} vs "
+          f"{int(logits_ref.argmax())}")
     for a, b, what in [(logits, logits_ref, "logits")] + [(new[k], new_ref[k], k) for k in new]:
         if not torch.allclose(a, b, rtol=2e-2, atol=2e-2):
-            raise AssertionError(f"K3 {what} outside 2e-2: max abs err {float((a - b).abs().max()):.3e}")
+            raise AssertionError(f"{name} {what} outside 2e-2: max abs err "
+                                 f"{float((a - b).abs().max()):.3e}")
     if int(logits.argmax()) != int(logits_ref.argmax()):
-        raise AssertionError("K3 argmax differs from its plain version")
+        raise AssertionError(f"{name} argmax differs from its plain version")
     kern = device_ms(lambda: v7_decode_step(pack, one, token, cfg), reps=50)
     plain = device_ms(lambda: v7_decode_step_ref(pack, one, token, cfg), reps=3, warmup=1)
     nb = pack_bytes(pack, cfg)
-    n_weights = pack["mats"].numel() + pack["head8"].numel()
+    n_weights = layer_codes(pack) + pack["head8"].numel()
     b, kind = bound_ms(nb, 2 * n_weights, INT8_OPS_PER_S)
-    print(f"K3: kernel {kern:.4f} ms, plain {plain:.4f} ms, bound {b:.5f} ms ({kind}, "
+    print(f"{name}: kernel {kern:.4f} ms, plain {plain:.4f} ms, bound {b:.5f} ms ({kind}, "
           f"{nb / 1e6:.1f} MB), grid {pack['_grid']} blocks")
     return {"ms": kern, "plain_ms": plain, "library_ms": None, "bound_ms": b,
             "bound_by": kind, "max_abs_err": err}
@@ -317,6 +306,151 @@ def small_model_check(dev):
     print(f"small model (L=2, C=128, V=256): card vs CPU max abs err {worst:.3e}, argmax equal")
 
 
+# K4 against its plain version. An int8 activation code at a .5 boundary
+# flips when the kernel's sums and the plain version's round differently in
+# the last bit, and the flip moves the rest of the step: at the 169M width
+# by up to 1.5% of the sequence's largest value within one layer and 3.9%
+# over twelve (readings over 12 seeds in PERF.md: at most 1 of 64
+# sequences flipped at one layer, 16 of 64 and 4 of 8 at twelve). So every
+# sequence must lie within rtol = atol = 2e-2 element-wise except at most
+# `max_out` flipped ones, each within `max_rel` of its scale (twice the
+# worst reading), and at least half the batch must agree within EXACT_ABS:
+# flips never reach most sequences, a wrong kernel moves them all.
+EXACT_ABS = 1e-4
+FULL_DEPTH_REL = 0.075
+SHALLOW_REL, SHALLOW_OUT = 0.03, 2
+
+
+def check_k4(pack, cfg, st, tok, name: str, max_out: int, max_rel: float) -> float:
+    """K4 on (st, tok) against its plain version (see EXACT_ABS); two
+    launches on the same inputs agree bit for bit, and so does a sequence
+    run in this batch and in a batch of 8. Returns the max abs error."""
+    import torch
+
+    from rwkv_tpu_torch.ops.megakernel import v7_decode_batched, v7_decode_batched_ref
+    from rwkv_tpu_torch.tools.card import seq_errors
+
+    b = tok.shape[0]
+    x, new = v7_decode_batched(pack, st, tok, cfg)
+    x2, new2 = v7_decode_batched(pack, st, tok, cfg)
+    torch.cuda.synchronize()
+    if not torch.equal(x, x2) or any(not torch.equal(new[k], new2[k]) for k in new):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
+    if not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"{name}: x is not finite")
+    for lo in range(0, b, 8) if b > 8 else ():
+        part = {k: v[lo : lo + 8] for k, v in st.items()}
+        xp, newp = v7_decode_batched(pack, part, tok[lo : lo + 8], cfg)
+        if not torch.equal(xp, x[lo : lo + 8]) or any(
+                not torch.equal(newp[k], new[k][lo : lo + 8]) for k in new):
+            raise AssertionError(f"{name}: sequences {lo}-{lo + 7} differ from the same "
+                                 f"sequences in a batch of 8")
+    keys = sorted(new)
+    x_ref, new_ref = v7_decode_batched_ref(pack, st, tok, cfg)
+    err, rel, ok = seq_errors([x] + [new[k] for k in keys], [x_ref] + [new_ref[k] for k in keys])
+    n_out, n_exact = int((~ok).sum()), int((err <= EXACT_ABS).sum())
+    msg = (f"{name}: max abs err {float(err.max()):.3e}, {n_exact} of {b} sequences within "
+           f"{EXACT_ABS:g}")
+    worst = float(rel[~ok].max()) if n_out else 0.0
+    if n_out:
+        msg += (f"; sequences {(~ok).nonzero().flatten().tolist()} outside 2e-2 after a code "
+                f"flip, worst {worst:.3e} of its scale")
+    if n_out > max_out or worst > max_rel or 2 * n_exact < b:
+        raise AssertionError(f"{msg} (limits: {max_out} flipped, {max_rel:g} of the scale, "
+                             f"half within {EXACT_ABS:g})")
+    print(msg)
+    return float(err.max())
+
+
+def phase_k4(pack, cfg, states, tokens, b: int, name: str):
+    """K4 at batch b (check_k4 at the full depth's limits), its time, the
+    plain version's and the bound."""
+    from rwkv_tpu_torch.ops.megakernel import v7_decode_batched, v7_decode_batched_ref
+    from rwkv_tpu_torch.tools.card import device_ms
+
+    st = {k: v[:b].contiguous() for k, v in states.items()}
+    tok = tokens[:b].contiguous()
+    err = check_k4(pack, cfg, st, tok, name, b // 4 + 2, FULL_DEPTH_REL)
+    kern = device_ms(lambda: v7_decode_batched(pack, st, tok, cfg), reps=20)
+    plain = device_ms(lambda: v7_decode_batched_ref(pack, st, tok, cfg), reps=2, warmup=1)
+    nb = batched_bytes(pack, cfg, b)
+    bd, kind = bound_ms(nb, 2 * b * layer_codes(pack), INT8_OPS_PER_S)
+    print(f"{name}: kernel {kern:.4f} ms, plain {plain:.4f} ms, bound {bd:.5f} ms ({kind}, "
+          f"{nb / 1e6:.1f} MB), grid {pack['_grid_batched']} blocks")
+    return {"ms": kern, "plain_ms": plain, "library_ms": None, "bound_ms": bd,
+            "bound_by": kind, "max_abs_err": err}
+
+
+def phase_k4_shallow(packs, states, tokens) -> None:
+    """K4 on the 169M packs cut to their first layer (a one-layer config
+    over the same buffers, the state's first layer), w8a8 and w4a8 at
+    B=64: check_k4 at one layer's limits (SHALLOW_OUT, SHALLOW_REL)."""
+    from rwkv_tpu_torch.models.synth import synth_config
+
+    cfg1 = synth_config("7.0", 1, 768, 65536, 64)
+    st = {k: v[:, :1].contiguous() for k, v in states.items()}
+    for prec, pack in packs.items():
+        check_k4(pack, cfg1, st, tokens, f"K4 {prec} first layer B=64", SHALLOW_OUT, SHALLOW_REL)
+
+
+def k4_identical_lanes(pack, cfg, states, tokens, b: int = 8) -> None:
+    """b copies of one sequence through K4 come out bit-identical."""
+    import torch
+
+    from rwkv_tpu_torch.ops.megakernel import v7_decode_batched
+
+    st = {k: v[:1].repeat(b, *([1] * (v.ndim - 1))) for k, v in states.items()}
+    x, new = v7_decode_batched(pack, st, tokens[:1].repeat(b), cfg)
+    for name, t in [("x", x)] + list(new.items()):
+        if not torch.equal(t, t[:1].expand_as(t)):
+            raise AssertionError(f"K4: lanes fed identical inputs differ in {name}")
+    print(f"K4: {b} lanes fed identical inputs give identical x and state")
+
+
+def crossover(model, states, tokens) -> dict:
+    """The w8a8 decode step (logits included) at B = 8 and 64 through K4
+    and the head, and through the per-op path: wall and device time."""
+    from rwkv_tpu_torch.tools.card import device_ms, wall_ms
+
+    out = {}
+    for b in (8, 64):
+        st = {k: v[:b].contiguous() for k, v in states.items()}
+        tok = tokens[:b].contiguous()
+        row = {}
+        for route, fn in (("K4+head", lambda: model.decode(tok, st)),
+                          ("per-op", lambda: model._batched(st, tok[:, None]))):
+            row[route] = (wall_ms(fn), device_ms(fn, reps=10))
+        out[b] = row
+        print(f"decode step B={b} (w8a8, logits included): " + ", ".join(
+            f"{r} {w:.3f} ms wall ({b / w * 1e3:.0f} tok/s), {d:.3f} ms device"
+            for r, (w, d) in row.items()))
+    return out
+
+
+def phase_k4_wide():
+    """K4 at B=1 on the 1.5B width (C=2048, F=8192, depth cut to 2), where
+    ServingModel routes B=1 to K4 and the head (K3 refuses the width)."""
+    import torch
+
+    from rwkv_tpu_torch.models.serve import ServingModel
+    from rwkv_tpu_torch.models.synth import synth_config, synth_params
+    from rwkv_tpu_torch.ops.megakernel import v7_decode_batched
+    from rwkv_tpu_torch.tools.card import seeded_states
+
+    cfg = synth_config("7.0", 2, 2048, 65536, 64)
+    model = ServingModel((cfg, synth_params(cfg, seed=0)), precision="w8a8", megakernel=True)
+    if model._mega_k3:
+        raise AssertionError("the 1.5B width should not route B=1 to K3")
+    states, tokens = seeded_states(model, cfg, 1, 16, seed=6)
+    res = phase_k4(model._mega, cfg, states, tokens, 1, "K4 C=2048 L=2 B=1")
+    before = v7_decode_batched.launches
+    logits, _ = model.decode(tokens, states)
+    torch.cuda.synchronize()
+    if v7_decode_batched.launches != before + 1 or logits.shape != (1, cfg.n_vocab):
+        raise AssertionError("B=1 at the 1.5B width did not decode through K4")
+    return res
+
+
 def run_main_path(model, prompt, n_decode: int):
     """Prefill `prompt`, then `n_decode` greedy decode steps at B=1.
     Returns (prefill seconds, decode seconds, tokens, last logits, state),
@@ -340,6 +474,146 @@ def run_main_path(model, prompt, n_decode: int):
     return t_prefill, t_decode, toks, logits, state
 
 
+def counted(fn, needed):
+    """Run fn() with every kernel's launch counter zeroed just before and
+    read just after; raise unless each kernel in `needed` launched."""
+    from rwkv_tpu_torch.ops.chunked import wkv7_recurrence
+    from rwkv_tpu_torch.ops.kernels import quant_matmul
+    from rwkv_tpu_torch.ops.megakernel import v7_decode_batched, v7_decode_step
+
+    counters = {"K1": quant_matmul, "K2": wkv7_recurrence, "K3": v7_decode_step,
+                "K4": v7_decode_batched}
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    launches = {k: c.launches for k, c in counters.items()}
+    for k in needed:
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was not launched on this path: {launches}")
+    return out, launches
+
+
+def single_stream_path(name, model, prompt, cfg, card, n_runs: int):
+    """The B=1 main path: n_runs timing runs, then the counted run."""
+    import torch
+
+    n_decode = 64
+    samples = [run_main_path(model, prompt, n_decode)[:2] for _ in range(n_runs)]
+    (t_prefill, t_decode, toks, logits, state), launches = counted(
+        lambda: run_main_path(model, prompt, n_decode), ("K1", "K2", "K3"))
+    print(f"{name} main path launches: {launches}")
+    samples.append((t_prefill, t_decode))
+    toks = torch.cat(toks).cpu()
+    if logits.shape != (cfg.n_vocab,) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name} main path logits are not finite [V]")
+    for k, v in state.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{name} main path state {k} is not finite")
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.n_vocab:
+        raise AssertionError(f"{name}: decoded token out of range")
+    pre = sorted(t for t, _ in samples)
+    dec = sorted(t for _, t in samples)
+    print(f"{name} main path on {card}, {len(samples)} runs: prefill 256 tokens median "
+          f"{pre[len(pre) // 2] * 1e3:.2f} ms ({256 / pre[len(pre) // 2]:.0f} tok/s; "
+          f"all ms {[round(t * 1e3, 2) for t in pre]}), decode {n_decode} tokens at B=1 median "
+          f"{dec[len(dec) // 2] * 1e3:.2f} ms ({n_decode / dec[len(dec) // 2]:.0f} tok/s; "
+          f"all ms {[round(t * 1e3, 2) for t in dec]}); first tokens {toks[:8].tolist()}")
+    return launches
+
+
+def batcher_requests(model, cfg, n: int, max_len: int, new_tokens: int, seed: int):
+    """n seeded requests: prompts of 8 to max_len tokens; a quarter with
+    half the new tokens; even ones greedy, odd ones temperature 1 / top_p
+    0.8; two with presence/frequency penalties 0.4/0.25; two with stop
+    tokens -- one the fifth token of its own greedy stream, so it stops."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n):
+        prompt = rng.integers(0, cfg.n_vocab, int(rng.integers(8, max_len + 1))).tolist()
+        kw = dict(max_new_tokens=new_tokens // 2 if i % 4 == 3 else new_tokens)
+        if i % 2:
+            kw.update(temperature=1.0, top_p=0.8)
+        else:
+            kw.update(temperature=0.0)
+        if i in (1, 2):
+            kw.update(presence_penalty=0.4, frequency_penalty=0.25)
+        if i == 5:
+            kw["stop_tokens"] = tuple(int(t) for t in rng.integers(0, cfg.n_vocab, 8))
+        if i == 4:
+            logits, state = model.prefill(prompt)
+            for _ in range(5):
+                tok = logits.argmax().reshape(1)
+                lg, state = model.decode(tok, state)
+                logits = lg[0]
+            kw["stop_tokens"] = (int(tok),)
+        reqs.append((prompt, kw))
+    torch.cuda.synchronize()
+    return reqs
+
+
+def batcher_path(name, model, cfg, reqs):
+    """ContinuousBatcher(max_batch=8, sync_every=8).run(on_device=True)
+    over `reqs`; checks every request finished within its limits with
+    tokens in range. Returns (launches, tok/s, ms per round)."""
+    import torch
+
+    from rwkv_tpu_torch.parallel.batching import ContinuousBatcher
+
+    def run():
+        b = ContinuousBatcher(model, max_batch=8, sync_every=8)
+        rids = [b.submit(p, **kw) for p, kw in reqs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = b.run(on_device=True)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, [res[r] for r in rids], b.rounds
+
+    (wall, done, rounds), launches = counted(run, ("K1", "K2", "K4"))
+    n_tok, stopped = 0, 0
+    for (prompt, kw), req in zip(reqs, done):
+        g = req.generated
+        if not req.done or not 1 <= len(g) <= kw["max_new_tokens"]:
+            raise AssertionError(f"{name}: request {req.request_id} ended with {len(g)} tokens")
+        if len(g) < kw["max_new_tokens"]:
+            if g[-1] not in kw.get("stop_tokens", ()):
+                raise AssertionError(f"{name}: request {req.request_id} stopped early")
+            stopped += 1
+        if min(g) < 0 or max(g) >= cfg.n_vocab:
+            raise AssertionError(f"{name}: token out of range")
+        n_tok += len(g)
+    print(f"{name} batcher launches: {launches}")
+    print(f"{name} batcher: {len(reqs)} requests, {n_tok} tokens generated in {wall * 1e3:.1f} ms "
+          f"({n_tok / wall:.0f} tok/s over the wall clock, prefill included), {rounds} rounds "
+          f"({wall * 1e3 / rounds:.2f} ms per round of 8 steps), {stopped} stopped on a stop token")
+    return launches, n_tok / wall, wall * 1e3 / rounds
+
+
+def small_batcher_check(dev):
+    """On a small model on the card, the batcher's device loop gives
+    exactly the token streams of its host loop (greedy, penalties)."""
+    from rwkv_tpu_torch.models.serve import ServingModel
+    from rwkv_tpu_torch.models.synth import synth_config, synth_params
+    from rwkv_tpu_torch.parallel.batching import ContinuousBatcher
+
+    cfg = synth_config("7.0", 2, 128, 256, 32)
+    srv = ServingModel((cfg, synth_params(cfg, seed=3, lora_dim=32)), precision="w8a8",
+                       megakernel=True, device=dev)
+    prompts = [[3, 77, 200, 5, 9], [9, 4], list(range(1, 40)), [250, 1, 1]]
+    kw = dict(max_new_tokens=12, temperature=0.0, presence_penalty=0.4, frequency_penalty=0.25)
+    outs = []
+    for on_device in (True, False):
+        b = ContinuousBatcher(srv, max_batch=2, sync_every=4)
+        rids = [b.submit(p, **kw) for p in prompts]
+        res = b.run(on_device=on_device)
+        outs.append([res[r].generated for r in rids])
+    if outs[0] != outs[1]:
+        raise AssertionError(f"small model: batcher device loop {outs[0]} != host loop {outs[1]}")
+    print(f"small model (L=2, C=128): batcher device loop equals host loop, {len(prompts)} "
+          f"greedy requests with penalties")
+
+
 def main() -> int:
     import torch
 
@@ -351,6 +625,8 @@ def main() -> int:
         print("chip_smoke: rwkv_tpu_torch/ not found beside this script", file=sys.stderr)
         return 1
     sys.path.insert(0, str(root))
+    from rwkv_tpu_torch.tools.card import card_line, seeded_states
+
     t_start = time.perf_counter()
     card = card_line()
     print(card)
@@ -360,9 +636,6 @@ def main() -> int:
     dev = torch.device("cuda")
 
     from rwkv_tpu_torch.ops import _cuda
-    from rwkv_tpu_torch.ops.chunked import wkv7_recurrence
-    from rwkv_tpu_torch.ops.kernels import quant_matmul
-    from rwkv_tpu_torch.ops.megakernel import v7_decode_step
     from rwkv_tpu_torch.models.serve import ServingModel
     from rwkv_tpu_torch.models.synth import synth_config, synth_params
 
@@ -376,73 +649,76 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    # -- the 169M model: prefill for a real decode state ---------------------
+    # -- the 169M model in both formats: prefill for a real decode state -----
     cfg = synth_config("7.0", 12, 768, 65536, 64)
     t0 = time.perf_counter()
     params = synth_params(cfg, seed=0)
     model = ServingModel((cfg, params), precision="w8a8", megakernel=True)
+    model4 = ServingModel((cfg, params), precision="w4a8", megakernel=True)
     d_lora, f_dim = model._mega["d_lora"], model._mega["f_dim"]
-    print(f"169M model built in {time.perf_counter() - t0:.1f} s")
+    print(f"169M models (w8a8, w4a8) built in {time.perf_counter() - t0:.1f} s")
     prompt = torch.randint(0, cfg.n_vocab, (256,),
                            generator=torch.Generator().manual_seed(0)).numpy()
     logits, state = model.prefill(prompt)  # warm-up of every path
     token = logits.argmax().reshape(1).to(torch.int32)
 
-    # -- kernel against plain version ----------------------------------------
+    # -- kernels against their plain versions ---------------------------------
     res = {}
     res["K1"] = phase_k1(cfg, d_lora, f_dim, 256, dev)
     res["K2"] = phase_k2(256, cfg.head_count, cfg.head_size, dev)
     res["K3"] = phase_k3(model, state, token, cfg)
-    for _ in range(2):
-        logits, state = model.decode(logits.argmax().reshape(1), state)
-    torch.cuda.synchronize()
+    logits4, state4 = model4.prefill(prompt)
+    res["K3w4"] = phase_k3(model4, state4, logits4.argmax().reshape(1), cfg, "K3 w4a8")
+    states, tokens = seeded_states(model, cfg, 64, 32, seed=1)
+    for b in (1, 8, 64):
+        res[f"K4 B={b}"] = phase_k4(model._mega, cfg, states, tokens, b, f"K4 w8a8 B={b}")
+    res["K4"] = res["K4 B=8"]
+    res["K4w4"] = phase_k4(model4._mega, cfg, states, tokens, 8, "K4 w4a8 B=8")
+    k4_identical_lanes(model._mega, cfg, states, tokens)
+    phase_k4_shallow({"w8a8": model._mega, "w4a8": model4._mega}, states, tokens)
+    crossover(model, states, tokens)
+    phase_k4_wide()
+    del states
+    torch.cuda.empty_cache()
 
-    # -- the main path: timing runs, then the counted run ---------------------
-    n_decode = 64
-    samples = [run_main_path(model, prompt, n_decode)[:2] for _ in range(5)]
-    quant_matmul.launches = 0
-    wkv7_recurrence.launches = 0
-    v7_decode_step.launches = 0
-    t_prefill, t_decode, toks, logits, state = run_main_path(model, prompt, n_decode)
-    launches = {"K1": quant_matmul.launches, "K2": wkv7_recurrence.launches,
-                "K3": v7_decode_step.launches}
-    print(f"main path launches: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-    samples.append((t_prefill, t_decode))
-    toks = torch.cat(toks).cpu()
-    if logits.shape != (cfg.n_vocab,) or not bool(torch.isfinite(logits).all()):
-        raise AssertionError("main path logits are not finite [V]")
-    for k, v in state.items():
-        if not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"main path state {k} is not finite")
-    if int(toks.min()) < 0 or int(toks.max()) >= cfg.n_vocab:
-        raise AssertionError("decoded token out of range")
-    pre = sorted(t for t, _ in samples)
-    dec = sorted(t for _, t in samples)
-    print(f"main path on {card}, {len(samples)} runs: prefill 256 tokens median "
-          f"{pre[len(pre) // 2] * 1e3:.2f} ms ({256 / pre[len(pre) // 2]:.0f} tok/s; "
-          f"all ms {[round(t * 1e3, 2) for t in pre]}), decode {n_decode} tokens at B=1 median "
-          f"{dec[len(dec) // 2] * 1e3:.2f} ms ({n_decode / dec[len(dec) // 2]:.0f} tok/s; "
-          f"all ms {[round(t * 1e3, 2) for t in dec]}); first tokens {toks[:8].tolist()}")
+    # -- the main paths: B=1 in both formats, then the batcher ---------------
+    launches = {}
+    launches["w8a8"] = single_stream_path("w8a8", model, prompt, cfg, card, 5)
+    launches["w4a8"] = single_stream_path("w4a8", model4, prompt, cfg, card, 3)
+    warm = batcher_requests(model, cfg, 2, 16, 8, seed=3)
+    batcher_path("warm-up", model, cfg, warm)
+    reqs = batcher_requests(model, cfg, 16, 256, 64, seed=2)
+    launches["batcher w8a8"], _, _ = batcher_path("w8a8", model, cfg, reqs)
+    # decode-bound: eight 8-token prompts fill the slots in one admission
+    short = batcher_requests(model, cfg, 8, 8, 64, seed=5)
+    batcher_path("w8a8 8-token prompts", model, cfg, short)
+    reqs4 = batcher_requests(model4, cfg, 8, 64, 32, seed=4)
+    launches["batcher w4a8"], _, _ = batcher_path("w4a8", model4, cfg, reqs4)
 
     small_model_check(dev)
+    small_batcher_check(dev)
 
-    meta = {
-        "K1": ("quant_matmul_w8a8", "rwkv_tpu_torch/csrc/quant_matmul.cu",
-               "rwkv_tpu/ops/kernels.py:296"),
-        "K2": ("wkv7_recurrence", "rwkv_tpu_torch/csrc/wkv7.cu",
-               "rwkv_tpu/ops/chunked.py:388"),
-        "K3": ("v7_decode_step_w8a8_head", "rwkv_tpu_torch/csrc/v7_decode.cu",
-               "rwkv_tpu/ops/megakernel.py:744"),
-    }
+    # name, source, TPU kernel replaced, result key, path whose launches count
+    meta = [
+        ("quant_matmul_w8a8", "rwkv_tpu_torch/csrc/quant_matmul.cu",
+         "rwkv_tpu/ops/kernels.py:296", "K1", ("w8a8", "K1")),
+        ("wkv7_recurrence", "rwkv_tpu_torch/csrc/wkv7.cu",
+         "rwkv_tpu/ops/chunked.py:388", "K2", ("w8a8", "K2")),
+        ("v7_decode_step_w8a8_head", "rwkv_tpu_torch/csrc/v7_decode.cu",
+         "rwkv_tpu/ops/megakernel.py:744", "K3", ("w8a8", "K3")),
+        ("v7_decode_step_w4a8_head", "rwkv_tpu_torch/csrc/v7_decode.cu",
+         "rwkv_tpu/ops/megakernel.py:744", "K3w4", ("w4a8", "K3")),
+        ("v7_decode_batched_w8a8", "rwkv_tpu_torch/csrc/v7_decode_batched.cu",
+         "rwkv_tpu/ops/megakernel.py:1115", "K4", ("batcher w8a8", "K4")),
+        ("v7_decode_batched_w4a8", "rwkv_tpu_torch/csrc/v7_decode_batched.cu",
+         "rwkv_tpu/ops/megakernel.py:2211", "K4w4", ("batcher w4a8", "K4")),
+    ]
     kernels = []
-    for key, (name, source, replaces) in meta.items():
+    for name, source, replaces, key, (path, counter) in meta:
         r = res[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "tpu_counterpart": replaces, "launches": launches[key],
+            "tpu_counterpart": replaces, "launches": launches[path][counter],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

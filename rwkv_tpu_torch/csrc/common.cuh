@@ -59,3 +59,117 @@ __device__ __forceinline__ int8_t act_code(float x, float inv) {
   const float q = rintf(__fmul_rn(x, inv));
   return static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
 }
+
+// ---- the decode kernels' matvec (K3 and K4) --------------------------------
+//
+// Weight rows are int8 codes (W4 = false: K bytes a row) or int4 codes
+// (W4 = true: K/2 bytes a row). An int4 row is packed in 16-byte chunks:
+// byte j of chunk c holds code 32c + j in its low nibble and code
+// 32c + 16 + j in its high nibble, both two's complement. Masking a word
+// with 0xF0 per byte (after a 4-bit left shift for the low nibbles) gives
+// each code times 16 as an exact int8, so one __dp4a per four codes
+// accumulates 16x the integer dot; it is exact in int32 (|16 * 7 * 127| *
+// K < 2^31 for K < 150,000) and the wrapper shifts it back by 4 bits.
+// The float epilogue float(acc) * dx * d then equals the JAX package's
+// float(16 * acc) * (dx / 16) * d bit for bit: both factors of 16 are
+// powers of two, which scale a float exactly.
+
+constexpr int kMaxChunksPerLane = 8;  // 16-byte weight chunks a lane holds at once
+
+__device__ __forceinline__ int w4_lo16(int w) {
+  return static_cast<int>((static_cast<unsigned>(w) << 4) & 0xF0F0F0F0u);
+}
+__device__ __forceinline__ int w4_hi16(int w) {
+  return static_cast<int>(static_cast<unsigned>(w) & 0xF0F0F0F0u);
+}
+
+// Rows [0, nrows) of a matvec against up to NB int8 activation columns in
+// shared memory (nb of them used, nb <= NB, the same in every thread).
+// Row r reads weight row rowmap(r) of W and, for column b, the codes at
+// xsel(r, b) (16-byte aligned, K of them); epi(r, b, acc) gets the exact
+// int32 dot. Rows are spread over warps unit, unit + n_units, ... (the
+// grid's or one block's); lpr lanes (at most max_lpr) share a row, each
+// lane reading whole 16-byte chunks of it, at most kMaxChunksPerLane at a
+// time, so a row is read from memory once for all nb columns.
+template <bool W4, int NB, typename RowMap, typename XSel, typename Epi>
+__device__ void matvec_rows(const int8_t* __restrict__ W, int nrows, int K, int unit,
+                            int n_units, int max_lpr, int nb, RowMap rowmap, XSel xsel,
+                            Epi epi) {
+  const int row_bytes = W4 ? K / 2 : K;
+  const int nchunks = row_bytes >> 4;
+  int lpr = max_lpr;
+  while (lpr > 1 && (nchunks % lpr) != 0) lpr >>= 1;
+  const int per_lane = nchunks / lpr;
+  const int lane = threadIdx.x & 31;
+  const int sub_lane = lane % lpr;
+  const int grp = lane / lpr;
+  const int gpw = 32 / lpr;
+  for (int base = unit * gpw; base < nrows; base += n_units * gpw) {  // warp-uniform
+    const int row = base + grp;
+    int acc[NB];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) acc[b] = 0;
+    if (row < nrows) {
+      const int4* wr =
+          reinterpret_cast<const int4*>(W + static_cast<size_t>(rowmap(row)) * row_bytes);
+      for (int c0 = 0; c0 < per_lane; c0 += kMaxChunksPerLane) {
+        int4 wv[kMaxChunksPerLane];
+#pragma unroll
+        for (int c = 0; c < kMaxChunksPerLane; ++c)
+          if (c0 + c < per_lane) wv[c] = __ldg(wr + (c0 + c) * lpr + sub_lane);
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          if (b < nb) {
+            const int4* xb = reinterpret_cast<const int4*>(xsel(row, b));
+#pragma unroll
+            for (int c = 0; c < kMaxChunksPerLane; ++c) {
+              if (c0 + c < per_lane) {
+                const int chunk = (c0 + c) * lpr + sub_lane;
+                int a = acc[b];
+                if (W4) {
+                  const int4 xl = xb[2 * chunk], xh = xb[2 * chunk + 1];
+                  a = __dp4a(w4_lo16(wv[c].x), xl.x, a);
+                  a = __dp4a(w4_lo16(wv[c].y), xl.y, a);
+                  a = __dp4a(w4_lo16(wv[c].z), xl.z, a);
+                  a = __dp4a(w4_lo16(wv[c].w), xl.w, a);
+                  a = __dp4a(w4_hi16(wv[c].x), xh.x, a);
+                  a = __dp4a(w4_hi16(wv[c].y), xh.y, a);
+                  a = __dp4a(w4_hi16(wv[c].z), xh.z, a);
+                  a = __dp4a(w4_hi16(wv[c].w), xh.w, a);
+                } else {
+                  const int4 xv = xb[chunk];
+                  a = __dp4a(wv[c].x, xv.x, a);
+                  a = __dp4a(wv[c].y, xv.y, a);
+                  a = __dp4a(wv[c].z, xv.z, a);
+                  a = __dp4a(wv[c].w, xv.w, a);
+                }
+                acc[b] = a;
+              }
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (b < nb) {
+        int a = acc[b];
+        for (int off = lpr >> 1; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
+        if (sub_lane == 0 && row < nrows) epi(row, b, W4 ? (a >> 4) : a);
+      }
+    }
+  }
+}
+
+// All rows of a matvec, spread over every warp of the grid; reverse = true
+// deals them from the last warp down (a second matvec of a phase then
+// lands on the warps the first one left with fewer rows).
+template <bool W4, int NB, typename XSel, typename Epi>
+__device__ void matvec_grid(const int8_t* __restrict__ W, int nrows, int K, int nb, XSel xsel,
+                            Epi epi, int max_lpr = 32, bool reverse = false) {
+  const int warps_per_block = blockDim.x >> 5;
+  const int n_units = gridDim.x * warps_per_block;
+  const int unit = blockIdx.x * warps_per_block + (threadIdx.x >> 5);
+  matvec_rows<W4, NB>(W, nrows, K, reverse ? n_units - 1 - unit : unit, n_units, max_lpr, nb,
+                      [](int r) { return r; }, xsel, epi);
+}

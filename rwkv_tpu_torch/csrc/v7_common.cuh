@@ -1,0 +1,245 @@
+// Pieces shared by the RWKV v7 decode kernels K3 (v7_decode.cu, B=1 with
+// the LM head) and K4 (v7_decode_batched.cu, B sequences, no head): the
+// flat pack's layout, IEEE-exact elementwise helpers, the block-wide
+// quantization of a phase's input vectors, and the per-(sequence, head)
+// step of the time mix (lora2 rows of the head, wkv7, group norm, gate).
+#pragma once
+
+#include "common.cuh"
+
+// rows of the per-layer vector block [L, kNumVec, C]
+enum VecRow {
+  kLn1W = 0, kLn1B, kLn2W, kLn2B, kW0, kA0, kV0, kKK, kKA, kLnxW, kLnxB, kXK,
+  kCoeff,          // six rows: r, w, k, v, a, g
+  kRK = kCoeff + 6,
+  kNumVec
+};
+
+constexpr int kMaxJ = 16;  // S * S / threads <= 16 (S <= 64 at 256 threads)
+
+#ifdef RWKV_V7_PHASE_TIMES
+// Timing build (scripts/probe_torch_decode.py --phases and
+// rwkv_tpu_torch/tools/probe_batched.py --phases): thread 0 of block 0 stamps
+// %globaltimer at every phase boundary into marks[] (the scratch tail).
+#define PHASE_MARK()                                               \
+  do {                                                             \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {                     \
+      unsigned long long t_;                                       \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));       \
+      marks[n_marks] = t_;                                         \
+    }                                                              \
+    ++n_marks;                                                     \
+  } while (0)
+#else
+#define PHASE_MARK() \
+  do {               \
+  } while (0)
+#endif
+
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float sigmoidf(float x) { return 1.0f / add(1.0f, expf(-x)); }
+__device__ __forceinline__ float bf16_to_float(uint16_t b) {
+  return __uint_as_float(static_cast<unsigned>(b) << 16);
+}
+
+__device__ __forceinline__ float dequant(int acc, float dx, float d) {
+  return mul(mul(__int2float_rn(acc), dx), d);
+}
+
+// Byte offsets of a layer's six matrices in the flat pack's [L, bytes]
+// int8 buffer (rkv | lora1 | lora2 | out | fk | fv), and the layer's size.
+// Under w4 the big ones (rkv, out, fk, fv) hold int4 codes, two a byte.
+struct MatOffsets {
+  size_t rkv, l1, l2, out, fk, fv, layer;
+  __host__ __device__ MatOffsets(int C, int D, int F, bool w4) {
+    const size_t half = w4 ? 2 : 1;
+    rkv = 0;
+    l1 = rkv + 3ull * C * C / half;
+    l2 = l1 + 4ull * D * C;
+    out = l2 + 4ull * C * D;
+    fk = out + 1ull * C * C / half;
+    fv = fk + 1ull * F * C / half;
+    layer = fv + 1ull * C * F / half;
+  }
+};
+
+// Which of the six mixes (r, w, k, v, a, g) feeds each part of the fused
+// rows: rkv = r, k, v; lora1 = w, a, g, v.
+__device__ __forceinline__ int rkv_mix(int part) { return part == 0 ? 0 : part + 1; }
+__device__ __forceinline__ int lora1_mix(int part) {
+  return part == 0 ? 1 : part == 3 ? 3 : part + 3;
+}
+
+// Block-wide max of N values at once (one pair of barriers for all N);
+// every thread gets the results. `red` holds N * 32 floats.
+template <int N>
+__device__ __forceinline__ void block_max_n(float (&v)[N], float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+#pragma unroll
+  for (int m = 0; m < N; ++m) v[m] = warp_max(v[m]);
+  if (lane == 0) {
+#pragma unroll
+    for (int m = 0; m < N; ++m) red[m * 32 + warp] = v[m];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < N; ++m) v[m] = warp_max(lane < n_warps ? red[m * 32 + lane] : 0.f);
+  __syncthreads();
+}
+
+// Quantize N vectors of n values, f(m, c) giving value c of vector m, each
+// as a whole: codes into q8[m * q_stride + c] (shared), scales into dxs[m].
+// One pass for the N maxima, one block reduction, one pass for the codes.
+template <int N, typename Fn>
+__device__ void quantize_n(Fn f, int n, int8_t* q8, int q_stride, float* dxs, float* red) {
+  float amax[N];
+#pragma unroll
+  for (int m = 0; m < N; ++m) amax[m] = 0.f;
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+#pragma unroll
+    for (int m = 0; m < N; ++m) amax[m] = fmaxf(amax[m], fabsf(f(m, c)));
+  }
+  block_max_n<N>(amax, red);
+  float inv[N];
+#pragma unroll
+  for (int m = 0; m < N; ++m) {
+    const float dx = amax[m] / 127.0f;
+    inv[m] = act_inv_scale(dx);
+    if (threadIdx.x == 0) dxs[m] = dx;
+  }
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+#pragma unroll
+    for (int m = 0; m < N; ++m) q8[m * q_stride + c] = act_code(f(m, c), inv[m]);
+  }
+  __syncthreads();
+}
+
+// One sequence's vectors and state for the per-head step.
+struct HeadIO {
+  const float* r;       // [C] receptance
+  const float* k;       // [C] key (before the a-gate update)
+  const float* v;       // [C] value (before the value residual)
+  const float* dn;      // [4D] lora downs: tanh(w), a, sigmoid(g), v
+  float* vf;            // [C] the layer-0 value (written at l == 0)
+  float* xo;            // [C] attention output before `out`
+  const float* st_in;   // [H, S, S] this layer's wkv state (i = value dim)
+  float* st_out;
+};
+
+// The time mix of head h for one sequence, by the whole block: the four
+// lora downs quantized as whole vectors, the 4 x S lora2 rows of the
+// head's own channels (decay, a gate, output gate, value gate), kk l2 norm,
+// k update, value residual, wkv7 state update, group norm, r_k bonus, gate.
+// Shared scratch: hv 12 * S floats, red 256 floats, dxs 4 floats, q8 4D
+// bytes. blockDim.x must be a multiple of S with S * S / blockDim.x <= kMaxJ.
+__device__ void v7_head_step(int l, int h, const HeadIO& io, const int8_t* m_l2,
+                             const float* s_l2, const float* vec, int C, int S, int D,
+                             float* hv, float* red, float* dxs, int8_t* q8) {
+  const int tid = threadIdx.x;
+  float* h_r = hv;
+  float* h_w = hv + S;       // decay
+  float* h_k = hv + 2 * S;
+  float* h_a = hv + 3 * S;
+  float* h_b = hv + 4 * S;
+  float* h_v = hv + 5 * S;
+  float* h_y = hv + 6 * S;
+  float* h_ag = hv + 7 * S;  // a gate
+  float* h_g = hv + 8 * S;   // output gate
+  float* h_vm = hv + 9 * S;  // value-residual gate
+  quantize_n<4>([&](int m, int c) { return io.dn[m * D + c]; }, D, q8, D, dxs, red);
+  // one lane per row: all 4 x S rows in one round of the block's warps
+  matvec_rows<false, 1>(m_l2, 4 * S, D, tid >> 5, blockDim.x >> 5, 1, 1,
+      [&](int r) { return (r / S) * C + h * S + r % S; },
+      [&](int r, int) { return q8 + (r / S) * D; },
+      [&](int r, int, int acc) {
+        const int part = r / S, i = r % S, c = h * S + i;
+        const float y = dequant(acc, dxs[part], s_l2[part * C + c]);
+        if (part == 0) {
+          h_w[i] = expf(mul(sigmoidf(add(y, vec[kW0 * C + c])), -0.606531f));
+        } else if (part == 1) {
+          h_ag[i] = sigmoidf(add(y, vec[kA0 * C + c]));
+        } else if (part == 2) {
+          h_g[i] = y;
+        } else {
+          h_vm[i] = sigmoidf(add(y, vec[kV0 * C + c]));
+        }
+      });
+  __syncthreads();
+
+  const int c = h * S + tid;
+  float kkv = 0.f, kraw = 0.f, rr = 0.f;
+  if (tid < S) {
+    kraw = io.k[c];
+    rr = io.r[c];
+    kkv = mul(kraw, vec[kKK * C + c]);
+  }
+  const float nrm = sqrtf(block_sum(mul(kkv, kkv), red));
+  float dot_part = 0.f;
+  if (tid < S) {
+    const float kk = kkv / fmaxf(nrm, 1e-12f);
+    const float ka = mul(kraw, vec[kKA * C + c]);
+    const float ag = h_ag[tid];
+    const float knew = add(kraw, sub(mul(ag, ka), ka));
+    float vv = io.v[c];
+    if (l == 0) {
+      io.vf[c] = vv;
+    } else {
+      vv = add(vv, mul(sub(io.vf[c], vv), h_vm[tid]));
+    }
+    h_r[tid] = rr;
+    h_k[tid] = knew;
+    h_a[tid] = -kk;
+    h_b[tid] = mul(kk, ag);
+    h_v[tid] = vv;
+    dot_part = mul(mul(knew, rr), vec[kRK * C + c]);
+  }
+  const float dot = block_sum(dot_part, red);  // also orders the h_* stores
+
+  // state rows: tpr threads per row i, entries j = jj * tpr + part
+  const int tpr = blockDim.x / S;
+  const int jn = S / tpr;
+  const int i = tid / tpr, part = tid % tpr;
+  const size_t hoff = (static_cast<size_t>(h) * S + i) * S;
+  const float* st_in = io.st_in + hoff;
+  float* st_out = io.st_out + hoff;
+  float st[kMaxJ];
+  float sa = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < kMaxJ; ++jj) {
+    if (jj < jn) {
+      const int j = jj * tpr + part;
+      st[jj] = st_in[j];
+      sa += h_a[j] * st[jj];
+    }
+  }
+  for (int off = tpr >> 1; off > 0; off >>= 1) sa += __shfl_xor_sync(0xffffffffu, sa, off);
+  const float vi = h_v[i];
+  float yi = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < kMaxJ; ++jj) {
+    if (jj < jn) {
+      const int j = jj * tpr + part;
+      const float s2 = add(add(mul(st[jj], h_w[j]), mul(h_k[j], vi)), mul(sa, h_b[j]));
+      st_out[j] = s2;
+      yi += s2 * h_r[j];
+    }
+  }
+  for (int off = tpr >> 1; off > 0; off >>= 1) yi += __shfl_xor_sync(0xffffffffu, yi, off);
+  if (part == 0) h_y[i] = yi;
+  __syncthreads();
+
+  const float yv = tid < S ? h_y[tid] : 0.f;
+  const float mu = block_sum(yv, red) / static_cast<float>(S);
+  const float yc = tid < S ? sub(yv, mu) : 0.f;
+  const float var = block_sum(mul(yc, yc), red) / static_cast<float>(S);
+  if (tid < S) {
+    const float yn = mul(yc, rsqrtf(add(var, 64e-5f)));
+    const float xo = add(mul(yn, vec[kLnxW * C + c]), vec[kLnxB * C + c]);
+    const float bonus = mul(h_v[tid], dot);
+    io.xo[c] = mul(add(xo, bonus), h_g[tid]);
+  }
+  __syncthreads();
+}

@@ -1,0 +1,415 @@
+// K4: one RWKV v7 decode step for B sequences and all layers, w8a8 or
+// w4a8, without the LM head (the caller runs ln_out and K1 at M=B). One
+// launch per step.
+//
+// Replaces rwkv_tpu/ops/megakernel.py::v7_decode_megakernel_batched
+// (_make_kernel_batched), v7_decode_megakernel_batched_packed
+// (_make_kernel_batched_packed) and v7_decode_megakernel_tiled
+// (_make_kernel_tiled, w8 and w4). Those three TPU kernels differ only in
+// how they fit VMEM (batch on lanes, lane-packed state, a (layer, phase)
+// grid for wide models); on this card one kernel computes their function
+// for any B and width, reading the serving state layout [B, L, H, S_i, S_j]
+// directly, so no state packing happens around it.
+//
+// Bound on this card: bytes. A step reads every layer weight once (169M
+// w8a8: 89.7 MB of int8 matrices + 1.2 MB of scales and vectors) and reads
+// and writes each sequence's 4.87 MB of state: ~130 MB at B=8 (0.039 ms at
+// 3.35 TB/s), ~402 MB at B=64 (0.120 ms). Its int8 operations (1.4 GOP at
+// B=8) are under a microsecond of tensor-core time.
+//
+// Design: K3's cooperative persistent kernel (one 256-thread block per SM,
+// five grid barriers per layer, v7_common.cuh) with the batch as columns:
+//   A, D, E, F  walk the batch in column tiles of kCols = 8 sequences. For
+//       a tile, warp w prepares sequence tile + w on its own (layer norm,
+//       shift mix, each input vector quantized with its own amax -- the
+//       per-column qx of the TPU kernels), every block redundantly, into
+//       shared memory; then the phase's weight rows are spread over every
+//       warp of the grid and each row, read once, is dotted against all
+//       columns of the tile (matvec_rows, common.cuh).
+//   C   B x H independent (sequence, head) tasks spread over the blocks:
+//       v7_head_step, as in K3, on that sequence's vectors and state.
+// Shared memory per block: the warps' sequence rows (8 x C floats) and the
+// tile's codes (max(6 x 8 x C, 8 x F) bytes) -- 61 KB at C=768, F=3072 and
+// 162 KB at C=2048, F=8192, inside the 227 KB a block may use. Above one
+// tile (B > 8) a phase reads its rows again for each tile; a layer's
+// weights (7.5 MB at 169M w8a8) stay in the 50 MB L2, so the extra reads
+// come from L2 and only the first from HBM. Sequences with identical
+// inputs get bit-identical outputs: every per-sequence computation runs the
+// same code on its own data, and the integer dots are exact.
+//
+// Numerics follow K3 (explicit round-to-nearest float ops, IEEE division in
+// the activation scale), so at B=1 K4 and K3 agree up to the order of the
+// layer-norm sums (warp sums here, block sums in K3).
+#include "v7_common.cuh"
+
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kCols = kWarps;  // sequences per column tile: one per warp
+
+struct Args {
+  const int* tokens;        // [B]
+  const uint16_t* emb;      // bf16 bits [V, C]
+  const float* ln0;         // [2, C]
+  const int8_t* mats;       // [L, MatOffsets.layer]
+  const float* scales;      // [L, 9C + 4D + F]
+  const float* vecs;        // [L, kNumVec, C]
+  const float* att_in;      // [B, L, C]
+  const float* ffn_in;      // [B, L, C]
+  const float* heads_in;    // [B, L, H, S, S]
+  float* att_out;
+  float* ffn_out;
+  float* heads_out;
+  float* scratch;           // B * seq_scratch_floats; x [B, C] at its start
+  int C, H, S, D, F, L, B;
+};
+
+// The kernel's global scratch holds, per sequence, x, r, k, v, v_first and
+// xo (C floats each), the four lora downs (4D) and the relu^2 keys (F):
+// (6C + 4D + F) x B floats, which the Python wrapper allocates
+// (batched_scratch_floats), laid out array by array, x first.
+
+// Per-sequence vectors (n floats, n a multiple of 4, 16-byte aligned) are
+// walked by one warp in float4 pieces: lane l takes pieces l, l + 32, ...
+// (four elements a load, so a pass is n / 128 dependent steps a lane).
+__device__ __forceinline__ float4 ld4(const float* p, int i) {
+  return reinterpret_cast<const float4*>(p)[i];
+}
+__device__ __forceinline__ void st4(float* p, int i, float4 v) {
+  reinterpret_cast<float4*>(p)[i] = v;
+}
+__device__ __forceinline__ float absmax4(float4 v) {
+  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+}
+// xl + (xp - xl) * cf, the token-shift mix, element by element
+__device__ __forceinline__ float4 mix4(float4 xl, float4 xp, float4 cf) {
+  return make_float4(add(xl.x, mul(sub(xp.x, xl.x), cf.x)), add(xl.y, mul(sub(xp.y, xl.y), cf.y)),
+                     add(xl.z, mul(sub(xp.z, xl.z), cf.z)), add(xl.w, mul(sub(xp.w, xl.w), cf.w)));
+}
+
+// Warp-wide layer norm of x[0..n) in place (each lane touches only its own
+// pieces).
+__device__ void layer_norm_warp(float* x, const float* w, const float* b, int n, float eps) {
+  const int lane = threadIdx.x & 31, n4 = n >> 2;
+  float s = 0.f;
+#pragma unroll 2
+  for (int i = lane; i < n4; i += 32) {
+    const float4 v = ld4(x, i);
+    s += (v.x + v.y) + (v.z + v.w);
+  }
+  const float mu = warp_sum(s) / static_cast<float>(n);
+  float var = 0.f;
+#pragma unroll 2
+  for (int i = lane; i < n4; i += 32) {
+    const float4 v = ld4(x, i);
+    const float dx = sub(v.x, mu), dy = sub(v.y, mu), dz = sub(v.z, mu), dw = sub(v.w, mu);
+    var += (mul(dx, dx) + mul(dy, dy)) + (mul(dz, dz) + mul(dw, dw));
+  }
+  const float rs = rsqrtf(add(warp_sum(var) / static_cast<float>(n), eps));
+#pragma unroll 2
+  for (int i = lane; i < n4; i += 32) {
+    const float4 v = ld4(x, i), wv = ld4(w, i), bv = ld4(b, i);
+    st4(x, i, make_float4(add(mul(mul(sub(v.x, mu), rs), wv.x), bv.x),
+                          add(mul(mul(sub(v.y, mu), rs), wv.y), bv.y),
+                          add(mul(mul(sub(v.z, mu), rs), wv.z), bv.z),
+                          add(mul(mul(sub(v.w, mu), rs), wv.w), bv.w)));
+  }
+}
+
+// Quantize N vectors of n values by one warp, each with its own amax.
+// f(i, v) fills v[m] with piece i of vector m (loading shared operands
+// once for all N); codes go to q8[m * q_stride + c], scales to
+// dxs[m * dx_stride] (lane 0).
+template <int N, typename Fn>
+__device__ void quantize_warp(Fn f, int n, int8_t* q8, int q_stride, float* dxs, int dx_stride) {
+  const int lane = threadIdx.x & 31, n4 = n >> 2;
+  float amax[N];
+#pragma unroll
+  for (int m = 0; m < N; ++m) amax[m] = 0.f;
+#pragma unroll 2
+  for (int i = lane; i < n4; i += 32) {
+    float4 v[N];
+    f(i, v);
+#pragma unroll
+    for (int m = 0; m < N; ++m) amax[m] = fmaxf(amax[m], absmax4(v[m]));
+  }
+  float inv[N];
+#pragma unroll
+  for (int m = 0; m < N; ++m) {
+    const float dx = warp_max(amax[m]) / 127.0f;
+    inv[m] = act_inv_scale(dx);
+    if (lane == 0) dxs[m * dx_stride] = dx;
+  }
+#pragma unroll 2
+  for (int i = lane; i < n4; i += 32) {
+    float4 v[N];
+    f(i, v);
+#pragma unroll
+    for (int m = 0; m < N; ++m) {
+      *reinterpret_cast<char4*>(q8 + m * q_stride + 4 * i) =
+          make_char4(act_code(v[m].x, inv[m]), act_code(v[m].y, inv[m]),
+                     act_code(v[m].z, inv[m]), act_code(v[m].w, inv[m]));
+    }
+  }
+}
+
+template <bool W4>
+__global__ void __launch_bounds__(kThreads, 1)
+v7_decode_batched_kernel(Args p) {
+  cg::grid_group grid = cg::this_grid();
+  const int C = p.C, H = p.H, S = p.S, D = p.D, F = p.F, L = p.L, B = p.B;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* xw = reinterpret_cast<float*>(smem);   // [kWarps][C] a warp's sequence row
+  float* hv = xw + kWarps * C;                   // [12][S] per-head vectors
+  float* red = hv + 12 * S;                      // [8][32] reduction scratch
+  float* dxs = red + 8 * 32;                     // [6][kCols] activation scales
+  int8_t* q8 = reinterpret_cast<int8_t*>(dxs + 6 * kCols);  // tile codes
+
+  float* x_g = p.scratch;                  // [B][C] residual stream (the output)
+  float* r_g = x_g + static_cast<size_t>(B) * C;
+  float* k_g = r_g + static_cast<size_t>(B) * C;
+  float* v_g = k_g + static_cast<size_t>(B) * C;
+  float* vf_g = v_g + static_cast<size_t>(B) * C;   // layer-0 values
+  float* xo_g = vf_g + static_cast<size_t>(B) * C;  // attention outputs
+  float* dn_g = xo_g + static_cast<size_t>(B) * C;  // [B][4D] lora downs
+  float* fk_g = dn_g + static_cast<size_t>(B) * 4 * D;  // [B][F] relu^2 keys
+
+#ifdef RWKV_V7_PHASE_TIMES
+  unsigned long long* marks = reinterpret_cast<unsigned long long*>(
+      p.scratch + static_cast<size_t>(B) * (6ull * C + 4ull * D + F));
+  int n_marks = 0;
+#endif
+  // a grid-wide barrier, with a timestamp on each side in the timing build
+  auto barrier = [&]() {
+    PHASE_MARK();
+    grid.sync();
+    PHASE_MARK();
+  };
+  PHASE_MARK();
+
+  const MatOffsets mo(C, D, F, W4);
+  const size_t sc_layer = 9ull * C + 4ull * D + F;
+  const int n_tiles = (B + kCols - 1) / kCols;
+
+  for (int l = 0; l < L; ++l) {
+    const int8_t* m_layer = p.mats + l * mo.layer;
+    const float* s_rkv = p.scales + l * sc_layer;
+    const float* s_l1 = s_rkv + 3 * C;
+    const float* s_l2 = s_l1 + 4 * D;
+    const float* s_out = s_l2 + 4 * C;
+    const float* s_fk = s_out + C;
+    const float* s_fv = s_fk + F;
+    const float* vec = p.vecs + static_cast<size_t>(l) * kNumVec * C;
+
+    // ---- phase A: ln1, shift mixes, rkv + lora1 rows, per column tile ----
+    for (int t = 0; t < n_tiles; ++t) {
+      const int b0 = t * kCols;
+      const int nb = B - b0 < kCols ? B - b0 : kCols;
+      if (warp < nb) {
+        const int b = b0 + warp;
+        float* xr = xw + warp * C;
+        if (l == 0) {
+          const uint2* e = reinterpret_cast<const uint2*>(
+              p.emb + static_cast<size_t>(p.tokens[b]) * C);
+          for (int i = lane; i < C / 4; i += 32) {
+            const uint2 u = e[i];  // four bf16, little end first
+            st4(xr, i, make_float4(bf16_to_float(u.x & 0xFFFFu), bf16_to_float(u.x >> 16),
+                                   bf16_to_float(u.y & 0xFFFFu), bf16_to_float(u.y >> 16)));
+          }
+          layer_norm_warp(xr, p.ln0, p.ln0 + C, C, 1e-5f);
+          if (blockIdx.x == 0)
+            for (int i = lane; i < C / 4; i += 32) st4(x_g + static_cast<size_t>(b) * C, i, ld4(xr, i));
+        } else {
+          for (int i = lane; i < C / 4; i += 32) st4(xr, i, ld4(x_g + static_cast<size_t>(b) * C, i));
+        }
+        layer_norm_warp(xr, vec + kLn1W * C, vec + kLn1B * C, C, 1e-5f);
+        const size_t bl = (static_cast<size_t>(b) * L + l) * C;
+        if (blockIdx.x == 0)
+          for (int i = lane; i < C / 4; i += 32) st4(p.att_out + bl, i, ld4(xr, i));
+        // xl + (x_prev - xl) * coeff[m], m = r, w, k, v, a, g: codes of mix
+        // m for tile column w at q8[(m * kCols + w) * C]
+        const float* att_in = p.att_in + bl;
+        const float* cf = vec + kCoeff * C;
+        quantize_warp<6>(
+            [&](int i, float4 (&v)[6]) {
+              const float4 xl = ld4(xr, i), xp = ld4(att_in, i);
+#pragma unroll
+              for (int m = 0; m < 6; ++m) v[m] = mix4(xl, xp, ld4(cf + m * C, i));
+            },
+            C, q8 + warp * C, kCols * C, dxs + warp, kCols);
+      }
+      __syncthreads();
+      matvec_grid<W4, kCols>(m_layer + mo.rkv, 3 * C, C, nb,
+          [&](int row, int b) { return q8 + (rkv_mix(row / C) * kCols + b) * C; },
+          [&](int row, int b, int acc) {
+            const int part = row / C;
+            const float y = dequant(acc, dxs[rkv_mix(part) * kCols + b], s_rkv[row]);
+            (part == 0 ? r_g : part == 1 ? k_g : v_g)[static_cast<size_t>(b0 + b) * C +
+                                                      row - part * C] = y;
+          });
+      matvec_grid<false, kCols>(m_layer + mo.l1, 4 * D, C, nb,
+          [&](int row, int b) { return q8 + (lora1_mix(row / D) * kCols + b) * C; },
+          [&](int row, int b, int acc) {
+            const int part = row / D;
+            float y = dequant(acc, dxs[lora1_mix(part) * kCols + b], s_l1[row]);
+            if (part == 0) y = tanhf(y);
+            if (part == 2) y = sigmoidf(y);
+            dn_g[static_cast<size_t>(b0 + b) * 4 * D + row] = y;
+          },
+          32, true);
+      __syncthreads();
+    }
+    barrier();
+
+    // ---- phase C: (sequence, head) tasks: lora2, wkv7, group norm, gate --
+    for (int task = blockIdx.x; task < B * H; task += gridDim.x) {  // block-uniform
+      const int b = task / H, h = task % H;
+      const size_t bc = static_cast<size_t>(b) * C;
+      const size_t st = (static_cast<size_t>(b) * L + l) * H * S * S;
+      const HeadIO io{r_g + bc, k_g + bc, v_g + bc, dn_g + static_cast<size_t>(b) * 4 * D,
+                      vf_g + bc, xo_g + bc, p.heads_in + st, p.heads_out + st};
+      v7_head_step(l, h, io, m_layer + mo.l2, s_l2, vec, C, S, D, hv, red, dxs, q8);
+    }
+    barrier();
+
+    // ---- phase D: out rows + residual, per column tile ---------------------
+    for (int t = 0; t < n_tiles; ++t) {
+      const int b0 = t * kCols;
+      const int nb = B - b0 < kCols ? B - b0 : kCols;
+      if (warp < nb) {
+        const float* xo = xo_g + static_cast<size_t>(b0 + warp) * C;
+        quantize_warp<1>([&](int i, float4 (&v)[1]) { v[0] = ld4(xo, i); }, C, q8 + warp * C, 0,
+                         dxs + warp, 0);
+      }
+      __syncthreads();
+      matvec_grid<W4, kCols>(m_layer + mo.out, C, C, nb,
+          [&](int, int b) { return q8 + b * C; },
+          [&](int row, int b, int acc) {
+            float* x = x_g + static_cast<size_t>(b0 + b) * C + row;
+            *x = add(*x, dequant(acc, dxs[b], s_out[row]));
+          });
+      __syncthreads();
+    }
+    barrier();
+
+    // ---- phase E: ln2 + shift, fk rows with relu^2, per column tile --------
+    for (int t = 0; t < n_tiles; ++t) {
+      const int b0 = t * kCols;
+      const int nb = B - b0 < kCols ? B - b0 : kCols;
+      if (warp < nb) {
+        const int b = b0 + warp;
+        float* xr = xw + warp * C;
+        for (int i = lane; i < C / 4; i += 32) st4(xr, i, ld4(x_g + static_cast<size_t>(b) * C, i));
+        layer_norm_warp(xr, vec + kLn2W * C, vec + kLn2B * C, C, 1e-5f);
+        const size_t bl = (static_cast<size_t>(b) * L + l) * C;
+        if (blockIdx.x == 0)
+          for (int i = lane; i < C / 4; i += 32) st4(p.ffn_out + bl, i, ld4(xr, i));
+        const float* ffn_in = p.ffn_in + bl;
+        const float* xk = vec + kXK * C;
+        quantize_warp<1>(
+            [&](int i, float4 (&v)[1]) { v[0] = mix4(ld4(xr, i), ld4(ffn_in, i), ld4(xk, i)); },
+            C, q8 + warp * C, 0, dxs + warp, 0);
+      }
+      __syncthreads();
+      matvec_grid<W4, kCols>(m_layer + mo.fk, F, C, nb,
+          [&](int, int b) { return q8 + b * C; },
+          [&](int row, int b, int acc) {
+            const float y = fmaxf(dequant(acc, dxs[b], s_fk[row]), 0.f);
+            fk_g[static_cast<size_t>(b0 + b) * F + row] = mul(y, y);
+          });
+      __syncthreads();
+    }
+    barrier();
+
+    // ---- phase F: fv rows + residual, per column tile ----------------------
+    for (int t = 0; t < n_tiles; ++t) {
+      const int b0 = t * kCols;
+      const int nb = B - b0 < kCols ? B - b0 : kCols;
+      if (warp < nb) {
+        const float* fk = fk_g + static_cast<size_t>(b0 + warp) * F;
+        quantize_warp<1>([&](int i, float4 (&v)[1]) { v[0] = ld4(fk, i); }, F, q8 + warp * F, 0,
+                         dxs + warp, 0);
+      }
+      __syncthreads();
+      matvec_grid<W4, kCols>(m_layer + mo.fv, C, F, nb,
+          [&](int, int b) { return q8 + b * F; },
+          [&](int row, int b, int acc) {
+            float* x = x_g + static_cast<size_t>(b0 + b) * C + row;
+            *x = add(*x, dequant(acc, dxs[b], s_fv[row]));
+          });
+      __syncthreads();
+    }
+    barrier();
+  }
+}
+
+size_t smem_bytes(int C, int S, int F, int D) {
+  size_t q = 6ull * kCols * C;
+  if (static_cast<size_t>(kCols) * F > q) q = static_cast<size_t>(kCols) * F;
+  if (4ull * D > q) q = 4ull * D;
+  const size_t floats = static_cast<size_t>(kWarps) * C + 12ull * S + 8 * 32 + 6 * kCols;
+  return floats * sizeof(float) + ((q + 15) / 16) * 16;
+}
+
+const void* kernel_for(int w4) {
+  return w4 ? reinterpret_cast<const void*>(v7_decode_batched_kernel<true>)
+            : reinterpret_cast<const void*>(v7_decode_batched_kernel<false>);
+}
+
+}  // namespace
+
+// Grid size the launch below uses (blocks), or a negative CUDA error code
+// (0: the kernel does not fit on an SM at these sizes).
+extern "C" int rwkv_v7_decode_batched_grid(int C, int S, int D, int F, int w4) {
+  int dev = 0, sms = 0, per_sm = 0;
+  const size_t smem = smem_bytes(C, S, F, D);
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel_for(w4), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_for(w4), kThreads, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (per_sm > 1) per_sm = 1;  // one block per SM, as K3
+  return per_sm * sms;
+}
+
+extern "C" int rwkv_v7_decode_batched(const void* tokens, const void* emb, const void* ln0,
+                                      const void* mats, const void* scales, const void* vecs,
+                                      const void* att_in, const void* ffn_in,
+                                      const void* heads_in, void* att_out, void* ffn_out,
+                                      void* heads_out, void* scratch,
+                                      int C, int H, int S, int D, int F, int L, int B, int w4,
+                                      int grid_blocks, void* stream) {
+  if (grid_blocks <= 0 || B <= 0 || kThreads % S != 0 || S * S / kThreads > kMaxJ)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  a.tokens = static_cast<const int*>(tokens);
+  a.emb = static_cast<const uint16_t*>(emb);
+  a.ln0 = static_cast<const float*>(ln0);
+  a.mats = static_cast<const int8_t*>(mats);
+  a.scales = static_cast<const float*>(scales);
+  a.vecs = static_cast<const float*>(vecs);
+  a.att_in = static_cast<const float*>(att_in);
+  a.ffn_in = static_cast<const float*>(ffn_in);
+  a.heads_in = static_cast<const float*>(heads_in);
+  a.att_out = static_cast<float*>(att_out);
+  a.ffn_out = static_cast<float*>(ffn_out);
+  a.heads_out = static_cast<float*>(heads_out);
+  a.scratch = static_cast<float*>(scratch);
+  a.C = C; a.H = H; a.S = S; a.D = D; a.F = F; a.L = L; a.B = B;
+  void* kargs[] = {&a};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      kernel_for(w4), dim3(grid_blocks), dim3(kThreads), kargs, smem_bytes(C, S, F, D),
+      static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}

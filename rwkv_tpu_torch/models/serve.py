@@ -5,13 +5,18 @@ Ports the v7 serving side of ``rwkv_tpu.models.serve``:
 - ``stack_layer_params`` prepares every layer's weights for a precision --
   dense f32 or bf16, or w8a8 (rowwise int8 weights, per-row int8
   activations, kernel K1) -- and stacks them ``[L, ...]``. Projections stay
-  unfused, as they do under w8a8 in the JAX package.
+  unfused, as they do under w8a8 in the JAX package. w4a8 runs these
+  per-op paths as w8a8, as JAX does; only the decode kernels see int4.
 - ``run_blocks`` / ``forward_stacked`` run the layers as a Python loop over
   ``models.graph.att_v7`` / ``ffn_v7``. For T > 1 the wkv7 recurrence goes
   through ``ops.chunked.wkv7_auto`` (kernel K2 on the card).
 - ``ServingModel`` serves it: ``prefill`` splits a prompt into
-  ``PREFILL_BUCKETS``, ``decode`` runs one step for a batch (B = 1 with
-  ``megakernel=True`` in one launch of kernel K3), ``generate`` samples.
+  ``PREFILL_BUCKETS``, ``decode`` runs one step for a batch, ``generate``
+  samples. With ``megakernel=True`` decode goes through the whole-model
+  kernels: B=1 through K3 (one launch with the LM head) when K3 takes the
+  model's shapes, else K4 and the head on K1; ``mega_min_batch`` <= B <=
+  ``MEGA_MAX_BATCH`` through K4, then ``ln_out`` and the head on K1 at M=B
+  (the JAX package's batched and tiled kernels followed by ``G.mm``).
 
 State uses the serving layout: ``att_xx`` / ``ffn_xx`` ``[B, L, C]`` and
 ``heads`` ``[B, L, H, S_i, S_j]``.
@@ -34,7 +39,11 @@ from rwkv_tpu_torch.ops.parity import layer_norm
 # Prefill chunk buckets, largest first; any length is decomposed greedily.
 PREFILL_BUCKETS = (256, 64, 16, 4, 1)
 
-_PRECISIONS = {"f32": "dense", "bf16": "dense", "w8a8": "w8a8"}
+_PRECISIONS = {"f32": "dense", "bf16": "dense", "w8a8": "w8a8", "w4a8": "w8a8"}
+
+# Largest batch the whole-model decode kernel K4 serves (the JAX package's
+# bound for its batched kernels); larger batches take the per-op path.
+MEGA_MAX_BATCH = 256
 
 
 def _prepare_weight(w: torch.Tensor, dtype, mode: str):
@@ -181,28 +190,45 @@ class ServingModel:
     ):
         """source: ``(cfg, params)`` with params in the port's format
         (``models.synth.synth_params`` or ``convert.params_from_numpy``).
-        precision: 'f32' | 'bf16' (dense) | 'w8a8'. megakernel=True (w8a8
-        only) runs B=1 decode as one launch of kernel K3. device: default
-        the CUDA card; raises when there is none."""
+        precision: 'f32' | 'bf16' (dense) | 'w8a8' | 'w4a8' (int4 big
+        matrices in the decode kernels; every per-op path runs w8a8).
+        megakernel=True (w8a8 and w4a8) routes decode through kernels K3
+        and K4 (see ``decode``). device: default the CUDA card; raises when
+        there is none."""
         if isinstance(source, str):
             raise NotImplementedError("loading ggmf files is not ported yet; pass (cfg, params)")
         cfg, params = source
         if precision not in _PRECISIONS:
             raise ValueError(f"precision must be one of {sorted(_PRECISIONS)}, got {precision!r}")
-        if megakernel and precision != "w8a8":
-            raise NotImplementedError("the decode kernel is ported for w8a8 only")
+        if megakernel and precision not in ("w8a8", "w4a8"):
+            raise NotImplementedError("the decode kernels are ported for w8a8 and w4a8 only")
         self.device = resolve_device(device)
         self.config = cfg
         self.precision = precision
         dtype = torch.float32 if precision == "f32" else torch.bfloat16
         self.params = stack_layer_params(params, cfg, dtype, _PRECISIONS[precision], self.device)
+        # smallest batch decoded through K4 (the card's crossover against
+        # the per-op path is measured by chip_smoke.py); B=1 always takes a
+        # kernel route under megakernel=True
+        self.mega_min_batch = 2
         self._mega: Optional[dict] = None
+        self._mega_k3 = False
         if megakernel:
-            from rwkv_tpu_torch.ops.megakernel import build_mega_pack, device_pack
-
-            self._mega = device_pack(
-                build_mega_pack(params, cfg), self.params["emb"], self.params["ln0"], self.device
+            from rwkv_tpu_torch.ops.megakernel import (
+                batched_shape_error, build_mega_pack, decode_shape_error, device_pack,
             )
+
+            w4 = precision == "w4a8"
+            self._mega = device_pack(
+                build_mega_pack(params, cfg, w4=w4), self.params["emb"], self.params["ln0"],
+                self.device,
+            )
+            dims = (cfg, self._mega["d_lora"], self._mega["f_dim"], w4)
+            err = batched_shape_error(*dims)
+            if err:
+                raise NotImplementedError(f"megakernel=True: {err}")
+            # static route: K3 for B=1 where it takes the shapes, else K4 + head
+            self._mega_k3 = decode_shape_error(*dims) is None
 
     # -- state -------------------------------------------------------------
     def init_state(self, batch_size: int = 1) -> dict:
@@ -223,16 +249,30 @@ class ServingModel:
 
     def decode(self, tokens, state: dict):
         """One decode step for a batch: tokens [B] -> (logits [B, V], state).
-        With megakernel=True, B=1 runs kernel K3 (its plain version on the
-        CPU); every other B runs the per-op path."""
+        With megakernel=True: B=1 runs kernel K3 when it takes the model's
+        shapes, else K4 and the head; mega_min_batch <= B <= MEGA_MAX_BATCH
+        runs K4, ln_out and the head on K1 at M=B (plain versions on the
+        CPU). Every other B, and megakernel=False, runs the per-op path."""
         tok = self._tokens(tokens).reshape(-1)
-        if self._mega is not None and tok.shape[0] == 1:
-            from rwkv_tpu_torch.ops.megakernel import v7_decode_step
+        b = tok.shape[0]
+        if self._mega is not None:
+            if b == 1 and self._mega_k3:
+                from rwkv_tpu_torch.ops.megakernel import v7_decode_step
 
-            one = {k: v[0] for k, v in state.items()}
-            logits, new = v7_decode_step(self._mega, one, tok, self.config)
-            return logits[None], {k: v[None] for k, v in new.items()}
+                one = {k: v[0] for k, v in state.items()}
+                logits, new = v7_decode_step(self._mega, one, tok, self.config)
+                return logits[None], {k: v[None] for k, v in new.items()}
+            if b == 1 or self.mega_min_batch <= b <= MEGA_MAX_BATCH:
+                return self._mega_batched(state, tok)
         return self._batched(state, tok[:, None])
+
+    def _mega_batched(self, state: dict, tok: torch.Tensor):
+        """K4 for the layers, then ln_out and the w8a8 head (K1 at M=B)."""
+        from rwkv_tpu_torch.ops.megakernel import v7_decode_batched
+
+        x, new = v7_decode_batched(self._mega, state, tok, self.config)
+        logits = G.mm(layer_norm(x, *self.params["ln_out"]), self.params["head"])
+        return logits, new
 
     def prefill(self, tokens: Sequence[int], state: Optional[dict] = None,
                 compute_logits: bool = True):

@@ -26,18 +26,19 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Optional
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("quant_matmul", "wkv7", "v7_decode")
+SOURCES = ("quant_matmul", "wkv7", "v7_decode", "v7_decode_batched")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_libs: dict[str, ctypes.CDLL] = {}
-_fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+_libs: dict[tuple, ctypes.CDLL] = {}
+_fns: dict[tuple, ctypes._CFuncPtr] = {}
 build_seconds: dict[str, float] = {}
 
 
@@ -51,29 +52,34 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+def _source(name: str, src: Optional[Path]) -> Path:
+    return Path(src) if src is not None else CSRC / f"{name}.cu"
+
+
+def _lib_path(name: str, src: Optional[Path] = None, flags: tuple = ()) -> Path:
+    src = _source(name, src)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
+    for f in sorted(src.parent.glob("*.cuh")) + [src]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> dict[str, Path]:
-    """Compile every missing kernel library concurrently; returns the
-    library paths. The ptxas report of each build (registers, shared
+def _build(jobs) -> None:
+    """Compile (name, src, flags) jobs whose library is missing, one nvcc
+    each, all at once. The ptxas report of each build (registers, shared
     memory, spills) is kept beside it as ``<lib>.log``."""
     import time
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {name: _lib_path(name) for name in SOURCES}
     procs = []
-    for name, path in paths.items():
+    for name, src, flags in jobs:
+        path = _lib_path(name, src, flags)
         if path.exists():
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, str(_source(name, src))]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
@@ -85,33 +91,47 @@ def build_all() -> dict[str, Path]:
         path.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             os.unlink(tmp)
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
         else:
             os.replace(tmp, path)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return paths
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building all kernels on
-    first use."""
-    if name not in _libs:
-        path = _lib_path(name)
+def build_all() -> dict[str, Path]:
+    """Compile every missing kernel library of ``SOURCES`` concurrently;
+    returns the library paths."""
+    _build([(name, None, ()) for name in SOURCES])
+    return {name: _lib_path(name) for name in SOURCES}
+
+
+def library(name: str, src: Optional[Path] = None, flags: tuple = ()) -> ctypes.CDLL:
+    """The loaded library `name`: ``csrc/<name>.cu`` (every kernel of
+    ``SOURCES`` is built at once on first use), or another source `src`
+    (headers beside it) and extra nvcc `flags`, as the probes build
+    timing builds and earlier versions of a kernel."""
+    key = (name, None if src is None else str(src), tuple(flags))
+    if key not in _libs:
+        path = _lib_path(name, src, flags)
         if not path.exists():
-            build_all()
+            if src is None and not flags and name in SOURCES:
+                build_all()
+            else:
+                _build([(name, src, tuple(flags))])
         lib = ctypes.CDLL(str(path))
         lib.rwkv_cuda_error_string.argtypes = [ctypes.c_int]
         lib.rwkv_cuda_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
-    return _libs[name]
+        _libs[key] = lib
+    return _libs[key]
 
 
-def function(lib_name: str, fn_name: str, n_ptrs: int, n_ints: int):
-    """C entry ``int fn(void* x n_ptrs, int x n_ints, void* stream)``."""
-    key = (lib_name, fn_name)
+def function(lib_name: str, fn_name: str, n_ptrs: int, n_ints: int,
+             src: Optional[Path] = None, flags: tuple = ()):
+    """C entry ``int fn(void* x n_ptrs, int x n_ints, void* stream)`` of
+    ``library(lib_name, src, flags)``."""
+    key = (lib_name, fn_name, None if src is None else str(src), tuple(flags))
     if key not in _fns:
-        fn = getattr(library(lib_name), fn_name)
+        fn = getattr(library(lib_name, src, flags), fn_name)
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[key] = fn

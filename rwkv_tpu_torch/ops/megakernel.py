@@ -1,23 +1,31 @@
-"""Whole-model v7 decode step at B=1, w8a8, LM head included (kernel K3).
+"""Whole-model v7 decode steps: B=1 with the LM head (kernel K3) and B
+sequences without it (kernel K4), w8a8 or w4a8.
 
-Ports the w8 parts of ``rwkv_tpu.ops.megakernel``: ``_quantize_rows``,
-``build_mega_pack(quant=True, head=True)`` and ``v7_decode_megakernel``.
-The TPU kernel's VMEM layouts (``[C, 1]`` columns, ``rowify_mega_pack``, the
-head-pair state) are not carried over: the port keeps the serving state
-layout (heads ``[L, H, S_i, S_j]``) and packs each layer's six int8
-matrices, their row scales and its vectors into three flat buffers
-(``device_pack``).
+Ports the quantized parts of ``rwkv_tpu.ops.megakernel``: ``_quantize_rows``
+(int8 and int4), ``build_mega_pack(quant=True, head=True, w4=...)``,
+``v7_decode_megakernel`` (B=1) and, as one function, the three batched
+kernels ``v7_decode_megakernel_batched``, ``_batched_packed`` and
+``_tiled``. The TPU kernels' VMEM layouts (``[C, 1]`` columns, rowified
+packs, head-pair and lane-packed states, split-half nibbles, phase tiles)
+are not carried over: the port keeps the serving state layout (heads
+``[..., L, H, S_i, S_j]``) and packs each layer's six matrices, their row
+scales and its vectors into three flat buffers (``device_pack``). Under
+w4a8 the four big matrices (rkv, out, fk, fv) hold int4 codes, two a byte
+(``pack_int4``); the LoRA matrices and the head stay int8, as in JAX.
 
 ``v7_decode_step`` runs the hand-written cooperative CUDA kernel
-``csrc/v7_decode.cu`` on CUDA tensors (counting launches in
-``v7_decode_step.launches``) and ``v7_decode_step_ref`` -- the plain
-PyTorch version -- on CPU tensors. Each matvec quantizes its input vector
-as a whole (amax over all of it), as the TPU kernel does.
+``csrc/v7_decode.cu`` (K3) and ``v7_decode_batched`` runs
+``csrc/v7_decode_batched.cu`` (K4) on CUDA tensors, counting launches in
+their ``.launches``; on CPU tensors they take the plain PyTorch versions
+``v7_decode_step_ref`` / ``v7_decode_batched_ref``, which share one layer
+loop. Each matvec quantizes its input vector as a whole (amax over all of
+it), per sequence, as the TPU kernels do.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -26,13 +34,15 @@ from rwkv_tpu_torch.ops import _cuda
 from rwkv_tpu_torch.ops.kernels import int_dot_plain, quantize_act_plain, quantize_rows_np
 from rwkv_tpu_torch.ops.parity import layer_norm
 
-# per-layer vector rows of the flat pack; the kernel's VecRow enum matches
+# per-layer vector rows of the flat pack; the kernels' VecRow enum matches
 VEC_KEYS = (
     "ln1.weight", "ln1.bias", "ln2.weight", "ln2.bias",
     "att.w0", "att.a0", "att.v0", "att.k_k", "att.k_a",
     "att.ln_x.weight", "att.ln_x.bias", "ffn.x_k",
 )
 MAT_KEYS = ("rkv", "lora1", "lora2", "out", "fk", "fv")
+# the matrices that hold int4 codes under w4a8 (JAX: every mat but the loras)
+W4_MATS = ("rkv", "out", "fk", "fv")
 _V7_RKV = ("att.receptance.weight", "att.key.weight", "att.value.weight")
 _V7_L1 = ("att.w1", "att.a1", "att.g1", "att.v1")
 _V7_L2 = ("att.w2", "att.a2", "att.g2", "att.v2")
@@ -44,24 +54,52 @@ def _np(t) -> np.ndarray:
     return np.asarray(t, np.float32)
 
 
-def _quantize_rows(w):
-    """[L, N, K] f32 -> (int8 codes [L, N, K], row scales [L, N]), scale
-    amax/127 (the int4 form of the JAX package is not ported yet)."""
-    q, d = quantize_rows_np(_np(w))
+def _quantize_rows(w, four: bool = False):
+    """[L, N, K] f32 -> (int8 codes [L, N, K], row scales [L, N]): scale
+    amax/127, or four=True int4 codes in [-7, 7] with scale amax/7 (stored
+    one a byte here; ``device_pack`` packs them two a byte)."""
+    q, d = quantize_rows_np(_np(w), 7.0 if four else 127.0)
     return torch.from_numpy(q), torch.from_numpy(d)
 
 
-def build_mega_pack(params: dict, cfg) -> dict:
-    """The decode kernel's w8a8 parameter pack with the LM head (the JAX
-    package's ``build_mega_pack(quant=True, head=True)``), built on the host
-    from the port's parameter tree (dense ``[out, in]`` weights).
+def pack_int4(codes) -> torch.Tensor:
+    """int4 codes [..., K] (int8 values in [-8, 7], K a multiple of 32) ->
+    bytes [..., K/2] in the kernels' layout: byte j of 16-byte chunk c
+    holds code 32c + j in its low nibble and code 32c + 16 + j in its high
+    nibble, two's complement (see ``csrc/common.cuh``)."""
+    a = np.asarray(codes.numpy() if isinstance(codes, torch.Tensor) else codes, np.int8)
+    *lead, k = a.shape
+    if k % 32:
+        raise ValueError(f"int4 rows need K % 32 == 0, got K={k}")
+    a = a.astype(np.int32).reshape(*lead, k // 32, 2, 16)
+    b = (a[..., 0, :] & 0xF) | ((a[..., 1, :] & 0xF) << 4)
+    return torch.from_numpy(b.astype(np.uint8).view(np.int8).reshape(*lead, k // 2).copy())
 
-    Matrices are int8 ``[L, N, K]`` with row scales ``[L, N]``, fused in the
-    TPU kernel's row order (rkv = r, k, v; lora1 / lora2 = w, a, g, v);
-    vectors ``[L, C]``; ``coeff`` ``[L, 6, C]`` (r, w, k, v, a, g);
-    ``r_k`` ``[L, C]``; ``head8`` ``[V, C]`` with ``head_d`` ``[V]``."""
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``pack_int4`` (any device): bytes [..., K/2] -> int8
+    codes [..., K]."""
+    v = packed.to(torch.int32)
+    lo = ((v & 15) ^ 8) - 8
+    hi = v >> 4  # arithmetic shift of the sign-extended byte
+    *lead, kh = packed.shape
+    lo = lo.reshape(*lead, kh // 16, 16)
+    hi = hi.reshape(*lead, kh // 16, 16)
+    return torch.cat([lo, hi], dim=-1).reshape(*lead, 2 * kh).to(torch.int8)
+
+
+def build_mega_pack(params: dict, cfg, w4: bool = False) -> dict:
+    """The decode kernels' parameter pack with the LM head (the JAX
+    package's ``build_mega_pack(quant=True, w4=w4, head=True)``), built on
+    the host from the port's parameter tree (dense ``[out, in]`` weights).
+
+    Matrices are codes ``[L, N, K]`` (int8; int4 values for ``W4_MATS``
+    when w4) with row scales ``[L, N]``, fused in the TPU kernel's row
+    order (rkv = r, k, v; lora1 / lora2 = w, a, g, v); vectors ``[L, C]``;
+    ``coeff`` ``[L, 6, C]`` (r, w, k, v, a, g); ``r_k`` ``[L, C]``;
+    ``head8`` ``[V, C]`` (int8 in both formats) with ``head_d`` ``[V]``."""
     if cfg.version_major != 7:
-        raise NotImplementedError("the decode kernel is RWKV v7 only")
+        raise NotImplementedError("the decode kernels are RWKV v7 only")
     c = cfg.n_embed
     blocks = [dict(b) for b in params["blocks"]]
     n_layer = len(blocks)
@@ -78,6 +116,7 @@ def build_mega_pack(params: dict, cfg) -> dict:
 
     pack = {
         "quant": True,
+        "w4": bool(w4),
         "d_lora": _np(blocks[-1]["att.w1"]).shape[0],
         "f_dim": _np(blocks[0]["ffn.key.weight"]).shape[0],
     }
@@ -90,7 +129,7 @@ def build_mega_pack(params: dict, cfg) -> dict:
         "fv": stack("ffn.value.weight"),
     }
     for name, w in mats.items():
-        pack[name], pack[name + "_d"] = _quantize_rows(w)
+        pack[name], pack[name + "_d"] = _quantize_rows(w, w4 and name in W4_MATS)
     for key in VEC_KEYS:
         pack[key] = torch.from_numpy(stack(key).reshape(n_layer, c))
     pack["coeff"] = torch.from_numpy(stack("att.x_rwkvag").reshape(n_layer, 6, c))
@@ -103,17 +142,20 @@ def build_mega_pack(params: dict, cfg) -> dict:
 
 
 def device_pack(pack: dict, emb: torch.Tensor, ln0, device) -> dict:
-    """`pack` on `device` in the kernel's flat layout: ``mats`` int8
-    ``[L, per-layer bytes]`` (rkv|lora1|lora2|out|fk|fv), ``scales`` f32
-    ``[L, 9C + 4d + F]`` in the same order, ``vecs`` f32 ``[L, 19, C]``
-    (VEC_KEYS, the six coeff rows, r_k). The named tensors of `pack` become
-    views into these buffers, so ``v7_decode_step_ref`` reads the same
-    memory. `emb` (the serving embedding, bf16 under w8a8) and `ln0` ride
-    along: the kernel embeds the token itself."""
+    """`pack` on `device` in the kernels' flat layout: ``mats`` int8
+    ``[L, per-layer bytes]`` (rkv|lora1|lora2|out|fk|fv, the int4 ones
+    packed by ``pack_int4``), ``scales`` f32 ``[L, 9C + 4d + F]`` in the
+    same order, ``vecs`` f32 ``[L, 19, C]`` (VEC_KEYS, the six coeff rows,
+    r_k). The named tensors of `pack` become views into these buffers (the
+    int4 ones as packed bytes ``[L, N, K/2]``), so the plain versions read
+    the same memory. `emb` (the serving embedding, bf16 under w8a8) and
+    `ln0` ride along: the kernels embed the tokens themselves."""
     n_layer = pack["rkv"].shape[0]
     dev = torch.device(device)
-    out = {k: pack[k] for k in ("quant", "d_lora", "f_dim")}
-    mats = torch.cat([pack[k].reshape(n_layer, -1) for k in MAT_KEYS], dim=1).to(dev)
+    w4 = pack["w4"]
+    out = {k: pack[k] for k in ("quant", "w4", "d_lora", "f_dim")}
+    stored = {k: pack_int4(pack[k]) if w4 and k in W4_MATS else pack[k] for k in MAT_KEYS}
+    mats = torch.cat([stored[k].reshape(n_layer, -1) for k in MAT_KEYS], dim=1).to(dev)
     scales = torch.cat([pack[k + "_d"] for k in MAT_KEYS], dim=1).to(dev)
     vecs = torch.cat(
         [torch.stack([pack[k] for k in VEC_KEYS], dim=1), pack["coeff"], pack["r_k"][:, None]],
@@ -122,10 +164,10 @@ def device_pack(pack: dict, emb: torch.Tensor, ln0, device) -> dict:
     out.update(mats=mats, scales=scales, vecs=vecs)
     mo = so = 0
     for k in MAT_KEYS:
-        n, kk = pack[k].shape[1:]
-        out[k] = mats[:, mo : mo + n * kk].unflatten(1, (n, kk))
+        n, kb = stored[k].shape[1:]
+        out[k] = mats[:, mo : mo + n * kb].unflatten(1, (n, kb))
         out[k + "_d"] = scales[:, so : so + n]
-        mo += n * kk
+        mo += n * kb
         so += n
     for i, k in enumerate(VEC_KEYS):
         out[k] = vecs[:, i]
@@ -140,33 +182,42 @@ def device_pack(pack: dict, emb: torch.Tensor, ln0, device) -> dict:
     return out
 
 
+def _codes(pack: dict, name: str, layer: int) -> torch.Tensor:
+    """Layer `layer` of matrix `name` as int8 codes [N, K]."""
+    q = pack[name][layer]
+    return unpack_int4(q) if pack["w4"] and name in W4_MATS else q
+
+
 def _matvec(q, d, x):
-    """w8a8 matvec with the whole vector x quantized once."""
-    x8, dx = quantize_act_plain(x[None])
-    return (int_dot_plain(x8, q) * dx * d)[0]
+    """Quantized matvec of x [B, K] (each row quantized as a whole)."""
+    x8, dx = quantize_act_plain(x)
+    return int_dot_plain(x8, q) * dx * d
 
 
-def v7_decode_step_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
-    """Plain PyTorch K3 (any device). `pack` from ``device_pack``; `state`
-    arrays ``att_xx`` / ``ffn_xx`` ``[L, C]`` and ``heads`` ``[L, H, S, S]``;
-    `token` an int tensor of one element. Returns (logits [V], new state)."""
+def v7_decode_batched_ref(pack: dict, state: dict, tokens: torch.Tensor, cfg):
+    """Plain PyTorch K4 (any device): one decode step of all layers for B
+    sequences, no head. `pack` from ``device_pack``; `state` in the serving
+    layout (``att_xx`` / ``ffn_xx`` ``[B, L, C]``, ``heads``
+    ``[B, L, H, S, S]``); `tokens` [B]. Returns (x [B, C] before ln_out,
+    new state). K3's plain version runs the same loop at B=1."""
     h, s = cfg.head_count, cfg.head_size
     c = cfg.n_embed
     d_l = pack["d_lora"]
-    row = pack["emb"][token.reshape(-1)[:1].to(pack["emb"].device, torch.long)][0]
-    x = layer_norm(row.float(), pack["ln0"][0], pack["ln0"][1])
+    rows = pack["emb"][tokens.reshape(-1).to(pack["emb"].device, torch.long)]
+    x = layer_norm(rows.float(), pack["ln0"][0], pack["ln0"][1])
+    b = x.shape[0]
     att_out, ffn_out, heads_out = [], [], []
     v_first = None
     for l in range(cfg.n_layer):
         def vec(key):
             return pack[key][l]
 
-        rkv, rkv_d = pack["rkv"][l], pack["rkv_d"][l]
+        rkv, rkv_d = _codes(pack, "rkv", l), pack["rkv_d"][l]
         l1, l1_d = pack["lora1"][l], pack["lora1_d"][l]
         l2, l2_d = pack["lora2"][l], pack["lora2_d"][l]
 
         xl = layer_norm(x, vec("ln1.weight"), vec("ln1.bias"))
-        sx = state["att_xx"][l] - xl
+        sx = state["att_xx"][:, l] - xl
         att_out.append(xl)
         cf = pack["coeff"][l]
         xr, xw, xk, xv, xa, xg = (xl + sx * cf[i] for i in range(6))
@@ -185,7 +236,7 @@ def v7_decode_step_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
 
         w_dec = torch.exp(torch.sigmoid(w_l + vec("att.w0")) * -0.606531)
         a_gate = torch.sigmoid(a_l + vec("att.a0"))
-        kk = (k * vec("att.k_k")).reshape(h, s)
+        kk = (k * vec("att.k_k")).reshape(b, h, s)
         kk = kk / torch.clamp(torch.sqrt((kk * kk).sum(-1, keepdim=True)), min=1e-12)
         ka = k * vec("att.k_a")
         k = k + (a_gate * ka - ka)
@@ -194,35 +245,45 @@ def v7_decode_step_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
         else:
             v = v + (v_first - v) * torch.sigmoid(vmix_l + vec("att.v0"))
 
-        r3, w3, k3, v3 = (t.reshape(h, s) for t in (r, w_dec, k, v))
-        a3, b3 = -kk, kk * a_gate.reshape(h, s)
-        st = state["heads"][l]
-        sa = torch.einsum("hij,hj->hi", st, a3)
-        st = st * w3[:, None, :] + v3[:, :, None] * k3[:, None, :] + sa[:, :, None] * b3[:, None, :]
-        y = torch.einsum("hij,hj->hi", st, r3)
+        r3, w3, k3, v3 = (t.reshape(b, h, s) for t in (r, w_dec, k, v))
+        a3, b3 = -kk, kk * a_gate.reshape(b, h, s)
+        st = state["heads"][:, l]
+        sa = torch.einsum("bhij,bhj->bhi", st, a3)
+        st = (st * w3[:, :, None, :] + v3[:, :, :, None] * k3[:, :, None, :]
+              + sa[:, :, :, None] * b3[:, :, None, :])
+        y = torch.einsum("bhij,bhj->bhi", st, r3)
         heads_out.append(st)
         mu = y.mean(-1, keepdim=True)
         yc = y - mu
         var = (yc * yc).mean(-1, keepdim=True)
-        yn = (yc * torch.rsqrt(var + 64e-5)).reshape(c)
+        yn = (yc * torch.rsqrt(var + 64e-5)).reshape(b, c)
         xo = yn * vec("att.ln_x.weight") + vec("att.ln_x.bias")
-        bonus = (v3 * (k3 * r3 * vec("r_k").reshape(h, s)).sum(-1, keepdim=True)).reshape(c)
+        bonus = (v3 * (k3 * r3 * vec("r_k").reshape(h, s)).sum(-1, keepdim=True)).reshape(b, c)
         xo = (xo + bonus) * g
-        x = x + _matvec(pack["out"][l], pack["out_d"][l], xo)
+        x = x + _matvec(_codes(pack, "out", l), pack["out_d"][l], xo)
 
         xl2 = layer_norm(x, vec("ln2.weight"), vec("ln2.bias"))
         ffn_out.append(xl2)
-        xk2 = xl2 + (state["ffn_xx"][l] - xl2) * vec("ffn.x_k")
-        fk = torch.square(torch.relu(_matvec(pack["fk"][l], pack["fk_d"][l], xk2)))
-        x = x + _matvec(pack["fv"][l], pack["fv_d"][l], fk)
-    xo = layer_norm(x, pack["ln_out"][0], pack["ln_out"][1])
-    logits = _matvec(pack["head8"], pack["head_d"], xo)
+        xk2 = xl2 + (state["ffn_xx"][:, l] - xl2) * vec("ffn.x_k")
+        fk = torch.square(torch.relu(_matvec(_codes(pack, "fk", l), pack["fk_d"][l], xk2)))
+        x = x + _matvec(_codes(pack, "fv", l), pack["fv_d"][l], fk)
     new_state = {
-        "att_xx": torch.stack(att_out),
-        "ffn_xx": torch.stack(ffn_out),
-        "heads": torch.stack(heads_out),
+        "att_xx": torch.stack(att_out, dim=1),
+        "ffn_xx": torch.stack(ffn_out, dim=1),
+        "heads": torch.stack(heads_out, dim=1),
     }
-    return logits, new_state
+    return x, new_state
+
+
+def v7_decode_step_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
+    """Plain PyTorch K3 (any device). `pack` from ``device_pack``; `state`
+    arrays ``att_xx`` / ``ffn_xx`` ``[L, C]`` and ``heads`` ``[L, H, S, S]``;
+    `token` an int tensor of one element. Returns (logits [V], new state)."""
+    one = {k: v[None] for k, v in state.items()}
+    x, new = v7_decode_batched_ref(pack, one, token.reshape(-1)[:1], cfg)
+    xo = layer_norm(x, pack["ln_out"][0], pack["ln_out"][1])
+    logits = _matvec(pack["head8"], pack["head_d"], xo)[0]
+    return logits, {k: v[0] for k, v in new.items()}
 
 
 def decode_scratch_floats(c: int, d_lora: int, f_dim: int) -> int:
@@ -231,8 +292,8 @@ def decode_scratch_floats(c: int, d_lora: int, f_dim: int) -> int:
 
 
 def _chunks_per_lane(k: int, max_lanes: int = 32) -> int:
-    """16-byte chunks each lane reads per weight row of width k in the
-    decode kernel (its matvec_rows: the largest power-of-two lane count up to
+    """16-byte chunks each lane reads per int8 weight row of width k in the
+    decode kernels' matvec_rows (the largest power-of-two lane count up to
     max_lanes that divides k / 16 shares a row)."""
     chunks = k // 16
     lanes = max_lanes
@@ -241,37 +302,80 @@ def _chunks_per_lane(k: int, max_lanes: int = 32) -> int:
     return chunks // lanes
 
 
-def _grid_blocks(cfg, d_lora: int, f_dim: int) -> int:
-    lib = _cuda.library("v7_decode")
-    fn = lib.rwkv_v7_decode_grid
-    fn.argtypes = [ctypes.c_int] * 4
+def _common_shape_error(cfg, d_lora: int, f_dim: int, w4: bool) -> Optional[str]:
+    s = cfg.head_size
+    if cfg.version_major != 7:
+        return "the decode kernels are RWKV v7 only"
+    if 256 % s or s * s // 256 > 16:
+        return f"the decode kernels support head sizes dividing 256 up to 64, got {s}"
+    for dim in (cfg.n_embed, d_lora, f_dim):
+        if dim % 16:
+            return f"the decode kernels need C, d_lora and F to be multiples of 16, got {dim}"
+    if w4 and (cfg.n_embed % 32 or f_dim % 32):
+        return "int4 rows need C and F to be multiples of 32"
+    return None
+
+
+def decode_shape_error(cfg, d_lora: int, f_dim: int, w4: bool = False) -> Optional[str]:
+    """Why K3 cannot take this model's shapes, or None. Besides the shared
+    rules, a lane of K3 holds its share of a row in registers: at most 8
+    16-byte chunks, with 8 lanes a head row (C <= 1024), one a d_lora row
+    and 32 an F row (F <= 4096). Wider models decode through K4."""
+    err = _common_shape_error(cfg, d_lora, f_dim, w4)
+    if err:
+        return err
+    for dim, lanes in ((cfg.n_embed, 8), (d_lora, 1), (f_dim, 32)):
+        if _chunks_per_lane(dim, lanes) > 8:
+            return (f"K3 reads a row of {dim} in at most 8 16-byte chunks per lane "
+                    f"with {lanes} lanes a row")
+    return None
+
+
+def batched_shape_error(cfg, d_lora: int, f_dim: int, w4: bool = False) -> Optional[str]:
+    """Why K4 cannot take this model's shapes, or None (its matvec walks a
+    row of any width; shared memory is checked at launch)."""
+    return _common_shape_error(cfg, d_lora, f_dim, w4)
+
+
+def _grid_blocks(lib_name: str, fn_name: str, *dims: int) -> int:
+    """Blocks a cooperative launch uses, from the C entry `fn_name`."""
+    fn = getattr(_cuda.library(lib_name), fn_name)
+    fn.argtypes = [ctypes.c_int] * len(dims)
     fn.restype = ctypes.c_int
-    n = fn(cfg.n_embed, cfg.head_size, d_lora, f_dim)
+    n = fn(*dims)
     if n < 0:
-        _cuda.check("v7_decode", "rwkv_v7_decode_grid", -n)
+        _cuda.check(lib_name, fn_name, -n)
     if n == 0:
-        raise RuntimeError("the decode kernel does not fit on an SM at this model's sizes")
+        raise RuntimeError(f"{lib_name} does not fit on an SM at this model's sizes")
     return n
 
 
+def _check_pack(pack: dict) -> None:
+    if pack["emb"].dtype != torch.bfloat16:
+        raise TypeError("the decode kernels embed from a bf16 table")
+
+
+# argument counts of the C entries rwkv_v7_decode / _w4 (pointers, ints)
+DECODE_ARGS = (17, 8)
+
+
+def _k3_entry(pack: dict) -> str:
+    return "rwkv_v7_decode_w4" if pack["w4"] else "rwkv_v7_decode"
+
+
 def decode_launch(fn, pack: dict, state: dict, token: torch.Tensor, cfg, scratch_extra: int = 0):
-    """Check the operands and launch the C entry `fn` (``rwkv_v7_decode``)
-    once; returns (logits, new state, scratch). `scratch_extra` floats are
-    appended to the kernel's scratch (the timing build writes there)."""
+    """Check the operands and launch the C entry `fn` (``rwkv_v7_decode``,
+    or ``rwkv_v7_decode_w4`` for a w4a8 pack) once; returns (logits, new
+    state, scratch). `scratch_extra` floats are appended to the kernel's
+    scratch (the timing build writes there)."""
     dev = pack["mats"].device
     c, h, s = cfg.n_embed, cfg.head_count, cfg.head_size
-    d_l, f = pack["d_lora"], pack["f_dim"]
+    d_l, f, w4 = pack["d_lora"], pack["f_dim"], pack["w4"]
     n_layer, vocab = cfg.n_layer, cfg.n_vocab
-    if 256 % s or s * s // 256 > 16:
-        raise ValueError(f"the decode kernel supports head sizes dividing 256 up to 64, got {s}")
-    # rows of width C (the head with at most 8 lanes), d_lora (one lane) and F
-    for dim, lanes in ((c, 8), (d_l, 1), (f, 32)):
-        if dim % 16 or _chunks_per_lane(dim, lanes) > 8:
-            raise ValueError(
-                f"the decode kernel needs C, d_lora and F to be multiples of 16 that a "
-                f"warp reads in at most 8 16-byte chunks per lane; got {dim}")
-    if pack["emb"].dtype != torch.bfloat16:
-        raise TypeError("the decode kernel embeds from a bf16 table")
+    err = decode_shape_error(cfg, d_l, f, w4)
+    if err:
+        raise ValueError(err)
+    _check_pack(pack)
     token = token.reshape(-1)[:1].to(device=dev, dtype=torch.int32)
     ins = {k: state[k].to(dev, torch.float32).contiguous() for k in ("att_xx", "ffn_xx", "heads")}
     if ins["heads"].shape != (n_layer, h, s, s):
@@ -284,7 +388,7 @@ def decode_launch(fn, pack: dict, state: dict, token: torch.Tensor, cfg, scratch
                     dtype=torch.float32, device=dev)
     grid = pack.get("_grid")
     if grid is None:
-        grid = pack["_grid"] = _grid_blocks(cfg, d_l, f)
+        grid = pack["_grid"] = _grid_blocks("v7_decode", _k3_entry(pack) + "_grid", c, s, d_l, f)
     code = fn(
         token.data_ptr(), pack["emb"].data_ptr(), pack["ln0"].data_ptr(),
         pack["mats"].data_ptr(), pack["scales"].data_ptr(), pack["vecs"].data_ptr(),
@@ -304,10 +408,78 @@ def v7_decode_step(pack: dict, state: dict, token: torch.Tensor, cfg):
     plain version. The input state is not modified."""
     if pack["mats"].device.type == "cpu":
         return v7_decode_step_ref(pack, state, token, cfg)
-    fn = _cuda.function("v7_decode", "rwkv_v7_decode", 17, 8)
+    fn = _cuda.function("v7_decode", _k3_entry(pack), *DECODE_ARGS)
     logits, outs, _ = decode_launch(fn, pack, state, token, cfg)
     v7_decode_step.launches += 1
     return logits, outs
 
 
 v7_decode_step.launches = 0
+
+
+def batched_scratch_floats(c: int, d_lora: int, f_dim: int, batch: int) -> int:
+    """Floats of K4's global scratch (see the source); x [B, C] comes
+    first."""
+    return (6 * c + 4 * d_lora + f_dim) * batch
+
+
+# argument counts of the C entry rwkv_v7_decode_batched (pointers, ints)
+BATCHED_ARGS = (13, 9)
+
+
+def batched_launch(fn, pack: dict, state: dict, tokens: torch.Tensor, cfg, grid: int,
+                   scratch_extra: int = 0):
+    """Check the operands and launch the C entry `fn`
+    (``rwkv_v7_decode_batched``) once on `grid` blocks; returns (x, new
+    state, scratch). `scratch_extra` floats are appended to the kernel's
+    scratch (the timing build writes there)."""
+    dev = pack["mats"].device
+    c, h, s = cfg.n_embed, cfg.head_count, cfg.head_size
+    d_l, f, w4 = pack["d_lora"], pack["f_dim"], pack["w4"]
+    n_layer = cfg.n_layer
+    err = batched_shape_error(cfg, d_l, f, w4)
+    if err:
+        raise ValueError(err)
+    _check_pack(pack)
+    tok = tokens.reshape(-1).to(device=dev, dtype=torch.int32).contiguous()
+    b = tok.shape[0]
+    ins = {k: state[k].to(dev, torch.float32).contiguous() for k in ("att_xx", "ffn_xx", "heads")}
+    for k, shape in (("att_xx", (b, n_layer, c)), ("ffn_xx", (b, n_layer, c)),
+                     ("heads", (b, n_layer, h, s, s))):
+        if ins[k].shape != shape:
+            raise ValueError(f"{k} state {tuple(ins[k].shape)} != {shape}")
+    outs = {k: torch.empty_like(v) for k, v in ins.items()}
+    alloc = torch.zeros if scratch_extra else torch.empty
+    scratch = alloc((batched_scratch_floats(c, d_l, f, b) + scratch_extra,),
+                    dtype=torch.float32, device=dev)
+    code = fn(
+        tok.data_ptr(), pack["emb"].data_ptr(), pack["ln0"].data_ptr(),
+        pack["mats"].data_ptr(), pack["scales"].data_ptr(), pack["vecs"].data_ptr(),
+        ins["att_xx"].data_ptr(), ins["ffn_xx"].data_ptr(), ins["heads"].data_ptr(),
+        outs["att_xx"].data_ptr(), outs["ffn_xx"].data_ptr(), outs["heads"].data_ptr(),
+        scratch.data_ptr(),
+        c, h, s, d_l, f, n_layer, b, int(w4), grid, _cuda.stream_ptr(dev),
+    )
+    _cuda.check("v7_decode_batched", "rwkv_v7_decode_batched", code)
+    return scratch[: b * c].view(b, c), outs, scratch
+
+
+def v7_decode_batched(pack: dict, state: dict, tokens: torch.Tensor, cfg):
+    """One decode step for B sequences, no head (see
+    ``v7_decode_batched_ref`` for the arguments). CUDA tensors launch
+    kernel K4 once; CPU tensors take the plain version. The input state is
+    not modified."""
+    if pack["mats"].device.type == "cpu":
+        return v7_decode_batched_ref(pack, state, tokens, cfg)
+    grid = pack.get("_grid_batched")
+    if grid is None:
+        grid = pack["_grid_batched"] = _grid_blocks(
+            "v7_decode_batched", "rwkv_v7_decode_batched_grid", cfg.n_embed, cfg.head_size,
+            pack["d_lora"], pack["f_dim"], int(pack["w4"]))
+    fn = _cuda.function("v7_decode_batched", "rwkv_v7_decode_batched", *BATCHED_ARGS)
+    x, outs, _ = batched_launch(fn, pack, state, tokens, cfg, grid)
+    v7_decode_batched.launches += 1
+    return x, outs
+
+
+v7_decode_batched.launches = 0

@@ -1,0 +1,220 @@
+"""The decode kernels' time on the card (K4 at several B, K3 at B=1),
+against an earlier version of their sources.
+
+    python3 -m rwkv_tpu_torch.tools.probe_batched [--baseline DIR] [--phases | --flips]
+
+Times one launch of ``rwkv_tpu_torch.ops.megakernel.v7_decode_batched``
+(K4; device time, launches queued behind a spin kernel so no host time is
+counted) for the 169M v7 shape (C=768, synth seed 0) at B = 1, 8 and 64
+under w8a8 and B = 8 under w4a8, from the states of a seeded batched
+prefill, and ``v7_decode_step`` (K3) at B=1 under both.
+
+With ``--baseline DIR`` it also builds ``DIR/v7_decode.cu`` and
+``DIR/v7_decode_batched.cu``, where present (an earlier version of a
+kernel, its headers beside it), prints the largest difference between the
+two versions' outputs and times both on the same inputs in the order
+baseline, current, current, baseline.
+
+With ``--phases`` it instead builds the kernels with
+``-DRWKV_V7_PHASE_TIMES`` (thread 0 of block 0 stamps ``%globaltimer``
+before and after every grid barrier) and prints the mean time of each of
+the five phases of a layer and of each barrier: K4 at B = 1, 8 and 64
+(w8a8), K3 at B=1 (w8a8, and the head phase), for the current sources and,
+with ``--baseline``, for the earlier ones.
+
+With ``--flips`` it instead holds K4 against its plain version on the
+169M packs cut to their first 1, 2 and 12 layers (a shallower config over
+the same buffers), w8a8 and w4a8, for 12 seeded batches of 64: per batch
+and depth, the sequences outside the element-wise 2e-2 band (int8 code
+flips), their worst error over the sequence's largest value and in
+absolute terms, and the sequences within 1e-4.
+
+Prints one line per measurement and the card (nvidia-smi name and power
+limit). Needs a CUDA device; builds the kernels on first use.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import sys
+from pathlib import Path
+
+PHASES = "ACDEF"
+
+
+def k3_entry(src_dir, w4: bool, flags: tuple = ()):
+    """K3's launch entry from ``src_dir/v7_decode.cu`` (None: csrc), or
+    None when that version has no entry for the format."""
+    from rwkv_tpu_torch.ops import _cuda
+    from rwkv_tpu_torch.ops.megakernel import DECODE_ARGS
+
+    src = (_cuda.CSRC if src_dir is None else Path(src_dir)) / "v7_decode.cu"
+    name = "rwkv_v7_decode_w4" if w4 else "rwkv_v7_decode"
+    if not hasattr(_cuda.library("v7_decode_probe", src, flags), name):
+        return None
+    return _cuda.function("v7_decode_probe", name, *DECODE_ARGS, src=src, flags=flags)
+
+
+def k4_entry(src_dir, flags: tuple = ()):
+    """(launch entry, grid entry) of K4 from ``src_dir/v7_decode_batched.cu``
+    (None: csrc)."""
+    from rwkv_tpu_torch.ops import _cuda
+    from rwkv_tpu_torch.ops.megakernel import BATCHED_ARGS
+
+    src = (_cuda.CSRC if src_dir is None else Path(src_dir)) / "v7_decode_batched.cu"
+    fn = _cuda.function("v7_decode_batched_probe", "rwkv_v7_decode_batched", *BATCHED_ARGS,
+                        src=src, flags=flags)
+    grid = _cuda.library("v7_decode_batched_probe", src, flags).rwkv_v7_decode_batched_grid
+    grid.argtypes = [ctypes.c_int] * 5
+    grid.restype = ctypes.c_int
+    return fn, grid
+
+
+def phase_times(launch, base: int, n_layer: int, reps: int = 5):
+    """From the timing build: (us of work and of the barrier after it for
+    each of the five phases of a layer, mean over layers and runs; us after
+    the last barrier). launch() returns the kernel's scratch, whose tail
+    from float `base` holds the stamps."""
+    import numpy as np
+    import torch
+
+    runs = []
+    for _ in range(reps + 1):  # the first run warms up
+        scratch = launch()
+        torch.cuda.synchronize()
+        marks = scratch[base:].cpu().numpy().view(np.uint64).astype(np.int64)
+        runs.append(np.diff(marks[: int(np.count_nonzero(marks))]) / 1e3)
+    d = np.mean(runs[1:], axis=0)
+    per_layer = d[: 10 * n_layer].reshape(n_layer, 5, 2).mean(axis=0)
+    return per_layer, float(d[10 * n_layer:].sum()), float(d.sum())
+
+
+def print_phases(label: str, times) -> None:
+    per_layer, tail, total = times
+    print(f"{label} per layer (timing build, block 0): " + ", ".join(
+        f"{name} {work:.2f} us + barrier {sync:.2f}"
+        for name, (work, sync) in zip(PHASES, per_layer))
+        + (f"; head {tail:.2f} us" if tail else "") + f"; total {total:.1f} us")
+
+
+def phase_split(models, cfg, states, tokens, src_dir, label: str) -> None:
+    """Per-phase device times of K4 (B = 1, 8, 64) and K3 (B=1), w8a8."""
+    from rwkv_tpu_torch.ops.megakernel import (
+        batched_launch, batched_scratch_floats, decode_launch, decode_scratch_floats,
+    )
+
+    flags = ("-DRWKV_V7_PHASE_TIMES",)
+    pack = models["w8a8"]._mega
+    c, d_l, f = cfg.n_embed, pack["d_lora"], pack["f_dim"]
+    extra = 2 * (2 + 2 * 5 * cfg.n_layer)
+    if src_dir is None or (Path(src_dir) / "v7_decode_batched.cu").exists():
+        fn, grid_fn = k4_entry(src_dir, flags)
+        grid = grid_fn(c, cfg.head_size, d_l, f, 0)
+        for b in (1, 8, 64):
+            st = {k: v[:b].contiguous() for k, v in states.items()}
+            times = phase_times(
+                lambda: batched_launch(fn, pack, st, tokens[:b], cfg, grid,
+                                       scratch_extra=extra)[2],
+                batched_scratch_floats(c, d_l, f, b), cfg.n_layer)
+            print_phases(f"{label} K4 w8a8 B={b}", times)
+    fn = k3_entry(src_dir, False, flags)
+    one = {k: v[0] for k, v in states.items()}
+    times = phase_times(
+        lambda: decode_launch(fn, pack, one, tokens[:1], cfg, scratch_extra=extra)[2],
+        decode_scratch_floats(c, d_l, f), cfg.n_layer)
+    print_phases(f"{label} K3 w8a8 B=1", times)
+
+
+def flips(models, cfg, n_seeds: int = 12) -> None:
+    """K4 against its plain version by depth over seeded batches of 64."""
+    from rwkv_tpu_torch.models.synth import synth_config
+    from rwkv_tpu_torch.ops.megakernel import v7_decode_batched, v7_decode_batched_ref
+    from rwkv_tpu_torch.tools.card import seeded_states, seq_errors
+
+    for seed in range(1, n_seeds + 1):
+        states, tokens = seeded_states(models["w8a8"], cfg, 64, 32, seed=seed)
+        for prec, model in models.items():
+            for depth in (1, 2, cfg.n_layer):
+                cd = synth_config("7.0", depth, cfg.n_embed, cfg.n_vocab, cfg.head_size)
+                st = {k: v[:, :depth].contiguous() for k, v in states.items()}
+                x, new = v7_decode_batched(model._mega, st, tokens, cd)
+                x_ref, new_ref = v7_decode_batched_ref(model._mega, st, tokens, cd)
+                keys = sorted(new)
+                err, rel, ok = seq_errors([x] + [new[k] for k in keys],
+                                          [x_ref] + [new_ref[k] for k in keys])
+                out = (~ok).nonzero().flatten().tolist()
+                per8 = int((~ok).reshape(8, 8).sum(dim=1).max())
+                print(f"K4 {prec} seed {seed} depth {depth}: {len(out)} of 64 outside 2e-2 "
+                      f"{out} (at most {per8} of 8), worst {float(rel.max()):.3e} of its scale, "
+                      f"{float(err.max()):.3e} abs; {int((err <= 1e-4).sum())} within 1e-4")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("probe_batched: no CUDA device", file=sys.stderr)
+        return 1
+    from rwkv_tpu_torch.models.serve import ServingModel
+    from rwkv_tpu_torch.models.synth import synth_config, synth_params
+    from rwkv_tpu_torch.ops import megakernel as TM
+    from rwkv_tpu_torch.tools.card import card_line, device_ms, seeded_states
+
+    print(card_line())
+    args = sys.argv[1:]
+    base_dir = Path(args[args.index("--baseline") + 1]) if "--baseline" in args else None
+    cfg = synth_config("7.0", 12, 768, 65536, 64)
+    params = synth_params(cfg, seed=0)
+    models = {p: ServingModel((cfg, params), precision=p, megakernel=True)
+              for p in ("w8a8", "w4a8")}
+    states, tokens = seeded_states(models["w8a8"], cfg, 64, 32, seed=1)
+    if "--flips" in args:
+        flips(models, cfg)
+        print(card_line())
+        return 0
+    if "--phases" in args:
+        phase_split(models, cfg, states, tokens, None, "current")
+        if base_dir is not None:
+            phase_split(models, cfg, states, tokens, base_dir, "baseline")
+        print(card_line())
+        return 0
+
+    def compare(label, cur, old):
+        """Times of cur() (and old(), in the order old, cur, cur, old);
+        both return a tensor to compare."""
+        if old is None:
+            print(f"{label}: {device_ms(cur):.4f} ms")
+            return
+        diff = float((old() - cur()).abs().max())
+        times = [device_ms(f) for f in (old, cur, cur, old)]
+        print(f"{label}: baseline {times[0]:.4f} / {times[3]:.4f} ms, current "
+              f"{times[1]:.4f} / {times[2]:.4f} ms (outputs differ by at most {diff:.3e})")
+
+    one = {k: v[0] for k, v in states.items()}
+    for prec, model in models.items():
+        pack = model._mega
+        fn = None
+        if base_dir is not None and (base_dir / "v7_decode.cu").exists():
+            fn = k3_entry(base_dir, pack["w4"])
+        cur = lambda: TM.v7_decode_step(pack, one, tokens[:1], cfg)[0]  # noqa: E731
+        old = None if fn is None else (
+            lambda: TM.decode_launch(fn, pack, one, tokens[:1], cfg)[0])  # noqa: E731
+        compare(f"K3 {prec} B=1", cur, old)
+    for prec, b in (("w8a8", 1), ("w8a8", 8), ("w8a8", 64), ("w4a8", 8)):
+        pack = models[prec]._mega
+        st = {k: v[:b].contiguous() for k, v in states.items()}
+        tok = tokens[:b].contiguous()
+        cur = lambda: TM.v7_decode_batched(pack, st, tok, cfg)[0]  # noqa: E731
+        old = None
+        if base_dir is not None and (base_dir / "v7_decode_batched.cu").exists():
+            fn, grid_fn = k4_entry(base_dir)
+            grid = grid_fn(cfg.n_embed, cfg.head_size, pack["d_lora"], pack["f_dim"],
+                           int(pack["w4"]))
+            old = lambda: TM.batched_launch(fn, pack, st, tok, cfg, grid)[0]  # noqa: E731
+        compare(f"K4 {prec} B={b}", cur, old)
+    print(card_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,5 @@
-"""Kernels K1-K3 of the PyTorch/CUDA port on the card, against their plain
-PyTorch versions. Every test here needs a CUDA device and nvcc and skips
+"""Kernels K1-K4 of the PyTorch/CUDA port on the card, against their plain
+PyTorch versions, and the batcher's decode loop on the card. Every test here needs a CUDA device and nvcc and skips
 without one. The file imports no JAX, so it runs on a GPU machine without
 it, from the repository root:
 
@@ -15,6 +15,7 @@ from rwkv_tpu_torch.models.synth import synth_config, synth_params
 from rwkv_tpu_torch.ops import chunked as TC
 from rwkv_tpu_torch.ops import kernels as TK
 from rwkv_tpu_torch.ops import megakernel as TM
+from rwkv_tpu_torch.parallel.batching import ContinuousBatcher
 
 pytestmark = pytest.mark.cuda
 
@@ -77,10 +78,16 @@ def test_wkv7_kernel_matches_scan(cuda_device, t, bh, s):
     torch.testing.assert_close(s_new, s_ref, rtol=1e-4, atol=1e-5)
 
 
-def test_decode_kernel_matches_ref(cuda_device):
+def _small_pack(dev, w4=False, seed=7):
     tc = synth_config(*SMALL)
-    tp = synth_params(tc, seed=7, lora_dim=32)
-    dp = TM.device_pack(TM.build_mega_pack(tp, tc), tp["emb"].to(torch.bfloat16), tp["ln0"], cuda_device)
+    tp = synth_params(tc, seed=seed, lora_dim=32)
+    pack = TM.build_mega_pack(tp, tc, w4=w4)
+    return tc, TM.device_pack(pack, tp["emb"].to(torch.bfloat16), tp["ln0"], dev)
+
+
+@pytest.mark.parametrize("w4", [False, True])
+def test_decode_kernel_matches_ref(cuda_device, w4):
+    tc, dp = _small_pack(cuda_device, w4)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     L, h, s, c = tc.n_layer, tc.head_count, tc.head_size, tc.n_embed
     state = {"att_xx": torch.randn((L, c), device=cuda_device, generator=gen),
@@ -95,6 +102,55 @@ def test_decode_kernel_matches_ref(cuda_device):
     assert int(logits.argmax()) == int(ref_logits.argmax())
     for k in new:
         torch.testing.assert_close(new[k], ref_new[k], rtol=2e-2, atol=2e-2)
+
+
+def _batched_state(tc, b, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    L, h, s, c = tc.n_layer, tc.head_count, tc.head_size, tc.n_embed
+    return {"att_xx": torch.randn((b, L, c), device=dev, generator=gen),
+            "ffn_xx": torch.randn((b, L, c), device=dev, generator=gen),
+            "heads": torch.randn((b, L, h, s, s), device=dev, generator=gen) * 0.1}
+
+
+@pytest.mark.parametrize("w4", [False, True])
+@pytest.mark.parametrize("batch", [1, 3, 8])
+def test_batched_decode_kernel_matches_ref(cuda_device, batch, w4):
+    tc, dp = _small_pack(cuda_device, w4)
+    state = _batched_state(tc, batch, cuda_device, batch)
+    toks = torch.randint(0, tc.n_vocab, (batch,), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device).manual_seed(1))
+    before = TM.v7_decode_batched.launches
+    x, new = TM.v7_decode_batched(dp, state, toks, tc)
+    assert TM.v7_decode_batched.launches == before + 1
+    x_ref, new_ref = TM.v7_decode_batched_ref(dp, state, toks, tc)
+    torch.testing.assert_close(x, x_ref, rtol=2e-2, atol=2e-2)
+    for k in new:
+        torch.testing.assert_close(new[k], new_ref[k], rtol=2e-2, atol=2e-2)
+
+
+def test_batched_decode_kernel_identical_lanes(cuda_device):
+    """Sequences fed identical inputs come out bit-identical."""
+    tc, dp = _small_pack(cuda_device)
+    one = _batched_state(tc, 1, cuda_device, 5)
+    state = {k: v.repeat(9, *([1] * (v.ndim - 1))) for k, v in one.items()}
+    x, new = TM.v7_decode_batched(dp, state, torch.full((9,), 17, device=cuda_device), tc)
+    for t in [x] + list(new.values()):
+        assert torch.equal(t, t[:1].expand_as(t))
+
+
+def test_card_batcher_device_loop_matches_host_loop(cuda_device):
+    tc = synth_config(*SMALL)
+    srv = ServingModel((tc, synth_params(tc, seed=11, lora_dim=32)), precision="w8a8",
+                       megakernel=True, device=cuda_device)
+    prompts = [[3, 77, 200, 5, 9], [9, 4], list(range(1, 40))]
+    kw = dict(max_new_tokens=7, temperature=0.0, presence_penalty=0.4, frequency_penalty=0.25)
+    out = []
+    for on_device in (True, False):
+        b = ContinuousBatcher(srv, max_batch=2, sync_every=3)
+        rids = [b.submit(p, **kw) for p in prompts]
+        res = b.run(on_device=on_device)
+        out.append([res[r].generated for r in rids])
+    assert out[0] == out[1]
 
 
 def test_card_serving_matches_cpu_and_goes_through_kernels(cuda_device):

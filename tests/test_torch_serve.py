@@ -1,7 +1,8 @@
 """The port's ServingModel against the JAX package: the f32 path against
-graph.forward, and the w8a8 megakernel route (prefill through K1/K2's plain
-versions, B=1 decode through K3's) against JAX's ServingModel, whose decode
-runs v7_decode_megakernel in interpret mode on the CPU."""
+graph.forward, and the w8a8 and w4a8 megakernel routes (prefill through
+K1/K2's plain versions, B=1 decode through K3's, B>1 through K4's and the
+head on K1's) against JAX's ServingModel, whose decode runs its whole-model
+kernels in interpret mode on the CPU."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -113,10 +114,11 @@ def test_w8a8_megakernel_route_matches_jax(models):
 
 
 def test_w8a8_batched_decode_matches_jax_per_op(models):
-    """B=2 decode takes the per-op path (K1's plain version)."""
+    """B=2 decode without the megakernel takes the per-op path (K1's plain
+    version)."""
     jc, tc, jp, tp = models
     jsrv = JServingModel((jc, jp), precision="w8a8")
-    srv = ServingModel((tc, tp), precision="w8a8", megakernel=True, device="cpu")
+    srv = ServingModel((tc, tp), precision="w8a8", megakernel=False, device="cpu")
     j_state, state = jsrv.init_state(2), srv.init_state(2)
     toks = np.array([[3, 9], [100, 4], [5, 5]])
     for row in toks:
@@ -138,7 +140,60 @@ def test_serving_model_rejects_unported_options(models):
     _, tc, _, tp = models
     with pytest.raises(NotImplementedError):
         ServingModel((tc, tp), precision="f32", megakernel=True, device="cpu")
-    with pytest.raises(ValueError):
-        ServingModel((tc, tp), precision="w4a8", device="cpu")
     with pytest.raises(NotImplementedError):
         ServingModel("model.bin", precision="w8a8", device="cpu")
+
+
+def _decode_steps(jsrv, srv, j_state, state, first, n_steps, tol):
+    """Greedy decode from tokens `first` [B] for n_steps on both engines,
+    holding logits and state to `tol`; returns the last logits."""
+    toks = np.asarray(first)
+    for step in range(n_steps):
+        j_lg, j_state = jsrv.decode(toks, j_state)
+        lg, state = srv.decode(toks, state)
+        _close(lg, j_lg, **tol)
+        for k in j_state:
+            _close(state[k], j_state[k], **tol)
+        toks = np.asarray(j_lg).argmax(-1)
+        assert lg.argmax(-1).tolist() == toks.tolist(), step
+    return lg
+
+
+def test_w4a8_megakernel_route_matches_jax(models):
+    """Prefill 20 tokens, then 4 decode steps at B=1 (K3's w4 path) and at
+    B=2 (K4's; JAX runs its phase-tiled kernel with lane-packed state)."""
+    jc, tc, jp, tp = models
+    jsrv = JServingModel((jc, jp), precision="w4a8", megakernel=True)
+    srv = ServingModel((tc, tp), precision="w4a8", megakernel=True, device="cpu")
+    assert srv._mega["w4"] and srv._mega_k3
+    tol = dict(rtol=2e-2, atol=2e-2)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, tc.n_vocab, 20), rng.integers(0, tc.n_vocab, 20)]
+    states, j_states, firsts = [], [], []
+    for prompt in prompts:
+        j_logits, j_state = jsrv.prefill(prompt)
+        logits, state = srv.prefill(prompt)
+        _close(logits, j_logits, **tol)
+        states.append(state)
+        j_states.append(j_state)
+        firsts.append(int(np.argmax(np.asarray(j_logits))))
+    _decode_steps(jsrv, srv, j_states[0], states[0], firsts[:1], 4, tol)
+    j_state2 = {k: jnp.concatenate([s[k] for s in j_states]) for k in j_states[0]}
+    state2 = {k: torch.cat([s[k] for s in states]) for k in states[0]}
+    lg = _decode_steps(jsrv, srv, j_state2, state2, firsts, 4, tol)
+    assert lg.shape == (2, tc.n_vocab)
+
+
+@pytest.mark.parametrize("batch", [2, 4])
+def test_w8a8_megakernel_batched_route_matches_jax(models, batch):
+    """B>1 under megakernel=True goes through K4 and the head on K1 at M=B;
+    JAX with mega_min_batch = 2 runs its lane-packed batched kernel."""
+    jc, tc, jp, tp = models
+    jsrv = JServingModel((jc, jp), precision="w8a8", megakernel=True)
+    jsrv.mega_min_batch = 2
+    srv = ServingModel((tc, tp), precision="w8a8", megakernel=True, device="cpu")
+    assert srv.mega_min_batch == 2
+    tol = dict(rtol=2e-2, atol=2e-2)
+    firsts = np.random.default_rng(batch).integers(0, tc.n_vocab, batch)
+    lg = _decode_steps(jsrv, srv, jsrv.init_state(batch), srv.init_state(batch), firsts, 3, tol)
+    assert lg.shape == (batch, tc.n_vocab)
