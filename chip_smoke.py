@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Prints the card (nvidia-smi name and power limit), builds the four
+1. Prints the card (nvidia-smi name and power limit), builds the six
    hand-written kernels from ``rwkv_tpu_torch/csrc`` (one nvcc each, all at
    once) and prints build times and ptxas registers.
 2. Holds each kernel against its plain PyTorch version on the card, at the
@@ -25,6 +25,15 @@
      and of 8, and eight lanes fed identical inputs agree bit for bit.
      Beside it, the w8a8 decode step at B = 8 and 64 through K4 and the
      head, and through the per-op path (the card's crossover).
+   - K5 ``wkv6_recurrence``: T=256, H=32, S=64 (the 1.6B v6 width);
+     rtol 1e-4 / atol 1e-5 against the token recurrence, also with extreme
+     decays, rtol 3e-4 / atol 3e-5 against the chunked form.
+   - K6 ``v6_decode_step``: the RWKV-6 w8a8 and w4a8 packs at the 1.6B
+     width (C=2048, F=8192, 24 layers, synth seed 0), from 8 states of a
+     seeded prefill: cut to their first 1 and 2 layers, x, state and
+     logits within 2e-2 of their scale; at full depth two launches agree
+     bit for bit, outputs are finite and within K6_FULL_DEPTH_REL of their
+     scale (twice the worst reading of ``probe_batched --v6 --flips``).
 3. Drives the main paths, each with the launch counters zeroed just before
    and read just after; every kernel of a path must have launched:
    - RWKV v7 169M (synth, seed 0) under w8a8 and under w4a8 with
@@ -35,15 +44,20 @@
      (seeded), greedy and sampled (temperature 1, top_p 0.8), two with
      penalties and two with stop tokens (K1, K2, K4); then a shorter one
      over the w4a8 model (8 requests);
+   - RWKV-6 at the 1.6B width (the K6 models above) under w8a8 and w4a8
+     with ``megakernel=True``: prefill of a 256-token prompt (one bucket:
+     11 projections a layer and the head on K1, the recurrence on K5),
+     then 64 greedy decode steps at B=1 (K6);
    and checks their outputs: finite logits and state, tokens in range,
    every request finished within its limits.
-4. Holds the card against the CPU on a small model (L=2, C=128): the
-   serving path's logits (prefill 20 tokens, 4 decode steps), and the
-   batcher's token streams on the card, its device loop against its host
-   loop (greedy with penalties).
+4. Holds the card against the CPU on small models: v7 (L=2, C=128) and v6
+   (L=2, C=256), the serving path's logits and state (prefill 20 tokens,
+   4 decode steps); and the batcher's token streams on the card, its
+   device loop against its host loop (greedy with penalties).
 5. Prints the ``{"kernels": [...]}`` JSON line (times per launch, in ms;
-   K1's are the mean over the w8a8 path's 169 launches per prefill, K4's
-   at B=8), the card line again, and last ``{"ok": true, "device": {...}}``.
+   K1's are the mean over the v7 w8a8 path's 169 launches per prefill,
+   K4's at B=8), the card line again, and last ``{"ok": true, "device":
+   {...}}``.
 
 Any failure raises and the script exits non-zero. Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no
@@ -213,11 +227,76 @@ def phase_k2(t: int, bh: int, s: int, dev):
             "bound_by": kind, "max_abs_err": err}
 
 
+def wkv6_operands(t: int, bh: int, s: int, dev, seed: int = 3, extreme: bool = False):
+    """v6 operands: the decay exp(-exp(N(0, 1))), or with extreme=True half
+    the channels at exp(-20) a token and the rest exp(-exp(3 N(0, 1))),
+    some of which underflow to 0."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, device=dev, generator=gen) * scale
+
+    r, k, v = rnd(t, bh, s, scale=0.3), rnd(t, bh, s, scale=0.3), rnd(t, bh, s, scale=0.3)
+    if extreme:
+        w = torch.where(torch.rand((t, bh, s), device=dev, generator=gen) < 0.5,
+                        torch.full((t, bh, s), float(np.exp(-20.0)), device=dev),
+                        torch.exp(-torch.exp(rnd(t, bh, s, scale=3.0))))
+    else:
+        w = torch.exp(-torch.exp(rnd(t, bh, s)))
+    return rnd(bh, s, s, scale=0.3), r, k, v, w, rnd(bh, s, scale=0.2)
+
+
+def phase_k5(t: int, bh: int, s: int, dev):
+    import torch
+
+    from rwkv_tpu_torch.ops.chunked import (
+        wkv6_chunked, wkv6_recurrence, wkv6_recurrence_plain,
+    )
+    from rwkv_tpu_torch.tools.card import device_ms
+
+    def chunked(s0, r, k, v, w, tf):
+        y, s_new = wkv6_chunked(s0[None], r[:, None], k[:, None], v[:, None], w[:, None], tf)
+        return y[:, 0], s_new[0]
+
+    err = 0.0
+    for extreme in (False, True):
+        ops = wkv6_operands(t, bh, s, dev, extreme=extreme)
+        y, s_t = wkv6_recurrence(*ops)
+        y_scan, s_scan = wkv6_recurrence_plain(*ops)
+        checks = [(y, y_scan, 1e-4, 1e-5, "y vs scan"), (s_t, s_scan, 1e-4, 1e-5, "state vs scan")]
+        if not extreme:
+            y_chk, s_chk = chunked(*ops)
+            checks += [(y, y_chk, 3e-4, 3e-5, "y vs chunked"),
+                       (s_t, s_chk, 3e-4, 3e-5, "state vs chunked")]
+        torch.cuda.synchronize()
+        e = max(float((y - y_scan).abs().max()), float((s_t - s_scan).abs().max()))
+        print(f"K5 T={t} BH={bh} S={s}{' extreme decays' if extreme else ''}: max abs err "
+              f"{e:.3e} vs scan, finite {bool(torch.isfinite(y).all() and torch.isfinite(s_t).all())}")
+        for a, b, rtol, atol, what in checks:
+            if not torch.allclose(a, b, rtol=rtol, atol=atol):
+                raise AssertionError(f"K5 {what} outside rtol {rtol} / atol {atol}: "
+                                     f"max abs err {float((a - b).abs().max()):.3e}")
+        if not extreme:
+            err = e
+    ops = wkv6_operands(t, bh, s, dev)
+    kern = device_ms(lambda: wkv6_recurrence(*ops))
+    plain = device_ms(lambda: chunked(*ops), reps=5)
+    n_bytes = (5 * t * bh * s + bh * s + 2 * bh * s * s) * 4
+    b, kind = bound_ms(n_bytes, 5 * t * bh * s * s, F32_FLOPS_PER_S)
+    print(f"K5: kernel {kern:.4f} ms, plain (chunked) {plain:.4f} ms, bound {b:.5f} ms ({kind})")
+    return {"ms": kern, "plain_ms": plain, "library_ms": None, "bound_ms": b,
+            "bound_by": kind, "max_abs_err": err}
+
+
 def pack_bytes(pack: dict, cfg) -> int:
-    """Bytes one decode step must move: every weight, scale and vector once,
-    the embedding row, the state read and written, the logits written."""
+    """Bytes one decode step must move: every weight, scale and vector once
+    (v6's f32 maa2 too), the embedding row, the state read and written, the
+    logits written."""
     n = sum(pack[k].numel() * pack[k].element_size()
-            for k in ("mats", "scales", "vecs", "head8", "head_d", "ln_out", "ln0"))
+            for k in ("mats", "scales", "vecs", "head8", "head_d", "ln_out", "ln0", "maa2")
+            if k in pack)
     c, l = cfg.n_embed, cfg.n_layer
     state = (2 * l * c + l * cfg.head_count * cfg.head_size ** 2) * 4
     return n + c * 2 + 2 * state + cfg.n_vocab * 4
@@ -225,9 +304,10 @@ def pack_bytes(pack: dict, cfg) -> int:
 
 def layer_codes(pack: dict) -> int:
     """Weight codes of the layers (int4 codes count one each)."""
-    from rwkv_tpu_torch.ops.megakernel import MAT_KEYS, W4_MATS
+    from rwkv_tpu_torch.ops.megakernel import _layout
 
-    return sum(pack[k].numel() * (2 if pack["w4"] and k in W4_MATS else 1) for k in MAT_KEYS)
+    mat_keys, w4_mats = _layout(pack)[:2]
+    return sum(pack[k].numel() * (2 if pack["w4"] and k in w4_mats else 1) for k in mat_keys)
 
 
 def batched_bytes(pack: dict, cfg, b: int) -> int:
@@ -273,16 +353,21 @@ def phase_k3(model, state, token, cfg, name="K3"):
             "bound_by": kind, "max_abs_err": err}
 
 
-def small_model_check(dev):
-    """The card's serving path against the CPU's plain path on a small v7."""
+def small_model_check(dev, version: str = "7.0"):
+    """The card's serving path against the CPU's plain path on a small v7
+    (L=2, C=128) or v6 (L=2, C=256) model."""
     import numpy as np
     import torch
 
     from rwkv_tpu_torch.models.serve import ServingModel
     from rwkv_tpu_torch.models.synth import synth_config, synth_params
 
-    cfg = synth_config("7.0", 2, 128, 256, 32)
-    params = synth_params(cfg, seed=3, lora_dim=32)
+    if version == "7.0":
+        cfg = synth_config("7.0", 2, 128, 256, 32)
+        params = synth_params(cfg, seed=3, lora_dim=32)
+    else:
+        cfg = synth_config(version, 2, 256, 256, 64)
+        params = synth_params(cfg, seed=3)
     gpu = ServingModel((cfg, params), precision="w8a8", megakernel=True, device=dev)
     cpu = ServingModel((cfg, params), precision="w8a8", megakernel=True, device="cpu")
     toks = np.random.default_rng(4).integers(0, cfg.n_vocab, 20)
@@ -303,7 +388,8 @@ def small_model_check(dev):
                 raise AssertionError(f"small model step {step}: card vs CPU outside 2e-2")
         if int(lg.argmax()) != int(lc.argmax()):
             raise AssertionError(f"small model step {step}: argmax differs between card and CPU")
-    print(f"small model (L=2, C=128, V=256): card vs CPU max abs err {worst:.3e}, argmax equal")
+    print(f"small model (v{version}, L=2, C={cfg.n_embed}, V=256): card vs CPU max abs err "
+          f"{worst:.3e}, argmax equal")
 
 
 # K4 against its plain version. An int8 activation code at a .5 boundary
@@ -427,6 +513,69 @@ def crossover(model, states, tokens) -> dict:
     return out
 
 
+# K6 against its plain version. At the 1.6B width a random-weight v6 model
+# amplifies last-bit differences through exp(-exp(.)) and int8 code flips,
+# so K6 is held element-wise only on packs cut to their first 1 and 2
+# layers (K6_SHALLOW_REL of each tensor's scale); at full depth two launches
+# must agree bit for bit, and the drift from the plain version must stay
+# within K6_FULL_DEPTH_REL of the scale: about twice the worst reading
+# over 12 seeds of probe_batched --v6 --flips (8.61% w8a8, 7.03% w4a8; at
+# one and two layers at most 0.91%; PERF.md).
+K6_SHALLOW_REL = 2e-2
+K6_FULL_DEPTH_REL = {"w8a8": 0.17, "w4a8": 0.14}
+
+
+def phase_k6(models, cfg, n_states: int = 8):
+    """K6 (w8a8 and w4a8) at the 1.6B width from n_states seeded states:
+    the shallow and full-depth checks above, its time, the plain version's
+    and the bound. Returns {precision: result}."""
+    import torch
+
+    from rwkv_tpu_torch.ops.megakernel import v6_decode_step, v6_decode_step_ref
+    from rwkv_tpu_torch.tools.card import device_ms, k6_vs_plain, seeded_states
+
+    states, tokens = seeded_states(models["w8a8"], cfg, n_states, 16, seed=7)
+    seqs = [({k: v[i] for k, v in states.items()}, tokens[i : i + 1]) for i in range(n_states)]
+    out = {}
+    for prec, model in models.items():
+        pack = model._mega
+        worst = {1: 0.0, 2: 0.0, cfg.n_layer: 0.0}
+        for st, tok in seqs:
+            for depth in worst:
+                e = k6_vs_plain(pack, cfg, st, tok, depth)
+                worst[depth] = max(worst[depth], *e.values())
+                limit = K6_SHALLOW_REL if depth < cfg.n_layer else K6_FULL_DEPTH_REL[prec]
+                if max(e.values()) > limit:
+                    raise AssertionError(f"K6 {prec} depth {depth}: {e} of the scale, limit {limit}")
+        one, tok = seqs[0]
+        logits, new = v6_decode_step(pack, one, tok, cfg)
+        logits2, new2 = v6_decode_step(pack, one, tok, cfg)
+        logits_ref, new_ref = v6_decode_step_ref(pack, one, tok, cfg)
+        torch.cuda.synchronize()
+        if not torch.equal(logits, logits2) or any(not torch.equal(new[k], new2[k]) for k in new):
+            raise AssertionError(f"K6 {prec}: two launches on the same inputs differ")
+        if not bool(torch.isfinite(logits).all()) or any(
+                not bool(torch.isfinite(v).all()) for v in new.values()):
+            raise AssertionError(f"K6 {prec}: outputs are not finite")
+        err = max([float((logits - logits_ref).abs().max())]
+                  + [float((new[k] - new_ref[k]).abs().max()) for k in new])
+        print(f"K6 {prec}: {n_states} seeded states, worst distance from the plain version over "
+              f"the scale by depth {worst} (limits {K6_SHALLOW_REL} at 1 and 2 layers, "
+              f"{K6_FULL_DEPTH_REL[prec]} at {cfg.n_layer}); two launches bit-identical; "
+              f"full depth max abs err {err:.3e}, argmax {int(logits.argmax())} vs "
+              f"{int(logits_ref.argmax())}")
+        kern = device_ms(lambda: v6_decode_step(pack, one, tok, cfg), reps=20)
+        plain = device_ms(lambda: v6_decode_step_ref(pack, one, tok, cfg), reps=3, warmup=1)
+        nb = pack_bytes(pack, cfg)
+        n_weights = layer_codes(pack) + pack["head8"].numel()
+        b, kind = bound_ms(nb, 2 * n_weights, INT8_OPS_PER_S)
+        print(f"K6 {prec}: kernel {kern:.4f} ms, plain {plain:.4f} ms, bound {b:.5f} ms ({kind}, "
+              f"{nb / 1e6:.1f} MB), grid {pack['_grid_v6']} blocks")
+        out[prec] = {"ms": kern, "plain_ms": plain, "library_ms": None, "bound_ms": b,
+                     "bound_by": kind, "max_abs_err": err}
+    return out
+
+
 def phase_k4_wide():
     """K4 at B=1 on the 1.5B width (C=2048, F=8192, depth cut to 2), where
     ServingModel routes B=1 to K4 and the head (K3 refuses the width)."""
@@ -477,12 +626,12 @@ def run_main_path(model, prompt, n_decode: int):
 def counted(fn, needed):
     """Run fn() with every kernel's launch counter zeroed just before and
     read just after; raise unless each kernel in `needed` launched."""
-    from rwkv_tpu_torch.ops.chunked import wkv7_recurrence
+    from rwkv_tpu_torch.ops.chunked import wkv6_recurrence, wkv7_recurrence
     from rwkv_tpu_torch.ops.kernels import quant_matmul
-    from rwkv_tpu_torch.ops.megakernel import v7_decode_batched, v7_decode_step
+    from rwkv_tpu_torch.ops.megakernel import v6_decode_step, v7_decode_batched, v7_decode_step
 
     counters = {"K1": quant_matmul, "K2": wkv7_recurrence, "K3": v7_decode_step,
-                "K4": v7_decode_batched}
+                "K4": v7_decode_batched, "K5": wkv6_recurrence, "K6": v6_decode_step}
     for c in counters.values():
         c.launches = 0
     out = fn()
@@ -493,14 +642,16 @@ def counted(fn, needed):
     return out, launches
 
 
-def single_stream_path(name, model, prompt, cfg, card, n_runs: int):
-    """The B=1 main path: n_runs timing runs, then the counted run."""
+def single_stream_path(name, model, prompt, cfg, card, n_runs: int,
+                       needed=("K1", "K2", "K3")):
+    """The B=1 main path: n_runs timing runs, then the counted run, which
+    must launch every kernel in `needed`."""
     import torch
 
     n_decode = 64
     samples = [run_main_path(model, prompt, n_decode)[:2] for _ in range(n_runs)]
     (t_prefill, t_decode, toks, logits, state), launches = counted(
-        lambda: run_main_path(model, prompt, n_decode), ("K1", "K2", "K3"))
+        lambda: run_main_path(model, prompt, n_decode), needed)
     print(f"{name} main path launches: {launches}")
     samples.append((t_prefill, t_decode))
     toks = torch.cat(toks).cpu()
@@ -625,7 +776,7 @@ def main() -> int:
         print("chip_smoke: rwkv_tpu_torch/ not found beside this script", file=sys.stderr)
         return 1
     sys.path.insert(0, str(root))
-    from rwkv_tpu_torch.tools.card import card_line, seeded_states
+    from rwkv_tpu_torch.tools.card import card_line, seeded_states, v6_models
 
     t_start = time.perf_counter()
     card = card_line()
@@ -666,6 +817,7 @@ def main() -> int:
     res = {}
     res["K1"] = phase_k1(cfg, d_lora, f_dim, 256, dev)
     res["K2"] = phase_k2(256, cfg.head_count, cfg.head_size, dev)
+    res["K5"] = phase_k5(256, 32, 64, dev)
     res["K3"] = phase_k3(model, state, token, cfg)
     logits4, state4 = model4.prefill(prompt)
     res["K3w4"] = phase_k3(model4, state4, logits4.argmax().reshape(1), cfg, "K3 w4a8")
@@ -697,6 +849,24 @@ def main() -> int:
 
     small_model_check(dev)
     small_batcher_check(dev)
+    del model, model4, params
+    torch.cuda.empty_cache()
+
+    # -- RWKV-6 at the 1.6B width: K6, then the B=1 main path in both formats -
+    t0 = time.perf_counter()
+    cfg6, models6 = v6_models()
+    print(f"RWKV-6 1.6B-width models (w8a8, w4a8; {cfg6.n_layer} layers, C={cfg6.n_embed}) "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    k6 = phase_k6(models6, cfg6)
+    res["K6"], res["K6w4"] = k6["w8a8"], k6["w4a8"]
+    prompt6 = torch.randint(0, cfg6.n_vocab, (256,),
+                            generator=torch.Generator().manual_seed(0)).numpy()
+    for prec, m in models6.items():
+        launches[f"v6 {prec}"] = single_stream_path(f"v6 {prec}", m, prompt6, cfg6, card, 2,
+                                                    needed=("K1", "K5", "K6"))
+    del models6
+    torch.cuda.empty_cache()
+    small_model_check(dev, "6.0")
 
     # name, source, TPU kernel replaced, result key, path whose launches count
     meta = [
@@ -712,6 +882,12 @@ def main() -> int:
          "rwkv_tpu/ops/megakernel.py:1115", "K4", ("batcher w8a8", "K4")),
         ("v7_decode_batched_w4a8", "rwkv_tpu_torch/csrc/v7_decode_batched.cu",
          "rwkv_tpu/ops/megakernel.py:2211", "K4w4", ("batcher w4a8", "K4")),
+        ("wkv6_recurrence", "rwkv_tpu_torch/csrc/wkv6.cu",
+         "rwkv_tpu/ops/chunked.py:796", "K5", ("v6 w8a8", "K5")),
+        ("v6_decode_step_w8a8", "rwkv_tpu_torch/csrc/v6_decode.cu",
+         "rwkv_tpu/ops/megakernel.py:2841", "K6", ("v6 w8a8", "K6")),
+        ("v6_decode_step_w4a8", "rwkv_tpu_torch/csrc/v6_decode.cu",
+         "rwkv_tpu/ops/megakernel.py:3366", "K6w4", ("v6 w4a8", "K6")),
     ]
     kernels = []
     for name, source, replaces, key, (path, counter) in meta:

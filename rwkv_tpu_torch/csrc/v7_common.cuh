@@ -1,11 +1,11 @@
 // Pieces shared by the RWKV v7 decode kernels K3 (v7_decode.cu, B=1 with
 // the LM head) and K4 (v7_decode_batched.cu, B sequences, no head): the
-// flat pack's layout, IEEE-exact elementwise helpers, the block-wide
-// quantization of a phase's input vectors, and the per-(sequence, head)
-// step of the time mix (lora2 rows of the head, wkv7, group norm, gate).
+// flat pack's layout and the per-(sequence, head) step of the time mix
+// (lora2 rows of the head, wkv7, group norm, gate). What the v6 kernel
+// shares with them is in decode_common.cuh.
 #pragma once
 
-#include "common.cuh"
+#include "decode_common.cuh"
 
 // rows of the per-layer vector block [L, kNumVec, C]
 enum VecRow {
@@ -14,39 +14,6 @@ enum VecRow {
   kRK = kCoeff + 6,
   kNumVec
 };
-
-constexpr int kMaxJ = 16;  // S * S / threads <= 16 (S <= 64 at 256 threads)
-
-#ifdef RWKV_V7_PHASE_TIMES
-// Timing build (scripts/probe_torch_decode.py --phases and
-// rwkv_tpu_torch/tools/probe_batched.py --phases): thread 0 of block 0 stamps
-// %globaltimer at every phase boundary into marks[] (the scratch tail).
-#define PHASE_MARK()                                               \
-  do {                                                             \
-    if (blockIdx.x == 0 && threadIdx.x == 0) {                     \
-      unsigned long long t_;                                       \
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));       \
-      marks[n_marks] = t_;                                         \
-    }                                                              \
-    ++n_marks;                                                     \
-  } while (0)
-#else
-#define PHASE_MARK() \
-  do {               \
-  } while (0)
-#endif
-
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float sigmoidf(float x) { return 1.0f / add(1.0f, expf(-x)); }
-__device__ __forceinline__ float bf16_to_float(uint16_t b) {
-  return __uint_as_float(static_cast<unsigned>(b) << 16);
-}
-
-__device__ __forceinline__ float dequant(int acc, float dx, float d) {
-  return mul(mul(__int2float_rn(acc), dx), d);
-}
 
 // Byte offsets of a layer's six matrices in the flat pack's [L, bytes]
 // int8 buffer (rkv | lora1 | lora2 | out | fk | fv), and the layer's size.
@@ -70,51 +37,6 @@ struct MatOffsets {
 __device__ __forceinline__ int rkv_mix(int part) { return part == 0 ? 0 : part + 1; }
 __device__ __forceinline__ int lora1_mix(int part) {
   return part == 0 ? 1 : part == 3 ? 3 : part + 3;
-}
-
-// Block-wide max of N values at once (one pair of barriers for all N);
-// every thread gets the results. `red` holds N * 32 floats.
-template <int N>
-__device__ __forceinline__ void block_max_n(float (&v)[N], float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-#pragma unroll
-  for (int m = 0; m < N; ++m) v[m] = warp_max(v[m]);
-  if (lane == 0) {
-#pragma unroll
-    for (int m = 0; m < N; ++m) red[m * 32 + warp] = v[m];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int m = 0; m < N; ++m) v[m] = warp_max(lane < n_warps ? red[m * 32 + lane] : 0.f);
-  __syncthreads();
-}
-
-// Quantize N vectors of n values, f(m, c) giving value c of vector m, each
-// as a whole: codes into q8[m * q_stride + c] (shared), scales into dxs[m].
-// One pass for the N maxima, one block reduction, one pass for the codes.
-template <int N, typename Fn>
-__device__ void quantize_n(Fn f, int n, int8_t* q8, int q_stride, float* dxs, float* red) {
-  float amax[N];
-#pragma unroll
-  for (int m = 0; m < N; ++m) amax[m] = 0.f;
-  for (int c = threadIdx.x; c < n; c += blockDim.x) {
-#pragma unroll
-    for (int m = 0; m < N; ++m) amax[m] = fmaxf(amax[m], fabsf(f(m, c)));
-  }
-  block_max_n<N>(amax, red);
-  float inv[N];
-#pragma unroll
-  for (int m = 0; m < N; ++m) {
-    const float dx = amax[m] / 127.0f;
-    inv[m] = act_inv_scale(dx);
-    if (threadIdx.x == 0) dxs[m] = dx;
-  }
-  for (int c = threadIdx.x; c < n; c += blockDim.x) {
-#pragma unroll
-    for (int m = 0; m < N; ++m) q8[m * q_stride + c] = act_code(f(m, c), inv[m]);
-  }
-  __syncthreads();
 }
 
 // One sequence's vectors and state for the per-head step.

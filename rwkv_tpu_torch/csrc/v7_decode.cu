@@ -64,25 +64,6 @@ struct Args {
   int C, H, S, D, F, L, V;
 };
 
-// Block-wide layer norm of src[0..n) into dst (both shared), as
-// (x - mu) * rsqrt(var + eps) * w + b with population variance.
-__device__ void layer_norm_block(const float* src, float* dst, const float* w,
-                                 const float* b, int n, float eps, float* red) {
-  float s = 0.f;
-  for (int c = threadIdx.x; c < n; c += blockDim.x) s += src[c];
-  const float mu = block_sum(s, red) / static_cast<float>(n);
-  float v = 0.f;
-  for (int c = threadIdx.x; c < n; c += blockDim.x) {
-    const float d = sub(src[c], mu);
-    v += mul(d, d);
-  }
-  const float var = block_sum(v, red) / static_cast<float>(n);
-  const float rs = rsqrtf(add(var, eps));
-  for (int c = threadIdx.x; c < n; c += blockDim.x)
-    dst[c] = add(mul(mul(sub(src[c], mu), rs), w[c]), b[c]);
-  __syncthreads();
-}
-
 // Floats of the kernel's global scratch (the residual stream and the
 // vectors passed between phases); the Python wrapper allocates the same.
 __host__ __device__ inline size_t scratch_floats(int C, int D, int F) {
@@ -113,7 +94,7 @@ v7_decode_kernel(Args p) {
   float* xo_g = vf_g + C;          // attention output before `out`
   float* fk_g = xo_g + C;          // [F] relu^2 keys
 
-#ifdef RWKV_V7_PHASE_TIMES
+#ifdef RWKV_PHASE_TIMES
   unsigned long long* marks =
       reinterpret_cast<unsigned long long*>(p.scratch + scratch_floats(C, D, F));
   int n_marks = 0;
@@ -230,14 +211,8 @@ v7_decode_kernel(Args p) {
     barrier();
   }
 
-  // ---- head: ln_out, quantize, V rows (int8 under w4a8 too) ---------------
-  for (int c = tid; c < C; c += blockDim.x) xs[c] = x_g[c];
-  __syncthreads();
-  layer_norm_block(xs, xl, p.ln_out, p.ln_out + C, C, 1e-5f, red);
-  quantize_n<1>([&](int, int c) { return xl[c]; }, C, q8, 0, dxs, red);
-  // eight lanes per row: V rows take half the rounds of the default
-  matvec_grid<false, 1>(p.head, p.V, C, 1, [&](int, int) { return q8; },
-      [&](int row, int, int acc) { p.logits[row] = dequant(acc, dxs[0], p.head_d[row]); }, 8);
+  // ---- head: ln_out, quantize, V rows (decode_common.cuh) -----------------
+  lm_head(x_g, p.head, p.head_d, p.ln_out, p.logits, C, p.V, xs, xl, red, dxs, q8);
   PHASE_MARK();
 }
 

@@ -181,7 +181,7 @@ v7_decode_batched_kernel(Args p) {
   float* dn_g = xo_g + static_cast<size_t>(B) * C;  // [B][4D] lora downs
   float* fk_g = dn_g + static_cast<size_t>(B) * 4 * D;  // [B][F] relu^2 keys
 
-#ifdef RWKV_V7_PHASE_TIMES
+#ifdef RWKV_PHASE_TIMES
   unsigned long long* marks = reinterpret_cast<unsigned long long*>(
       p.scratch + static_cast<size_t>(B) * (6ull * C + 4ull * D + F));
   int n_marks = 0;

@@ -1,6 +1,6 @@
-"""Serving path for RWKV v7 on one GPU.
+"""Serving path for RWKV v6 and v7 on one GPU.
 
-Ports the v7 serving side of ``rwkv_tpu.models.serve``:
+Ports the v6 and v7 serving side of ``rwkv_tpu.models.serve``:
 
 - ``stack_layer_params`` prepares every layer's weights for a precision --
   dense f32 or bf16, or w8a8 (rowwise int8 weights, per-row int8
@@ -8,15 +8,18 @@ Ports the v7 serving side of ``rwkv_tpu.models.serve``:
   unfused, as they do under w8a8 in the JAX package. w4a8 runs these
   per-op paths as w8a8, as JAX does; only the decode kernels see int4.
 - ``run_blocks`` / ``forward_stacked`` run the layers as a Python loop over
-  ``models.graph.att_v7`` / ``ffn_v7``. For T > 1 the wkv7 recurrence goes
-  through ``ops.chunked.wkv7_auto`` (kernel K2 on the card).
+  ``models.graph.att_v7`` / ``ffn_v7`` (v7) or ``att_v6`` / ``ffn_v6``
+  (v6). For T > 1 the wkv recurrence goes through ``ops.chunked.wkv7_auto``
+  (kernel K2 on the card) or ``wkv6_auto`` (kernel K5).
 - ``ServingModel`` serves it: ``prefill`` splits a prompt into
   ``PREFILL_BUCKETS``, ``decode`` runs one step for a batch, ``generate``
   samples. With ``megakernel=True`` decode goes through the whole-model
-  kernels: B=1 through K3 (one launch with the LM head) when K3 takes the
-  model's shapes, else K4 and the head on K1; ``mega_min_batch`` <= B <=
-  ``MEGA_MAX_BATCH`` through K4, then ``ln_out`` and the head on K1 at M=B
-  (the JAX package's batched and tiled kernels followed by ``G.mm``).
+  kernels. v7: B=1 through K3 (one launch with the LM head) when K3 takes
+  the model's shapes, else K4 and the head on K1; ``mega_min_batch`` <= B
+  <= ``MEGA_MAX_BATCH`` through K4, then ``ln_out`` and the head on K1 at
+  M=B (the JAX package's batched and tiled kernels followed by ``G.mm``).
+  v6: B=1 through K6 (one launch with the LM head, both formats); every
+  B > 1 per-op, as in the JAX package, whose v6 kernels are B=1 only.
 
 State uses the serving layout: ``att_xx`` / ``ffn_xx`` ``[B, L, C]`` and
 ``heads`` ``[B, L, H, S_i, S_j]``.
@@ -55,11 +58,16 @@ def _prepare_weight(w: torch.Tensor, dtype, mode: str):
     return w.to(dtype)
 
 
+# the leaves the JAX package's synth builds as ``Weight`` (v7 and v6); under
+# w8a8 they become int8 rows on K1. v6's time_maa_w2 stays f32.
 _MATRIX_KEYS = frozenset(
     ["att.key.weight", "att.value.weight", "att.receptance.weight", "att.output.weight",
      "ffn.key.weight", "ffn.value.weight"]
     + [f"att.{n}{i}" for n in "wagv" for i in (1, 2)]
+    + ["att.gate.weight", "ffn.receptance.weight", "att.time_maa_w1",
+       "att.time_decay_w1", "att.time_decay_w2"]
 )
+_VERSIONS = (6, 7)
 
 
 def _stack(leaves):
@@ -81,10 +89,10 @@ def stack_layer_params(
     `device` (default: the card). Layer 0's missing v0/v1/v2 are
     zero-padded; its value residual is computed and selected away."""
     dev = resolve_device(device)
-    if cfg.version_major != 7:
-        raise NotImplementedError("the port serves RWKV v7 only")
+    if cfg.version_major not in _VERSIONS:
+        raise NotImplementedError("the port serves RWKV v6 and v7 only")
     blocks = [dict(b) for b in params["blocks"]]
-    if len(blocks) > 1:
+    if cfg.version_major == 7 and len(blocks) > 1:
         for key in ("att.v0", "att.v1", "att.v2"):
             if key not in blocks[0]:
                 blocks[0][key] = torch.zeros_like(blocks[1][key])
@@ -123,20 +131,26 @@ def run_blocks(
 ):
     """Run stacked ``[Lb, ...]`` blocks over `x` (post-ln0 activations,
     ``[T, ...C]``) as a loop over layers. `layer_offset` is the global index
-    of the first layer (the value residual selects v at global layer 0).
-    Returns (x, v_first, new_state)."""
+    of the first layer (v7's value residual selects v at global layer 0).
+    Returns (x, v_first, new_state); v6 passes v_first through."""
     n_local = state["att_xx"].shape[0]
     if v_first is None:
         v_first = torch.zeros_like(x)
     att, ffn, heads = [], [], []
     for i in range(n_local):
         layer = _layer(blocks, i)
-        dx, att_xx, h, v_first = G.att_v7(
-            layer, x, state["att_xx"][i], state["heads"][i], v_first, cfg,
-            is_first=(layer_offset + i == 0), wkv_fn=wkv_fn,
-        )
-        x = x + dx
-        dx, ffn_xx = G.ffn_v7(layer, x, state["ffn_xx"][i])
+        if cfg.version_major == 7:
+            dx, att_xx, h, v_first = G.att_v7(
+                layer, x, state["att_xx"][i], state["heads"][i], v_first, cfg,
+                is_first=(layer_offset + i == 0), wkv_fn=wkv_fn,
+            )
+            x = x + dx
+            dx, ffn_xx = G.ffn_v7(layer, x, state["ffn_xx"][i])
+        else:
+            dx, att_xx, h = G.att_v6(layer, x, state["att_xx"][i], state["heads"][i], cfg,
+                                     wkv_fn=wkv_fn)
+            x = x + dx
+            dx, ffn_xx = G.ffn_v6(layer, x, state["ffn_xx"][i])
         x = x + dx
         att.append(att_xx)
         ffn.append(ffn_xx)
@@ -162,9 +176,9 @@ def forward_stacked(
     x = layer_norm(emb.float(), *params["ln0"])
     wkv_fn = None
     if tokens.shape[0] > 1:
-        from rwkv_tpu_torch.ops.chunked import wkv7_auto
+        from rwkv_tpu_torch.ops.chunked import wkv6_auto, wkv7_auto
 
-        wkv_fn = wkv7_auto
+        wkv_fn = wkv7_auto if cfg.version_major == 7 else wkv6_auto
     x, _, new_state = run_blocks(params["blocks"], state, x, cfg, wkv_fn=wkv_fn)
     logits = None
     if compute_logits == "all":
@@ -179,7 +193,7 @@ def forward_stacked(
 
 
 class ServingModel:
-    """RWKV v7 serving engine on one device."""
+    """RWKV v6 / v7 serving engine on one device."""
 
     def __init__(
         self,
@@ -193,8 +207,8 @@ class ServingModel:
         precision: 'f32' | 'bf16' (dense) | 'w8a8' | 'w4a8' (int4 big
         matrices in the decode kernels; every per-op path runs w8a8).
         megakernel=True (w8a8 and w4a8) routes decode through kernels K3
-        and K4 (see ``decode``). device: default the CUDA card; raises when
-        there is none."""
+        and K4 (v7) or K6 (v6; see ``decode``). device: default the CUDA
+        card; raises when there is none."""
         if isinstance(source, str):
             raise NotImplementedError("loading ggmf files is not ported yet; pass (cfg, params)")
         cfg, params = source
@@ -213,7 +227,18 @@ class ServingModel:
         self.mega_min_batch = 2
         self._mega: Optional[dict] = None
         self._mega_k3 = False
-        if megakernel:
+        if megakernel and cfg.version_major == 6:
+            from rwkv_tpu_torch.ops.megakernel import (
+                build_mega_pack_v6, device_pack, v6_decode_shape_error,
+            )
+
+            w4 = precision == "w4a8"
+            pack = build_mega_pack_v6(params, cfg, w4=w4)
+            err = v6_decode_shape_error(cfg, pack["d_maa"], pack["d_dec"], pack["f_dim"], w4)
+            if err:
+                raise NotImplementedError(f"megakernel=True: {err}")
+            self._mega = device_pack(pack, self.params["emb"], self.params["ln0"], self.device)
+        elif megakernel:
             from rwkv_tpu_torch.ops.megakernel import (
                 batched_shape_error, build_mega_pack, decode_shape_error, device_pack,
             )
@@ -249,13 +274,21 @@ class ServingModel:
 
     def decode(self, tokens, state: dict):
         """One decode step for a batch: tokens [B] -> (logits [B, V], state).
-        With megakernel=True: B=1 runs kernel K3 when it takes the model's
-        shapes, else K4 and the head; mega_min_batch <= B <= MEGA_MAX_BATCH
-        runs K4, ln_out and the head on K1 at M=B (plain versions on the
-        CPU). Every other B, and megakernel=False, runs the per-op path."""
+        With megakernel=True, v7: B=1 runs kernel K3 when it takes the
+        model's shapes, else K4 and the head; mega_min_batch <= B <=
+        MEGA_MAX_BATCH runs K4, ln_out and the head on K1 at M=B. v6: B=1
+        runs kernel K6. (Plain versions on the CPU.) Every other B, and
+        megakernel=False, runs the per-op path."""
         tok = self._tokens(tokens).reshape(-1)
         b = tok.shape[0]
-        if self._mega is not None:
+        if self._mega is not None and self.config.version_major == 6:
+            if b == 1:
+                from rwkv_tpu_torch.ops.megakernel import v6_decode_step
+
+                one = {k: v[0] for k, v in state.items()}
+                logits, new = v6_decode_step(self._mega, one, tok, self.config)
+                return logits[None], {k: v[None] for k, v in new.items()}
+        elif self._mega is not None:
             if b == 1 and self._mega_k3:
                 from rwkv_tpu_torch.ops.megakernel import v7_decode_step
 

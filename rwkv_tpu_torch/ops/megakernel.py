@@ -1,5 +1,6 @@
-"""Whole-model v7 decode steps: B=1 with the LM head (kernel K3) and B
-sequences without it (kernel K4), w8a8 or w4a8.
+"""Whole-model decode steps: v7 at B=1 with the LM head (kernel K3) and
+for B sequences without it (kernel K4), and v6 at B=1 with the LM head
+(kernel K6), w8a8 or w4a8.
 
 Ports the quantized parts of ``rwkv_tpu.ops.megakernel``: ``_quantize_rows``
 (int8 and int4), ``build_mega_pack(quant=True, head=True, w4=...)``,
@@ -20,6 +21,16 @@ their ``.launches``; on CPU tensors they take the plain PyTorch versions
 ``v7_decode_step_ref`` / ``v7_decode_batched_ref``, which share one layer
 loop. Each matvec quantizes its input vector as a whole (amax over all of
 it), per sequence, as the TPU kernels do.
+
+The v6 part ports ``build_mega_pack_v6(quant=True, head=True, w4=...)``
+and, as one function, ``v6_decode_megakernel`` and
+``v6_decode_megakernel_tiled`` (the TPU splits them only by VMEM size):
+``v6_decode_step`` runs ``csrc/v6_decode.cu`` (K6) on CUDA tensors and
+``v6_decode_step_ref`` on CPU tensors. Its pack holds eight matrices
+(rkvg = r, k, v, g; maa1; dw1; dw2; out; fk; fv; fr), the five big ones
+int4 under w4a8, the LoRA ones int8 in both formats, and the maa2
+up-projections in float32 (int8, bf16 or TF32 there drift far from the
+per-op path).
 """
 
 from __future__ import annotations
@@ -46,6 +57,19 @@ W4_MATS = ("rkv", "out", "fk", "fv")
 _V7_RKV = ("att.receptance.weight", "att.key.weight", "att.value.weight")
 _V7_L1 = ("att.w1", "att.a1", "att.g1", "att.v1")
 _V7_L2 = ("att.w2", "att.a2", "att.g2", "att.v2")
+
+# v6: matrices in the JAX package's order, those that hold int4 codes under
+# w4a8, per-layer vector rows (the K6 VecRow6 enum matches: these, then
+# maa5 w, k, v, r, g, then tdecay and tf)
+V6_MAT_KEYS = ("rkvg", "maa1", "dw1", "dw2", "out", "fk", "fv", "fr")
+V6_W4_MATS = ("rkvg", "out", "fk", "fv", "fr")
+V6_VEC_KEYS = (
+    "ln1.weight", "ln1.bias", "ln2.weight", "ln2.bias",
+    "att.ln_x.weight", "att.ln_x.bias", "att.time_maa_x",
+    "ffn.time_maa_k", "ffn.time_maa_r",
+)
+_V6_RKVG = ("att.receptance.weight", "att.key.weight", "att.value.weight", "att.gate.weight")
+_V6_MAA5 = ("w", "k", "v", "r", "g")
 
 
 def _np(t) -> np.ndarray:
@@ -141,39 +165,55 @@ def build_mega_pack(params: dict, cfg, w4: bool = False) -> dict:
     return pack
 
 
+def _layout(pack: dict):
+    """(matrix keys, the int4 ones under w4, vector rows, blocks of rows
+    after them as (key, rows)) of a v7 or v6 pack's flat buffers."""
+    if pack.get("version") == 6:
+        return V6_MAT_KEYS, V6_W4_MATS, V6_VEC_KEYS, (("maa5", 5), ("tdecay", 1), ("tf", 1))
+    return MAT_KEYS, W4_MATS, VEC_KEYS, (("coeff", 6), ("r_k", 1))
+
+
 def device_pack(pack: dict, emb: torch.Tensor, ln0, device) -> dict:
     """`pack` on `device` in the kernels' flat layout: ``mats`` int8
-    ``[L, per-layer bytes]`` (rkv|lora1|lora2|out|fk|fv, the int4 ones
-    packed by ``pack_int4``), ``scales`` f32 ``[L, 9C + 4d + F]`` in the
-    same order, ``vecs`` f32 ``[L, 19, C]`` (VEC_KEYS, the six coeff rows,
-    r_k). The named tensors of `pack` become views into these buffers (the
-    int4 ones as packed bytes ``[L, N, K/2]``), so the plain versions read
-    the same memory. `emb` (the serving embedding, bf16 under w8a8) and
-    `ln0` ride along: the kernels embed the tokens themselves."""
-    n_layer = pack["rkv"].shape[0]
+    ``[L, per-layer bytes]`` (v7: rkv|lora1|lora2|out|fk|fv; v6:
+    ``V6_MAT_KEYS``; the int4 ones packed by ``pack_int4``), ``scales`` f32
+    ``[L, rows]`` in the same order (v7 9C + 4d + F rows), ``vecs`` f32
+    ``[L, n, C]`` (v7: VEC_KEYS, the six coeff rows, r_k -- 19; v6:
+    V6_VEC_KEYS, the five maa5 rows, tdecay, tf -- 16) and, for v6, ``maa2``
+    f32 ``[L, 5C, d_maa]``. The named tensors of `pack` become views into
+    these buffers (the int4 ones as packed bytes ``[L, N, K/2]``), so the
+    plain versions read the same memory. `emb` (the serving embedding, bf16
+    under w8a8) and `ln0` ride along: the kernels embed the tokens
+    themselves."""
+    mat_keys, w4_mats, vec_keys, blocks = _layout(pack)
+    n_layer = pack[mat_keys[0]].shape[0]
     dev = torch.device(device)
     w4 = pack["w4"]
-    out = {k: pack[k] for k in ("quant", "w4", "d_lora", "f_dim")}
-    stored = {k: pack_int4(pack[k]) if w4 and k in W4_MATS else pack[k] for k in MAT_KEYS}
-    mats = torch.cat([stored[k].reshape(n_layer, -1) for k in MAT_KEYS], dim=1).to(dev)
-    scales = torch.cat([pack[k + "_d"] for k in MAT_KEYS], dim=1).to(dev)
+    out = {k: v for k, v in pack.items() if isinstance(v, (bool, int))}
+    stored = {k: pack_int4(pack[k]) if w4 and k in w4_mats else pack[k] for k in mat_keys}
+    mats = torch.cat([stored[k].reshape(n_layer, -1) for k in mat_keys], dim=1).to(dev)
+    scales = torch.cat([pack[k + "_d"] for k in mat_keys], dim=1).to(dev)
     vecs = torch.cat(
-        [torch.stack([pack[k] for k in VEC_KEYS], dim=1), pack["coeff"], pack["r_k"][:, None]],
+        [torch.stack([pack[k] for k in vec_keys], dim=1)]
+        + [pack[k].reshape(n_layer, rows, -1) for k, rows in blocks],
         dim=1,
     ).to(dev).contiguous()
     out.update(mats=mats, scales=scales, vecs=vecs)
     mo = so = 0
-    for k in MAT_KEYS:
+    for k in mat_keys:
         n, kb = stored[k].shape[1:]
         out[k] = mats[:, mo : mo + n * kb].unflatten(1, (n, kb))
         out[k + "_d"] = scales[:, so : so + n]
         mo += n * kb
         so += n
-    for i, k in enumerate(VEC_KEYS):
+    for i, k in enumerate(vec_keys):
         out[k] = vecs[:, i]
-    n_vec = len(VEC_KEYS)
-    out["coeff"] = vecs[:, n_vec : n_vec + 6]
-    out["r_k"] = vecs[:, n_vec + 6]
+    row = len(vec_keys)
+    for k, rows in blocks:
+        out[k] = vecs[:, row : row + rows] if rows > 1 else vecs[:, row]
+        row += rows
+    if "maa2" in pack:
+        out["maa2"] = pack["maa2"].to(dev).contiguous()
     out["head8"] = pack["head8"].to(dev).contiguous()
     out["head_d"] = pack["head_d"].to(dev).contiguous()
     out["ln_out"] = torch.stack([pack["ln_out.weight"], pack["ln_out.bias"]]).to(dev)
@@ -185,7 +225,7 @@ def device_pack(pack: dict, emb: torch.Tensor, ln0, device) -> dict:
 def _codes(pack: dict, name: str, layer: int) -> torch.Tensor:
     """Layer `layer` of matrix `name` as int8 codes [N, K]."""
     q = pack[name][layer]
-    return unpack_int4(q) if pack["w4"] and name in W4_MATS else q
+    return unpack_int4(q) if pack["w4"] and name in _layout(pack)[1] else q
 
 
 def _matvec(q, d, x):
@@ -281,9 +321,14 @@ def v7_decode_step_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
     `token` an int tensor of one element. Returns (logits [V], new state)."""
     one = {k: v[None] for k, v in state.items()}
     x, new = v7_decode_batched_ref(pack, one, token.reshape(-1)[:1], cfg)
-    xo = layer_norm(x, pack["ln_out"][0], pack["ln_out"][1])
-    logits = _matvec(pack["head8"], pack["head_d"], xo)[0]
-    return logits, {k: v[0] for k, v in new.items()}
+    return lm_head_ref(pack, x[0]), {k: v[0] for k, v in new.items()}
+
+
+def lm_head_ref(pack: dict, x: torch.Tensor) -> torch.Tensor:
+    """The plain versions' head (the kernels' lm_head): ln_out of x [C],
+    quantized as a whole, then the int8 head rows -> logits [V]."""
+    xo = layer_norm(x[None], pack["ln_out"][0], pack["ln_out"][1])
+    return _matvec(pack["head8"], pack["head_d"], xo)[0]
 
 
 def decode_scratch_floats(c: int, d_lora: int, f_dim: int) -> int:
@@ -483,3 +528,229 @@ def v7_decode_batched(pack: dict, state: dict, tokens: torch.Tensor, cfg):
 
 
 v7_decode_batched.launches = 0
+
+
+# -- RWKV v6 (Finch): pack, plain version, kernel K6 ---------------------------
+
+
+def build_mega_pack_v6(params: dict, cfg, w4: bool = False) -> dict:
+    """K6's parameter pack with the LM head (the JAX package's
+    ``build_mega_pack_v6(quant=True, w4=w4, head=True)``), built on the host
+    from the port's parameter tree.
+
+    Matrices (``V6_MAT_KEYS``) are codes ``[L, N, K]`` (int4 values for
+    ``V6_W4_MATS`` when w4; maa1, dw1 and dw2 stay int8) with row scales
+    ``[L, N]``, fused in the TPU kernel's row order (rkvg = r, k, v, g);
+    ``maa2`` f32 ``[L, 5C, d_maa]`` (row s*C + c: split s's up-projection,
+    splits w, k, v, r, g); vectors ``[L, C]``; ``maa5`` ``[L, 5, C]`` (the
+    five token-shift coefficients, w, k, v, r, g); ``tdecay`` and ``tf``
+    (time_faaaa) ``[L, C]``; ``head8`` ``[V, C]`` int8 with ``head_d``."""
+    if cfg.version_major != 6:
+        raise NotImplementedError("build_mega_pack_v6 takes RWKV v6 models")
+    c = cfg.n_embed
+    blocks = params["blocks"]
+    n_layer = len(blocks)
+
+    def stack(keys_or_key):
+        if isinstance(keys_or_key, tuple):
+            return np.stack([np.concatenate([_np(b[k]) for k in keys_or_key]) for b in blocks])
+        return np.stack([_np(b[keys_or_key]) for b in blocks])
+
+    d_maa = _np(blocks[0]["att.time_maa_w1"]).shape[0] // 5
+    pack = {
+        "version": 6,
+        "quant": True,
+        "w4": bool(w4),
+        "d_maa": d_maa,
+        "d_dec": _np(blocks[0]["att.time_decay_w1"]).shape[0],
+        "f_dim": _np(blocks[0]["ffn.key.weight"]).shape[0],
+    }
+    mats = {
+        "rkvg": stack(_V6_RKVG),
+        "maa1": stack("att.time_maa_w1"),
+        "dw1": stack("att.time_decay_w1"),
+        "dw2": stack("att.time_decay_w2"),
+        "out": stack("att.output.weight"),
+        "fk": stack("ffn.key.weight"),
+        "fv": stack("ffn.value.weight"),
+        "fr": stack("ffn.receptance.weight"),
+    }
+    for name, w in mats.items():
+        pack[name], pack[name + "_d"] = _quantize_rows(w, w4 and name in V6_W4_MATS)
+    pack["maa2"] = torch.from_numpy(stack("att.time_maa_w2").reshape(n_layer, 5 * c, d_maa))
+    for key in V6_VEC_KEYS:
+        pack[key] = torch.from_numpy(stack(key).reshape(n_layer, c))
+    pack["maa5"] = torch.from_numpy(stack(tuple("att.time_maa_" + n for n in _V6_MAA5))
+                                    .reshape(n_layer, 5, c))
+    pack["tdecay"] = torch.from_numpy(stack("att.time_decay").reshape(n_layer, c))
+    pack["tf"] = torch.from_numpy(stack("att.time_faaaa").reshape(n_layer, c))
+    q, d = _quantize_rows(_np(params["head"])[None])
+    pack["head8"], pack["head_d"] = q[0], d[0]
+    pack["ln_out.weight"] = torch.from_numpy(_np(params["ln_out"][0]).copy())
+    pack["ln_out.bias"] = torch.from_numpy(_np(params["ln_out"][1]).copy())
+    return pack
+
+
+def v6_decode_layers_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
+    """Plain PyTorch K6 without the head (any device): one v6 decode step
+    of all layers at B=1. `pack` from ``device_pack``; `state` arrays
+    ``att_xx`` / ``ffn_xx`` ``[L, C]`` and ``heads`` ``[L, H, S, S]``;
+    `token` an int tensor of one element. Returns (x [C] before ln_out,
+    new state). Each matvec quantizes its input vector as a whole, as
+    ``_make_kernel_v6`` does; the maa2 up-projections are f32 products."""
+    h, s = cfg.head_count, cfg.head_size
+    c = cfg.n_embed
+    dm = pack["d_maa"]
+    rows = pack["emb"][token.reshape(-1)[:1].to(pack["emb"].device, torch.long)]
+    x = layer_norm(rows.float(), pack["ln0"][0], pack["ln0"][1])  # [1, C]
+    att_out, ffn_out, heads_out = [], [], []
+    for l in range(cfg.n_layer):
+        def vec(key):
+            return pack[key][l]
+
+        def mat(name, lo=None, hi=None):
+            return _codes(pack, name, l)[lo:hi], pack[name + "_d"][l][lo:hi]
+
+        xl = layer_norm(x, vec("ln1.weight"), vec("ln1.bias"))
+        sx = state["att_xx"][l] - xl
+        att_out.append(xl[0])
+        xxx = xl + sx * vec("att.time_maa_x")
+        mixdn = torch.tanh(_matvec(*mat("maa1"), xxx))  # [1, 5 dm]
+        m = torch.einsum("scd,sd->sc", pack["maa2"][l].reshape(5, c, dm), mixdn.reshape(5, dm))
+        cf = pack["maa5"][l]
+        xw, xk, xv, xr, xg = (xl + sx * (cf[i] + m[i]) for i in range(5))
+
+        r = _matvec(*mat("rkvg", 0, c), xr)
+        k = _matvec(*mat("rkvg", c, 2 * c), xk)
+        v = _matvec(*mat("rkvg", 2 * c, 3 * c), xv)
+        gg = _matvec(*mat("rkvg", 3 * c, 4 * c), xg)
+        g = gg * torch.sigmoid(gg)
+        w_dn = torch.tanh(_matvec(*mat("dw1"), xw))
+        w_dec = torch.exp(-torch.exp(_matvec(*mat("dw2"), w_dn) + vec("tdecay")))
+
+        r3, k3, v3, w3 = (t.reshape(h, s) for t in (r, k, v, w_dec))
+        st = state["heads"][l]
+        dot = (r3 * vec("tf").reshape(h, s) * k3).sum(-1, keepdim=True)
+        y = torch.einsum("hij,hj->hi", st, r3) + v3 * dot
+        heads_out.append(st * w3[:, None, :] + v3[:, :, None] * k3[:, None, :])
+        mu = y.mean(-1, keepdim=True)
+        yc = y - mu
+        var = (yc * yc).mean(-1, keepdim=True)
+        yn = (yc * torch.rsqrt(var + 64e-5)).reshape(1, c)
+        xo = (yn * vec("att.ln_x.weight") + vec("att.ln_x.bias")) * g
+        x = x + _matvec(*mat("out"), xo)
+
+        xl2 = layer_norm(x, vec("ln2.weight"), vec("ln2.bias"))
+        ffn_out.append(xl2[0])
+        sx2 = state["ffn_xx"][l] - xl2
+        xk2 = xl2 + sx2 * vec("ffn.time_maa_k")
+        xr2 = xl2 + sx2 * vec("ffn.time_maa_r")
+        rg = torch.sigmoid(_matvec(*mat("fr"), xr2))
+        hk = torch.square(torch.relu(_matvec(*mat("fk"), xk2)))
+        x = x + rg * _matvec(*mat("fv"), hk)
+    new_state = {
+        "att_xx": torch.stack(att_out),
+        "ffn_xx": torch.stack(ffn_out),
+        "heads": torch.stack(heads_out),
+    }
+    return x[0], new_state
+
+
+def v6_decode_step_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
+    """Plain PyTorch K6 (any device): ``v6_decode_layers_ref``, then ln_out
+    and the int8 head. Returns (logits [V], new state)."""
+    x, new = v6_decode_layers_ref(pack, state, token, cfg)
+    return lm_head_ref(pack, x), new
+
+
+def v6_scratch_floats(c: int, d_maa: int, d_dec: int, f_dim: int) -> int:
+    """Floats of K6's global scratch (``scratch_floats`` in the source)."""
+    return 12 * c + 5 * d_maa + d_dec + f_dim
+
+
+def v6_decode_shape_error(cfg, d_maa: int, d_dec: int, f_dim: int,
+                          w4: bool = False) -> Optional[str]:
+    """Why K6 cannot take this model's shapes, or None. K6 walks weight
+    rows of any width in 16-byte chunks; shared memory is checked at
+    launch."""
+    s = cfg.head_size
+    if cfg.version_major != 6:
+        return "K6 decodes RWKV v6 only"
+    if 256 % s or s * s // 256 > 16:
+        return f"K6 supports head sizes dividing 256 up to 64, got {s}"
+    for dim in (cfg.n_embed, d_dec, f_dim):
+        if dim % 16:
+            return f"K6 needs C, d_dec and F to be multiples of 16, got {dim}"
+    if d_maa % 4:
+        return f"K6 reads maa2 rows in float4 pieces: d_maa must be a multiple of 4, got {d_maa}"
+    if w4 and (cfg.n_embed % 32 or f_dim % 32):
+        return "int4 rows need C and F to be multiples of 32"
+    return None
+
+
+# argument counts of the C entries rwkv_v6_decode / _w4 (pointers, ints)
+V6_DECODE_ARGS = (18, 9)
+
+
+def _k6_entry(pack: dict) -> str:
+    return "rwkv_v6_decode_w4" if pack["w4"] else "rwkv_v6_decode"
+
+
+def v6_decode_launch(fn, pack: dict, state: dict, token: torch.Tensor, cfg,
+                     scratch_extra: int = 0):
+    """Check the operands and launch the C entry `fn` (``rwkv_v6_decode``,
+    or ``rwkv_v6_decode_w4`` for a w4a8 pack) once; returns (logits, new
+    state, scratch). `scratch_extra` floats are appended to the kernel's
+    scratch (the timing build writes there)."""
+    dev = pack["mats"].device
+    c, h, s = cfg.n_embed, cfg.head_count, cfg.head_size
+    dm, dd, f, w4 = pack["d_maa"], pack["d_dec"], pack["f_dim"], pack["w4"]
+    n_layer, vocab = cfg.n_layer, cfg.n_vocab
+    err = v6_decode_shape_error(cfg, dm, dd, f, w4)
+    if err:
+        raise ValueError(err)
+    if pack.get("version") != 6:
+        raise ValueError("K6 needs a v6 pack (build_mega_pack_v6)")
+    _check_pack(pack)
+    token = token.reshape(-1)[:1].to(device=dev, dtype=torch.int32)
+    ins = {k: state[k].to(dev, torch.float32).contiguous() for k in ("att_xx", "ffn_xx", "heads")}
+    for k, shape in (("att_xx", (n_layer, c)), ("ffn_xx", (n_layer, c)),
+                     ("heads", (n_layer, h, s, s))):
+        if ins[k].shape != shape:
+            raise ValueError(f"{k} state {tuple(ins[k].shape)} != {shape}")
+    outs = {k: torch.empty_like(v) for k, v in ins.items()}
+    logits = torch.empty((vocab,), dtype=torch.float32, device=dev)
+    alloc = torch.zeros if scratch_extra else torch.empty
+    scratch = alloc((v6_scratch_floats(c, dm, dd, f) + scratch_extra,),
+                    dtype=torch.float32, device=dev)
+    grid = pack.get("_grid_v6")
+    if grid is None:
+        grid = pack["_grid_v6"] = _grid_blocks("v6_decode", _k6_entry(pack) + "_grid",
+                                               c, s, dm, dd, f)
+    code = fn(
+        token.data_ptr(), pack["emb"].data_ptr(), pack["ln0"].data_ptr(),
+        pack["mats"].data_ptr(), pack["scales"].data_ptr(), pack["vecs"].data_ptr(),
+        pack["maa2"].data_ptr(), pack["head8"].data_ptr(), pack["head_d"].data_ptr(),
+        pack["ln_out"].data_ptr(),
+        ins["att_xx"].data_ptr(), ins["ffn_xx"].data_ptr(), ins["heads"].data_ptr(),
+        outs["att_xx"].data_ptr(), outs["ffn_xx"].data_ptr(), outs["heads"].data_ptr(),
+        logits.data_ptr(), scratch.data_ptr(),
+        c, h, s, dm, dd, f, n_layer, vocab, grid, _cuda.stream_ptr(dev),
+    )
+    _cuda.check("v6_decode", _k6_entry(pack), code)
+    return logits, outs, scratch
+
+
+def v6_decode_step(pack: dict, state: dict, token: torch.Tensor, cfg):
+    """One v6 decode step at B=1 with the head (see ``v6_decode_step_ref``
+    for the arguments). CUDA tensors launch kernel K6 once; CPU tensors
+    take the plain version. The input state is not modified."""
+    if pack["mats"].device.type == "cpu":
+        return v6_decode_step_ref(pack, state, token, cfg)
+    fn = _cuda.function("v6_decode", _k6_entry(pack), *V6_DECODE_ARGS)
+    logits, outs, _ = v6_decode_launch(fn, pack, state, token, cfg)
+    v6_decode_step.launches += 1
+    return logits, outs
+
+
+v6_decode_step.launches = 0

@@ -1,9 +1,11 @@
 """Helpers for measurements on the card: device time of queued launches,
-host-clock time, the card's name and power limit, seeded decode states and
-per-sequence errors against a plain version.
+host-clock time, the card's name and power limit, seeded decode states,
+per-sequence errors against a plain version, the RWKV-6 models at the 1.6B
+width and K6 against its plain version on a pack cut in depth.
 
 Used by ``chip_smoke.py`` and the probes in this package. ``device_ms``,
-``wall_ms`` and ``seeded_states`` need a CUDA device.
+``wall_ms``, ``seeded_states``, ``v6_models`` and ``k6_vs_plain`` need a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -107,3 +109,52 @@ def seq_errors(outs, refs):
         rel = torch.maximum(rel, d / r.abs().reshape(b, -1).amax(dim=1).clamp(min=1.0))
         ok &= torch.isclose(a, r, rtol=2e-2, atol=2e-2).reshape(b, -1).all(dim=1)
     return err, rel, ok
+
+
+# RWKV-6 World 1.6B's width (the JAX package's v6 scripts use the same
+# shape): version, layers, C, vocabulary, head size; synth's FFN is 4C.
+V6_WIDTH = ("6.0", 24, 2048, 65536, 64)
+
+
+def v6_models(seed: int = 0):
+    """(cfg, {"w8a8": model, "w4a8": model}): ServingModels with
+    ``megakernel=True`` of one seeded f32 synth tree at the 1.6B width,
+    built once for both formats."""
+    from rwkv_tpu_torch.models.serve import ServingModel
+    from rwkv_tpu_torch.models.synth import synth_config, synth_params
+
+    cfg = synth_config(*V6_WIDTH)
+    params = synth_params(cfg, seed=seed)
+    models = {p: ServingModel((cfg, params), precision=p, megakernel=True)
+              for p in ("w8a8", "w4a8")}
+    return cfg, models
+
+
+def rel_err(a, ref) -> float:
+    """max |a - ref| over max(1, max |ref|)."""
+    return float((a - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def k6_vs_plain(pack, cfg, state: dict, token, depth: int) -> dict:
+    """K6 on `pack` cut to its first `depth` layers (a shallower config
+    over the same buffers, the state's first layers) against its plain
+    version: rel_err of x (before ln_out), of the state (the worst of its
+    three arrays) and of the logits. Launches through the C entry, so the
+    launch counter does not move."""
+    import dataclasses
+
+    from rwkv_tpu_torch.ops import _cuda
+    from rwkv_tpu_torch.ops.megakernel import (
+        V6_DECODE_ARGS, _k6_entry, lm_head_ref, v6_decode_launch, v6_decode_layers_ref,
+    )
+
+    cd = dataclasses.replace(cfg, n_layer=depth)
+    st = {k: v[:depth].contiguous() for k, v in state.items()}
+    fn = _cuda.function("v6_decode", _k6_entry(pack), *V6_DECODE_ARGS)
+    logits, new, scratch = v6_decode_launch(fn, pack, st, token, cd)
+    x_ref, new_ref = v6_decode_layers_ref(pack, st, token, cd)
+    return {
+        "x": rel_err(scratch[: cfg.n_embed], x_ref),
+        "state": max(rel_err(new[k], new_ref[k]) for k in new_ref),
+        "logits": rel_err(logits, lm_head_ref(pack, x_ref)),
+    }

@@ -1,7 +1,8 @@
 """The decode kernels' time on the card (K4 at several B, K3 at B=1),
-against an earlier version of their sources.
+against an earlier version of their sources, and the v6 kernel K6.
 
     python3 -m rwkv_tpu_torch.tools.probe_batched [--baseline DIR] [--phases | --flips]
+    python3 -m rwkv_tpu_torch.tools.probe_batched --v6 [--baseline DIR] [--phases] [--flips]
 
 Times one launch of ``rwkv_tpu_torch.ops.megakernel.v7_decode_batched``
 (K4; device time, launches queued behind a spin kernel so no host time is
@@ -16,7 +17,7 @@ two versions' outputs and times both on the same inputs in the order
 baseline, current, current, baseline.
 
 With ``--phases`` it instead builds the kernels with
-``-DRWKV_V7_PHASE_TIMES`` (thread 0 of block 0 stamps ``%globaltimer``
+``-DRWKV_PHASE_TIMES`` (thread 0 of block 0 stamps ``%globaltimer``
 before and after every grid barrier) and prints the mean time of each of
 the five phases of a layer and of each barrier: K4 at B = 1, 8 and 64
 (w8a8), K3 at B=1 (w8a8, and the head phase), for the current sources and,
@@ -29,6 +30,17 @@ and depth, the sequences outside the element-wise 2e-2 band (int8 code
 flips), their worst error over the sequence's largest value and in
 absolute terms, and the sequences within 1e-4.
 
+With ``--v6`` it measures K6 (``v6_decode_step``) instead, on the RWKV-6
+models at the 1.6B width (C=2048, 24 layers, synth seed 0; w8a8 and
+w4a8): its time per launch from a seeded state (against an earlier
+``DIR/v6_decode.cu`` with ``--baseline``, as above), with ``--phases`` also the
+mean time of each of the seven phases of a layer (A, M, B, C, D, E, F)
+and of each barrier from the timing build, and with ``--flips`` also its
+distance from its plain version (x, state and logits, each over its
+largest value) on the packs cut to their first 1 and 2 layers and at full
+depth, for 12 seeded states: the readings that set ``chip_smoke.py``'s
+limits for K6.
+
 Prints one line per measurement and the card (nvidia-smi name and power
 limit). Needs a CUDA device; builds the kernels on first use.
 """
@@ -40,6 +52,7 @@ import sys
 from pathlib import Path
 
 PHASES = "ACDEF"
+V6_PHASES = "AMBCDEF"
 
 
 def k3_entry(src_dir, w4: bool, flags: tuple = ()):
@@ -70,11 +83,11 @@ def k4_entry(src_dir, flags: tuple = ()):
     return fn, grid
 
 
-def phase_times(launch, base: int, n_layer: int, reps: int = 5):
+def phase_times(launch, base: int, n_layer: int, n_phases: int = 5, reps: int = 5):
     """From the timing build: (us of work and of the barrier after it for
-    each of the five phases of a layer, mean over layers and runs; us after
-    the last barrier). launch() returns the kernel's scratch, whose tail
-    from float `base` holds the stamps."""
+    each of the n_phases phases of a layer, mean over layers and runs; us
+    after the last barrier). launch() returns the kernel's scratch, whose
+    tail from float `base` holds the stamps."""
     import numpy as np
     import torch
 
@@ -85,15 +98,16 @@ def phase_times(launch, base: int, n_layer: int, reps: int = 5):
         marks = scratch[base:].cpu().numpy().view(np.uint64).astype(np.int64)
         runs.append(np.diff(marks[: int(np.count_nonzero(marks))]) / 1e3)
     d = np.mean(runs[1:], axis=0)
-    per_layer = d[: 10 * n_layer].reshape(n_layer, 5, 2).mean(axis=0)
-    return per_layer, float(d[10 * n_layer:].sum()), float(d.sum())
+    n = 2 * n_phases * n_layer
+    per_layer = d[:n].reshape(n_layer, n_phases, 2).mean(axis=0)
+    return per_layer, float(d[n:].sum()), float(d.sum())
 
 
-def print_phases(label: str, times) -> None:
+def print_phases(label: str, times, names: str = PHASES) -> None:
     per_layer, tail, total = times
     print(f"{label} per layer (timing build, block 0): " + ", ".join(
         f"{name} {work:.2f} us + barrier {sync:.2f}"
-        for name, (work, sync) in zip(PHASES, per_layer))
+        for name, (work, sync) in zip(names, per_layer))
         + (f"; head {tail:.2f} us" if tail else "") + f"; total {total:.1f} us")
 
 
@@ -103,7 +117,7 @@ def phase_split(models, cfg, states, tokens, src_dir, label: str) -> None:
         batched_launch, batched_scratch_floats, decode_launch, decode_scratch_floats,
     )
 
-    flags = ("-DRWKV_V7_PHASE_TIMES",)
+    flags = ("-DRWKV_PHASE_TIMES",)
     pack = models["w8a8"]._mega
     c, d_l, f = cfg.n_embed, pack["d_lora"], pack["f_dim"]
     extra = 2 * (2 + 2 * 5 * cfg.n_layer)
@@ -149,20 +163,95 @@ def flips(models, cfg, n_seeds: int = 12) -> None:
                       f"{float(err.max()):.3e} abs; {int((err <= 1e-4).sum())} within 1e-4")
 
 
+def compare(label, cur, old) -> None:
+    """Times of cur() (and old(), in the order old, cur, cur, old); both
+    return a tensor to compare."""
+    from rwkv_tpu_torch.tools.card import device_ms
+
+    if old is None:
+        print(f"{label}: {device_ms(cur):.4f} ms")
+        return
+    diff = float((old() - cur()).abs().max())
+    times = [device_ms(f) for f in (old, cur, cur, old)]
+    print(f"{label}: baseline {times[0]:.4f} / {times[3]:.4f} ms, current "
+          f"{times[1]:.4f} / {times[2]:.4f} ms (outputs differ by at most {diff:.3e})")
+
+
+def v6_flips(models, cfg, n_seeds: int = 12) -> None:
+    """K6 against its plain version by depth, one seeded state per seed."""
+    from rwkv_tpu_torch.tools.card import k6_vs_plain, seeded_states
+
+    worst = {}
+    for seed in range(1, n_seeds + 1):
+        states, tokens = seeded_states(models["w8a8"], cfg, 1, 16, seed=seed)
+        one = {k: v[0] for k, v in states.items()}
+        for prec, model in models.items():
+            for depth in (1, 2, cfg.n_layer):
+                e = k6_vs_plain(model._mega, cfg, one, tokens[:1], depth)
+                key = (prec, depth)
+                worst[key] = max(worst.get(key, 0.0), *e.values())
+                print(f"K6 {prec} seed {seed} depth {depth}: x {e['x']:.3e}, state "
+                      f"{e['state']:.3e}, logits {e['logits']:.3e} of their scale")
+    for (prec, depth), w in sorted(worst.items()):
+        print(f"K6 {prec} depth {depth}: worst {w:.3e} of the scale over {n_seeds} seeds")
+
+
+def v6_main(args, base_dir) -> int:
+    """--v6: K6's time per launch (against ``base_dir/v6_decode.cu`` where
+    given), and per phase (--phases) and its drift from the plain version by
+    depth (--flips), at the 1.6B width."""
+    from rwkv_tpu_torch.ops import _cuda
+    from rwkv_tpu_torch.ops.megakernel import (
+        V6_DECODE_ARGS, _k6_entry, v6_decode_launch, v6_decode_step, v6_scratch_floats,
+    )
+    from rwkv_tpu_torch.tools.card import card_line, seeded_states, v6_models
+
+    cfg, models = v6_models()
+    states, tokens = seeded_states(models["w8a8"], cfg, 1, 16, seed=1)
+    one = {k: v[0] for k, v in states.items()}
+    tok = tokens[:1]
+    srcs = {"current": _cuda.CSRC / "v6_decode.cu"}
+    if base_dir is not None and (base_dir / "v6_decode.cu").exists():
+        srcs["baseline"] = base_dir / "v6_decode.cu"
+    for prec, model in models.items():
+        pack = model._mega
+        old = None
+        if "baseline" in srcs:
+            fn_old = _cuda.function("v6_decode_probe", _k6_entry(pack), *V6_DECODE_ARGS,
+                                    src=srcs["baseline"])
+            old = lambda: v6_decode_launch(fn_old, pack, one, tok, cfg)[0]  # noqa: E731
+        compare(f"K6 {prec} B=1", lambda: v6_decode_step(pack, one, tok, cfg)[0], old)
+        for label, src in srcs.items() if "--phases" in args else ():
+            fn = _cuda.function("v6_decode_probe", _k6_entry(pack), *V6_DECODE_ARGS,
+                                src=src, flags=("-DRWKV_PHASE_TIMES",))
+            extra = 2 * (2 + 2 * len(V6_PHASES) * cfg.n_layer)
+            base = v6_scratch_floats(cfg.n_embed, pack["d_maa"], pack["d_dec"], pack["f_dim"])
+            times = phase_times(
+                lambda: v6_decode_launch(fn, pack, one, tok, cfg, scratch_extra=extra)[2],
+                base, cfg.n_layer, len(V6_PHASES))
+            print_phases(f"{label} K6 {prec} B=1", times, V6_PHASES)
+    if "--flips" in args:
+        v6_flips(models, cfg)
+    print(card_line())
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("probe_batched: no CUDA device", file=sys.stderr)
         return 1
+    args = sys.argv[1:]
+    base_dir = Path(args[args.index("--baseline") + 1]) if "--baseline" in args else None
+    if "--v6" in args:
+        return v6_main(args, base_dir)
     from rwkv_tpu_torch.models.serve import ServingModel
     from rwkv_tpu_torch.models.synth import synth_config, synth_params
     from rwkv_tpu_torch.ops import megakernel as TM
-    from rwkv_tpu_torch.tools.card import card_line, device_ms, seeded_states
+    from rwkv_tpu_torch.tools.card import card_line, seeded_states
 
     print(card_line())
-    args = sys.argv[1:]
-    base_dir = Path(args[args.index("--baseline") + 1]) if "--baseline" in args else None
     cfg = synth_config("7.0", 12, 768, 65536, 64)
     params = synth_params(cfg, seed=0)
     models = {p: ServingModel((cfg, params), precision=p, megakernel=True)
@@ -178,17 +267,6 @@ def main() -> int:
             phase_split(models, cfg, states, tokens, base_dir, "baseline")
         print(card_line())
         return 0
-
-    def compare(label, cur, old):
-        """Times of cur() (and old(), in the order old, cur, cur, old);
-        both return a tensor to compare."""
-        if old is None:
-            print(f"{label}: {device_ms(cur):.4f} ms")
-            return
-        diff = float((old() - cur()).abs().max())
-        times = [device_ms(f) for f in (old, cur, cur, old)]
-        print(f"{label}: baseline {times[0]:.4f} / {times[3]:.4f} ms, current "
-              f"{times[1]:.4f} / {times[2]:.4f} ms (outputs differ by at most {diff:.3e})")
 
     one = {k: v[0] for k, v in states.items()}
     for prec, model in models.items():

@@ -14,7 +14,7 @@ the 169M v7 shape (C=768, H=12, V=65536, synth seed 0, w8a8):
   an H100 at the kernel's 128 registers a thread).
 
 With ``--phases`` it instead builds ``csrc/v7_decode.cu`` with
-``-DRWKV_V7_PHASE_TIMES`` (thread 0 of block 0 stamps ``%globaltimer``
+``-DRWKV_PHASE_TIMES`` (thread 0 of block 0 stamps ``%globaltimer``
 before and after every grid barrier) and prints, at L=12, the mean time of
 each phase of a layer and of each barrier, the head phase and the total.
 
@@ -44,7 +44,7 @@ def phase_split(model, state, cfg, tok, reps: int = 5) -> None:
 
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = _cuda.BUILD_DIR / "v7_decode_phase_times.so"
-    subprocess.run([_cuda.nvcc(), *_cuda.NVCC_FLAGS, "-DRWKV_V7_PHASE_TIMES", "-o",
+    subprocess.run([_cuda.nvcc(), *_cuda.NVCC_FLAGS, "-DRWKV_PHASE_TIMES", "-o",
                     str(lib_path), str(_cuda.CSRC / "v7_decode.cu")],
                    check=True, capture_output=True, text=True)
     fn = ctypes.CDLL(str(lib_path)).rwkv_v7_decode

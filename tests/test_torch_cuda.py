@@ -1,5 +1,6 @@
-"""Kernels K1-K4 of the PyTorch/CUDA port on the card, against their plain
-PyTorch versions, and the batcher's decode loop on the card. Every test here needs a CUDA device and nvcc and skips
+"""Kernels K1-K6 of the PyTorch/CUDA port on the card, against their plain
+PyTorch versions, the batcher's decode loop and the v7 and v6 serving paths
+on the card. Every test here needs a CUDA device and nvcc and skips
 without one. The file imports no JAX, so it runs on a GPU machine without
 it, from the repository root:
 
@@ -20,6 +21,7 @@ from rwkv_tpu_torch.parallel.batching import ContinuousBatcher
 pytestmark = pytest.mark.cuda
 
 SMALL = ("7.0", 2, 128, 256, 32)  # version, L, C, V, S (H = 4)
+SMALL6 = ("6.0", 2, 256, 256, 64)  # v6: H = 4, d_maa 32, d_dec 64, F = 1024
 
 
 @pytest.fixture
@@ -174,5 +176,96 @@ def test_card_serving_matches_cpu_and_goes_through_kernels(cuda_device):
         torch.testing.assert_close(sg[k].cpu(), sc[k], rtol=2e-2, atol=2e-2)
     after = (TK.quant_matmul.launches, TC.wkv7_recurrence.launches, TM.v7_decode_step.launches)
     assert after[0] - counts[0] == 2 * 14 * tc.n_layer + 1  # two prefill chunks, one head
+    assert after[1] - counts[1] == 2 * tc.n_layer
+    assert after[2] - counts[2] == 3
+
+
+def _wkv6_operands(t, bh, s, dev, seed, extreme=False):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, device=dev, generator=gen) * scale
+
+    r, k, v = (rnd(t, bh, s, scale=0.3) for _ in range(3))
+    if extreme:  # half the channels decay by exp(-20) a token, some underflow to 0
+        w = torch.where(torch.rand((t, bh, s), device=dev, generator=gen) < 0.5,
+                        torch.exp(torch.tensor(-20.0, device=dev)), torch.exp(-torch.exp(rnd(t, bh, s) * 3)))
+    else:
+        w = torch.exp(-torch.exp(rnd(t, bh, s)))
+    return rnd(bh, s, s, scale=0.3), r, k, v, w, rnd(bh, s, scale=0.2)
+
+
+@pytest.mark.parametrize("t,bh,s,extreme", [(256, 32, 64, False), (256, 32, 64, True),
+                                            (64, 8, 32, False), (3, 2, 128, False)])
+def test_wkv6_kernel_matches_scan(cuda_device, t, bh, s, extreme):
+    ops = _wkv6_operands(t, bh, s, cuda_device, seed=t + s, extreme=extreme)
+    before = TC.wkv6_recurrence.launches
+    y, s_new = TC.wkv6_recurrence(*ops)
+    assert TC.wkv6_recurrence.launches == before + 1
+    y_ref, s_ref = TC.wkv6_recurrence_plain(*ops)
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(s_new, s_ref, rtol=1e-4, atol=1e-5)
+
+
+def _small_pack6(dev, w4=False, seed=7):
+    tc = synth_config(*SMALL6)
+    tp = synth_params(tc, seed=seed)
+    pack = TM.build_mega_pack_v6(tp, tc, w4=w4)
+    return tc, TM.device_pack(pack, tp["emb"].to(torch.bfloat16), tp["ln0"], dev)
+
+
+@pytest.mark.parametrize("w4", [False, True])
+def test_v6_decode_kernel_matches_ref(cuda_device, w4):
+    tc, dp = _small_pack6(cuda_device, w4)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    L, h, s, c = tc.n_layer, tc.head_count, tc.head_size, tc.n_embed
+    state = {"att_xx": torch.randn((L, c), device=cuda_device, generator=gen) * 0.5,
+             "ffn_xx": torch.randn((L, c), device=cuda_device, generator=gen) * 0.5,
+             "heads": torch.randn((L, h, s, s), device=cuda_device, generator=gen) * 0.1}
+    tok = torch.tensor([5], device=cuda_device)
+    before = TM.v6_decode_step.launches
+    logits, new = TM.v6_decode_step(dp, state, tok, tc)
+    logits2, new2 = TM.v6_decode_step(dp, state, tok, tc)
+    assert TM.v6_decode_step.launches == before + 2
+    assert torch.equal(logits, logits2) and all(torch.equal(new[k], new2[k]) for k in new)
+    ref_logits, ref_new = TM.v6_decode_step_ref(dp, state, tok, tc)
+    torch.testing.assert_close(logits, ref_logits, rtol=2e-2, atol=2e-2)
+    assert int(logits.argmax()) == int(ref_logits.argmax())
+    for k in new:
+        torch.testing.assert_close(new[k], ref_new[k], rtol=2e-2, atol=2e-2)
+
+
+def test_v6_decode_kernel_refuses_a_v7_pack(cuda_device):
+    tc, dp = _small_pack(cuda_device)
+    tc6 = synth_config(*SMALL6)
+    state = {"att_xx": torch.zeros((2, 256), device=cuda_device),
+             "ffn_xx": torch.zeros((2, 256), device=cuda_device),
+             "heads": torch.zeros((2, 4, 64, 64), device=cuda_device)}
+    with pytest.raises((ValueError, KeyError)):
+        TM.v6_decode_step(dp, state, torch.tensor([1], device=cuda_device), tc6)
+
+
+@pytest.mark.parametrize("precision", ["w8a8", "w4a8"])
+def test_card_v6_serving_matches_cpu_and_goes_through_kernels(cuda_device, precision):
+    tc = synth_config(*SMALL6)
+    tp = synth_params(tc, seed=11)
+    gpu = ServingModel((tc, tp), precision=precision, megakernel=True, device=cuda_device)
+    cpu = ServingModel((tc, tp), precision=precision, megakernel=True, device="cpu")
+    counts = (TK.quant_matmul.launches, TC.wkv6_recurrence.launches, TM.v6_decode_step.launches)
+    prompt = list(np.random.default_rng(0).integers(0, tc.n_vocab, 20))
+    lg, sg = gpu.prefill(prompt)
+    lc, sc = cpu.prefill(prompt)
+    for _ in range(3):
+        tok = [int(lc.argmax())]
+        torch.testing.assert_close(lg.cpu(), lc, rtol=2e-2, atol=2e-2)
+        assert int(lg.argmax()) == tok[0]
+        lg, sg = gpu.decode(tok, sg)
+        lc, sc = cpu.decode(tok, sc)
+        lg, lc = lg[0], lc[0]
+    torch.testing.assert_close(lg.cpu(), lc, rtol=2e-2, atol=2e-2)
+    for k in sc:
+        torch.testing.assert_close(sg[k].cpu(), sc[k], rtol=2e-2, atol=2e-2)
+    after = (TK.quant_matmul.launches, TC.wkv6_recurrence.launches, TM.v6_decode_step.launches)
+    assert after[0] - counts[0] == 2 * 11 * tc.n_layer + 1  # two prefill chunks, one head
     assert after[1] - counts[1] == 2 * tc.n_layer
     assert after[2] - counts[2] == 3
