@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Prints the card (nvidia-smi name and power limit), builds the six
+1. Prints the card (nvidia-smi name and power limit), builds the eight
    hand-written kernels from ``rwkv_tpu_torch/csrc`` (one nvcc each, all at
    once) and prints build times and ptxas registers.
 2. Holds each kernel against its plain PyTorch version on the card, at the
@@ -28,12 +28,17 @@
    - K5 ``wkv6_recurrence``: T=256, H=32, S=64 (the 1.6B v6 width);
      rtol 1e-4 / atol 1e-5 against the token recurrence, also with extreme
      decays, rtol 3e-4 / atol 3e-5 against the chunked form.
-   - K6 ``v6_decode_step``: the RWKV-6 w8a8 and w4a8 packs at the 1.6B
-     width (C=2048, F=8192, 24 layers, synth seed 0), from 8 states of a
+   - K6 ``v6_decode_step``, K7 ``v5_decode_step`` and K8
+     ``v4_decode_step`` (``phase_b1``): the w8a8 and w4a8 packs of RWKV-6
+     at the 1.6B width (C=2048, F=8192, 24 layers), RWKV-5.2 at the World
+     1.5B width (C=2048, F=8192, 24 layers) and RWKV-4 at the World 0.1B
+     width (C=768, F=3072, 12 layers), synth seed 0, from 8 states of a
      seeded prefill: cut to their first 1 and 2 layers, x, state and
      logits within 2e-2 of their scale; at full depth two launches agree
-     bit for bit, outputs are finite and within K6_FULL_DEPTH_REL of their
-     scale (twice the worst reading of ``probe_batched --v6 --flips``).
+     bit for bit, outputs are finite and within B1_FULL_DEPTH_REL of their
+     scale (twice the worst reading of ``probe_batched --v6 / --v5 / --v4
+     --flips``). K7 also on a v5.1 pair and K8 on a pair at C=2048, both
+     of 2 layers at the 1.5B width, within 2e-2 (``phase_cut_width``).
 3. Drives the main paths, each with the launch counters zeroed just before
    and read just after; every kernel of a path must have launched:
    - RWKV v7 169M (synth, seed 0) under w8a8 and under w4a8 with
@@ -44,20 +49,23 @@
      (seeded), greedy and sampled (temperature 1, top_p 0.8), two with
      penalties and two with stop tokens (K1, K2, K4); then a shorter one
      over the w4a8 model (8 requests);
-   - RWKV-6 at the 1.6B width (the K6 models above) under w8a8 and w4a8
-     with ``megakernel=True``: prefill of a 256-token prompt (one bucket:
-     11 projections a layer and the head on K1, the recurrence on K5),
-     then 64 greedy decode steps at B=1 (K6);
+   - RWKV-6 at the 1.6B width, RWKV-5.2 at the World 1.5B width and
+     RWKV-4 at the World 0.1B width (the models above) under w8a8 and
+     w4a8 with ``megakernel=True``: prefill of a 256-token prompt (one
+     bucket: the projections of every layer and the head on K1, the
+     recurrence on K5 for v6 and v5, plain PyTorch's log-depth scan for
+     v4), then 64 greedy decode steps at B=1 (K6, K7, K8);
    and checks their outputs: finite logits and state, tokens in range,
    every request finished within its limits.
-4. Holds the card against the CPU on small models: v7 (L=2, C=128) and v6
-   (L=2, C=256), the serving path's logits and state (prefill 20 tokens,
-   4 decode steps); and the batcher's token streams on the card, its
-   device loop against its host loop (greedy with penalties).
-5. Prints the ``{"kernels": [...]}`` JSON line (times per launch, in ms;
-   K1's are the mean over the v7 w8a8 path's 169 launches per prefill,
-   K4's at B=8), the card line again, and last ``{"ok": true, "device":
-   {...}}``.
+4. Holds the card against the CPU on small models: v7 (L=2, C=128) and
+   v6, v5.2, v5.1 and v4 (L=2, C=256), the serving path's logits and state
+   (prefill 20 tokens, 4 decode steps); and the batcher's token streams on
+   the card, its device loop against its host loop (greedy with
+   penalties).
+5. Prints the total time, the ``{"kernels": [...]}`` JSON line (times per
+   launch, in ms; K1's are the mean over the v7 w8a8 path's 169 launches
+   per prefill, K4's at B=8), the card line again, and last ``{"ok": true,
+   "device": {...}}``.
 
 Any failure raises and the script exits non-zero. Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no
@@ -297,9 +305,7 @@ def pack_bytes(pack: dict, cfg) -> int:
     n = sum(pack[k].numel() * pack[k].element_size()
             for k in ("mats", "scales", "vecs", "head8", "head_d", "ln_out", "ln0", "maa2")
             if k in pack)
-    c, l = cfg.n_embed, cfg.n_layer
-    state = (2 * l * c + l * cfg.head_count * cfg.head_size ** 2) * 4
-    return n + c * 2 + 2 * state + cfg.n_vocab * 4
+    return n + cfg.n_embed * 2 + 2 * cfg.state_len * 4 + cfg.n_vocab * 4
 
 
 def layer_codes(pack: dict) -> int:
@@ -513,67 +519,120 @@ def crossover(model, states, tokens) -> dict:
     return out
 
 
-# K6 against its plain version. At the 1.6B width a random-weight v6 model
-# amplifies last-bit differences through exp(-exp(.)) and int8 code flips,
-# so K6 is held element-wise only on packs cut to their first 1 and 2
-# layers (K6_SHALLOW_REL of each tensor's scale); at full depth two launches
-# must agree bit for bit, and the drift from the plain version must stay
-# within K6_FULL_DEPTH_REL of the scale: about twice the worst reading
-# over 12 seeds of probe_batched --v6 --flips (8.61% w8a8, 7.03% w4a8; at
-# one and two layers at most 0.91%; PERF.md).
-K6_SHALLOW_REL = 2e-2
-K6_FULL_DEPTH_REL = {"w8a8": 0.17, "w4a8": 0.14}
+# The B=1 decode kernels K6 (v6), K7 (v5) and K8 (v4) against their plain
+# versions. A random-weight model at these widths amplifies last-bit
+# differences through int8 code flips (and, in v6, exp(-exp(.))), so each is
+# held element-wise (2e-2 of each tensor's scale) on packs cut to their
+# first 1 and 2 layers; at full depth two launches must agree bit for bit
+# and the drift from the plain version must stay within the full-depth
+# limit: about twice the worst reading over 12 seeds of probe_batched
+# --v6 / --v5 / --v4 --flips (PERF.md). K6 read 8.61% (w8a8) and 7.03%
+# (w4a8) at 24 layers, at most 0.91% at one and two. K7 read 3.10%
+# (w8a8) and 3.98% (w4a8) at 24 layers, K8 1.87% and 0.98% at 12, and both
+# at most 1.74% at one and two layers (v5.1 included); a flip moves
+# either format alike, so K7's and K8's limits are twice the worse of
+# their two formats.
+B1_SHALLOW_REL = 2e-2
+B1_FULL_DEPTH_REL = {
+    "K6": {"w8a8": 0.17, "w4a8": 0.14},
+    "K7": {"w8a8": 0.08, "w4a8": 0.08},
+    "K8": {"w8a8": 0.037, "w4a8": 0.037},
+}
 
 
-def phase_k6(models, cfg, n_states: int = 8):
-    """K6 (w8a8 and w4a8) at the 1.6B width from n_states seeded states:
-    the shallow and full-depth checks above, its time, the plain version's
-    and the bound. Returns {precision: result}."""
+def b1_step(version: int):
+    """(kernel wrapper, plain version) of the B=1 decode step of `version`."""
+    from rwkv_tpu_torch.ops import megakernel as M
+
+    return {6: (M.v6_decode_step, M.v6_decode_step_ref),
+            5: (M.v5_decode_step, M.v5_decode_step_ref),
+            4: (M.v4_decode_step, M.v4_decode_step_ref)}[version]
+
+
+def check_shallow(name, models, cfg, n_states: int, seed: int, depths=(1, 2)) -> dict:
+    """The decode kernel of `models` on their packs cut to `depths` layers,
+    from n_states seeded states, within B1_SHALLOW_REL of the scale; returns
+    the worst reading per (format, depth)."""
+    from rwkv_tpu_torch.tools.card import decode_vs_plain, seeded_states
+
+    states, tokens = seeded_states(models["w8a8"], cfg, n_states, 16, seed=seed)
+    worst = {}
+    for i in range(n_states):
+        st = {k: v[i] for k, v in states.items()}
+        for prec, model in models.items():
+            for depth in depths:
+                e = max(decode_vs_plain(model._mega, cfg, st, tokens[i : i + 1], depth).values())
+                worst[(prec, depth)] = max(worst.get((prec, depth), 0.0), e)
+                if e > B1_SHALLOW_REL:
+                    raise AssertionError(f"{name} {prec} depth {depth}: {e:.3e} of the scale, "
+                                         f"limit {B1_SHALLOW_REL}")
+    print(f"{name}: {n_states} seeded states at depths {depths}, worst distance from the plain "
+          f"version over the scale {worst} (limit {B1_SHALLOW_REL})")
+    return worst
+
+
+def phase_b1(name: str, models, cfg, n_states: int = 8, seed: int = 7):
+    """K6, K7 or K8 (w8a8 and w4a8) at a published width from n_states
+    seeded states: the shallow and full-depth checks above, its time, the
+    plain version's and the bound. Returns {precision: result}."""
     import torch
 
-    from rwkv_tpu_torch.ops.megakernel import v6_decode_step, v6_decode_step_ref
-    from rwkv_tpu_torch.tools.card import device_ms, k6_vs_plain, seeded_states
+    from rwkv_tpu_torch.tools.card import decode_vs_plain, device_ms, seeded_states
 
-    states, tokens = seeded_states(models["w8a8"], cfg, n_states, 16, seed=7)
-    seqs = [({k: v[i] for k, v in states.items()}, tokens[i : i + 1]) for i in range(n_states)]
+    step, step_ref = b1_step(cfg.version_major)
+    check_shallow(name, models, cfg, n_states, seed)
+    states, tokens = seeded_states(models["w8a8"], cfg, n_states, 16, seed=seed)
     out = {}
     for prec, model in models.items():
         pack = model._mega
-        worst = {1: 0.0, 2: 0.0, cfg.n_layer: 0.0}
-        for st, tok in seqs:
-            for depth in worst:
-                e = k6_vs_plain(pack, cfg, st, tok, depth)
-                worst[depth] = max(worst[depth], *e.values())
-                limit = K6_SHALLOW_REL if depth < cfg.n_layer else K6_FULL_DEPTH_REL[prec]
-                if max(e.values()) > limit:
-                    raise AssertionError(f"K6 {prec} depth {depth}: {e} of the scale, limit {limit}")
-        one, tok = seqs[0]
-        logits, new = v6_decode_step(pack, one, tok, cfg)
-        logits2, new2 = v6_decode_step(pack, one, tok, cfg)
-        logits_ref, new_ref = v6_decode_step_ref(pack, one, tok, cfg)
+        limit = B1_FULL_DEPTH_REL[name][prec]
+        worst = 0.0
+        for i in range(n_states):
+            st = {k: v[i] for k, v in states.items()}
+            e = decode_vs_plain(pack, cfg, st, tokens[i : i + 1], cfg.n_layer)
+            worst = max(worst, *e.values())
+            if max(e.values()) > limit:
+                raise AssertionError(f"{name} {prec} full depth: {e} of the scale, limit {limit}")
+        one, tok = {k: v[0] for k, v in states.items()}, tokens[:1]
+        logits, new = step(pack, one, tok, cfg)
+        logits2, new2 = step(pack, one, tok, cfg)
+        logits_ref, new_ref = step_ref(pack, one, tok, cfg)
         torch.cuda.synchronize()
         if not torch.equal(logits, logits2) or any(not torch.equal(new[k], new2[k]) for k in new):
-            raise AssertionError(f"K6 {prec}: two launches on the same inputs differ")
+            raise AssertionError(f"{name} {prec}: two launches on the same inputs differ")
         if not bool(torch.isfinite(logits).all()) or any(
                 not bool(torch.isfinite(v).all()) for v in new.values()):
-            raise AssertionError(f"K6 {prec}: outputs are not finite")
+            raise AssertionError(f"{name} {prec}: outputs are not finite")
         err = max([float((logits - logits_ref).abs().max())]
                   + [float((new[k] - new_ref[k]).abs().max()) for k in new])
-        print(f"K6 {prec}: {n_states} seeded states, worst distance from the plain version over "
-              f"the scale by depth {worst} (limits {K6_SHALLOW_REL} at 1 and 2 layers, "
-              f"{K6_FULL_DEPTH_REL[prec]} at {cfg.n_layer}); two launches bit-identical; "
-              f"full depth max abs err {err:.3e}, argmax {int(logits.argmax())} vs "
+        print(f"{name} {prec}: {n_states} seeded states at {cfg.n_layer} layers, worst distance "
+              f"from the plain version {worst:.3e} of the scale (limit {limit}); two launches "
+              f"bit-identical; max abs err {err:.3e}, argmax {int(logits.argmax())} vs "
               f"{int(logits_ref.argmax())}")
-        kern = device_ms(lambda: v6_decode_step(pack, one, tok, cfg), reps=20)
-        plain = device_ms(lambda: v6_decode_step_ref(pack, one, tok, cfg), reps=3, warmup=1)
+        kern = device_ms(lambda: step(pack, one, tok, cfg), reps=20)
+        plain = device_ms(lambda: step_ref(pack, one, tok, cfg), reps=3, warmup=1)
         nb = pack_bytes(pack, cfg)
         n_weights = layer_codes(pack) + pack["head8"].numel()
         b, kind = bound_ms(nb, 2 * n_weights, INT8_OPS_PER_S)
-        print(f"K6 {prec}: kernel {kern:.4f} ms, plain {plain:.4f} ms, bound {b:.5f} ms ({kind}, "
-              f"{nb / 1e6:.1f} MB), grid {pack['_grid_v6']} blocks")
+        grid = pack.get("_grid_v6", pack.get("_grid_v45"))
+        print(f"{name} {prec}: kernel {kern:.4f} ms, plain {plain:.4f} ms, bound {b:.5f} ms "
+              f"({kind}, {nb / 1e6:.1f} MB), grid {grid} blocks")
         out[prec] = {"ms": kern, "plain_ms": plain, "library_ms": None, "bound_ms": b,
                      "bound_by": kind, "max_abs_err": err}
     return out
+
+
+def phase_cut_width(name: str, width) -> None:
+    """The decode kernel on a 2-layer pair (w8a8, w4a8) at another
+    published width: the shallow checks, from 8 seeded states."""
+    import torch
+
+    from rwkv_tpu_torch.tools.card import width_models
+
+    cfg, models = width_models(width)
+    check_shallow(f"{name} {width[0]} C={cfg.n_embed} L={cfg.n_layer}", models, cfg, 8, 8)
+    del models
+    torch.cuda.empty_cache()
 
 
 def phase_k4_wide():
@@ -628,10 +687,11 @@ def counted(fn, needed):
     read just after; raise unless each kernel in `needed` launched."""
     from rwkv_tpu_torch.ops.chunked import wkv6_recurrence, wkv7_recurrence
     from rwkv_tpu_torch.ops.kernels import quant_matmul
-    from rwkv_tpu_torch.ops.megakernel import v6_decode_step, v7_decode_batched, v7_decode_step
+    from rwkv_tpu_torch.ops import megakernel as M
 
-    counters = {"K1": quant_matmul, "K2": wkv7_recurrence, "K3": v7_decode_step,
-                "K4": v7_decode_batched, "K5": wkv6_recurrence, "K6": v6_decode_step}
+    counters = {"K1": quant_matmul, "K2": wkv7_recurrence, "K3": M.v7_decode_step,
+                "K4": M.v7_decode_batched, "K5": wkv6_recurrence, "K6": M.v6_decode_step,
+                "K7": M.v5_decode_step, "K8": M.v4_decode_step}
     for c in counters.values():
         c.launches = 0
     out = fn()
@@ -776,7 +836,9 @@ def main() -> int:
         print("chip_smoke: rwkv_tpu_torch/ not found beside this script", file=sys.stderr)
         return 1
     sys.path.insert(0, str(root))
-    from rwkv_tpu_torch.tools.card import card_line, seeded_states, v6_models
+    from rwkv_tpu_torch.tools.card import (
+        card_line, seeded_states, v4_models, v5_models, v6_models, V4_WIDTH, V5_WIDTH,
+    )
 
     t_start = time.perf_counter()
     card = card_line()
@@ -857,7 +919,7 @@ def main() -> int:
     cfg6, models6 = v6_models()
     print(f"RWKV-6 1.6B-width models (w8a8, w4a8; {cfg6.n_layer} layers, C={cfg6.n_embed}) "
           f"built in {time.perf_counter() - t0:.1f} s")
-    k6 = phase_k6(models6, cfg6)
+    k6 = phase_b1("K6", models6, cfg6)
     res["K6"], res["K6w4"] = k6["w8a8"], k6["w4a8"]
     prompt6 = torch.randint(0, cfg6.n_vocab, (256,),
                             generator=torch.Generator().manual_seed(0)).numpy()
@@ -867,6 +929,34 @@ def main() -> int:
     del models6
     torch.cuda.empty_cache()
     small_model_check(dev, "6.0")
+
+    # -- RWKV-5 (v5.2) at the World 1.5B width: K7, then the B=1 main path ---
+    t0 = time.perf_counter()
+    cfg5, models5 = v5_models()
+    print(f"RWKV-5.2 World 1.5B-width models (w8a8, w4a8; {cfg5.n_layer} layers, "
+          f"C={cfg5.n_embed}) built in {time.perf_counter() - t0:.1f} s")
+    k7 = phase_b1("K7", models5, cfg5)
+    res["K7"], res["K7w4"] = k7["w8a8"], k7["w4a8"]
+    for prec, m in models5.items():
+        launches[f"v5 {prec}"] = single_stream_path(f"v5.2 {prec}", m, prompt6, cfg5, card, 2,
+                                                    needed=("K1", "K5", "K7"))
+    del models5
+    torch.cuda.empty_cache()
+    phase_cut_width("K7", ("5.1", 2) + V5_WIDTH[2:])
+    for version in ("5.2", "5.1"):
+        small_model_check(dev, version)
+
+    # -- RWKV-4 at the World 0.1B width: K8, then the B=1 main path ----------
+    cfg4, models4 = v4_models()
+    k8 = phase_b1("K8", models4, cfg4)
+    res["K8"], res["K8w4"] = k8["w8a8"], k8["w4a8"]
+    for prec, m in models4.items():
+        launches[f"v4 {prec}"] = single_stream_path(f"v4 {prec}", m, prompt6, cfg4, card, 3,
+                                                    needed=("K1", "K8"))
+    del models4
+    torch.cuda.empty_cache()
+    phase_cut_width("K8", ("4.0", 2, 2048) + V4_WIDTH[3:])
+    small_model_check(dev, "4.0")
 
     # name, source, TPU kernel replaced, result key, path whose launches count
     meta = [
@@ -888,6 +978,14 @@ def main() -> int:
          "rwkv_tpu/ops/megakernel.py:2841", "K6", ("v6 w8a8", "K6")),
         ("v6_decode_step_w4a8", "rwkv_tpu_torch/csrc/v6_decode.cu",
          "rwkv_tpu/ops/megakernel.py:3366", "K6w4", ("v6 w4a8", "K6")),
+        ("v5_decode_step_w8a8", "rwkv_tpu_torch/csrc/v5_decode.cu",
+         "rwkv_tpu/ops/megakernel.py:3847", "K7", ("v5 w8a8", "K7")),
+        ("v5_decode_step_w4a8", "rwkv_tpu_torch/csrc/v5_decode.cu",
+         "rwkv_tpu/ops/megakernel.py:5160", "K7w4", ("v5 w4a8", "K7")),
+        ("v4_decode_step_w8a8", "rwkv_tpu_torch/csrc/v4_decode.cu",
+         "rwkv_tpu/ops/megakernel.py:4224", "K8", ("v4 w8a8", "K8")),
+        ("v4_decode_step_w4a8", "rwkv_tpu_torch/csrc/v4_decode.cu",
+         "rwkv_tpu/ops/megakernel.py:4660", "K8w4", ("v4 w4a8", "K8")),
     ]
     kernels = []
     for name, source, replaces, key, (path, counter) in meta:

@@ -1,7 +1,9 @@
 // Pieces shared by the whole-model decode kernels K3 (v7_decode.cu), K4
-// (v7_decode_batched.cu) and K6 (v6_decode.cu): the timing build's phase
-// stamps, IEEE-exact elementwise helpers, the block-wide quantization of a
-// phase's input vectors, the block-wide layer norm and the LM head phase.
+// (v7_decode_batched.cu), K6 (v6_decode.cu), K7 (v5_decode.cu) and K8
+// (v4_decode.cu): the timing build's phase stamps, IEEE-exact elementwise
+// helpers, the lane count of the big matvecs, the block-wide quantization
+// of a phase's input vectors, the block-wide layer norm and the LM head
+// phase.
 #pragma once
 
 #include "common.cuh"
@@ -37,6 +39,18 @@ __device__ __forceinline__ float bf16_to_float(uint16_t b) {
 
 __device__ __forceinline__ float dequant(int acc, float dx, float d) {
   return mul(mul(__int2float_rn(acc), dx), d);
+}
+
+// Lanes sharing a weight row of width K in the big matvecs of K6-K8: a
+// power of two that lets each lane read its share in one round of
+// kMaxChunksPerLane 16-byte chunks (matvec_rows then keeps the largest
+// power of two dividing the row's chunks), so a warp has the most bytes in
+// flight per round and a phase takes the fewest dependent rounds.
+__device__ __forceinline__ int lanes_for(int K, bool w4) {
+  const int want = (w4 ? K / 2 : K) / 16 / kMaxChunksPerLane;
+  int l = 1;
+  while (l < want && l < 32) l <<= 1;
+  return l;
 }
 
 // Block-wide max of N values at once (one pair of barriers for all N);

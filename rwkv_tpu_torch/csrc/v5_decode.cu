@@ -1,0 +1,301 @@
+// K7: one RWKV v5.1 / v5.2 decode step at B=1 for all layers, w8a8 or
+// w4a8, with ln_out and the LM head inside the kernel. One launch per token.
+//
+// Replaces rwkv_tpu/ops/megakernel.py::v5_decode_megakernel (kernel body
+// _make_kernel_v5, head phases _emit_head_phases) and
+// v5_decode_megakernel_tiled (_make_kernel_tiled_v5, w8 and w4). The TPU
+// splits those two only by how a layer's weights fit VMEM; on this card one
+// kernel computes their function at any width, on the serving state layout
+// [L, H, S_i, S_j] (the TPU kernels transpose it to [H, S_j, S_i]).
+//
+// Bound on this card: the step streams every weight once -- at the World
+// 1.5B width (C=2048, F=8192, 24 layers) w8a8 about 24 x 58.7 MB of int8
+// matrices (rkvg 4C^2, out C^2, fk and fv 4C^2 each, fr C^2), ~0.1 MB/layer
+// of scales and vectors, 1.05 MB/layer of wkv state read and written and
+// the 134 MB int8 head, ~1.57 GB in all (w4a8: the five matrices at half
+// the bytes, ~0.86 GB) -- so HBM bandwidth bounds it (~0.47 ms / ~0.26 ms
+// at 3.35 TB/s).
+//
+// Design: K6's persistent cooperative kernel (one 256-thread block per SM,
+// phases separated by grid-wide barriers) without K6's maa and decay LoRA
+// phases, five phases a layer:
+//   A  ln1 and the token shift, the 3 (5.1) or 4 (5.2) mixes in the
+//      reference's op order, each quantized as a whole vector (every block
+//      redundantly), the fused r, k, v(, g) rows (silu on g)
+//   C  per head (one block each): the wkv step with the static decay -- the
+//      output reads the OLD state plus the tf bonus, then the state decays
+//      and takes k v^T -- group norm (eps 1e-5), ln_x, times the gate (5.2)
+//   D  out rows + residual
+//   E  ln2 + shift, the fk rows with relu^2 and the fr rows with sigmoid
+//   F  fv rows: x += sigmoid(fr) * fv          (E and F: v45_common.cuh)
+// then ln_out and the head rows (lm_head, decode_common.cuh). Weight rows
+// of any width are spread over every warp of the grid with 16-byte loads
+// and __dp4a (matvec_rows, common.cuh; int4 rows unpack with two masks),
+// lanes_for(K) lanes a row. As K6, the step is bound by latency: each phase
+// is a chain of block reductions and dependent loads behind a grid barrier.
+//
+// Numerics follow the JAX kernel: each matvec input vector is quantized as
+// a whole, the int32 sum is scaled as (float(acc) * dx) * d, and the
+// elementwise formulas use explicit round-to-nearest multiplies and adds,
+// so that no fused multiply-add shifts an activation across a code
+// boundary.
+#include "v45_common.cuh"
+
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// K7's vector rows after the shared ones (megakernel.py's _v45_blocks):
+// ln_x weight and bias, then the attention mixes k, v, r(, g).
+enum VecRow5 { kLnxW = kNumVec45, kLnxB, kAmix };
+
+struct Args {
+  const int* token;
+  const uint16_t* emb;      // bf16 bits [V, C]
+  const float* ln0;         // [2, C]
+  const int8_t* mats;       // [L, MatOffsets45.layer]
+  const float* scales;      // [L, ScaleOffsets45.layer]
+  const float* vecs;        // [L, kAmix + NA, C]
+  const int8_t* head;       // [V, C]
+  const float* head_d;      // [V]
+  const float* ln_out;      // [2, C]
+  const float* att_in;      // [L, C]
+  const float* ffn_in;      // [L, C]
+  const float* heads_in;    // [L, H, S, S]
+  float* att_out;
+  float* ffn_out;
+  float* heads_out;
+  float* logits;            // [V]
+  float* scratch;           // scratch_floats(C, F); x ends at scratch[0..C)
+  int C, H, S, F, L, V;
+};
+
+// Floats of the kernel's global scratch: x, r|k|v|g (4C), xo, sigmoid(fr)
+// and the relu^2 keys (F); the Python wrapper allocates the same.
+__host__ __device__ inline size_t scratch_floats(int C, int F) { return 7ull * C + F; }
+
+template <bool W4, bool GATE>
+__global__ void __launch_bounds__(kThreads)
+v5_decode_kernel(Args p) {
+  constexpr int NA = GATE ? 4 : 3;  // fused attention projections and mixes
+  cg::grid_group grid = cg::this_grid();
+  const int C = p.C, H = p.H, S = p.S, F = p.F;
+  const int tid = threadIdx.x;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);   // [C] residual / ln input
+  float* xl = xs + C;                            // [C] normalized
+  float* hv = xl + C;                            // [5S] per-head vectors
+  float* red = hv + 5 * S;                       // [8][32] reduction scratch
+  float* dxs = red + 8 * 32;                     // [8] activation scales
+  int8_t* q8 = reinterpret_cast<int8_t*>(dxs + 8);  // [max(4C, F)] codes
+
+  float* x_g = p.scratch;           // residual stream
+  float* att_g = x_g + C;           // [4][C] r, k, v, silu(g)
+  float* xo_g = att_g + 4 * C;      // attention output before `out`
+  float* rg_g = xo_g + C;           // sigmoid(fr rows)
+  float* fk_g = rg_g + C;           // [F] relu^2 keys
+
+#ifdef RWKV_PHASE_TIMES
+  unsigned long long* marks =
+      reinterpret_cast<unsigned long long*>(p.scratch + scratch_floats(C, F));
+  int n_marks = 0;
+#endif
+  // a grid-wide barrier, with a timestamp on each side in the timing build
+  auto barrier = [&]() {
+    PHASE_MARK();
+    grid.sync();
+    PHASE_MARK();
+  };
+  PHASE_MARK();
+
+  const MatOffsets45 mo(C, F, NA, W4);
+  const ScaleOffsets45 so(C, F, NA);
+
+  for (int l = 0; l < p.L; ++l) {
+    const int8_t* m_layer = p.mats + l * mo.layer;
+    const float* s_layer = p.scales + l * so.layer;
+    const float* vec = p.vecs + static_cast<size_t>(l) * (kAmix + NA) * C;
+    const float* att_in = p.att_in + static_cast<size_t>(l) * C;
+
+    // ---- phase A: ln1, shift, the mixes quantized, r k v (g) rows ---------
+    load_residual(l, p.token, p.emb, p.ln0, x_g, C, xs, xl, red);
+    layer_norm_block(xs, xl, vec + kLn1W * C, vec + kLn1B * C, C, 1e-5f, red);
+    if (blockIdx.x == 0)
+      for (int c = tid; c < C; c += blockDim.x) p.att_out[static_cast<size_t>(l) * C + c] = xl[c];
+    {
+      const float* am = vec + kAmix * C;  // rows k, v, r(, g)
+      quantize_n<NA>([&](int m, int c) { return mix45(xl[c], att_in[c], am[m * C + c]); }, C,
+                     q8, C, dxs, red);
+      matvec_grid<W4, 1>(m_layer + mo.att, NA * C, C, 1,
+          [&](int row, int) { return q8 + att_mix(row / C) * C; },
+          [&](int row, int, int acc) {
+            const int part = row / C;
+            float y = dequant(acc, dxs[att_mix(part)], s_layer[so.att + row]);
+            if (GATE && part == 3) y = mul(y, sigmoidf(y));  // silu gate
+            att_g[row] = y;
+          },
+          lanes_for(C, W4));
+    }
+    barrier();
+
+    // ---- phase C: per head: wkv with the static decay, group norm, ln_x ---
+    for (int h = blockIdx.x; h < H; h += gridDim.x) {  // block-uniform
+      float* h_r = hv;
+      float* h_k = hv + S;
+      float* h_v = hv + 2 * S;
+      float* h_w = hv + 3 * S;
+      float* h_y = hv + 4 * S;
+      const int c = h * S + tid;
+      float dot_part = 0.f;
+      if (tid < S) {
+        const float rr = att_g[c], kk = att_g[C + c];
+        h_r[tid] = rr;
+        h_k[tid] = kk;
+        h_v[tid] = att_g[2 * C + c];
+        h_w[tid] = vec[kTD * C + c];
+        dot_part = mul(mul(rr, vec[kTF * C + c]), kk);
+      }
+      const float dot = block_sum(dot_part, red);  // also orders the h_* stores
+
+      // state rows: tpr threads per row i, entries j = jj * tpr + part
+      const int tpr = blockDim.x / S;
+      const int jn = S / tpr;
+      const int i = tid / tpr, part = tid % tpr;
+      const size_t hoff = (static_cast<size_t>(l) * H * S + static_cast<size_t>(h) * S + i) * S;
+      const float* st_in = p.heads_in + hoff;
+      float* st_out = p.heads_out + hoff;
+      const float vi = h_v[i];
+      float yi = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < kMaxJ; ++jj) {
+        if (jj < jn) {
+          const int j = jj * tpr + part;
+          const float st = st_in[j];
+          yi += st * h_r[j];
+          st_out[j] = add(mul(st, h_w[j]), mul(h_k[j], vi));
+        }
+      }
+      for (int off = tpr >> 1; off > 0; off >>= 1) yi += __shfl_xor_sync(0xffffffffu, yi, off);
+      if (part == 0) h_y[i] = add(yi, mul(vi, dot));
+      __syncthreads();
+
+      const float yv = tid < S ? h_y[tid] : 0.f;
+      const float mu = block_sum(yv, red) / static_cast<float>(S);
+      const float yc = tid < S ? sub(yv, mu) : 0.f;
+      const float var = block_sum(mul(yc, yc), red) / static_cast<float>(S);
+      if (tid < S) {
+        const float yn = mul(yc, rsqrtf(add(var, 1e-5f)));
+        const float xo = add(mul(yn, vec[kLnxW * C + c]), vec[kLnxB * C + c]);
+        xo_g[c] = GATE ? mul(xo, att_g[3 * C + c]) : xo;
+      }
+      __syncthreads();
+    }
+    barrier();
+
+    // ---- phase D: out rows + residual -------------------------------------
+    quantize_n<1>([&](int, int c) { return xo_g[c]; }, C, q8, 0, dxs, red);
+    matvec_grid<W4, 1>(m_layer + mo.out, C, C, 1, [&](int, int) { return q8; },
+        [&](int row, int, int acc) {
+          x_g[row] = add(x_g[row], dequant(acc, dxs[0], s_layer[so.out + row]));
+        },
+        lanes_for(C, W4));
+    barrier();
+
+    // ---- phases E and F: the FFN ------------------------------------------
+    ffn_v45<W4>(vec, m_layer, s_layer, mo, so, p.ffn_in + static_cast<size_t>(l) * C,
+                p.ffn_out + static_cast<size_t>(l) * C, x_g, rg_g, fk_g, C, F, xs, xl, red, dxs,
+                q8, barrier);
+  }
+
+  // ---- head: ln_out, quantize, V rows (decode_common.cuh) -----------------
+  lm_head(x_g, p.head, p.head_d, p.ln_out, p.logits, C, p.V, xs, xl, red, dxs, q8);
+  PHASE_MARK();
+}
+
+size_t smem_bytes(int C, int S, int F) {
+  const int q = 4 * C > F ? 4 * C : F;
+  const size_t floats = 2ull * C + 5 * S + 8 * 32 + 8;
+  return floats * sizeof(float) + ((q + 15) / 16) * 16;
+}
+
+const void* kernel_for(bool w4, bool gate) {
+  if (w4)
+    return gate ? reinterpret_cast<const void*>(v5_decode_kernel<true, true>)
+                : reinterpret_cast<const void*>(v5_decode_kernel<true, false>);
+  return gate ? reinterpret_cast<const void*>(v5_decode_kernel<false, true>)
+              : reinterpret_cast<const void*>(v5_decode_kernel<false, false>);
+}
+
+int launch(bool w4, const void* token, const void* emb, const void* ln0, const void* mats,
+           const void* scales, const void* vecs, const void* head, const void* head_d,
+           const void* ln_out, const void* att_in, const void* ffn_in, const void* heads_in,
+           void* att_out, void* ffn_out, void* heads_out, void* logits, void* scratch, int C,
+           int H, int S, int F, int L, int V, int gate, int grid_blocks, void* stream) {
+  if (grid_blocks <= 0 || S <= 0 || kThreads % S != 0 || S * S / kThreads > kMaxJ ||
+      H * S != C)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  a.token = static_cast<const int*>(token);
+  a.emb = static_cast<const uint16_t*>(emb);
+  a.ln0 = static_cast<const float*>(ln0);
+  a.mats = static_cast<const int8_t*>(mats);
+  a.scales = static_cast<const float*>(scales);
+  a.vecs = static_cast<const float*>(vecs);
+  a.head = static_cast<const int8_t*>(head);
+  a.head_d = static_cast<const float*>(head_d);
+  a.ln_out = static_cast<const float*>(ln_out);
+  a.att_in = static_cast<const float*>(att_in);
+  a.ffn_in = static_cast<const float*>(ffn_in);
+  a.heads_in = static_cast<const float*>(heads_in);
+  a.att_out = static_cast<float*>(att_out);
+  a.ffn_out = static_cast<float*>(ffn_out);
+  a.heads_out = static_cast<float*>(heads_out);
+  a.logits = static_cast<float*>(logits);
+  a.scratch = static_cast<float*>(scratch);
+  a.C = C; a.H = H; a.S = S; a.F = F; a.L = L; a.V = V;
+  void* kargs[] = {&a};
+  cudaError_t err = cudaLaunchCooperativeKernel(kernel_for(w4, gate != 0), dim3(grid_blocks),
+                                                dim3(kThreads), kargs, smem_bytes(C, S, F),
+                                                static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Grid size both variants (5.1, 5.2) of a format can launch with, after
+// setting their shared memory limit: blocks, or a negative CUDA error code.
+int grid_blocks_for(bool w4, int C, int S, int F) {
+  const int n51 = cooperative_grid(kernel_for(w4, false), kThreads, smem_bytes(C, S, F));
+  const int n52 = cooperative_grid(kernel_for(w4, true), kThreads, smem_bytes(C, S, F));
+  return n51 < n52 ? n51 : n52;
+}
+
+}  // namespace
+
+// The w8a8 and w4a8 entries take the same arguments: the grid size the
+// launch uses (blocks, or a negative CUDA error code), and one launch
+// (gate = 1 for 5.2).
+extern "C" int rwkv_v5_decode_grid(int C, int S, int F) { return grid_blocks_for(false, C, S, F); }
+
+extern "C" int rwkv_v5_decode_w4_grid(int C, int S, int F) {
+  return grid_blocks_for(true, C, S, F);
+}
+
+#define RWKV_V5_DECODE_ENTRY(name, w4)                                                         \
+  extern "C" int name(const void* token, const void* emb, const void* ln0, const void* mats,   \
+                      const void* scales, const void* vecs, const void* head,                  \
+                      const void* head_d, const void* ln_out, const void* att_in,              \
+                      const void* ffn_in, const void* heads_in, void* att_out, void* ffn_out,  \
+                      void* heads_out, void* logits, void* scratch, int C, int H, int S, int F, \
+                      int L, int V, int gate, int grid_blocks, void* stream) {                 \
+    return launch(w4, token, emb, ln0, mats, scales, vecs, head, head_d, ln_out, att_in,       \
+                  ffn_in, heads_in, att_out, ffn_out, heads_out, logits, scratch, C, H, S, F,  \
+                  L, V, gate, grid_blocks, stream);                                            \
+  }
+
+RWKV_V5_DECODE_ENTRY(rwkv_v5_decode, false)
+RWKV_V5_DECODE_ENTRY(rwkv_v5_decode_w4, true)

@@ -37,9 +37,10 @@
 // then ln_out and the head rows (lm_head, decode_common.cuh, shared with
 // K3). Weight rows of any width are spread over every warp of the grid with
 // 16-byte loads and __dp4a (matvec_rows, common.cuh, as K4 uses it; int4
-// rows unpack with two masks). The step is bound by latency, not bytes:
-// each phase is a chain of block reductions and dependent loads, and the
-// layer's seven grid barriers dominate at B=1.
+// rows unpack with two masks), lanes_for(K) lanes a row (decode_common.cuh).
+// The step is bound by latency, not bytes: each phase is a chain of block
+// reductions and dependent loads, and the layer's seven grid barriers
+// dominate at B=1.
 //
 // Numerics follow the JAX kernel: each matvec input vector is quantized as
 // a whole (amax over all of it, codes rint(x * inv) clipped to +-127), the
@@ -101,16 +102,6 @@ struct ScaleOffsets6 {
     layer = fr + C;
   }
 };
-
-// Lanes sharing a weight row of width K in the big matvecs: enough that
-// each lane reads its share in one round of kMaxChunksPerLane 16-byte
-// chunks (matvec_rows then keeps the largest power of two dividing the
-// row's chunks), so a warp has the most bytes in flight per round and a
-// phase takes the fewest dependent rounds.
-__device__ __forceinline__ int lanes_for(int K, bool w4) {
-  const int l = (w4 ? K / 2 : K) / 16 / kMaxChunksPerLane;
-  return l < 1 ? 1 : l > 32 ? 32 : l;
-}
 
 // Which of the five mixes (w, k, v, r, g) feeds each part of the fused
 // rkvg rows (r, k, v, g).

@@ -1,10 +1,11 @@
-"""Plain PyTorch forward graph for RWKV v6 and v7.
+"""Plain PyTorch forward graph for RWKV v4, v5.1, v5.2, v6 and v7.
 
-Ports the v6 and v7 parts of ``rwkv_tpu.models.graph``: the wkv6 and wkv7
-recurrences (``wkv6_scan`` / ``wkv7_scan`` and their ``_trace`` forms),
-``att_v6`` / ``ffn_v6``, ``att_v7`` / ``ffn_v7`` and ``forward``.
-``forward`` is the float32 oracle of the port. State matrices are
-``S[h, i, j]`` with i the value dim and j the key dim.
+Ports ``rwkv_tpu.models.graph``: the wkv4, wkv6 and wkv7 recurrences
+(``wkv4_scan`` / ``wkv6_scan`` / ``wkv7_scan`` and their ``_trace``
+forms), ``att_v4``, ``att_v5`` and ``ffn_v4_v5``, ``att_v6`` / ``ffn_v6``,
+``att_v7`` / ``ffn_v7`` and ``forward``. ``forward`` is the float32 oracle
+of the port. State matrices are ``S[h, i, j]`` with i the value dim and j
+the key dim; v4 carries the scalar ``aa`` / ``bb`` / ``pp`` columns instead.
 """
 
 from __future__ import annotations
@@ -25,6 +26,51 @@ def _token_shift(x_ln: torch.Tensor, carry: torch.Tensor):
     the carried state row; the new carry is the last token's activation."""
     x_prev = torch.cat([carry[None], x_ln[:-1]], dim=0)
     return x_prev, x_ln[-1]
+
+
+def _mix(x: torch.Tensor, x_prev: torch.Tensor, coeff: torch.Tensor) -> torch.Tensor:
+    """v4/v5 time mix: x*c + x_prev*(1-c), in the reference's op order
+    ``x*c + (x_prev - x_prev*c)`` (a different rounding flips int8 codes
+    downstream)."""
+    return x * coeff + (x_prev - x_prev * coeff)
+
+
+def _wkv4_step(tf, td, kt, vt, aa, bb, pp):
+    """One wkv4 token with the max-trick: (wkv, aa', bb', pp')."""
+    ww = tf + kt
+    qq = torch.maximum(pp, ww)
+    e1 = torch.exp(pp - qq)
+    e2 = torch.exp(ww - qq)
+    wkv = (e1 * aa + e2 * vt) / (e1 * bb + e2)
+    ww2 = pp + td
+    qq2 = torch.maximum(ww2, kt)
+    e1b = torch.exp(ww2 - qq2)
+    e2b = torch.exp(kt - qq2)
+    return wkv, e1b * aa + e2b * vt, e1b * bb + e2b, qq2
+
+
+def wkv4_scan(tf, td, k, v, aa, bb, pp):
+    """RWKV v4 scalar-state wkv with the max-trick for numerical
+    stability. k, v: [T, ..., C]; tf/td: [C]; aa/bb/pp: [..., C]. Returns
+    (wkv [T, ..., C], aa, bb, pp)."""
+    ys = []
+    for t in range(k.shape[0]):
+        y, aa, bb, pp = _wkv4_step(tf, td, k[t], v[t], aa, bb, pp)
+        ys.append(y)
+    return torch.stack(ys), aa, bb, pp
+
+
+def wkv4_scan_trace(tf, td, k, v, aa, bb, pp):
+    """wkv4_scan that also returns aa/bb/pp AFTER every step:
+    (wkv, aa_all, bb_all, pp_all), each [T, ..., C]."""
+    ys, aas, bbs, pps = [], [], [], []
+    for t in range(k.shape[0]):
+        y, aa, bb, pp = _wkv4_step(tf, td, k[t], v[t], aa, bb, pp)
+        ys.append(y)
+        aas.append(aa)
+        bbs.append(bb)
+        pps.append(pp)
+    return torch.stack(ys), torch.stack(aas), torch.stack(bbs), torch.stack(pps)
 
 
 def _wkv6_step(s, rt, kt, vt, wt, tf):
@@ -87,6 +133,78 @@ def wkv7_scan_trace(s, r, w, k, v, a, b):
         ys.append(torch.einsum("...ij,...j->...i", s, r[t]))
         states.append(s)
     return torch.stack(ys), torch.stack(states)
+
+
+def att_v4(layer: Params, x, att_xx, aa, bb, pp, trace=False, wkv_fn=None):
+    """v4 time mix: three-way shift mix, sigmoid receptance multiplying
+    the scalar-state wkv before the output projection. `wkv_fn` overrides
+    the recurrence (the prefill dispatch ``ops.chunked.wkv4_auto``);
+    trace=True additionally returns (xl, aa_all, bb_all, pp_all)."""
+    xl = layer_norm(x, layer["ln1.weight"], layer["ln1.bias"])
+    x_prev, new_xx = _token_shift(xl, att_xx)
+
+    xk = _mix(xl, x_prev, layer["att.time_mix_k"])
+    xv = _mix(xl, x_prev, layer["att.time_mix_v"])
+    xr = _mix(xl, x_prev, layer["att.time_mix_r"])
+
+    r = torch.sigmoid(mm(xr, layer["att.receptance.weight"]))
+    k = mm(xk, layer["att.key.weight"])
+    v = mm(xv, layer["att.value.weight"])
+
+    tf, td = layer["att.time_first"], layer["att.time_decay"]
+    if trace:
+        wkv, aa_all, bb_all, pp_all = wkv4_scan_trace(tf, td, k, v, aa, bb, pp)
+        out = mm(r * wkv, layer["att.output.weight"])
+        return (out, new_xx, aa_all[-1], bb_all[-1], pp_all[-1],
+                (xl, aa_all, bb_all, pp_all))
+    wkv, aa, bb, pp = (wkv_fn or wkv4_scan)(tf, td, k, v, aa, bb, pp)
+    return mm(r * wkv, layer["att.output.weight"]), new_xx, aa, bb, pp
+
+
+def att_v5(layer: Params, x, att_xx, heads, cfg: ModelConfig, wkv_fn=None, trace=False):
+    """v5.1 / v5.2 time mix: the wkv6 recurrence with a static decay. 5.2
+    has ``[H, S]`` ``time_faaaa`` and ``time_decay`` (already exp(-exp(.))
+    as stored, used as is) and a silu gate; 5.1 per-head scalar
+    ``time_first`` / ``time_decay`` broadcast over S and no gate. Group
+    norm eps 1e-5. `wkv_fn` and `trace` as in ``att_v6``."""
+    h, s = cfg.head_count, cfg.head_size
+    lead = x.shape[:-1]
+    xl = layer_norm(x, layer["ln1.weight"], layer["ln1.bias"])
+    x_prev, new_xx = _token_shift(xl, att_xx)
+
+    xk = _mix(xl, x_prev, layer["att.time_mix_k"])
+    xv = _mix(xl, x_prev, layer["att.time_mix_v"])
+    xr = _mix(xl, x_prev, layer["att.time_mix_r"])
+
+    r = mm(xr, layer["att.receptance.weight"]).reshape(*lead, h, s)
+    k = mm(xk, layer["att.key.weight"]).reshape(*lead, h, s)
+    v = mm(xv, layer["att.value.weight"]).reshape(*lead, h, s)
+
+    if cfg.version_minor >= 2:
+        g = torch.nn.functional.silu(
+            mm(_mix(xl, x_prev, layer["att.time_mix_g"]), layer["att.gate.weight"]))
+        tf = layer["att.time_faaaa"]
+        td = layer["att.time_decay"]
+    else:
+        g = None
+        tf = layer["att.time_first"][:, None].expand(h, s)
+        td = layer["att.time_decay"][:, None].expand(h, s)
+
+    if trace:
+        y, heads_all = wkv6_scan_trace(heads, r, k, v, td, tf)
+        heads = heads_all[-1]
+    else:
+        y, heads = (wkv_fn or wkv6_scan)(heads, r, k, v, td, tf)
+    xo = group_norm(
+        y.reshape(*lead, cfg.n_embed), layer["att.ln_x.weight"], layer["att.ln_x.bias"], h,
+        eps=1e-5,
+    )
+    if g is not None:
+        xo = xo * g
+    out = mm(xo, layer["att.output.weight"])
+    if trace:
+        return out, new_xx, heads, (xl, heads_all)
+    return out, new_xx, heads
 
 
 def att_v6(layer: Params, x, att_xx, heads, cfg: ModelConfig, wkv_fn=None, trace=False):
@@ -221,6 +339,18 @@ def att_v7(
     return out, new_xx, heads, v_first
 
 
+def ffn_v4_v5(layer: Params, x, ffn_xx):
+    """v4/v5 channel mix: relu^2 key with a sigmoid receptance gate, the
+    shift mixes in the reference's op order."""
+    xl = layer_norm(x, layer["ln2.weight"], layer["ln2.bias"])
+    x_prev, new_xx = _token_shift(xl, ffn_xx)
+    xk = _mix(xl, x_prev, layer["ffn.time_mix_k"])
+    xr = _mix(xl, x_prev, layer["ffn.time_mix_r"])
+    r = torch.sigmoid(mm(xr, layer["ffn.receptance.weight"]))
+    k = torch.square(torch.relu(mm(xk, layer["ffn.key.weight"])))
+    return r * mm(k, layer["ffn.value.weight"]), new_xx
+
+
 def ffn_v6(layer: Params, x, ffn_xx):
     """v6 channel mix: relu^2 key with a sigmoid receptance gate."""
     xl = layer_norm(x, layer["ln2.weight"], layer["ln2.bias"])
@@ -250,17 +380,18 @@ def forward(
     cfg: ModelConfig,
     compute_logits: bool = True,
 ):
-    """One v6 or v7 forward pass over `tokens` [T] with recurrent `state`
-    (arrays [L, ...]). Returns (logits [n_vocab] for the last token, or
-    None, new state)."""
+    """One forward pass over `tokens` [T] with recurrent `state` (arrays
+    [L, ...]: v5-v7 ``heads``, v4 ``aa`` / ``bb`` / ``pp``). Returns
+    (logits [n_vocab] for the last token, or None, new state)."""
     major = cfg.version_major
-    if major not in (6, 7):
-        raise NotImplementedError("the port's forward graph is RWKV v6 and v7 only")
+    if major not in (4, 5, 6, 7):
+        raise NotImplementedError(f"RWKV v{cfg.version} has no forward graph")
     emb = params["emb"][tokens]
     x = layer_norm(emb.float(), *params["ln0"])
 
     v_first = None
-    new_att_xx, new_ffn_xx, new_heads = [], [], []
+    new_att_xx, new_ffn_xx = [], []
+    new_heads, new_aa, new_bb, new_pp = [], [], [], []
     for i, layer in enumerate(params["blocks"]):
         if major == 7:
             dx, att_xx, heads, v_first = att_v7(
@@ -268,20 +399,37 @@ def forward(
             )
             x = x + dx
             dx, ffn_xx = ffn_v7(layer, x, state["ffn_xx"][i])
-        else:
+        elif major == 6:
             dx, att_xx, heads = att_v6(layer, x, state["att_xx"][i], state["heads"][i], cfg)
             x = x + dx
             dx, ffn_xx = ffn_v6(layer, x, state["ffn_xx"][i])
+        elif major == 5:
+            dx, att_xx, heads = att_v5(layer, x, state["att_xx"][i], state["heads"][i], cfg)
+            x = x + dx
+            dx, ffn_xx = ffn_v4_v5(layer, x, state["ffn_xx"][i])
+        else:
+            dx, att_xx, aa, bb, pp = att_v4(
+                layer, x, state["att_xx"][i], state["aa"][i], state["bb"][i], state["pp"][i]
+            )
+            x = x + dx
+            dx, ffn_xx = ffn_v4_v5(layer, x, state["ffn_xx"][i])
+            new_aa.append(aa)
+            new_bb.append(bb)
+            new_pp.append(pp)
         x = x + dx
-        new_heads.append(heads)
+        if major >= 5:
+            new_heads.append(heads)
         new_att_xx.append(att_xx)
         new_ffn_xx.append(ffn_xx)
 
     new_state: State = {
         "att_xx": torch.stack(new_att_xx),
         "ffn_xx": torch.stack(new_ffn_xx),
-        "heads": torch.stack(new_heads),
     }
+    if major >= 5:
+        new_state["heads"] = torch.stack(new_heads)
+    else:
+        new_state.update(aa=torch.stack(new_aa), bb=torch.stack(new_bb), pp=torch.stack(new_pp))
     logits = None
     if compute_logits:
         xo = layer_norm(x[-1], *params["ln_out"])

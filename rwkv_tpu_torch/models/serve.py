@@ -1,6 +1,6 @@
-"""Serving path for RWKV v6 and v7 on one GPU.
+"""Serving path for RWKV v4, v5.1, v5.2, v6 and v7 on one GPU.
 
-Ports the v6 and v7 serving side of ``rwkv_tpu.models.serve``:
+Ports the serving side of ``rwkv_tpu.models.serve``:
 
 - ``stack_layer_params`` prepares every layer's weights for a precision --
   dense f32 or bf16, or w8a8 (rowwise int8 weights, per-row int8
@@ -8,9 +8,12 @@ Ports the v6 and v7 serving side of ``rwkv_tpu.models.serve``:
   unfused, as they do under w8a8 in the JAX package. w4a8 runs these
   per-op paths as w8a8, as JAX does; only the decode kernels see int4.
 - ``run_blocks`` / ``forward_stacked`` run the layers as a Python loop over
-  ``models.graph.att_v7`` / ``ffn_v7`` (v7) or ``att_v6`` / ``ffn_v6``
-  (v6). For T > 1 the wkv recurrence goes through ``ops.chunked.wkv7_auto``
-  (kernel K2 on the card) or ``wkv6_auto`` (kernel K5).
+  ``models.graph.att_v7`` / ``ffn_v7`` (v7), ``att_v6`` / ``ffn_v6`` (v6),
+  ``att_v5`` / ``ffn_v4_v5`` (v5) or, in ``forward_stacked``'s own loop with
+  the ``aa`` / ``bb`` / ``pp`` state, ``att_v4`` / ``ffn_v4_v5`` (v4). For
+  T > 1 the wkv recurrence goes through ``ops.chunked.wkv7_auto`` (kernel
+  K2 on the card), ``wkv6_auto`` (kernel K5, v6 and v5 with its static
+  decay) or ``wkv4_auto`` (a log-depth scan in plain PyTorch).
 - ``ServingModel`` serves it: ``prefill`` splits a prompt into
   ``PREFILL_BUCKETS``, ``decode`` runs one step for a batch, ``generate``
   samples. With ``megakernel=True`` decode goes through the whole-model
@@ -18,11 +21,13 @@ Ports the v6 and v7 serving side of ``rwkv_tpu.models.serve``:
   the model's shapes, else K4 and the head on K1; ``mega_min_batch`` <= B
   <= ``MEGA_MAX_BATCH`` through K4, then ``ln_out`` and the head on K1 at
   M=B (the JAX package's batched and tiled kernels followed by ``G.mm``).
-  v6: B=1 through K6 (one launch with the LM head, both formats); every
-  B > 1 per-op, as in the JAX package, whose v6 kernels are B=1 only.
+  v6, v5 and v4: B=1 through K6, K7 or K8 (one launch with the LM head,
+  both formats); every B > 1 per-op, as in the JAX package, whose v4-v6
+  kernels are B=1 only.
 
 State uses the serving layout: ``att_xx`` / ``ffn_xx`` ``[B, L, C]`` and
-``heads`` ``[B, L, H, S_i, S_j]``.
+``heads`` ``[B, L, H, S_i, S_j]`` (v5-v7) or ``aa`` / ``bb`` / ``pp``
+``[B, L, C]`` (v4).
 """
 
 from __future__ import annotations
@@ -58,8 +63,9 @@ def _prepare_weight(w: torch.Tensor, dtype, mode: str):
     return w.to(dtype)
 
 
-# the leaves the JAX package's synth builds as ``Weight`` (v7 and v6); under
-# w8a8 they become int8 rows on K1. v6's time_maa_w2 stays f32.
+# the leaves the JAX package's synth builds as ``Weight`` (v4-v7); under
+# w8a8 they become int8 rows on K1. v6's time_maa_w2 and the v4/v5 decay
+# and bonus vectors stay f32.
 _MATRIX_KEYS = frozenset(
     ["att.key.weight", "att.value.weight", "att.receptance.weight", "att.output.weight",
      "ffn.key.weight", "ffn.value.weight"]
@@ -67,7 +73,7 @@ _MATRIX_KEYS = frozenset(
     + ["att.gate.weight", "ffn.receptance.weight", "att.time_maa_w1",
        "att.time_decay_w1", "att.time_decay_w2"]
 )
-_VERSIONS = (6, 7)
+_VERSIONS = (4, 5, 6, 7)
 
 
 def _stack(leaves):
@@ -90,7 +96,7 @@ def stack_layer_params(
     zero-padded; its value residual is computed and selected away."""
     dev = resolve_device(device)
     if cfg.version_major not in _VERSIONS:
-        raise NotImplementedError("the port serves RWKV v6 and v7 only")
+        raise NotImplementedError(f"the port does not serve RWKV v{cfg.version}")
     blocks = [dict(b) for b in params["blocks"]]
     if cfg.version_major == 7 and len(blocks) > 1:
         for key in ("att.v0", "att.v1", "att.v2"):
@@ -132,7 +138,8 @@ def run_blocks(
     """Run stacked ``[Lb, ...]`` blocks over `x` (post-ln0 activations,
     ``[T, ...C]``) as a loop over layers. `layer_offset` is the global index
     of the first layer (v7's value residual selects v at global layer 0).
-    Returns (x, v_first, new_state); v6 passes v_first through."""
+    Returns (x, v_first, new_state); v5 and v6 pass v_first through. v5+
+    only (v4's scalar-state layers run in ``forward_stacked``)."""
     n_local = state["att_xx"].shape[0]
     if v_first is None:
         v_first = torch.zeros_like(x)
@@ -146,11 +153,16 @@ def run_blocks(
             )
             x = x + dx
             dx, ffn_xx = G.ffn_v7(layer, x, state["ffn_xx"][i])
-        else:
+        elif cfg.version_major == 6:
             dx, att_xx, h = G.att_v6(layer, x, state["att_xx"][i], state["heads"][i], cfg,
                                      wkv_fn=wkv_fn)
             x = x + dx
             dx, ffn_xx = G.ffn_v6(layer, x, state["ffn_xx"][i])
+        else:
+            dx, att_xx, h = G.att_v5(layer, x, state["att_xx"][i], state["heads"][i], cfg,
+                                     wkv_fn=wkv_fn)
+            x = x + dx
+            dx, ffn_xx = G.ffn_v4_v5(layer, x, state["ffn_xx"][i])
         x = x + dx
         att.append(att_xx)
         ffn.append(ffn_xx)
@@ -158,6 +170,29 @@ def run_blocks(
     return x, v_first, {
         "att_xx": torch.stack(att), "ffn_xx": torch.stack(ffn), "heads": torch.stack(heads)
     }
+
+
+def _forward_v4(blocks: dict, state: dict, x: torch.Tensor, prefill: bool):
+    """The v4 layers over `x` with the ``aa`` / ``bb`` / ``pp`` state;
+    prefill (T > 1) runs the wkv through ``ops.chunked.wkv4_auto``.
+    Returns (x, new state)."""
+    wkv_fn = None
+    if prefill:
+        from rwkv_tpu_torch.ops.chunked import wkv4_auto
+
+        wkv_fn = wkv4_auto
+    keys = ("att_xx", "ffn_xx", "aa", "bb", "pp")
+    out = {k: [] for k in keys}
+    for i in range(state["att_xx"].shape[0]):
+        layer = _layer(blocks, i)
+        dx, att_xx, aa, bb, pp = G.att_v4(layer, x, state["att_xx"][i], state["aa"][i],
+                                          state["bb"][i], state["pp"][i], wkv_fn=wkv_fn)
+        x = x + dx
+        dx, ffn_xx = G.ffn_v4_v5(layer, x, state["ffn_xx"][i])
+        x = x + dx
+        for k, v in zip(keys, (att_xx, ffn_xx, aa, bb, pp)):
+            out[k].append(v)
+    return x, {k: torch.stack(v) for k, v in out.items()}
 
 
 def forward_stacked(
@@ -174,12 +209,15 @@ def forward_stacked(
     (every position) or False."""
     emb = params["emb"][tokens]
     x = layer_norm(emb.float(), *params["ln0"])
-    wkv_fn = None
-    if tokens.shape[0] > 1:
-        from rwkv_tpu_torch.ops.chunked import wkv6_auto, wkv7_auto
+    if cfg.version_major == 4:
+        x, new_state = _forward_v4(params["blocks"], state, x, tokens.shape[0] > 1)
+    else:
+        wkv_fn = None
+        if tokens.shape[0] > 1:
+            from rwkv_tpu_torch.ops.chunked import wkv6_auto, wkv7_auto
 
-        wkv_fn = wkv7_auto if cfg.version_major == 7 else wkv6_auto
-    x, _, new_state = run_blocks(params["blocks"], state, x, cfg, wkv_fn=wkv_fn)
+            wkv_fn = wkv7_auto if cfg.version_major == 7 else wkv6_auto
+        x, _, new_state = run_blocks(params["blocks"], state, x, cfg, wkv_fn=wkv_fn)
     logits = None
     if compute_logits == "all":
         logits = G.mm(layer_norm(x, *params["ln_out"]), params["head"])
@@ -193,7 +231,7 @@ def forward_stacked(
 
 
 class ServingModel:
-    """RWKV v6 / v7 serving engine on one device."""
+    """RWKV v4 / v5 / v6 / v7 serving engine on one device."""
 
     def __init__(
         self,
@@ -207,8 +245,8 @@ class ServingModel:
         precision: 'f32' | 'bf16' (dense) | 'w8a8' | 'w4a8' (int4 big
         matrices in the decode kernels; every per-op path runs w8a8).
         megakernel=True (w8a8 and w4a8) routes decode through kernels K3
-        and K4 (v7) or K6 (v6; see ``decode``). device: default the CUDA
-        card; raises when there is none."""
+        and K4 (v7), K6 (v6), K7 (v5) or K8 (v4; see ``decode``). device:
+        default the CUDA card; raises when there is none."""
         if isinstance(source, str):
             raise NotImplementedError("loading ggmf files is not ported yet; pass (cfg, params)")
         cfg, params = source
@@ -227,17 +265,23 @@ class ServingModel:
         self.mega_min_batch = 2
         self._mega: Optional[dict] = None
         self._mega_k3 = False
-        if megakernel and cfg.version_major == 6:
-            from rwkv_tpu_torch.ops.megakernel import (
-                build_mega_pack_v6, device_pack, v6_decode_shape_error,
-            )
+        if megakernel and cfg.version_major in (4, 5, 6):
+            from rwkv_tpu_torch.ops import megakernel as M
 
             w4 = precision == "w4a8"
-            pack = build_mega_pack_v6(params, cfg, w4=w4)
-            err = v6_decode_shape_error(cfg, pack["d_maa"], pack["d_dec"], pack["f_dim"], w4)
+            if cfg.version_major == 6:
+                pack = M.build_mega_pack_v6(params, cfg, w4=w4)
+                err = M.v6_decode_shape_error(cfg, pack["d_maa"], pack["d_dec"],
+                                              pack["f_dim"], w4)
+            elif cfg.version_major == 5:
+                pack = M.build_mega_pack_v5(params, cfg, w4=w4)
+                err = M.v5_decode_shape_error(cfg, pack["f_dim"], w4)
+            else:
+                pack = M.build_mega_pack_v4(params, cfg, w4=w4)
+                err = M.v4_decode_shape_error(cfg, pack["f_dim"], w4)
             if err:
                 raise NotImplementedError(f"megakernel=True: {err}")
-            self._mega = device_pack(pack, self.params["emb"], self.params["ln0"], self.device)
+            self._mega = M.device_pack(pack, self.params["emb"], self.params["ln0"], self.device)
         elif megakernel:
             from rwkv_tpu_torch.ops.megakernel import (
                 batched_shape_error, build_mega_pack, decode_shape_error, device_pack,
@@ -276,17 +320,19 @@ class ServingModel:
         """One decode step for a batch: tokens [B] -> (logits [B, V], state).
         With megakernel=True, v7: B=1 runs kernel K3 when it takes the
         model's shapes, else K4 and the head; mega_min_batch <= B <=
-        MEGA_MAX_BATCH runs K4, ln_out and the head on K1 at M=B. v6: B=1
-        runs kernel K6. (Plain versions on the CPU.) Every other B, and
-        megakernel=False, runs the per-op path."""
+        MEGA_MAX_BATCH runs K4, ln_out and the head on K1 at M=B. v6, v5
+        and v4: B=1 runs kernel K6, K7 or K8. (Plain versions on the CPU.)
+        Every other B, and megakernel=False, runs the per-op path."""
         tok = self._tokens(tokens).reshape(-1)
         b = tok.shape[0]
-        if self._mega is not None and self.config.version_major == 6:
+        major = self.config.version_major
+        if self._mega is not None and major in (4, 5, 6):
             if b == 1:
-                from rwkv_tpu_torch.ops.megakernel import v6_decode_step
+                from rwkv_tpu_torch.ops import megakernel as M
 
+                step = {6: M.v6_decode_step, 5: M.v5_decode_step, 4: M.v4_decode_step}[major]
                 one = {k: v[0] for k, v in state.items()}
-                logits, new = v6_decode_step(self._mega, one, tok, self.config)
+                logits, new = step(self._mega, one, tok, self.config)
                 return logits[None], {k: v[None] for k, v in new.items()}
         elif self._mega is not None:
             if b == 1 and self._mega_k3:

@@ -1,6 +1,9 @@
-"""wkv6 and wkv7 prefill: chunked plain forms, dispatch, kernels K5 and K2.
+"""wkv4, wkv6 and wkv7 prefill: chunked plain forms, dispatch, kernels K5
+and K2.
 
-Ports ``rwkv_tpu.ops.chunked``'s v5/v6 and v7 parts. ``wkv6_chunked`` /
+Ports ``rwkv_tpu.ops.chunked``'s v4, v5/v6 and v7 parts. ``wkv4_parallel``
+is the v4 prefill: a log-depth scan over the tokens in plain PyTorch (the
+JAX package's is an XLA associative scan, not a TPU kernel). ``wkv6_chunked`` /
 ``_chunk_body`` are the wkv5/6 matmul form over chunks of P tokens (exact
 per-pair log-space decay ratios), ``wkv7_chunked`` / ``_chunk_body7`` the
 wkv7 one (a unit lower triangular solve per chunk,
@@ -293,3 +296,75 @@ def wkv7_auto(s, r, w, k, v, a, b, chunk_size: int = 16):
     if squeeze:
         return y[:, 0], s2[0]
     return y, s2
+
+
+def _wkv4_combine(s1, s2, td):
+    """The wkv4 monoid over (P, A, B, n): segment s1 followed by s2. s1's
+    normalizer decays n2 more steps, then both renormalize at the max."""
+    p1, a1, b1, n1 = s1
+    p2, a2, b2, n2 = s2
+    p1s = p1 + n2 * td
+    p = torch.maximum(p1s, p2)
+    e1 = torch.exp(p1s - p)
+    e2 = torch.exp(p2 - p)
+    return p, e1 * a1 + e2 * a2, e1 * b1 + e2 * b2, n1 + n2
+
+
+def wkv4_parallel(tf, td, k, v, aa, bb, pp):
+    """wkv4 over a whole sequence with the time recurrence as a log-depth
+    (Hillis-Steele) inclusive scan of the (P, A, B, n) monoid: ceil(log2 T)
+    rounds of whole-tensor ops, not T. Same signature and semantics as
+    ``models.graph.wkv4_scan``: k/v [T, ..., C]; tf/td [C]; aa/bb/pp the
+    incoming scalar state. Token t reads the EXCLUSIVE prefix (the state
+    before it, with the initial state folded in front, decayed t steps)
+    and the (tf + k_t, v_t) bonus, as the serial step does; the final
+    state folds the decayed initial state into the whole-sequence scan at
+    the ``P_all`` normalizer."""
+    t = k.shape[0]
+    ones = torch.ones_like(k)
+    seg = (k, v, ones, ones)  # one token: P = k_t, A = v_t, B = 1, n = 1
+    off = 1
+    while off < t:
+        later = tuple(x[off:] for x in seg)
+        earlier = tuple(x[:-off] for x in seg)
+        comb = _wkv4_combine(earlier, later, td)
+        seg = tuple(torch.cat([x[:off], c]) for x, c in zip(seg, comb))
+        off *= 2
+    pc, ac, bc, _ = seg
+
+    steps = torch.arange(t, dtype=k.dtype, device=k.device).reshape((t,) + (1,) * (k.ndim - 1))
+    pp_t = pp + steps * td  # the initial state's normalizer before each token
+
+    # exclusive prefix: token t reads scan[t - 1] as is (the serial step
+    # decays inside the next state update, not between state and output)
+    pe = torch.cat([torch.full_like(pc[:1], -1e38), pc[:-1]])
+    ae = torch.cat([torch.zeros_like(ac[:1]), ac[:-1]])
+    be = torch.cat([torch.zeros_like(bc[:1]), bc[:-1]])
+
+    pm = torch.maximum(pp_t, pe)
+    es = torch.exp(pp_t - pm)
+    ep = torch.exp(pe - pm)
+    at = es * aa + ep * ae
+    bt = es * bb + ep * be
+
+    ww = tf + k
+    qq = torch.maximum(pm, ww)
+    e1 = torch.exp(pm - qq)
+    e2 = torch.exp(ww - qq)
+    wkv = (e1 * at + e2 * v) / (e1 * bt + e2)
+
+    pp_end = pp + t * td
+    p_all = torch.maximum(pp_end, pc[-1])
+    es2 = torch.exp(pp_end - p_all)
+    ep2 = torch.exp(pc[-1] - p_all)
+    return wkv, es2 * aa + ep2 * ac[-1], es2 * bb + ep2 * bc[-1], p_all
+
+
+def wkv4_auto(tf, td, k, v, aa, bb, pp):
+    """Whole-sequence wkv4: the log-depth scan for T > 1, the serial step
+    at T = 1 (any device)."""
+    from rwkv_tpu_torch.models.graph import wkv4_scan
+
+    if k.shape[0] == 1:
+        return wkv4_scan(tf, td, k, v, aa, bb, pp)
+    return wkv4_parallel(tf, td, k, v, aa, bb, pp)

@@ -1,6 +1,6 @@
 """Whole-model decode steps: v7 at B=1 with the LM head (kernel K3) and
-for B sequences without it (kernel K4), and v6 at B=1 with the LM head
-(kernel K6), w8a8 or w4a8.
+for B sequences without it (kernel K4), and v6, v5 and v4 at B=1 with the
+LM head (kernels K6, K7 and K8), w8a8 or w4a8.
 
 Ports the quantized parts of ``rwkv_tpu.ops.megakernel``: ``_quantize_rows``
 (int8 and int4), ``build_mega_pack(quant=True, head=True, w4=...)``,
@@ -31,6 +31,19 @@ and, as one function, ``v6_decode_megakernel`` and
 int4 under w4a8, the LoRA ones int8 in both formats, and the maa2
 up-projections in float32 (int8, bf16 or TF32 there drift far from the
 per-op path).
+
+The v5 and v4 parts port ``build_mega_pack_v5`` / ``build_mega_pack_v4``
+(``quant=True, head=True, w4=...``) and, as one function each, the
+whole-layer and tiled kernels ``v5_decode_megakernel`` /
+``v5_decode_megakernel_tiled`` and ``v4_decode_megakernel`` /
+``v4_decode_megakernel_tiled``: ``v5_decode_step`` runs
+``csrc/v5_decode.cu`` (K7) and ``v4_decode_step`` runs
+``csrc/v4_decode.cu`` (K8) on CUDA tensors, ``v5_decode_step_ref`` /
+``v4_decode_step_ref`` on CPU tensors. Their packs hold five matrices
+(att = the fused r, k, v(, g) rows; out; fk; fv; fr), all five int4 under
+w4a8, and per layer the vector rows ``V45_VEC_KEYS`` followed by the FFN
+mixes, the static decay and bonus (v5.1's per-head scalars broadcast over
+S), v5's ``ln_x`` and the attention mixes (k, v, r(, g)).
 """
 
 from __future__ import annotations
@@ -167,19 +180,24 @@ def build_mega_pack(params: dict, cfg, w4: bool = False) -> dict:
 
 def _layout(pack: dict):
     """(matrix keys, the int4 ones under w4, vector rows, blocks of rows
-    after them as (key, rows)) of a v7 or v6 pack's flat buffers."""
-    if pack.get("version") == 6:
+    after them as (key, rows)) of a v7, v6, v5 or v4 pack's flat buffers."""
+    version = pack.get("version")
+    if version == 6:
         return V6_MAT_KEYS, V6_W4_MATS, V6_VEC_KEYS, (("maa5", 5), ("tdecay", 1), ("tf", 1))
+    if version in (4, 5):
+        mats = V5_MAT_KEYS if version == 5 else V4_MAT_KEYS
+        return mats, mats, V45_VEC_KEYS, _v45_blocks(pack)
     return MAT_KEYS, W4_MATS, VEC_KEYS, (("coeff", 6), ("r_k", 1))
 
 
 def device_pack(pack: dict, emb: torch.Tensor, ln0, device) -> dict:
     """`pack` on `device` in the kernels' flat layout: ``mats`` int8
     ``[L, per-layer bytes]`` (v7: rkv|lora1|lora2|out|fk|fv; v6:
-    ``V6_MAT_KEYS``; the int4 ones packed by ``pack_int4``), ``scales`` f32
-    ``[L, rows]`` in the same order (v7 9C + 4d + F rows), ``vecs`` f32
-    ``[L, n, C]`` (v7: VEC_KEYS, the six coeff rows, r_k -- 19; v6:
-    V6_VEC_KEYS, the five maa5 rows, tdecay, tf -- 16) and, for v6, ``maa2``
+    ``V6_MAT_KEYS``; v5 / v4: ``V5_MAT_KEYS`` / ``V4_MAT_KEYS``; the int4
+    ones packed by ``pack_int4``), ``scales`` f32 ``[L, rows]`` in the same
+    order (v7 9C + 4d + F rows), ``vecs`` f32 ``[L, n, C]`` (v7: VEC_KEYS,
+    the six coeff rows, r_k -- 19; v6: V6_VEC_KEYS, the five maa5 rows,
+    tdecay, tf -- 16; v5 / v4: ``_v45_blocks``) and, for v6, ``maa2``
     f32 ``[L, 5C, d_maa]``. The named tensors of `pack` become views into
     these buffers (the int4 ones as packed bytes ``[L, N, K/2]``), so the
     plain versions read the same memory. `emb` (the serving embedding, bf16
@@ -754,3 +772,355 @@ def v6_decode_step(pack: dict, state: dict, token: torch.Tensor, cfg):
 
 
 v6_decode_step.launches = 0
+
+
+# -- RWKV v5.1 / v5.2 and v4: packs, plain versions, kernels K7 and K8 --------
+
+# matrices in the JAX package's order (all five int4 under w4a8); att is
+# the fused projections: v5 r, k, v(, g), v4 r, k, v
+V5_MAT_KEYS = ("rkvg", "out", "fk", "fv", "fr")
+V4_MAT_KEYS = ("rkv", "out", "fk", "fv", "fr")
+# the per-layer vector rows both kernels start with (their VecRow45 enum);
+# _v45_blocks gives the rows after them
+V45_VEC_KEYS = ("ln1.weight", "ln1.bias", "ln2.weight", "ln2.bias")
+_V45_ATT = ("att.receptance.weight", "att.key.weight", "att.value.weight")
+
+
+def _v45_blocks(pack: dict) -> tuple:
+    """Vector rows after ``V45_VEC_KEYS`` as (key, rows): the FFN mixes
+    (k, r), the static decay ``td`` and bonus ``tf`` (``[L, C]``, heads
+    flattened), v5's ``ln_x`` weight and bias, then the attention mixes
+    (k, v, r(, g))."""
+    lnx = (("att.ln_x.weight", 1), ("att.ln_x.bias", 1)) if pack["version"] == 5 else ()
+    n_mix = 4 if pack.get("has_gate") else 3
+    return (("fmix", 2), ("td", 1), ("tf", 1)) + lnx + (("amix", n_mix),)
+
+
+def _build_mega_pack_v45(params: dict, cfg, w4: bool, version: int) -> dict:
+    c = cfg.n_embed
+    blocks = params["blocks"]
+    n_layer = len(blocks)
+    has_gate = version == 5 and "att.gate.weight" in blocks[0]
+
+    def stack(keys_or_key):
+        if isinstance(keys_or_key, tuple):
+            return np.stack([np.concatenate([_np(b[k]) for k in keys_or_key]) for b in blocks])
+        return np.stack([_np(b[keys_or_key]) for b in blocks])
+
+    pack = {
+        "version": version,
+        "quant": True,
+        "w4": bool(w4),
+        "f_dim": _np(blocks[0]["ffn.key.weight"]).shape[0],
+    }
+    att = _V45_ATT + (("att.gate.weight",) if has_gate else ())
+    mats = {
+        "rkvg" if version == 5 else "rkv": stack(att),
+        "out": stack("att.output.weight"),
+        "fk": stack("ffn.key.weight"),
+        "fv": stack("ffn.value.weight"),
+        "fr": stack("ffn.receptance.weight"),
+    }
+    for name, w in mats.items():
+        pack[name], pack[name + "_d"] = _quantize_rows(w, w4)
+    for key in V45_VEC_KEYS:
+        pack[key] = torch.from_numpy(stack(key).reshape(n_layer, c))
+    mix_names = ("k", "v", "r") + (("g",) if has_gate else ())
+    pack["amix"] = torch.from_numpy(stack(tuple("att.time_mix_" + n for n in mix_names))
+                                    .reshape(n_layer, len(mix_names), c))
+    pack["fmix"] = torch.from_numpy(stack(("ffn.time_mix_k", "ffn.time_mix_r"))
+                                    .reshape(n_layer, 2, c))
+
+    def per_channel(key):
+        rows = []
+        for b in blocks:
+            a = _np(b[key])
+            if version == 5 and a.ndim == 1:  # 5.1: per-head scalars over S
+                a = np.broadcast_to(a[:, None], (cfg.head_count, cfg.head_size))
+            rows.append(a.reshape(c))
+        return torch.from_numpy(np.stack(rows))
+
+    pack["td"] = per_channel("att.time_decay")
+    pack["tf"] = per_channel("att.time_faaaa" if has_gate else "att.time_first")
+    if version == 5:
+        pack["has_gate"] = has_gate
+        for key in ("att.ln_x.weight", "att.ln_x.bias"):
+            pack[key] = torch.from_numpy(stack(key).reshape(n_layer, c))
+    q, d = _quantize_rows(_np(params["head"])[None])
+    pack["head8"], pack["head_d"] = q[0], d[0]
+    pack["ln_out.weight"] = torch.from_numpy(_np(params["ln_out"][0]).copy())
+    pack["ln_out.bias"] = torch.from_numpy(_np(params["ln_out"][1]).copy())
+    return pack
+
+
+def build_mega_pack_v5(params: dict, cfg, w4: bool = False) -> dict:
+    """K7's parameter pack with the LM head (the JAX package's
+    ``build_mega_pack_v5(quant=True, w4=w4, head=True)``), built on the host
+    from the port's parameter tree. ``has_gate`` (v5.2) is whether the
+    layers hold ``att.gate.weight``.
+
+    Matrices (``V5_MAT_KEYS``) are codes ``[L, N, K]`` (int4 values for all
+    five when w4) with row scales ``[L, N]``, ``rkvg`` fused r, k, v(, g);
+    vectors ``[L, C]``; ``amix`` ``[L, 3 or 4, C]`` (k, v, r(, g)); ``fmix``
+    ``[L, 2, C]`` (k, r); ``td`` (the decay, already exp(-exp(.)) as
+    stored) and ``tf`` (5.2's time_faaaa, 5.1's time_first) ``[L, C]``, 5.1's
+    per-head scalars broadcast over S; ``head8`` ``[V, C]`` int8 with
+    ``head_d``."""
+    if cfg.version_major != 5:
+        raise NotImplementedError("build_mega_pack_v5 takes RWKV v5 models")
+    return _build_mega_pack_v45(params, cfg, w4, 5)
+
+
+def build_mega_pack_v4(params: dict, cfg, w4: bool = False) -> dict:
+    """K8's parameter pack with the LM head (the JAX package's
+    ``build_mega_pack_v4(quant=True, w4=w4, head=True)``): as
+    ``build_mega_pack_v5`` with ``rkv`` fused r, k, v, ``amix`` (k, v, r),
+    ``td`` = time_decay and ``tf`` = time_first ``[L, C]``, and no ln_x."""
+    if cfg.version_major != 4:
+        raise NotImplementedError("build_mega_pack_v4 takes RWKV v4 models")
+    return _build_mega_pack_v45(params, cfg, w4, 4)
+
+
+def _mix45(x, prev, coeff):
+    """The v4/v5 token-shift mix in the reference's op order."""
+    return x * coeff + (prev - prev * coeff)
+
+
+def _ffn_v45_ref(pack: dict, l: int, x, ffn_in):
+    """The v4/v5 FFN of layer l on x [1, C]: (new x, ln2 output)."""
+    xl2 = layer_norm(x, pack["ln2.weight"][l], pack["ln2.bias"][l])
+    fcf = pack["fmix"][l]
+    xk2 = _mix45(xl2, ffn_in, fcf[0])
+    xr2 = _mix45(xl2, ffn_in, fcf[1])
+    rg = torch.sigmoid(_matvec(_codes(pack, "fr", l), pack["fr_d"][l], xr2))
+    hk = torch.square(torch.relu(_matvec(_codes(pack, "fk", l), pack["fk_d"][l], xk2)))
+    return x + rg * _matvec(_codes(pack, "fv", l), pack["fv_d"][l], hk), xl2[0]
+
+
+# the attention mix (amix order k, v, r, g) that feeds each fused
+# projection (r, k, v, g)
+_ATT_MIX = (2, 0, 1, 3)
+
+
+def _att_rows_ref(pack: dict, name: str, l: int, xl, prev):
+    """The fused attention projections of layer l: the mixes each
+    quantized as a whole, then r, k, v(, g) [1, C]."""
+    c = xl.shape[-1]
+    q, d = _codes(pack, name, l), pack[name + "_d"][l]
+    cf = pack["amix"][l]
+    return [_matvec(q[i * c : (i + 1) * c], d[i * c : (i + 1) * c],
+                    _mix45(xl, prev, cf[_ATT_MIX[i]]))
+            for i in range(cf.shape[0])]
+
+
+def v5_decode_layers_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
+    """Plain PyTorch K7 without the head (any device): one v5.1/v5.2 decode
+    step of all layers at B=1. `pack` from ``device_pack``; `state` arrays
+    ``att_xx`` / ``ffn_xx`` ``[L, C]`` and ``heads`` ``[L, H, S, S]``;
+    `token` an int tensor of one element. Returns (x [C] before ln_out,
+    new state). Each matvec quantizes its input vector as a whole, as
+    ``_make_kernel_v5`` does."""
+    h, s = cfg.head_count, cfg.head_size
+    c = cfg.n_embed
+    rows = pack["emb"][token.reshape(-1)[:1].to(pack["emb"].device, torch.long)]
+    x = layer_norm(rows.float(), pack["ln0"][0], pack["ln0"][1])  # [1, C]
+    att_out, ffn_out, heads_out = [], [], []
+    for l in range(cfg.n_layer):
+        xl = layer_norm(x, pack["ln1.weight"][l], pack["ln1.bias"][l])
+        att_out.append(xl[0])
+        r, k, v, *gate = _att_rows_ref(pack, "rkvg", l, xl, state["att_xx"][l])
+        r3, k3, v3 = (t.reshape(h, s) for t in (r, k, v))
+        st = state["heads"][l]
+        dot = (r3 * pack["tf"][l].reshape(h, s) * k3).sum(-1, keepdim=True)
+        y = torch.einsum("hij,hj->hi", st, r3) + v3 * dot
+        heads_out.append(st * pack["td"][l].reshape(h, s)[:, None, :]
+                         + v3[:, :, None] * k3[:, None, :])
+        mu = y.mean(-1, keepdim=True)
+        yc = y - mu
+        var = (yc * yc).mean(-1, keepdim=True)
+        yn = (yc * torch.rsqrt(var + 1e-5)).reshape(1, c)
+        xo = yn * pack["att.ln_x.weight"][l] + pack["att.ln_x.bias"][l]
+        if gate:
+            xo = xo * (gate[0] * torch.sigmoid(gate[0]))
+        x = x + _matvec(_codes(pack, "out", l), pack["out_d"][l], xo)
+        x, xl2 = _ffn_v45_ref(pack, l, x, state["ffn_xx"][l])
+        ffn_out.append(xl2)
+    new_state = {
+        "att_xx": torch.stack(att_out),
+        "ffn_xx": torch.stack(ffn_out),
+        "heads": torch.stack(heads_out),
+    }
+    return x[0], new_state
+
+
+def v5_decode_step_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
+    """Plain PyTorch K7 (any device): ``v5_decode_layers_ref``, then
+    ln_out and the int8 head. Returns (logits [V], new state)."""
+    x, new = v5_decode_layers_ref(pack, state, token, cfg)
+    return lm_head_ref(pack, x), new
+
+
+V4_STATE_KEYS = ("att_xx", "ffn_xx", "aa", "bb", "pp")
+
+
+def v4_decode_layers_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
+    """Plain PyTorch K8 without the head (any device): one v4 decode step
+    of all layers at B=1. `state` arrays ``att_xx`` / ``ffn_xx`` / ``aa`` /
+    ``bb`` / ``pp`` ``[L, C]``; otherwise as ``v5_decode_layers_ref``
+    (``_make_kernel_v4``'s arithmetic)."""
+    from rwkv_tpu_torch.models.graph import _wkv4_step
+
+    rows = pack["emb"][token.reshape(-1)[:1].to(pack["emb"].device, torch.long)]
+    x = layer_norm(rows.float(), pack["ln0"][0], pack["ln0"][1])  # [1, C]
+    out = {k: [] for k in V4_STATE_KEYS}
+    for l in range(cfg.n_layer):
+        xl = layer_norm(x, pack["ln1.weight"][l], pack["ln1.bias"][l])
+        out["att_xx"].append(xl[0])
+        r, k, v = _att_rows_ref(pack, "rkv", l, xl, state["att_xx"][l])
+        wkv, aa, bb, pp = _wkv4_step(pack["tf"][l], pack["td"][l], k[0], v[0],
+                                     state["aa"][l], state["bb"][l], state["pp"][l])
+        for key, val in (("aa", aa), ("bb", bb), ("pp", pp)):
+            out[key].append(val)
+        x = x + _matvec(_codes(pack, "out", l), pack["out_d"][l], torch.sigmoid(r) * wkv)
+        x, xl2 = _ffn_v45_ref(pack, l, x, state["ffn_xx"][l])
+        out["ffn_xx"].append(xl2)
+    return x[0], {k: torch.stack(v) for k, v in out.items()}
+
+
+def v4_decode_step_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
+    """Plain PyTorch K8 (any device): ``v4_decode_layers_ref``, then
+    ln_out and the int8 head. Returns (logits [V], new state)."""
+    x, new = v4_decode_layers_ref(pack, state, token, cfg)
+    return lm_head_ref(pack, x), new
+
+
+def v45_scratch_floats(version: int, c: int, f_dim: int) -> int:
+    """Floats of K7's / K8's global scratch (``scratch_floats`` in the
+    sources): v5 x, r|k|v|g, xo, sigmoid(fr), relu^2 keys -- 7C + F; v4
+    x, sigmoid(r)|k|v, sigmoid(fr), relu^2 keys -- 5C + F."""
+    return (7 if version == 5 else 5) * c + f_dim
+
+
+def _v45_dims_error(name: str, cfg, f_dim: int, w4: bool) -> Optional[str]:
+    for dim in (cfg.n_embed, f_dim):
+        if dim % 16:
+            return f"{name} needs C and F to be multiples of 16, got {dim}"
+    if w4 and (cfg.n_embed % 32 or f_dim % 32):
+        return "int4 rows need C and F to be multiples of 32"
+    return None
+
+
+def v5_decode_shape_error(cfg, f_dim: int, w4: bool = False) -> Optional[str]:
+    """Why K7 cannot take this model's shapes, or None. K7 walks weight
+    rows of any width in 16-byte chunks; shared memory is checked at
+    launch."""
+    s = cfg.head_size
+    if cfg.version_major != 5:
+        return "K7 decodes RWKV v5 only"
+    if s <= 0 or 256 % s or s * s // 256 > 16:
+        return f"K7 supports head sizes dividing 256 up to 64, got {s}"
+    return _v45_dims_error("K7", cfg, f_dim, w4)
+
+
+def v4_decode_shape_error(cfg, f_dim: int, w4: bool = False) -> Optional[str]:
+    """Why K8 cannot take this model's shapes, or None (rows of any width
+    in 16-byte chunks, as K7)."""
+    if cfg.version_major != 4:
+        return "K8 decodes RWKV v4 only"
+    return _v45_dims_error("K8", cfg, f_dim, w4)
+
+
+# argument counts of the C entries (pointers, ints): rwkv_v5_decode / _w4
+# (C, H, S, F, L, V, has_gate, grid) and rwkv_v4_decode / _w4 (C, F, L, V,
+# grid)
+V5_DECODE_ARGS = (17, 8)
+V4_DECODE_ARGS = (21, 5)
+
+
+def _v45_entry(pack: dict) -> str:
+    return f"rwkv_v{pack['version']}_decode" + ("_w4" if pack["w4"] else "")
+
+
+def _v45_state_keys(version: int) -> tuple:
+    return ("att_xx", "ffn_xx", "heads") if version == 5 else V4_STATE_KEYS
+
+
+def v45_decode_launch(fn, pack: dict, state: dict, token: torch.Tensor, cfg,
+                      scratch_extra: int = 0):
+    """Check the operands and launch the C entry `fn` of K7 (a v5 pack) or
+    K8 (a v4 pack) once; returns (logits, new state, scratch).
+    `scratch_extra` floats are appended to the kernel's scratch (the timing
+    build writes there)."""
+    dev = pack["mats"].device
+    version = pack.get("version")
+    if version not in (4, 5) or version != cfg.version_major:
+        raise ValueError(f"K7 / K8 need a v5 or v4 pack of this model's version, got {version}")
+    c, f, w4 = cfg.n_embed, pack["f_dim"], pack["w4"]
+    n_layer, vocab = cfg.n_layer, cfg.n_vocab
+    shape_error = v5_decode_shape_error if version == 5 else v4_decode_shape_error
+    err = shape_error(cfg, f, w4)
+    if err:
+        raise ValueError(err)
+    _check_pack(pack)
+    token = token.reshape(-1)[:1].to(device=dev, dtype=torch.int32)
+    keys = _v45_state_keys(version)
+    ins = {k: state[k].to(dev, torch.float32).contiguous() for k in keys}
+    for k in keys:
+        shape = (n_layer, cfg.head_count, cfg.head_size, cfg.head_size) if k == "heads" else (
+            n_layer, c)
+        if ins[k].shape != shape:
+            raise ValueError(f"{k} state {tuple(ins[k].shape)} != {shape}")
+    outs = {k: torch.empty_like(v) for k, v in ins.items()}
+    logits = torch.empty((vocab,), dtype=torch.float32, device=dev)
+    alloc = torch.zeros if scratch_extra else torch.empty
+    scratch = alloc((v45_scratch_floats(version, c, f) + scratch_extra,),
+                    dtype=torch.float32, device=dev)
+    lib = f"v{version}_decode"
+    grid = pack.get("_grid_v45")
+    if grid is None:
+        dims = (c, cfg.head_size, f) if version == 5 else (c, f)
+        grid = pack["_grid_v45"] = _grid_blocks(lib, _v45_entry(pack) + "_grid", *dims)
+    ptrs = [token, pack["emb"], pack["ln0"], pack["mats"], pack["scales"], pack["vecs"],
+            pack["head8"], pack["head_d"], pack["ln_out"]]
+    ptrs += [ins[k] for k in keys] + [outs[k] for k in keys] + [logits, scratch]
+    if version == 5:
+        ints = (c, cfg.head_count, cfg.head_size, f, n_layer, vocab, int(pack["has_gate"]), grid)
+    else:
+        ints = (c, f, n_layer, vocab, grid)
+    code = fn(*(t.data_ptr() for t in ptrs), *ints, _cuda.stream_ptr(dev))
+    _cuda.check(lib, _v45_entry(pack), code)
+    return logits, outs, scratch
+
+
+def _v45_function(pack: dict):
+    args = V5_DECODE_ARGS if pack["version"] == 5 else V4_DECODE_ARGS
+    return _cuda.function(f"v{pack['version']}_decode", _v45_entry(pack), *args)
+
+
+def v5_decode_step(pack: dict, state: dict, token: torch.Tensor, cfg):
+    """One v5.1/v5.2 decode step at B=1 with the head (see
+    ``v5_decode_step_ref`` for the arguments). CUDA tensors launch kernel K7
+    once; CPU tensors take the plain version. The input state is not
+    modified."""
+    if pack["mats"].device.type == "cpu":
+        return v5_decode_step_ref(pack, state, token, cfg)
+    logits, outs, _ = v45_decode_launch(_v45_function(pack), pack, state, token, cfg)
+    v5_decode_step.launches += 1
+    return logits, outs
+
+
+v5_decode_step.launches = 0
+
+
+def v4_decode_step(pack: dict, state: dict, token: torch.Tensor, cfg):
+    """One v4 decode step at B=1 with the head (see ``v4_decode_step_ref``
+    for the arguments). CUDA tensors launch kernel K8 once; CPU tensors
+    take the plain version. The input state is not modified."""
+    if pack["mats"].device.type == "cpu":
+        return v4_decode_step_ref(pack, state, token, cfg)
+    logits, outs, _ = v45_decode_launch(_v45_function(pack), pack, state, token, cfg)
+    v4_decode_step.launches += 1
+    return logits, outs
+
+
+v4_decode_step.launches = 0

@@ -1,11 +1,13 @@
 """Helpers for measurements on the card: device time of queued launches,
 host-clock time, the card's name and power limit, seeded decode states,
-per-sequence errors against a plain version, the RWKV-6 models at the 1.6B
-width and K6 against its plain version on a pack cut in depth.
+per-sequence errors against a plain version, the RWKV-6, RWKV-5 and RWKV-4
+models at the published widths the port serves (``v6_models``,
+``v5_models``, ``v4_models``) and the B=1 decode kernels K6-K8 against
+their plain versions on a pack cut in depth (``decode_vs_plain``).
 
 Used by ``chip_smoke.py`` and the probes in this package. ``device_ms``,
-``wall_ms``, ``seeded_states``, ``v6_models`` and ``k6_vs_plain`` need a
-CUDA device.
+``wall_ms``, ``seeded_states``, the ``*_models`` and ``decode_vs_plain``
+need a CUDA device.
 """
 
 from __future__ import annotations
@@ -111,23 +113,42 @@ def seq_errors(outs, refs):
     return err, rel, ok
 
 
-# RWKV-6 World 1.6B's width (the JAX package's v6 scripts use the same
-# shape): version, layers, C, vocabulary, head size; synth's FFN is 4C.
+# Published widths (version, layers, C, vocabulary, head size): RWKV-6 World
+# 1.6B (the JAX package's v6 scripts use the same shape), RWKV-5 World 1.5B
+# (v5.2) and RWKV-4 World 0.1B; synth's FFN is 4C (the published v6 and v5
+# models' is 3.5C, v4's 4C).
 V6_WIDTH = ("6.0", 24, 2048, 65536, 64)
+V5_WIDTH = ("5.2", 24, 2048, 65536, 64)
+V4_WIDTH = ("4.0", 12, 768, 65536, 64)
 
 
-def v6_models(seed: int = 0):
+def width_models(width, seed: int = 0):
     """(cfg, {"w8a8": model, "w4a8": model}): ServingModels with
-    ``megakernel=True`` of one seeded f32 synth tree at the 1.6B width,
-    built once for both formats."""
+    ``megakernel=True`` of one seeded f32 synth tree at `width`, built once
+    for both formats."""
     from rwkv_tpu_torch.models.serve import ServingModel
     from rwkv_tpu_torch.models.synth import synth_config, synth_params
 
-    cfg = synth_config(*V6_WIDTH)
+    cfg = synth_config(*width)
     params = synth_params(cfg, seed=seed)
     models = {p: ServingModel((cfg, params), precision=p, megakernel=True)
               for p in ("w8a8", "w4a8")}
     return cfg, models
+
+
+def v6_models(seed: int = 0):
+    """The RWKV-6 models at the 1.6B width (``width_models``)."""
+    return width_models(V6_WIDTH, seed)
+
+
+def v5_models(seed: int = 0):
+    """The RWKV-5 (v5.2) models at the World 1.5B width."""
+    return width_models(V5_WIDTH, seed)
+
+
+def v4_models(seed: int = 0):
+    """The RWKV-4 models at the World 0.1B width."""
+    return width_models(V4_WIDTH, seed)
 
 
 def rel_err(a, ref) -> float:
@@ -135,24 +156,48 @@ def rel_err(a, ref) -> float:
     return float((a - ref).abs().max()) / max(1.0, float(ref.abs().max()))
 
 
-def k6_vs_plain(pack, cfg, state: dict, token, depth: int) -> dict:
-    """K6 on `pack` cut to its first `depth` layers (a shallower config
-    over the same buffers, the state's first layers) against its plain
-    version: rel_err of x (before ln_out), of the state (the worst of its
-    three arrays) and of the logits. Launches through the C entry, so the
-    launch counter does not move."""
+def decode_launcher(pack):
+    """(launch, plain layers, argument counts) of the B=1 decode kernel of
+    a v6, v5 or v4 pack: ``launch(fn, pack, state, token, cfg,
+    scratch_extra=0)`` returns (logits, new state, scratch)."""
+    from rwkv_tpu_torch.ops import megakernel as M
+
+    if pack["version"] == 6:
+        return M.v6_decode_launch, M.v6_decode_layers_ref, M.V6_DECODE_ARGS
+    if pack["version"] == 5:
+        return M.v45_decode_launch, M.v5_decode_layers_ref, M.V5_DECODE_ARGS
+    return M.v45_decode_launch, M.v4_decode_layers_ref, M.V4_DECODE_ARGS
+
+
+def decode_entry(pack, src=None, flags: tuple = ()):
+    """The C launch entry of K6, K7 or K8 for `pack` (its version and
+    format), from ``csrc`` or another source `src`."""
+    from rwkv_tpu_torch.ops import _cuda
+
+    version = pack["version"]
+    name = f"rwkv_v{version}_decode" + ("_w4" if pack["w4"] else "")
+    args = decode_launcher(pack)[2]
+    if src is None and not flags:
+        return _cuda.function(f"v{version}_decode", name, *args)
+    src = src or _cuda.CSRC / f"v{version}_decode.cu"
+    return _cuda.function(f"v{version}_decode_probe", name, *args, src=src, flags=flags)
+
+
+def decode_vs_plain(pack, cfg, state: dict, token, depth: int) -> dict:
+    """K6, K7 or K8 (by the pack's version) on `pack` cut to its first
+    `depth` layers (a shallower config over the same buffers, the state's
+    first layers) against its plain version: rel_err of x (before ln_out),
+    of the state (the worst of its arrays) and of the logits. Launches
+    through the C entry, so the launch counter does not move."""
     import dataclasses
 
-    from rwkv_tpu_torch.ops import _cuda
-    from rwkv_tpu_torch.ops.megakernel import (
-        V6_DECODE_ARGS, _k6_entry, lm_head_ref, v6_decode_launch, v6_decode_layers_ref,
-    )
+    from rwkv_tpu_torch.ops.megakernel import lm_head_ref
 
+    launch, layers_ref, _ = decode_launcher(pack)
     cd = dataclasses.replace(cfg, n_layer=depth)
     st = {k: v[:depth].contiguous() for k, v in state.items()}
-    fn = _cuda.function("v6_decode", _k6_entry(pack), *V6_DECODE_ARGS)
-    logits, new, scratch = v6_decode_launch(fn, pack, st, token, cd)
-    x_ref, new_ref = v6_decode_layers_ref(pack, st, token, cd)
+    logits, new, scratch = launch(decode_entry(pack), pack, st, token, cd)
+    x_ref, new_ref = layers_ref(pack, st, token, cd)
     return {
         "x": rel_err(scratch[: cfg.n_embed], x_ref),
         "state": max(rel_err(new[k], new_ref[k]) for k in new_ref),

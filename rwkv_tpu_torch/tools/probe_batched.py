@@ -1,8 +1,9 @@
 """The decode kernels' time on the card (K4 at several B, K3 at B=1),
-against an earlier version of their sources, and the v6 kernel K6.
+against an earlier version of their sources, and the v6, v5 and v4
+kernels K6, K7 and K8.
 
     python3 -m rwkv_tpu_torch.tools.probe_batched [--baseline DIR] [--phases | --flips]
-    python3 -m rwkv_tpu_torch.tools.probe_batched --v6 [--baseline DIR] [--phases] [--flips]
+    python3 -m rwkv_tpu_torch.tools.probe_batched --v6 | --v5 | --v4 [--baseline DIR] [--phases] [--flips]
 
 Times one launch of ``rwkv_tpu_torch.ops.megakernel.v7_decode_batched``
 (K4; device time, launches queued behind a spin kernel so no host time is
@@ -39,7 +40,11 @@ and of each barrier from the timing build, and with ``--flips`` also its
 distance from its plain version (x, state and logits, each over its
 largest value) on the packs cut to their first 1 and 2 layers and at full
 depth, for 12 seeded states: the readings that set ``chip_smoke.py``'s
-limits for K6.
+limits for K6. ``--v5`` does the same for K7 on the RWKV-5 (v5.2) models
+at the World 1.5B width (C=2048, 24 layers; phases A, C, D, E, F), its
+flips also on a 2-layer v5.1 pair at that width; ``--v4`` for K8 on the
+RWKV-4 models at the World 0.1B width (C=768, 12 layers; phases A, B, E,
+F), its flips also on a 2-layer pair at the 1.5B width (C=2048).
 
 Prints one line per measurement and the card (nvidia-smi name and power
 limit). Needs a CUDA device; builds the kernels on first use.
@@ -177,61 +182,81 @@ def compare(label, cur, old) -> None:
           f"{times[1]:.4f} / {times[2]:.4f} ms (outputs differ by at most {diff:.3e})")
 
 
-def v6_flips(models, cfg, n_seeds: int = 12) -> None:
-    """K6 against its plain version by depth, one seeded state per seed."""
-    from rwkv_tpu_torch.tools.card import k6_vs_plain, seeded_states
+# per version: the phases of a layer of the B=1 decode kernel, the width
+# it is measured at and, for the flips, extra (label, width) packs cut to 1
+# and 2 layers
+B1_PHASES = {6: V6_PHASES, 5: PHASES, 4: "ABEF"}
+B1_EXTRA = {6: (), 5: (("v5.1", ("5.1", 2, 2048, 65536, 64)),),
+            4: (("C=2048", ("4.0", 2, 2048, 65536, 64)),)}
 
+
+def b1_flips(models, cfg, label: str, n_seeds: int = 12, depths=None) -> dict:
+    """K6, K7 or K8 against its plain version by depth, one seeded state
+    per seed: prints each reading; returns the worst per (format, depth)."""
+    from rwkv_tpu_torch.tools.card import decode_vs_plain, seeded_states
+
+    depths = depths or (1, 2, cfg.n_layer)
     worst = {}
     for seed in range(1, n_seeds + 1):
         states, tokens = seeded_states(models["w8a8"], cfg, 1, 16, seed=seed)
-        one = {k: v[0] for k, v in states.items()}
+        one, tok = {k: v[0] for k, v in states.items()}, tokens[:1]
         for prec, model in models.items():
-            for depth in (1, 2, cfg.n_layer):
-                e = k6_vs_plain(model._mega, cfg, one, tokens[:1], depth)
+            for depth in depths:
+                e = decode_vs_plain(model._mega, cfg, one, tok, depth)
                 key = (prec, depth)
                 worst[key] = max(worst.get(key, 0.0), *e.values())
-                print(f"K6 {prec} seed {seed} depth {depth}: x {e['x']:.3e}, state "
+                print(f"{label} {prec} seed {seed} depth {depth}: x {e['x']:.3e}, state "
                       f"{e['state']:.3e}, logits {e['logits']:.3e} of their scale")
     for (prec, depth), w in sorted(worst.items()):
-        print(f"K6 {prec} depth {depth}: worst {w:.3e} of the scale over {n_seeds} seeds")
+        print(f"{label} {prec} depth {depth}: worst {w:.3e} of the scale over {n_seeds} seeds")
+    return worst
 
 
-def v6_main(args, base_dir) -> int:
-    """--v6: K6's time per launch (against ``base_dir/v6_decode.cu`` where
-    given), and per phase (--phases) and its drift from the plain version by
-    depth (--flips), at the 1.6B width."""
-    from rwkv_tpu_torch.ops import _cuda
-    from rwkv_tpu_torch.ops.megakernel import (
-        V6_DECODE_ARGS, _k6_entry, v6_decode_launch, v6_decode_step, v6_scratch_floats,
+def b1_main(args, base_dir, version: int) -> int:
+    """--v6 / --v5 / --v4: the B=1 decode kernel's time per launch at its
+    published width (against ``base_dir/v<version>_decode.cu`` where given),
+    and per phase (--phases) and its drift from the plain version by depth
+    (--flips)."""
+    from rwkv_tpu_torch.ops.megakernel import v6_scratch_floats, v45_scratch_floats
+    from rwkv_tpu_torch.tools.card import (
+        V4_WIDTH, V5_WIDTH, V6_WIDTH, card_line, decode_entry, decode_launcher, seeded_states,
+        width_models,
     )
-    from rwkv_tpu_torch.tools.card import card_line, seeded_states, v6_models
 
-    cfg, models = v6_models()
+    width = {6: V6_WIDTH, 5: V5_WIDTH, 4: V4_WIDTH}[version]
+    name = {6: "K6", 5: "K7", 4: "K8"}[version]
+    cfg, models = width_models(width)
     states, tokens = seeded_states(models["w8a8"], cfg, 1, 16, seed=1)
-    one = {k: v[0] for k, v in states.items()}
-    tok = tokens[:1]
-    srcs = {"current": _cuda.CSRC / "v6_decode.cu"}
-    if base_dir is not None and (base_dir / "v6_decode.cu").exists():
-        srcs["baseline"] = base_dir / "v6_decode.cu"
+    one, tok = {k: v[0] for k, v in states.items()}, tokens[:1]
+    src = f"v{version}_decode.cu"
+    srcs = {"current": None}
+    if base_dir is not None and (base_dir / src).exists():
+        srcs["baseline"] = base_dir / src
     for prec, model in models.items():
         pack = model._mega
-        old = None
-        if "baseline" in srcs:
-            fn_old = _cuda.function("v6_decode_probe", _k6_entry(pack), *V6_DECODE_ARGS,
-                                    src=srcs["baseline"])
-            old = lambda: v6_decode_launch(fn_old, pack, one, tok, cfg)[0]  # noqa: E731
-        compare(f"K6 {prec} B=1", lambda: v6_decode_step(pack, one, tok, cfg)[0], old)
-        for label, src in srcs.items() if "--phases" in args else ():
-            fn = _cuda.function("v6_decode_probe", _k6_entry(pack), *V6_DECODE_ARGS,
-                                src=src, flags=("-DRWKV_PHASE_TIMES",))
-            extra = 2 * (2 + 2 * len(V6_PHASES) * cfg.n_layer)
-            base = v6_scratch_floats(cfg.n_embed, pack["d_maa"], pack["d_dec"], pack["f_dim"])
-            times = phase_times(
-                lambda: v6_decode_launch(fn, pack, one, tok, cfg, scratch_extra=extra)[2],
-                base, cfg.n_layer, len(V6_PHASES))
-            print_phases(f"{label} K6 {prec} B=1", times, V6_PHASES)
+        launch, _, _ = decode_launcher(pack)
+
+        def run(src_path, flags=(), extra=0):
+            fn = decode_entry(pack, src_path, flags)
+            return launch(fn, pack, one, tok, cfg, scratch_extra=extra)
+
+        old = (lambda: run(srcs["baseline"])[0]) if "baseline" in srcs else None  # noqa: E731
+        compare(f"{name} {prec} B=1", lambda: run(None)[0], old)
+        names = B1_PHASES[version]
+        for label, src_path in srcs.items() if "--phases" in args else ():
+            extra = 2 * (2 + 2 * len(names) * cfg.n_layer)
+            base = (v6_scratch_floats(cfg.n_embed, pack["d_maa"], pack["d_dec"], pack["f_dim"])
+                    if version == 6 else v45_scratch_floats(version, cfg.n_embed, pack["f_dim"]))
+            times = phase_times(lambda: run(src_path, ("-DRWKV_PHASE_TIMES",), extra)[2],
+                                base, cfg.n_layer, len(names))
+            print_phases(f"{label} {name} {prec} B=1", times, names)
     if "--flips" in args:
-        v6_flips(models, cfg)
+        b1_flips(models, cfg, name)
+        del models
+        for label, extra_width in B1_EXTRA[version]:
+            cfg_x, models_x = width_models(extra_width)
+            b1_flips(models_x, cfg_x, f"{name} {label}", depths=(1, 2))
+            del models_x
     print(card_line())
     return 0
 
@@ -244,8 +269,9 @@ def main() -> int:
         return 1
     args = sys.argv[1:]
     base_dir = Path(args[args.index("--baseline") + 1]) if "--baseline" in args else None
-    if "--v6" in args:
-        return v6_main(args, base_dir)
+    for version in (6, 5, 4):
+        if f"--v{version}" in args:
+            return b1_main(args, base_dir, version)
     from rwkv_tpu_torch.models.serve import ServingModel
     from rwkv_tpu_torch.models.synth import synth_config, synth_params
     from rwkv_tpu_torch.ops import megakernel as TM

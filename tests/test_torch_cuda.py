@@ -1,6 +1,6 @@
-"""Kernels K1-K6 of the PyTorch/CUDA port on the card, against their plain
-PyTorch versions, the batcher's decode loop and the v7 and v6 serving paths
-on the card. Every test here needs a CUDA device and nvcc and skips
+"""Kernels K1-K8 of the PyTorch/CUDA port on the card, against their plain
+PyTorch versions, the batcher's decode loop and the v7, v6, v5 and v4
+serving paths on the card. Every test here needs a CUDA device and nvcc and skips
 without one. The file imports no JAX, so it runs on a GPU machine without
 it, from the repository root:
 
@@ -22,6 +22,7 @@ pytestmark = pytest.mark.cuda
 
 SMALL = ("7.0", 2, 128, 256, 32)  # version, L, C, V, S (H = 4)
 SMALL6 = ("6.0", 2, 256, 256, 64)  # v6: H = 4, d_maa 32, d_dec 64, F = 1024
+V45 = ("5.2", "5.1", "4.0")  # at L=2, C=256, V=256 (v5: H=4, S=64), F = 1024
 
 
 @pytest.fixture
@@ -268,4 +269,122 @@ def test_card_v6_serving_matches_cpu_and_goes_through_kernels(cuda_device, preci
     after = (TK.quant_matmul.launches, TC.wkv6_recurrence.launches, TM.v6_decode_step.launches)
     assert after[0] - counts[0] == 2 * 11 * tc.n_layer + 1  # two prefill chunks, one head
     assert after[1] - counts[1] == 2 * tc.n_layer
+    assert after[2] - counts[2] == 3
+
+
+def test_v6_decode_kernel_takes_c768(cuda_device):
+    """K6 at C=768 (F=3072), where a row's 16-byte chunks are no power of
+    two per lane: the lane count stays a power of two (lanes_for)."""
+    tc = synth_config("6.0", 1, 768, 256, 64)
+    tp = synth_params(tc, seed=3)
+    dp = TM.device_pack(TM.build_mega_pack_v6(tp, tc), tp["emb"].to(torch.bfloat16), tp["ln0"],
+                        cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    state = {"att_xx": torch.randn((1, 768), device=cuda_device, generator=gen) * 0.5,
+             "ffn_xx": torch.randn((1, 768), device=cuda_device, generator=gen) * 0.5,
+             "heads": torch.randn((1, 12, 64, 64), device=cuda_device, generator=gen) * 0.1}
+    tok = torch.tensor([7], device=cuda_device)
+    logits, new = TM.v6_decode_step(dp, state, tok, tc)
+    ref_logits, ref_new = TM.v6_decode_step_ref(dp, state, tok, tc)
+    torch.testing.assert_close(logits, ref_logits, rtol=2e-2, atol=2e-2)
+    for k in new:
+        torch.testing.assert_close(new[k], ref_new[k], rtol=2e-2, atol=2e-2)
+
+
+def _v45_setup(version, dev, w4=False, seed=7, c=256):
+    tc = synth_config(version, 2, c, 256, 64)
+    tp = synth_params(tc, seed=seed)
+    build = TM.build_mega_pack_v5 if tc.version_major == 5 else TM.build_mega_pack_v4
+    return tc, TM.device_pack(build(tp, tc, w4=w4), tp["emb"].to(torch.bfloat16), tp["ln0"], dev)
+
+
+def _v45_state(tc, dev, seed, blank=False):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    L, c = tc.n_layer, tc.n_embed
+
+    def rnd(*shape, scale=0.5):
+        return torch.randn(shape, device=dev, generator=gen) * scale
+
+    if tc.version_major == 5:
+        return {"att_xx": rnd(L, c), "ffn_xx": rnd(L, c),
+                "heads": rnd(L, tc.head_count, 64, 64, scale=0.1)}
+    if blank:
+        zero = torch.zeros((L, c), device=dev)
+        return {"att_xx": zero, "ffn_xx": zero, "aa": zero, "bb": zero,
+                "pp": torch.full((L, c), -1e30, device=dev)}
+    return {"att_xx": rnd(L, c), "ffn_xx": rnd(L, c), "aa": rnd(L, c, scale=1.0),
+            "bb": rnd(L, c).abs() + 0.5, "pp": rnd(L, c, scale=1.0)}
+
+
+@pytest.mark.parametrize("w4", [False, True])
+@pytest.mark.parametrize("version", V45)
+def test_v45_decode_kernel_matches_ref(cuda_device, version, w4):
+    """K7 (v5.2, v5.1) and K8 (v4) against their plain versions; two
+    launches agree bit for bit."""
+    tc, dp = _v45_setup(version, cuda_device, w4)
+    step, ref = ((TM.v5_decode_step, TM.v5_decode_step_ref) if tc.version_major == 5
+                 else (TM.v4_decode_step, TM.v4_decode_step_ref))
+    state = _v45_state(tc, cuda_device, 0)
+    tok = torch.tensor([5], device=cuda_device)
+    before = step.launches
+    logits, new = step(dp, state, tok, tc)
+    logits2, new2 = step(dp, state, tok, tc)
+    assert step.launches == before + 2
+    assert torch.equal(logits, logits2) and all(torch.equal(new[k], new2[k]) for k in new)
+    ref_logits, ref_new = ref(dp, state, tok, tc)
+    torch.testing.assert_close(logits, ref_logits, rtol=2e-2, atol=2e-2)
+    assert int(logits.argmax()) == int(ref_logits.argmax())
+    for k in new:
+        torch.testing.assert_close(new[k], ref_new[k], rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("c", [768, 2048])
+def test_v4_decode_kernel_from_blank_state(cuda_device, c):
+    """K8 from the blank state (pp = -1e30) at the World 0.1B and 1.5B
+    widths cut to 2 layers: finite, and within 2e-2 of its plain version."""
+    tc, dp = _v45_setup("4.0", cuda_device, c=c)
+    state = _v45_state(tc, cuda_device, 1, blank=True)
+    tok = torch.tensor([9], device=cuda_device)
+    logits, new = TM.v4_decode_step(dp, state, tok, tc)
+    ref_logits, ref_new = TM.v4_decode_step_ref(dp, state, tok, tc)
+    assert all(bool(torch.isfinite(t).all()) for t in [logits] + list(new.values()))
+    torch.testing.assert_close(logits, ref_logits, rtol=2e-2, atol=2e-2)
+    for k in new:
+        torch.testing.assert_close(new[k], ref_new[k], rtol=2e-2, atol=2e-2)
+
+
+def test_v45_decode_kernel_refuses_a_v6_pack(cuda_device):
+    tc6, dp6 = _small_pack6(cuda_device)
+    tc5 = synth_config("5.2", 2, 256, 256, 64)
+    with pytest.raises(ValueError):
+        TM.v5_decode_step(dp6, _v45_state(tc5, cuda_device, 0),
+                          torch.tensor([1], device=cuda_device), tc5)
+
+
+@pytest.mark.parametrize("precision", ["w8a8", "w4a8"])
+@pytest.mark.parametrize("version", V45)
+def test_card_v45_serving_matches_cpu_and_goes_through_kernels(cuda_device, version, precision):
+    tc = synth_config(version, 2, 256, 256, 64)
+    tp = synth_params(tc, seed=11)
+    gpu = ServingModel((tc, tp), precision=precision, megakernel=True, device=cuda_device)
+    cpu = ServingModel((tc, tp), precision=precision, megakernel=True, device="cpu")
+    step = TM.v5_decode_step if tc.version_major == 5 else TM.v4_decode_step
+    counts = (TK.quant_matmul.launches, TC.wkv6_recurrence.launches, step.launches)
+    prompt = list(np.random.default_rng(0).integers(0, tc.n_vocab, 20))
+    lg, sg = gpu.prefill(prompt)
+    lc, sc = cpu.prefill(prompt)
+    for _ in range(3):
+        tok = [int(lc.argmax())]
+        torch.testing.assert_close(lg.cpu(), lc, rtol=2e-2, atol=2e-2)
+        assert int(lg.argmax()) == tok[0]
+        lg, sg = gpu.decode(tok, sg)
+        lc, sc = cpu.decode(tok, sc)
+        lg, lc = lg[0], lc[0]
+    torch.testing.assert_close(lg.cpu(), lc, rtol=2e-2, atol=2e-2)
+    for k in sc:
+        torch.testing.assert_close(sg[k].cpu(), sc[k], rtol=2e-2, atol=2e-2)
+    after = (TK.quant_matmul.launches, TC.wkv6_recurrence.launches, step.launches)
+    per_layer = 8 if version == "5.2" else 7  # projections a layer on K1
+    assert after[0] - counts[0] == 2 * per_layer * tc.n_layer + 1  # two prefill chunks, one head
+    assert after[1] - counts[1] == (2 * tc.n_layer if tc.version_major == 5 else 0)
     assert after[2] - counts[2] == 3

@@ -97,6 +97,15 @@ def test_v6_att_trace_matches_jax(model6):
 
 
 def test_forward_rejects_unported_versions():
+    """What the port still refuses: a model file, whose loader is not
+    ported (ServingModel takes (cfg, params) only), and a graph version
+    that no RWKV release has."""
+    from rwkv_tpu_torch.models.config import ModelConfig
+    from rwkv_tpu_torch.models.serve import ServingModel
+
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ServingModel("model.bin", precision="f32", device="cpu")
     tc = synth_config("5.2", 1, 64, 64, 16)
     with pytest.raises(NotImplementedError):
-        TG.forward(synth_params(tc, seed=0), {}, torch.tensor([1]), tc)
+        TG.forward(synth_params(tc, seed=0), {}, torch.tensor([1]),
+                   ModelConfig(64, 64, 1, 3, 0))
