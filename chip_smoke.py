@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Prints the card (nvidia-smi name and power limit), builds the eight
+1. Prints the card (nvidia-smi name and power limit), builds the nine
    hand-written kernels from ``rwkv_tpu_torch/csrc`` (one nvcc each, all at
    once) and prints build times and ptxas registers.
 2. Holds each kernel against its plain PyTorch version on the card, at the
@@ -39,6 +39,13 @@
      scale (twice the worst reading of ``probe_batched --v6 / --v5 / --v4
      --flips``). K7 also on a v5.1 pair and K8 on a pair at C=2048, both
      of 2 layers at the 1.5B width, within 2e-2 (``phase_cut_width``).
+   - K9 ``quant_matmul`` on the block formats (``phase_k9``): each form
+     (plain Q8_0 and q8, min Q5_1, pack4 Q4_0, pack4_min Q4_1, rowwise
+     q8r) at M in {1, 256} x the 169M (K, N) set and the q8 / q8r head
+     (768, 65536) at M=1; every output within 1e-5 of sum |x| |W|. Timed
+     against its plain version, the bound and ``torch.matmul`` on a
+     dequantized f32 copy (rowwise: bf16 x against a bf16 copy of the
+     codes), TF32 off.
 3. Drives the main paths, each with the launch counters zeroed just before
    and read just after; every kernel of a path must have launched:
    - RWKV v7 169M (synth, seed 0) under w8a8 and under w4a8 with
@@ -55,16 +62,27 @@
      bucket: the projections of every layer and the head on K1, the
      recurrence on K5 for v6 and v5, plain PyTorch's log-depth scan for
      v4), then 64 greedy decode steps at B=1 (K6, K7, K8);
+   - the model files (``phase_files``): v7 169M (synth, seed 0) written as
+     an FP32 ggmf into a temporary directory, quantized by the port's
+     ``quantize_model_file`` to Q5_1, Q4_0 and Q4_1; each served by
+     ``ServingModel(path, precision="quant")``: a 256-token prompt, then
+     64 greedy decode steps at B=1 on the per-op path (K2, K9 in its form
+     of the file); Q5_1 again with ``megakernel=True`` (K9 in prefill, K3
+     in decode); ``q8`` and ``q8r`` on the synth tree, prefill and 16
+     decode steps (K9 plain, K9 rowwise);
    and checks their outputs: finite logits and state, tokens in range,
    every request finished within its limits.
 4. Holds the card against the CPU on small models: v7 (L=2, C=128) and
    v6, v5.2, v5.1 and v4 (L=2, C=256), the serving path's logits and state
-   (prefill 20 tokens, 4 decode steps); and the batcher's token streams on
-   the card, its device loop against its host loop (greedy with
-   penalties).
+   (prefill 20 tokens, 4 decode steps); the same from Q5_1 and Q4_0 files
+   of v7, v6, v5.2, v5.1 and v4 (L=2, C=256) under ``precision="quant"``,
+   within QUANT_SMALL_REL of the scale (bf16 head and LoRAs); and the
+   batcher's token streams on the card, its device loop against its host
+   loop (greedy with penalties).
 5. Prints the total time, the ``{"kernels": [...]}`` JSON line (times per
    launch, in ms; K1's are the mean over the v7 w8a8 path's 169 launches
-   per prefill, K4's at B=8), the card line again, and last ``{"ok": true,
+   per prefill, K4's at B=8, K9's the mean over its file path's mix of
+   decode and prefill shapes), the card line again, and last ``{"ok": true,
    "device": {...}}``.
 
 Any failure raises and the script exits non-zero. Without a CUDA device,
@@ -82,10 +100,11 @@ from pathlib import Path
 import numpy as np
 
 # H100 SXM data-sheet peaks (dense): HBM bandwidth, int8 tensor-core rate,
-# float32 rate outside the tensor cores.
+# float32 rate outside the tensor cores, bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float):
@@ -181,6 +200,117 @@ def phase_k1(cfg, d_lora: int, f_dim: int, t: int, dev):
     tot["max_abs_err"] = max_err
     tot["max_ulp"] = max_ulp
     return tot
+
+
+# K9 on the block formats: (case, form) pairs checked and timed. A case is a
+# ggmf format (the weight quantized by the port's codecs and loaded as the
+# file's blocks) or the serving requantizations q8 / q8r. The plain form is
+# timed on q8, the form the main path's q8 run launches.
+K9_CASES = (("Q8_0", "plain"), ("q8", "plain"), ("Q5_1", "min"), ("Q4_0", "pack4"),
+            ("Q4_1", "pack4_min"), ("q8r", "rowwise"))
+K9_TIMED = ("q8", "Q5_1", "Q4_0", "Q4_1", "q8r")
+K9_BAND = 1e-5  # of sum_k |x_k| |W_nk|: f32 sums in another order
+
+
+def k9_weight(case: str, n: int, k: int, dev, seed: int):
+    """A seeded [n, k] weight in `case` on `dev` (see K9_CASES)."""
+    from rwkv_tpu_torch.io import quant as TQ
+    from rwkv_tpu_torch.ops import kernels as TK
+    from rwkv_tpu_torch.ops.parity import Weight
+
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((n, k), dtype=np.float32) / np.float32(np.sqrt(k))
+    if case in ("q8", "q8r"):
+        pw = TK.quantize_q8_serving(w, rowwise=case == "q8r", int8_act=False)
+    else:
+        dt = TQ.dtype_from_name(case)
+        pw = TK.PackedQuantWeight.from_weight(
+            Weight.from_packed(TQ.quantize_rows(w, dt).tobytes(), dt, (n, k)))
+    return pw.to(dev)
+
+
+def k9_shapes(case: str, c: int, d: int, f: int, v: int):
+    """(M, K, N) the 169M main path gives K9 in `case`: the six projections
+    a layer a file quantizes (r, k, v, out; fk; fv) at M = 1 (decode) and
+    256 (a prefill bucket); q8 and q8r also the LoRAs and, at M=1, the head."""
+    mats = [(c, c), (c, f), (f, c)]
+    if case in ("q8", "q8r"):
+        mats += [(c, d), (d, c)]
+    shapes = [(m, k, n) for m in (1, 256) for k, n in mats]
+    return shapes + ([(1, c, v)] if case in ("q8", "q8r") else [])
+
+
+def phase_k9(cfg, d_lora: int, f_dim: int, dev):
+    """K9 against its plain version in every case at the main path's shapes
+    (K9_BAND), then its time per form: kernel, plain version, bound and
+    torch.matmul on a dequantized f32 copy (rowwise: bf16 x against a bf16
+    copy of the codes), per shape and as the mean per launch over the
+    per-op 169M path's mix (64 decode steps at M=1 and one 256-token
+    bucket, the six file-quantized projections a layer)."""
+    import torch
+
+    from rwkv_tpu_torch.ops import kernels as TK
+    from rwkv_tpu_torch.tools.card import device_ms
+
+    c, v = cfg.n_embed, cfg.n_vocab
+    gen = torch.Generator(device=dev).manual_seed(9)
+    res = {}
+    for case, form in K9_CASES:
+        worst, max_err = 0.0, 0.0
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "t_bytes": 0.0,
+               "t_ops": 0.0, "n": 0}
+        for m, k, n in k9_shapes(case, c, d_lora, f_dim, v):
+            w = k9_weight(case, n, k, dev, seed=m + k + n)
+            if w.form != form:
+                raise AssertionError(f"K9 {case}: form {w.form}, expected {form}")
+            x = torch.randn((m, k), device=dev, generator=gen)
+            y = TK.quant_matmul(x, w)
+            y_ref = TK.block_matmul_plain(x, w)
+            deq = TK.dequant_weight(w)
+            band = x.abs() @ deq.abs().T
+            torch.cuda.synchronize()
+            rel = float(((y - y_ref).abs() / (band + 1e-30)).max())
+            err = float((y - y_ref).abs().max())
+            worst, max_err = max(worst, rel), max(max_err, err)
+            if rel > K9_BAND or not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"K9 {case} M={m} K={k} N={n}: {rel:.3e} of sum |x||W|, "
+                                     f"limit {K9_BAND}")
+            if case not in K9_TIMED:
+                continue
+            kern = device_ms(lambda: TK.quant_matmul(x, w))
+            plain = device_ms(lambda: TK.block_matmul_plain(x, w), reps=5)
+            if form == "rowwise":
+                xb, qb = x.to(torch.bfloat16), w.q.to(torch.bfloat16)
+                lib = device_ms(lambda: torch.matmul(xb, qb.T))
+                rate = BF16_FLOPS_PER_S
+            else:
+                lib = device_ms(lambda: torch.matmul(x, deq.T))
+                rate = F32_FLOPS_PER_S
+            n_bytes = m * k * 4 + sum(t.numel() * t.element_size()
+                                      for t in (w.q, w.d, w.m) if t is not None) + m * n * 4
+            b, kind = bound_ms(n_bytes, 2 * m * k * n, rate)
+            print(f"K9 {case} ({form}) M={m} K={k} N={n}: kernel {kern:.4f} ms, plain "
+                  f"{plain:.4f} ms, torch.matmul {lib:.4f} ms, bound {b:.5f} ms ({kind}), "
+                  f"{rel:.2e} of the band")
+            if (k, n) in ((c, c), (c, f_dim), (f_dim, c)):
+                count = (64 if m == 1 else 1) * (4 if (k, n) == (c, c) else 1)
+                for key, t in (("ms", kern), ("plain_ms", plain), ("library_ms", lib),
+                               ("bound_ms", b), ("t_bytes" if kind == "bytes" else "t_ops", b)):
+                    tot[key] += count * t
+                tot["n"] += count
+        print(f"K9 {case} ({form}): every output within {worst:.2e} of sum |x||W| "
+              f"(limit {K9_BAND}), max abs err {max_err:.3e}")
+        if case in K9_TIMED:
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                tot[key] /= tot["n"]
+            print(f"K9 {form}: mean per launch over the per-op path's mix: kernel "
+                  f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, torch.matmul "
+                  f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms")
+            res[form] = {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                         "library_ms": tot["library_ms"], "bound_ms": tot["bound_ms"],
+                         "bound_by": "bytes" if tot["t_bytes"] >= tot["t_ops"] else "operations",
+                         "max_abs_err": max_err}
+    return res
 
 
 def wkv7_operands(t: int, bh: int, s: int, dev, seed: int = 2):
@@ -684,7 +814,8 @@ def run_main_path(model, prompt, n_decode: int):
 
 def counted(fn, needed):
     """Run fn() with every kernel's launch counter zeroed just before and
-    read just after; raise unless each kernel in `needed` launched."""
+    read just after; raise unless each kernel in `needed` launched. K9
+    counts each form on its own ("K9 plain", ..., "K9 rowwise")."""
     from rwkv_tpu_torch.ops.chunked import wkv6_recurrence, wkv7_recurrence
     from rwkv_tpu_torch.ops.kernels import quant_matmul
     from rwkv_tpu_torch.ops import megakernel as M
@@ -692,10 +823,14 @@ def counted(fn, needed):
     counters = {"K1": quant_matmul, "K2": wkv7_recurrence, "K3": M.v7_decode_step,
                 "K4": M.v7_decode_batched, "K5": wkv6_recurrence, "K6": M.v6_decode_step,
                 "K7": M.v5_decode_step, "K8": M.v4_decode_step}
+    by_form = quant_matmul.launches_by_form
     for c in counters.values():
         c.launches = 0
+    for form in by_form:
+        by_form[form] = 0
     out = fn()
     launches = {k: c.launches for k, c in counters.items()}
+    launches.update({f"K9 {form}": n for form, n in by_form.items()})
     for k in needed:
         if launches[k] <= 0:
             raise AssertionError(f"{k} was not launched on this path: {launches}")
@@ -703,12 +838,11 @@ def counted(fn, needed):
 
 
 def single_stream_path(name, model, prompt, cfg, card, n_runs: int,
-                       needed=("K1", "K2", "K3")):
+                       needed=("K1", "K2", "K3"), n_decode: int = 64):
     """The B=1 main path: n_runs timing runs, then the counted run, which
     must launch every kernel in `needed`."""
     import torch
 
-    n_decode = 64
     samples = [run_main_path(model, prompt, n_decode)[:2] for _ in range(n_runs)]
     (t_prefill, t_decode, toks, logits, state), launches = counted(
         lambda: run_main_path(model, prompt, n_decode), needed)
@@ -730,6 +864,118 @@ def single_stream_path(name, model, prompt, cfg, card, n_runs: int,
           f"{dec[len(dec) // 2] * 1e3:.2f} ms ({n_decode / dec[len(dec) // 2]:.0f} tok/s; "
           f"all ms {[round(t * 1e3, 2) for t in dec]}); first tokens {toks[:8].tolist()}")
     return launches
+
+
+# the 169M file paths: (format, K9 form its quantized projections run)
+FILE_PATHS = (("Q5_1", "min"), ("Q4_0", "pack4"), ("Q4_1", "pack4_min"))
+
+
+def phase_files(cfg, params, prompt, card) -> dict:
+    """The v7 169M model (cfg, params) written as an FP32 ggmf into a
+    temporary directory and quantized by the port to each of FILE_PATHS;
+    ServingModel(path, precision="quant") per file: a 256-token prompt and
+    64 greedy decode steps at B=1 on the per-op path (K2, K9); Q5_1 again
+    with megakernel=True (K9 in prefill, K3 in decode); then q8 and q8r on
+    (cfg, params), prefill and 16 decode steps. The files are deleted.
+    Returns the launches of each path."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from rwkv_tpu_torch.io.quantize import quantize_model_file
+    from rwkv_tpu_torch.models.serve import ServingModel
+    from rwkv_tpu_torch.tools.synth_file import write_synth_ggmf
+
+    launches = {}
+    tmp = tempfile.mkdtemp(prefix="rwkv_smoke_")
+    try:
+        src = os.path.join(tmp, "v7-169m-FP32.bin")
+        t0 = time.perf_counter()
+        write_synth_ggmf(cfg, params, src)
+        print(f"169M FP32 ggmf written in {time.perf_counter() - t0:.1f} s "
+              f"({os.path.getsize(src) / 1e6:.1f} MB)")
+        for fmt, form in FILE_PATHS:
+            path = os.path.join(tmp, f"v7-169m-{fmt}.bin")
+            t0 = time.perf_counter()
+            quantize_model_file(src, path, fmt, verbose=False)
+            t1 = time.perf_counter()
+            model = ServingModel(path, precision="quant")
+            print(f"{fmt}: quantized in {t1 - t0:.1f} s ({os.path.getsize(path) / 1e6:.1f} MB), "
+                  f"loaded in {time.perf_counter() - t1:.1f} s")
+            launches[f"quant {fmt}"] = single_stream_path(
+                f"quant {fmt}", model, prompt, cfg, card, 2, needed=("K2", f"K9 {form}"))
+            del model
+            if fmt == "Q5_1":
+                model = ServingModel(path, precision="quant", megakernel=True)
+                launches["quant Q5_1 megakernel"] = single_stream_path(
+                    "quant Q5_1 megakernel=True", model, prompt, cfg, card, 2,
+                    needed=("K2", "K3", "K9 min"))
+                del model
+            os.unlink(path)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for precision, form in (("q8", "plain"), ("q8r", "rowwise")):
+        model = ServingModel((cfg, params), precision=precision)
+        launches[precision] = single_stream_path(precision, model, prompt, cfg, card, 1,
+                                                 needed=("K2", f"K9 {form}"), n_decode=16)
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
+# The card's ServingModel(path, "quant") against the CPU's on small files:
+# their dense leaves (the head, v7's LoRAs) are bf16, so a last-bit
+# difference upstream can flip the bf16 rounding of an input element (the
+# port against JAX on the CPU reads up to 6e-4 of the scale, test_torch_quant_serve.py).
+QUANT_SMALL_REL = 5e-3
+
+
+def small_file_check(dev, version: str, fmt: str) -> float:
+    """ServingModel(path, precision="quant") on the card against the CPU on
+    a small file (L=2, C=256, V=256) in `fmt`: prefill 20 tokens and 4
+    decode steps, logits and state within QUANT_SMALL_REL of their scale,
+    equal argmax. Returns the worst reading."""
+    import os
+    import tempfile
+
+    import torch
+
+    from rwkv_tpu_torch.io.quantize import quantize_model_file
+    from rwkv_tpu_torch.models.serve import ServingModel
+    from rwkv_tpu_torch.models.synth import synth_config, synth_params
+    from rwkv_tpu_torch.tools.synth_file import write_synth_ggmf
+
+    cfg = synth_config(version, 2, 256, 256, 64)
+    with tempfile.TemporaryDirectory(prefix="rwkv_smoke_") as tmp:
+        src, path = os.path.join(tmp, "f32.bin"), os.path.join(tmp, f"{fmt}.bin")
+        write_synth_ggmf(cfg, synth_params(cfg, seed=3), src)
+        quantize_model_file(src, path, fmt, verbose=False)
+        gpu = ServingModel(path, precision="quant", device=dev)
+        cpu = ServingModel(path, precision="quant", device="cpu")
+    toks = np.random.default_rng(4).integers(0, cfg.n_vocab, 20)
+    lg, sg = gpu.prefill(toks)
+    lc, sc = cpu.prefill(toks)
+    worst = 0.0
+    for step in range(5):
+        if step:
+            tok = np.array([int(lc.argmax())])
+            lg, sg = gpu.decode(tok, sg)
+            lc, sc = cpu.decode(tok, sc)
+            lg, lc = lg[0], lc[0]
+        for a, b in [(lg, lc)] + [(sg[k], sc[k]) for k in sc]:
+            e = float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            worst = max(worst, e)
+            if e > QUANT_SMALL_REL or not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"v{version} {fmt} file step {step}: card vs CPU {e:.3e} of "
+                                     f"the scale, limit {QUANT_SMALL_REL}")
+        if int(lg.argmax()) != int(lc.argmax()):
+            raise AssertionError(f"v{version} {fmt} file step {step}: argmax differs")
+    print(f"small file (v{version} {fmt}, L=2, C=256, V=256): card vs CPU worst {worst:.3e} of "
+          f"the scale (limit {QUANT_SMALL_REL}), argmax equal")
+    return worst
 
 
 def batcher_requests(model, cfg, n: int, max_len: int, new_tokens: int, seed: int):
@@ -880,6 +1126,8 @@ def main() -> int:
     res["K1"] = phase_k1(cfg, d_lora, f_dim, 256, dev)
     res["K2"] = phase_k2(256, cfg.head_count, cfg.head_size, dev)
     res["K5"] = phase_k5(256, 32, 64, dev)
+    k9 = phase_k9(cfg, d_lora, f_dim, dev)
+    res.update({f"K9 {form}": r for form, r in k9.items()})
     res["K3"] = phase_k3(model, state, token, cfg)
     logits4, state4 = model4.prefill(prompt)
     res["K3w4"] = phase_k3(model4, state4, logits4.argmax().reshape(1), cfg, "K3 w4a8")
@@ -908,6 +1156,9 @@ def main() -> int:
     batcher_path("w8a8 8-token prompts", model, cfg, short)
     reqs4 = batcher_requests(model4, cfg, 8, 64, 32, seed=4)
     launches["batcher w4a8"], _, _ = batcher_path("w4a8", model4, cfg, reqs4)
+
+    # -- the model files: Q5_1, Q4_0, Q4_1 (and Q5_1 on K3), then q8 and q8r
+    launches.update(phase_files(cfg, params, prompt, card))
 
     small_model_check(dev)
     small_batcher_check(dev)
@@ -957,6 +1208,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_cut_width("K8", ("4.0", 2, 2048) + V4_WIDTH[3:])
     small_model_check(dev, "4.0")
+    for version in ("7.0", "6.0", "5.2", "5.1", "4.0"):
+        for fmt in ("Q5_1", "Q4_0"):
+            small_file_check(dev, version, fmt)
 
     # name, source, TPU kernel replaced, result key, path whose launches count
     meta = [
@@ -986,6 +1240,16 @@ def main() -> int:
          "rwkv_tpu/ops/megakernel.py:4224", "K8", ("v4 w8a8", "K8")),
         ("v4_decode_step_w4a8", "rwkv_tpu_torch/csrc/v4_decode.cu",
          "rwkv_tpu/ops/megakernel.py:4660", "K8w4", ("v4 w4a8", "K8")),
+        ("block_matmul_plain", "rwkv_tpu_torch/csrc/block_matmul.cu",
+         "rwkv_tpu/ops/kernels.py:251", "K9 plain", ("q8", "K9 plain")),
+        ("block_matmul_min", "rwkv_tpu_torch/csrc/block_matmul.cu",
+         "rwkv_tpu/ops/kernels.py:278", "K9 min", ("quant Q5_1", "K9 min")),
+        ("block_matmul_pack4", "rwkv_tpu_torch/csrc/block_matmul.cu",
+         "rwkv_tpu/ops/kernels.py:282", "K9 pack4", ("quant Q4_0", "K9 pack4")),
+        ("block_matmul_pack4_min", "rwkv_tpu_torch/csrc/block_matmul.cu",
+         "rwkv_tpu/ops/kernels.py:282", "K9 pack4_min", ("quant Q4_1", "K9 pack4_min")),
+        ("block_matmul_rowwise", "rwkv_tpu_torch/csrc/block_matmul.cu",
+         "rwkv_tpu/ops/kernels.py:266", "K9 rowwise", ("q8r", "K9 rowwise")),
     ]
     kernels = []
     for name, source, replaces, key, (path, counter) in meta:

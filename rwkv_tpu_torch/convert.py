@@ -3,9 +3,14 @@
 ``params_from_numpy(cfg, tree)`` takes a parameter tree with the structure
 of ``rwkv_tpu``'s ``load_params`` / ``synth_params`` output -- ``emb``,
 ``ln0``, ``ln_out``, ``head`` and ``blocks[i][key]`` -- whose leaves are
-numpy arrays (each linear weight as its dense ``[out, in]`` matrix), and
-returns the port's parameter tree: the same structure with CPU float32
-tensors, as ``rwkv_tpu_torch.models.synth.synth_params`` builds it.
+numpy arrays (each linear weight as its dense ``[out, in]`` matrix, or a
+file-quantized one as a dict ``{"q", "d", "m", "fmt"}`` of the JAX
+``Weight``'s codes ``[out, nb, 32]``, scales and mins ``[out, nb]`` (``m``
+None where the format has none) and format name), and returns the port's
+parameter tree: the same structure with CPU float32 tensors and
+``ops.parity.Weight`` quant leaves, as ``models.synth.synth_params`` and
+``models.loader.load_params`` build it. So a tree that the JAX package
+loaded from a file crosses over whole.
 """
 
 from __future__ import annotations
@@ -14,9 +19,12 @@ import numpy as np
 import torch
 
 from rwkv_tpu_torch.models.config import ModelConfig
+from rwkv_tpu_torch.ops.parity import Weight
 
 
-def _tensor(a) -> torch.Tensor:
+def _tensor(a):
+    if isinstance(a, dict):
+        return Weight.from_codes(a["q"], a["d"], a.get("m"), a["fmt"])
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 

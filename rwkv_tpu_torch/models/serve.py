@@ -2,11 +2,16 @@
 
 Ports the serving side of ``rwkv_tpu.models.serve``:
 
-- ``stack_layer_params`` prepares every layer's weights for a precision --
-  dense f32 or bf16, or w8a8 (rowwise int8 weights, per-row int8
-  activations, kernel K1) -- and stacks them ``[L, ...]``. Projections stay
-  unfused, as they do under w8a8 in the JAX package. w4a8 runs these
-  per-op paths as w8a8, as JAX does; only the decode kernels see int4.
+- ``stack_layer_params`` prepares every layer's weights for a precision and
+  stacks them ``[L, ...]``: dense f32 or bf16; ``keep-quant`` (a loaded
+  file's blocks stay packed, kernel K9; its dense tensors go to bf16);
+  ``q8`` (every 2-D weight to per-32-block int8, K9) or ``q8r`` (one scale
+  per row, K9's bf16 form); w8a8 (rowwise int8 weights, per-row int8
+  activations, kernel K1). Under every packed mode a file-quantized leaf
+  keeps its blocks (``PackedQuantWeight.from_weight``) and only dense
+  leaves are requantized, as in the JAX package. Projections stay unfused,
+  as they do there under every packed mode. w4a8 runs these per-op paths
+  as w8a8, as JAX does; only the decode kernels see int4.
 - ``run_blocks`` / ``forward_stacked`` run the layers as a Python loop over
   ``models.graph.att_v7`` / ``ffn_v7`` (v7), ``att_v6`` / ``ffn_v6`` (v6),
   ``att_v5`` / ``ffn_v4_v5`` (v5) or, in ``forward_stacked``'s own loop with
@@ -14,10 +19,13 @@ Ports the serving side of ``rwkv_tpu.models.serve``:
   T > 1 the wkv recurrence goes through ``ops.chunked.wkv7_auto`` (kernel
   K2 on the card), ``wkv6_auto`` (kernel K5, v6 and v5 with its static
   decay) or ``wkv4_auto`` (a log-depth scan in plain PyTorch).
-- ``ServingModel`` serves it: ``prefill`` splits a prompt into
+- ``ServingModel`` serves a ggmf file (``models.loader.load_params``) or a
+  ``(cfg, params)`` tree: ``prefill`` splits a prompt into
   ``PREFILL_BUCKETS``, ``decode`` runs one step for a batch, ``generate``
   samples. With ``megakernel=True`` decode goes through the whole-model
-  kernels. v7: B=1 through K3 (one launch with the LM head) when K3 takes
+  kernels (w8a8 and w4a8; ``quant``, ``q8`` and ``q8r`` hand them the w8
+  pack of the dequantized weights, as the JAX package does). v7: B=1
+  through K3 (one launch with the LM head) when K3 takes
   the model's shapes, else K4 and the head on K1; ``mega_min_batch`` <= B
   <= ``MEGA_MAX_BATCH`` through K4, then ``ln_out`` and the head on K1 at
   M=B (the JAX package's batched and tiled kernels followed by ``G.mm``).
@@ -32,6 +40,8 @@ State uses the serving layout: ``att_xx`` / ``ffn_xx`` ``[B, L, C]`` and
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -40,48 +50,61 @@ import torch
 from rwkv_tpu_torch.device import resolve_device
 from rwkv_tpu_torch.models import graph as G
 from rwkv_tpu_torch.models.config import ModelConfig
+from rwkv_tpu_torch.models.loader import LAYER_WEIGHT_KEYS, load_params
 from rwkv_tpu_torch.models.state import init_state
 from rwkv_tpu_torch.ops.kernels import PackedQuantWeight, quantize_q8_serving
-from rwkv_tpu_torch.ops.parity import layer_norm
+from rwkv_tpu_torch.ops.parity import Weight, layer_norm
 
 # Prefill chunk buckets, largest first; any length is decomposed greedily.
 PREFILL_BUCKETS = (256, 64, 16, 4, 1)
 
-_PRECISIONS = {"f32": "dense", "bf16": "dense", "w8a8": "w8a8", "w4a8": "w8a8"}
+# precision -> weight preparation mode (the JAX package's table)
+_PRECISIONS = {"f32": "dense", "bf16": "dense", "quant": "keep-quant", "q8": "q8",
+               "q8r": "q8r", "w8a8": "w8a8", "w4a8": "w8a8"}
+# precisions the decode kernels serve (their int8 or int4 pack)
+_MEGA_PRECISIONS = ("quant", "q8", "q8r", "w8a8", "w4a8")
 
 # Largest batch the whole-model decode kernel K4 serves (the JAX package's
 # bound for its batched kernels); larger batches take the per-op path.
 MEGA_MAX_BATCH = 256
 
 
-def _prepare_weight(w: torch.Tensor, dtype, mode: str):
-    """Dense ``[out, in]`` weight -> serving form. 'dense': `w` in `dtype`.
-    'w8a8': rowwise int8 (PackedQuantWeight) when the in-dim is a multiple
-    of 32, else dense in `dtype`."""
-    if mode == "w8a8" and w.shape[-1] % 32 == 0:
-        return quantize_q8_serving(w)
-    return w.to(dtype)
+def _densify(w, dtype) -> torch.Tensor:
+    """A weight leaf (``Weight`` or dense tensor) -> dense ``[out, in]`` in
+    `dtype`, through float32."""
+    return (w.dense() if isinstance(w, Weight) else w.float()).to(dtype)
 
 
-# the leaves the JAX package's synth builds as ``Weight`` (v4-v7); under
-# w8a8 they become int8 rows on K1. v6's time_maa_w2 and the v4/v5 decay
-# and bonus vectors stay f32.
-_MATRIX_KEYS = frozenset(
-    ["att.key.weight", "att.value.weight", "att.receptance.weight", "att.output.weight",
-     "ffn.key.weight", "ffn.value.weight"]
-    + [f"att.{n}{i}" for n in "wagv" for i in (1, 2)]
-    + ["att.gate.weight", "ffn.receptance.weight", "att.time_maa_w1",
-       "att.time_decay_w1", "att.time_decay_w2"]
-)
+def _prepare_weight(w, dtype, mode: str):
+    """Weight leaf (``Weight`` or dense ``[out, in]`` tensor) -> serving form.
+
+    'dense': dense in `dtype`. 'keep-quant': a file-quantized leaf keeps
+    its blocks (K9), a dense one goes to `dtype`. 'q8' / 'q8r' / 'w8a8': a
+    file-quantized leaf keeps its blocks; a dense one with in % 32 == 0 is
+    quantized to per-32-block int8 ('q8'), rowwise int8 ('q8r') or rowwise
+    int8 with int8 activations ('w8a8', K1), else stays dense in `dtype`."""
+    if isinstance(w, Weight) and w.kind == "quant" and mode != "dense":
+        return PackedQuantWeight.from_weight(w)
+    if mode in ("q8", "q8r", "w8a8") and w.shape[-1] % 32 == 0:
+        return quantize_q8_serving(_densify(w, torch.float32), rowwise=mode != "q8",
+                                   int8_act=mode == "w8a8")
+    return _densify(w, dtype)
+
+
 _VERSIONS = (4, 5, 6, 7)
 
 
 def _stack(leaves):
     if isinstance(leaves[0], PackedQuantWeight):
-        return PackedQuantWeight(
-            q=torch.stack([x.q for x in leaves]), d=torch.stack([x.d for x in leaves])
-        )
+        return PackedQuantWeight.stack(leaves)
     return torch.stack(leaves)
+
+
+def _zeros_like(x):
+    if isinstance(x, Weight):
+        return dataclasses.replace(x, **{f: torch.zeros_like(getattr(x, f))
+                                         for f in ("w", "q", "d", "m") if getattr(x, f) is not None})
+    return torch.zeros_like(x)
 
 
 def _to(x, device):
@@ -101,10 +124,12 @@ def stack_layer_params(
     if cfg.version_major == 7 and len(blocks) > 1:
         for key in ("att.v0", "att.v1", "att.v2"):
             if key not in blocks[0]:
-                blocks[0][key] = torch.zeros_like(blocks[1][key])
+                blocks[0][key] = _zeros_like(blocks[1][key])
     stacked = {}
     for k in sorted(blocks[0].keys()):
-        if k in _MATRIX_KEYS:
+        # the leaves the JAX package's synth and loader build as ``Weight``;
+        # v6's time_maa_w2 and the v4/v5 decay and bonus vectors stay f32
+        if k in LAYER_WEIGHT_KEYS:
             leaves = [_prepare_weight(b[k], dtype, mode) for b in blocks]
         else:
             leaves = [b[k].float() for b in blocks]
@@ -122,7 +147,7 @@ def stack_layer_params(
 def _layer(blocks: dict, i: int) -> dict:
     out = {}
     for k, v in blocks.items():
-        out[k] = PackedQuantWeight(q=v.q[i], d=v.d[i]) if isinstance(v, PackedQuantWeight) else v[i]
+        out[k] = v.map(lambda t: t[i]) if isinstance(v, PackedQuantWeight) else v[i]
     return out
 
 
@@ -240,20 +265,28 @@ class ServingModel:
         megakernel: bool = False,
         device=None,
     ):
-        """source: ``(cfg, params)`` with params in the port's format
-        (``models.synth.synth_params`` or ``convert.params_from_numpy``).
-        precision: 'f32' | 'bf16' (dense) | 'w8a8' | 'w4a8' (int4 big
-        matrices in the decode kernels; every per-op path runs w8a8).
-        megakernel=True (w8a8 and w4a8) routes decode through kernels K3
-        and K4 (v7), K6 (v6), K7 (v5) or K8 (v4; see ``decode``). device:
-        default the CUDA card; raises when there is none."""
-        if isinstance(source, str):
-            raise NotImplementedError("loading ggmf files is not ported yet; pass (cfg, params)")
-        cfg, params = source
+        """source: the path of a ggmf model file (FP32, FP16, Q4_0, Q4_1,
+        Q5_0, Q5_1, Q8_0, Q4_K or Q5_K; ``models.loader.load_params``) or
+        ``(cfg, params)`` with params in the port's format
+        (``models.synth.synth_params``, ``convert.params_from_numpy`` or
+        ``load_params``). precision: 'f32' | 'bf16' (dense) | 'quant' (keep
+        the file's blocks, K9) | 'q8' (per-32-block int8, K9) | 'q8r'
+        (rowwise int8, K9) | 'w8a8' (K1; a file's quantized blocks stay on
+        K9) | 'w4a8' (int4 big matrices in the decode kernels; every per-op
+        path runs w8a8). megakernel=True (every precision but f32 and bf16)
+        routes decode through kernels K3 and K4 (v7), K6 (v6), K7 (v5) or
+        K8 (v4; see ``decode``), int4 under w4a8 and int8 otherwise.
+        device: default the CUDA card; raises when there is none."""
+        if isinstance(source, (str, os.PathLike)):
+            cfg, params = load_params(os.fspath(source))
+        else:
+            cfg, params = source
         if precision not in _PRECISIONS:
             raise ValueError(f"precision must be one of {sorted(_PRECISIONS)}, got {precision!r}")
-        if megakernel and precision not in ("w8a8", "w4a8"):
-            raise NotImplementedError("the decode kernels are ported for w8a8 and w4a8 only")
+        if megakernel and precision not in _MEGA_PRECISIONS:
+            raise NotImplementedError(
+                f"the decode kernels are ported for w8a8 and w4a8 only (quant, q8 and q8r "
+                f"decode on their w8 pack), not {precision!r}")
         self.device = resolve_device(device)
         self.config = cfg
         self.precision = precision

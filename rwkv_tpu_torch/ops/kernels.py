@@ -1,23 +1,39 @@
-"""w8a8 serving weights and the quantized matmul (kernel K1).
+"""Packed serving weights and the quantized matmuls (kernels K1 and K9).
 
-Ports the rowwise ``int8_act`` (w8a8) form of ``rwkv_tpu.ops.kernels``:
-``PackedQuantWeight``, ``quantize_q8_serving`` (its rowwise ``int8_act``
-form) and ``quant_matmul``. The port stores codes ``[N, K]`` (output rows, K
-contiguous) with one f32 scale per row and no padding of N; the JAX package
-stores the transpose ``[K, N_pad]``. The per-32-block, packed-nibble and
-bf16-convert branches of the TPU kernel are not ported yet.
+Ports ``rwkv_tpu.ops.kernels``: ``PackedQuantWeight`` in every form the
+JAX package has, ``PackedQuantWeight.from_weight``, ``quantize_q8_serving``,
+``dequant_weight`` and ``quant_matmul``. The port keeps its own layout:
+codes ``[N, K]`` (output rows, K contiguous) with per-32-block scales
+``[N, K/32]`` or one scale per row ``[N]``, and no padding of N; the JAX
+package stores the transposes ``[K, N_pad]`` and ``[K/32, N_pad]``. The
+forms, by the TPU kernel body each replaces
+(``rwkv_tpu/ops/kernels.py::_pallas_quant_matmul``):
 
-``quant_matmul`` computes ``y = (float(x8 @ q^T) * dx) * d`` with x
-quantized per row (``dx = amax/127``, ``rint``, clip +-127), as
-``_xla_w8a8_matmul`` does. On a CUDA tensor it launches the hand-written
-kernel ``csrc/quant_matmul.cu`` (and counts the launch in
-``quant_matmul.launches``); on a CPU tensor it runs
-``quant_matmul_plain``.
+- ``w8a8`` (``rowwise`` + ``int8_act``; ``_kernel_w8a8``): x quantized per
+  row, ``y = (float(x8 @ q^T) * dx) * d``. Kernel K1, ``csrc/quant_matmul.cu``.
+- ``plain`` (``_kernel_plain``): ``W = f32(q * d)`` per 32-block; Q5_0 and
+  Q8_0 files, ``q8``.
+- ``min`` (``_kernel_min``): ``W = f32(f32(q * d) + m)``; Q5_1, Q4_K, Q5_K
+  files (the K-formats' sub-block mins ride this form, stored negated).
+- ``pack4`` / ``pack4_min`` (``_make_kernel4``): the same on nibbles, two
+  codes a byte in ggml's own order (byte j of a 32-block's 16 bytes holds
+  code j low and code j + 16 high, ``pack_int4``),
+  signed for Q4_0 (codes -8..7), unsigned 0..15 with mins for Q4_1.
+- ``rowwise`` (``_kernel_rowwise``; ``q8r``): x rounded to bf16, the codes
+  exact in bf16, f32 accumulation, then ``* d[n]``.
+
+Every form but w8a8 runs kernel K9, ``csrc/block_matmul.cu``; with these
+weights ``y = x @ W^T`` with f32 accumulation. ``quant_matmul`` on a CUDA
+tensor launches K1 or K9 (counted in ``quant_matmul.launches`` for K1 and
+``quant_matmul.launches_by_form`` for K9's forms) and on a CPU tensor runs
+the plain PyTorch versions ``quant_matmul_plain`` / ``block_matmul_plain``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -26,26 +42,123 @@ from rwkv_tpu_torch.ops import _cuda
 
 QK = 32
 
+# K9's forms, in the order of the C entry's `form` argument
+K9_FORMS = ("plain", "min", "pack4", "pack4_min", "rowwise")
+
 
 @dataclass
 class PackedQuantWeight:
-    """Rowwise int8 weight for w8a8: ``W[n, k] ~= q[n, k] * d[n]``."""
+    """A serving weight ``W[n, k]`` (``..., N, K``; leading dims stack
+    layers). The defaults are the w8a8 form (rowwise int8 codes, one f32
+    scale per row, int8 activations); see the module doc for the others."""
 
-    q: torch.Tensor  # int8 [N, K]
-    d: torch.Tensor  # f32 [N]
+    q: torch.Tensor  # int8 [..., N, K]; [..., N, K/2] nibbles when pack4
+    d: torch.Tensor  # f32 [..., N] when rowwise, else [..., N, K/32]
+    m: Optional[torch.Tensor] = None  # f32 [..., N, K/32] (per-block forms)
+    pack4: bool = False
+    signed4: bool = True  # pack4: nibbles two's complement (Q4_0), else 0..15
+    rowwise: bool = True
+    int8_act: bool = True  # requires rowwise (w8a8)
+
+    @property
+    def form(self) -> str:
+        if self.rowwise:
+            return "w8a8" if self.int8_act else "rowwise"
+        if self.pack4:
+            return "pack4_min" if self.m is not None else "pack4"
+        return "min" if self.m is not None else "plain"
 
     @property
     def shape(self):
         """Logical (out, in) shape."""
-        return tuple(self.q.shape)
+        return (self.q.shape[-2], self.q.shape[-1] * (2 if self.pack4 else 1))
+
+    def map(self, fn) -> "PackedQuantWeight":
+        """The same form with `fn` applied to q, d and m."""
+        return dataclasses.replace(self, q=fn(self.q), d=fn(self.d),
+                                   m=None if self.m is None else fn(self.m))
 
     def to(self, device) -> "PackedQuantWeight":
-        return PackedQuantWeight(q=self.q.to(device), d=self.d.to(device))
+        return self.map(lambda t: t.to(device))
+
+    @staticmethod
+    def stack(ws) -> "PackedQuantWeight":
+        """Stack equal-form weights along a new leading dim."""
+        w0 = ws[0]
+        return dataclasses.replace(
+            w0, q=torch.stack([w.q for w in ws]), d=torch.stack([w.d for w in ws]),
+            m=None if w0.m is None else torch.stack([w.m for w in ws]))
+
+    @classmethod
+    def from_weight(cls, w) -> "PackedQuantWeight":
+        """A file-quantized ``ops.parity.Weight`` keeping its blocks: codes
+        ``[N, K]`` and scales (and mins) ``[N, K/32]``; Q4_0 / Q4_1 as
+        nibbles (see the module doc)."""
+        if w.kind != "quant":
+            raise ValueError("from_weight takes a quant Weight")
+        out, nb, _ = w.q.shape
+        q = w.q.reshape(out, nb * QK)
+        m = None if w.m is None else w.m.float().contiguous()
+        d = w.d.float().contiguous()
+        if w.fmt in ("Q4_0", "Q4_1"):
+            return cls(q=pack_int4(q), d=d, m=m, pack4=True, signed4=w.fmt == "Q4_0",
+                       rowwise=False, int8_act=False)
+        return cls(q=q.contiguous(), d=d, m=m, rowwise=False, int8_act=False)
+
+
+def pack_int4(codes) -> torch.Tensor:
+    """4-bit codes ``[..., K]`` (int8 values in -8..7 or 0..15, K a multiple
+    of 32) -> bytes ``[..., K/2]``: byte j of 16-byte chunk c holds code
+    32c + j in its low nibble and code 32c + 16 + j in its high nibble (the
+    ggml block's own order; two's complement for signed codes). K9's pack4
+    forms and the decode kernels' int4 matrices (``csrc/common.cuh``) read
+    this layout."""
+    a = np.asarray(codes.numpy() if isinstance(codes, torch.Tensor) else codes, np.int8)
+    *lead, k = a.shape
+    if k % QK:
+        raise ValueError(f"int4 rows need K % {QK} == 0, got K={k}")
+    a = a.astype(np.int32).reshape(*lead, k // QK, 2, 16)
+    b = (a[..., 0, :] & 0xF) | ((a[..., 1, :] & 0xF) << 4)
+    return torch.from_numpy(b.astype(np.uint8).view(np.int8).reshape(*lead, k // 2).copy())
+
+
+def unpack_int4(packed: torch.Tensor, signed: bool = True) -> torch.Tensor:
+    """Inverse of ``pack_int4`` (any device): bytes ``[..., K/2]`` -> int8
+    codes ``[..., K]``, sign-extended (-8..7) or unsigned (0..15)."""
+    v = packed.to(torch.int32)
+    if signed:
+        lo = ((v & 15) ^ 8) - 8
+        hi = v >> 4  # arithmetic shift of the sign-extended byte
+    else:
+        lo, hi = v & 15, (v >> 4) & 15
+    *lead, kh = packed.shape
+    lo = lo.reshape(*lead, kh // 16, 16)
+    hi = hi.reshape(*lead, kh // 16, 16)
+    return torch.cat([lo, hi], dim=-1).reshape(*lead, 2 * kh).to(torch.int8)
+
+
+def codes(w: PackedQuantWeight) -> torch.Tensor:
+    """int8 codes ``[..., N, K]`` (nibbles unpacked)."""
+    return unpack_int4(w.q, w.signed4) if w.pack4 else w.q
+
+
+def dequant_weight(w: PackedQuantWeight) -> torch.Tensor:
+    """Dense ``[..., N, K]`` float32: ``f32(q * d)`` per block (``+ m``,
+    rounded again) or ``q * d[n]`` rowwise, as the JAX package's
+    ``dequant_weight`` computes it (transposed)."""
+    q = codes(w).float()
+    if w.rowwise:
+        return q * w.d[..., None]
+    *lead, n, k = q.shape
+    arr = q.reshape(*lead, n, k // QK, QK) * w.d[..., None]
+    if w.m is not None:
+        arr = arr + w.m[..., None]
+    return arr.reshape(*lead, n, k)
 
 
 def quantize_rows_np(w: np.ndarray, qmax: float = 127.0):
-    """Symmetric per-row quantization of ``[..., N, K]`` float32 on the host:
-    (codes int8 ``[..., N, K]``, scales f32 ``[..., N]``), with the JAX
+    """Symmetric quantization of ``[..., K]`` float32 along the last axis on
+    the host: (codes int8 ``[..., K]``, scales f32 ``[...]``), with the JAX
     package's formula ``d = amax/qmax``, ``inv = 1/max(d, 1e-30)`` (0 when
     d is 0), ``clip(rint(w * inv), +-qmax)``."""
     w = np.asarray(w, dtype=np.float32)
@@ -56,17 +169,29 @@ def quantize_rows_np(w: np.ndarray, qmax: float = 127.0):
     return q, d.astype(np.float32)
 
 
-def quantize_q8_serving(arr) -> PackedQuantWeight:
-    """Symmetric int8 quantization of a dense ``[out, in]`` weight, one
-    scale per output row: the JAX package's
-    ``quantize_q8_serving(rowwise=True, int8_act=True)`` (w8a8)."""
+def quantize_q8_serving(arr, rowwise: bool = True, int8_act: bool = True) -> PackedQuantWeight:
+    """Symmetric int8 quantization of a dense ``[out, in]`` weight: the JAX
+    package's ``quantize_q8_serving``. rowwise=False: per-32-block scales
+    (``q8``); rowwise=True: one scale per output row (``q8r``), with
+    int8_act=True the w8a8 form (the default here, the port's first form)."""
     if isinstance(arr, torch.Tensor):
         arr = arr.detach().to("cpu", torch.float32).numpy()
     arr = np.asarray(arr, dtype=np.float32)
     if arr.ndim != 2 or arr.shape[1] % QK:
         raise ValueError(f"expected [out, in] with in % {QK} == 0, got {arr.shape}")
-    q, d = quantize_rows_np(arr)
-    return PackedQuantWeight(q=torch.from_numpy(q), d=torch.from_numpy(d))
+    if int8_act and not rowwise:
+        raise ValueError("int8_act needs rowwise")
+    out, k = arr.shape
+    if rowwise:
+        q, d = quantize_rows_np(arr)
+    else:
+        q, d = quantize_rows_np(arr.reshape(out, k // QK, QK))
+        q = q.reshape(out, k)
+    return PackedQuantWeight(q=torch.from_numpy(q), d=torch.from_numpy(d), rowwise=rowwise,
+                             int8_act=int8_act)
+
+
+# -- K1: w8a8 -----------------------------------------------------------------
 
 
 def quantize_act_plain(x: torch.Tensor):
@@ -93,6 +218,11 @@ def quant_matmul_plain(x: torch.Tensor, w: PackedQuantWeight) -> torch.Tensor:
     return int_dot_plain(x8, w.q) * dx * w.d
 
 
+def _operands_ok(*ts) -> bool:
+    dev = ts[0].device
+    return all(t.device == dev and t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ts)
+
+
 def _w8a8_matmul_cuda(x: torch.Tensor, w: PackedQuantWeight) -> torch.Tensor:
     m, k = x.shape
     n = w.q.shape[0]
@@ -102,9 +232,8 @@ def _w8a8_matmul_cuda(x: torch.Tensor, w: PackedQuantWeight) -> torch.Tensor:
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, q {tuple(w.q.shape)}, d {tuple(w.d.shape)}")
     if k % 16:
         raise ValueError(f"the w8a8 kernel needs K % 16 == 0, got K={k}")
-    for t in (x, w.q, w.d):
-        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("w8a8 kernel operands must be contiguous, 16-byte aligned, on one device")
+    if not _operands_ok(x, w.q, w.d):
+        raise ValueError("w8a8 kernel operands must be contiguous, 16-byte aligned, on one device")
     x8 = torch.empty((m, k), dtype=torch.int8, device=x.device)
     dx = torch.empty((m,), dtype=torch.float32, device=x.device)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
@@ -116,18 +245,61 @@ def _w8a8_matmul_cuda(x: torch.Tensor, w: PackedQuantWeight) -> torch.Tensor:
     return y
 
 
+# -- K9: the block formats, q8 and q8r ------------------------------------------
+
+
+def block_matmul_plain(x: torch.Tensor, w: PackedQuantWeight) -> torch.Tensor:
+    """Plain PyTorch K9 on x [M, K] f32 (any device): ``x @ W^T`` with
+    ``W = dequant_weight(w)``; rowwise rounds x to bf16 first and applies
+    the row scales to the output."""
+    if w.rowwise:
+        return torch.matmul(x.to(torch.bfloat16).float(), w.q.float().T) * w.d
+    return torch.matmul(x, dequant_weight(w).T)
+
+
+def _block_matmul_cuda(x: torch.Tensor, w: PackedQuantWeight) -> torch.Tensor:
+    m, k = x.shape
+    n = w.q.shape[0]
+    form = w.form
+    if form == "pack4" and not w.signed4 or form == "pack4_min" and w.signed4:
+        raise ValueError("K9 takes signed nibbles without mins (Q4_0) or unsigned with mins (Q4_1)")
+    if w.q.dtype != torch.int8 or w.d.dtype != torch.float32 or (
+            w.m is not None and w.m.dtype != torch.float32):
+        raise TypeError("K9 weights are int8 codes with f32 scales and mins")
+    nb = k // QK
+    d_shape = (n,) if w.rowwise else (n, nb)
+    if k % QK or w.shape != (n, k) or tuple(w.d.shape) != d_shape or (
+            w.m is not None and tuple(w.m.shape) != (n, nb)):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, q {tuple(w.q.shape)}, "
+                         f"d {tuple(w.d.shape)} ({form}); K must be a multiple of {QK}")
+    ops = [x, w.q, w.d] + ([] if w.m is None else [w.m])
+    if not _operands_ok(*ops):
+        raise ValueError("K9 operands must be contiguous, 16-byte aligned, on one device")
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    fn = _cuda.function("block_matmul", "rwkv_block_matmul", 5, 4)
+    code = fn(x.data_ptr(), w.q.data_ptr(), w.d.data_ptr(),
+              None if w.m is None else w.m.data_ptr(), y.data_ptr(), m, k, n,
+              K9_FORMS.index(form), _cuda.stream_ptr(x.device))
+    _cuda.check("block_matmul", "rwkv_block_matmul", code)
+    quant_matmul.launches_by_form[form] += 1
+    return y
+
+
 def quant_matmul(x: torch.Tensor, w: PackedQuantWeight) -> torch.Tensor:
-    """y[..., o] = sum_i x[..., i] * W[o, i] under w8a8 (see module doc).
-    CUDA tensors launch kernel K1; CPU tensors take the plain version."""
+    """y[..., o] = sum_i x[..., i] * W[o, i] in `w`'s form (see module
+    doc). CUDA tensors launch K1 (w8a8) or K9; CPU tensors take the plain
+    versions."""
     lead, k = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, k).float().contiguous()
+    w8a8 = w.form == "w8a8"
     if x2.device.type == "cpu":
-        out = quant_matmul_plain(x2, w)
+        out = quant_matmul_plain(x2, w) if w8a8 else block_matmul_plain(x2, w)
     elif x2.device.type == "cuda":
-        out = _w8a8_matmul_cuda(x2, w)
+        out = _w8a8_matmul_cuda(x2, w) if w8a8 else _block_matmul_cuda(x2, w)
     else:
         raise ValueError(f"unsupported device {x2.device}")
-    return out.reshape(*lead, w.q.shape[0])
+    return out.reshape(*lead, w.q.shape[-2])
 
 
 quant_matmul.launches = 0
+quant_matmul.launches_by_form = dict.fromkeys(K9_FORMS, 0)

@@ -55,8 +55,10 @@ import numpy as np
 import torch
 
 from rwkv_tpu_torch.ops import _cuda
-from rwkv_tpu_torch.ops.kernels import int_dot_plain, quantize_act_plain, quantize_rows_np
-from rwkv_tpu_torch.ops.parity import layer_norm
+from rwkv_tpu_torch.ops.kernels import (
+    int_dot_plain, pack_int4, quantize_act_plain, quantize_rows_np, unpack_int4,
+)
+from rwkv_tpu_torch.ops.parity import Weight, layer_norm
 
 # per-layer vector rows of the flat pack; the kernels' VecRow enum matches
 VEC_KEYS = (
@@ -86,6 +88,11 @@ _V6_MAA5 = ("w", "k", "v", "r", "g")
 
 
 def _np(t) -> np.ndarray:
+    """A parameter leaf as host float32 numpy; a ``Weight`` leaf of a loaded
+    file densified as the JAX package's ``_np_dense`` does (``q * d``, then
+    ``+ m``, in float32)."""
+    if isinstance(t, Weight):
+        t = t.dense()
     if isinstance(t, torch.Tensor):
         return t.detach().to("cpu", torch.float32).numpy()
     return np.asarray(t, np.float32)
@@ -97,32 +104,6 @@ def _quantize_rows(w, four: bool = False):
     one a byte here; ``device_pack`` packs them two a byte)."""
     q, d = quantize_rows_np(_np(w), 7.0 if four else 127.0)
     return torch.from_numpy(q), torch.from_numpy(d)
-
-
-def pack_int4(codes) -> torch.Tensor:
-    """int4 codes [..., K] (int8 values in [-8, 7], K a multiple of 32) ->
-    bytes [..., K/2] in the kernels' layout: byte j of 16-byte chunk c
-    holds code 32c + j in its low nibble and code 32c + 16 + j in its high
-    nibble, two's complement (see ``csrc/common.cuh``)."""
-    a = np.asarray(codes.numpy() if isinstance(codes, torch.Tensor) else codes, np.int8)
-    *lead, k = a.shape
-    if k % 32:
-        raise ValueError(f"int4 rows need K % 32 == 0, got K={k}")
-    a = a.astype(np.int32).reshape(*lead, k // 32, 2, 16)
-    b = (a[..., 0, :] & 0xF) | ((a[..., 1, :] & 0xF) << 4)
-    return torch.from_numpy(b.astype(np.uint8).view(np.int8).reshape(*lead, k // 2).copy())
-
-
-def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
-    """Inverse of ``pack_int4`` (any device): bytes [..., K/2] -> int8
-    codes [..., K]."""
-    v = packed.to(torch.int32)
-    lo = ((v & 15) ^ 8) - 8
-    hi = v >> 4  # arithmetic shift of the sign-extended byte
-    *lead, kh = packed.shape
-    lo = lo.reshape(*lead, kh // 16, 16)
-    hi = hi.reshape(*lead, kh // 16, 16)
-    return torch.cat([lo, hi], dim=-1).reshape(*lead, 2 * kh).to(torch.int8)
 
 
 def build_mega_pack(params: dict, cfg, w4: bool = False) -> dict:

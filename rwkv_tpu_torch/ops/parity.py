@@ -1,13 +1,89 @@
 """Float32 compute ops with the JAX package's semantics.
 
-Ports ``layer_norm``, ``group_norm``, ``l2_normalize`` and the serving side
-of ``mm`` from ``rwkv_tpu.ops.parity``. The ggml-parity quantized engine
-(``Weight`` / ``_quant_matmul``) is not part of this port yet.
+Ports ``layer_norm``, ``group_norm``, ``l2_normalize``, the serving side of
+``mm`` and the ``Weight`` leaf (a linear weight in its on-disk precision,
+what ``models.loader.load_params`` returns) from ``rwkv_tpu.ops.parity``.
+The ggml-parity quantized matmul (``_quant_matmul``) is not ported yet;
+``Weight`` keeps the fields it needs (``q8_1_act``, ``q8_k_act``).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
 import torch
+
+from rwkv_tpu_torch.io.quant import (
+    GgmlDType, dtype_from_name, dtype_name, quant_offset, unpack_blocks,
+)
+
+# formats whose ggml dot consumes q8_1 activations (an explicit per-block
+# min) and the K-quant formats, which consume q8_K activations
+_Q8_1_ACT = (GgmlDType.Q4_1, GgmlDType.Q5_1)
+_Q8_K_ACT = (GgmlDType.Q4_K, GgmlDType.Q5_K)
+
+
+@dataclass
+class Weight:
+    """A linear-layer weight in one of the on-disk precisions (CPU tensors).
+
+    kind == "dense": `w` holds the ``[out, in]`` matrix in float32 or
+    float16. kind == "quant": `q` holds int8 codes ``[out, n_blocks, 32]``
+    with the format's offset already subtracted (Q4_0 codes are -8..7), `d`
+    the per-block scales ``[out, n_blocks]`` (float32 holding the fp16
+    values exactly) and `m` the per-block minimums of Q4_1, Q5_1 and the
+    K-formats (whose sub-block mins are stored negated, so every format
+    dequantizes as ``q * d + m``)."""
+
+    kind: str  # "dense" | "quant"
+    w: Optional[torch.Tensor] = None
+    q: Optional[torch.Tensor] = None
+    d: Optional[torch.Tensor] = None
+    m: Optional[torch.Tensor] = None
+    q8_1_act: bool = False
+    fmt: str = ""  # on-disk format name of a quant weight, e.g. "Q4_0"
+    q8_k_act: bool = False
+
+    @property
+    def shape(self):
+        """Logical (out, in) shape."""
+        if self.kind == "dense":
+            return tuple(self.w.shape)
+        return (self.q.shape[0], self.q.shape[1] * 32)
+
+    @classmethod
+    def from_codes(cls, q, d, m, fmt: str) -> "Weight":
+        """A quant weight from codes ``[out, nb, 32]`` (offset subtracted),
+        scales and optional mins ``[out, nb]`` of the format named `fmt`."""
+        dtype = dtype_from_name(fmt)
+        return cls(kind="quant", q=torch.from_numpy(np.array(q, np.int8)),
+                   d=torch.from_numpy(np.array(d, np.float32)),
+                   m=None if m is None else torch.from_numpy(np.array(m, np.float32)),
+                   q8_1_act=dtype in _Q8_1_ACT, fmt=fmt, q8_k_act=dtype in _Q8_K_ACT)
+
+    @classmethod
+    def from_packed(cls, data: bytes, dtype: GgmlDType, shape) -> "Weight":
+        """Build from the raw ggmf bytes of a quantized 2-D tensor."""
+        out_dim, in_dim = shape
+        blocks = unpack_blocks(np.frombuffer(data, dtype=np.uint8), dtype)
+        nb = in_dim // 32
+        m = blocks.get("m")
+        return cls.from_codes((blocks["q"] - quant_offset(dtype)).reshape(out_dim, nb, 32),
+                              blocks["d"].reshape(out_dim, nb),
+                              None if m is None else m.reshape(out_dim, nb), dtype_name(dtype))
+
+    def dense(self) -> torch.Tensor:
+        """The ``[out, in]`` float32 matrix: a dense weight converted, a
+        quant weight ``f32(q * d)`` (``+ m``), rounded after each step, as
+        the JAX package's ``_densify`` / ``_np_dense`` compute it."""
+        if self.kind == "dense":
+            return self.w.float()
+        arr = self.q.float() * self.d[..., None]
+        if self.m is not None:
+            arr = arr + self.m[..., None]
+        return arr.reshape(self.q.shape[0], -1)
 
 
 def mm(x: torch.Tensor, w) -> torch.Tensor:

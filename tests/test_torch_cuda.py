@@ -1,6 +1,6 @@
-"""Kernels K1-K8 of the PyTorch/CUDA port on the card, against their plain
-PyTorch versions, the batcher's decode loop and the v7, v6, v5 and v4
-serving paths on the card. Every test here needs a CUDA device and nvcc and skips
+"""Kernels K1-K9 of the PyTorch/CUDA port on the card, against their plain
+PyTorch versions, the batcher's decode loop, the v7, v6, v5 and v4
+serving paths and the serving path from quantized ggmf files on the card. Every test here needs a CUDA device and nvcc and skips
 without one. The file imports no JAX, so it runs on a GPU machine without
 it, from the repository root:
 
@@ -11,12 +11,16 @@ import numpy as np
 import pytest
 import torch
 
+from rwkv_tpu_torch.io import quant as TQ
+from rwkv_tpu_torch.io.quantize import quantize_model_file
 from rwkv_tpu_torch.models.serve import ServingModel
 from rwkv_tpu_torch.models.synth import synth_config, synth_params
 from rwkv_tpu_torch.ops import chunked as TC
 from rwkv_tpu_torch.ops import kernels as TK
 from rwkv_tpu_torch.ops import megakernel as TM
+from rwkv_tpu_torch.ops.parity import Weight
 from rwkv_tpu_torch.parallel.batching import ContinuousBatcher
+from rwkv_tpu_torch.tools.synth_file import write_synth_ggmf
 
 pytestmark = pytest.mark.cuda
 
@@ -388,3 +392,87 @@ def test_card_v45_serving_matches_cpu_and_goes_through_kernels(cuda_device, vers
     assert after[0] - counts[0] == 2 * per_layer * tc.n_layer + 1  # two prefill chunks, one head
     assert after[1] - counts[1] == (2 * tc.n_layer if tc.version_major == 5 else 0)
     assert after[2] - counts[2] == 3
+
+
+# -- K9: the block-format quantized matmul ------------------------------------
+
+K9_CASES = ["Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q8_0", "Q4_K", "Q5_K", "q8", "q8r"]
+
+
+def _k9_weight(fmt, n, k, seed):
+    """A seeded [n, k] weight in `fmt` (a file format, q8 or q8r)."""
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((n, k)) / np.sqrt(k)).astype(np.float32)
+    w[0] = 0.0
+    if fmt in ("q8", "q8r"):
+        return TK.quantize_q8_serving(w, rowwise=fmt == "q8r", int8_act=False)
+    dt = TQ.dtype_from_name(fmt)
+    return TK.PackedQuantWeight.from_weight(
+        Weight.from_packed(TQ.quantize_rows(w, dt).tobytes(), dt, (n, k)))
+
+
+@pytest.mark.parametrize("fmt", K9_CASES)
+def test_block_matmul_kernel_matches_plain(cuda_device, fmt):
+    """K9 against its plain version in every form, decode (M <= 8) and
+    prefill (M > 8) shapes, K across the 1024-column staging chunks, odd
+    N: within 1e-5 of sum |x| |W|; two launches bit-identical."""
+    shapes = [(1, 768, 768), (8, 3072, 768), (5, 2080, 195), (9, 256, 200), (256, 768, 3072),
+              (3, 32, 64), (256, 64, 768)]
+    if fmt in ("Q4_K", "Q5_K"):
+        shapes = [(m, k, n) for m, k, n in shapes if k % 256 == 0]
+    for m, k, n in shapes:
+        w = _k9_weight(fmt, n, k, m + k + n).to(cuda_device)
+        gen = torch.Generator(device=cuda_device).manual_seed(m * k)
+        x = torch.randn((m, k), device=cuda_device, generator=gen)
+        before = TK.quant_matmul.launches_by_form[w.form]
+        y = TK.quant_matmul(x, w)
+        y2 = TK.quant_matmul(x, w)
+        assert TK.quant_matmul.launches_by_form[w.form] == before + 2
+        assert torch.equal(y, y2), (fmt, m, k, n)
+        ref = TK.block_matmul_plain(x, w)
+        band = x.abs() @ TK.dequant_weight(w).abs().T
+        assert bool(((y - ref).abs() <= 1e-5 * band + 1e-30).all()), (fmt, m, k, n)
+
+
+def test_block_matmul_kernel_refuses_what_it_cannot_take(cuda_device):
+    w = _k9_weight("Q5_1", 64, 64, 0).to(cuda_device)
+    with pytest.raises(ValueError):
+        TK.quant_matmul(torch.ones((2, 32), device=cuda_device), w)  # K mismatch
+    bad = TK.PackedQuantWeight(q=w.q, d=w.d, m=w.m, pack4=False, rowwise=False, int8_act=False)
+    bad.q = torch.zeros((64, 48), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):
+        TK.quant_matmul(torch.ones((2, 48), device=cuda_device), bad)  # K % 32
+    q4 = _k9_weight("Q4_0", 64, 64, 0).to(cuda_device)
+    q4.signed4 = False
+    with pytest.raises(ValueError):
+        TK.quant_matmul(torch.ones((2, 64), device=cuda_device), q4)
+
+
+@pytest.mark.parametrize("fmt", ["Q5_1", "Q4_0"])
+def test_card_quant_file_serving_matches_cpu(cuda_device, tmp_path, fmt):
+    """ServingModel(path, "quant") on the card (K9 and K2) against the CPU
+    on a small v7 file: 5e-3 of the scale (bf16 head and LoRAs), equal
+    argmax; every projection of a layer on K9."""
+    tc = synth_config("7.0", 2, 256, 256, 64)
+    src, path = tmp_path / "f32.bin", tmp_path / "q.bin"
+    write_synth_ggmf(tc, synth_params(tc, seed=5), str(src))
+    quantize_model_file(str(src), str(path), fmt, verbose=False)
+    gpu = ServingModel(str(path), precision="quant", device=cuda_device)
+    cpu = ServingModel(str(path), precision="quant", device="cpu")
+    form = "pack4" if fmt == "Q4_0" else "min"
+    before = TK.quant_matmul.launches_by_form[form]
+    prompt = list(np.random.default_rng(0).integers(0, tc.n_vocab, 20))
+    lg, sg = gpu.prefill(prompt)
+    lc, sc = cpu.prefill(prompt)
+    for _ in range(4):
+        tok = [int(lc.argmax())]
+        assert int(lg.argmax()) == tok[0]
+        scale = float(lc.abs().max())
+        assert float((lg.cpu() - lc).abs().max()) <= 5e-3 * scale
+        lg, sg = gpu.decode(tok, sg)
+        lc, sc = cpu.decode(tok, sc)
+        lg, lc = lg[0], lc[0]
+    for k in sc:
+        assert float((sg[k].cpu() - sc[k]).abs().max()) <= 5e-3 * float(sc[k].abs().max()), k
+    # r, k, v, out, fk, fv a layer: two prefill chunks and four decode steps
+    assert TK.quant_matmul.launches_by_form[form] - before == 6 * tc.n_layer * 6

@@ -156,6 +156,8 @@ bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxl
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 14, names
+for need in ("io", "io.quant", "io.ggmf", "io.quantize", "models.loader", "tools.synth_file"):
+    assert "rwkv_tpu_torch." + need in names, need
 """
 
 

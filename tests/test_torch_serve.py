@@ -137,10 +137,13 @@ def test_bf16_prefill_matches_jax(models):
 
 
 def test_serving_model_rejects_unported_options(models):
+    """The decode kernels in f32 or bf16 are not ported; a model file path
+    goes to the loader (a missing one raises there)."""
     _, tc, _, tp = models
-    with pytest.raises(NotImplementedError):
-        ServingModel((tc, tp), precision="f32", megakernel=True, device="cpu")
-    with pytest.raises(NotImplementedError):
+    for precision in ("f32", "bf16"):
+        with pytest.raises(NotImplementedError):
+            ServingModel((tc, tp), precision=precision, megakernel=True, device="cpu")
+    with pytest.raises(FileNotFoundError):
         ServingModel("model.bin", precision="w8a8", device="cpu")
 
 

@@ -97,13 +97,16 @@ def test_v6_att_trace_matches_jax(model6):
 
 
 def test_forward_rejects_unported_versions():
-    """What the port still refuses: a model file, whose loader is not
-    ported (ServingModel takes (cfg, params) only), and a graph version
-    that no RWKV release has."""
+    """What the port refuses: a graph version that no RWKV release has,
+    in the graph and in the serving path. (A model file path goes to the
+    loader, which reads the version from the file's names.)"""
     from rwkv_tpu_torch.models.config import ModelConfig
     from rwkv_tpu_torch.models.serve import ServingModel
 
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError):
+        ServingModel((ModelConfig(64, 64, 1, 3, 0), {"blocks": [{}]}), precision="f32",
+                     device="cpu")
+    with pytest.raises(FileNotFoundError):
         ServingModel("model.bin", precision="f32", device="cpu")
     tc = synth_config("5.2", 1, 64, 64, 16)
     with pytest.raises(NotImplementedError):
