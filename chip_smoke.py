@@ -39,6 +39,14 @@
      scale (twice the worst reading of ``probe_batched --v6 / --v5 / --v4
      --flips``). K7 also on a v5.1 pair and K8 on a pair at C=2048, both
      of 2 layers at the 1.5B width, within 2e-2 (``phase_cut_width``).
+   - The bf16 forms of K3, K4, K6, K7 and K8 (``precision="bf16"``, the
+     ``quant=False`` packs of the same trees): K3 at the 169M width and
+     K6-K8 at theirs through ``phase_b1``, K4 at B = 1, 8 and 64 on the
+     169M pack, at B=64 cut to one layer and at B = 1 and 3 on the C=2048
+     v7 width (2 layers); within 1e-4 of the scale on packs cut to 1 and
+     2 layers, at full depth two launches bit-identical, equal argmax and
+     the drift within BF16_FULL_DEPTH_REL / B1_FULL_DEPTH_REL (twice the
+     worst reading of ``probe_batched --flips --bf16``).
    - K9 ``quant_matmul`` on the block formats (``phase_k9``): each form
      (plain Q8_0 and q8, min Q5_1, pack4 Q4_0, pack4_min Q4_1, rowwise
      q8r) at M in {1, 256} x the 169M (K, N) set and the q8 / q8r head
@@ -56,9 +64,13 @@
      (seeded), greedy and sampled (temperature 1, top_p 0.8), two with
      penalties and two with stop tokens (K1, K2, K4); then a shorter one
      over the w4a8 model (8 requests);
+   - the 169M model under bf16 (and f32, on the same bf16 pack) with
+     ``megakernel=True``: the 256-token prompt per-op (K2), 64 greedy
+     decode steps on K3's bf16 form; the batcher over it (8 requests, K4's
+     bf16 form);
    - RWKV-6 at the 1.6B width, RWKV-5.2 at the World 1.5B width and
-     RWKV-4 at the World 0.1B width (the models above) under w8a8 and
-     w4a8 with ``megakernel=True``: prefill of a 256-token prompt (one
+     RWKV-4 at the World 0.1B width (the models above) under w8a8, w4a8
+     and bf16 with ``megakernel=True``: prefill of a 256-token prompt (one
      bucket: the projections of every layer and the head on K1, the
      recurrence on K5 for v6 and v5, plain PyTorch's log-depth scan for
      v4), then 64 greedy decode steps at B=1 (K6, K7, K8);
@@ -73,8 +85,9 @@
    and checks their outputs: finite logits and state, tokens in range,
    every request finished within its limits.
 4. Holds the card against the CPU on small models: v7 (L=2, C=128) and
-   v6, v5.2, v5.1 and v4 (L=2, C=256), the serving path's logits and state
-   (prefill 20 tokens, 4 decode steps); the same from Q5_1 and Q4_0 files
+   v6, v5.2, v5.1 and v4 (L=2, C=256), w8a8 and bf16, the serving path's
+   logits and state (prefill 20 tokens, 4 decode steps); the same from
+   Q5_1 and Q4_0 files
    of v7, v6, v5.2, v5.1 and v4 (L=2, C=256) under ``precision="quant"``,
    within QUANT_SMALL_REL of the scale (bf16 head and LoRAs); and the
    batcher's token streams on the card, its device loop against its host
@@ -430,12 +443,26 @@ def phase_k5(t: int, bh: int, s: int, dev):
 
 def pack_bytes(pack: dict, cfg) -> int:
     """Bytes one decode step must move: every weight, scale and vector once
-    (v6's f32 maa2 too), the embedding row, the state read and written, the
+    (v6's f32 maa2 too; the bf16 form's matrices and head at two bytes a
+    value, no scales), the embedding row, the state read and written, the
     logits written."""
     n = sum(pack[k].numel() * pack[k].element_size()
-            for k in ("mats", "scales", "vecs", "head8", "head_d", "ln_out", "ln0", "maa2")
+            for k in ("mats", "scales", "vecs", "head8", "head_d", "headbf16", "ln_out", "ln0",
+                      "maa2")
             if k in pack)
-    return n + cfg.n_embed * 2 + 2 * cfg.state_len * 4 + cfg.n_vocab * 4
+    return (n + cfg.n_embed * pack["emb"].element_size() + 2 * cfg.state_len * 4
+            + cfg.n_vocab * 4)
+
+
+def head_weights(pack: dict) -> int:
+    """Values of the pack's LM head (int8 or bf16)."""
+    return pack["headbf16" if pack["form"] == "bf16" else "head8"].numel()
+
+
+def op_rate(pack: dict) -> float:
+    """Peak rate of a decode kernel's multiply-adds: int8 dp4a for the int
+    forms, float32 FMAs (bf16 values widened) for the bf16 form."""
+    return F32_FLOPS_PER_S if pack["form"] == "bf16" else INT8_OPS_PER_S
 
 
 def layer_codes(pack: dict) -> int:
@@ -450,10 +477,11 @@ def batched_bytes(pack: dict, cfg, b: int) -> int:
     """Bytes one K4 step for b sequences must move: every layer weight,
     scale and vector once, b embedding rows and tokens, b states read and
     written, x [b, C] written."""
-    n = sum(pack[k].numel() * pack[k].element_size() for k in ("mats", "scales", "vecs", "ln0"))
+    n = sum(pack[k].numel() * pack[k].element_size()
+            for k in ("mats", "scales", "vecs", "ln0") if k in pack)
     c, l = cfg.n_embed, cfg.n_layer
     state = (2 * l * c + l * cfg.head_count * cfg.head_size ** 2) * 4
-    return n + b * (c * 2 + 4 + 2 * state + c * 4)
+    return n + b * (c * pack["emb"].element_size() + 4 + 2 * state + c * 4)
 
 
 def phase_k3(model, state, token, cfg, name="K3"):
@@ -481,17 +509,20 @@ def phase_k3(model, state, token, cfg, name="K3"):
     kern = device_ms(lambda: v7_decode_step(pack, one, token, cfg), reps=50)
     plain = device_ms(lambda: v7_decode_step_ref(pack, one, token, cfg), reps=3, warmup=1)
     nb = pack_bytes(pack, cfg)
-    n_weights = layer_codes(pack) + pack["head8"].numel()
-    b, kind = bound_ms(nb, 2 * n_weights, INT8_OPS_PER_S)
+    n_weights = layer_codes(pack) + head_weights(pack)
+    b, kind = bound_ms(nb, 2 * n_weights, op_rate(pack))
     print(f"{name}: kernel {kern:.4f} ms, plain {plain:.4f} ms, bound {b:.5f} ms ({kind}, "
           f"{nb / 1e6:.1f} MB), grid {pack['_grid']} blocks")
     return {"ms": kern, "plain_ms": plain, "library_ms": None, "bound_ms": b,
             "bound_by": kind, "max_abs_err": err}
 
 
-def small_model_check(dev, version: str = "7.0"):
-    """The card's serving path against the CPU's plain path on a small v7
-    (L=2, C=128) or v6 (L=2, C=256) model."""
+def small_model_check(dev, version: str = "7.0", precision: str = "w8a8"):
+    """The card's serving path (megakernel=True, `precision`) against the
+    CPU's plain path on a small v7 (L=2, C=128) or v4-v6 (L=2, C=256)
+    model: a 20-token prefill and 4 decode steps within 2e-2 (int8 codes
+    and, under bf16, the per-op prefill's bf16 roundings flip under
+    last-bit differences), equal argmax."""
     import numpy as np
     import torch
 
@@ -504,8 +535,8 @@ def small_model_check(dev, version: str = "7.0"):
     else:
         cfg = synth_config(version, 2, 256, 256, 64)
         params = synth_params(cfg, seed=3)
-    gpu = ServingModel((cfg, params), precision="w8a8", megakernel=True, device=dev)
-    cpu = ServingModel((cfg, params), precision="w8a8", megakernel=True, device="cpu")
+    gpu = ServingModel((cfg, params), precision=precision, megakernel=True, device=dev)
+    cpu = ServingModel((cfg, params), precision=precision, megakernel=True, device="cpu")
     toks = np.random.default_rng(4).integers(0, cfg.n_vocab, 20)
     lg, sg = gpu.prefill(toks)
     lc, sc = cpu.prefill(toks)
@@ -524,8 +555,8 @@ def small_model_check(dev, version: str = "7.0"):
                 raise AssertionError(f"small model step {step}: card vs CPU outside 2e-2")
         if int(lg.argmax()) != int(lc.argmax()):
             raise AssertionError(f"small model step {step}: argmax differs between card and CPU")
-    print(f"small model (v{version}, L=2, C={cfg.n_embed}, V=256): card vs CPU max abs err "
-          f"{worst:.3e}, argmax equal")
+    print(f"small model (v{version} {precision}, L=2, C={cfg.n_embed}, V=256): card vs CPU max "
+          f"abs err {worst:.3e}, argmax equal")
 
 
 # K4 against its plain version. An int8 activation code at a .5 boundary
@@ -537,10 +568,16 @@ def small_model_check(dev, version: str = "7.0"):
 # sequence must lie within rtol = atol = 2e-2 element-wise except at most
 # `max_out` flipped ones, each within `max_rel` of its scale (twice the
 # worst reading), and at least half the batch must agree within EXACT_ABS:
-# flips never reach most sequences, a wrong kernel moves them all.
+# flips never reach most sequences, a wrong kernel moves them all. The bf16
+# form has no codes: every sequence must lie within BF16_SHALLOW_REL of its
+# scale on a pack cut to one or two layers, and within BF16_FULL_DEPTH_REL
+# at the 169M width's full depth: about twice the worst reading over 12
+# seeded batches of 64 of probe_batched --flips --bf16 (1.09e-6, PERF.md).
 EXACT_ABS = 1e-4
 FULL_DEPTH_REL = 0.075
 SHALLOW_REL, SHALLOW_OUT = 0.03, 2
+BF16_SHALLOW_REL = 1e-4
+BF16_FULL_DEPTH_REL = 2.2e-6
 
 
 def check_k4(pack, cfg, st, tok, name: str, max_out: int, max_rel: float) -> float:
@@ -570,6 +607,14 @@ def check_k4(pack, cfg, st, tok, name: str, max_out: int, max_rel: float) -> flo
     keys = sorted(new)
     x_ref, new_ref = v7_decode_batched_ref(pack, st, tok, cfg)
     err, rel, ok = seq_errors([x] + [new[k] for k in keys], [x_ref] + [new_ref[k] for k in keys])
+    if pack["form"] == "bf16":
+        worst = float(rel.max())
+        msg = (f"{name}: max abs err {float(err.max()):.3e}, every sequence within "
+               f"{worst:.3e} of its scale")
+        if worst > max_rel:
+            raise AssertionError(f"{msg} (limit {max_rel:g})")
+        print(msg)
+        return float(err.max())
     n_out, n_exact = int((~ok).sum()), int((err <= EXACT_ABS).sum())
     msg = (f"{name}: max abs err {float(err.max()):.3e}, {n_exact} of {b} sequences within "
            f"{EXACT_ABS:g}")
@@ -584,19 +629,22 @@ def check_k4(pack, cfg, st, tok, name: str, max_out: int, max_rel: float) -> flo
     return float(err.max())
 
 
-def phase_k4(pack, cfg, states, tokens, b: int, name: str):
-    """K4 at batch b (check_k4 at the full depth's limits), its time, the
-    plain version's and the bound."""
+def phase_k4(pack, cfg, states, tokens, b: int, name: str, max_rel=None):
+    """K4 at batch b (check_k4 at the full depth's limits, or `max_rel` of
+    the scale for the bf16 form), its time, the plain version's and the
+    bound."""
     from rwkv_tpu_torch.ops.megakernel import v7_decode_batched, v7_decode_batched_ref
     from rwkv_tpu_torch.tools.card import device_ms
 
     st = {k: v[:b].contiguous() for k, v in states.items()}
     tok = tokens[:b].contiguous()
-    err = check_k4(pack, cfg, st, tok, name, b // 4 + 2, FULL_DEPTH_REL)
+    if max_rel is None:
+        max_rel = BF16_FULL_DEPTH_REL if pack["form"] == "bf16" else FULL_DEPTH_REL
+    err = check_k4(pack, cfg, st, tok, name, b // 4 + 2, max_rel)
     kern = device_ms(lambda: v7_decode_batched(pack, st, tok, cfg), reps=20)
     plain = device_ms(lambda: v7_decode_batched_ref(pack, st, tok, cfg), reps=2, warmup=1)
     nb = batched_bytes(pack, cfg, b)
-    bd, kind = bound_ms(nb, 2 * b * layer_codes(pack), INT8_OPS_PER_S)
+    bd, kind = bound_ms(nb, 2 * b * layer_codes(pack), op_rate(pack))
     print(f"{name}: kernel {kern:.4f} ms, plain {plain:.4f} ms, bound {bd:.5f} ms ({kind}, "
           f"{nb / 1e6:.1f} MB), grid {pack['_grid_batched']} blocks")
     return {"ms": kern, "plain_ms": plain, "library_ms": None, "bound_ms": bd,
@@ -605,14 +653,16 @@ def phase_k4(pack, cfg, states, tokens, b: int, name: str):
 
 def phase_k4_shallow(packs, states, tokens) -> None:
     """K4 on the 169M packs cut to their first layer (a one-layer config
-    over the same buffers, the state's first layer), w8a8 and w4a8 at
-    B=64: check_k4 at one layer's limits (SHALLOW_OUT, SHALLOW_REL)."""
+    over the same buffers, the state's first layer), w8a8, w4a8 and bf16 at
+    B=64: check_k4 at one layer's limits (SHALLOW_OUT, SHALLOW_REL; bf16
+    BF16_SHALLOW_REL)."""
     from rwkv_tpu_torch.models.synth import synth_config
 
     cfg1 = synth_config("7.0", 1, 768, 65536, 64)
     st = {k: v[:, :1].contiguous() for k, v in states.items()}
     for prec, pack in packs.items():
-        check_k4(pack, cfg1, st, tokens, f"K4 {prec} first layer B=64", SHALLOW_OUT, SHALLOW_REL)
+        rel = BF16_SHALLOW_REL if pack["form"] == "bf16" else SHALLOW_REL
+        check_k4(pack, cfg1, st, tokens, f"K4 {prec} first layer B=64", SHALLOW_OUT, rel)
 
 
 def k4_identical_lanes(pack, cfg, states, tokens, b: int = 8) -> None:
@@ -661,12 +711,17 @@ def crossover(model, states, tokens) -> dict:
 # (w8a8) and 3.98% (w4a8) at 24 layers, K8 1.87% and 0.98% at 12, and both
 # at most 1.74% at one and two layers (v5.1 included); a flip moves
 # either format alike, so K7's and K8's limits are twice the worse of
-# their two formats.
-B1_SHALLOW_REL = 2e-2
+# their two formats. The bf16 forms (K3 here too) have no codes: within
+# 1e-4 of the scale on the cut packs, and at full depth within about twice
+# the worst reading over 12 seeds of the same probes with --bf16 and this
+# script's own 8 states (PERF.md): K3 7.33e-7 at 12 layers, K6 2.21e-6 at
+# 24, K7 1.02e-6 at 24, K8 5.78e-7 at 12.
+B1_SHALLOW_REL = {"w8a8": 2e-2, "w4a8": 2e-2, "bf16": BF16_SHALLOW_REL}
 B1_FULL_DEPTH_REL = {
-    "K6": {"w8a8": 0.17, "w4a8": 0.14},
-    "K7": {"w8a8": 0.08, "w4a8": 0.08},
-    "K8": {"w8a8": 0.037, "w4a8": 0.037},
+    "K3": {"bf16": 1.5e-6},
+    "K6": {"w8a8": 0.17, "w4a8": 0.14, "bf16": 4.4e-6},
+    "K7": {"w8a8": 0.08, "w4a8": 0.08, "bf16": 2.1e-6},
+    "K8": {"w8a8": 0.037, "w4a8": 0.037, "bf16": 1.2e-6},
 }
 
 
@@ -674,18 +729,20 @@ def b1_step(version: int):
     """(kernel wrapper, plain version) of the B=1 decode step of `version`."""
     from rwkv_tpu_torch.ops import megakernel as M
 
-    return {6: (M.v6_decode_step, M.v6_decode_step_ref),
+    return {7: (M.v7_decode_step, M.v7_decode_step_ref),
+            6: (M.v6_decode_step, M.v6_decode_step_ref),
             5: (M.v5_decode_step, M.v5_decode_step_ref),
             4: (M.v4_decode_step, M.v4_decode_step_ref)}[version]
 
 
 def check_shallow(name, models, cfg, n_states: int, seed: int, depths=(1, 2)) -> dict:
     """The decode kernel of `models` on their packs cut to `depths` layers,
-    from n_states seeded states, within B1_SHALLOW_REL of the scale; returns
-    the worst reading per (format, depth)."""
+    from n_states seeded states (a prefill on the first model), within
+    B1_SHALLOW_REL of the scale; returns the worst reading per (format,
+    depth)."""
     from rwkv_tpu_torch.tools.card import decode_vs_plain, seeded_states
 
-    states, tokens = seeded_states(models["w8a8"], cfg, n_states, 16, seed=seed)
+    states, tokens = seeded_states(next(iter(models.values())), cfg, n_states, 16, seed=seed)
     worst = {}
     for i in range(n_states):
         st = {k: v[i] for k, v in states.items()}
@@ -693,25 +750,26 @@ def check_shallow(name, models, cfg, n_states: int, seed: int, depths=(1, 2)) ->
             for depth in depths:
                 e = max(decode_vs_plain(model._mega, cfg, st, tokens[i : i + 1], depth).values())
                 worst[(prec, depth)] = max(worst.get((prec, depth), 0.0), e)
-                if e > B1_SHALLOW_REL:
+                if e > B1_SHALLOW_REL[prec]:
                     raise AssertionError(f"{name} {prec} depth {depth}: {e:.3e} of the scale, "
-                                         f"limit {B1_SHALLOW_REL}")
+                                         f"limit {B1_SHALLOW_REL[prec]}")
     print(f"{name}: {n_states} seeded states at depths {depths}, worst distance from the plain "
-          f"version over the scale {worst} (limit {B1_SHALLOW_REL})")
+          f"version over the scale {worst} (limits {B1_SHALLOW_REL})")
     return worst
 
 
 def phase_b1(name: str, models, cfg, n_states: int = 8, seed: int = 7):
-    """K6, K7 or K8 (w8a8 and w4a8) at a published width from n_states
-    seeded states: the shallow and full-depth checks above, its time, the
-    plain version's and the bound. Returns {precision: result}."""
+    """K3 (bf16), K6, K7 or K8 (w8a8, w4a8 and bf16) at a published width
+    from n_states seeded states: the shallow and full-depth checks above,
+    argmax equal to the plain version's, its time, the plain version's and
+    the bound. Returns {precision: result}."""
     import torch
 
     from rwkv_tpu_torch.tools.card import decode_vs_plain, device_ms, seeded_states
 
     step, step_ref = b1_step(cfg.version_major)
     check_shallow(name, models, cfg, n_states, seed)
-    states, tokens = seeded_states(models["w8a8"], cfg, n_states, 16, seed=seed)
+    states, tokens = seeded_states(next(iter(models.values())), cfg, n_states, 16, seed=seed)
     out = {}
     for prec, model in models.items():
         pack = model._mega
@@ -733,6 +791,8 @@ def phase_b1(name: str, models, cfg, n_states: int = 8, seed: int = 7):
         if not bool(torch.isfinite(logits).all()) or any(
                 not bool(torch.isfinite(v).all()) for v in new.values()):
             raise AssertionError(f"{name} {prec}: outputs are not finite")
+        if pack["form"] == "bf16" and int(logits.argmax()) != int(logits_ref.argmax()):
+            raise AssertionError(f"{name} {prec}: argmax differs from the plain version's")
         err = max([float((logits - logits_ref).abs().max())]
                   + [float((new[k] - new_ref[k]).abs().max()) for k in new])
         print(f"{name} {prec}: {n_states} seeded states at {cfg.n_layer} layers, worst distance "
@@ -742,9 +802,9 @@ def phase_b1(name: str, models, cfg, n_states: int = 8, seed: int = 7):
         kern = device_ms(lambda: step(pack, one, tok, cfg), reps=20)
         plain = device_ms(lambda: step_ref(pack, one, tok, cfg), reps=3, warmup=1)
         nb = pack_bytes(pack, cfg)
-        n_weights = layer_codes(pack) + pack["head8"].numel()
-        b, kind = bound_ms(nb, 2 * n_weights, INT8_OPS_PER_S)
-        grid = pack.get("_grid_v6", pack.get("_grid_v45"))
+        n_weights = layer_codes(pack) + head_weights(pack)
+        b, kind = bound_ms(nb, 2 * n_weights, op_rate(pack))
+        grid = pack.get("_grid_v6", pack.get("_grid_v45", pack.get("_grid")))
         print(f"{name} {prec}: kernel {kern:.4f} ms, plain {plain:.4f} ms, bound {b:.5f} ms "
               f"({kind}, {nb / 1e6:.1f} MB), grid {grid} blocks")
         out[prec] = {"ms": kern, "plain_ms": plain, "library_ms": None, "bound_ms": b,
@@ -767,7 +827,8 @@ def phase_cut_width(name: str, width) -> None:
 
 def phase_k4_wide():
     """K4 at B=1 on the 1.5B width (C=2048, F=8192, depth cut to 2), where
-    ServingModel routes B=1 to K4 and the head (K3 refuses the width)."""
+    ServingModel routes B=1 to K4 and the head (K3 refuses the width),
+    w8a8 and bf16 (two-sequence column tiles there; B=3 too)."""
     import torch
 
     from rwkv_tpu_torch.models.serve import ServingModel
@@ -776,17 +837,35 @@ def phase_k4_wide():
     from rwkv_tpu_torch.tools.card import seeded_states
 
     cfg = synth_config("7.0", 2, 2048, 65536, 64)
-    model = ServingModel((cfg, synth_params(cfg, seed=0)), precision="w8a8", megakernel=True)
-    if model._mega_k3:
-        raise AssertionError("the 1.5B width should not route B=1 to K3")
-    states, tokens = seeded_states(model, cfg, 1, 16, seed=6)
-    res = phase_k4(model._mega, cfg, states, tokens, 1, "K4 C=2048 L=2 B=1")
-    before = v7_decode_batched.launches
-    logits, _ = model.decode(tokens, states)
-    torch.cuda.synchronize()
-    if v7_decode_batched.launches != before + 1 or logits.shape != (1, cfg.n_vocab):
-        raise AssertionError("B=1 at the 1.5B width did not decode through K4")
+    params = synth_params(cfg, seed=0)
+    res = {}
+    for precision in ("w8a8", "bf16"):
+        model = ServingModel((cfg, params), precision=precision, megakernel=True)
+        if model._mega_k3:
+            raise AssertionError("the 1.5B width should not route B=1 to K3")
+        states, tokens = seeded_states(model, cfg, 3, 16, seed=6)
+        bf16 = precision == "bf16"
+        res[precision] = phase_k4(model._mega, cfg, states, tokens, 1,
+                                  f"K4 {precision} C=2048 L=2 B=1",
+                                  BF16_SHALLOW_REL if bf16 else None)
+        if bf16:
+            check_k4(model._mega, cfg, states, tokens, "K4 bf16 C=2048 L=2 B=3", 0,
+                     BF16_SHALLOW_REL)
+        before = v7_decode_batched.launches_by_form[model._mega["form"]]
+        one = {k: v[:1] for k, v in states.items()}
+        logits, _ = model.decode(tokens[:1], one)
+        torch.cuda.synchronize()
+        if (v7_decode_batched.launches_by_form[model._mega["form"]] != before + 1
+                or logits.shape != (1, cfg.n_vocab)):
+            raise AssertionError(f"B=1 at the 1.5B width ({precision}) did not decode through K4")
+        del model
     return res
+
+
+# kernels every B=1 main path of a precision launches besides its decode
+# kernel (and K5 for v5 / v6): K1 for the int formats' per-op prefill; the
+# dense bf16 prefill runs torch.matmul
+B1_NEEDED = {"w8a8": ("K1",), "w4a8": ("K1",), "bf16": ()}
 
 
 def run_main_path(model, prompt, n_decode: int):
@@ -815,7 +894,8 @@ def run_main_path(model, prompt, n_decode: int):
 def counted(fn, needed):
     """Run fn() with every kernel's launch counter zeroed just before and
     read just after; raise unless each kernel in `needed` launched. K9
-    counts each form on its own ("K9 plain", ..., "K9 rowwise")."""
+    counts each form on its own ("K9 plain", ..., "K9 rowwise"), and K3, K4
+    and K6-K8 each weight form beside their total ("K3 bf16", "K4 i8")."""
     from rwkv_tpu_torch.ops.chunked import wkv6_recurrence, wkv7_recurrence
     from rwkv_tpu_torch.ops.kernels import quant_matmul
     from rwkv_tpu_torch.ops import megakernel as M
@@ -823,14 +903,16 @@ def counted(fn, needed):
     counters = {"K1": quant_matmul, "K2": wkv7_recurrence, "K3": M.v7_decode_step,
                 "K4": M.v7_decode_batched, "K5": wkv6_recurrence, "K6": M.v6_decode_step,
                 "K7": M.v5_decode_step, "K8": M.v4_decode_step}
-    by_form = quant_matmul.launches_by_form
+    by_form = {"K9": quant_matmul.launches_by_form}
+    by_form.update({k: counters[k].launches_by_form for k in ("K3", "K4", "K6", "K7", "K8")})
     for c in counters.values():
         c.launches = 0
-    for form in by_form:
-        by_form[form] = 0
+    for forms in by_form.values():
+        for form in forms:
+            forms[form] = 0
     out = fn()
     launches = {k: c.launches for k, c in counters.items()}
-    launches.update({f"K9 {form}": n for form, n in by_form.items()})
+    launches.update({f"{k} {form}": n for k, forms in by_form.items() for form, n in forms.items()})
     for k in needed:
         if launches[k] <= 0:
             raise AssertionError(f"{k} was not launched on this path: {launches}")
@@ -1010,10 +1092,11 @@ def batcher_requests(model, cfg, n: int, max_len: int, new_tokens: int, seed: in
     return reqs
 
 
-def batcher_path(name, model, cfg, reqs):
+def batcher_path(name, model, cfg, reqs, needed=("K1", "K2", "K4")):
     """ContinuousBatcher(max_batch=8, sync_every=8).run(on_device=True)
-    over `reqs`; checks every request finished within its limits with
-    tokens in range. Returns (launches, tok/s, ms per round)."""
+    over `reqs`, which must launch every kernel in `needed`; checks every
+    request finished within its limits with tokens in range. Returns
+    (launches, tok/s, ms per round)."""
     import torch
 
     from rwkv_tpu_torch.parallel.batching import ContinuousBatcher
@@ -1027,7 +1110,7 @@ def batcher_path(name, model, cfg, reqs):
         torch.cuda.synchronize()
         return time.perf_counter() - t0, [res[r] for r in rids], b.rounds
 
-    (wall, done, rounds), launches = counted(run, ("K1", "K2", "K4"))
+    (wall, done, rounds), launches = counted(run, needed)
     n_tok, stopped = 0, 0
     for (prompt, kw), req in zip(reqs, done):
         g = req.generated
@@ -1105,7 +1188,7 @@ def main() -> int:
     for name, path in paths.items():
         log = path.with_suffix(".log")
         for line in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"  {name}: {line.strip()}")
 
     # -- the 169M model in both formats: prefill for a real decode state -----
@@ -1137,7 +1220,18 @@ def main() -> int:
     res["K4"] = res["K4 B=8"]
     res["K4w4"] = phase_k4(model4._mega, cfg, states, tokens, 8, "K4 w4a8 B=8")
     k4_identical_lanes(model._mega, cfg, states, tokens)
-    phase_k4_shallow({"w8a8": model._mega, "w4a8": model4._mega}, states, tokens)
+    # the bf16 pack of the same tree: K3 and K4 in their bf16 form
+    t0 = time.perf_counter()
+    model16 = ServingModel((cfg, params), precision="bf16", megakernel=True)
+    print(f"169M bf16 model built in {time.perf_counter() - t0:.1f} s")
+    res["K3bf16"] = phase_b1("K3", {"bf16": model16}, cfg)["bf16"]
+    for b in (1, 8, 64):
+        res[f"K4bf16 B={b}"] = phase_k4(model16._mega, cfg, states, tokens, b,
+                                        f"K4 bf16 B={b}")
+    res["K4bf16"] = res["K4bf16 B=8"]
+    k4_identical_lanes(model16._mega, cfg, states, tokens)
+    phase_k4_shallow({"w8a8": model._mega, "w4a8": model4._mega, "bf16": model16._mega},
+                     states, tokens)
     crossover(model, states, tokens)
     phase_k4_wide()
     del states
@@ -1156,11 +1250,24 @@ def main() -> int:
     batcher_path("w8a8 8-token prompts", model, cfg, short)
     reqs4 = batcher_requests(model4, cfg, 8, 64, 32, seed=4)
     launches["batcher w4a8"], _, _ = batcher_path("w4a8", model4, cfg, reqs4)
+    # bf16 and f32 on the bf16 pack: B=1 (K3), then the batcher (K4)
+    launches["bf16"] = single_stream_path("bf16", model16, prompt, cfg, card, 3,
+                                          needed=("K2", "K3 bf16"))
+    model32 = ServingModel((cfg, params), precision="f32", megakernel=True)
+    launches["f32"] = single_stream_path("f32", model32, prompt, cfg, card, 1,
+                                         needed=("K2", "K3 bf16"))
+    del model32
+    reqs16 = batcher_requests(model16, cfg, 8, 64, 32, seed=4)
+    launches["batcher bf16"], _, _ = batcher_path("bf16", model16, cfg, reqs16,
+                                                  needed=("K2", "K4 bf16"))
+    del model16
+    torch.cuda.empty_cache()
 
     # -- the model files: Q5_1, Q4_0, Q4_1 (and Q5_1 on K3), then q8 and q8r
     launches.update(phase_files(cfg, params, prompt, card))
 
     small_model_check(dev)
+    small_model_check(dev, "7.0", "bf16")
     small_batcher_check(dev)
     del model, model4, params
     torch.cuda.empty_cache()
@@ -1168,46 +1275,52 @@ def main() -> int:
     # -- RWKV-6 at the 1.6B width: K6, then the B=1 main path in both formats -
     t0 = time.perf_counter()
     cfg6, models6 = v6_models()
-    print(f"RWKV-6 1.6B-width models (w8a8, w4a8; {cfg6.n_layer} layers, C={cfg6.n_embed}) "
-          f"built in {time.perf_counter() - t0:.1f} s")
+    print(f"RWKV-6 1.6B-width models (w8a8, w4a8, bf16; {cfg6.n_layer} layers, "
+          f"C={cfg6.n_embed}) built in {time.perf_counter() - t0:.1f} s")
     k6 = phase_b1("K6", models6, cfg6)
-    res["K6"], res["K6w4"] = k6["w8a8"], k6["w4a8"]
+    res["K6"], res["K6w4"], res["K6bf16"] = k6["w8a8"], k6["w4a8"], k6["bf16"]
     prompt6 = torch.randint(0, cfg6.n_vocab, (256,),
                             generator=torch.Generator().manual_seed(0)).numpy()
     for prec, m in models6.items():
-        launches[f"v6 {prec}"] = single_stream_path(f"v6 {prec}", m, prompt6, cfg6, card, 2,
-                                                    needed=("K1", "K5", "K6"))
+        launches[f"v6 {prec}"] = single_stream_path(
+            f"v6 {prec}", m, prompt6, cfg6, card, 1 if prec == "bf16" else 2,
+            needed=B1_NEEDED[prec] + ("K5", f"K6 {m._mega['form']}"))
     del models6
     torch.cuda.empty_cache()
-    small_model_check(dev, "6.0")
+    for precision in ("w8a8", "bf16"):
+        small_model_check(dev, "6.0", precision)
 
     # -- RWKV-5 (v5.2) at the World 1.5B width: K7, then the B=1 main path ---
     t0 = time.perf_counter()
     cfg5, models5 = v5_models()
-    print(f"RWKV-5.2 World 1.5B-width models (w8a8, w4a8; {cfg5.n_layer} layers, "
+    print(f"RWKV-5.2 World 1.5B-width models (w8a8, w4a8, bf16; {cfg5.n_layer} layers, "
           f"C={cfg5.n_embed}) built in {time.perf_counter() - t0:.1f} s")
     k7 = phase_b1("K7", models5, cfg5)
-    res["K7"], res["K7w4"] = k7["w8a8"], k7["w4a8"]
+    res["K7"], res["K7w4"], res["K7bf16"] = k7["w8a8"], k7["w4a8"], k7["bf16"]
     for prec, m in models5.items():
-        launches[f"v5 {prec}"] = single_stream_path(f"v5.2 {prec}", m, prompt6, cfg5, card, 2,
-                                                    needed=("K1", "K5", "K7"))
+        launches[f"v5 {prec}"] = single_stream_path(
+            f"v5.2 {prec}", m, prompt6, cfg5, card, 1 if prec == "bf16" else 2,
+            needed=B1_NEEDED[prec] + ("K5", f"K7 {m._mega['form']}"))
     del models5
     torch.cuda.empty_cache()
     phase_cut_width("K7", ("5.1", 2) + V5_WIDTH[2:])
     for version in ("5.2", "5.1"):
-        small_model_check(dev, version)
+        for precision in ("w8a8", "bf16"):
+            small_model_check(dev, version, precision)
 
     # -- RWKV-4 at the World 0.1B width: K8, then the B=1 main path ----------
     cfg4, models4 = v4_models()
     k8 = phase_b1("K8", models4, cfg4)
-    res["K8"], res["K8w4"] = k8["w8a8"], k8["w4a8"]
+    res["K8"], res["K8w4"], res["K8bf16"] = k8["w8a8"], k8["w4a8"], k8["bf16"]
     for prec, m in models4.items():
-        launches[f"v4 {prec}"] = single_stream_path(f"v4 {prec}", m, prompt6, cfg4, card, 3,
-                                                    needed=("K1", "K8"))
+        launches[f"v4 {prec}"] = single_stream_path(
+            f"v4 {prec}", m, prompt6, cfg4, card, 3,
+            needed=B1_NEEDED[prec] + (f"K8 {m._mega['form']}",))
     del models4
     torch.cuda.empty_cache()
     phase_cut_width("K8", ("4.0", 2, 2048) + V4_WIDTH[3:])
-    small_model_check(dev, "4.0")
+    for precision in ("w8a8", "bf16"):
+        small_model_check(dev, "4.0", precision)
     for version in ("7.0", "6.0", "5.2", "5.1", "4.0"):
         for fmt in ("Q5_1", "Q4_0"):
             small_file_check(dev, version, fmt)
@@ -1240,6 +1353,16 @@ def main() -> int:
          "rwkv_tpu/ops/megakernel.py:4224", "K8", ("v4 w8a8", "K8")),
         ("v4_decode_step_w4a8", "rwkv_tpu_torch/csrc/v4_decode.cu",
          "rwkv_tpu/ops/megakernel.py:4660", "K8w4", ("v4 w4a8", "K8")),
+        ("v7_decode_step_bf16_head", "rwkv_tpu_torch/csrc/v7_decode.cu",
+         "rwkv_tpu/ops/megakernel.py:744", "K3bf16", ("bf16", "K3 bf16")),
+        ("v7_decode_batched_bf16", "rwkv_tpu_torch/csrc/v7_decode_batched.cu",
+         "rwkv_tpu/ops/megakernel.py:1433", "K4bf16", ("batcher bf16", "K4 bf16")),
+        ("v6_decode_step_bf16", "rwkv_tpu_torch/csrc/v6_decode.cu",
+         "rwkv_tpu/ops/megakernel.py:2841", "K6bf16", ("v6 bf16", "K6 bf16")),
+        ("v5_decode_step_bf16", "rwkv_tpu_torch/csrc/v5_decode.cu",
+         "rwkv_tpu/ops/megakernel.py:3847", "K7bf16", ("v5 bf16", "K7 bf16")),
+        ("v4_decode_step_bf16", "rwkv_tpu_torch/csrc/v4_decode.cu",
+         "rwkv_tpu/ops/megakernel.py:4224", "K8bf16", ("v4 bf16", "K8 bf16")),
         ("block_matmul_plain", "rwkv_tpu_torch/csrc/block_matmul.cu",
          "rwkv_tpu/ops/kernels.py:251", "K9 plain", ("q8", "K9 plain")),
         ("block_matmul_min", "rwkv_tpu_torch/csrc/block_matmul.cu",

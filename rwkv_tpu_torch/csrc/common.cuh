@@ -60,10 +60,11 @@ __device__ __forceinline__ int8_t act_code(float x, float inv) {
   return static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
 }
 
-// ---- the decode kernels' matvec (K3 and K4) --------------------------------
+// ---- the decode kernels' matvec (K3, K4, K6, K7, K8) ----------------------
 //
-// Weight rows are int8 codes (W4 = false: K bytes a row) or int4 codes
-// (W4 = true: K/2 bytes a row). An int4 row is packed in 16-byte chunks:
+// Weight rows come in one of three forms (WF): int8 codes (kInt8, K bytes
+// a row), int4 codes (kInt4, K/2 bytes a row) or bf16 values (kBf16, 2K
+// bytes a row). An int4 row is packed in 16-byte chunks:
 // byte j of chunk c holds code 32c + j in its low nibble and code
 // 32c + 16 + j in its high nibble, both two's complement. Masking a word
 // with 0xF0 per byte (after a 4-bit left shift for the low nibbles) gives
@@ -73,6 +74,36 @@ __device__ __forceinline__ int8_t act_code(float x, float inv) {
 // The float epilogue float(acc) * dx * d then equals the JAX package's
 // float(16 * acc) * (dx / 16) * d bit for bit: both factors of 16 are
 // powers of two, which scale a float exactly.
+//
+// The int forms dot the rows against int8 activation codes into an exact
+// int32 sum. The bf16 form (the JAX package's quant=False kernels: bf16
+// weights widened in registers, f32 products at full precision) dots them
+// against f32 activations: a 16-byte chunk holds 8 values, each widened to
+// f32 exactly by shifting its bits 16 left, and FMAs into an f32 sum; the
+// result differs from an f32 product of the widened rows only in the order
+// of the sums.
+enum WForm : int { kInt8 = 0, kInt4 = 1, kBf16 = 2 };
+
+// What a matvec of form WF reads its activations as (int8 codes or f32)
+// and accumulates into (exact int32 or f32).
+template <int WF> struct FormTraits {
+  using Act = int8_t;
+  using Acc = int;
+};
+template <> struct FormTraits<kBf16> {
+  using Act = float;
+  using Acc = float;
+};
+template <int WF> using act_t = typename FormTraits<WF>::Act;
+
+// The form of the matrices that stay int8 under w4a8 (the LoRAs and the
+// head): int8 in both int forms, bf16 in the bf16 form.
+__host__ __device__ constexpr int small_form(int wf) { return wf == kBf16 ? kBf16 : kInt8; }
+
+// Bytes of n weights of form wf.
+__host__ __device__ constexpr size_t form_bytes(int wf, size_t n) {
+  return wf == kInt4 ? n / 2 : wf == kBf16 ? 2 * n : n;
+}
 
 constexpr int kMaxChunksPerLane = 8;  // 16-byte weight chunks a lane holds at once
 
@@ -82,20 +113,29 @@ __device__ __forceinline__ int w4_lo16(int w) {
 __device__ __forceinline__ int w4_hi16(int w) {
   return static_cast<int>(static_cast<unsigned>(w) & 0xF0F0F0F0u);
 }
+// the bf16 value in the low / high half of a 32-bit word, as f32 (exact)
+__device__ __forceinline__ float bf16_lo(int w) {
+  return __uint_as_float(static_cast<unsigned>(w) << 16);
+}
+__device__ __forceinline__ float bf16_hi(int w) {
+  return __uint_as_float(static_cast<unsigned>(w) & 0xFFFF0000u);
+}
 
-// Rows [0, nrows) of a matvec against up to NB int8 activation columns in
+// Rows [0, nrows) of a matvec against up to NB activation columns in
 // shared memory (nb of them used, nb <= NB, the same in every thread).
-// Row r reads weight row rowmap(r) of W and, for column b, the codes at
-// xsel(r, b) (16-byte aligned, K of them); epi(r, b, acc) gets the exact
-// int32 dot. Rows are spread over warps unit, unit + n_units, ... (the
-// grid's or one block's); lpr lanes (at most max_lpr) share a row, each
-// lane reading whole 16-byte chunks of it, at most kMaxChunksPerLane at a
-// time, so a row is read from memory once for all nb columns.
-template <bool W4, int NB, typename RowMap, typename XSel, typename Epi>
+// Row r reads weight row rowmap(r) of W and, for column b, the activations
+// at xsel(r, b) (16-byte aligned, K of them: int8 codes, or f32 in the bf16
+// form); epi(r, b, acc) gets the exact int32 dot (int forms) or the f32 dot
+// (bf16). Rows are spread over warps unit, unit + n_units, ... (the grid's
+// or one block's); lpr lanes (at most max_lpr) share a row, each lane
+// reading whole 16-byte chunks of it, at most kMaxChunksPerLane at a time,
+// so a row is read from memory once for all nb columns.
+template <int WF, int NB, typename RowMap, typename XSel, typename Epi>
 __device__ void matvec_rows(const int8_t* __restrict__ W, int nrows, int K, int unit,
                             int n_units, int max_lpr, int nb, RowMap rowmap, XSel xsel,
                             Epi epi) {
-  const int row_bytes = W4 ? K / 2 : K;
+  using Acc = typename FormTraits<WF>::Acc;
+  const int row_bytes = static_cast<int>(form_bytes(WF, K));
   const int nchunks = row_bytes >> 4;
   int lpr = max_lpr;
   while (lpr > 1 && (nchunks % lpr) != 0) lpr >>= 1;
@@ -106,7 +146,7 @@ __device__ void matvec_rows(const int8_t* __restrict__ W, int nrows, int K, int 
   const int gpw = 32 / lpr;
   for (int base = unit * gpw; base < nrows; base += n_units * gpw) {  // warp-uniform
     const int row = base + grp;
-    int acc[NB];
+    Acc acc[NB];
 #pragma unroll
     for (int b = 0; b < NB; ++b) acc[b] = 0;
     if (row < nrows) {
@@ -120,13 +160,25 @@ __device__ void matvec_rows(const int8_t* __restrict__ W, int nrows, int K, int 
 #pragma unroll
         for (int b = 0; b < NB; ++b) {
           if (b < nb) {
-            const int4* xb = reinterpret_cast<const int4*>(xsel(row, b));
+            const act_t<WF>* xcol = xsel(row, b);
 #pragma unroll
             for (int c = 0; c < kMaxChunksPerLane; ++c) {
               if (c0 + c < per_lane) {
                 const int chunk = (c0 + c) * lpr + sub_lane;
-                int a = acc[b];
-                if (W4) {
+                Acc a = acc[b];
+                if constexpr (WF == kBf16) {
+                  const float4* xb = reinterpret_cast<const float4*>(xcol);
+                  const float4 x0 = xb[2 * chunk], x1 = xb[2 * chunk + 1];
+                  a = fmaf(bf16_lo(wv[c].x), x0.x, a);
+                  a = fmaf(bf16_hi(wv[c].x), x0.y, a);
+                  a = fmaf(bf16_lo(wv[c].y), x0.z, a);
+                  a = fmaf(bf16_hi(wv[c].y), x0.w, a);
+                  a = fmaf(bf16_lo(wv[c].z), x1.x, a);
+                  a = fmaf(bf16_hi(wv[c].z), x1.y, a);
+                  a = fmaf(bf16_lo(wv[c].w), x1.z, a);
+                  a = fmaf(bf16_hi(wv[c].w), x1.w, a);
+                } else if constexpr (WF == kInt4) {
+                  const int4* xb = reinterpret_cast<const int4*>(xcol);
                   const int4 xl = xb[2 * chunk], xh = xb[2 * chunk + 1];
                   a = __dp4a(w4_lo16(wv[c].x), xl.x, a);
                   a = __dp4a(w4_lo16(wv[c].y), xl.y, a);
@@ -137,7 +189,7 @@ __device__ void matvec_rows(const int8_t* __restrict__ W, int nrows, int K, int 
                   a = __dp4a(w4_hi16(wv[c].z), xh.z, a);
                   a = __dp4a(w4_hi16(wv[c].w), xh.w, a);
                 } else {
-                  const int4 xv = xb[chunk];
+                  const int4 xv = reinterpret_cast<const int4*>(xcol)[chunk];
                   a = __dp4a(wv[c].x, xv.x, a);
                   a = __dp4a(wv[c].y, xv.y, a);
                   a = __dp4a(wv[c].z, xv.z, a);
@@ -153,9 +205,15 @@ __device__ void matvec_rows(const int8_t* __restrict__ W, int nrows, int K, int 
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
       if (b < nb) {
-        int a = acc[b];
+        Acc a = acc[b];
         for (int off = lpr >> 1; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
-        if (sub_lane == 0 && row < nrows) epi(row, b, W4 ? (a >> 4) : a);
+        if (sub_lane == 0 && row < nrows) {
+          if constexpr (WF == kInt4) {
+            epi(row, b, a >> 4);
+          } else {
+            epi(row, b, a);
+          }
+        }
       }
     }
   }
@@ -164,12 +222,12 @@ __device__ void matvec_rows(const int8_t* __restrict__ W, int nrows, int K, int 
 // All rows of a matvec, spread over every warp of the grid; reverse = true
 // deals them from the last warp down (a second matvec of a phase then
 // lands on the warps the first one left with fewer rows).
-template <bool W4, int NB, typename XSel, typename Epi>
+template <int WF, int NB, typename XSel, typename Epi>
 __device__ void matvec_grid(const int8_t* __restrict__ W, int nrows, int K, int nb, XSel xsel,
                             Epi epi, int max_lpr = 32, bool reverse = false) {
   const int warps_per_block = blockDim.x >> 5;
   const int n_units = gridDim.x * warps_per_block;
   const int unit = blockIdx.x * warps_per_block + (threadIdx.x >> 5);
-  matvec_rows<W4, NB>(W, nrows, K, reverse ? n_units - 1 - unit : unit, n_units, max_lpr, nb,
+  matvec_rows<WF, NB>(W, nrows, K, reverse ? n_units - 1 - unit : unit, n_units, max_lpr, nb,
                       [](int r) { return r; }, xsel, epi);
 }

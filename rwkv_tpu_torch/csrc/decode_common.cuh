@@ -1,9 +1,9 @@
 // Pieces shared by the whole-model decode kernels K3 (v7_decode.cu), K4
 // (v7_decode_batched.cu), K6 (v6_decode.cu), K7 (v5_decode.cu) and K8
 // (v4_decode.cu): the timing build's phase stamps, IEEE-exact elementwise
-// helpers, the lane count of the big matvecs, the block-wide quantization
-// of a phase's input vectors, the block-wide layer norm and the LM head
-// phase.
+// helpers, the embedding read, the lane count of the big matvecs, the
+// block-wide quantization (int forms) or staging (bf16 form) of a phase's
+// input vectors, the block-wide layer norm and the LM head phase.
 #pragma once
 
 #include "common.cuh"
@@ -37,20 +37,40 @@ __device__ __forceinline__ float bf16_to_float(uint16_t b) {
   return __uint_as_float(static_cast<unsigned>(b) << 16);
 }
 
-__device__ __forceinline__ float dequant(int acc, float dx, float d) {
-  return mul(mul(__int2float_rn(acc), dx), d);
+// Element i of the embedding table: bf16 bits, or float32 (emb_f32: the
+// f32 precision's table, which the bf16 form takes).
+__device__ __forceinline__ float emb_at(const void* emb, bool emb_f32, size_t i) {
+  return emb_f32 ? static_cast<const float*>(emb)[i]
+                 : bf16_to_float(static_cast<const uint16_t*>(emb)[i]);
 }
 
-// Lanes sharing a weight row of width K in the big matvecs of K6-K8: a
-// power of two that lets each lane read its share in one round of
+// A matvec row's value from its epilogue's sum: an int form's exact int32
+// dot scaled as (float(acc) * dx) * d[0] (d points at the row's scale), the
+// bf16 form's f32 dot as it is (no scale is read: that form has none).
+__device__ __forceinline__ float dequant(int acc, float dx, const float* d) {
+  return mul(mul(__int2float_rn(acc), dx), *d);
+}
+__device__ __forceinline__ float dequant(float acc, float, const float*) { return acc; }
+
+// Lanes sharing a weight row of width K in form wf in the big matvecs of
+// K6-K8: a power of two that lets each lane read its share in one round of
 // kMaxChunksPerLane 16-byte chunks (matvec_rows then keeps the largest
 // power of two dividing the row's chunks), so a warp has the most bytes in
 // flight per round and a phase takes the fewest dependent rounds.
-__device__ __forceinline__ int lanes_for(int K, bool w4) {
-  const int want = (w4 ? K / 2 : K) / 16 / kMaxChunksPerLane;
+__device__ __forceinline__ int lanes_for(int K, int wf) {
+  const int want = static_cast<int>(form_bytes(wf, K)) / 16 / kMaxChunksPerLane;
   int l = 1;
   while (l < want && l < 32) l <<= 1;
   return l;
+}
+
+// Sets `kernel`'s dynamic shared memory limit to `smem` bytes. The limit
+// belongs to the kernel, not to a launch, so each launch sets its own: a
+// grid computed for one model stays launchable after a launch for another
+// width changed the limit. Returns the CUDA error.
+inline cudaError_t set_smem(const void* kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 // Block-wide max of N values at once (one pair of barriers for all N);
@@ -98,6 +118,22 @@ __device__ void quantize_n(Fn f, int n, int8_t* q8, int q_stride, float* dxs, fl
   __syncthreads();
 }
 
+// The input vectors of a phase's matvecs in form WF: the int forms
+// quantize them (quantize_n: codes into xq, scales into dxs), the bf16 form
+// stages the f32 values themselves into xq[m * stride + c] (dxs unused).
+template <int WF, int N, typename Fn>
+__device__ void act_n(Fn f, int n, act_t<WF>* xq, int stride, float* dxs, float* red) {
+  if constexpr (WF == kBf16) {
+    for (int c = threadIdx.x; c < n; c += blockDim.x) {
+#pragma unroll
+      for (int m = 0; m < N; ++m) xq[m * stride + c] = f(m, c);
+    }
+    __syncthreads();
+  } else {
+    quantize_n<N>(f, n, xq, stride, dxs, red);
+  }
+}
+
 // Block-wide layer norm of src[0..n) into dst (both shared), as
 // (x - mu) * rsqrt(var + eps) * w + b with population variance.
 __device__ void layer_norm_block(const float* src, float* dst, const float* w,
@@ -118,18 +154,22 @@ __device__ void layer_norm_block(const float* src, float* dst, const float* w,
 }
 
 // The LM head after the last layer's barrier: ln_out of the residual x_g
-// (C floats, global), quantized as a whole, then the V int8 head rows (int8
-// under w4a8 too) into logits, eight lanes a row (V rows take half the
-// rounds of the default). Shared scratch: xs and xl C floats each, red 256
-// floats, dxs one float, q8 C bytes.
+// (C floats, global), then the V head rows into logits, eight lanes a row
+// (V rows take half the rounds of the default). The int forms quantize the
+// vector as a whole against int8 rows (int8 under w4a8 too) with scales
+// head_d; the bf16 form stages it in f32 against bf16 rows (head_d unused).
+// Shared scratch: xs and xl C floats each, red 256 floats, dxs one float,
+// xq C activations.
+template <int WF>
 __device__ __forceinline__ void lm_head(const float* x_g, const int8_t* head,
                                         const float* head_d, const float* ln_out, float* logits,
                                         int C, int V, float* xs, float* xl, float* red,
-                                        float* dxs, int8_t* q8) {
+                                        float* dxs, act_t<WF>* xq) {
+  constexpr int HF = small_form(WF);
   for (int c = threadIdx.x; c < C; c += blockDim.x) xs[c] = x_g[c];
   __syncthreads();
   layer_norm_block(xs, xl, ln_out, ln_out + C, C, 1e-5f, red);
-  quantize_n<1>([&](int, int c) { return xl[c]; }, C, q8, 0, dxs, red);
-  matvec_grid<false, 1>(head, V, C, 1, [&](int, int) { return q8; },
-      [&](int row, int, int acc) { logits[row] = dequant(acc, dxs[0], head_d[row]); }, 8);
+  act_n<HF, 1>([&](int, int c) { return xl[c]; }, C, xq, 0, dxs, red);
+  matvec_grid<HF, 1>(head, V, C, 1, [&](int, int) { return xq; },
+      [&](int row, int, auto acc) { logits[row] = dequant(acc, dxs[0], head_d + row); }, 8);
 }

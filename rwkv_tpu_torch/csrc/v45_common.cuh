@@ -12,23 +12,24 @@
 enum VecRow45 { kLn1W = 0, kLn1B, kLn2W, kLn2B, kFmixK, kFmixR, kTD, kTF, kNumVec45 };
 
 // Byte offsets of a layer's five matrices in the flat pack's [L, bytes]
-// int8 buffer (att | out | fk | fv | fr), and the layer's size. att holds
-// NA fused projections of C rows (v4 and v5.1 r, k, v; v5.2 r, k, v, g).
-// Under w4 all five hold int4 codes, two a byte.
+// buffer (att | out | fk | fv | fr), and the layer's size, for weight form
+// wf. att holds NA fused projections of C rows (v4 and v5.1 r, k, v; v5.2
+// r, k, v, g). Under w4 all five hold int4 codes, two a byte; in the bf16
+// form all five are bf16.
 struct MatOffsets45 {
   size_t att, out, fk, fv, fr, layer;
-  __host__ __device__ MatOffsets45(int C, int F, int NA, bool w4) {
-    const size_t half = w4 ? 2 : 1;
+  __host__ __device__ MatOffsets45(int C, int F, int NA, int wf) {
     att = 0;
-    out = att + 1ull * NA * C * C / half;
-    fk = out + 1ull * C * C / half;
-    fv = fk + 1ull * F * C / half;
-    fr = fv + 1ull * C * F / half;
-    layer = fr + 1ull * C * C / half;
+    out = att + form_bytes(wf, 1ull * NA * C * C);
+    fk = out + form_bytes(wf, 1ull * C * C);
+    fv = fk + form_bytes(wf, 1ull * F * C);
+    fr = fv + form_bytes(wf, 1ull * C * F);
+    layer = fr + form_bytes(wf, 1ull * C * C);
   }
 };
 
-// Row scales of a layer, in the same order: NA C + C + F + C + C floats.
+// Row scales of a layer (int forms), in the same order: NA C + C + F + C + C
+// floats.
 struct ScaleOffsets45 {
   size_t att, out, fk, fv, fr, layer;
   __host__ __device__ ScaleOffsets45(int C, int F, int NA) {
@@ -56,12 +57,12 @@ __device__ __forceinline__ int att_mix(int part) { return part == 0 ? 2 : part =
 // ffn_out), the two mixes quantized as whole vectors, the fk rows with
 // relu^2 into fk_g and the fr rows with sigmoid into rg_g; then the fv rows,
 // x += sigmoid(fr) * fv. Shared: xs and xl C floats each, red 256 floats,
-// dxs two, q8 max(2C, F) bytes.
-template <bool W4, typename Barrier>
+// dxs two, q8 max(2C, F) activations (bf16 form: staged in f32).
+template <int WF, typename Barrier>
 __device__ void ffn_v45(const float* vec, const int8_t* m_layer, const float* s_layer,
                         const MatOffsets45& mo, const ScaleOffsets45& so, const float* ffn_in,
                         float* ffn_out, float* x_g, float* rg_g, float* fk_g, int C, int F,
-                        float* xs, float* xl, float* red, float* dxs, int8_t* q8,
+                        float* xs, float* xl, float* red, float* dxs, act_t<WF>* q8,
                         Barrier barrier) {
   for (int c = threadIdx.x; c < C; c += blockDim.x) xs[c] = x_g[c];
   __syncthreads();
@@ -69,39 +70,39 @@ __device__ void ffn_v45(const float* vec, const int8_t* m_layer, const float* s_
   if (blockIdx.x == 0)
     for (int c = threadIdx.x; c < C; c += blockDim.x) ffn_out[c] = xl[c];
   const float* fx = vec + kFmixK * C;  // rows k, r
-  quantize_n<2>([&](int m, int c) { return mix45(xl[c], ffn_in[c], fx[m * C + c]); }, C, q8, C,
-                dxs, red);
-  matvec_grid<W4, 1>(m_layer + mo.fk, F, C, 1, [&](int, int) { return q8; },
-      [&](int row, int, int acc) {
-        const float y = fmaxf(dequant(acc, dxs[0], s_layer[so.fk + row]), 0.f);
+  act_n<WF, 2>([&](int m, int c) { return mix45(xl[c], ffn_in[c], fx[m * C + c]); }, C, q8, C,
+               dxs, red);
+  matvec_grid<WF, 1>(m_layer + mo.fk, F, C, 1, [&](int, int) { return q8; },
+      [&](int row, int, auto acc) {
+        const float y = fmaxf(dequant(acc, dxs[0], s_layer + so.fk + row), 0.f);
         fk_g[row] = mul(y, y);
       },
-      lanes_for(C, W4));
-  matvec_grid<W4, 1>(m_layer + mo.fr, C, C, 1, [&](int, int) { return q8 + C; },
-      [&](int row, int, int acc) {
-        rg_g[row] = sigmoidf(dequant(acc, dxs[1], s_layer[so.fr + row]));
+      lanes_for(C, WF));
+  matvec_grid<WF, 1>(m_layer + mo.fr, C, C, 1, [&](int, int) { return q8 + C; },
+      [&](int row, int, auto acc) {
+        rg_g[row] = sigmoidf(dequant(acc, dxs[1], s_layer + so.fr + row));
       },
-      lanes_for(C, W4), true);
+      lanes_for(C, WF), true);
   barrier();
 
-  quantize_n<1>([&](int, int c) { return fk_g[c]; }, F, q8, 0, dxs, red);
-  matvec_grid<W4, 1>(m_layer + mo.fv, C, F, 1, [&](int, int) { return q8; },
-      [&](int row, int, int acc) {
-        x_g[row] = add(x_g[row], mul(rg_g[row], dequant(acc, dxs[0], s_layer[so.fv + row])));
+  act_n<WF, 1>([&](int, int c) { return fk_g[c]; }, F, q8, 0, dxs, red);
+  matvec_grid<WF, 1>(m_layer + mo.fv, C, F, 1, [&](int, int) { return q8; },
+      [&](int row, int, auto acc) {
+        x_g[row] = add(x_g[row], mul(rg_g[row], dequant(acc, dxs[0], s_layer + so.fv + row)));
       },
-      lanes_for(F, W4));
+      lanes_for(F, WF));
   barrier();
 }
 
 // The residual before layer l's phase A into xs (shared; every block): at
-// l = 0 ln0 of the token's bf16 embedding row (block 0 also writes it to
-// x_g), else x_g.
-__device__ __forceinline__ void load_residual(int l, const int* token, const uint16_t* emb,
-                                              const float* ln0, float* x_g, int C, float* xs,
-                                              float* tmp, float* red) {
+// l = 0 ln0 of the token's embedding row (bf16, or f32 when emb_f32; block
+// 0 also writes it to x_g), else x_g.
+__device__ __forceinline__ void load_residual(int l, const int* token, const void* emb,
+                                              bool emb_f32, const float* ln0, float* x_g, int C,
+                                              float* xs, float* tmp, float* red) {
   if (l == 0) {
-    const uint16_t* e = emb + static_cast<size_t>(*token) * C;
-    for (int c = threadIdx.x; c < C; c += blockDim.x) tmp[c] = bf16_to_float(e[c]);
+    const size_t e = static_cast<size_t>(*token) * C;
+    for (int c = threadIdx.x; c < C; c += blockDim.x) tmp[c] = emb_at(emb, emb_f32, e + c);
     __syncthreads();
     layer_norm_block(tmp, xs, ln0, ln0 + C, C, 1e-5f, red);
     if (blockIdx.x == 0)
@@ -118,9 +119,7 @@ inline int cooperative_grid(const void* kernel, int threads, size_t smem) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+  if (err == cudaSuccess) err = set_smem(kernel, smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err != cudaSuccess) return -static_cast<int>(err);

@@ -1,9 +1,10 @@
-// K8: one RWKV v4 decode step at B=1 for all layers, w8a8 or w4a8, with
-// ln_out and the LM head inside the kernel. One launch per token.
+// K8: one RWKV v4 decode step at B=1 for all layers, w8a8, w4a8 or bf16,
+// with ln_out and the LM head inside the kernel. One launch per token.
 //
 // Replaces rwkv_tpu/ops/megakernel.py::v4_decode_megakernel (kernel body
 // _make_kernel_v4, head phases _emit_head_phases) and
-// v4_decode_megakernel_tiled (_make_kernel_tiled_v4, w8 and w4). The TPU
+// v4_decode_megakernel_tiled (_make_kernel_tiled_v4, w8 and w4), each also
+// in its quant=False form (bf16 matrices and head). The TPU
 // splits those two only by how a layer's weights fit VMEM; on this card one
 // kernel computes their function at any width (C = 768 and 2048 among
 // them), on the serving state layout (aa, bb, pp [L, C]).
@@ -12,8 +13,9 @@
 // 0.1B width (C=768, F=3072, 12 layers) w8a8 about 12 x 7.1 MB of int8
 // matrices (rkv 3C^2, out C^2, fk and fv 4C^2 each, fr C^2), the five
 // state vectors of each layer read and written and the 50.3 MB int8 head,
-// ~142 MB in all (w4a8: the five matrices at half the bytes, ~96 MB) -- so
-// HBM bandwidth bounds it (~43 us / ~29 us at 3.35 TB/s).
+// ~142 MB in all (w4a8: the five matrices at half the bytes, ~96 MB; bf16:
+// twice the int8 bytes, ~277 MB) -- so HBM bandwidth bounds it (~43 / ~29
+// / ~83 us at 3.35 TB/s).
 //
 // Design: K7's persistent cooperative kernel (one 256-thread block per SM,
 // grid-wide barriers between phases) with four phases a layer. v4 has no
@@ -36,7 +38,8 @@
 // Numerics follow the JAX kernel: whole-vector quantization, (float(acc) *
 // dx) * d, explicit round-to-nearest multiplies and adds, expf and a true
 // division in the max-trick. The blank state's pp = -1e30 gives
-// exp(pp - qq) = 0, never NaN.
+// exp(pp - qq) = 0, never NaN. The bf16 form (WF = kBf16, common.cuh)
+// stages each input vector in f32 and reads no scales.
 #include "v45_common.cuh"
 
 #include <cooperative_groups.h>
@@ -53,13 +56,13 @@ enum VecRow4 { kAmix = kNumVec45, kNumVec4 = kAmix + 3 };
 
 struct Args {
   const int* token;
-  const uint16_t* emb;      // bf16 bits [V, C]
+  const void* emb;          // [V, C]: bf16 bits, or f32 when emb_f32
   const float* ln0;         // [2, C]
   const int8_t* mats;       // [L, MatOffsets45.layer]
-  const float* scales;      // [L, ScaleOffsets45.layer]
+  const float* scales;      // [L, ScaleOffsets45.layer] (int forms)
   const float* vecs;        // [L, kNumVec4, C]
-  const int8_t* head;       // [V, C]
-  const float* head_d;      // [V]
+  const int8_t* head;       // [V, C] int8 (bf16 in the bf16 form)
+  const float* head_d;      // [V] (int forms)
   const float* ln_out;      // [2, C]
   const float* att_in;      // [L, C] each, the state in
   const float* ffn_in;
@@ -74,6 +77,7 @@ struct Args {
   float* logits;            // [V]
   float* scratch;           // scratch_floats(C, F); x ends at scratch[0..C)
   int C, F, L, V;
+  int emb_f32;
 };
 
 // Floats of the kernel's global scratch: x, sigmoid(r)|k|v (3C),
@@ -81,7 +85,7 @@ struct Args {
 // same.
 __host__ __device__ inline size_t scratch_floats(int C, int F) { return 5ull * C + F; }
 
-template <bool W4>
+template <int WF>
 __global__ void __launch_bounds__(kThreads)
 v4_decode_kernel(Args p) {
   cg::grid_group grid = cg::this_grid();
@@ -93,7 +97,7 @@ v4_decode_kernel(Args p) {
   float* xl = xs + C;                            // [C] normalized; phase B: r * wkv
   float* red = xl + C;                           // [8][32] reduction scratch
   float* dxs = red + 8 * 32;                     // [8] activation scales
-  int8_t* q8 = reinterpret_cast<int8_t*>(dxs + 8);  // [max(3C, F)] codes
+  act_t<WF>* q8 = reinterpret_cast<act_t<WF>*>(dxs + 8);  // [max(3C, F)] activations
 
   float* x_g = p.scratch;           // residual stream
   float* att_g = x_g + C;           // [3][C] sigmoid(r), k, v
@@ -113,7 +117,7 @@ v4_decode_kernel(Args p) {
   };
   PHASE_MARK();
 
-  const MatOffsets45 mo(C, F, 3, W4);
+  const MatOffsets45 mo(C, F, 3, WF);
   const ScaleOffsets45 so(C, F, 3);
 
   for (int l = 0; l < p.L; ++l) {
@@ -124,22 +128,22 @@ v4_decode_kernel(Args p) {
     const float* att_in = p.att_in + lc;
 
     // ---- phase A: ln1, shift, the mixes quantized, r k v rows -------------
-    load_residual(l, p.token, p.emb, p.ln0, x_g, C, xs, xl, red);
+    load_residual(l, p.token, p.emb, p.emb_f32, p.ln0, x_g, C, xs, xl, red);
     layer_norm_block(xs, xl, vec + kLn1W * C, vec + kLn1B * C, C, 1e-5f, red);
     if (blockIdx.x == 0)
       for (int c = tid; c < C; c += blockDim.x) p.att_out[lc + c] = xl[c];
     {
       const float* am = vec + kAmix * C;  // rows k, v, r
-      quantize_n<3>([&](int m, int c) { return mix45(xl[c], att_in[c], am[m * C + c]); }, C, q8,
-                    C, dxs, red);
-      matvec_grid<W4, 1>(m_layer + mo.att, 3 * C, C, 1,
+      act_n<WF, 3>([&](int m, int c) { return mix45(xl[c], att_in[c], am[m * C + c]); }, C, q8,
+                   C, dxs, red);
+      matvec_grid<WF, 1>(m_layer + mo.att, 3 * C, C, 1,
           [&](int row, int) { return q8 + att_mix(row / C) * C; },
-          [&](int row, int, int acc) {
+          [&](int row, int, auto acc) {
             const int part = row / C;
-            const float y = dequant(acc, dxs[att_mix(part)], s_layer[so.att + row]);
+            const float y = dequant(acc, dxs[att_mix(part)], s_layer + so.att + row);
             att_g[row] = part == 0 ? sigmoidf(y) : y;
           },
-          lanes_for(C, W4));
+          lanes_for(C, WF));
     }
     barrier();
 
@@ -168,42 +172,46 @@ v4_decode_kernel(Args p) {
         p.pp_out[lc + c] = qq2;
       }
       __syncthreads();
-      quantize_n<1>([&](int, int c) { return xl[c]; }, C, q8, 0, dxs, red);
-      matvec_grid<W4, 1>(m_layer + mo.out, C, C, 1, [&](int, int) { return q8; },
-          [&](int row, int, int acc) {
-            x_g[row] = add(x_g[row], dequant(acc, dxs[0], s_layer[so.out + row]));
+      act_n<WF, 1>([&](int, int c) { return xl[c]; }, C, q8, 0, dxs, red);
+      matvec_grid<WF, 1>(m_layer + mo.out, C, C, 1, [&](int, int) { return q8; },
+          [&](int row, int, auto acc) {
+            x_g[row] = add(x_g[row], dequant(acc, dxs[0], s_layer + so.out + row));
           },
-          lanes_for(C, W4));
+          lanes_for(C, WF));
     }
     barrier();
 
     // ---- phases E and F: the FFN ------------------------------------------
-    ffn_v45<W4>(vec, m_layer, s_layer, mo, so, p.ffn_in + lc, p.ffn_out + lc, x_g, rg_g, fk_g,
+    ffn_v45<WF>(vec, m_layer, s_layer, mo, so, p.ffn_in + lc, p.ffn_out + lc, x_g, rg_g, fk_g,
                 C, F, xs, xl, red, dxs, q8, barrier);
   }
 
   // ---- head: ln_out, quantize, V rows (decode_common.cuh) -----------------
-  lm_head(x_g, p.head, p.head_d, p.ln_out, p.logits, C, p.V, xs, xl, red, dxs, q8);
+  lm_head<WF>(x_g, p.head, p.head_d, p.ln_out, p.logits, C, p.V, xs, xl, red, dxs, q8);
   PHASE_MARK();
 }
 
-size_t smem_bytes(int C, int F) {
+// Shared memory of a launch in form wf: the floats, then the activations
+// (int8 codes, or f32 in the bf16 form).
+size_t smem_bytes(int C, int F, int wf) {
   const int q = 3 * C > F ? 3 * C : F;
   const size_t floats = 2ull * C + 8 * 32 + 8;
-  return floats * sizeof(float) + ((q + 15) / 16) * 16;
+  const size_t act = (wf == kBf16 ? sizeof(float) : 1) * static_cast<size_t>(q);
+  return floats * sizeof(float) + ((act + 15) / 16) * 16;
 }
 
-const void* kernel_for(bool w4) {
-  return w4 ? reinterpret_cast<const void*>(v4_decode_kernel<true>)
-            : reinterpret_cast<const void*>(v4_decode_kernel<false>);
+const void* kernel_for(int wf) {
+  if (wf == kBf16) return reinterpret_cast<const void*>(v4_decode_kernel<kBf16>);
+  return wf == kInt4 ? reinterpret_cast<const void*>(v4_decode_kernel<kInt4>)
+                     : reinterpret_cast<const void*>(v4_decode_kernel<kInt8>);
 }
 
-int launch(bool w4, void* const* ptrs, int C, int F, int L, int V, int grid_blocks,
+int launch(int wf, void* const* ptrs, int C, int F, int L, int V, int emb_f32, int grid_blocks,
            void* stream) {
   if (grid_blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.token = static_cast<const int*>(ptrs[0]);
-  a.emb = static_cast<const uint16_t*>(ptrs[1]);
+  a.emb = ptrs[1];
   a.ln0 = static_cast<const float*>(ptrs[2]);
   a.mats = static_cast<const int8_t*>(ptrs[3]);
   a.scales = static_cast<const float*>(ptrs[4]);
@@ -224,39 +232,57 @@ int launch(bool w4, void* const* ptrs, int C, int F, int L, int V, int grid_bloc
   a.logits = static_cast<float*>(ptrs[19]);
   a.scratch = static_cast<float*>(ptrs[20]);
   a.C = C; a.F = F; a.L = L; a.V = V;
+  a.emb_f32 = emb_f32;
   void* kargs[] = {&a};
-  cudaError_t err = cudaLaunchCooperativeKernel(kernel_for(w4), dim3(grid_blocks),
-                                                dim3(kThreads), kargs, smem_bytes(C, F),
-                                                static_cast<cudaStream_t>(stream));
+  const size_t smem = smem_bytes(C, F, wf);
+  cudaError_t err = set_smem(kernel_for(wf), smem);
+  if (err == cudaSuccess)
+    err = cudaLaunchCooperativeKernel(kernel_for(wf), dim3(grid_blocks), dim3(kThreads), kargs,
+                                      smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The w8a8 and w4a8 entries take the same arguments: the grid size the
-// launch uses (blocks, or a negative CUDA error code), and one launch with
-// 21 pointers (token, emb, ln0, mats, scales, vecs, head, head_d, ln_out,
-// the five state arrays in and out in the order att_xx, ffn_xx, aa, bb, pp,
-// logits, scratch).
+// The w8a8, w4a8 and bf16 entries: the grid size the launch uses (blocks,
+// or a negative CUDA error code), and one launch with 21 pointers (token,
+// emb, ln0, mats, scales, vecs, head, head_d, ln_out, the five state arrays
+// in and out in the order att_xx, ffn_xx, aa, bb, pp, logits, scratch). The
+// bf16 entry takes one int more, emb_f32 (the embedding table is f32, not
+// bf16); it reads no scales or head_d (pass null).
 extern "C" int rwkv_v4_decode_grid(int C, int F) {
-  return cooperative_grid(kernel_for(false), kThreads, smem_bytes(C, F));
+  return cooperative_grid(kernel_for(kInt8), kThreads, smem_bytes(C, F, kInt8));
 }
 
 extern "C" int rwkv_v4_decode_w4_grid(int C, int F) {
-  return cooperative_grid(kernel_for(true), kThreads, smem_bytes(C, F));
+  return cooperative_grid(kernel_for(kInt4), kThreads, smem_bytes(C, F, kInt4));
 }
 
-#define RWKV_V4_DECODE_ENTRY(name, w4)                                                       \
-  extern "C" int name(void* p0, void* p1, void* p2, void* p3, void* p4, void* p5, void* p6,  \
-                      void* p7, void* p8, void* p9, void* p10, void* p11, void* p12,         \
-                      void* p13, void* p14, void* p15, void* p16, void* p17, void* p18,      \
-                      void* p19, void* p20, int C, int F, int L, int V, int grid_blocks,     \
-                      void* stream) {                                                        \
-    void* const ptrs[] = {p0,  p1,  p2,  p3,  p4,  p5,  p6,  p7,  p8,  p9, p10,              \
-                          p11, p12, p13, p14, p15, p16, p17, p18, p19, p20};                 \
-    return launch(w4, ptrs, C, F, L, V, grid_blocks, stream);                                \
-  }
+extern "C" int rwkv_v4_decode_bf16_grid(int C, int F) {
+  return cooperative_grid(kernel_for(kBf16), kThreads, smem_bytes(C, F, kBf16));
+}
 
-RWKV_V4_DECODE_ENTRY(rwkv_v4_decode, false)
-RWKV_V4_DECODE_ENTRY(rwkv_v4_decode_w4, true)
+#define RWKV_V4_DECODE_PARAMS                                                                \
+  void *p0, void *p1, void *p2, void *p3, void *p4, void *p5, void *p6, void *p7, void *p8,  \
+      void *p9, void *p10, void *p11, void *p12, void *p13, void *p14, void *p15, void *p16, \
+      void *p17, void *p18, void *p19, void *p20, int C, int F, int L, int V
+#define RWKV_V4_DECODE_PTRS                                                                  \
+  void* const ptrs[] = {p0,  p1,  p2,  p3,  p4,  p5,  p6,  p7,  p8,  p9, p10,                \
+                        p11, p12, p13, p14, p15, p16, p17, p18, p19, p20}
+
+extern "C" int rwkv_v4_decode(RWKV_V4_DECODE_PARAMS, int grid_blocks, void* stream) {
+  RWKV_V4_DECODE_PTRS;
+  return launch(kInt8, ptrs, C, F, L, V, 0, grid_blocks, stream);
+}
+
+extern "C" int rwkv_v4_decode_w4(RWKV_V4_DECODE_PARAMS, int grid_blocks, void* stream) {
+  RWKV_V4_DECODE_PTRS;
+  return launch(kInt4, ptrs, C, F, L, V, 0, grid_blocks, stream);
+}
+
+extern "C" int rwkv_v4_decode_bf16(RWKV_V4_DECODE_PARAMS, int emb_f32, int grid_blocks,
+                                   void* stream) {
+  RWKV_V4_DECODE_PTRS;
+  return launch(kBf16, ptrs, C, F, L, V, emb_f32, grid_blocks, stream);
+}

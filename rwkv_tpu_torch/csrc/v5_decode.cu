@@ -1,9 +1,11 @@
-// K7: one RWKV v5.1 / v5.2 decode step at B=1 for all layers, w8a8 or
-// w4a8, with ln_out and the LM head inside the kernel. One launch per token.
+// K7: one RWKV v5.1 / v5.2 decode step at B=1 for all layers, w8a8, w4a8
+// or bf16, with ln_out and the LM head inside the kernel. One launch per
+// token.
 //
 // Replaces rwkv_tpu/ops/megakernel.py::v5_decode_megakernel (kernel body
 // _make_kernel_v5, head phases _emit_head_phases) and
-// v5_decode_megakernel_tiled (_make_kernel_tiled_v5, w8 and w4). The TPU
+// v5_decode_megakernel_tiled (_make_kernel_tiled_v5, w8 and w4), each also
+// in its quant=False form (bf16 matrices and head). The TPU
 // splits those two only by how a layer's weights fit VMEM; on this card one
 // kernel computes their function at any width, on the serving state layout
 // [L, H, S_i, S_j] (the TPU kernels transpose it to [H, S_j, S_i]).
@@ -13,8 +15,8 @@
 // matrices (rkvg 4C^2, out C^2, fk and fv 4C^2 each, fr C^2), ~0.1 MB/layer
 // of scales and vectors, 1.05 MB/layer of wkv state read and written and
 // the 134 MB int8 head, ~1.57 GB in all (w4a8: the five matrices at half
-// the bytes, ~0.86 GB) -- so HBM bandwidth bounds it (~0.47 ms / ~0.26 ms
-// at 3.35 TB/s).
+// the bytes, ~0.86 GB; bf16: twice the int8 bytes, ~3.1 GB) -- so HBM
+// bandwidth bounds it (~0.47 / ~0.26 / ~0.93 ms at 3.35 TB/s).
 //
 // Design: K6's persistent cooperative kernel (one 256-thread block per SM,
 // phases separated by grid-wide barriers) without K6's maa and decay LoRA
@@ -38,7 +40,8 @@
 // a whole, the int32 sum is scaled as (float(acc) * dx) * d, and the
 // elementwise formulas use explicit round-to-nearest multiplies and adds,
 // so that no fused multiply-add shifts an activation across a code
-// boundary.
+// boundary. The bf16 form (WF = kBf16, common.cuh) stages each input
+// vector in f32 and reads no scales.
 #include "v45_common.cuh"
 
 #include <cooperative_groups.h>
@@ -55,13 +58,13 @@ enum VecRow5 { kLnxW = kNumVec45, kLnxB, kAmix };
 
 struct Args {
   const int* token;
-  const uint16_t* emb;      // bf16 bits [V, C]
+  const void* emb;          // [V, C]: bf16 bits, or f32 when emb_f32
   const float* ln0;         // [2, C]
   const int8_t* mats;       // [L, MatOffsets45.layer]
-  const float* scales;      // [L, ScaleOffsets45.layer]
+  const float* scales;      // [L, ScaleOffsets45.layer] (int forms)
   const float* vecs;        // [L, kAmix + NA, C]
-  const int8_t* head;       // [V, C]
-  const float* head_d;      // [V]
+  const int8_t* head;       // [V, C] int8 (bf16 in the bf16 form)
+  const float* head_d;      // [V] (int forms)
   const float* ln_out;      // [2, C]
   const float* att_in;      // [L, C]
   const float* ffn_in;      // [L, C]
@@ -72,13 +75,14 @@ struct Args {
   float* logits;            // [V]
   float* scratch;           // scratch_floats(C, F); x ends at scratch[0..C)
   int C, H, S, F, L, V;
+  int emb_f32;
 };
 
 // Floats of the kernel's global scratch: x, r|k|v|g (4C), xo, sigmoid(fr)
 // and the relu^2 keys (F); the Python wrapper allocates the same.
 __host__ __device__ inline size_t scratch_floats(int C, int F) { return 7ull * C + F; }
 
-template <bool W4, bool GATE>
+template <int WF, bool GATE>
 __global__ void __launch_bounds__(kThreads)
 v5_decode_kernel(Args p) {
   constexpr int NA = GATE ? 4 : 3;  // fused attention projections and mixes
@@ -92,7 +96,7 @@ v5_decode_kernel(Args p) {
   float* hv = xl + C;                            // [5S] per-head vectors
   float* red = hv + 5 * S;                       // [8][32] reduction scratch
   float* dxs = red + 8 * 32;                     // [8] activation scales
-  int8_t* q8 = reinterpret_cast<int8_t*>(dxs + 8);  // [max(4C, F)] codes
+  act_t<WF>* q8 = reinterpret_cast<act_t<WF>*>(dxs + 8);  // [max(4C, F)] activations
 
   float* x_g = p.scratch;           // residual stream
   float* att_g = x_g + C;           // [4][C] r, k, v, silu(g)
@@ -113,7 +117,7 @@ v5_decode_kernel(Args p) {
   };
   PHASE_MARK();
 
-  const MatOffsets45 mo(C, F, NA, W4);
+  const MatOffsets45 mo(C, F, NA, WF);
   const ScaleOffsets45 so(C, F, NA);
 
   for (int l = 0; l < p.L; ++l) {
@@ -123,23 +127,23 @@ v5_decode_kernel(Args p) {
     const float* att_in = p.att_in + static_cast<size_t>(l) * C;
 
     // ---- phase A: ln1, shift, the mixes quantized, r k v (g) rows ---------
-    load_residual(l, p.token, p.emb, p.ln0, x_g, C, xs, xl, red);
+    load_residual(l, p.token, p.emb, p.emb_f32, p.ln0, x_g, C, xs, xl, red);
     layer_norm_block(xs, xl, vec + kLn1W * C, vec + kLn1B * C, C, 1e-5f, red);
     if (blockIdx.x == 0)
       for (int c = tid; c < C; c += blockDim.x) p.att_out[static_cast<size_t>(l) * C + c] = xl[c];
     {
       const float* am = vec + kAmix * C;  // rows k, v, r(, g)
-      quantize_n<NA>([&](int m, int c) { return mix45(xl[c], att_in[c], am[m * C + c]); }, C,
-                     q8, C, dxs, red);
-      matvec_grid<W4, 1>(m_layer + mo.att, NA * C, C, 1,
+      act_n<WF, NA>([&](int m, int c) { return mix45(xl[c], att_in[c], am[m * C + c]); }, C,
+                    q8, C, dxs, red);
+      matvec_grid<WF, 1>(m_layer + mo.att, NA * C, C, 1,
           [&](int row, int) { return q8 + att_mix(row / C) * C; },
-          [&](int row, int, int acc) {
+          [&](int row, int, auto acc) {
             const int part = row / C;
-            float y = dequant(acc, dxs[att_mix(part)], s_layer[so.att + row]);
+            float y = dequant(acc, dxs[att_mix(part)], s_layer + so.att + row);
             if (GATE && part == 3) y = mul(y, sigmoidf(y));  // silu gate
             att_g[row] = y;
           },
-          lanes_for(C, W4));
+          lanes_for(C, WF));
     }
     barrier();
 
@@ -198,50 +202,57 @@ v5_decode_kernel(Args p) {
     barrier();
 
     // ---- phase D: out rows + residual -------------------------------------
-    quantize_n<1>([&](int, int c) { return xo_g[c]; }, C, q8, 0, dxs, red);
-    matvec_grid<W4, 1>(m_layer + mo.out, C, C, 1, [&](int, int) { return q8; },
-        [&](int row, int, int acc) {
-          x_g[row] = add(x_g[row], dequant(acc, dxs[0], s_layer[so.out + row]));
+    act_n<WF, 1>([&](int, int c) { return xo_g[c]; }, C, q8, 0, dxs, red);
+    matvec_grid<WF, 1>(m_layer + mo.out, C, C, 1, [&](int, int) { return q8; },
+        [&](int row, int, auto acc) {
+          x_g[row] = add(x_g[row], dequant(acc, dxs[0], s_layer + so.out + row));
         },
-        lanes_for(C, W4));
+        lanes_for(C, WF));
     barrier();
 
     // ---- phases E and F: the FFN ------------------------------------------
-    ffn_v45<W4>(vec, m_layer, s_layer, mo, so, p.ffn_in + static_cast<size_t>(l) * C,
+    ffn_v45<WF>(vec, m_layer, s_layer, mo, so, p.ffn_in + static_cast<size_t>(l) * C,
                 p.ffn_out + static_cast<size_t>(l) * C, x_g, rg_g, fk_g, C, F, xs, xl, red, dxs,
                 q8, barrier);
   }
 
   // ---- head: ln_out, quantize, V rows (decode_common.cuh) -----------------
-  lm_head(x_g, p.head, p.head_d, p.ln_out, p.logits, C, p.V, xs, xl, red, dxs, q8);
+  lm_head<WF>(x_g, p.head, p.head_d, p.ln_out, p.logits, C, p.V, xs, xl, red, dxs, q8);
   PHASE_MARK();
 }
 
-size_t smem_bytes(int C, int S, int F) {
+// Shared memory of a launch in form wf: the floats, then the activations
+// (int8 codes, or f32 in the bf16 form).
+size_t smem_bytes(int C, int S, int F, int wf) {
   const int q = 4 * C > F ? 4 * C : F;
   const size_t floats = 2ull * C + 5 * S + 8 * 32 + 8;
-  return floats * sizeof(float) + ((q + 15) / 16) * 16;
+  const size_t act = (wf == kBf16 ? sizeof(float) : 1) * static_cast<size_t>(q);
+  return floats * sizeof(float) + ((act + 15) / 16) * 16;
 }
 
-const void* kernel_for(bool w4, bool gate) {
-  if (w4)
-    return gate ? reinterpret_cast<const void*>(v5_decode_kernel<true, true>)
-                : reinterpret_cast<const void*>(v5_decode_kernel<true, false>);
-  return gate ? reinterpret_cast<const void*>(v5_decode_kernel<false, true>)
-              : reinterpret_cast<const void*>(v5_decode_kernel<false, false>);
+template <int WF>
+const void* kernel_of(bool gate) {
+  return gate ? reinterpret_cast<const void*>(v5_decode_kernel<WF, true>)
+              : reinterpret_cast<const void*>(v5_decode_kernel<WF, false>);
 }
 
-int launch(bool w4, const void* token, const void* emb, const void* ln0, const void* mats,
+const void* kernel_for(int wf, bool gate) {
+  if (wf == kBf16) return kernel_of<kBf16>(gate);
+  return wf == kInt4 ? kernel_of<kInt4>(gate) : kernel_of<kInt8>(gate);
+}
+
+int launch(int wf, const void* token, const void* emb, const void* ln0, const void* mats,
            const void* scales, const void* vecs, const void* head, const void* head_d,
            const void* ln_out, const void* att_in, const void* ffn_in, const void* heads_in,
            void* att_out, void* ffn_out, void* heads_out, void* logits, void* scratch, int C,
-           int H, int S, int F, int L, int V, int gate, int grid_blocks, void* stream) {
+           int H, int S, int F, int L, int V, int gate, int emb_f32, int grid_blocks,
+           void* stream) {
   if (grid_blocks <= 0 || S <= 0 || kThreads % S != 0 || S * S / kThreads > kMaxJ ||
       H * S != C)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.token = static_cast<const int*>(token);
-  a.emb = static_cast<const uint16_t*>(emb);
+  a.emb = emb;
   a.ln0 = static_cast<const float*>(ln0);
   a.mats = static_cast<const int8_t*>(mats);
   a.scales = static_cast<const float*>(scales);
@@ -258,44 +269,61 @@ int launch(bool w4, const void* token, const void* emb, const void* ln0, const v
   a.logits = static_cast<float*>(logits);
   a.scratch = static_cast<float*>(scratch);
   a.C = C; a.H = H; a.S = S; a.F = F; a.L = L; a.V = V;
+  a.emb_f32 = emb_f32;
   void* kargs[] = {&a};
-  cudaError_t err = cudaLaunchCooperativeKernel(kernel_for(w4, gate != 0), dim3(grid_blocks),
-                                                dim3(kThreads), kargs, smem_bytes(C, S, F),
-                                                static_cast<cudaStream_t>(stream));
+  const size_t smem = smem_bytes(C, S, F, wf);
+  cudaError_t err = set_smem(kernel_for(wf, gate != 0), smem);
+  if (err == cudaSuccess)
+    err = cudaLaunchCooperativeKernel(kernel_for(wf, gate != 0), dim3(grid_blocks),
+                                      dim3(kThreads), kargs, smem,
+                                      static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Grid size both variants (5.1, 5.2) of a format can launch with, after
+// Grid size both variants (5.1, 5.2) of a form can launch with, after
 // setting their shared memory limit: blocks, or a negative CUDA error code.
-int grid_blocks_for(bool w4, int C, int S, int F) {
-  const int n51 = cooperative_grid(kernel_for(w4, false), kThreads, smem_bytes(C, S, F));
-  const int n52 = cooperative_grid(kernel_for(w4, true), kThreads, smem_bytes(C, S, F));
+int grid_blocks_for(int wf, int C, int S, int F) {
+  const int n51 = cooperative_grid(kernel_for(wf, false), kThreads, smem_bytes(C, S, F, wf));
+  const int n52 = cooperative_grid(kernel_for(wf, true), kThreads, smem_bytes(C, S, F, wf));
   return n51 < n52 ? n51 : n52;
 }
 
 }  // namespace
 
-// The w8a8 and w4a8 entries take the same arguments: the grid size the
-// launch uses (blocks, or a negative CUDA error code), and one launch
-// (gate = 1 for 5.2).
-extern "C" int rwkv_v5_decode_grid(int C, int S, int F) { return grid_blocks_for(false, C, S, F); }
+// The w8a8, w4a8 and bf16 entries: the grid size the launch uses (blocks,
+// or a negative CUDA error code), and one launch (gate = 1 for 5.2). The
+// bf16 entry takes one int more, emb_f32 (the embedding table is f32, not
+// bf16); it reads no scales or head_d (pass null).
+extern "C" int rwkv_v5_decode_grid(int C, int S, int F) { return grid_blocks_for(kInt8, C, S, F); }
 
 extern "C" int rwkv_v5_decode_w4_grid(int C, int S, int F) {
-  return grid_blocks_for(true, C, S, F);
+  return grid_blocks_for(kInt4, C, S, F);
 }
 
-#define RWKV_V5_DECODE_ENTRY(name, w4)                                                         \
-  extern "C" int name(const void* token, const void* emb, const void* ln0, const void* mats,   \
-                      const void* scales, const void* vecs, const void* head,                  \
-                      const void* head_d, const void* ln_out, const void* att_in,              \
-                      const void* ffn_in, const void* heads_in, void* att_out, void* ffn_out,  \
-                      void* heads_out, void* logits, void* scratch, int C, int H, int S, int F, \
-                      int L, int V, int gate, int grid_blocks, void* stream) {                 \
-    return launch(w4, token, emb, ln0, mats, scales, vecs, head, head_d, ln_out, att_in,       \
-                  ffn_in, heads_in, att_out, ffn_out, heads_out, logits, scratch, C, H, S, F,  \
-                  L, V, gate, grid_blocks, stream);                                            \
-  }
+extern "C" int rwkv_v5_decode_bf16_grid(int C, int S, int F) {
+  return grid_blocks_for(kBf16, C, S, F);
+}
 
-RWKV_V5_DECODE_ENTRY(rwkv_v5_decode, false)
-RWKV_V5_DECODE_ENTRY(rwkv_v5_decode_w4, true)
+#define RWKV_V5_DECODE_PARAMS                                                                  \
+  const void *token, const void *emb, const void *ln0, const void *mats, const void *scales,   \
+      const void *vecs, const void *head, const void *head_d, const void *ln_out,              \
+      const void *att_in, const void *ffn_in, const void *heads_in, void *att_out,             \
+      void *ffn_out, void *heads_out, void *logits, void *scratch, int C, int H, int S, int F, \
+      int L, int V, int gate
+#define RWKV_V5_DECODE_ARGS                                                                    \
+  token, emb, ln0, mats, scales, vecs, head, head_d, ln_out, att_in, ffn_in, heads_in, att_out, \
+      ffn_out, heads_out, logits, scratch, C, H, S, F, L, V, gate
+
+extern "C" int rwkv_v5_decode(RWKV_V5_DECODE_PARAMS, int grid_blocks, void* stream) {
+  return launch(kInt8, RWKV_V5_DECODE_ARGS, 0, grid_blocks, stream);
+}
+
+extern "C" int rwkv_v5_decode_w4(RWKV_V5_DECODE_PARAMS, int grid_blocks, void* stream) {
+  return launch(kInt4, RWKV_V5_DECODE_ARGS, 0, grid_blocks, stream);
+}
+
+extern "C" int rwkv_v5_decode_bf16(RWKV_V5_DECODE_PARAMS, int emb_f32, int grid_blocks,
+                                   void* stream) {
+  return launch(kBf16, RWKV_V5_DECODE_ARGS, emb_f32, grid_blocks, stream);
+}

@@ -1,9 +1,10 @@
-// K6: one RWKV v6 (Finch) decode step at B=1 for all layers, w8a8 or w4a8,
-// with ln_out and the LM head inside the kernel. One launch per token.
+// K6: one RWKV v6 (Finch) decode step at B=1 for all layers, w8a8, w4a8 or
+// bf16, with ln_out and the LM head inside the kernel. One launch per token.
 //
 // Replaces rwkv_tpu/ops/megakernel.py::v6_decode_megakernel (kernel body
 // _make_kernel_v6, head phases _emit_head_phases) and
-// v6_decode_megakernel_tiled (_make_kernel_tiled_v6, w8 and w4). The TPU
+// v6_decode_megakernel_tiled (_make_kernel_tiled_v6, w8 and w4), each also
+// in its quant=False form (bf16 matrices and head, f32 maa2). The TPU
 // splits those two only by how a layer's weights fit VMEM; on this card
 // one kernel computes their function at any width, on the serving state
 // layout [L, H, S_i, S_j] (the TPU kernels transpose it to [H, S_j, S_i]).
@@ -13,8 +14,9 @@
 // int8 matrices, 1.31 MB/layer of f32 maa2, ~0.2 MB/layer of scales and
 // vectors, 1.05 MB/layer of wkv state read and written, and the 134 MB
 // int8 head, ~1.62 GB in all (w4a8: the five big matrices at half the
-// bytes, ~0.92 GB) -- so HBM bandwidth bounds it (~0.48 ms / ~0.27 ms at
-// 3.35 TB/s).
+// bytes, ~0.92 GB; bf16: every matrix and the head at twice the int8
+// bytes, ~3.2 GB) -- so HBM bandwidth bounds it (~0.48 / ~0.27 / ~0.96 ms
+// at 3.35 TB/s).
 //
 // Design: K3's persistent cooperative kernel (cudaLaunchCooperativeKernel,
 // one 256-thread block per SM, phases separated by grid-wide barriers),
@@ -46,7 +48,9 @@
 // a whole (amax over all of it, codes rint(x * inv) clipped to +-127), the
 // int32 sum is scaled as (float(acc) * dx) * d, and the elementwise formulas
 // use explicit round-to-nearest multiplies and adds, so that no fused
-// multiply-add shifts an activation across a code boundary.
+// multiply-add shifts an activation across a code boundary. The bf16 form
+// (WF = kBf16, common.cuh) stages each input vector in f32 instead of
+// quantizing it, and each row's f32 dot is the output as it is (no scales).
 #include "decode_common.cuh"
 
 #include <cooperative_groups.h>
@@ -68,26 +72,28 @@ enum VecRow6 {
 };
 
 // Byte offsets of a layer's eight matrices in the flat pack's [L, bytes]
-// int8 buffer (rkvg | maa1 | dw1 | dw2 | out | fk | fv | fr), and the
-// layer's size. Under w4 the big ones (rkvg, out, fk, fv, fr) hold int4
-// codes, two a byte; the LoRA ones stay int8.
+// buffer (rkvg | maa1 | dw1 | dw2 | out | fk | fv | fr), and the layer's
+// size, for weight form wf. Under w4 the big ones (rkvg, out, fk, fv, fr)
+// hold int4 codes, two a byte, and the LoRA ones int8; in the bf16 form
+// all eight are bf16.
 struct MatOffsets6 {
   size_t rkvg, maa1, dw1, dw2, out, fk, fv, fr, layer;
-  __host__ __device__ MatOffsets6(int C, int DM, int DD, int F, bool w4) {
-    const size_t half = w4 ? 2 : 1;
+  __host__ __device__ MatOffsets6(int C, int DM, int DD, int F, int wf) {
+    const int sf = small_form(wf);
     rkvg = 0;
-    maa1 = rkvg + 4ull * C * C / half;
-    dw1 = maa1 + 5ull * DM * C;
-    dw2 = dw1 + 1ull * DD * C;
-    out = dw2 + 1ull * C * DD;
-    fk = out + 1ull * C * C / half;
-    fv = fk + 1ull * F * C / half;
-    fr = fv + 1ull * C * F / half;
-    layer = fr + 1ull * C * C / half;
+    maa1 = rkvg + form_bytes(wf, 4ull * C * C);
+    dw1 = maa1 + form_bytes(sf, 5ull * DM * C);
+    dw2 = dw1 + form_bytes(sf, 1ull * DD * C);
+    out = dw2 + form_bytes(sf, 1ull * C * DD);
+    fk = out + form_bytes(wf, 1ull * C * C);
+    fv = fk + form_bytes(wf, 1ull * F * C);
+    fr = fv + form_bytes(wf, 1ull * C * F);
+    layer = fr + form_bytes(wf, 1ull * C * C);
   }
 };
 
-// Row scales of a layer, in the same order: 8C + 5 DM + DD + F floats.
+// Row scales of a layer (int forms), in the same order: 8C + 5 DM + DD + F
+// floats.
 struct ScaleOffsets6 {
   size_t rkvg, maa1, dw1, dw2, out, fk, fv, fr, layer;
   __host__ __device__ ScaleOffsets6(int C, int DM, int DD, int F) {
@@ -109,14 +115,14 @@ __device__ __forceinline__ int rkvg_mix(int part) { return part == 0 ? 3 : part 
 
 struct Args {
   const int* token;
-  const uint16_t* emb;      // bf16 bits [V, C]
+  const void* emb;          // [V, C]: bf16 bits, or f32 when emb_f32
   const float* ln0;         // [2, C]
   const int8_t* mats;       // [L, MatOffsets6.layer]
-  const float* scales;      // [L, ScaleOffsets6.layer]
+  const float* scales;      // [L, ScaleOffsets6.layer] (int forms)
   const float* vecs;        // [L, kNumVec6, C]
   const float* maa2;        // [L, 5C, DM] f32
-  const int8_t* head;       // [V, C]
-  const float* head_d;      // [V]
+  const int8_t* head;       // [V, C] int8 (bf16 in the bf16 form)
+  const float* head_d;      // [V] (int forms)
   const float* ln_out;      // [2, C]
   const float* att_in;      // [L, C]
   const float* ffn_in;      // [L, C]
@@ -127,6 +133,7 @@ struct Args {
   float* logits;            // [V]
   float* scratch;           // scratch_floats(C, DM, DD, F); x ends at scratch[0..C)
   int C, H, S, DM, DD, F, L, V;
+  int emb_f32;
 };
 
 // Floats of the kernel's global scratch: x, mixdn (5 DM), the five mixes
@@ -141,9 +148,10 @@ __host__ __device__ inline int hv_floats(int S, int DM) {
   return 8 * S > 5 * DM ? 8 * S : 5 * DM;
 }
 
-template <bool W4>
+template <int WF>
 __global__ void __launch_bounds__(kThreads)
 v6_decode_kernel(Args p) {
+  constexpr int LF = small_form(WF);  // the LoRAs' form
   cg::grid_group grid = cg::this_grid();
   const int C = p.C, H = p.H, S = p.S, DM = p.DM, DD = p.DD, F = p.F;
   const int tid = threadIdx.x;
@@ -154,7 +162,7 @@ v6_decode_kernel(Args p) {
   float* hv = xl + C;                            // [hv_floats] per-head vectors / mixdn
   float* red = hv + hv_floats(S, DM);            // [8][32] reduction scratch
   float* dxs = red + 8 * 32;                     // [8] activation scales
-  int8_t* q8 = reinterpret_cast<int8_t*>(dxs + 8);  // [max(5C, F)] codes
+  act_t<WF>* q8 = reinterpret_cast<act_t<WF>*>(dxs + 8);  // [max(5C, F)] activations
 
   float* x_g = p.scratch;           // residual stream
   float* mixdn_g = x_g + C;         // [5 DM] tanh(maa1 rows)
@@ -178,7 +186,7 @@ v6_decode_kernel(Args p) {
   };
   PHASE_MARK();
 
-  const MatOffsets6 mo(C, DM, DD, F, W4);
+  const MatOffsets6 mo(C, DM, DD, F, WF);
   const ScaleOffsets6 so(C, DM, DD, F);
   const int lane = tid & 31;
   const int n_units = gridDim.x * (blockDim.x >> 5);
@@ -193,8 +201,8 @@ v6_decode_kernel(Args p) {
 
     // ---- phase A: ln1, shift, xxx, maa1 rows with tanh ---------------------
     if (l == 0) {
-      const uint16_t* e = p.emb + static_cast<size_t>(*p.token) * C;
-      for (int c = tid; c < C; c += blockDim.x) xl[c] = bf16_to_float(e[c]);
+      const size_t e = static_cast<size_t>(*p.token) * C;
+      for (int c = tid; c < C; c += blockDim.x) xl[c] = emb_at(p.emb, p.emb_f32, e + c);
       __syncthreads();
       layer_norm_block(xl, xs, p.ln0, p.ln0 + C, C, 1e-5f, red);
       if (blockIdx.x == 0)
@@ -208,11 +216,11 @@ v6_decode_kernel(Args p) {
       for (int c = tid; c < C; c += blockDim.x) p.att_out[static_cast<size_t>(l) * C + c] = xl[c];
     {
       const float* mx = vec + kMaaX * C;
-      quantize_n<1>([&](int, int c) { return add(xl[c], mul(sub(att_in[c], xl[c]), mx[c])); },
-                    C, q8, 0, dxs, red);
-      matvec_grid<false, 1>(m_layer + mo.maa1, 5 * DM, C, 1, [&](int, int) { return q8; },
-          [&](int row, int, int acc) {
-            mixdn_g[row] = tanhf(dequant(acc, dxs[0], s_layer[so.maa1 + row]));
+      act_n<WF, 1>([&](int, int c) { return add(xl[c], mul(sub(att_in[c], xl[c]), mx[c])); },
+                   C, q8, 0, dxs, red);
+      matvec_grid<LF, 1>(m_layer + mo.maa1, 5 * DM, C, 1, [&](int, int) { return q8; },
+          [&](int row, int, auto acc) {
+            mixdn_g[row] = tanhf(dequant(acc, dxs[0], s_layer + so.maa1 + row));
           });
     }
     barrier();
@@ -253,19 +261,19 @@ v6_decode_kernel(Args p) {
     barrier();
 
     // ---- phase B: five mixes quantized, rkvg rows, dw1 rows with tanh ------
-    quantize_n<5>([&](int m, int c) { return mix_g[m * C + c]; }, C, q8, C, dxs, red);
-    matvec_grid<W4, 1>(m_layer + mo.rkvg, 4 * C, C, 1,
+    act_n<WF, 5>([&](int m, int c) { return mix_g[m * C + c]; }, C, q8, C, dxs, red);
+    matvec_grid<WF, 1>(m_layer + mo.rkvg, 4 * C, C, 1,
         [&](int row, int) { return q8 + rkvg_mix(row / C) * C; },
-        [&](int row, int, int acc) {
+        [&](int row, int, auto acc) {
           const int part = row / C;
-          float y = dequant(acc, dxs[rkvg_mix(part)], s_layer[so.rkvg + row]);
+          float y = dequant(acc, dxs[rkvg_mix(part)], s_layer + so.rkvg + row);
           if (part == 3) y = mul(y, sigmoidf(y));  // silu gate
           rkvg_g[row] = y;
         },
-        lanes_for(C, W4));
-    matvec_grid<false, 1>(m_layer + mo.dw1, DD, C, 1, [&](int, int) { return q8; },  // mix w
-        [&](int row, int, int acc) {
-          dn_g[row] = tanhf(dequant(acc, dxs[0], s_layer[so.dw1 + row]));
+        lanes_for(C, WF));
+    matvec_grid<LF, 1>(m_layer + mo.dw1, DD, C, 1, [&](int, int) { return q8; },  // mix w
+        [&](int row, int, auto acc) {
+          dn_g[row] = tanhf(dequant(acc, dxs[0], s_layer + so.dw1 + row));
         },
         32, true);
     barrier();
@@ -277,13 +285,13 @@ v6_decode_kernel(Args p) {
       float* h_v = hv + 2 * S;
       float* h_w = hv + 3 * S;
       float* h_y = hv + 4 * S;
-      quantize_n<1>([&](int, int c) { return dn_g[c]; }, DD, q8, 0, dxs, red);
+      act_n<LF, 1>([&](int, int c) { return dn_g[c]; }, DD, q8, 0, dxs, red);
       const float* tdecay = vec + kTDecay * C;
-      matvec_rows<false, 1>(m_layer + mo.dw2, S, DD, tid >> 5, blockDim.x >> 5, 32, 1,
+      matvec_rows<LF, 1>(m_layer + mo.dw2, S, DD, tid >> 5, blockDim.x >> 5, 32, 1,
           [&](int r) { return h * S + r; }, [&](int, int) { return q8; },
-          [&](int r, int, int acc) {
+          [&](int r, int, auto acc) {
             const int c = h * S + r;
-            const float wl = add(dequant(acc, dxs[0], s_layer[so.dw2 + c]), tdecay[c]);
+            const float wl = add(dequant(acc, dxs[0], s_layer + so.dw2 + c), tdecay[c]);
             h_w[r] = expf(-expf(wl));
           });
       const int c = h * S + tid;
@@ -333,12 +341,12 @@ v6_decode_kernel(Args p) {
     barrier();
 
     // ---- phase D: out rows + residual -------------------------------------
-    quantize_n<1>([&](int, int c) { return xo_g[c]; }, C, q8, 0, dxs, red);
-    matvec_grid<W4, 1>(m_layer + mo.out, C, C, 1, [&](int, int) { return q8; },
-        [&](int row, int, int acc) {
-          x_g[row] = add(x_g[row], dequant(acc, dxs[0], s_layer[so.out + row]));
+    act_n<WF, 1>([&](int, int c) { return xo_g[c]; }, C, q8, 0, dxs, red);
+    matvec_grid<WF, 1>(m_layer + mo.out, C, C, 1, [&](int, int) { return q8; },
+        [&](int row, int, auto acc) {
+          x_g[row] = add(x_g[row], dequant(acc, dxs[0], s_layer + so.out + row));
         },
-        lanes_for(C, W4));
+        lanes_for(C, WF));
     barrier();
 
     // ---- phase E: ln2 + shift, fk rows with relu^2, fr rows with sigmoid ----
@@ -349,79 +357,82 @@ v6_decode_kernel(Args p) {
       for (int c = tid; c < C; c += blockDim.x) p.ffn_out[static_cast<size_t>(l) * C + c] = xl[c];
     {
       const float* fx = vec + kFXK * C;  // rows k, r
-      quantize_n<2>(
+      act_n<WF, 2>(
           [&](int m, int c) { return add(xl[c], mul(sub(ffn_in[c], xl[c]), fx[m * C + c])); },
           C, q8, C, dxs, red);
-      matvec_grid<W4, 1>(m_layer + mo.fk, F, C, 1, [&](int, int) { return q8; },
-          [&](int row, int, int acc) {
-            const float y = fmaxf(dequant(acc, dxs[0], s_layer[so.fk + row]), 0.f);
+      matvec_grid<WF, 1>(m_layer + mo.fk, F, C, 1, [&](int, int) { return q8; },
+          [&](int row, int, auto acc) {
+            const float y = fmaxf(dequant(acc, dxs[0], s_layer + so.fk + row), 0.f);
             fk_g[row] = mul(y, y);
           },
-          lanes_for(C, W4));
-      matvec_grid<W4, 1>(m_layer + mo.fr, C, C, 1, [&](int, int) { return q8 + C; },
-          [&](int row, int, int acc) {
-            rg_g[row] = sigmoidf(dequant(acc, dxs[1], s_layer[so.fr + row]));
+          lanes_for(C, WF));
+      matvec_grid<WF, 1>(m_layer + mo.fr, C, C, 1, [&](int, int) { return q8 + C; },
+          [&](int row, int, auto acc) {
+            rg_g[row] = sigmoidf(dequant(acc, dxs[1], s_layer + so.fr + row));
           },
-          lanes_for(C, W4), true);
+          lanes_for(C, WF), true);
     }
     barrier();
 
     // ---- phase F: fv rows, x += sigmoid(fr) * fv ----------------------------
-    quantize_n<1>([&](int, int c) { return fk_g[c]; }, F, q8, 0, dxs, red);
-    matvec_grid<W4, 1>(m_layer + mo.fv, C, F, 1, [&](int, int) { return q8; },
-        [&](int row, int, int acc) {
-          x_g[row] = add(x_g[row], mul(rg_g[row], dequant(acc, dxs[0], s_layer[so.fv + row])));
+    act_n<WF, 1>([&](int, int c) { return fk_g[c]; }, F, q8, 0, dxs, red);
+    matvec_grid<WF, 1>(m_layer + mo.fv, C, F, 1, [&](int, int) { return q8; },
+        [&](int row, int, auto acc) {
+          x_g[row] = add(x_g[row], mul(rg_g[row], dequant(acc, dxs[0], s_layer + so.fv + row)));
         },
-        lanes_for(F, W4));
+        lanes_for(F, WF));
     barrier();
   }
 
   // ---- head: ln_out, quantize, V rows (decode_common.cuh) -----------------
-  lm_head(x_g, p.head, p.head_d, p.ln_out, p.logits, C, p.V, xs, xl, red, dxs, q8);
+  lm_head<WF>(x_g, p.head, p.head_d, p.ln_out, p.logits, C, p.V, xs, xl, red, dxs, q8);
   PHASE_MARK();
 }
 
-size_t smem_bytes(int C, int S, int DM, int F) {
+// Shared memory of a launch in form wf: the floats, then the activations
+// (int8 codes, or f32 in the bf16 form).
+size_t smem_bytes(int C, int S, int DM, int F, int wf) {
   int q = 5 * C;
   if (F > q) q = F;
   const size_t floats = 2ull * C + hv_floats(S, DM) + 8 * 32 + 8;
-  return floats * sizeof(float) + ((q + 15) / 16) * 16;
+  const size_t act = (wf == kBf16 ? sizeof(float) : 1) * static_cast<size_t>(q);
+  return floats * sizeof(float) + ((act + 15) / 16) * 16;
 }
 
-const void* kernel_for(bool w4) {
-  return w4 ? reinterpret_cast<const void*>(v6_decode_kernel<true>)
-            : reinterpret_cast<const void*>(v6_decode_kernel<false>);
+const void* kernel_for(int wf) {
+  if (wf == kBf16) return reinterpret_cast<const void*>(v6_decode_kernel<kBf16>);
+  return wf == kInt4 ? reinterpret_cast<const void*>(v6_decode_kernel<kInt4>)
+                     : reinterpret_cast<const void*>(v6_decode_kernel<kInt8>);
 }
 
-// Grid size a launch uses (blocks), or a negative CUDA error code (0: the
-// kernel does not fit on an SM at these sizes).
-int grid_blocks_for(bool w4, int C, int S, int DM, int F) {
+// Grid size a launch in form wf uses (blocks), or a negative CUDA error
+// code (0: the kernel does not fit on an SM at these sizes).
+int grid_blocks_for(int wf, int C, int S, int DM, int F) {
   int dev = 0, sms = 0, per_sm = 0;
-  const size_t smem = smem_bytes(C, S, DM, F);
+  const size_t smem = smem_bytes(C, S, DM, F, wf);
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel_for(w4), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+    err = set_smem(kernel_for(wf), smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_for(w4), kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_for(wf), kThreads, smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
   if (per_sm > 1) per_sm = 1;  // one block per SM, as K3
   return per_sm * sms;
 }
 
-int launch(bool w4, const void* token, const void* emb, const void* ln0, const void* mats,
+int launch(int wf, const void* token, const void* emb, const void* ln0, const void* mats,
            const void* scales, const void* vecs, const void* maa2, const void* head,
            const void* head_d, const void* ln_out, const void* att_in, const void* ffn_in,
            const void* heads_in, void* att_out, void* ffn_out, void* heads_out, void* logits,
-           void* scratch, int C, int H, int S, int DM, int DD, int F, int L, int V,
+           void* scratch, int C, int H, int S, int DM, int DD, int F, int L, int V, int emb_f32,
            int grid_blocks, void* stream) {
   if (grid_blocks <= 0 || kThreads % S != 0 || S * S / kThreads > kMaxJ || DM % 4 != 0 ||
       H * S != C)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.token = static_cast<const int*>(token);
-  a.emb = static_cast<const uint16_t*>(emb);
+  a.emb = emb;
   a.ln0 = static_cast<const float*>(ln0);
   a.mats = static_cast<const int8_t*>(mats);
   a.scales = static_cast<const float*>(scales);
@@ -439,40 +450,57 @@ int launch(bool w4, const void* token, const void* emb, const void* ln0, const v
   a.logits = static_cast<float*>(logits);
   a.scratch = static_cast<float*>(scratch);
   a.C = C; a.H = H; a.S = S; a.DM = DM; a.DD = DD; a.F = F; a.L = L; a.V = V;
+  a.emb_f32 = emb_f32;
   void* kargs[] = {&a};
-  cudaError_t err = cudaLaunchCooperativeKernel(kernel_for(w4), dim3(grid_blocks),
-                                                dim3(kThreads), kargs, smem_bytes(C, S, DM, F),
-                                                static_cast<cudaStream_t>(stream));
+  const size_t smem = smem_bytes(C, S, DM, F, wf);
+  cudaError_t err = set_smem(kernel_for(wf), smem);
+  if (err == cudaSuccess)
+    err = cudaLaunchCooperativeKernel(kernel_for(wf), dim3(grid_blocks), dim3(kThreads), kargs,
+                                      smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The w8a8 and w4a8 entries take the same arguments: the grid size the
-// launch uses (blocks, or a negative CUDA error code), and one launch.
+// The w8a8, w4a8 and bf16 entries: the grid size the launch uses (blocks,
+// or a negative CUDA error code), and one launch. The bf16 entry takes one
+// int more, emb_f32 (the embedding table is f32, not bf16); it reads no
+// scales or head_d (pass null).
 extern "C" int rwkv_v6_decode_grid(int C, int S, int DM, int DD, int F) {
   (void)DD;
-  return grid_blocks_for(false, C, S, DM, F);
+  return grid_blocks_for(kInt8, C, S, DM, F);
 }
 
 extern "C" int rwkv_v6_decode_w4_grid(int C, int S, int DM, int DD, int F) {
   (void)DD;
-  return grid_blocks_for(true, C, S, DM, F);
+  return grid_blocks_for(kInt4, C, S, DM, F);
 }
 
-#define RWKV_V6_DECODE_ENTRY(name, w4)                                                         \
-  extern "C" int name(const void* token, const void* emb, const void* ln0, const void* mats,   \
-                      const void* scales, const void* vecs, const void* maa2,                  \
-                      const void* head, const void* head_d, const void* ln_out,                \
-                      const void* att_in, const void* ffn_in, const void* heads_in,            \
-                      void* att_out, void* ffn_out, void* heads_out, void* logits,             \
-                      void* scratch, int C, int H, int S, int DM, int DD, int F, int L, int V, \
-                      int grid_blocks, void* stream) {                                         \
-    return launch(w4, token, emb, ln0, mats, scales, vecs, maa2, head, head_d, ln_out, att_in, \
-                  ffn_in, heads_in, att_out, ffn_out, heads_out, logits, scratch, C, H, S, DM, \
-                  DD, F, L, V, grid_blocks, stream);                                           \
-  }
+extern "C" int rwkv_v6_decode_bf16_grid(int C, int S, int DM, int DD, int F) {
+  (void)DD;
+  return grid_blocks_for(kBf16, C, S, DM, F);
+}
 
-RWKV_V6_DECODE_ENTRY(rwkv_v6_decode, false)
-RWKV_V6_DECODE_ENTRY(rwkv_v6_decode_w4, true)
+#define RWKV_V6_DECODE_PARAMS                                                                  \
+  const void *token, const void *emb, const void *ln0, const void *mats, const void *scales,   \
+      const void *vecs, const void *maa2, const void *head, const void *head_d,                \
+      const void *ln_out, const void *att_in, const void *ffn_in, const void *heads_in,        \
+      void *att_out, void *ffn_out, void *heads_out, void *logits, void *scratch, int C,       \
+      int H, int S, int DM, int DD, int F, int L, int V
+#define RWKV_V6_DECODE_ARGS                                                                    \
+  token, emb, ln0, mats, scales, vecs, maa2, head, head_d, ln_out, att_in, ffn_in, heads_in,   \
+      att_out, ffn_out, heads_out, logits, scratch, C, H, S, DM, DD, F, L, V
+
+extern "C" int rwkv_v6_decode(RWKV_V6_DECODE_PARAMS, int grid_blocks, void* stream) {
+  return launch(kInt8, RWKV_V6_DECODE_ARGS, 0, grid_blocks, stream);
+}
+
+extern "C" int rwkv_v6_decode_w4(RWKV_V6_DECODE_PARAMS, int grid_blocks, void* stream) {
+  return launch(kInt4, RWKV_V6_DECODE_ARGS, 0, grid_blocks, stream);
+}
+
+extern "C" int rwkv_v6_decode_bf16(RWKV_V6_DECODE_PARAMS, int emb_f32, int grid_blocks,
+                                   void* stream) {
+  return launch(kBf16, RWKV_V6_DECODE_ARGS, emb_f32, grid_blocks, stream);
+}

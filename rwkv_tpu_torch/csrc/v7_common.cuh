@@ -16,19 +16,20 @@ enum VecRow {
 };
 
 // Byte offsets of a layer's six matrices in the flat pack's [L, bytes]
-// int8 buffer (rkv | lora1 | lora2 | out | fk | fv), and the layer's size.
-// Under w4 the big ones (rkv, out, fk, fv) hold int4 codes, two a byte.
+// buffer (rkv | lora1 | lora2 | out | fk | fv), and the layer's size, for
+// weight form wf. Under w4 the big ones (rkv, out, fk, fv) hold int4 codes,
+// two a byte, and the LoRAs int8; in the bf16 form all six are bf16.
 struct MatOffsets {
   size_t rkv, l1, l2, out, fk, fv, layer;
-  __host__ __device__ MatOffsets(int C, int D, int F, bool w4) {
-    const size_t half = w4 ? 2 : 1;
+  __host__ __device__ MatOffsets(int C, int D, int F, int wf) {
+    const int sf = small_form(wf);
     rkv = 0;
-    l1 = rkv + 3ull * C * C / half;
-    l2 = l1 + 4ull * D * C;
-    out = l2 + 4ull * C * D;
-    fk = out + 1ull * C * C / half;
-    fv = fk + 1ull * F * C / half;
-    layer = fv + 1ull * C * F / half;
+    l1 = rkv + form_bytes(wf, 3ull * C * C);
+    l2 = l1 + form_bytes(sf, 4ull * D * C);
+    out = l2 + form_bytes(sf, 4ull * C * D);
+    fk = out + form_bytes(wf, 1ull * C * C);
+    fv = fk + form_bytes(wf, 1ull * F * C);
+    layer = fv + form_bytes(wf, 1ull * C * F);
   }
 };
 
@@ -52,14 +53,17 @@ struct HeadIO {
 };
 
 // The time mix of head h for one sequence, by the whole block: the four
-// lora downs quantized as whole vectors, the 4 x S lora2 rows of the
-// head's own channels (decay, a gate, output gate, value gate), kk l2 norm,
-// k update, value residual, wkv7 state update, group norm, r_k bonus, gate.
-// Shared scratch: hv 12 * S floats, red 256 floats, dxs 4 floats, q8 4D
-// bytes. blockDim.x must be a multiple of S with S * S / blockDim.x <= kMaxJ.
+// lora downs quantized as whole vectors (bf16 form: staged in f32), the
+// 4 x S lora2 rows of the head's own channels (decay, a gate, output gate,
+// value gate), kk l2 norm, k update, value residual, wkv7 state update,
+// group norm, r_k bonus, gate. Shared scratch: hv 12 * S floats, red 256
+// floats, dxs 4 floats, q8 4D activations. blockDim.x must be a multiple
+// of S with S * S / blockDim.x <= kMaxJ.
+template <int WF>
 __device__ void v7_head_step(int l, int h, const HeadIO& io, const int8_t* m_l2,
                              const float* s_l2, const float* vec, int C, int S, int D,
-                             float* hv, float* red, float* dxs, int8_t* q8) {
+                             float* hv, float* red, float* dxs, act_t<WF>* q8) {
+  constexpr int LF = small_form(WF);
   const int tid = threadIdx.x;
   float* h_r = hv;
   float* h_w = hv + S;       // decay
@@ -71,14 +75,14 @@ __device__ void v7_head_step(int l, int h, const HeadIO& io, const int8_t* m_l2,
   float* h_ag = hv + 7 * S;  // a gate
   float* h_g = hv + 8 * S;   // output gate
   float* h_vm = hv + 9 * S;  // value-residual gate
-  quantize_n<4>([&](int m, int c) { return io.dn[m * D + c]; }, D, q8, D, dxs, red);
+  act_n<LF, 4>([&](int m, int c) { return io.dn[m * D + c]; }, D, q8, D, dxs, red);
   // one lane per row: all 4 x S rows in one round of the block's warps
-  matvec_rows<false, 1>(m_l2, 4 * S, D, tid >> 5, blockDim.x >> 5, 1, 1,
+  matvec_rows<LF, 1>(m_l2, 4 * S, D, tid >> 5, blockDim.x >> 5, 1, 1,
       [&](int r) { return (r / S) * C + h * S + r % S; },
       [&](int r, int) { return q8 + (r / S) * D; },
-      [&](int r, int, int acc) {
+      [&](int r, int, auto acc) {
         const int part = r / S, i = r % S, c = h * S + i;
-        const float y = dequant(acc, dxs[part], s_l2[part * C + c]);
+        const float y = dequant(acc, dxs[part], s_l2 + part * C + c);
         if (part == 0) {
           h_w[i] = expf(mul(sigmoidf(add(y, vec[kW0 * C + c])), -0.606531f));
         } else if (part == 1) {

@@ -1,14 +1,16 @@
-// K3: one RWKV v7 decode step at B=1 for all layers, w8a8 or w4a8, with
-// ln_out and the LM head inside the kernel. One launch per token.
+// K3: one RWKV v7 decode step at B=1 for all layers, w8a8, w4a8 or bf16,
+// with ln_out and the LM head inside the kernel. One launch per token.
 //
 // Replaces rwkv_tpu/ops/megakernel.py::v7_decode_megakernel (kernel body
-// _make_kernel, head phases _emit_head_phases, int4 matvec matv4/_w4_acc).
+// _make_kernel, head phases _emit_head_phases, int4 matvec matv4/_w4_acc,
+// and the quant=False form: bf16 matrices and head, matv's f32 branch).
 //
 // Bound on this card: the step streams every weight once -- at 169M w8a8
 // about 12 x 7.47 MB of int8 matrices, ~0.1 MB/layer of scales and vectors,
 // 0.39 MB/layer of wkv state read and written, and the 50.3 MB int8 head,
-// ~146 MB in all (w4a8: the four big matrices at half the bytes, ~104 MB)
-// -- so HBM bandwidth bounds it (~44 us / ~31 us at 3.35 TB/s).
+// ~146 MB in all (w4a8: the four big matrices at half the bytes, ~104 MB;
+// bf16: every matrix and the head at twice the bytes, ~285 MB) -- so HBM
+// bandwidth bounds it (~44 / ~31 / ~85 us at 3.35 TB/s).
 // Design: a persistent cooperative kernel (cudaLaunchCooperativeKernel, one
 // 256-thread block per SM) whose phases are separated by grid-wide
 // barriers, five per layer:
@@ -32,7 +34,12 @@
 // a whole (amax over all of it, codes rint(x * inv) clipped to +-127), the
 // int32 sum is scaled as (float(acc) * dx) * d, and the elementwise formulas
 // are evaluated with explicit round-to-nearest multiplies and adds so that
-// no fused multiply-add shifts an activation across a code boundary.
+// no fused multiply-add shifts an activation across a code boundary. The
+// bf16 form (template WF = kBf16, common.cuh) runs the same phases with
+// every matrix and the head in bf16: the input vectors are staged in f32
+// instead of quantized, and each row's f32 dot is the output as it is (no
+// scales). A bf16 row is twice an int8 row's bytes, so K3 takes a row of
+// up to 16 chunks a lane (two rounds; decode_shape_error).
 #include "v7_common.cuh"
 
 #include <cooperative_groups.h>
@@ -45,13 +52,13 @@ constexpr int kThreads = 256;
 
 struct Args {
   const int* token;
-  const uint16_t* emb;      // bf16 bits [V, C]
+  const void* emb;          // [V, C]: bf16 bits, or f32 when emb_f32
   const float* ln0;         // [2, C]
   const int8_t* mats;       // [L, MatOffsets.layer]: rkv|lora1|lora2|out|fk|fv
-  const float* scales;      // [L, 9C + 4D + F] in the same order
+  const float* scales;      // [L, 9C + 4D + F] in the same order (int forms)
   const float* vecs;        // [L, kNumVec, C]
-  const int8_t* head;       // [V, C]
-  const float* head_d;      // [V]
+  const int8_t* head;       // [V, C] int8 (bf16 in the bf16 form)
+  const float* head_d;      // [V] (int forms)
   const float* ln_out;      // [2, C]
   const float* att_in;      // [L, C]
   const float* ffn_in;      // [L, C]
@@ -62,6 +69,7 @@ struct Args {
   float* logits;            // [V]
   float* scratch;           // scratch_floats(C, D, F); x ends at scratch[0..C)
   int C, H, S, D, F, L, V;
+  int emb_f32;
 };
 
 // Floats of the kernel's global scratch (the residual stream and the
@@ -70,9 +78,10 @@ __host__ __device__ inline size_t scratch_floats(int C, int D, int F) {
   return 7ull * C + 4ull * D + F;
 }
 
-template <bool W4>
+template <int WF>
 __global__ void __launch_bounds__(kThreads)
 v7_decode_kernel(Args p) {
+  constexpr int LF = small_form(WF);  // the LoRAs' form
   cg::grid_group grid = cg::this_grid();
   const int C = p.C, H = p.H, S = p.S, D = p.D, F = p.F;
   const int tid = threadIdx.x;
@@ -83,7 +92,7 @@ v7_decode_kernel(Args p) {
   float* hv = xl + C;                            // [12][S] per-head vectors
   float* red = hv + 12 * S;                      // [8][32] reduction scratch
   float* dxs = red + 8 * 32;                     // [8] activation scales
-  int8_t* q8 = reinterpret_cast<int8_t*>(dxs + 8);  // [max(6C, F, 4D)]
+  act_t<WF>* q8 = reinterpret_cast<act_t<WF>*>(dxs + 8);  // [max(6C, F, 4D)]
 
   float* x_g = p.scratch;          // residual stream
   float* r_g = x_g + C;
@@ -107,7 +116,7 @@ v7_decode_kernel(Args p) {
   };
   PHASE_MARK();
 
-  const MatOffsets mo(C, D, F, W4);
+  const MatOffsets mo(C, D, F, WF);
   const size_t sc_layer = 9ull * C + 4ull * D + F;
 
   for (int l = 0; l < p.L; ++l) {
@@ -124,8 +133,8 @@ v7_decode_kernel(Args p) {
 
     // ---- phase A: ln1, shift mixes, rkv + lora1 rows --------------------
     if (l == 0) {
-      const uint16_t* e = p.emb + static_cast<size_t>(*p.token) * C;
-      for (int c = tid; c < C; c += blockDim.x) xl[c] = bf16_to_float(e[c]);
+      const size_t e = static_cast<size_t>(*p.token) * C;
+      for (int c = tid; c < C; c += blockDim.x) xl[c] = emb_at(p.emb, p.emb_f32, e + c);
       __syncthreads();
       layer_norm_block(xl, xs, p.ln0, p.ln0 + C, C, 1e-5f, red);
       if (blockIdx.x == 0)
@@ -140,22 +149,22 @@ v7_decode_kernel(Args p) {
     {
       // xl + (x_prev - xl) * coeff[m], m = r, w, k, v, a, g
       const float* cf = vec + kCoeff * C;
-      quantize_n<6>(
+      act_n<WF, 6>(
           [&](int m, int c) { return add(xl[c], mul(sub(att_in[c], xl[c]), cf[m * C + c])); },
           C, q8, C, dxs, red);
       // rkv rows take mixes r(0), k(2), v(3); lora1 rows w(1), a(4), g(5), v(3)
-      matvec_grid<W4, 1>(m_layer + mo.rkv, 3 * C, C, 1,
+      matvec_grid<WF, 1>(m_layer + mo.rkv, 3 * C, C, 1,
           [&](int row, int) { return q8 + rkv_mix(row / C) * C; },
-          [&](int row, int, int acc) {
+          [&](int row, int, auto acc) {
             const int part = row / C;
-            const float y = dequant(acc, dxs[rkv_mix(part)], s_rkv[row]);
+            const float y = dequant(acc, dxs[rkv_mix(part)], s_rkv + row);
             (part == 0 ? r_g : part == 1 ? k_g : v_g)[row - part * C] = y;
           });
-      matvec_grid<false, 1>(m_layer + mo.l1, 4 * D, C, 1,
+      matvec_grid<LF, 1>(m_layer + mo.l1, 4 * D, C, 1,
           [&](int row, int) { return q8 + lora1_mix(row / D) * C; },
-          [&](int row, int, int acc) {
+          [&](int row, int, auto acc) {
             const int part = row / D;
-            float y = dequant(acc, dxs[lora1_mix(part)], s_l1[row]);
+            float y = dequant(acc, dxs[lora1_mix(part)], s_l1 + row);
             if (part == 0) y = tanhf(y);
             if (part == 2) y = sigmoidf(y);
             dn_g[row] = y;
@@ -170,15 +179,15 @@ v7_decode_kernel(Args p) {
       const HeadIO io{r_g, k_g, v_g, dn_g, vf_g, xo_g, p.heads_in + st_layer,
                       p.heads_out + st_layer};
       for (int h = blockIdx.x; h < H; h += gridDim.x)  // block-uniform
-        v7_head_step(l, h, io, m_layer + mo.l2, s_l2, vec, C, S, D, hv, red, dxs, q8);
+        v7_head_step<WF>(l, h, io, m_layer + mo.l2, s_l2, vec, C, S, D, hv, red, dxs, q8);
     }
     barrier();
 
     // ---- phase D: out rows + residual -------------------------------------
-    quantize_n<1>([&](int, int c) { return xo_g[c]; }, C, q8, 0, dxs, red);
-    matvec_grid<W4, 1>(m_layer + mo.out, C, C, 1, [&](int, int) { return q8; },
-        [&](int row, int, int acc) {
-          x_g[row] = add(x_g[row], dequant(acc, dxs[0], s_out[row]));
+    act_n<WF, 1>([&](int, int c) { return xo_g[c]; }, C, q8, 0, dxs, red);
+    matvec_grid<WF, 1>(m_layer + mo.out, C, C, 1, [&](int, int) { return q8; },
+        [&](int row, int, auto acc) {
+          x_g[row] = add(x_g[row], dequant(acc, dxs[0], s_out + row));
         });
     barrier();
 
@@ -190,11 +199,11 @@ v7_decode_kernel(Args p) {
       for (int c = tid; c < C; c += blockDim.x) p.ffn_out[static_cast<size_t>(l) * C + c] = xl[c];
     {
       const float* xk = vec + kXK * C;
-      quantize_n<1>([&](int, int c) { return add(xl[c], mul(sub(ffn_in[c], xl[c]), xk[c])); },
-                    C, q8, 0, dxs, red);
-      matvec_grid<W4, 1>(m_layer + mo.fk, F, C, 1, [&](int, int) { return q8; },
-          [&](int row, int, int acc) {
-            const float y = fmaxf(dequant(acc, dxs[0], s_fk[row]), 0.f);
+      act_n<WF, 1>([&](int, int c) { return add(xl[c], mul(sub(ffn_in[c], xl[c]), xk[c])); },
+                   C, q8, 0, dxs, red);
+      matvec_grid<WF, 1>(m_layer + mo.fk, F, C, 1, [&](int, int) { return q8; },
+          [&](int row, int, auto acc) {
+            const float y = fmaxf(dequant(acc, dxs[0], s_fk + row), 0.f);
             fk_g[row] = mul(y, y);
           });
     }
@@ -203,36 +212,41 @@ v7_decode_kernel(Args p) {
     // ---- phase F: fv rows + residual --------------------------------------
     for (int c = tid; c < F; c += blockDim.x) xs[c] = fk_g[c];
     __syncthreads();
-    quantize_n<1>([&](int, int c) { return xs[c]; }, F, q8, 0, dxs, red);
-    matvec_grid<W4, 1>(m_layer + mo.fv, C, F, 1, [&](int, int) { return q8; },
-        [&](int row, int, int acc) {
-          x_g[row] = add(x_g[row], dequant(acc, dxs[0], s_fv[row]));
+    act_n<WF, 1>([&](int, int c) { return xs[c]; }, F, q8, 0, dxs, red);
+    matvec_grid<WF, 1>(m_layer + mo.fv, C, F, 1, [&](int, int) { return q8; },
+        [&](int row, int, auto acc) {
+          x_g[row] = add(x_g[row], dequant(acc, dxs[0], s_fv + row));
         });
     barrier();
   }
 
   // ---- head: ln_out, quantize, V rows (decode_common.cuh) -----------------
-  lm_head(x_g, p.head, p.head_d, p.ln_out, p.logits, C, p.V, xs, xl, red, dxs, q8);
+  lm_head<WF>(x_g, p.head, p.head_d, p.ln_out, p.logits, C, p.V, xs, xl, red, dxs, q8);
   PHASE_MARK();
 }
 
-size_t smem_bytes(int C, int S, int F, int D) {
+// Shared memory of a launch in form wf: the floats above, then the
+// activations (int8 codes, or f32 in the bf16 form).
+size_t smem_bytes(int C, int S, int F, int D, int wf) {
   int q = 6 * C;
   if (F > q) q = F;
   if (4 * D > q) q = 4 * D;
   const size_t floats = static_cast<size_t>(C > F ? C : F) + C + 12ull * S + 8 * 32 + 8;
-  return floats * sizeof(float) + ((q + 15) / 16) * 16;
+  const size_t act = (wf == kBf16 ? sizeof(float) : 1) * static_cast<size_t>(q);
+  return floats * sizeof(float) + ((act + 15) / 16) * 16;
 }
 
-// Grid size a launch of kernel k uses (blocks), or a negative CUDA error
-// code.
-int grid_blocks_for(const void* k, int C, int S, int D, int F) {
+// Grid size a launch of kernel k in form wf uses (blocks), or a negative
+// CUDA error code.
+int grid_blocks_for(const void* k, int wf, int C, int S, int D, int F) {
   int dev = 0, sms = 0, per_sm = 0;
+  const size_t smem = smem_bytes(C, S, F, D, wf);
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kThreads,
-                                                        smem_bytes(C, S, F, D));
+    err = set_smem(k, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kThreads, smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
   // one block per SM: measured ~2% faster than two (fewer blocks at each
   // barrier and in each redundant preamble), scripts/probe_torch_decode.py
@@ -240,17 +254,17 @@ int grid_blocks_for(const void* k, int C, int S, int D, int F) {
   return per_sm * sms;
 }
 
-int launch(const void* k, const void* token, const void* emb, const void* ln0,
+int launch(const void* k, int wf, const void* token, const void* emb, const void* ln0,
            const void* mats, const void* scales, const void* vecs, const void* head,
            const void* head_d, const void* ln_out, const void* att_in, const void* ffn_in,
            const void* heads_in, void* att_out, void* ffn_out, void* heads_out, void* logits,
-           void* scratch, int C, int H, int S, int D, int F, int L, int V, int grid_blocks,
-           void* stream) {
+           void* scratch, int C, int H, int S, int D, int F, int L, int V, int emb_f32,
+           int grid_blocks, void* stream) {
   if (grid_blocks <= 0 || kThreads % S != 0 || S * S / kThreads > kMaxJ)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.token = static_cast<const int*>(token);
-  a.emb = static_cast<const uint16_t*>(emb);
+  a.emb = emb;
   a.ln0 = static_cast<const float*>(ln0);
   a.mats = static_cast<const int8_t*>(mats);
   a.scales = static_cast<const float*>(scales);
@@ -267,40 +281,58 @@ int launch(const void* k, const void* token, const void* emb, const void* ln0,
   a.logits = static_cast<float*>(logits);
   a.scratch = static_cast<float*>(scratch);
   a.C = C; a.H = H; a.S = S; a.D = D; a.F = F; a.L = L; a.V = V;
+  a.emb_f32 = emb_f32;
   void* kargs[] = {&a};
-  cudaError_t err = cudaLaunchCooperativeKernel(k, dim3(grid_blocks), dim3(kThreads), kargs,
-                                                smem_bytes(C, S, F, D),
-                                                static_cast<cudaStream_t>(stream));
+  const size_t smem = smem_bytes(C, S, F, D, wf);
+  cudaError_t err = set_smem(k, smem);
+  if (err == cudaSuccess)
+    err = cudaLaunchCooperativeKernel(k, dim3(grid_blocks), dim3(kThreads), kargs, smem,
+                                      static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-const void* const kW8 = reinterpret_cast<const void*>(v7_decode_kernel<false>);
-const void* const kW4 = reinterpret_cast<const void*>(v7_decode_kernel<true>);
+const void* const kW8 = reinterpret_cast<const void*>(v7_decode_kernel<kInt8>);
+const void* const kW4 = reinterpret_cast<const void*>(v7_decode_kernel<kInt4>);
+const void* const kBF = reinterpret_cast<const void*>(v7_decode_kernel<kBf16>);
 
 }  // namespace
 
-// The w8a8 and w4a8 entries take the same arguments: the grid size the
-// launch uses (blocks, or a negative CUDA error code), and one launch.
+// The w8a8, w4a8 and bf16 entries: the grid size the launch uses (blocks,
+// or a negative CUDA error code), and one launch. The bf16 entry takes one
+// int more, emb_f32 (the embedding table is f32, not bf16); it reads no
+// scales or head_d (pass null).
 extern "C" int rwkv_v7_decode_grid(int C, int S, int D, int F) {
-  return grid_blocks_for(kW8, C, S, D, F);
+  return grid_blocks_for(kW8, kInt8, C, S, D, F);
 }
 
 extern "C" int rwkv_v7_decode_w4_grid(int C, int S, int D, int F) {
-  return grid_blocks_for(kW4, C, S, D, F);
+  return grid_blocks_for(kW4, kInt4, C, S, D, F);
 }
 
-#define RWKV_V7_DECODE_ENTRY(name, kernel)                                                     \
-  extern "C" int name(const void* token, const void* emb, const void* ln0, const void* mats,   \
-                      const void* scales, const void* vecs, const void* head,                  \
-                      const void* head_d, const void* ln_out, const void* att_in,              \
-                      const void* ffn_in, const void* heads_in, void* att_out, void* ffn_out,  \
-                      void* heads_out, void* logits, void* scratch, int C, int H, int S,       \
-                      int D, int F, int L, int V, int grid_blocks, void* stream) {             \
-    return launch(kernel, token, emb, ln0, mats, scales, vecs, head, head_d, ln_out, att_in,   \
-                  ffn_in, heads_in, att_out, ffn_out, heads_out, logits, scratch, C, H, S, D,  \
-                  F, L, V, grid_blocks, stream);                                               \
-  }
+extern "C" int rwkv_v7_decode_bf16_grid(int C, int S, int D, int F) {
+  return grid_blocks_for(kBF, kBf16, C, S, D, F);
+}
 
-RWKV_V7_DECODE_ENTRY(rwkv_v7_decode, kW8)
-RWKV_V7_DECODE_ENTRY(rwkv_v7_decode_w4, kW4)
+#define RWKV_V7_DECODE_PARAMS                                                                  \
+  const void *token, const void *emb, const void *ln0, const void *mats, const void *scales,   \
+      const void *vecs, const void *head, const void *head_d, const void *ln_out,              \
+      const void *att_in, const void *ffn_in, const void *heads_in, void *att_out,             \
+      void *ffn_out, void *heads_out, void *logits, void *scratch, int C, int H, int S, int D, \
+      int F, int L, int V
+#define RWKV_V7_DECODE_ARGS                                                                    \
+  token, emb, ln0, mats, scales, vecs, head, head_d, ln_out, att_in, ffn_in, heads_in, att_out, \
+      ffn_out, heads_out, logits, scratch, C, H, S, D, F, L, V
+
+extern "C" int rwkv_v7_decode(RWKV_V7_DECODE_PARAMS, int grid_blocks, void* stream) {
+  return launch(kW8, kInt8, RWKV_V7_DECODE_ARGS, 0, grid_blocks, stream);
+}
+
+extern "C" int rwkv_v7_decode_w4(RWKV_V7_DECODE_PARAMS, int grid_blocks, void* stream) {
+  return launch(kW4, kInt4, RWKV_V7_DECODE_ARGS, 0, grid_blocks, stream);
+}
+
+extern "C" int rwkv_v7_decode_bf16(RWKV_V7_DECODE_PARAMS, int emb_f32, int grid_blocks,
+                                   void* stream) {
+  return launch(kBF, kBf16, RWKV_V7_DECODE_ARGS, emb_f32, grid_blocks, stream);
+}

@@ -1,11 +1,13 @@
-// K4: one RWKV v7 decode step for B sequences and all layers, w8a8 or
-// w4a8, without the LM head (the caller runs ln_out and K1 at M=B). One
+// K4: one RWKV v7 decode step for B sequences and all layers, w8a8, w4a8
+// or bf16, without the LM head (the caller runs ln_out and the head: K1 at
+// M=B, or the per-op head in the model's dtype under bf16 / f32). One
 // launch per step.
 //
 // Replaces rwkv_tpu/ops/megakernel.py::v7_decode_megakernel_batched
 // (_make_kernel_batched), v7_decode_megakernel_batched_packed
 // (_make_kernel_batched_packed) and v7_decode_megakernel_tiled
-// (_make_kernel_tiled, w8 and w4). Those three TPU kernels differ only in
+// (_make_kernel_tiled, w8 and w4), each also in its quant=False form (bf16
+// matrices, f32 activations). Those three TPU kernels differ only in
 // how they fit VMEM (batch on lanes, lane-packed state, a (layer, phase)
 // grid for wide models); on this card one kernel computes their function
 // for any B and width, reading the serving state layout [B, L, H, S_i, S_j]
@@ -30,7 +32,11 @@
 //       v7_head_step, as in K3, on that sequence's vectors and state.
 // Shared memory per block: the warps' sequence rows (8 x C floats) and the
 // tile's codes (max(6 x 8 x C, 8 x F) bytes) -- 61 KB at C=768, F=3072 and
-// 162 KB at C=2048, F=8192, inside the 227 KB a block may use. Above one
+// 162 KB at C=2048, F=8192, inside the 227 KB a block may use. The bf16
+// form stages the tile's inputs in f32, four times the bytes: a column
+// tile is then the largest of 8, 4, 2 or 1 sequences that fits (cols_for:
+// 8 at C=768, 172 KB; 2 at C=2048, 116 KB), so at wide C a phase reads its
+// rows again for every two sequences, from L2 after the first. Above one
 // tile (B > 8) a phase reads its rows again for each tile; a layer's
 // weights (7.5 MB at 169M w8a8) stay in the 50 MB L2, so the extra reads
 // come from L2 and only the first from HBM. Sequences with identical
@@ -39,7 +45,9 @@
 //
 // Numerics follow K3 (explicit round-to-nearest float ops, IEEE division in
 // the activation scale), so at B=1 K4 and K3 agree up to the order of the
-// layer-norm sums (warp sums here, block sums in K3).
+// layer-norm sums (warp sums here, block sums in K3). The bf16 form stages
+// each input vector in f32 where the int forms quantize it (quantize_warp)
+// and reads no scales; its rows' f32 dots are the outputs as they are.
 #include "v7_common.cuh"
 
 #include <cooperative_groups.h>
@@ -50,14 +58,14 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCols = kWarps;  // sequences per column tile: one per warp
+constexpr int kCols = kWarps;  // most sequences a column tile holds: one per warp
 
 struct Args {
   const int* tokens;        // [B]
-  const uint16_t* emb;      // bf16 bits [V, C]
+  const void* emb;          // [V, C]: bf16 bits, or f32 when emb_f32
   const float* ln0;         // [2, C]
   const int8_t* mats;       // [L, MatOffsets.layer]
-  const float* scales;      // [L, 9C + 4D + F]
+  const float* scales;      // [L, 9C + 4D + F] (int forms)
   const float* vecs;        // [L, kNumVec, C]
   const float* att_in;      // [B, L, C]
   const float* ffn_in;      // [B, L, C]
@@ -67,6 +75,8 @@ struct Args {
   float* heads_out;
   float* scratch;           // B * seq_scratch_floats; x [B, C] at its start
   int C, H, S, D, F, L, B;
+  int emb_f32;
+  int cols;                 // sequences per column tile (cols_for)
 };
 
 // The kernel's global scratch holds, per sequence, x, r, k, v, v_first and
@@ -124,53 +134,68 @@ __device__ void layer_norm_warp(float* x, const float* w, const float* b, int n,
 // Quantize N vectors of n values by one warp, each with its own amax.
 // f(i, v) fills v[m] with piece i of vector m (loading shared operands
 // once for all N); codes go to q8[m * q_stride + c], scales to
-// dxs[m * dx_stride] (lane 0).
-template <int N, typename Fn>
-__device__ void quantize_warp(Fn f, int n, int8_t* q8, int q_stride, float* dxs, int dx_stride) {
+// dxs[m * dx_stride] (lane 0). The bf16 form stores the f32 values there
+// instead (no scales).
+template <int WF, int N, typename Fn>
+__device__ void quantize_warp(Fn f, int n, act_t<WF>* q8, int q_stride, float* dxs,
+                              int dx_stride) {
   const int lane = threadIdx.x & 31, n4 = n >> 2;
-  float amax[N];
-#pragma unroll
-  for (int m = 0; m < N; ++m) amax[m] = 0.f;
+  if constexpr (WF == kBf16) {
 #pragma unroll 2
-  for (int i = lane; i < n4; i += 32) {
-    float4 v[N];
-    f(i, v);
+    for (int i = lane; i < n4; i += 32) {
+      float4 v[N];
+      f(i, v);
 #pragma unroll
-    for (int m = 0; m < N; ++m) amax[m] = fmaxf(amax[m], absmax4(v[m]));
-  }
-  float inv[N];
+      for (int m = 0; m < N; ++m) st4(q8 + m * q_stride, i, v[m]);
+    }
+  } else {
+    float amax[N];
 #pragma unroll
-  for (int m = 0; m < N; ++m) {
-    const float dx = warp_max(amax[m]) / 127.0f;
-    inv[m] = act_inv_scale(dx);
-    if (lane == 0) dxs[m * dx_stride] = dx;
-  }
+    for (int m = 0; m < N; ++m) amax[m] = 0.f;
 #pragma unroll 2
-  for (int i = lane; i < n4; i += 32) {
-    float4 v[N];
-    f(i, v);
+    for (int i = lane; i < n4; i += 32) {
+      float4 v[N];
+      f(i, v);
+#pragma unroll
+      for (int m = 0; m < N; ++m) amax[m] = fmaxf(amax[m], absmax4(v[m]));
+    }
+    float inv[N];
 #pragma unroll
     for (int m = 0; m < N; ++m) {
-      *reinterpret_cast<char4*>(q8 + m * q_stride + 4 * i) =
-          make_char4(act_code(v[m].x, inv[m]), act_code(v[m].y, inv[m]),
-                     act_code(v[m].z, inv[m]), act_code(v[m].w, inv[m]));
+      const float dx = warp_max(amax[m]) / 127.0f;
+      inv[m] = act_inv_scale(dx);
+      if (lane == 0) dxs[m * dx_stride] = dx;
+    }
+#pragma unroll 2
+    for (int i = lane; i < n4; i += 32) {
+      float4 v[N];
+      f(i, v);
+#pragma unroll
+      for (int m = 0; m < N; ++m) {
+        *reinterpret_cast<char4*>(q8 + m * q_stride + 4 * i) =
+            make_char4(act_code(v[m].x, inv[m]), act_code(v[m].y, inv[m]),
+                       act_code(v[m].z, inv[m]), act_code(v[m].w, inv[m]));
+      }
     }
   }
 }
 
-template <bool W4>
+template <int WF>
 __global__ void __launch_bounds__(kThreads, 1)
 v7_decode_batched_kernel(Args p) {
+  constexpr int LF = small_form(WF);  // the LoRAs' form
   cg::grid_group grid = cg::this_grid();
   const int C = p.C, H = p.H, S = p.S, D = p.D, F = p.F, L = p.L, B = p.B;
+  // the int forms' tile is always kCols (cols_for), a constant in their code
+  const int cols = WF == kBf16 ? p.cols : kCols;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  float* xw = reinterpret_cast<float*>(smem);   // [kWarps][C] a warp's sequence row
-  float* hv = xw + kWarps * C;                   // [12][S] per-head vectors
+  float* xw = reinterpret_cast<float*>(smem);   // [cols][C] a warp's sequence row
+  float* hv = xw + cols * C;                     // [12][S] per-head vectors
   float* red = hv + 12 * S;                      // [8][32] reduction scratch
   float* dxs = red + 8 * 32;                     // [6][kCols] activation scales
-  int8_t* q8 = reinterpret_cast<int8_t*>(dxs + 6 * kCols);  // tile codes
+  act_t<WF>* q8 = reinterpret_cast<act_t<WF>*>(dxs + 6 * kCols);  // tile activations
 
   float* x_g = p.scratch;                  // [B][C] residual stream (the output)
   float* r_g = x_g + static_cast<size_t>(B) * C;
@@ -194,9 +219,9 @@ v7_decode_batched_kernel(Args p) {
   };
   PHASE_MARK();
 
-  const MatOffsets mo(C, D, F, W4);
+  const MatOffsets mo(C, D, F, WF);
   const size_t sc_layer = 9ull * C + 4ull * D + F;
-  const int n_tiles = (B + kCols - 1) / kCols;
+  const int n_tiles = (B + cols - 1) / cols;
 
   for (int l = 0; l < L; ++l) {
     const int8_t* m_layer = p.mats + l * mo.layer;
@@ -210,18 +235,23 @@ v7_decode_batched_kernel(Args p) {
 
     // ---- phase A: ln1, shift mixes, rkv + lora1 rows, per column tile ----
     for (int t = 0; t < n_tiles; ++t) {
-      const int b0 = t * kCols;
-      const int nb = B - b0 < kCols ? B - b0 : kCols;
+      const int b0 = t * cols;
+      const int nb = B - b0 < cols ? B - b0 : cols;
       if (warp < nb) {
         const int b = b0 + warp;
         float* xr = xw + warp * C;
         if (l == 0) {
-          const uint2* e = reinterpret_cast<const uint2*>(
-              p.emb + static_cast<size_t>(p.tokens[b]) * C);
-          for (int i = lane; i < C / 4; i += 32) {
-            const uint2 u = e[i];  // four bf16, little end first
-            st4(xr, i, make_float4(bf16_to_float(u.x & 0xFFFFu), bf16_to_float(u.x >> 16),
-                                   bf16_to_float(u.y & 0xFFFFu), bf16_to_float(u.y >> 16)));
+          const size_t row = static_cast<size_t>(p.tokens[b]) * C;
+          if (p.emb_f32) {
+            for (int i = lane; i < C / 4; i += 32)
+              st4(xr, i, ld4(static_cast<const float*>(p.emb) + row, i));
+          } else {
+            const uint2* e = reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(p.emb) + row);
+            for (int i = lane; i < C / 4; i += 32) {
+              const uint2 u = e[i];  // four bf16, little end first
+              st4(xr, i, make_float4(bf16_to_float(u.x & 0xFFFFu), bf16_to_float(u.x >> 16),
+                                     bf16_to_float(u.y & 0xFFFFu), bf16_to_float(u.y >> 16)));
+            }
           }
           layer_norm_warp(xr, p.ln0, p.ln0 + C, C, 1e-5f);
           if (blockIdx.x == 0)
@@ -234,31 +264,31 @@ v7_decode_batched_kernel(Args p) {
         if (blockIdx.x == 0)
           for (int i = lane; i < C / 4; i += 32) st4(p.att_out + bl, i, ld4(xr, i));
         // xl + (x_prev - xl) * coeff[m], m = r, w, k, v, a, g: codes of mix
-        // m for tile column w at q8[(m * kCols + w) * C]
+        // m for tile column w at q8[(m * cols + w) * C]
         const float* att_in = p.att_in + bl;
         const float* cf = vec + kCoeff * C;
-        quantize_warp<6>(
+        quantize_warp<WF, 6>(
             [&](int i, float4 (&v)[6]) {
               const float4 xl = ld4(xr, i), xp = ld4(att_in, i);
 #pragma unroll
               for (int m = 0; m < 6; ++m) v[m] = mix4(xl, xp, ld4(cf + m * C, i));
             },
-            C, q8 + warp * C, kCols * C, dxs + warp, kCols);
+            C, q8 + warp * C, cols * C, dxs + warp, kCols);
       }
       __syncthreads();
-      matvec_grid<W4, kCols>(m_layer + mo.rkv, 3 * C, C, nb,
-          [&](int row, int b) { return q8 + (rkv_mix(row / C) * kCols + b) * C; },
-          [&](int row, int b, int acc) {
+      matvec_grid<WF, kCols>(m_layer + mo.rkv, 3 * C, C, nb,
+          [&](int row, int b) { return q8 + (rkv_mix(row / C) * cols + b) * C; },
+          [&](int row, int b, auto acc) {
             const int part = row / C;
-            const float y = dequant(acc, dxs[rkv_mix(part) * kCols + b], s_rkv[row]);
+            const float y = dequant(acc, dxs[rkv_mix(part) * kCols + b], s_rkv + row);
             (part == 0 ? r_g : part == 1 ? k_g : v_g)[static_cast<size_t>(b0 + b) * C +
                                                       row - part * C] = y;
           });
-      matvec_grid<false, kCols>(m_layer + mo.l1, 4 * D, C, nb,
-          [&](int row, int b) { return q8 + (lora1_mix(row / D) * kCols + b) * C; },
-          [&](int row, int b, int acc) {
+      matvec_grid<LF, kCols>(m_layer + mo.l1, 4 * D, C, nb,
+          [&](int row, int b) { return q8 + (lora1_mix(row / D) * cols + b) * C; },
+          [&](int row, int b, auto acc) {
             const int part = row / D;
-            float y = dequant(acc, dxs[lora1_mix(part) * kCols + b], s_l1[row]);
+            float y = dequant(acc, dxs[lora1_mix(part) * kCols + b], s_l1 + row);
             if (part == 0) y = tanhf(y);
             if (part == 2) y = sigmoidf(y);
             dn_g[static_cast<size_t>(b0 + b) * 4 * D + row] = y;
@@ -275,25 +305,25 @@ v7_decode_batched_kernel(Args p) {
       const size_t st = (static_cast<size_t>(b) * L + l) * H * S * S;
       const HeadIO io{r_g + bc, k_g + bc, v_g + bc, dn_g + static_cast<size_t>(b) * 4 * D,
                       vf_g + bc, xo_g + bc, p.heads_in + st, p.heads_out + st};
-      v7_head_step(l, h, io, m_layer + mo.l2, s_l2, vec, C, S, D, hv, red, dxs, q8);
+      v7_head_step<WF>(l, h, io, m_layer + mo.l2, s_l2, vec, C, S, D, hv, red, dxs, q8);
     }
     barrier();
 
     // ---- phase D: out rows + residual, per column tile ---------------------
     for (int t = 0; t < n_tiles; ++t) {
-      const int b0 = t * kCols;
-      const int nb = B - b0 < kCols ? B - b0 : kCols;
+      const int b0 = t * cols;
+      const int nb = B - b0 < cols ? B - b0 : cols;
       if (warp < nb) {
         const float* xo = xo_g + static_cast<size_t>(b0 + warp) * C;
-        quantize_warp<1>([&](int i, float4 (&v)[1]) { v[0] = ld4(xo, i); }, C, q8 + warp * C, 0,
-                         dxs + warp, 0);
+        quantize_warp<WF, 1>([&](int i, float4 (&v)[1]) { v[0] = ld4(xo, i); }, C,
+                             q8 + warp * C, 0, dxs + warp, 0);
       }
       __syncthreads();
-      matvec_grid<W4, kCols>(m_layer + mo.out, C, C, nb,
+      matvec_grid<WF, kCols>(m_layer + mo.out, C, C, nb,
           [&](int, int b) { return q8 + b * C; },
-          [&](int row, int b, int acc) {
+          [&](int row, int b, auto acc) {
             float* x = x_g + static_cast<size_t>(b0 + b) * C + row;
-            *x = add(*x, dequant(acc, dxs[b], s_out[row]));
+            *x = add(*x, dequant(acc, dxs[b], s_out + row));
           });
       __syncthreads();
     }
@@ -301,8 +331,8 @@ v7_decode_batched_kernel(Args p) {
 
     // ---- phase E: ln2 + shift, fk rows with relu^2, per column tile --------
     for (int t = 0; t < n_tiles; ++t) {
-      const int b0 = t * kCols;
-      const int nb = B - b0 < kCols ? B - b0 : kCols;
+      const int b0 = t * cols;
+      const int nb = B - b0 < cols ? B - b0 : cols;
       if (warp < nb) {
         const int b = b0 + warp;
         float* xr = xw + warp * C;
@@ -313,15 +343,15 @@ v7_decode_batched_kernel(Args p) {
           for (int i = lane; i < C / 4; i += 32) st4(p.ffn_out + bl, i, ld4(xr, i));
         const float* ffn_in = p.ffn_in + bl;
         const float* xk = vec + kXK * C;
-        quantize_warp<1>(
+        quantize_warp<WF, 1>(
             [&](int i, float4 (&v)[1]) { v[0] = mix4(ld4(xr, i), ld4(ffn_in, i), ld4(xk, i)); },
             C, q8 + warp * C, 0, dxs + warp, 0);
       }
       __syncthreads();
-      matvec_grid<W4, kCols>(m_layer + mo.fk, F, C, nb,
+      matvec_grid<WF, kCols>(m_layer + mo.fk, F, C, nb,
           [&](int, int b) { return q8 + b * C; },
-          [&](int row, int b, int acc) {
-            const float y = fmaxf(dequant(acc, dxs[b], s_fk[row]), 0.f);
+          [&](int row, int b, auto acc) {
+            const float y = fmaxf(dequant(acc, dxs[b], s_fk + row), 0.f);
             fk_g[static_cast<size_t>(b0 + b) * F + row] = mul(y, y);
           });
       __syncthreads();
@@ -330,19 +360,19 @@ v7_decode_batched_kernel(Args p) {
 
     // ---- phase F: fv rows + residual, per column tile ----------------------
     for (int t = 0; t < n_tiles; ++t) {
-      const int b0 = t * kCols;
-      const int nb = B - b0 < kCols ? B - b0 : kCols;
+      const int b0 = t * cols;
+      const int nb = B - b0 < cols ? B - b0 : cols;
       if (warp < nb) {
         const float* fk = fk_g + static_cast<size_t>(b0 + warp) * F;
-        quantize_warp<1>([&](int i, float4 (&v)[1]) { v[0] = ld4(fk, i); }, F, q8 + warp * F, 0,
-                         dxs + warp, 0);
+        quantize_warp<WF, 1>([&](int i, float4 (&v)[1]) { v[0] = ld4(fk, i); }, F,
+                             q8 + warp * F, 0, dxs + warp, 0);
       }
       __syncthreads();
-      matvec_grid<W4, kCols>(m_layer + mo.fv, C, F, nb,
+      matvec_grid<WF, kCols>(m_layer + mo.fv, C, F, nb,
           [&](int, int b) { return q8 + b * F; },
-          [&](int row, int b, int acc) {
+          [&](int row, int b, auto acc) {
             float* x = x_g + static_cast<size_t>(b0 + b) * C + row;
-            *x = add(*x, dequant(acc, dxs[b], s_fv[row]));
+            *x = add(*x, dequant(acc, dxs[b], s_fv + row));
           });
       __syncthreads();
     }
@@ -350,50 +380,61 @@ v7_decode_batched_kernel(Args p) {
   }
 }
 
-size_t smem_bytes(int C, int S, int F, int D) {
-  size_t q = 6ull * kCols * C;
-  if (static_cast<size_t>(kCols) * F > q) q = static_cast<size_t>(kCols) * F;
+// Shared memory of a launch in form wf with column tiles of `cols`
+// sequences: their rows, the per-head and reduction scratch, then the
+// tile's activations (int8 codes, or f32 in the bf16 form).
+size_t smem_bytes(int C, int S, int F, int D, int wf, int cols) {
+  size_t q = 6ull * cols * C;
+  if (static_cast<size_t>(cols) * F > q) q = static_cast<size_t>(cols) * F;
   if (4ull * D > q) q = 4ull * D;
-  const size_t floats = static_cast<size_t>(kWarps) * C + 12ull * S + 8 * 32 + 6 * kCols;
+  if (wf == kBf16) q *= sizeof(float);
+  const size_t floats = static_cast<size_t>(cols) * C + 12ull * S + 8 * 32 + 6 * kCols;
   return floats * sizeof(float) + ((q + 15) / 16) * 16;
 }
 
-const void* kernel_for(int w4) {
-  return w4 ? reinterpret_cast<const void*>(v7_decode_batched_kernel<true>)
-            : reinterpret_cast<const void*>(v7_decode_batched_kernel<false>);
+// The column tile of a launch: the most sequences (8, 4, 2 or 1) whose
+// shared memory fits a block (227 KB); 0 when not even one does.
+int cols_for(int C, int S, int F, int D, int wf) {
+  for (int cols = kCols; cols >= 1; cols >>= 1)
+    if (smem_bytes(C, S, F, D, wf, cols) <= 232448) return cols;
+  return 0;
 }
 
-}  // namespace
+const void* kernel_for(int wf) {
+  if (wf == kBf16) return reinterpret_cast<const void*>(v7_decode_batched_kernel<kBf16>);
+  return wf == kInt4 ? reinterpret_cast<const void*>(v7_decode_batched_kernel<kInt4>)
+                     : reinterpret_cast<const void*>(v7_decode_batched_kernel<kInt8>);
+}
 
-// Grid size the launch below uses (blocks), or a negative CUDA error code
-// (0: the kernel does not fit on an SM at these sizes).
-extern "C" int rwkv_v7_decode_batched_grid(int C, int S, int D, int F, int w4) {
+// Grid size a launch in form wf uses (blocks), or a negative CUDA error
+// code (0: the kernel does not fit on an SM at these sizes).
+int grid_for(int wf, int C, int S, int D, int F) {
   int dev = 0, sms = 0, per_sm = 0;
-  const size_t smem = smem_bytes(C, S, F, D);
+  const int cols = cols_for(C, S, F, D, wf);
+  if (cols == 0) return 0;
+  const size_t smem = smem_bytes(C, S, F, D, wf, cols);
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel_for(w4), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+    err = set_smem(kernel_for(wf), smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_for(w4), kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_for(wf), kThreads, smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
   if (per_sm > 1) per_sm = 1;  // one block per SM, as K3
   return per_sm * sms;
 }
 
-extern "C" int rwkv_v7_decode_batched(const void* tokens, const void* emb, const void* ln0,
-                                      const void* mats, const void* scales, const void* vecs,
-                                      const void* att_in, const void* ffn_in,
-                                      const void* heads_in, void* att_out, void* ffn_out,
-                                      void* heads_out, void* scratch,
-                                      int C, int H, int S, int D, int F, int L, int B, int w4,
-                                      int grid_blocks, void* stream) {
-  if (grid_blocks <= 0 || B <= 0 || kThreads % S != 0 || S * S / kThreads > kMaxJ)
+int launch(int wf, const void* tokens, const void* emb, const void* ln0, const void* mats,
+           const void* scales, const void* vecs, const void* att_in, const void* ffn_in,
+           const void* heads_in, void* att_out, void* ffn_out, void* heads_out, void* scratch,
+           int C, int H, int S, int D, int F, int L, int B, int emb_f32, int grid_blocks,
+           void* stream) {
+  const int cols = cols_for(C, S, F, D, wf);
+  if (grid_blocks <= 0 || B <= 0 || cols == 0 || kThreads % S != 0 || S * S / kThreads > kMaxJ)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.tokens = static_cast<const int*>(tokens);
-  a.emb = static_cast<const uint16_t*>(emb);
+  a.emb = emb;
   a.ln0 = static_cast<const float*>(ln0);
   a.mats = static_cast<const int8_t*>(mats);
   a.scales = static_cast<const float*>(scales);
@@ -406,10 +447,52 @@ extern "C" int rwkv_v7_decode_batched(const void* tokens, const void* emb, const
   a.heads_out = static_cast<float*>(heads_out);
   a.scratch = static_cast<float*>(scratch);
   a.C = C; a.H = H; a.S = S; a.D = D; a.F = F; a.L = L; a.B = B;
+  a.emb_f32 = emb_f32;
+  a.cols = cols;
   void* kargs[] = {&a};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      kernel_for(w4), dim3(grid_blocks), dim3(kThreads), kargs, smem_bytes(C, S, F, D),
-      static_cast<cudaStream_t>(stream));
+  const size_t smem = smem_bytes(C, S, F, D, wf, cols);
+  cudaError_t err = set_smem(kernel_for(wf), smem);
+  if (err == cudaSuccess)
+    err = cudaLaunchCooperativeKernel(kernel_for(wf), dim3(grid_blocks), dim3(kThreads), kargs,
+                                      smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Grid size the launch below uses (blocks), or a negative CUDA error code
+// (0: the kernel does not fit on an SM at these sizes); w4 picks w4a8.
+extern "C" int rwkv_v7_decode_batched_grid(int C, int S, int D, int F, int w4) {
+  return grid_for(w4 ? kInt4 : kInt8, C, S, D, F);
+}
+
+extern "C" int rwkv_v7_decode_batched(const void* tokens, const void* emb, const void* ln0,
+                                      const void* mats, const void* scales, const void* vecs,
+                                      const void* att_in, const void* ffn_in,
+                                      const void* heads_in, void* att_out, void* ffn_out,
+                                      void* heads_out, void* scratch,
+                                      int C, int H, int S, int D, int F, int L, int B, int w4,
+                                      int grid_blocks, void* stream) {
+  return launch(w4 ? kInt4 : kInt8, tokens, emb, ln0, mats, scales, vecs, att_in, ffn_in,
+                heads_in, att_out, ffn_out, heads_out, scratch, C, H, S, D, F, L, B, 0,
+                grid_blocks, stream);
+}
+
+// The bf16 form: the same pointers (no scales are read: pass null), and
+// emb_f32 in place of w4 (the embedding table is f32, not bf16).
+extern "C" int rwkv_v7_decode_batched_bf16_grid(int C, int S, int D, int F) {
+  return grid_for(kBf16, C, S, D, F);
+}
+
+extern "C" int rwkv_v7_decode_batched_bf16(const void* tokens, const void* emb, const void* ln0,
+                                           const void* mats, const void* scales,
+                                           const void* vecs, const void* att_in,
+                                           const void* ffn_in, const void* heads_in,
+                                           void* att_out, void* ffn_out, void* heads_out,
+                                           void* scratch, int C, int H, int S, int D, int F,
+                                           int L, int B, int emb_f32, int grid_blocks,
+                                           void* stream) {
+  return launch(kBf16, tokens, emb, ln0, mats, scales, vecs, att_in, ffn_in, heads_in, att_out,
+                ffn_out, heads_out, scratch, C, H, S, D, F, L, B, emb_f32, grid_blocks, stream);
 }

@@ -24,14 +24,15 @@ Ports the serving side of ``rwkv_tpu.models.serve``:
   ``PREFILL_BUCKETS``, ``decode`` runs one step for a batch, ``generate``
   samples. With ``megakernel=True`` decode goes through the whole-model
   kernels (w8a8 and w4a8; ``quant``, ``q8`` and ``q8r`` hand them the w8
-  pack of the dequantized weights, as the JAX package does). v7: B=1
-  through K3 (one launch with the LM head) when K3 takes
-  the model's shapes, else K4 and the head on K1; ``mega_min_batch`` <= B
-  <= ``MEGA_MAX_BATCH`` through K4, then ``ln_out`` and the head on K1 at
-  M=B (the JAX package's batched and tiled kernels followed by ``G.mm``).
-  v6, v5 and v4: B=1 through K6, K7 or K8 (one launch with the LM head,
-  both formats); every B > 1 per-op, as in the JAX package, whose v4-v6
-  kernels are B=1 only.
+  pack of the dequantized weights, and ``bf16`` and ``f32`` the bf16 pack
+  of the f32 dense weights, as the JAX package does). v7: B=1 through K3
+  (one launch with the LM head) when K3 takes the model's shapes, else K4
+  and the head; ``mega_min_batch`` <= B <= ``MEGA_MAX_BATCH`` through K4,
+  then ``ln_out`` and the per-op head (K1 at M=B under w8a8; the model's
+  own bf16 or f32 head under ``bf16`` / ``f32``; the JAX package's batched
+  and tiled kernels followed by ``G.mm``). v6, v5 and v4: B=1 through K6,
+  K7 or K8 (one launch with the LM head, every form); every B > 1 per-op,
+  as in the JAX package, whose v4-v6 kernels are B=1 only.
 
 State uses the serving layout: ``att_xx`` / ``ffn_xx`` ``[B, L, C]`` and
 ``heads`` ``[B, L, H, S_i, S_j]`` (v5-v7) or ``aa`` / ``bb`` / ``pp``
@@ -61,8 +62,6 @@ PREFILL_BUCKETS = (256, 64, 16, 4, 1)
 # precision -> weight preparation mode (the JAX package's table)
 _PRECISIONS = {"f32": "dense", "bf16": "dense", "quant": "keep-quant", "q8": "q8",
                "q8r": "q8r", "w8a8": "w8a8", "w4a8": "w8a8"}
-# precisions the decode kernels serve (their int8 or int4 pack)
-_MEGA_PRECISIONS = ("quant", "q8", "q8r", "w8a8", "w4a8")
 
 # Largest batch the whole-model decode kernel K4 serves (the JAX package's
 # bound for its batched kernels); larger batches take the per-op path.
@@ -273,20 +272,18 @@ class ServingModel:
         the file's blocks, K9) | 'q8' (per-32-block int8, K9) | 'q8r'
         (rowwise int8, K9) | 'w8a8' (K1; a file's quantized blocks stay on
         K9) | 'w4a8' (int4 big matrices in the decode kernels; every per-op
-        path runs w8a8). megakernel=True (every precision but f32 and bf16)
-        routes decode through kernels K3 and K4 (v7), K6 (v6), K7 (v5) or
-        K8 (v4; see ``decode``), int4 under w4a8 and int8 otherwise.
-        device: default the CUDA card; raises when there is none."""
+        path runs w8a8). megakernel=True routes decode through kernels K3
+        and K4 (v7), K6 (v6), K7 (v5) or K8 (v4; see ``decode``), int4
+        under w4a8, bf16 under bf16 and f32 (the JAX package's quant=False
+        pack; f32 keeps its per-op paths, embedding and B>1 head in f32)
+        and int8 otherwise. device: default the CUDA card; raises when
+        there is none."""
         if isinstance(source, (str, os.PathLike)):
             cfg, params = load_params(os.fspath(source))
         else:
             cfg, params = source
         if precision not in _PRECISIONS:
             raise ValueError(f"precision must be one of {sorted(_PRECISIONS)}, got {precision!r}")
-        if megakernel and precision not in _MEGA_PRECISIONS:
-            raise NotImplementedError(
-                f"the decode kernels are ported for w8a8 and w4a8 only (quant, q8 and q8r "
-                f"decode on their w8 pack), not {precision!r}")
         self.device = resolve_device(device)
         self.config = cfg
         self.precision = precision
@@ -298,19 +295,21 @@ class ServingModel:
         self.mega_min_batch = 2
         self._mega: Optional[dict] = None
         self._mega_k3 = False
+        # the decode kernels' pack: int4 big matrices under w4a8, bf16 under
+        # bf16 and f32, int8 otherwise
+        w4, quant = precision == "w4a8", precision not in ("bf16", "f32")
         if megakernel and cfg.version_major in (4, 5, 6):
             from rwkv_tpu_torch.ops import megakernel as M
 
-            w4 = precision == "w4a8"
             if cfg.version_major == 6:
-                pack = M.build_mega_pack_v6(params, cfg, w4=w4)
+                pack = M.build_mega_pack_v6(params, cfg, w4=w4, quant=quant)
                 err = M.v6_decode_shape_error(cfg, pack["d_maa"], pack["d_dec"],
                                               pack["f_dim"], w4)
             elif cfg.version_major == 5:
-                pack = M.build_mega_pack_v5(params, cfg, w4=w4)
+                pack = M.build_mega_pack_v5(params, cfg, w4=w4, quant=quant)
                 err = M.v5_decode_shape_error(cfg, pack["f_dim"], w4)
             else:
-                pack = M.build_mega_pack_v4(params, cfg, w4=w4)
+                pack = M.build_mega_pack_v4(params, cfg, w4=w4, quant=quant)
                 err = M.v4_decode_shape_error(cfg, pack["f_dim"], w4)
             if err:
                 raise NotImplementedError(f"megakernel=True: {err}")
@@ -320,17 +319,16 @@ class ServingModel:
                 batched_shape_error, build_mega_pack, decode_shape_error, device_pack,
             )
 
-            w4 = precision == "w4a8"
             self._mega = device_pack(
-                build_mega_pack(params, cfg, w4=w4), self.params["emb"], self.params["ln0"],
-                self.device,
+                build_mega_pack(params, cfg, w4=w4, quant=quant), self.params["emb"],
+                self.params["ln0"], self.device,
             )
             dims = (cfg, self._mega["d_lora"], self._mega["f_dim"], w4)
             err = batched_shape_error(*dims)
             if err:
                 raise NotImplementedError(f"megakernel=True: {err}")
             # static route: K3 for B=1 where it takes the shapes, else K4 + head
-            self._mega_k3 = decode_shape_error(*dims) is None
+            self._mega_k3 = decode_shape_error(*dims, bf16=not quant) is None
 
     # -- state -------------------------------------------------------------
     def init_state(self, batch_size: int = 1) -> dict:
@@ -353,7 +351,8 @@ class ServingModel:
         """One decode step for a batch: tokens [B] -> (logits [B, V], state).
         With megakernel=True, v7: B=1 runs kernel K3 when it takes the
         model's shapes, else K4 and the head; mega_min_batch <= B <=
-        MEGA_MAX_BATCH runs K4, ln_out and the head on K1 at M=B. v6, v5
+        MEGA_MAX_BATCH runs K4, ln_out and the per-op head (K1 at M=B
+        under w8a8). v6, v5
         and v4: B=1 runs kernel K6, K7 or K8. (Plain versions on the CPU.)
         Every other B, and megakernel=False, runs the per-op path."""
         tok = self._tokens(tokens).reshape(-1)
@@ -379,7 +378,8 @@ class ServingModel:
         return self._batched(state, tok[:, None])
 
     def _mega_batched(self, state: dict, tok: torch.Tensor):
-        """K4 for the layers, then ln_out and the w8a8 head (K1 at M=B)."""
+        """K4 for the layers, then ln_out and the per-op head (K1 at M=B
+        under w8a8; the model's bf16 or f32 head under those precisions)."""
         from rwkv_tpu_torch.ops.megakernel import v7_decode_batched
 
         x, new = v7_decode_batched(self._mega, state, tok, self.config)

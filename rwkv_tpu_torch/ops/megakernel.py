@@ -1,6 +1,6 @@
 """Whole-model decode steps: v7 at B=1 with the LM head (kernel K3) and
 for B sequences without it (kernel K4), and v6, v5 and v4 at B=1 with the
-LM head (kernels K6, K7 and K8), w8a8 or w4a8.
+LM head (kernels K6, K7 and K8), w8a8, w4a8 or bf16.
 
 Ports the quantized parts of ``rwkv_tpu.ops.megakernel``: ``_quantize_rows``
 (int8 and int4), ``build_mega_pack(quant=True, head=True, w4=...)``,
@@ -21,6 +21,16 @@ their ``.launches``; on CPU tensors they take the plain PyTorch versions
 ``v7_decode_step_ref`` / ``v7_decode_batched_ref``, which share one layer
 loop. Each matvec quantizes its input vector as a whole (amax over all of
 it), per sequence, as the TPU kernels do.
+
+The four ``build_mega_pack*`` also take ``quant=False``, the JAX package's
+bf16 pack: the
+matrices and the head (``headbf16``) rounded to bf16 from the f32 dense
+weights, no scales, vectors (and v6's maa2) in f32. The pack records its
+weight form in ``pack["form"]`` (``FORMS``: "i8", "i4" or "bf16"); in the
+bf16 form each matvec is an f32 product of the f32 input and the bf16 rows
+widened to f32 (JAX's ``matv`` with ``quant=False``), and the kernels run
+their bf16 form (``csrc/common.cuh``), counted per form in
+``.launches_by_form`` beside ``.launches``.
 
 The v6 part ports ``build_mega_pack_v6(quant=True, head=True, w4=...)``
 and, as one function, ``v6_decode_megakernel`` and
@@ -106,16 +116,49 @@ def _quantize_rows(w, four: bool = False):
     return torch.from_numpy(q), torch.from_numpy(d)
 
 
-def build_mega_pack(params: dict, cfg, w4: bool = False) -> dict:
+# weight forms of a pack: int8 codes, int4 codes (the big matrices under
+# w4a8) or bf16 values (quant=False)
+FORMS = ("i8", "i4", "bf16")
+
+
+def _form(quant: bool, w4: bool) -> str:
+    return "bf16" if not quant else "i4" if w4 else "i8"
+
+
+def _pack_mats(pack: dict, mats: dict, w4_mats) -> None:
+    """The pack's matrices in its form: codes with row scales (``name`` and
+    ``name_d``; int4 values for `w4_mats` under "i4"), or bf16 values
+    rounded to nearest even from f32 (as ``jnp.asarray(w, jnp.bfloat16)``)."""
+    for name, w in mats.items():
+        if pack["form"] == "bf16":
+            pack[name] = torch.from_numpy(_np(w)).to(torch.bfloat16)
+        else:
+            pack[name], pack[name + "_d"] = _quantize_rows(w, pack["w4"] and name in w4_mats)
+
+
+def _attach_head(pack: dict, params: dict) -> None:
+    """The LM head in the pack's form (``head8`` int8 codes with ``head_d``
+    in both int forms, or ``headbf16``) and ln_out."""
+    if pack["form"] == "bf16":
+        pack["headbf16"] = torch.from_numpy(_np(params["head"])).to(torch.bfloat16)
+    else:
+        q, d = _quantize_rows(_np(params["head"])[None])
+        pack["head8"], pack["head_d"] = q[0], d[0]
+    pack["ln_out.weight"] = torch.from_numpy(_np(params["ln_out"][0]).copy())
+    pack["ln_out.bias"] = torch.from_numpy(_np(params["ln_out"][1]).copy())
+
+
+def build_mega_pack(params: dict, cfg, w4: bool = False, quant: bool = True) -> dict:
     """The decode kernels' parameter pack with the LM head (the JAX
-    package's ``build_mega_pack(quant=True, w4=w4, head=True)``), built on
+    package's ``build_mega_pack(quant=quant, w4=w4, head=True)``), built on
     the host from the port's parameter tree (dense ``[out, in]`` weights).
 
     Matrices are codes ``[L, N, K]`` (int8; int4 values for ``W4_MATS``
-    when w4) with row scales ``[L, N]``, fused in the TPU kernel's row
-    order (rkv = r, k, v; lora1 / lora2 = w, a, g, v); vectors ``[L, C]``;
-    ``coeff`` ``[L, 6, C]`` (r, w, k, v, a, g); ``r_k`` ``[L, C]``;
-    ``head8`` ``[V, C]`` (int8 in both formats) with ``head_d`` ``[V]``."""
+    when w4) with row scales ``[L, N]``, or with quant=False bf16 values
+    ``[L, N, K]``, fused in the TPU kernel's row order (rkv = r, k, v;
+    lora1 / lora2 = w, a, g, v); vectors ``[L, C]``; ``coeff`` ``[L, 6, C]``
+    (r, w, k, v, a, g); ``r_k`` ``[L, C]``; ``head8`` ``[V, C]`` (int8 in
+    both int formats) with ``head_d`` ``[V]``, or ``headbf16``."""
     if cfg.version_major != 7:
         raise NotImplementedError("the decode kernels are RWKV v7 only")
     c = cfg.n_embed
@@ -132,30 +175,27 @@ def build_mega_pack(params: dict, cfg, w4: bool = False) -> dict:
             return np.stack([np.concatenate([_np(b[k]) for k in keys_or_key]) for b in blocks])
         return np.stack([_np(b[keys_or_key]) for b in blocks])
 
+    form = _form(quant, w4)
     pack = {
-        "quant": True,
-        "w4": bool(w4),
+        "quant": quant,
+        "w4": form == "i4",
+        "form": form,
         "d_lora": _np(blocks[-1]["att.w1"]).shape[0],
         "f_dim": _np(blocks[0]["ffn.key.weight"]).shape[0],
     }
-    mats = {
+    _pack_mats(pack, {
         "rkv": stack(_V7_RKV),
         "lora1": stack(_V7_L1),
         "lora2": stack(_V7_L2),
         "out": stack("att.output.weight"),
         "fk": stack("ffn.key.weight"),
         "fv": stack("ffn.value.weight"),
-    }
-    for name, w in mats.items():
-        pack[name], pack[name + "_d"] = _quantize_rows(w, w4 and name in W4_MATS)
+    }, W4_MATS)
     for key in VEC_KEYS:
         pack[key] = torch.from_numpy(stack(key).reshape(n_layer, c))
     pack["coeff"] = torch.from_numpy(stack("att.x_rwkvag").reshape(n_layer, 6, c))
     pack["r_k"] = torch.from_numpy(stack("att.r_k").reshape(n_layer, c))
-    q, d = _quantize_rows(_np(params["head"])[None])
-    pack["head8"], pack["head_d"] = q[0], d[0]
-    pack["ln_out.weight"] = torch.from_numpy(_np(params["ln_out"][0]).copy())
-    pack["ln_out.bias"] = torch.from_numpy(_np(params["ln_out"][1]).copy())
+    _attach_head(pack, params)
     return pack
 
 
@@ -175,34 +215,39 @@ def device_pack(pack: dict, emb: torch.Tensor, ln0, device) -> dict:
     """`pack` on `device` in the kernels' flat layout: ``mats`` int8
     ``[L, per-layer bytes]`` (v7: rkv|lora1|lora2|out|fk|fv; v6:
     ``V6_MAT_KEYS``; v5 / v4: ``V5_MAT_KEYS`` / ``V4_MAT_KEYS``; the int4
-    ones packed by ``pack_int4``), ``scales`` f32 ``[L, rows]`` in the same
-    order (v7 9C + 4d + F rows), ``vecs`` f32 ``[L, n, C]`` (v7: VEC_KEYS,
+    ones packed by ``pack_int4``; in the bf16 form a bf16 buffer ``[L,
+    per-layer values]``, which the kernels read as bytes at twice the
+    offsets), ``scales`` f32 ``[L, rows]`` in the same order (v7 9C + 4d +
+    F rows; none in the bf16 form), ``vecs`` f32 ``[L, n, C]`` (v7: VEC_KEYS,
     the six coeff rows, r_k -- 19; v6: V6_VEC_KEYS, the five maa5 rows,
     tdecay, tf -- 16; v5 / v4: ``_v45_blocks``) and, for v6, ``maa2``
     f32 ``[L, 5C, d_maa]``. The named tensors of `pack` become views into
     these buffers (the int4 ones as packed bytes ``[L, N, K/2]``), so the
-    plain versions read the same memory. `emb` (the serving embedding, bf16
-    under w8a8) and `ln0` ride along: the kernels embed the tokens
-    themselves."""
+    plain versions read the same memory. `emb` (the serving embedding: bf16
+    under the int forms, bf16 or f32 under the bf16 form) and `ln0` ride
+    along: the kernels embed the tokens themselves."""
     mat_keys, w4_mats, vec_keys, blocks = _layout(pack)
     n_layer = pack[mat_keys[0]].shape[0]
     dev = torch.device(device)
-    w4 = pack["w4"]
-    out = {k: v for k, v in pack.items() if isinstance(v, (bool, int))}
+    w4, quant = pack["w4"], pack["form"] != "bf16"
+    out = {k: v for k, v in pack.items() if isinstance(v, (bool, int, str))}
     stored = {k: pack_int4(pack[k]) if w4 and k in w4_mats else pack[k] for k in mat_keys}
     mats = torch.cat([stored[k].reshape(n_layer, -1) for k in mat_keys], dim=1).to(dev)
-    scales = torch.cat([pack[k + "_d"] for k in mat_keys], dim=1).to(dev)
+    scales = torch.cat([pack[k + "_d"] for k in mat_keys], dim=1).to(dev) if quant else None
     vecs = torch.cat(
         [torch.stack([pack[k] for k in vec_keys], dim=1)]
         + [pack[k].reshape(n_layer, rows, -1) for k, rows in blocks],
         dim=1,
     ).to(dev).contiguous()
-    out.update(mats=mats, scales=scales, vecs=vecs)
+    out.update(mats=mats, vecs=vecs)
+    if quant:
+        out["scales"] = scales
     mo = so = 0
     for k in mat_keys:
         n, kb = stored[k].shape[1:]
         out[k] = mats[:, mo : mo + n * kb].unflatten(1, (n, kb))
-        out[k + "_d"] = scales[:, so : so + n]
+        if quant:
+            out[k + "_d"] = scales[:, so : so + n]
         mo += n * kb
         so += n
     for i, k in enumerate(vec_keys):
@@ -213,22 +258,36 @@ def device_pack(pack: dict, emb: torch.Tensor, ln0, device) -> dict:
         row += rows
     if "maa2" in pack:
         out["maa2"] = pack["maa2"].to(dev).contiguous()
-    out["head8"] = pack["head8"].to(dev).contiguous()
-    out["head_d"] = pack["head_d"].to(dev).contiguous()
+    for k in ("head8", "head_d", "headbf16"):
+        if k in pack:
+            out[k] = pack[k].to(dev).contiguous()
     out["ln_out"] = torch.stack([pack["ln_out.weight"], pack["ln_out.bias"]]).to(dev)
     out["ln0"] = torch.stack([ln0[0].float(), ln0[1].float()]).to(dev)
     out["emb"] = emb.to(dev).contiguous()
     return out
 
 
-def _codes(pack: dict, name: str, layer: int) -> torch.Tensor:
-    """Layer `layer` of matrix `name` as int8 codes [N, K]."""
-    q = pack[name][layer]
+def _codes(pack: dict, name: str, layer: int, lo=None, hi=None) -> torch.Tensor:
+    """Rows [lo, hi) of layer `layer` of matrix `name` as int8 codes [N, K]
+    (bf16 values in the bf16 form)."""
+    q = pack[name][layer][lo:hi]
     return unpack_int4(q) if pack["w4"] and name in _layout(pack)[1] else q
 
 
+def _mat(pack: dict, name: str, layer: int, lo=None, hi=None):
+    """Rows [lo, hi) of layer `layer` of matrix `name` for ``_matvec``:
+    (codes, row scales), or (bf16 rows, None) in the bf16 form."""
+    d = pack.get(name + "_d")
+    return _codes(pack, name, layer, lo, hi), None if d is None else d[layer][lo:hi]
+
+
 def _matvec(q, d, x):
-    """Quantized matvec of x [B, K] (each row quantized as a whole)."""
+    """Matvec of x [B, K] against rows q [N, K]: with row scales d, int8
+    codes against x quantized a row at a time as a whole; with d None, bf16
+    rows widened to f32 against f32 x (JAX's ``matv`` with quant=False,
+    f32 at full precision)."""
+    if d is None:
+        return x @ q.float().T
     x8, dx = quantize_act_plain(x)
     return int_dot_plain(x8, q) * dx * d
 
@@ -251,9 +310,8 @@ def v7_decode_batched_ref(pack: dict, state: dict, tokens: torch.Tensor, cfg):
         def vec(key):
             return pack[key][l]
 
-        rkv, rkv_d = _codes(pack, "rkv", l), pack["rkv_d"][l]
-        l1, l1_d = pack["lora1"][l], pack["lora1_d"][l]
-        l2, l2_d = pack["lora2"][l], pack["lora2_d"][l]
+        def mat(name, part, rows):
+            return _mat(pack, name, l, part * rows, (part + 1) * rows)
 
         xl = layer_norm(x, vec("ln1.weight"), vec("ln1.bias"))
         sx = state["att_xx"][:, l] - xl
@@ -261,17 +319,17 @@ def v7_decode_batched_ref(pack: dict, state: dict, tokens: torch.Tensor, cfg):
         cf = pack["coeff"][l]
         xr, xw, xk, xv, xa, xg = (xl + sx * cf[i] for i in range(6))
 
-        r = _matvec(rkv[:c], rkv_d[:c], xr)
-        k = _matvec(rkv[c : 2 * c], rkv_d[c : 2 * c], xk)
-        v = _matvec(rkv[2 * c :], rkv_d[2 * c :], xv)
-        w_dn = torch.tanh(_matvec(l1[:d_l], l1_d[:d_l], xw))
-        a_dn = _matvec(l1[d_l : 2 * d_l], l1_d[d_l : 2 * d_l], xa)
-        g_dn = torch.sigmoid(_matvec(l1[2 * d_l : 3 * d_l], l1_d[2 * d_l : 3 * d_l], xg))
-        v_dn = _matvec(l1[3 * d_l :], l1_d[3 * d_l :], xv)
-        w_l = _matvec(l2[:c], l2_d[:c], w_dn)
-        a_l = _matvec(l2[c : 2 * c], l2_d[c : 2 * c], a_dn)
-        g = _matvec(l2[2 * c : 3 * c], l2_d[2 * c : 3 * c], g_dn)
-        vmix_l = _matvec(l2[3 * c :], l2_d[3 * c :], v_dn)
+        r = _matvec(*mat("rkv", 0, c), xr)
+        k = _matvec(*mat("rkv", 1, c), xk)
+        v = _matvec(*mat("rkv", 2, c), xv)
+        w_dn = torch.tanh(_matvec(*mat("lora1", 0, d_l), xw))
+        a_dn = _matvec(*mat("lora1", 1, d_l), xa)
+        g_dn = torch.sigmoid(_matvec(*mat("lora1", 2, d_l), xg))
+        v_dn = _matvec(*mat("lora1", 3, d_l), xv)
+        w_l = _matvec(*mat("lora2", 0, c), w_dn)
+        a_l = _matvec(*mat("lora2", 1, c), a_dn)
+        g = _matvec(*mat("lora2", 2, c), g_dn)
+        vmix_l = _matvec(*mat("lora2", 3, c), v_dn)
 
         w_dec = torch.exp(torch.sigmoid(w_l + vec("att.w0")) * -0.606531)
         a_gate = torch.sigmoid(a_l + vec("att.a0"))
@@ -299,13 +357,13 @@ def v7_decode_batched_ref(pack: dict, state: dict, tokens: torch.Tensor, cfg):
         xo = yn * vec("att.ln_x.weight") + vec("att.ln_x.bias")
         bonus = (v3 * (k3 * r3 * vec("r_k").reshape(h, s)).sum(-1, keepdim=True)).reshape(b, c)
         xo = (xo + bonus) * g
-        x = x + _matvec(_codes(pack, "out", l), pack["out_d"][l], xo)
+        x = x + _matvec(*_mat(pack, "out", l), xo)
 
         xl2 = layer_norm(x, vec("ln2.weight"), vec("ln2.bias"))
         ffn_out.append(xl2)
         xk2 = xl2 + (state["ffn_xx"][:, l] - xl2) * vec("ffn.x_k")
-        fk = torch.square(torch.relu(_matvec(_codes(pack, "fk", l), pack["fk_d"][l], xk2)))
-        x = x + _matvec(_codes(pack, "fv", l), pack["fv_d"][l], fk)
+        fk = torch.square(torch.relu(_matvec(*_mat(pack, "fk", l), xk2)))
+        x = x + _matvec(*_mat(pack, "fv", l), fk)
     new_state = {
         "att_xx": torch.stack(att_out, dim=1),
         "ffn_xx": torch.stack(ffn_out, dim=1),
@@ -325,8 +383,11 @@ def v7_decode_step_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
 
 def lm_head_ref(pack: dict, x: torch.Tensor) -> torch.Tensor:
     """The plain versions' head (the kernels' lm_head): ln_out of x [C],
-    quantized as a whole, then the int8 head rows -> logits [V]."""
+    quantized as a whole against the int8 head rows, or in f32 against the
+    bf16 rows (``headbf16``) -> logits [V]."""
     xo = layer_norm(x[None], pack["ln_out"][0], pack["ln_out"][1])
+    if "headbf16" in pack:
+        return _matvec(pack["headbf16"], None, xo)[0]
     return _matvec(pack["head8"], pack["head_d"], xo)[0]
 
 
@@ -335,11 +396,12 @@ def decode_scratch_floats(c: int, d_lora: int, f_dim: int) -> int:
     return 7 * c + 4 * d_lora + f_dim
 
 
-def _chunks_per_lane(k: int, max_lanes: int = 32) -> int:
-    """16-byte chunks each lane reads per int8 weight row of width k in the
-    decode kernels' matvec_rows (the largest power-of-two lane count up to
-    max_lanes that divides k / 16 shares a row)."""
-    chunks = k // 16
+def _chunks_per_lane(k: int, max_lanes: int = 32, bf16: bool = False) -> int:
+    """16-byte chunks each lane reads per int8 (or bf16) weight row of
+    width k in the decode kernels' matvec_rows (the largest power-of-two
+    lane count up to max_lanes that divides the row's chunks shares a
+    row)."""
+    chunks = (2 * k if bf16 else k) // 16
     lanes = max_lanes
     while lanes > 1 and chunks % lanes:
         lanes //= 2
@@ -360,17 +422,21 @@ def _common_shape_error(cfg, d_lora: int, f_dim: int, w4: bool) -> Optional[str]
     return None
 
 
-def decode_shape_error(cfg, d_lora: int, f_dim: int, w4: bool = False) -> Optional[str]:
+def decode_shape_error(cfg, d_lora: int, f_dim: int, w4: bool = False, *,
+                       bf16: bool = False) -> Optional[str]:
     """Why K3 cannot take this model's shapes, or None. Besides the shared
     rules, a lane of K3 holds its share of a row in registers: at most 8
-    16-byte chunks, with 8 lanes a head row (C <= 1024), one a d_lora row
-    and 32 an F row (F <= 4096). Wider models decode through K4."""
+    16-byte chunks (one round), with 8 lanes a head row (C <= 1024), one a
+    d_lora row and 32 an F row (F <= 4096); in the bf16 form (twice the
+    bytes a row) at most 16 chunks, two rounds, over the same widths. Wider
+    models decode through K4."""
     err = _common_shape_error(cfg, d_lora, f_dim, w4)
     if err:
         return err
+    limit = 16 if bf16 else 8
     for dim, lanes in ((cfg.n_embed, 8), (d_lora, 1), (f_dim, 32)):
-        if _chunks_per_lane(dim, lanes) > 8:
-            return (f"K3 reads a row of {dim} in at most 8 16-byte chunks per lane "
+        if _chunks_per_lane(dim, lanes, bf16) > limit:
+            return (f"K3 reads a row of {dim} in at most {limit} 16-byte chunks per lane "
                     f"with {lanes} lanes a row")
     return None
 
@@ -395,28 +461,63 @@ def _grid_blocks(lib_name: str, fn_name: str, *dims: int) -> int:
 
 
 def _check_pack(pack: dict) -> None:
-    if pack["emb"].dtype != torch.bfloat16:
-        raise TypeError("the decode kernels embed from a bf16 table")
+    dtypes = (torch.bfloat16, torch.float32) if pack["form"] == "bf16" else (torch.bfloat16,)
+    if pack["emb"].dtype not in dtypes:
+        raise TypeError("the decode kernels embed from a bf16 table (or an f32 one in the "
+                        "bf16 form)")
 
 
-# argument counts of the C entries rwkv_v7_decode / _w4 (pointers, ints)
+def _emb_f32(pack: dict) -> tuple:
+    """The bf16 entries' extra int: whether the embedding table is f32."""
+    return (int(pack["emb"].dtype == torch.float32),) if pack["form"] == "bf16" else ()
+
+
+def _ptr(pack: dict, key: str) -> int:
+    """Device address of pack[key]; 0 (null) where the form has no such
+    tensor (the bf16 form's scales and head_d)."""
+    t = pack.get(key)
+    return 0 if t is None else t.data_ptr()
+
+
+def _head(pack: dict) -> torch.Tensor:
+    return pack["headbf16"] if pack["form"] == "bf16" else pack["head8"]
+
+
+# C entry suffix of each weight form: rwkv_v7_decode, _w4, _bf16, ...
+_SUFFIX = {"i8": "", "i4": "_w4", "bf16": "_bf16"}
+
+
+def _count(fn, pack: dict) -> None:
+    """One launch of kernel wrapper `fn` in the pack's form."""
+    fn.launches += 1
+    fn.launches_by_form[pack["form"]] += 1
+
+
+def _args(args: tuple, pack: dict) -> tuple:
+    """(pointers, ints) of a C entry in the pack's form: the bf16 entries
+    take one int more (emb_f32)."""
+    return args[0], args[1] + len(_emb_f32(pack))
+
+
+# argument counts of the C entries rwkv_v7_decode / _w4 (pointers, ints;
+# _bf16 one int more)
 DECODE_ARGS = (17, 8)
 
 
 def _k3_entry(pack: dict) -> str:
-    return "rwkv_v7_decode_w4" if pack["w4"] else "rwkv_v7_decode"
+    return "rwkv_v7_decode" + _SUFFIX[pack["form"]]
 
 
 def decode_launch(fn, pack: dict, state: dict, token: torch.Tensor, cfg, scratch_extra: int = 0):
     """Check the operands and launch the C entry `fn` (``rwkv_v7_decode``,
-    or ``rwkv_v7_decode_w4`` for a w4a8 pack) once; returns (logits, new
-    state, scratch). `scratch_extra` floats are appended to the kernel's
-    scratch (the timing build writes there)."""
+    or ``rwkv_v7_decode_w4`` / ``_bf16`` for a w4a8 / bf16 pack) once;
+    returns (logits, new state, scratch). `scratch_extra` floats are
+    appended to the kernel's scratch (the timing build writes there)."""
     dev = pack["mats"].device
     c, h, s = cfg.n_embed, cfg.head_count, cfg.head_size
     d_l, f, w4 = pack["d_lora"], pack["f_dim"], pack["w4"]
     n_layer, vocab = cfg.n_layer, cfg.n_vocab
-    err = decode_shape_error(cfg, d_l, f, w4)
+    err = decode_shape_error(cfg, d_l, f, w4, bf16=pack["form"] == "bf16")
     if err:
         raise ValueError(err)
     _check_pack(pack)
@@ -435,14 +536,14 @@ def decode_launch(fn, pack: dict, state: dict, token: torch.Tensor, cfg, scratch
         grid = pack["_grid"] = _grid_blocks("v7_decode", _k3_entry(pack) + "_grid", c, s, d_l, f)
     code = fn(
         token.data_ptr(), pack["emb"].data_ptr(), pack["ln0"].data_ptr(),
-        pack["mats"].data_ptr(), pack["scales"].data_ptr(), pack["vecs"].data_ptr(),
-        pack["head8"].data_ptr(), pack["head_d"].data_ptr(), pack["ln_out"].data_ptr(),
+        pack["mats"].data_ptr(), _ptr(pack, "scales"), pack["vecs"].data_ptr(),
+        _head(pack).data_ptr(), _ptr(pack, "head_d"), pack["ln_out"].data_ptr(),
         ins["att_xx"].data_ptr(), ins["ffn_xx"].data_ptr(), ins["heads"].data_ptr(),
         outs["att_xx"].data_ptr(), outs["ffn_xx"].data_ptr(), outs["heads"].data_ptr(),
         logits.data_ptr(), scratch.data_ptr(),
-        c, h, s, d_l, f, n_layer, vocab, grid, _cuda.stream_ptr(dev),
+        c, h, s, d_l, f, n_layer, vocab, *_emb_f32(pack), grid, _cuda.stream_ptr(dev),
     )
-    _cuda.check("v7_decode", "rwkv_v7_decode", code)
+    _cuda.check("v7_decode", _k3_entry(pack), code)
     return logits, outs, scratch
 
 
@@ -452,13 +553,14 @@ def v7_decode_step(pack: dict, state: dict, token: torch.Tensor, cfg):
     plain version. The input state is not modified."""
     if pack["mats"].device.type == "cpu":
         return v7_decode_step_ref(pack, state, token, cfg)
-    fn = _cuda.function("v7_decode", _k3_entry(pack), *DECODE_ARGS)
+    fn = _cuda.function("v7_decode", _k3_entry(pack), *_args(DECODE_ARGS, pack))
     logits, outs, _ = decode_launch(fn, pack, state, token, cfg)
-    v7_decode_step.launches += 1
+    _count(v7_decode_step, pack)
     return logits, outs
 
 
 v7_decode_step.launches = 0
+v7_decode_step.launches_by_form = dict.fromkeys(FORMS, 0)
 
 
 def batched_scratch_floats(c: int, d_lora: int, f_dim: int, batch: int) -> int:
@@ -467,16 +569,21 @@ def batched_scratch_floats(c: int, d_lora: int, f_dim: int, batch: int) -> int:
     return (6 * c + 4 * d_lora + f_dim) * batch
 
 
-# argument counts of the C entry rwkv_v7_decode_batched (pointers, ints)
+# argument counts of the C entries rwkv_v7_decode_batched and _bf16
+# (pointers, ints: emb_f32 takes w4's place)
 BATCHED_ARGS = (13, 9)
+
+
+def _k4_entry(pack: dict) -> str:
+    return "rwkv_v7_decode_batched" + ("_bf16" if pack["form"] == "bf16" else "")
 
 
 def batched_launch(fn, pack: dict, state: dict, tokens: torch.Tensor, cfg, grid: int,
                    scratch_extra: int = 0):
     """Check the operands and launch the C entry `fn`
-    (``rwkv_v7_decode_batched``) once on `grid` blocks; returns (x, new
-    state, scratch). `scratch_extra` floats are appended to the kernel's
-    scratch (the timing build writes there)."""
+    (``rwkv_v7_decode_batched``, or ``_bf16`` for a bf16 pack) once on
+    `grid` blocks; returns (x, new state, scratch). `scratch_extra` floats
+    are appended to the kernel's scratch (the timing build writes there)."""
     dev = pack["mats"].device
     c, h, s = cfg.n_embed, cfg.head_count, cfg.head_size
     d_l, f, w4 = pack["d_lora"], pack["f_dim"], pack["w4"]
@@ -496,15 +603,16 @@ def batched_launch(fn, pack: dict, state: dict, tokens: torch.Tensor, cfg, grid:
     alloc = torch.zeros if scratch_extra else torch.empty
     scratch = alloc((batched_scratch_floats(c, d_l, f, b) + scratch_extra,),
                     dtype=torch.float32, device=dev)
+    flag = _emb_f32(pack) or (int(w4),)  # emb_f32 (bf16 entry) or w4
     code = fn(
         tok.data_ptr(), pack["emb"].data_ptr(), pack["ln0"].data_ptr(),
-        pack["mats"].data_ptr(), pack["scales"].data_ptr(), pack["vecs"].data_ptr(),
+        pack["mats"].data_ptr(), _ptr(pack, "scales"), pack["vecs"].data_ptr(),
         ins["att_xx"].data_ptr(), ins["ffn_xx"].data_ptr(), ins["heads"].data_ptr(),
         outs["att_xx"].data_ptr(), outs["ffn_xx"].data_ptr(), outs["heads"].data_ptr(),
         scratch.data_ptr(),
-        c, h, s, d_l, f, n_layer, b, int(w4), grid, _cuda.stream_ptr(dev),
+        c, h, s, d_l, f, n_layer, b, *flag, grid, _cuda.stream_ptr(dev),
     )
-    _cuda.check("v7_decode_batched", "rwkv_v7_decode_batched", code)
+    _cuda.check("v7_decode_batched", _k4_entry(pack), code)
     return scratch[: b * c].view(b, c), outs, scratch
 
 
@@ -517,33 +625,37 @@ def v7_decode_batched(pack: dict, state: dict, tokens: torch.Tensor, cfg):
         return v7_decode_batched_ref(pack, state, tokens, cfg)
     grid = pack.get("_grid_batched")
     if grid is None:
+        dims = (cfg.n_embed, cfg.head_size, pack["d_lora"], pack["f_dim"])
+        dims += () if pack["form"] == "bf16" else (int(pack["w4"]),)
         grid = pack["_grid_batched"] = _grid_blocks(
-            "v7_decode_batched", "rwkv_v7_decode_batched_grid", cfg.n_embed, cfg.head_size,
-            pack["d_lora"], pack["f_dim"], int(pack["w4"]))
-    fn = _cuda.function("v7_decode_batched", "rwkv_v7_decode_batched", *BATCHED_ARGS)
+            "v7_decode_batched", _k4_entry(pack) + "_grid", *dims)
+    fn = _cuda.function("v7_decode_batched", _k4_entry(pack), *BATCHED_ARGS)
     x, outs, _ = batched_launch(fn, pack, state, tokens, cfg, grid)
-    v7_decode_batched.launches += 1
+    _count(v7_decode_batched, pack)
     return x, outs
 
 
 v7_decode_batched.launches = 0
+v7_decode_batched.launches_by_form = dict.fromkeys(FORMS, 0)
 
 
 # -- RWKV v6 (Finch): pack, plain version, kernel K6 ---------------------------
 
 
-def build_mega_pack_v6(params: dict, cfg, w4: bool = False) -> dict:
+def build_mega_pack_v6(params: dict, cfg, w4: bool = False, quant: bool = True) -> dict:
     """K6's parameter pack with the LM head (the JAX package's
-    ``build_mega_pack_v6(quant=True, w4=w4, head=True)``), built on the host
-    from the port's parameter tree.
+    ``build_mega_pack_v6(quant=quant, w4=w4, head=True)``), built on the
+    host from the port's parameter tree.
 
     Matrices (``V6_MAT_KEYS``) are codes ``[L, N, K]`` (int4 values for
     ``V6_W4_MATS`` when w4; maa1, dw1 and dw2 stay int8) with row scales
-    ``[L, N]``, fused in the TPU kernel's row order (rkvg = r, k, v, g);
-    ``maa2`` f32 ``[L, 5C, d_maa]`` (row s*C + c: split s's up-projection,
-    splits w, k, v, r, g); vectors ``[L, C]``; ``maa5`` ``[L, 5, C]`` (the
-    five token-shift coefficients, w, k, v, r, g); ``tdecay`` and ``tf``
-    (time_faaaa) ``[L, C]``; ``head8`` ``[V, C]`` int8 with ``head_d``."""
+    ``[L, N]``, or bf16 values with quant=False, fused in the TPU kernel's
+    row order (rkvg = r, k, v, g); ``maa2`` f32 ``[L, 5C, d_maa]`` in every
+    form (row s*C + c: split s's up-projection, splits w, k, v, r, g);
+    vectors ``[L, C]``; ``maa5`` ``[L, 5, C]`` (the five token-shift
+    coefficients, w, k, v, r, g); ``tdecay`` and ``tf`` (time_faaaa)
+    ``[L, C]``; ``head8`` ``[V, C]`` int8 with ``head_d``, or
+    ``headbf16``."""
     if cfg.version_major != 6:
         raise NotImplementedError("build_mega_pack_v6 takes RWKV v6 models")
     c = cfg.n_embed
@@ -556,15 +668,17 @@ def build_mega_pack_v6(params: dict, cfg, w4: bool = False) -> dict:
         return np.stack([_np(b[keys_or_key]) for b in blocks])
 
     d_maa = _np(blocks[0]["att.time_maa_w1"]).shape[0] // 5
+    form = _form(quant, w4)
     pack = {
         "version": 6,
-        "quant": True,
-        "w4": bool(w4),
+        "quant": quant,
+        "w4": form == "i4",
+        "form": form,
         "d_maa": d_maa,
         "d_dec": _np(blocks[0]["att.time_decay_w1"]).shape[0],
         "f_dim": _np(blocks[0]["ffn.key.weight"]).shape[0],
     }
-    mats = {
+    _pack_mats(pack, {
         "rkvg": stack(_V6_RKVG),
         "maa1": stack("att.time_maa_w1"),
         "dw1": stack("att.time_decay_w1"),
@@ -573,9 +687,7 @@ def build_mega_pack_v6(params: dict, cfg, w4: bool = False) -> dict:
         "fk": stack("ffn.key.weight"),
         "fv": stack("ffn.value.weight"),
         "fr": stack("ffn.receptance.weight"),
-    }
-    for name, w in mats.items():
-        pack[name], pack[name + "_d"] = _quantize_rows(w, w4 and name in V6_W4_MATS)
+    }, V6_W4_MATS)
     pack["maa2"] = torch.from_numpy(stack("att.time_maa_w2").reshape(n_layer, 5 * c, d_maa))
     for key in V6_VEC_KEYS:
         pack[key] = torch.from_numpy(stack(key).reshape(n_layer, c))
@@ -583,10 +695,7 @@ def build_mega_pack_v6(params: dict, cfg, w4: bool = False) -> dict:
                                     .reshape(n_layer, 5, c))
     pack["tdecay"] = torch.from_numpy(stack("att.time_decay").reshape(n_layer, c))
     pack["tf"] = torch.from_numpy(stack("att.time_faaaa").reshape(n_layer, c))
-    q, d = _quantize_rows(_np(params["head"])[None])
-    pack["head8"], pack["head_d"] = q[0], d[0]
-    pack["ln_out.weight"] = torch.from_numpy(_np(params["ln_out"][0]).copy())
-    pack["ln_out.bias"] = torch.from_numpy(_np(params["ln_out"][1]).copy())
+    _attach_head(pack, params)
     return pack
 
 
@@ -596,7 +705,8 @@ def v6_decode_layers_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
     ``att_xx`` / ``ffn_xx`` ``[L, C]`` and ``heads`` ``[L, H, S, S]``;
     `token` an int tensor of one element. Returns (x [C] before ln_out,
     new state). Each matvec quantizes its input vector as a whole, as
-    ``_make_kernel_v6`` does; the maa2 up-projections are f32 products."""
+    ``_make_kernel_v6`` does (the bf16 form: f32 products); the maa2
+    up-projections are f32 products."""
     h, s = cfg.head_count, cfg.head_size
     c = cfg.n_embed
     dm = pack["d_maa"]
@@ -608,7 +718,7 @@ def v6_decode_layers_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
             return pack[key][l]
 
         def mat(name, lo=None, hi=None):
-            return _codes(pack, name, l)[lo:hi], pack[name + "_d"][l][lo:hi]
+            return _mat(pack, name, l, lo, hi)
 
         xl = layer_norm(x, vec("ln1.weight"), vec("ln1.bias"))
         sx = state["att_xx"][l] - xl
@@ -657,7 +767,7 @@ def v6_decode_layers_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
 
 def v6_decode_step_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
     """Plain PyTorch K6 (any device): ``v6_decode_layers_ref``, then ln_out
-    and the int8 head. Returns (logits [V], new state)."""
+    and the head. Returns (logits [V], new state)."""
     x, new = v6_decode_layers_ref(pack, state, token, cfg)
     return lm_head_ref(pack, x), new
 
@@ -687,19 +797,20 @@ def v6_decode_shape_error(cfg, d_maa: int, d_dec: int, f_dim: int,
     return None
 
 
-# argument counts of the C entries rwkv_v6_decode / _w4 (pointers, ints)
+# argument counts of the C entries rwkv_v6_decode / _w4 (pointers, ints;
+# _bf16 one int more)
 V6_DECODE_ARGS = (18, 9)
 
 
 def _k6_entry(pack: dict) -> str:
-    return "rwkv_v6_decode_w4" if pack["w4"] else "rwkv_v6_decode"
+    return "rwkv_v6_decode" + _SUFFIX[pack["form"]]
 
 
 def v6_decode_launch(fn, pack: dict, state: dict, token: torch.Tensor, cfg,
                      scratch_extra: int = 0):
     """Check the operands and launch the C entry `fn` (``rwkv_v6_decode``,
-    or ``rwkv_v6_decode_w4`` for a w4a8 pack) once; returns (logits, new
-    state, scratch). `scratch_extra` floats are appended to the kernel's
+    or ``rwkv_v6_decode_w4`` / ``_bf16`` for a w4a8 / bf16 pack) once;
+    returns (logits, new state, scratch). `scratch_extra` floats are appended to the kernel's
     scratch (the timing build writes there)."""
     dev = pack["mats"].device
     c, h, s = cfg.n_embed, cfg.head_count, cfg.head_size
@@ -728,13 +839,13 @@ def v6_decode_launch(fn, pack: dict, state: dict, token: torch.Tensor, cfg,
                                                c, s, dm, dd, f)
     code = fn(
         token.data_ptr(), pack["emb"].data_ptr(), pack["ln0"].data_ptr(),
-        pack["mats"].data_ptr(), pack["scales"].data_ptr(), pack["vecs"].data_ptr(),
-        pack["maa2"].data_ptr(), pack["head8"].data_ptr(), pack["head_d"].data_ptr(),
+        pack["mats"].data_ptr(), _ptr(pack, "scales"), pack["vecs"].data_ptr(),
+        pack["maa2"].data_ptr(), _head(pack).data_ptr(), _ptr(pack, "head_d"),
         pack["ln_out"].data_ptr(),
         ins["att_xx"].data_ptr(), ins["ffn_xx"].data_ptr(), ins["heads"].data_ptr(),
         outs["att_xx"].data_ptr(), outs["ffn_xx"].data_ptr(), outs["heads"].data_ptr(),
         logits.data_ptr(), scratch.data_ptr(),
-        c, h, s, dm, dd, f, n_layer, vocab, grid, _cuda.stream_ptr(dev),
+        c, h, s, dm, dd, f, n_layer, vocab, *_emb_f32(pack), grid, _cuda.stream_ptr(dev),
     )
     _cuda.check("v6_decode", _k6_entry(pack), code)
     return logits, outs, scratch
@@ -746,13 +857,14 @@ def v6_decode_step(pack: dict, state: dict, token: torch.Tensor, cfg):
     take the plain version. The input state is not modified."""
     if pack["mats"].device.type == "cpu":
         return v6_decode_step_ref(pack, state, token, cfg)
-    fn = _cuda.function("v6_decode", _k6_entry(pack), *V6_DECODE_ARGS)
+    fn = _cuda.function("v6_decode", _k6_entry(pack), *_args(V6_DECODE_ARGS, pack))
     logits, outs, _ = v6_decode_launch(fn, pack, state, token, cfg)
-    v6_decode_step.launches += 1
+    _count(v6_decode_step, pack)
     return logits, outs
 
 
 v6_decode_step.launches = 0
+v6_decode_step.launches_by_form = dict.fromkeys(FORMS, 0)
 
 
 # -- RWKV v5.1 / v5.2 and v4: packs, plain versions, kernels K7 and K8 --------
@@ -777,7 +889,7 @@ def _v45_blocks(pack: dict) -> tuple:
     return (("fmix", 2), ("td", 1), ("tf", 1)) + lnx + (("amix", n_mix),)
 
 
-def _build_mega_pack_v45(params: dict, cfg, w4: bool, version: int) -> dict:
+def _build_mega_pack_v45(params: dict, cfg, w4: bool, quant: bool, version: int) -> dict:
     c = cfg.n_embed
     blocks = params["blocks"]
     n_layer = len(blocks)
@@ -788,10 +900,12 @@ def _build_mega_pack_v45(params: dict, cfg, w4: bool, version: int) -> dict:
             return np.stack([np.concatenate([_np(b[k]) for k in keys_or_key]) for b in blocks])
         return np.stack([_np(b[keys_or_key]) for b in blocks])
 
+    form = _form(quant, w4)
     pack = {
         "version": version,
-        "quant": True,
-        "w4": bool(w4),
+        "quant": quant,
+        "w4": form == "i4",
+        "form": form,
         "f_dim": _np(blocks[0]["ffn.key.weight"]).shape[0],
     }
     att = _V45_ATT + (("att.gate.weight",) if has_gate else ())
@@ -802,8 +916,7 @@ def _build_mega_pack_v45(params: dict, cfg, w4: bool, version: int) -> dict:
         "fv": stack("ffn.value.weight"),
         "fr": stack("ffn.receptance.weight"),
     }
-    for name, w in mats.items():
-        pack[name], pack[name + "_d"] = _quantize_rows(w, w4)
+    _pack_mats(pack, mats, tuple(mats))
     for key in V45_VEC_KEYS:
         pack[key] = torch.from_numpy(stack(key).reshape(n_layer, c))
     mix_names = ("k", "v", "r") + (("g",) if has_gate else ())
@@ -827,39 +940,37 @@ def _build_mega_pack_v45(params: dict, cfg, w4: bool, version: int) -> dict:
         pack["has_gate"] = has_gate
         for key in ("att.ln_x.weight", "att.ln_x.bias"):
             pack[key] = torch.from_numpy(stack(key).reshape(n_layer, c))
-    q, d = _quantize_rows(_np(params["head"])[None])
-    pack["head8"], pack["head_d"] = q[0], d[0]
-    pack["ln_out.weight"] = torch.from_numpy(_np(params["ln_out"][0]).copy())
-    pack["ln_out.bias"] = torch.from_numpy(_np(params["ln_out"][1]).copy())
+    _attach_head(pack, params)
     return pack
 
 
-def build_mega_pack_v5(params: dict, cfg, w4: bool = False) -> dict:
+def build_mega_pack_v5(params: dict, cfg, w4: bool = False, quant: bool = True) -> dict:
     """K7's parameter pack with the LM head (the JAX package's
-    ``build_mega_pack_v5(quant=True, w4=w4, head=True)``), built on the host
-    from the port's parameter tree. ``has_gate`` (v5.2) is whether the
+    ``build_mega_pack_v5(quant=quant, w4=w4, head=True)``), built on the
+    host from the port's parameter tree. ``has_gate`` (v5.2) is whether the
     layers hold ``att.gate.weight``.
 
     Matrices (``V5_MAT_KEYS``) are codes ``[L, N, K]`` (int4 values for all
-    five when w4) with row scales ``[L, N]``, ``rkvg`` fused r, k, v(, g);
+    five when w4) with row scales ``[L, N]``, or bf16 values with
+    quant=False, ``rkvg`` fused r, k, v(, g);
     vectors ``[L, C]``; ``amix`` ``[L, 3 or 4, C]`` (k, v, r(, g)); ``fmix``
     ``[L, 2, C]`` (k, r); ``td`` (the decay, already exp(-exp(.)) as
     stored) and ``tf`` (5.2's time_faaaa, 5.1's time_first) ``[L, C]``, 5.1's
     per-head scalars broadcast over S; ``head8`` ``[V, C]`` int8 with
-    ``head_d``."""
+    ``head_d``, or ``headbf16``."""
     if cfg.version_major != 5:
         raise NotImplementedError("build_mega_pack_v5 takes RWKV v5 models")
-    return _build_mega_pack_v45(params, cfg, w4, 5)
+    return _build_mega_pack_v45(params, cfg, w4, quant, 5)
 
 
-def build_mega_pack_v4(params: dict, cfg, w4: bool = False) -> dict:
+def build_mega_pack_v4(params: dict, cfg, w4: bool = False, quant: bool = True) -> dict:
     """K8's parameter pack with the LM head (the JAX package's
-    ``build_mega_pack_v4(quant=True, w4=w4, head=True)``): as
+    ``build_mega_pack_v4(quant=quant, w4=w4, head=True)``): as
     ``build_mega_pack_v5`` with ``rkv`` fused r, k, v, ``amix`` (k, v, r),
     ``td`` = time_decay and ``tf`` = time_first ``[L, C]``, and no ln_x."""
     if cfg.version_major != 4:
         raise NotImplementedError("build_mega_pack_v4 takes RWKV v4 models")
-    return _build_mega_pack_v45(params, cfg, w4, 4)
+    return _build_mega_pack_v45(params, cfg, w4, quant, 4)
 
 
 def _mix45(x, prev, coeff):
@@ -873,9 +984,9 @@ def _ffn_v45_ref(pack: dict, l: int, x, ffn_in):
     fcf = pack["fmix"][l]
     xk2 = _mix45(xl2, ffn_in, fcf[0])
     xr2 = _mix45(xl2, ffn_in, fcf[1])
-    rg = torch.sigmoid(_matvec(_codes(pack, "fr", l), pack["fr_d"][l], xr2))
-    hk = torch.square(torch.relu(_matvec(_codes(pack, "fk", l), pack["fk_d"][l], xk2)))
-    return x + rg * _matvec(_codes(pack, "fv", l), pack["fv_d"][l], hk), xl2[0]
+    rg = torch.sigmoid(_matvec(*_mat(pack, "fr", l), xr2))
+    hk = torch.square(torch.relu(_matvec(*_mat(pack, "fk", l), xk2)))
+    return x + rg * _matvec(*_mat(pack, "fv", l), hk), xl2[0]
 
 
 # the attention mix (amix order k, v, r, g) that feeds each fused
@@ -885,12 +996,10 @@ _ATT_MIX = (2, 0, 1, 3)
 
 def _att_rows_ref(pack: dict, name: str, l: int, xl, prev):
     """The fused attention projections of layer l: the mixes each
-    quantized as a whole, then r, k, v(, g) [1, C]."""
+    quantized as a whole (bf16 form: in f32), then r, k, v(, g) [1, C]."""
     c = xl.shape[-1]
-    q, d = _codes(pack, name, l), pack[name + "_d"][l]
     cf = pack["amix"][l]
-    return [_matvec(q[i * c : (i + 1) * c], d[i * c : (i + 1) * c],
-                    _mix45(xl, prev, cf[_ATT_MIX[i]]))
+    return [_matvec(*_mat(pack, name, l, i * c, (i + 1) * c), _mix45(xl, prev, cf[_ATT_MIX[i]]))
             for i in range(cf.shape[0])]
 
 
@@ -923,7 +1032,7 @@ def v5_decode_layers_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
         xo = yn * pack["att.ln_x.weight"][l] + pack["att.ln_x.bias"][l]
         if gate:
             xo = xo * (gate[0] * torch.sigmoid(gate[0]))
-        x = x + _matvec(_codes(pack, "out", l), pack["out_d"][l], xo)
+        x = x + _matvec(*_mat(pack, "out", l), xo)
         x, xl2 = _ffn_v45_ref(pack, l, x, state["ffn_xx"][l])
         ffn_out.append(xl2)
     new_state = {
@@ -936,7 +1045,7 @@ def v5_decode_layers_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
 
 def v5_decode_step_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
     """Plain PyTorch K7 (any device): ``v5_decode_layers_ref``, then
-    ln_out and the int8 head. Returns (logits [V], new state)."""
+    ln_out and the head. Returns (logits [V], new state)."""
     x, new = v5_decode_layers_ref(pack, state, token, cfg)
     return lm_head_ref(pack, x), new
 
@@ -962,7 +1071,7 @@ def v4_decode_layers_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
                                      state["aa"][l], state["bb"][l], state["pp"][l])
         for key, val in (("aa", aa), ("bb", bb), ("pp", pp)):
             out[key].append(val)
-        x = x + _matvec(_codes(pack, "out", l), pack["out_d"][l], torch.sigmoid(r) * wkv)
+        x = x + _matvec(*_mat(pack, "out", l), torch.sigmoid(r) * wkv)
         x, xl2 = _ffn_v45_ref(pack, l, x, state["ffn_xx"][l])
         out["ffn_xx"].append(xl2)
     return x[0], {k: torch.stack(v) for k, v in out.items()}
@@ -970,7 +1079,7 @@ def v4_decode_layers_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
 
 def v4_decode_step_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
     """Plain PyTorch K8 (any device): ``v4_decode_layers_ref``, then
-    ln_out and the int8 head. Returns (logits [V], new state)."""
+    ln_out and the head. Returns (logits [V], new state)."""
     x, new = v4_decode_layers_ref(pack, state, token, cfg)
     return lm_head_ref(pack, x), new
 
@@ -1013,13 +1122,13 @@ def v4_decode_shape_error(cfg, f_dim: int, w4: bool = False) -> Optional[str]:
 
 # argument counts of the C entries (pointers, ints): rwkv_v5_decode / _w4
 # (C, H, S, F, L, V, has_gate, grid) and rwkv_v4_decode / _w4 (C, F, L, V,
-# grid)
+# grid); the _bf16 entries take emb_f32 before grid
 V5_DECODE_ARGS = (17, 8)
 V4_DECODE_ARGS = (21, 5)
 
 
 def _v45_entry(pack: dict) -> str:
-    return f"rwkv_v{pack['version']}_decode" + ("_w4" if pack["w4"] else "")
+    return f"rwkv_v{pack['version']}_decode" + _SUFFIX[pack["form"]]
 
 
 def _v45_state_keys(version: int) -> tuple:
@@ -1061,21 +1170,23 @@ def v45_decode_launch(fn, pack: dict, state: dict, token: torch.Tensor, cfg,
     if grid is None:
         dims = (c, cfg.head_size, f) if version == 5 else (c, f)
         grid = pack["_grid_v45"] = _grid_blocks(lib, _v45_entry(pack) + "_grid", *dims)
-    ptrs = [token, pack["emb"], pack["ln0"], pack["mats"], pack["scales"], pack["vecs"],
-            pack["head8"], pack["head_d"], pack["ln_out"]]
-    ptrs += [ins[k] for k in keys] + [outs[k] for k in keys] + [logits, scratch]
+    ptrs = [token.data_ptr(), pack["emb"].data_ptr(), pack["ln0"].data_ptr(),
+            pack["mats"].data_ptr(), _ptr(pack, "scales"), pack["vecs"].data_ptr(),
+            _head(pack).data_ptr(), _ptr(pack, "head_d"), pack["ln_out"].data_ptr()]
+    ptrs += [t.data_ptr() for t in [ins[k] for k in keys] + [outs[k] for k in keys]
+             + [logits, scratch]]
     if version == 5:
-        ints = (c, cfg.head_count, cfg.head_size, f, n_layer, vocab, int(pack["has_gate"]), grid)
+        ints = (c, cfg.head_count, cfg.head_size, f, n_layer, vocab, int(pack["has_gate"]))
     else:
-        ints = (c, f, n_layer, vocab, grid)
-    code = fn(*(t.data_ptr() for t in ptrs), *ints, _cuda.stream_ptr(dev))
+        ints = (c, f, n_layer, vocab)
+    code = fn(*ptrs, *ints, *_emb_f32(pack), grid, _cuda.stream_ptr(dev))
     _cuda.check(lib, _v45_entry(pack), code)
     return logits, outs, scratch
 
 
 def _v45_function(pack: dict):
     args = V5_DECODE_ARGS if pack["version"] == 5 else V4_DECODE_ARGS
-    return _cuda.function(f"v{pack['version']}_decode", _v45_entry(pack), *args)
+    return _cuda.function(f"v{pack['version']}_decode", _v45_entry(pack), *_args(args, pack))
 
 
 def v5_decode_step(pack: dict, state: dict, token: torch.Tensor, cfg):
@@ -1086,11 +1197,12 @@ def v5_decode_step(pack: dict, state: dict, token: torch.Tensor, cfg):
     if pack["mats"].device.type == "cpu":
         return v5_decode_step_ref(pack, state, token, cfg)
     logits, outs, _ = v45_decode_launch(_v45_function(pack), pack, state, token, cfg)
-    v5_decode_step.launches += 1
+    _count(v5_decode_step, pack)
     return logits, outs
 
 
 v5_decode_step.launches = 0
+v5_decode_step.launches_by_form = dict.fromkeys(FORMS, 0)
 
 
 def v4_decode_step(pack: dict, state: dict, token: torch.Tensor, cfg):
@@ -1100,8 +1212,9 @@ def v4_decode_step(pack: dict, state: dict, token: torch.Tensor, cfg):
     if pack["mats"].device.type == "cpu":
         return v4_decode_step_ref(pack, state, token, cfg)
     logits, outs, _ = v45_decode_launch(_v45_function(pack), pack, state, token, cfg)
-    v4_decode_step.launches += 1
+    _count(v4_decode_step, pack)
     return logits, outs
 
 
 v4_decode_step.launches = 0
+v4_decode_step.launches_by_form = dict.fromkeys(FORMS, 0)

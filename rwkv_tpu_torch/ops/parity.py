@@ -1,10 +1,12 @@
 """Float32 compute ops with the JAX package's semantics.
 
-Ports ``layer_norm``, ``group_norm``, ``l2_normalize``, the serving side of
-``mm`` and the ``Weight`` leaf (a linear weight in its on-disk precision,
-what ``models.loader.load_params`` returns) from ``rwkv_tpu.ops.parity``.
-The ggml-parity quantized matmul (``_quant_matmul``) is not ported yet;
-``Weight`` keeps the fields it needs (``q8_1_act``, ``q8_k_act``).
+Ports ``layer_norm``, ``group_norm``, ``l2_normalize``, ``mm`` (the serving
+side and its dense ``Weight`` branch) and the ``Weight`` leaf (a linear
+weight in its on-disk precision, what ``models.loader.load_params``
+returns) from ``rwkv_tpu.ops.parity``. The ggml-parity quantized matmul
+(``_quant_matmul``) is not ported yet: ``mm`` refuses a quantized
+``Weight``, and ``Weight`` keeps the fields that matmul needs
+(``q8_1_act``, ``q8_k_act``).
 """
 
 from __future__ import annotations
@@ -86,14 +88,40 @@ class Weight:
         return arr.reshape(self.q.shape[0], -1)
 
 
+def _matmul_f32(x2: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """x2 @ wt in float32 at full precision: on the card with TF32 off for
+    the call (the JAX package's ``precision=HIGHEST``)."""
+    if not x2.is_cuda:
+        return torch.matmul(x2, wt)
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return torch.matmul(x2, wt)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+
+
 def mm(x: torch.Tensor, w) -> torch.Tensor:
     """y[..., o] = sum_i x[..., i] * W[o, i].
 
-    `w` is a dense ``[out, in]`` tensor or a w8a8
-    ``rwkv_tpu_torch.ops.kernels.PackedQuantWeight``. Dense f32 weights run
-    an f32 matmul; bf16 weights see bf16-rounded activations with float32
-    accumulation (the JAX package's ``preferred_element_type=f32``). Leading
+    `w` is a dense ``[out, in]`` tensor, a w8a8
+    ``rwkv_tpu_torch.ops.kernels.PackedQuantWeight`` or a ``Weight`` of a
+    loaded file. Dense f32 weights run an f32 matmul; bf16 weights see
+    bf16-rounded activations with float32 accumulation (the JAX package's
+    ``preferred_element_type=f32``). A dense ``Weight`` runs in f32 at full
+    precision against the raw f32 activations, an FP16 one converted to
+    f32 (what ggml's FP16 matmul computes); a quantized ``Weight`` needs
+    the ggml-parity matmul, not ported (ROADMAP queue A item 9). Leading
     dims are flattened into one ``[M, in]`` product."""
+    if isinstance(w, Weight):
+        if w.kind != "dense":
+            raise NotImplementedError(
+                f"mm on a {w.fmt} Weight needs the ggml-parity quantized matmul "
+                f"(_quant_matmul), not ported yet (ROADMAP queue A item 9); serve the "
+                f"file through ServingModel")
+        lead = x.shape[:-1]
+        y = _matmul_f32(x.reshape(-1, x.shape[-1]).float(), w.w.to(x.device).float().T)
+        return y.reshape(*lead, w.w.shape[0])
     if not isinstance(w, torch.Tensor):
         from rwkv_tpu_torch.ops.kernels import quant_matmul
 

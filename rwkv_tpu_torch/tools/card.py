@@ -2,8 +2,9 @@
 host-clock time, the card's name and power limit, seeded decode states,
 per-sequence errors against a plain version, the RWKV-6, RWKV-5 and RWKV-4
 models at the published widths the port serves (``v6_models``,
-``v5_models``, ``v4_models``) and the B=1 decode kernels K6-K8 against
-their plain versions on a pack cut in depth (``decode_vs_plain``).
+``v5_models``, ``v4_models``; int8, int4 and bf16 packs) and the B=1
+decode kernels K3 and K6-K8 against their plain versions on a pack cut in
+depth (``decode_vs_plain``).
 
 Used by ``chip_smoke.py`` and the probes in this package. ``device_ms``,
 ``wall_ms``, ``seeded_states``, the ``*_models`` and ``decode_vs_plain``
@@ -122,17 +123,17 @@ V5_WIDTH = ("5.2", 24, 2048, 65536, 64)
 V4_WIDTH = ("4.0", 12, 768, 65536, 64)
 
 
-def width_models(width, seed: int = 0):
-    """(cfg, {"w8a8": model, "w4a8": model}): ServingModels with
-    ``megakernel=True`` of one seeded f32 synth tree at `width`, built once
-    for both formats."""
+def width_models(width, seed: int = 0, precisions=("w8a8", "w4a8", "bf16")):
+    """(cfg, {"w8a8": model, "w4a8": model, "bf16": model}): ServingModels
+    with ``megakernel=True`` of one seeded f32 synth tree at `width`, built
+    once for every precision (the int8, int4 and bf16 packs)."""
     from rwkv_tpu_torch.models.serve import ServingModel
     from rwkv_tpu_torch.models.synth import synth_config, synth_params
 
     cfg = synth_config(*width)
     params = synth_params(cfg, seed=seed)
     models = {p: ServingModel((cfg, params), precision=p, megakernel=True)
-              for p in ("w8a8", "w4a8")}
+              for p in precisions}
     return cfg, models
 
 
@@ -156,12 +157,24 @@ def rel_err(a, ref) -> float:
     return float((a - ref).abs().max()) / max(1.0, float(ref.abs().max()))
 
 
-def decode_launcher(pack):
-    """(launch, plain layers, argument counts) of the B=1 decode kernel of
-    a v6, v5 or v4 pack: ``launch(fn, pack, state, token, cfg,
-    scratch_extra=0)`` returns (logits, new state, scratch)."""
+def _v7_layers_ref(pack, state, token, cfg):
+    """K3's plain version without the head: (x [C], new state)."""
     from rwkv_tpu_torch.ops import megakernel as M
 
+    x, new = M.v7_decode_batched_ref(pack, {k: v[None] for k, v in state.items()},
+                                     token.reshape(-1)[:1], cfg)
+    return x[0], {k: v[0] for k, v in new.items()}
+
+
+def decode_launcher(pack):
+    """(launch, plain layers, argument counts) of the B=1 decode kernel of
+    a v7 (K3), v6, v5 or v4 pack: ``launch(fn, pack, state, token, cfg,
+    scratch_extra=0)`` returns (logits, new state, scratch), x at the
+    scratch's start."""
+    from rwkv_tpu_torch.ops import megakernel as M
+
+    if "version" not in pack:
+        return M.decode_launch, _v7_layers_ref, M.DECODE_ARGS
     if pack["version"] == 6:
         return M.v6_decode_launch, M.v6_decode_layers_ref, M.V6_DECODE_ARGS
     if pack["version"] == 5:
@@ -170,13 +183,14 @@ def decode_launcher(pack):
 
 
 def decode_entry(pack, src=None, flags: tuple = ()):
-    """The C launch entry of K6, K7 or K8 for `pack` (its version and
-    format), from ``csrc`` or another source `src`."""
+    """The C launch entry of K3, K6, K7 or K8 for `pack` (its version and
+    form), from ``csrc`` or another source `src`."""
     from rwkv_tpu_torch.ops import _cuda
+    from rwkv_tpu_torch.ops import megakernel as M
 
-    version = pack["version"]
-    name = f"rwkv_v{version}_decode" + ("_w4" if pack["w4"] else "")
-    args = decode_launcher(pack)[2]
+    version = pack.get("version", 7)
+    name = {7: M._k3_entry, 6: M._k6_entry}.get(version, M._v45_entry)(pack)
+    args = M._args(decode_launcher(pack)[2], pack)
     if src is None and not flags:
         return _cuda.function(f"v{version}_decode", name, *args)
     src = src or _cuda.CSRC / f"v{version}_decode.cu"
@@ -184,7 +198,7 @@ def decode_entry(pack, src=None, flags: tuple = ()):
 
 
 def decode_vs_plain(pack, cfg, state: dict, token, depth: int) -> dict:
-    """K6, K7 or K8 (by the pack's version) on `pack` cut to its first
+    """K3, K6, K7 or K8 (by the pack's version) on `pack` cut to its first
     `depth` layers (a shallower config over the same buffers, the state's
     first layers) against its plain version: rel_err of x (before ln_out),
     of the state (the worst of its arrays) and of the logits. Launches

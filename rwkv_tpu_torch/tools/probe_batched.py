@@ -2,20 +2,21 @@
 against an earlier version of their sources, and the v6, v5 and v4
 kernels K6, K7 and K8.
 
-    python3 -m rwkv_tpu_torch.tools.probe_batched [--baseline DIR] [--phases | --flips]
-    python3 -m rwkv_tpu_torch.tools.probe_batched --v6 | --v5 | --v4 [--baseline DIR] [--phases] [--flips]
+    python3 -m rwkv_tpu_torch.tools.probe_batched [--baseline DIR] [--phases | --flips] [--bf16]
+    python3 -m rwkv_tpu_torch.tools.probe_batched --v6 | --v5 | --v4 [--baseline DIR] [--phases] [--flips] [--bf16]
 
 Times one launch of ``rwkv_tpu_torch.ops.megakernel.v7_decode_batched``
 (K4; device time, launches queued behind a spin kernel so no host time is
 counted) for the 169M v7 shape (C=768, synth seed 0) at B = 1, 8 and 64
-under w8a8 and B = 8 under w4a8, from the states of a seeded batched
-prefill, and ``v7_decode_step`` (K3) at B=1 under both.
+under w8a8 and bf16 and B = 8 under w4a8, from the states of a seeded
+batched prefill, and ``v7_decode_step`` (K3) at B=1 under all three.
 
 With ``--baseline DIR`` it also builds ``DIR/v7_decode.cu`` and
 ``DIR/v7_decode_batched.cu``, where present (an earlier version of a
 kernel, its headers beside it), prints the largest difference between the
 two versions' outputs and times both on the same inputs in the order
-baseline, current, current, baseline.
+baseline, current, current, baseline (for the forms the earlier version
+has an entry for).
 
 With ``--phases`` it instead builds the kernels with
 ``-DRWKV_PHASE_TIMES`` (thread 0 of block 0 stamps ``%globaltimer``
@@ -26,14 +27,15 @@ with ``--baseline``, for the earlier ones.
 
 With ``--flips`` it instead holds K4 against its plain version on the
 169M packs cut to their first 1, 2 and 12 layers (a shallower config over
-the same buffers), w8a8 and w4a8, for 12 seeded batches of 64: per batch
-and depth, the sequences outside the element-wise 2e-2 band (int8 code
-flips), their worst error over the sequence's largest value and in
-absolute terms, and the sequences within 1e-4.
+the same buffers), w8a8, w4a8 and bf16, for 12 seeded batches of 64: per
+batch and depth, the sequences outside the element-wise 2e-2 band (int8
+code flips), their worst error over the sequence's largest value and in
+absolute terms, and the sequences within 1e-4; and K3 on each batch's
+first sequence at the same depths (logits and state over their scale).
 
 With ``--v6`` it measures K6 (``v6_decode_step``) instead, on the RWKV-6
-models at the 1.6B width (C=2048, 24 layers, synth seed 0; w8a8 and
-w4a8): its time per launch from a seeded state (against an earlier
+models at the 1.6B width (C=2048, 24 layers, synth seed 0; w8a8, w4a8 and
+bf16): its time per launch from a seeded state (against an earlier
 ``DIR/v6_decode.cu`` with ``--baseline``, as above), with ``--phases`` also the
 mean time of each of the seven phases of a layer (A, M, B, C, D, E, F)
 and of each barrier from the timing build, and with ``--flips`` also its
@@ -45,6 +47,10 @@ at the World 1.5B width (C=2048, 24 layers; phases A, C, D, E, F), its
 flips also on a 2-layer v5.1 pair at that width; ``--v4`` for K8 on the
 RWKV-4 models at the World 0.1B width (C=768, 12 layers; phases A, B, E,
 F), its flips also on a 2-layer pair at the 1.5B width (C=2048).
+
+``--bf16`` restricts every measurement to the bf16 packs (the readings
+that set ``chip_smoke.py``'s bf16 limits), their seeded states from the
+bf16 model's own prefill.
 
 Prints one line per measurement and the card (nvidia-smi name and power
 limit). Needs a CUDA device; builds the kernels on first use.
@@ -60,30 +66,35 @@ PHASES = "ACDEF"
 V6_PHASES = "AMBCDEF"
 
 
-def k3_entry(src_dir, w4: bool, flags: tuple = ()):
-    """K3's launch entry from ``src_dir/v7_decode.cu`` (None: csrc), or
-    None when that version has no entry for the format."""
+def k3_entry(src_dir, pack, flags: tuple = ()):
+    """K3's launch entry for `pack`'s form from ``src_dir/v7_decode.cu``
+    (None: csrc), or None when that version has no entry for the form."""
     from rwkv_tpu_torch.ops import _cuda
-    from rwkv_tpu_torch.ops.megakernel import DECODE_ARGS
+    from rwkv_tpu_torch.ops import megakernel as M
 
     src = (_cuda.CSRC if src_dir is None else Path(src_dir)) / "v7_decode.cu"
-    name = "rwkv_v7_decode_w4" if w4 else "rwkv_v7_decode"
+    name = M._k3_entry(pack)
     if not hasattr(_cuda.library("v7_decode_probe", src, flags), name):
         return None
-    return _cuda.function("v7_decode_probe", name, *DECODE_ARGS, src=src, flags=flags)
+    return _cuda.function("v7_decode_probe", name, *M._args(M.DECODE_ARGS, pack), src=src,
+                          flags=flags)
 
 
-def k4_entry(src_dir, flags: tuple = ()):
-    """(launch entry, grid entry) of K4 from ``src_dir/v7_decode_batched.cu``
-    (None: csrc)."""
+def k4_entry(src_dir, pack, flags: tuple = ()):
+    """(launch entry, grid entry) of K4 for `pack`'s form from
+    ``src_dir/v7_decode_batched.cu`` (None: csrc), or None when that version
+    has no entry for the form."""
     from rwkv_tpu_torch.ops import _cuda
-    from rwkv_tpu_torch.ops.megakernel import BATCHED_ARGS
+    from rwkv_tpu_torch.ops import megakernel as M
 
     src = (_cuda.CSRC if src_dir is None else Path(src_dir)) / "v7_decode_batched.cu"
-    fn = _cuda.function("v7_decode_batched_probe", "rwkv_v7_decode_batched", *BATCHED_ARGS,
-                        src=src, flags=flags)
-    grid = _cuda.library("v7_decode_batched_probe", src, flags).rwkv_v7_decode_batched_grid
-    grid.argtypes = [ctypes.c_int] * 5
+    lib = _cuda.library("v7_decode_batched_probe", src, flags)
+    name = M._k4_entry(pack)
+    if not hasattr(lib, name):
+        return None
+    fn = _cuda.function("v7_decode_batched_probe", name, *M.BATCHED_ARGS, src=src, flags=flags)
+    grid = getattr(lib, name + "_grid")
+    grid.argtypes = [ctypes.c_int] * (4 if pack["form"] == "bf16" else 5)
     grid.restype = ctypes.c_int
     return fn, grid
 
@@ -117,41 +128,51 @@ def print_phases(label: str, times, names: str = PHASES) -> None:
 
 
 def phase_split(models, cfg, states, tokens, src_dir, label: str) -> None:
-    """Per-phase device times of K4 (B = 1, 8, 64) and K3 (B=1), w8a8."""
+    """Per-phase device times of K4 (B = 1, 8, 64) and K3 (B=1), w8a8 (or,
+    with ``--bf16``, bf16), where `src_dir`'s version has the form's entry."""
     from rwkv_tpu_torch.ops.megakernel import (
         batched_launch, batched_scratch_floats, decode_launch, decode_scratch_floats,
     )
 
     flags = ("-DRWKV_PHASE_TIMES",)
-    pack = models["w8a8"]._mega
+    prec = "w8a8" if "w8a8" in models else "bf16"
+    pack = models[prec]._mega
     c, d_l, f = cfg.n_embed, pack["d_lora"], pack["f_dim"]
     extra = 2 * (2 + 2 * 5 * cfg.n_layer)
+    entry = None
     if src_dir is None or (Path(src_dir) / "v7_decode_batched.cu").exists():
-        fn, grid_fn = k4_entry(src_dir, flags)
-        grid = grid_fn(c, cfg.head_size, d_l, f, 0)
+        entry = k4_entry(src_dir, pack, flags)
+    if entry is not None:
+        fn, grid_fn = entry
+        grid = grid_fn(c, cfg.head_size, d_l, f, *(() if pack["form"] == "bf16" else (0,)))
         for b in (1, 8, 64):
             st = {k: v[:b].contiguous() for k, v in states.items()}
             times = phase_times(
                 lambda: batched_launch(fn, pack, st, tokens[:b], cfg, grid,
                                        scratch_extra=extra)[2],
                 batched_scratch_floats(c, d_l, f, b), cfg.n_layer)
-            print_phases(f"{label} K4 w8a8 B={b}", times)
-    fn = k3_entry(src_dir, False, flags)
+            print_phases(f"{label} K4 {prec} B={b}", times)
+    fn = k3_entry(src_dir, pack, flags)
+    if fn is None:
+        return
     one = {k: v[0] for k, v in states.items()}
     times = phase_times(
         lambda: decode_launch(fn, pack, one, tokens[:1], cfg, scratch_extra=extra)[2],
         decode_scratch_floats(c, d_l, f), cfg.n_layer)
-    print_phases(f"{label} K3 w8a8 B=1", times)
+    print_phases(f"{label} K3 {prec} B=1", times)
 
 
 def flips(models, cfg, n_seeds: int = 12) -> None:
-    """K4 against its plain version by depth over seeded batches of 64."""
+    """K4 against its plain version by depth over seeded batches of 64, and
+    K3 on each batch's first sequence."""
     from rwkv_tpu_torch.models.synth import synth_config
+    from rwkv_tpu_torch.ops import _cuda
+    from rwkv_tpu_torch.ops import megakernel as M
     from rwkv_tpu_torch.ops.megakernel import v7_decode_batched, v7_decode_batched_ref
-    from rwkv_tpu_torch.tools.card import seeded_states, seq_errors
+    from rwkv_tpu_torch.tools.card import rel_err, seeded_states, seq_errors
 
     for seed in range(1, n_seeds + 1):
-        states, tokens = seeded_states(models["w8a8"], cfg, 64, 32, seed=seed)
+        states, tokens = seeded_states(next(iter(models.values())), cfg, 64, 32, seed=seed)
         for prec, model in models.items():
             for depth in (1, 2, cfg.n_layer):
                 cd = synth_config("7.0", depth, cfg.n_embed, cfg.n_vocab, cfg.head_size)
@@ -166,6 +187,15 @@ def flips(models, cfg, n_seeds: int = 12) -> None:
                 print(f"K4 {prec} seed {seed} depth {depth}: {len(out)} of 64 outside 2e-2 "
                       f"{out} (at most {per8} of 8), worst {float(rel.max()):.3e} of its scale, "
                       f"{float(err.max()):.3e} abs; {int((err <= 1e-4).sum())} within 1e-4")
+                one = {k: v[0] for k, v in st.items()}
+                fn = _cuda.function("v7_decode", M._k3_entry(model._mega),
+                                    *M._args(M.DECODE_ARGS, model._mega))
+                logits, new3, _ = M.decode_launch(fn, model._mega, one, tokens[:1], cd)
+                logits_ref, new3_ref = M.v7_decode_step_ref(model._mega, one, tokens[:1], cd)
+                worst = max([rel_err(logits, logits_ref)]
+                            + [rel_err(new3[k], new3_ref[k]) for k in new3])
+                print(f"K3 {prec} seed {seed} depth {depth}: {worst:.3e} of the scale, argmax "
+                      f"{int(logits.argmax())} vs {int(logits_ref.argmax())}")
 
 
 def compare(label, cur, old) -> None:
@@ -180,6 +210,21 @@ def compare(label, cur, old) -> None:
     times = [device_ms(f) for f in (old, cur, cur, old)]
     print(f"{label}: baseline {times[0]:.4f} / {times[3]:.4f} ms, current "
           f"{times[1]:.4f} / {times[2]:.4f} ms (outputs differ by at most {diff:.3e})")
+
+
+def has_entry(lib_name: str, src, name: str) -> bool:
+    """Whether the library built from `src` has the C entry `name` (an
+    earlier version may lack a form's entry)."""
+    from rwkv_tpu_torch.ops import _cuda
+
+    return hasattr(_cuda.library(lib_name, src), name)
+
+
+def decode_entry_name(pack) -> str:
+    """The C entry name of K6, K7 or K8 for `pack`'s version and form."""
+    from rwkv_tpu_torch.ops import megakernel as M
+
+    return M._k6_entry(pack) if pack["version"] == 6 else M._v45_entry(pack)
 
 
 # per version: the phases of a layer of the B=1 decode kernel, the width
@@ -198,7 +243,7 @@ def b1_flips(models, cfg, label: str, n_seeds: int = 12, depths=None) -> dict:
     depths = depths or (1, 2, cfg.n_layer)
     worst = {}
     for seed in range(1, n_seeds + 1):
-        states, tokens = seeded_states(models["w8a8"], cfg, 1, 16, seed=seed)
+        states, tokens = seeded_states(next(iter(models.values())), cfg, 1, 16, seed=seed)
         one, tok = {k: v[0] for k, v in states.items()}, tokens[:1]
         for prec, model in models.items():
             for depth in depths:
@@ -225,8 +270,9 @@ def b1_main(args, base_dir, version: int) -> int:
 
     width = {6: V6_WIDTH, 5: V5_WIDTH, 4: V4_WIDTH}[version]
     name = {6: "K6", 5: "K7", 4: "K8"}[version]
-    cfg, models = width_models(width)
-    states, tokens = seeded_states(models["w8a8"], cfg, 1, 16, seed=1)
+    precisions = _precisions(args)
+    cfg, models = width_models(width, precisions=precisions)
+    states, tokens = seeded_states(next(iter(models.values())), cfg, 1, 16, seed=1)
     one, tok = {k: v[0] for k, v in states.items()}, tokens[:1]
     src = f"v{version}_decode.cu"
     srcs = {"current": None}
@@ -240,7 +286,10 @@ def b1_main(args, base_dir, version: int) -> int:
             fn = decode_entry(pack, src_path, flags)
             return launch(fn, pack, one, tok, cfg, scratch_extra=extra)
 
-        old = (lambda: run(srcs["baseline"])[0]) if "baseline" in srcs else None  # noqa: E731
+        old = None
+        if "baseline" in srcs and has_entry(f"v{version}_decode_probe", srcs["baseline"],
+                                            decode_entry_name(pack)):
+            old = lambda: run(srcs["baseline"])[0]  # noqa: E731
         compare(f"{name} {prec} B=1", lambda: run(None)[0], old)
         names = B1_PHASES[version]
         for label, src_path in srcs.items() if "--phases" in args else ():
@@ -254,11 +303,15 @@ def b1_main(args, base_dir, version: int) -> int:
         b1_flips(models, cfg, name)
         del models
         for label, extra_width in B1_EXTRA[version]:
-            cfg_x, models_x = width_models(extra_width)
+            cfg_x, models_x = width_models(extra_width, precisions=precisions)
             b1_flips(models_x, cfg_x, f"{name} {label}", depths=(1, 2))
             del models_x
     print(card_line())
     return 0
+
+
+def _precisions(args) -> tuple:
+    return ("bf16",) if "--bf16" in args else ("w8a8", "w4a8", "bf16")
 
 
 def main() -> int:
@@ -281,8 +334,8 @@ def main() -> int:
     cfg = synth_config("7.0", 12, 768, 65536, 64)
     params = synth_params(cfg, seed=0)
     models = {p: ServingModel((cfg, params), precision=p, megakernel=True)
-              for p in ("w8a8", "w4a8")}
-    states, tokens = seeded_states(models["w8a8"], cfg, 64, 32, seed=1)
+              for p in _precisions(args)}
+    states, tokens = seeded_states(next(iter(models.values())), cfg, 64, 32, seed=1)
     if "--flips" in args:
         flips(models, cfg)
         print(card_line())
@@ -299,21 +352,27 @@ def main() -> int:
         pack = model._mega
         fn = None
         if base_dir is not None and (base_dir / "v7_decode.cu").exists():
-            fn = k3_entry(base_dir, pack["w4"])
+            fn = k3_entry(base_dir, pack)
         cur = lambda: TM.v7_decode_step(pack, one, tokens[:1], cfg)[0]  # noqa: E731
         old = None if fn is None else (
             lambda: TM.decode_launch(fn, pack, one, tokens[:1], cfg)[0])  # noqa: E731
         compare(f"K3 {prec} B=1", cur, old)
-    for prec, b in (("w8a8", 1), ("w8a8", 8), ("w8a8", 64), ("w4a8", 8)):
+    for prec, b in (("w8a8", 1), ("w8a8", 8), ("w8a8", 64), ("w4a8", 8), ("bf16", 1),
+                    ("bf16", 8), ("bf16", 64)):
+        if prec not in models:
+            continue
         pack = models[prec]._mega
         st = {k: v[:b].contiguous() for k, v in states.items()}
         tok = tokens[:b].contiguous()
         cur = lambda: TM.v7_decode_batched(pack, st, tok, cfg)[0]  # noqa: E731
         old = None
+        entry = None
         if base_dir is not None and (base_dir / "v7_decode_batched.cu").exists():
-            fn, grid_fn = k4_entry(base_dir)
-            grid = grid_fn(cfg.n_embed, cfg.head_size, pack["d_lora"], pack["f_dim"],
-                           int(pack["w4"]))
+            entry = k4_entry(base_dir, pack)
+        if entry is not None:
+            fn, grid_fn = entry
+            dims = (cfg.n_embed, cfg.head_size, pack["d_lora"], pack["f_dim"])
+            grid = grid_fn(*dims, *(() if pack["form"] == "bf16" else (int(pack["w4"]),)))
             old = lambda: TM.batched_launch(fn, pack, st, tok, cfg, grid)[0]  # noqa: E731
         compare(f"K4 {prec} B={b}", cur, old)
     print(card_line())

@@ -1,11 +1,15 @@
-"""Kernels K1-K9 of the PyTorch/CUDA port on the card, against their plain
-PyTorch versions, the batcher's decode loop, the v7, v6, v5 and v4
-serving paths and the serving path from quantized ggmf files on the card. Every test here needs a CUDA device and nvcc and skips
+"""Kernels K1-K9 of the PyTorch/CUDA port on the card (K3, K4, K6-K8 also in
+their bf16 form), against their plain PyTorch versions, the batcher's
+decode loop, the v7, v6, v5 and v4 serving paths (int8, int4 and bf16
+packs) and the serving path from quantized ggmf files on the card. Every
+test here needs a CUDA device and nvcc and skips
 without one. The file imports no JAX, so it runs on a GPU machine without
 it, from the repository root:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -476,3 +480,157 @@ def test_card_quant_file_serving_matches_cpu(cuda_device, tmp_path, fmt):
         assert float((sg[k].cpu() - sc[k]).abs().max()) <= 5e-3 * float(sc[k].abs().max()), k
     # r, k, v, out, fk, fv a layer: two prefill chunks and four decode steps
     assert TK.quant_matmul.launches_by_form[form] - before == 6 * tc.n_layer * 6
+
+
+# -- the bf16 forms of K3, K4, K6, K7 and K8 ----------------------------------
+
+BF16_VERSIONS = ("7.0", "6.0", "5.2", "5.1", "4.0")
+BF16_BAND = 1e-4  # of the scale: no activation codes, only the order of f32 sums differs
+
+
+def _rel(a, ref) -> float:
+    return float((a - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def _bf16_setup(version, dev, depth=2, c=None, emb_f32=False):
+    """A seeded 2-layer bf16 pack (quant=False) of `version` on `dev`, the
+    config cut to its first `depth` layers (a shallower config over the
+    same buffers) and a seeded state of that depth."""
+    c = c or (128 if version == "7.0" else 256)
+    s = 32 if version == "7.0" else 64
+    tc = synth_config(version, 2, c, 256, s)
+    tp = synth_params(tc, seed=7, **({"lora_dim": 32} if version == "7.0" else {}))
+    build = {7: TM.build_mega_pack, 6: TM.build_mega_pack_v6, 5: TM.build_mega_pack_v5,
+             4: TM.build_mega_pack_v4}[tc.version_major]
+    emb = tp["emb"].float() if emb_f32 else tp["emb"].to(torch.bfloat16)
+    dp = TM.device_pack(build(tp, tc, quant=False), emb, tp["ln0"], dev)
+    tc = dataclasses.replace(tc, n_layer=depth)
+    if tc.version_major == 4:
+        return tc, dp, _v45_state(tc, dev, depth)
+    gen = torch.Generator(device=dev).manual_seed(depth)
+    state = {"att_xx": torch.randn((depth, c), device=dev, generator=gen) * 0.5,
+             "ffn_xx": torch.randn((depth, c), device=dev, generator=gen) * 0.5,
+             "heads": torch.randn((depth, c // s, s, s), device=dev, generator=gen) * 0.1}
+    return tc, dp, state
+
+
+_BF16_STEPS = {7: (TM.v7_decode_step, TM.v7_decode_step_ref),
+               6: (TM.v6_decode_step, TM.v6_decode_step_ref),
+               5: (TM.v5_decode_step, TM.v5_decode_step_ref),
+               4: (TM.v4_decode_step, TM.v4_decode_step_ref)}
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("version", BF16_VERSIONS)
+def test_bf16_decode_kernel_matches_ref(cuda_device, version, depth):
+    """The bf16 form of K3 (v7), K6, K7 and K8 on 1- and 2-layer packs
+    against its plain version within BF16_BAND of the scale, equal argmax;
+    two launches agree bit for bit and count as bf16 launches."""
+    tc, dp, state = _bf16_setup(version, cuda_device, depth)
+    step, ref = _BF16_STEPS[tc.version_major]
+    tok = torch.tensor([5], device=cuda_device)
+    before = dict(step.launches_by_form)
+    logits, new = step(dp, state, tok, tc)
+    logits2, new2 = step(dp, state, tok, tc)
+    assert step.launches_by_form["bf16"] == before["bf16"] + 2
+    assert step.launches_by_form["i8"] == before["i8"]
+    assert torch.equal(logits, logits2) and all(torch.equal(new[k], new2[k]) for k in new)
+    ref_logits, ref_new = ref(dp, state, tok, tc)
+    assert _rel(logits, ref_logits) <= BF16_BAND
+    assert int(logits.argmax()) == int(ref_logits.argmax())
+    for k in new:
+        assert _rel(new[k], ref_new[k]) <= BF16_BAND, k
+
+
+def test_bf16_decode_kernel_embeds_from_an_f32_table(cuda_device):
+    """Under precision="f32" the bf16 form embeds from the f32 table."""
+    tc, dp, state = _bf16_setup("5.2", cuda_device, emb_f32=True)
+    tok = torch.tensor([11], device=cuda_device)
+    logits, _ = TM.v5_decode_step(dp, state, tok, tc)
+    ref_logits, _ = TM.v5_decode_step_ref(dp, state, tok, tc)
+    assert dp["emb"].dtype == torch.float32 and _rel(logits, ref_logits) <= BF16_BAND
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8])
+def test_bf16_batched_decode_kernel_matches_ref(cuda_device, batch):
+    tc, dp, _ = _bf16_setup("7.0", cuda_device)
+    state = _batched_state(tc, batch, cuda_device, batch)
+    toks = torch.randint(0, tc.n_vocab, (batch,), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device).manual_seed(1))
+    before = TM.v7_decode_batched.launches_by_form["bf16"]
+    x, new = TM.v7_decode_batched(dp, state, toks, tc)
+    assert TM.v7_decode_batched.launches_by_form["bf16"] == before + 1
+    x_ref, new_ref = TM.v7_decode_batched_ref(dp, state, toks, tc)
+    assert _rel(x, x_ref) <= BF16_BAND
+    for k in new:
+        assert _rel(new[k], new_ref[k]) <= BF16_BAND, k
+
+
+def test_bf16_batched_decode_kernel_at_c2048(cuda_device):
+    """K4's bf16 form at C=2048, F=8192, where a column tile holds two
+    sequences (cols_for): B=3 spans two tiles, each sequence within
+    BF16_BAND of the plain version; identical lanes agree bit for bit."""
+    tc, dp, _ = _bf16_setup("7.0", cuda_device, depth=1, c=2048)
+    state = _batched_state(tc, 3, cuda_device, 4)
+    toks = torch.tensor([3, 100, 3], device=cuda_device)
+    state["heads"][2] = state["heads"][0]
+    state["att_xx"][2], state["ffn_xx"][2] = state["att_xx"][0], state["ffn_xx"][0]
+    x, new = TM.v7_decode_batched(dp, state, toks, tc)
+    x_ref, new_ref = TM.v7_decode_batched_ref(dp, state, toks, tc)
+    assert _rel(x, x_ref) <= BF16_BAND
+    for k in new:
+        assert _rel(new[k], new_ref[k]) <= BF16_BAND, k
+    assert torch.equal(x[0], x[2]) and torch.equal(new["heads"][0], new["heads"][2])
+
+
+def test_bf16_batched_decode_kernel_after_a_wider_model(cuda_device):
+    """K4's bf16 form at C=768 (an 8-sequence tile, 172 KB of shared
+    memory), then at C=2048 (a 2-sequence tile, 116 KB), then at C=768
+    again on its cached grid: the kernel's shared-memory limit is the
+    device's, not the last launch's."""
+    narrow, dp_n, _ = _bf16_setup("7.0", cuda_device, depth=1, c=768)
+    wide, dp_w, _ = _bf16_setup("7.0", cuda_device, depth=1, c=2048)
+    st_n = _batched_state(narrow, 8, cuda_device, 5)
+    toks = torch.arange(8, device=cuda_device)
+    x1, _ = TM.v7_decode_batched(dp_n, st_n, toks, narrow)
+    TM.v7_decode_batched(dp_w, _batched_state(wide, 2, cuda_device, 6), toks[:2], wide)
+    x2, _ = TM.v7_decode_batched(dp_n, st_n, toks, narrow)
+    assert torch.equal(x1, x2)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f32"])
+@pytest.mark.parametrize("version", BF16_VERSIONS)
+def test_card_bf16_serving_matches_cpu_and_goes_through_kernels(cuda_device, version,
+                                                                 precision):
+    """megakernel=True under bf16 / f32 on the card against the CPU: from
+    the CPU's prefill state, 3 greedy B=1 steps through the bf16 form of
+    K3 / K6 / K7 / K8 (and for v7 a B=2 step through K4's), within
+    BF16_BAND of the scale."""
+    s = 32 if version == "7.0" else 64
+    tc = synth_config(version, 2, 128 if version == "7.0" else 256, 256, s)
+    tp = synth_params(tc, seed=11, **({"lora_dim": 32} if version == "7.0" else {}))
+    gpu = ServingModel((tc, tp), precision=precision, megakernel=True, device=cuda_device)
+    cpu = ServingModel((tc, tp), precision=precision, megakernel=True, device="cpu")
+    step = _BF16_STEPS[tc.version_major][0]
+    before = step.launches_by_form["bf16"]
+    lc, sc = cpu.prefill(list(np.random.default_rng(0).integers(0, tc.n_vocab, 20)))
+    sg = {k: v.to(cuda_device) for k, v in sc.items()}
+    for _ in range(3):
+        tok = [int(lc.argmax())]
+        lg, sg = gpu.decode(tok, sg)
+        lc, sc = cpu.decode(tok, sc)
+        lg, lc = lg[0], lc[0]
+        assert _rel(lg.cpu(), lc) <= BF16_BAND and int(lg.argmax()) == int(lc.argmax())
+        for k in sc:
+            assert _rel(sg[k].cpu(), sc[k]) <= BF16_BAND, k
+    assert step.launches_by_form["bf16"] - before == 3
+    if tc.version_major == 7:
+        st2 = {k: torch.cat([v, v.flip(-1)]) for k, v in sc.items()}
+        b4 = TM.v7_decode_batched.launches_by_form["bf16"]
+        lg2, _ = gpu.decode([1, 2], {k: v.to(cuda_device) for k, v in st2.items()})
+        lc2, _ = cpu.decode([1, 2], st2)
+        assert TM.v7_decode_batched.launches_by_form["bf16"] == b4 + 1
+        # the per-op bf16 head rounds x to bf16: a last-bit difference in x
+        # can flip one rounding (f32: within the band)
+        band = BF16_BAND if precision == "f32" else 2e-3
+        assert _rel(lg2.cpu(), lc2) <= band

@@ -176,5 +176,20 @@ def test_megakernel_on_a_quantized_file_decodes_through_the_w8_pack(fp32_files, 
 
 
 def test_megakernel_refuses_the_dense_precisions(fp32_files):
-    with pytest.raises(NotImplementedError):
-        TSV.ServingModel(fp32_files["7.0"], precision="bf16", megakernel=True, device="cpu")
+    """The dense precisions are no longer refused under megakernel=True: an
+    FP32 file under bf16 and f32 decodes through the bf16 pack of its f32
+    weights (bit-equal to JAX's quant=False pack). What the decode kernels
+    still refuse is a shape they cannot take (S=128 here)."""
+    (jc, jp), (tc, tp) = j_load_params(fp32_files["7.0"]), load_params(fp32_files["7.0"])
+    jpack = JM.build_mega_pack(jp, jc, quant=False, head=True)
+    for precision in ("bf16", "f32"):
+        model = TSV.ServingModel(fp32_files["7.0"], precision=precision, megakernel=True,
+                                 device="cpu")
+        assert model._mega["form"] == "bf16" and model._mega_k3
+        for name in TM.MAT_KEYS + ("headbf16",):
+            np.testing.assert_array_equal(model._mega[name].view(torch.int16).numpy(),
+                                          np.asarray(jpack[name]).view(np.int16), err_msg=name)
+    cfg = synth_config("7.0", 2, 256, 256, 128)
+    with pytest.raises(NotImplementedError, match="head sizes"):
+        TSV.ServingModel((cfg, synth_params(cfg, seed=0)), precision="bf16", megakernel=True,
+                         device="cpu")

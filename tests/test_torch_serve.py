@@ -137,12 +137,23 @@ def test_bf16_prefill_matches_jax(models):
 
 
 def test_serving_model_rejects_unported_options(models):
-    """The decode kernels in f32 or bf16 are not ported; a model file path
-    goes to the loader (a missing one raises there)."""
+    """What is still refused: an unknown precision (ValueError); mm on a
+    quantized file's Weight, which needs the ggml-parity matmul that is not
+    ported (a dense one runs); a model file path goes to the loader (a
+    missing one raises there)."""
     _, tc, _, tp = models
-    for precision in ("f32", "bf16"):
-        with pytest.raises(NotImplementedError):
-            ServingModel((tc, tp), precision=precision, megakernel=True, device="cpu")
+    with pytest.raises(ValueError, match="precision"):
+        ServingModel((tc, tp), precision="fp8", megakernel=True, device="cpu")
+    from rwkv_tpu_torch.ops.parity import Weight as TWeight, mm as t_mm
+
+    rng = np.random.default_rng(0)
+    codes = rng.integers(-8, 8, (4, 2, 32)).astype(np.int8)
+    quant = TWeight.from_codes(codes, np.ones((4, 2), np.float32), None, "Q4_0")
+    x = torch.from_numpy(rng.standard_normal((3, 64)).astype(np.float32))
+    with pytest.raises(NotImplementedError, match="_quant_matmul"):
+        t_mm(x, quant)
+    dense = TWeight(kind="dense", w=quant.dense())
+    torch.testing.assert_close(t_mm(x, dense), x @ quant.dense().T, rtol=1e-6, atol=1e-6)
     with pytest.raises(FileNotFoundError):
         ServingModel("model.bin", precision="w8a8", device="cpu")
 
