@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-1. Prints the card (nvidia-smi name and power limit), builds the nine
-   hand-written kernels from ``rwkv_tpu_torch/csrc`` (one nvcc each, all at
-   once) and prints build times and ptxas registers.
+1. Prints the card (nvidia-smi name and power limit), builds the
+   hand-written kernels from ``rwkv_tpu_torch/csrc`` (eleven sources, one
+   nvcc each, all at once) and prints build times and ptxas registers.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, and times kernel, plain version, the card's bound
    and (K1 only) ``torch._int_mm`` as a yardstick:
@@ -23,6 +23,8 @@
      flipped (``check_k4``), and both packs cut to their first layer at
      B=64 under tighter limits; two launches, a sequence in a batch of 64
      and of 8, and eight lanes fed identical inputs agree bit for bit.
+     Also at B = 128 and 256, where ``decode`` sends it (``MEGA_MAX_BATCH``),
+     from 256 states of a seeded prefill, at the full depth's limits.
      Beside it, the w8a8 decode step at B = 8 and 64 through K4 and the
      head, and through the per-op path (the card's crossover).
    - K5 ``wkv6_recurrence``: T=256, H=32, S=64 (the 1.6B v6 width);
@@ -47,6 +49,13 @@
      2 layers, at full depth two launches bit-identical, equal argmax and
      the drift within BF16_FULL_DEPTH_REL / B1_FULL_DEPTH_REL (twice the
      worst reading of ``probe_batched --flips --bf16``).
+   - K10 / K11 (``tp_att_layer`` / ``tp_ffn_layer``, v7) and K12 / K13
+     (``_v6``), the tensor-parallel shard kernels (``phase_tp_kernels``): the
+     TP step on packs cut to the first 2 layers of the v7 World 1.5B width
+     (C=2048, F=8192, LoRA 96) and the v6 1.6B width, at depths 1 and 2, tp
+     = 2 and 4 on this card, w8a8, w4a8 and bf16, from 4 seeded states, x
+     and state within TP_SHALLOW_REL of the scale of the step on their
+     plain versions; two launches bit-identical.
    - K9 ``quant_matmul`` on the block formats (``phase_k9``): each form
      (plain Q8_0 and q8, min Q5_1, pack4 Q4_0, pack4_min Q4_1, rowwise
      q8r) at M in {1, 256} x the 169M (K, N) set and the q8 / q8r head
@@ -82,6 +91,14 @@
      of the file); Q5_1 again with ``megakernel=True`` (K9 in prefill, K3
      in decode); ``q8`` and ``q8r`` on the synth tree, prefill and 16
      decode steps (K9 plain, K9 rowwise);
+   - the tensor-parallel B=1 path (``tp_serving_path``):
+     ``ServingModel(mesh=make_mesh(1, 2, devices=[cuda:0, cuda:0]),
+     megakernel=True)`` on the v7 World 1.5B width (24 layers; w8a8, w4a8,
+     bf16) and the v6 1.6B width (w8a8): the 256-token prompt per-op, 64
+     greedy decode steps through K10 / K11 or K12 / K13 (tok/s, launches per
+     token, each kernel's time per launch against its plain version and
+     bound), then 16 steps held to the same model without a mesh from the
+     same state and token (x and logits; TP_VS_SINGLE_*);
    and checks their outputs: finite logits and state, tokens in range,
    every request finished within its limits.
 4. Holds the card against the CPU on small models: v7 (L=2, C=128) and
@@ -95,8 +112,9 @@
 5. Prints the total time, the ``{"kernels": [...]}`` JSON line (times per
    launch, in ms; K1's are the mean over the v7 w8a8 path's 169 launches
    per prefill, K4's at B=8, K9's the mean over its file path's mix of
-   decode and prefill shapes), the card line again, and last ``{"ok": true,
-   "device": {...}}``.
+   decode and prefill shapes, K10-K13's one shard's layer at tp=2; their
+   launches those of a 64-token decode), the card line again, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero. Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no
@@ -894,17 +912,21 @@ def run_main_path(model, prompt, n_decode: int):
 def counted(fn, needed):
     """Run fn() with every kernel's launch counter zeroed just before and
     read just after; raise unless each kernel in `needed` launched. K9
-    counts each form on its own ("K9 plain", ..., "K9 rowwise"), and K3, K4
-    and K6-K8 each weight form beside their total ("K3 bf16", "K4 i8")."""
+    counts each form on its own ("K9 plain", ..., "K9 rowwise"), and K3, K4,
+    K6-K8 and K10-K13 each weight form beside their total ("K3 bf16", "K4
+    i8")."""
     from rwkv_tpu_torch.ops.chunked import wkv6_recurrence, wkv7_recurrence
     from rwkv_tpu_torch.ops.kernels import quant_matmul
     from rwkv_tpu_torch.ops import megakernel as M
+    from rwkv_tpu_torch.ops import megakernel_tp as TP
 
     counters = {"K1": quant_matmul, "K2": wkv7_recurrence, "K3": M.v7_decode_step,
                 "K4": M.v7_decode_batched, "K5": wkv6_recurrence, "K6": M.v6_decode_step,
-                "K7": M.v5_decode_step, "K8": M.v4_decode_step}
+                "K7": M.v5_decode_step, "K8": M.v4_decode_step, "K10": TP.tp_att_layer,
+                "K11": TP.tp_ffn_layer, "K12": TP.tp_att_layer_v6, "K13": TP.tp_ffn_layer_v6}
     by_form = {"K9": quant_matmul.launches_by_form}
-    by_form.update({k: counters[k].launches_by_form for k in ("K3", "K4", "K6", "K7", "K8")})
+    by_form.update({k: counters[k].launches_by_form
+                    for k in ("K3", "K4", "K6", "K7", "K8", "K10", "K11", "K12", "K13")})
     for c in counters.values():
         c.launches = 0
     for forms in by_form.values():
@@ -946,6 +968,250 @@ def single_stream_path(name, model, prompt, cfg, card, n_runs: int,
           f"{dec[len(dec) // 2] * 1e3:.2f} ms ({n_decode / dec[len(dec) // 2]:.0f} tok/s; "
           f"all ms {[round(t * 1e3, 2) for t in dec]}); first tokens {toks[:8].tolist()}")
     return launches
+
+
+# -- the tensor-parallel decode: K10-K13 ------------------------------------
+
+# K10-K13 against their plain versions: the TP step on packs cut to the
+# model's first 1 and 2 layers, at tp = 2 and 4 on this card, from seeded
+# states, x and state within TP_SHALLOW_REL of their scale (the int forms:
+# K6's shallow limit, which allows an int8 code flip; bf16: sums in another
+# order). The served path against the same model without a mesh, x and
+# logits: the int forms within TP_VS_SINGLE_REL of the scale with the TP
+# argmax in the single-device top 5 (JAX's band between its TP and
+# single-chip kernels, tests/test_megakernel_tp.py: per-shard activation
+# scales on out and fv; the v6 1.6B width at 24 layers read 13.3% in x,
+# PERF.md), bf16 x within TP_VS_SINGLE_BF16[version] (v7 1e-4, v6 1e-3:
+# JAX's).
+TP_SHALLOW_REL = {"w8a8": 2e-2, "w4a8": 2e-2, "bf16": BF16_SHALLOW_REL}
+TP_VS_SINGLE_REL = 1.5e-1
+TP_VS_SINGLE_BF16 = {7: 1e-4, 6: 1e-3}
+# bf16 logits: the per-op bf16 head rounds x to bf16, so a last-bit
+# difference in x may flip one rounding (tests/test_torch_cuda.py's band)
+TP_BF16_HEAD_REL = 2e-3
+# RWKV-7 World 1.5B width, LoRA 96 (scripts/bench_15b.py:32-33)
+V7_TP_WIDTH = ("7.0", 24, 2048, 65536, 64)
+V7_TP_LORA = 96
+
+
+def tp_base(cfg, params, precision: str, depth: int):
+    """The decode pack of the model cut to its first `depth` layers."""
+    import dataclasses
+
+    from rwkv_tpu_torch.ops import megakernel as M
+
+    cd = dataclasses.replace(cfg, n_layer=depth)
+    cut = {**params, "blocks": params["blocks"][:depth]}
+    build = M.build_mega_pack_v6 if cfg.version_major == 6 else M.build_mega_pack
+    return cd, build(cut, cd, w4=precision == "w4a8", quant=precision != "bf16")
+
+
+def tp_packs_on_card(base, cfg, tp: int):
+    """`base` re-laid out for tp shards, all on this card."""
+    from rwkv_tpu_torch.ops import megakernel_tp as TP
+    from rwkv_tpu_torch.parallel.sharding import make_mesh
+
+    mesh = make_mesh(1, tp, devices=["cuda:0"] * tp)
+    build = TP.build_mega_pack_tp_v6 if cfg.version_major == 6 else TP.build_mega_pack_tp
+    return build(base, cfg, mesh)
+
+
+def phase_tp_kernels(name: str, cfg, params, n_states: int = 4, seed: int = 7) -> dict:
+    """K10 / K11 (v7) or K12 / K13 (v6) in every form against their plain
+    versions (tools/card.py::tp_vs_plain) on packs cut to 2 layers, at
+    depths 1 and 2, tp = 2 and 4, from n_states states of a seeded prefill
+    of the cut model; two launches bit-identical. Returns {precision: max
+    abs err}."""
+    import torch
+
+    from rwkv_tpu_torch.models.serve import ServingModel
+    from rwkv_tpu_torch.ops.parity import layer_norm
+    from rwkv_tpu_torch.tools.card import seeded_states, tp_vs_plain
+
+    cd, base = tp_base(cfg, params, "w8a8", 2)
+    probe = ServingModel((cd, {**params, "blocks": params["blocks"][:2]}), precision="w8a8")
+    states, tokens = seeded_states(probe, cd, n_states, 16, seed=seed)
+    x0s = layer_norm(probe.params["emb"][tokens].float(), *probe.params["ln0"])
+    del probe
+    step = tp_step(cfg.version_major)
+    out = {}
+    for prec in ("w8a8", "w4a8", "bf16"):
+        if prec != "w8a8":
+            cd, base = tp_base(cfg, params, prec, 2)
+        worst, err = {}, 0.0
+        for tp in (2, 4):
+            packs = tp_packs_on_card(base, cd, tp)
+            for i in range(n_states):
+                st = {k: v[i] for k, v in states.items()}
+                for depth in (1, 2):
+                    e = tp_vs_plain(packs, cd, st, x0s[i], depth)
+                    err = max(err, e["max_abs_err"])
+                    worst[(tp, depth)] = max(worst.get((tp, depth), 0.0), e["x"], e["state"])
+                    if max(e["x"], e["state"]) > TP_SHALLOW_REL[prec]:
+                        raise AssertionError(f"{name} {prec} tp={tp} depth {depth}: {e} of the "
+                                             f"scale, limit {TP_SHALLOW_REL[prec]}")
+            st = {k: v[0] for k, v in states.items()}
+            a, b = step(packs, st, x0s[0], cd), step(packs, st, x0s[0], cd)
+            torch.cuda.synchronize()
+            if not torch.equal(a[0], b[0]) or any(not torch.equal(a[1][k], b[1][k]) for k in a[1]):
+                raise AssertionError(f"{name} {prec} tp={tp}: two launches on the same inputs differ")
+            del packs
+        print(f"{name} {prec}: {n_states} seeded states, tp = 2 and 4, depths 1 and 2: worst "
+              f"distance from the plain versions over the scale {worst} (limit "
+              f"{TP_SHALLOW_REL[prec]}); max abs err {err:.3e}; two launches bit-identical")
+        out[prec] = err
+        del base
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_step(version: int):
+    from rwkv_tpu_torch.ops import megakernel_tp as TP
+
+    return TP.tp_decode_step_v6 if version == 6 else TP.tp_decode_step
+
+
+def tp_launch_bytes(pk: dict, kind: str, cfg) -> tuple:
+    """(bytes, weight values) one K10-K13 launch must move: its shard's
+    matrices and scales of one layer (the replicated ones too: every shard
+    reads them), the vector rows it reads, x and the token-shift input, the
+    shard's heads read and written (attention), its outputs."""
+    from rwkv_tpu_torch.ops import megakernel_tp as TP
+
+    v6 = pk["version"] == 6
+    c, c_loc, s = cfg.n_embed, pk["c_loc"], cfg.head_size
+    if kind == "att":
+        mats = ("rkvg", "maa1", "dw1", "dw2", "out") if v6 else ("rkv", "lora1", "lora2", "out")
+        rvec_rows, lvec_rows = 8, len(TP.TP6_LVECS if v6 else TP.TP_LVECS)
+        act = (2 + 2) * c + (0 if v6 else c_loc) + 2 * c_loc * s
+    else:
+        mats = ("fr", "fk", "fv") if v6 else ("fk", "fv")
+        rvec_rows, lvec_rows = (4 if v6 else 3), 0
+        act = (2 + 2) * c + (c_loc if v6 else 0)
+    n = 0
+    values = 0
+    for m in mats:
+        w = pk[m][0]
+        n += w.numel() * w.element_size()
+        values += w.numel() * (2 if pk["w4"] and m in TP.TP6_W4_MATS + TP.TP_W4_MATS else 1)
+        if m + "_d" in pk:
+            n += pk[m + "_d"][0].numel() * 4
+    if v6 and kind == "att":
+        n += pk["maa2"][0].numel() * 4
+        values += pk["maa2"][0].numel()
+    return n + (rvec_rows * c + lvec_rows * c_loc + act) * 4, values
+
+
+def tp_kernel_times(packs, cfg, state, x0) -> dict:
+    """Device time of one launch of each TP kernel of `packs` (shard 0,
+    layer 1, the main path's shapes), its plain version's, the bound."""
+    from rwkv_tpu_torch.ops import megakernel_tp as TP
+    from rwkv_tpu_torch.tools.card import device_ms
+
+    pk, l = packs[0], 1
+    h_loc = pk["c_loc"] // cfg.head_size
+    xx, fxx, heads = state["att_xx"][l], state["ffn_xx"][l], state["heads"][l, :h_loc]
+    if pk["version"] == 6:
+        calls = {"att": (lambda: TP.tp_att_layer_v6(pk, l, x0, xx, heads, cfg),
+                         lambda: TP.tp_att_layer_v6_ref(pk, l, x0, xx, heads, cfg)),
+                 "ffn": (lambda: TP.tp_ffn_layer_v6(pk, l, x0, fxx, cfg),
+                         lambda: TP.tp_ffn_layer_v6_ref(pk, l, x0, fxx, cfg))}
+    else:
+        vf = x0[: pk["c_loc"]].contiguous()
+        calls = {"att": (lambda: TP.tp_att_layer(pk, l, x0, xx, heads, vf, False, cfg),
+                         lambda: TP.tp_att_layer_ref(pk, l, x0, xx, heads, vf, False, cfg)),
+                 "ffn": (lambda: TP.tp_ffn_layer(pk, l, x0, fxx, cfg),
+                         lambda: TP.tp_ffn_layer_ref(pk, l, x0, fxx, cfg))}
+    out = {}
+    for kind, (kern, plain) in calls.items():
+        nb, values = tp_launch_bytes(pk, kind, cfg)
+        b, by = bound_ms(nb, 2 * values, op_rate(pk))
+        out[kind] = {"ms": device_ms(kern, reps=50), "plain_ms": device_ms(plain, reps=3, warmup=1),
+                     "bound_ms": b, "bound_by": by, "library_ms": None, "bytes": nb}
+    return out
+
+
+def tp_serving_path(name: str, cfg, params, precision: str, prompt, card, ref=None) -> tuple:
+    """ServingModel((cfg, params), precision, megakernel=True, mesh=
+    make_mesh(1, 2, devices=[cuda:0, cuda:0])): the B=1 main path (prefill,
+    64 greedy decode steps, counted: the attention and FFN kernels must
+    launch), then 16 steps from its prefill state, each step's x (before
+    ln_out) and logits held to the same model without a mesh (`ref`, built
+    here when None; its decode kernel) on the same state and token
+    (TP_VS_SINGLE_*, TP_BF16_HEAD_REL). Returns (launches, {kind: per-launch
+    times})."""
+    import torch
+
+    from rwkv_tpu_torch.models.serve import ServingModel
+    from rwkv_tpu_torch.ops.parity import layer_norm
+    from rwkv_tpu_torch.parallel.sharding import make_mesh
+    from rwkv_tpu_torch.tools.card import rel_err, single_device_x
+
+    t0 = time.perf_counter()
+    model = ServingModel((cfg, params), precision=precision, megakernel=True,
+                         mesh=make_mesh(1, 2, devices=["cuda:0", "cuda:0"]))
+    t_build = time.perf_counter() - t0
+    form = model._mega_tp[0]["form"]
+    att, ffn = ("K12", "K13") if cfg.version_major == 6 else ("K10", "K11")
+    needed = B1_NEEDED[precision] + ("K2" if cfg.version_major == 7 else "K5",
+                                     f"{att} {form}", f"{ffn} {form}")
+    launches = single_stream_path(name, model, prompt, cfg, card, 1, needed=needed)
+    per_token = launches[f"{att} {form}"] / 64
+    print(f"{name}: TP model built in {t_build:.1f} s; {per_token:g} {att} and "
+          f"{launches[f'{ffn} {form}'] / 64:g} {ffn} launches per token (layers x shards)")
+    own_ref = ref is None
+    if own_ref:
+        ref = ServingModel((cfg, params), precision=precision, megakernel=True)
+    logits, state = model.prefill(prompt)
+    worst = {"x": 0.0, "logits": 0.0}
+    top5, same = True, True
+    step = tp_step(cfg.version_major)
+    for _ in range(16):
+        tok = logits.argmax().reshape(1)
+        one = {k: v[0] for k, v in state.items()}
+        x0 = layer_norm(model.params["emb"][tok[0]].float(), *model.params["ln0"])
+        lt, new = model.decode(tok, state)
+        lr, _ = ref.decode(tok, state)
+        x_tp, _ = step(model._mega_tp, one, x0, cfg)
+        x_single = single_device_x(ref, state, tok)
+        worst["x"] = max(worst["x"], rel_err(x_tp, x_single))
+        worst["logits"] = max(worst["logits"], float((lt - lr).abs().max()) / float(lr.abs().max()))
+        top5 &= int(lt.argmax()) in torch.topk(lr[0], 5).indices.tolist()
+        same &= int(lt.argmax()) == int(lr.argmax())
+        state, logits = new, lt[0]
+    if precision == "bf16":
+        limits = {"x": TP_VS_SINGLE_BF16[cfg.version_major], "logits": TP_BF16_HEAD_REL}
+    else:
+        limits = {"x": TP_VS_SINGLE_REL, "logits": TP_VS_SINGLE_REL}
+    print(f"{name}: 16 steps against the model without a mesh, from the same state and token: "
+          f"worst {worst} of the scale (limits {limits}); TP argmax in its top 5: {top5}, "
+          f"equal: {same}")
+    if any(worst[k] > limits[k] for k in limits) or not top5 or (precision == "bf16" and not same):
+        raise AssertionError(f"{name}: the TP path strays from the single-device one")
+    if own_ref:
+        del ref
+    x0 = layer_norm(model.params["emb"][prompt[-1]].float(), *model.params["ln0"])
+    times = tp_kernel_times(model._mega_tp, cfg, {k: v[0] for k, v in state.items()}, x0)
+    for kind, t in times.items():
+        print(f"{name} {att if kind == 'att' else ffn}: kernel {t['ms']:.4f} ms a launch, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}, "
+              f"{t['bytes'] / 1e6:.2f} MB)")
+    del model
+    torch.cuda.empty_cache()
+    return launches, times
+
+
+def phase_k4_large(model, cfg) -> dict:
+    """K4 where decode already sends it: B = 128 and 256 (MEGA_MAX_BATCH)
+    on the 169M w8a8 pack, from states of a seeded batched prefill,
+    check_k4 at the full depth's limits, and its time."""
+    from rwkv_tpu_torch.tools.card import seeded_states
+
+    states, tokens = seeded_states(model, cfg, 256, 32, seed=10)
+    out = {}
+    for b in (128, 256):
+        out[b] = phase_k4(model._mega, cfg, states, tokens, b, f"K4 w8a8 B={b}")
+    return out
 
 
 # the 169M file paths: (format, K9 form its quantized projections run)
@@ -1166,7 +1432,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(root))
     from rwkv_tpu_torch.tools.card import (
-        card_line, seeded_states, v4_models, v5_models, v6_models, V4_WIDTH, V5_WIDTH,
+        card_line, seeded_states, v4_models, v5_models, width_models, V4_WIDTH, V5_WIDTH,
+        V6_WIDTH,
     )
 
     t_start = time.perf_counter()
@@ -1234,6 +1501,8 @@ def main() -> int:
                      states, tokens)
     crossover(model, states, tokens)
     phase_k4_wide()
+    for b, r in phase_k4_large(model, cfg).items():
+        res[f"K4 B={b}"] = r
     del states
     torch.cuda.empty_cache()
 
@@ -1274,7 +1543,7 @@ def main() -> int:
 
     # -- RWKV-6 at the 1.6B width: K6, then the B=1 main path in both formats -
     t0 = time.perf_counter()
-    cfg6, models6 = v6_models()
+    cfg6, models6, params6 = width_models(V6_WIDTH, with_params=True)
     print(f"RWKV-6 1.6B-width models (w8a8, w4a8, bf16; {cfg6.n_layer} layers, "
           f"C={cfg6.n_embed}) built in {time.perf_counter() - t0:.1f} s")
     k6 = phase_b1("K6", models6, cfg6)
@@ -1285,10 +1554,32 @@ def main() -> int:
         launches[f"v6 {prec}"] = single_stream_path(
             f"v6 {prec}", m, prompt6, cfg6, card, 1 if prec == "bf16" else 2,
             needed=B1_NEEDED[prec] + ("K5", f"K6 {m._mega['form']}"))
-    del models6
+    # tensor-parallel v6 on a tp=2 one-card mesh: K12 / K13 (w8a8, held to
+    # the w8a8 model above)
+    tp_errs = {6: phase_tp_kernels("K12 / K13", cfg6, params6)}
+    launches["tp v6 w8a8"], tp_times = tp_serving_path("tp v6 w8a8", cfg6, params6, "w8a8",
+                                                       prompt6, card, ref=models6["w8a8"])
+    res["K12"] = {**tp_times["att"], "max_abs_err": tp_errs[6]["w8a8"]}
+    res["K13"] = {**tp_times["ffn"], "max_abs_err": tp_errs[6]["w8a8"]}
+    del models6, params6
     torch.cuda.empty_cache()
     for precision in ("w8a8", "bf16"):
         small_model_check(dev, "6.0", precision)
+
+    # -- tensor-parallel v7 at the World 1.5B width, tp=2 on one card: K10 / K11
+    t0 = time.perf_counter()
+    cfg7 = synth_config(*V7_TP_WIDTH)
+    params7 = synth_params(cfg7, seed=0, lora_dim=V7_TP_LORA)
+    print(f"RWKV-7 World 1.5B-width tree ({cfg7.n_layer} layers, C={cfg7.n_embed}) drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    tp_errs[7] = phase_tp_kernels("K10 / K11", cfg7, params7)
+    for prec, sfx in (("w8a8", ""), ("w4a8", "w4"), ("bf16", "bf16")):
+        launches[f"tp v7 {prec}"], tp_times = tp_serving_path(f"tp v7 {prec}", cfg7, params7, prec,
+                                                              prompt6, card)
+        res["K10" + sfx] = {**tp_times["att"], "max_abs_err": tp_errs[7][prec]}
+        res["K11" + sfx] = {**tp_times["ffn"], "max_abs_err": tp_errs[7][prec]}
+    del params7
+    torch.cuda.empty_cache()
 
     # -- RWKV-5 (v5.2) at the World 1.5B width: K7, then the B=1 main path ---
     t0 = time.perf_counter()
@@ -1373,6 +1664,19 @@ def main() -> int:
          "rwkv_tpu/ops/kernels.py:282", "K9 pack4_min", ("quant Q4_1", "K9 pack4_min")),
         ("block_matmul_rowwise", "rwkv_tpu_torch/csrc/block_matmul.cu",
          "rwkv_tpu/ops/kernels.py:266", "K9 rowwise", ("q8r", "K9 rowwise")),
+    ]
+    for prec, sfx, form in (("w8a8", "", "i8"), ("w4a8", "w4", "i4"), ("bf16", "bf16", "bf16")):
+        meta += [
+            (f"tp_v7_att_{prec}", "rwkv_tpu_torch/csrc/tp_v7.cu",
+             "rwkv_tpu/ops/megakernel_tp.py:413", "K10" + sfx, (f"tp v7 {prec}", f"K10 {form}")),
+            (f"tp_v7_ffn_{prec}", "rwkv_tpu_torch/csrc/tp_v7.cu",
+             "rwkv_tpu/ops/megakernel_tp.py:487", "K11" + sfx, (f"tp v7 {prec}", f"K11 {form}")),
+        ]
+    meta += [
+        ("tp_v6_att_w8a8", "rwkv_tpu_torch/csrc/tp_v6.cu", "rwkv_tpu/ops/megakernel_tp.py:935",
+         "K12", ("tp v6 w8a8", "K12 i8")),
+        ("tp_v6_ffn_w8a8", "rwkv_tpu_torch/csrc/tp_v6.cu", "rwkv_tpu/ops/megakernel_tp.py:1007",
+         "K13", ("tp v6 w8a8", "K13 i8")),
     ]
     kernels = []
     for name, source, replaces, key, (path, counter) in meta:

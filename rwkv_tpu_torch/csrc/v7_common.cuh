@@ -40,6 +40,18 @@ __device__ __forceinline__ int lora1_mix(int part) {
   return part == 0 ? 1 : part == 3 ? 3 : part + 3;
 }
 
+// The per-channel vectors the time mix of a head reads, each indexed by
+// channel: rows of a layer's [kNumVec, C] block in K3 and K4 (head_vecs),
+// rows of a shard's [8, C/tp] block in K10 (tp_v7.cu).
+struct HeadVecs {
+  const float *w0, *a0, *v0, *kk, *ka, *lnx_w, *lnx_b, *rk;
+};
+
+__device__ __forceinline__ HeadVecs head_vecs(const float* vec, int C) {
+  return {vec + kW0 * C, vec + kA0 * C,   vec + kV0 * C,   vec + kKK * C,
+          vec + kKA * C, vec + kLnxW * C, vec + kLnxB * C, vec + kRK * C};
+}
+
 // One sequence's vectors and state for the per-head step.
 struct HeadIO {
   const float* r;       // [C] receptance
@@ -56,12 +68,14 @@ struct HeadIO {
 // lora downs quantized as whole vectors (bf16 form: staged in f32), the
 // 4 x S lora2 rows of the head's own channels (decay, a gate, output gate,
 // value gate), kk l2 norm, k update, value residual, wkv7 state update,
-// group norm, r_k bonus, gate. Shared scratch: hv 12 * S floats, red 256
-// floats, dxs 4 floats, q8 4D activations. blockDim.x must be a multiple
-// of S with S * S / blockDim.x <= kMaxJ.
+// group norm, r_k bonus, gate. C is the channels of io's vectors (the
+// lora2 rows are [4, C, D], their scales [4, C]); l == 0 sets v_first.
+// Shared scratch: hv 12 * S floats, red 256 floats, dxs 4 floats, q8 4D
+// activations. blockDim.x must be a multiple of S with
+// S * S / blockDim.x <= kMaxJ.
 template <int WF>
 __device__ void v7_head_step(int l, int h, const HeadIO& io, const int8_t* m_l2,
-                             const float* s_l2, const float* vec, int C, int S, int D,
+                             const float* s_l2, const HeadVecs& vec, int C, int S, int D,
                              float* hv, float* red, float* dxs, act_t<WF>* q8) {
   constexpr int LF = small_form(WF);
   const int tid = threadIdx.x;
@@ -84,13 +98,13 @@ __device__ void v7_head_step(int l, int h, const HeadIO& io, const int8_t* m_l2,
         const int part = r / S, i = r % S, c = h * S + i;
         const float y = dequant(acc, dxs[part], s_l2 + part * C + c);
         if (part == 0) {
-          h_w[i] = expf(mul(sigmoidf(add(y, vec[kW0 * C + c])), -0.606531f));
+          h_w[i] = expf(mul(sigmoidf(add(y, vec.w0[c])), -0.606531f));
         } else if (part == 1) {
-          h_ag[i] = sigmoidf(add(y, vec[kA0 * C + c]));
+          h_ag[i] = sigmoidf(add(y, vec.a0[c]));
         } else if (part == 2) {
           h_g[i] = y;
         } else {
-          h_vm[i] = sigmoidf(add(y, vec[kV0 * C + c]));
+          h_vm[i] = sigmoidf(add(y, vec.v0[c]));
         }
       });
   __syncthreads();
@@ -100,13 +114,13 @@ __device__ void v7_head_step(int l, int h, const HeadIO& io, const int8_t* m_l2,
   if (tid < S) {
     kraw = io.k[c];
     rr = io.r[c];
-    kkv = mul(kraw, vec[kKK * C + c]);
+    kkv = mul(kraw, vec.kk[c]);
   }
   const float nrm = sqrtf(block_sum(mul(kkv, kkv), red));
   float dot_part = 0.f;
   if (tid < S) {
     const float kk = kkv / fmaxf(nrm, 1e-12f);
-    const float ka = mul(kraw, vec[kKA * C + c]);
+    const float ka = mul(kraw, vec.ka[c]);
     const float ag = h_ag[tid];
     const float knew = add(kraw, sub(mul(ag, ka), ka));
     float vv = io.v[c];
@@ -120,7 +134,7 @@ __device__ void v7_head_step(int l, int h, const HeadIO& io, const int8_t* m_l2,
     h_a[tid] = -kk;
     h_b[tid] = mul(kk, ag);
     h_v[tid] = vv;
-    dot_part = mul(mul(knew, rr), vec[kRK * C + c]);
+    dot_part = mul(mul(knew, rr), vec.rk[c]);
   }
   const float dot = block_sum(dot_part, red);  // also orders the h_* stores
 
@@ -163,7 +177,7 @@ __device__ void v7_head_step(int l, int h, const HeadIO& io, const int8_t* m_l2,
   const float var = block_sum(mul(yc, yc), red) / static_cast<float>(S);
   if (tid < S) {
     const float yn = mul(yc, rsqrtf(add(var, 64e-5f)));
-    const float xo = add(mul(yn, vec[kLnxW * C + c]), vec[kLnxB * C + c]);
+    const float xo = add(mul(yn, vec.lnx_w[c]), vec.lnx_b[c]);
     const float bonus = mul(h_v[tid], dot);
     io.xo[c] = mul(add(xo, bonus), h_g[tid]);
   }

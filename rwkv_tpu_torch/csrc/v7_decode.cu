@@ -179,7 +179,8 @@ v7_decode_kernel(Args p) {
       const HeadIO io{r_g, k_g, v_g, dn_g, vf_g, xo_g, p.heads_in + st_layer,
                       p.heads_out + st_layer};
       for (int h = blockIdx.x; h < H; h += gridDim.x)  // block-uniform
-        v7_head_step<WF>(l, h, io, m_layer + mo.l2, s_l2, vec, C, S, D, hv, red, dxs, q8);
+        v7_head_step<WF>(l, h, io, m_layer + mo.l2, s_l2, head_vecs(vec, C), C, S, D, hv, red,
+                         dxs, q8);
     }
     barrier();
 

@@ -305,7 +305,8 @@ v7_decode_batched_kernel(Args p) {
       const size_t st = (static_cast<size_t>(b) * L + l) * H * S * S;
       const HeadIO io{r_g + bc, k_g + bc, v_g + bc, dn_g + static_cast<size_t>(b) * 4 * D,
                       vf_g + bc, xo_g + bc, p.heads_in + st, p.heads_out + st};
-      v7_head_step<WF>(l, h, io, m_layer + mo.l2, s_l2, vec, C, S, D, hv, red, dxs, q8);
+      v7_head_step<WF>(l, h, io, m_layer + mo.l2, s_l2, head_vecs(vec, C), C, S, D, hv, red,
+                       dxs, q8);
     }
     barrier();
 

@@ -32,7 +32,12 @@ Ports the serving side of ``rwkv_tpu.models.serve``:
   own bf16 or f32 head under ``bf16`` / ``f32``; the JAX package's batched
   and tiled kernels followed by ``G.mm``). v6, v5 and v4: B=1 through K6,
   K7 or K8 (one launch with the LM head, every form); every B > 1 per-op,
-  as in the JAX package, whose v4-v6 kernels are B=1 only.
+  as in the JAX package, whose v4-v6 kernels are B=1 only. With a
+  ``mesh`` (``parallel.sharding.make_mesh``) and ``megakernel=True``, v7
+  and v6 decode B=1 tensor-parallel over its shards (``ops.megakernel_tp``:
+  K10 / K11, K12 / K13; JAX's ``_megatp_fn``), then ``ln_out`` and the
+  per-op head; prefill, B>1 and the head are not sharded yet and run per-op
+  on the mesh's first device.
 
 State uses the serving layout: ``att_xx`` / ``ffn_xx`` ``[B, L, C]`` and
 ``heads`` ``[B, L, H, S_i, S_j]`` (v5-v7) or ``aa`` / ``bb`` / ``pp``
@@ -254,8 +259,34 @@ def forward_stacked(
     return logits, new_state
 
 
+def _tp_packs(params: dict, cfg: ModelConfig, mesh, w4: bool, quant: bool) -> list:
+    """The shard packs of ``ops.megakernel_tp`` for `mesh` (v7, v6), after
+    the shape checks; v4 and v5 raise."""
+    from rwkv_tpu_torch.ops import megakernel as M
+    from rwkv_tpu_torch.ops import megakernel_tp as TP
+
+    major, tp = cfg.version_major, mesh.tp
+    b0 = params["blocks"][0]
+    f_dim = b0["ffn.key.weight"].shape[0]
+    if major == 7:
+        err = TP.tp_shape_error(cfg, tp, params["blocks"][-1]["att.w1"].shape[0], f_dim, w4)
+    elif major == 6:
+        err = TP.tp_shape_error_v6(cfg, tp, b0["att.time_maa_w1"].shape[0] // 5,
+                                   b0["att.time_decay_w1"].shape[0], f_dim, w4)
+    else:
+        raise NotImplementedError(
+            f"mesh with megakernel=True: the RWKV v{major} TP attention kernels "
+            "(megakernel_tp.py::_att_layer_call_v4 / _v5, PERF.md rows 18-19) are not ported")
+    if err:
+        raise NotImplementedError(f"mesh with megakernel=True: {err}")
+    if major == 7:
+        return TP.build_mega_pack_tp(M.build_mega_pack(params, cfg, w4=w4, quant=quant), cfg, mesh)
+    return TP.build_mega_pack_tp_v6(M.build_mega_pack_v6(params, cfg, w4=w4, quant=quant), cfg, mesh)
+
+
 class ServingModel:
-    """RWKV v4 / v5 / v6 / v7 serving engine on one device."""
+    """RWKV v4 / v5 / v6 / v7 serving engine on one device (B=1 decode of
+    v7 / v6 over the shards of a mesh)."""
 
     def __init__(
         self,
@@ -263,6 +294,7 @@ class ServingModel:
         precision: str = "bf16",
         megakernel: bool = False,
         device=None,
+        mesh=None,
     ):
         """source: the path of a ggmf model file (FP32, FP16, Q4_0, Q4_1,
         Q5_0, Q5_1, Q8_0, Q4_K or Q5_K; ``models.loader.load_params``) or
@@ -277,14 +309,31 @@ class ServingModel:
         under w4a8, bf16 under bf16 and f32 (the JAX package's quant=False
         pack; f32 keeps its per-op paths, embedding and B>1 head in f32)
         and int8 otherwise. device: default the CUDA card; raises when
-        there is none."""
+        there is none.
+
+        mesh: a ``parallel.sharding.Mesh`` (``make_mesh(1, tp, ...)``).
+        With megakernel=True, v7 and v6 decode B=1 tensor-parallel over its
+        shards (``ops.megakernel_tp``: kernels K10 / K11, K12 / K13; the
+        int8, int4 or bf16 pack as above); v4 and v5 raise (their TP
+        attention kernels are not ported). Prefill, B>1 decode and the LM
+        head are not sharded yet: they run the per-op path on
+        ``mesh.devices[0]``, where the state lives too. `device`, if given,
+        must be that device."""
         if isinstance(source, (str, os.PathLike)):
             cfg, params = load_params(os.fspath(source))
         else:
             cfg, params = source
         if precision not in _PRECISIONS:
             raise ValueError(f"precision must be one of {sorted(_PRECISIONS)}, got {precision!r}")
+        if mesh is not None:
+            from rwkv_tpu_torch.parallel.sharding import same_device
+
+            if device is not None and same_device(device) != mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first device "
+                                 f"{mesh.devices[0]}")
+            device = mesh.devices[0]
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.config = cfg
         self.precision = precision
         dtype = torch.float32 if precision == "f32" else torch.bfloat16
@@ -294,11 +343,14 @@ class ServingModel:
         # kernel route under megakernel=True
         self.mega_min_batch = 2
         self._mega: Optional[dict] = None
+        self._mega_tp: Optional[list] = None
         self._mega_k3 = False
         # the decode kernels' pack: int4 big matrices under w4a8, bf16 under
         # bf16 and f32, int8 otherwise
         w4, quant = precision == "w4a8", precision not in ("bf16", "f32")
-        if megakernel and cfg.version_major in (4, 5, 6):
+        if megakernel and mesh is not None:
+            self._mega_tp = _tp_packs(params, cfg, mesh, w4, quant)
+        elif megakernel and cfg.version_major in (4, 5, 6):
             from rwkv_tpu_torch.ops import megakernel as M
 
             if cfg.version_major == 6:
@@ -332,6 +384,8 @@ class ServingModel:
 
     # -- state -------------------------------------------------------------
     def init_state(self, batch_size: int = 1) -> dict:
+        """The blank state of `batch_size` sequences on the model's device
+        (under a mesh, its first device: the state is not sharded yet)."""
         one = init_state(self.config, self.device)
         return {k: v[None].repeat(batch_size, *([1] * v.ndim)) for k, v in one.items()}
 
@@ -358,6 +412,8 @@ class ServingModel:
         tok = self._tokens(tokens).reshape(-1)
         b = tok.shape[0]
         major = self.config.version_major
+        if self._mega_tp is not None and b == 1:
+            return self._megatp(state, tok)
         if self._mega is not None and major in (4, 5, 6):
             if b == 1:
                 from rwkv_tpu_torch.ops import megakernel as M
@@ -376,6 +432,19 @@ class ServingModel:
             if b == 1 or self.mega_min_batch <= b <= MEGA_MAX_BATCH:
                 return self._mega_batched(state, tok)
         return self._batched(state, tok[:, None])
+
+    def _megatp(self, state: dict, tok: torch.Tensor):
+        """B=1 through the TP step (JAX's ``_megatp_fn``): ln0 of the token's
+        embedding row, the shards' layers, then ln_out and the per-op head
+        on the mesh's first device."""
+        from rwkv_tpu_torch.ops import megakernel_tp as TP
+
+        step = TP.tp_decode_step_v6 if self.config.version_major == 6 else TP.tp_decode_step
+        x0 = layer_norm(self.params["emb"][tok[0]].float(), *self.params["ln0"])
+        x, new = step(self._mega_tp, {k: v[0] for k, v in state.items()}, x0, self.config)
+        xo = layer_norm(x, *self.params["ln_out"])
+        logits = G.mm(xo[None, :], self.params["head"])
+        return logits, {k: v[None] for k, v in new.items()}
 
     def _mega_batched(self, state: dict, tok: torch.Tensor):
         """K4 for the layers, then ln_out and the per-op head (K1 at M=B

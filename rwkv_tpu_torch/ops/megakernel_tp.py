@@ -1,0 +1,710 @@
+"""Tensor-parallel B=1 decode for RWKV v7 and v6 (kernels K10-K13).
+
+Ports ``rwkv_tpu.ops.megakernel_tp``'s v7 and v6 paths:
+``build_mega_pack_tp`` / ``_v6`` (the re-layout of a decode pack into one
+pack per shard), the shard math of ``_math_helpers``, the per-layer
+kernels ``_att_layer_call`` / ``_ffn_layer_call`` (v7) and
+``_att_layer_call_v6`` / ``_ffn_layer_call_v6`` (v6; its gated FFN also
+serves v4 and v5 through ``mix45``) and the steps ``tp_decode_step`` /
+``tp_decode_step_v6``. JAX runs the shards under ``shard_map`` over the
+``model`` axis of a mesh and joins them with ``lax.psum``; here the layer
+loop runs the shards in turn, each on its own device
+(``parallel.sharding.Mesh``), and ``all_reduce`` sums their partial
+outputs in shard order on shard 0's device, then hands the sum back to
+each shard's device (no copy on a one-card mesh).
+
+Sharding (Megatron style, head-aligned, as in JAX): the activations, the
+layer norms, the token-shift coefficients and the LoRA down-projections
+(v7 lora1; v6 maa1, maa2, dw1) are replicated; the r/k/v(/g) rows, v7's
+lora2 rows, v6's dw2 and FFN gate rows, the per-channel vectors and the
+wkv head state are split by head block (``c_loc = C / tp`` channels a
+shard); ``att.output`` and ``ffn.value`` are split along their
+contraction, so each shard's product is a full-C partial that the
+all-reduce sums. The FFN hidden dim is cut into ``nf`` tiles by JAX's rule
+(``_ffn_tiles``: a shard's tile of ``ffn.key`` stays within 4 Mi
+values) and each shard holds an interleaved set of hidden rows, its own
+``f_loc / nf`` rows of every tile.
+
+Numerics follow JAX's TP kernels, not the single-device ones: each
+matvec quantizes its input vector as a whole, and on the split
+contractions that input is the shard's *local* slice -- the ``out``
+input ``(y * g)[c_loc]`` with the shard's own scale, the FFN hidden per
+(shard, tile). So a TP step differs from the single-device kernels by
+those scales (JAX's band between them is 1e-1 of the scale).
+
+A shard's pack holds its matrices as named ``[L, ...]`` tensors in the
+weight form of the base pack (int8 codes with row scales ``name_d``;
+int4 codes two a byte, ``ops.kernels.pack_int4``, under w4a8 -- for the
+matrices split along K the 32-code blocks never straddle two shards, so
+each shard's bytes are its slice of the packed row; bf16 values), the
+replicated vectors in ``rvecs`` ``[L, n, C]`` and its own in ``lvecs``
+``[L, m, c_loc]`` (named views into both), and v6's f32 ``maa2``. The
+plain versions ``tp_att_layer_ref`` / ``tp_ffn_layer_ref`` /
+``_v6_ref`` read those tensors; the wrappers ``tp_att_layer``,
+``tp_ffn_layer``, ``tp_att_layer_v6`` and ``tp_ffn_layer_v6`` launch
+``csrc/tp_v7.cu`` (K10, K11) and ``csrc/tp_v6.cu`` (K12, K13) once on a
+CUDA pack, counting launches in ``.launches`` / ``.launches_by_form``,
+and take the plain versions on a CPU pack.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from rwkv_tpu_torch.ops import _cuda
+from rwkv_tpu_torch.ops.kernels import pack_int4, unpack_int4
+from rwkv_tpu_torch.ops.megakernel import FORMS, _SUFFIX, _count, _grid_blocks, _matvec
+from rwkv_tpu_torch.ops.parity import layer_norm
+
+# the shard matrices of a v7 / v6 pack in the JAX package's order, and
+# those that hold int4 codes under w4a8
+TP_MAT_KEYS = ("rkv", "lora1", "lora2", "out", "fk", "fv")
+TP_W4_MATS = ("rkv", "out", "fk", "fv")
+TP6_MAT_KEYS = ("rkvg", "maa1", "dw1", "dw2", "out", "fk", "fv", "fr")
+TP6_W4_MATS = ("rkvg", "out", "fk", "fv", "fr")
+# vector rows of a shard: replicated [L, n, C] and the shard's own
+# [L, m, c_loc]; the kernels' RVec / LVec enums match
+TP_RVECS = ("ln1.weight", "ln1.bias", "ln2.weight", "ln2.bias", "ffn.x_k") + tuple(
+    f"coeff.{n}" for n in "rwkvag")
+TP_LVECS = ("att.w0", "att.a0", "att.v0", "att.k_k", "att.k_a", "att.ln_x.weight",
+            "att.ln_x.bias", "r_k")
+TP6_RVECS = ("ln1.weight", "ln1.bias", "ln2.weight", "ln2.bias", "att.time_maa_x",
+             "ffn.time_maa_k", "ffn.time_maa_r") + tuple(f"maa5.{n}" for n in "wkvrg")
+TP6_LVECS = ("tdecay", "att.ln_x.weight", "att.ln_x.bias", "tf")
+
+# a shard's tile of ffn.key holds at most this many values (JAX's rule)
+_FFN_TILE_VALUES = 4 * 1024 * 1024
+
+
+def _ffn_tiles(c: int, f_loc: int) -> int:
+    """nf: the FFN hidden tiles of JAX's ``build_mega_pack_tp`` (the
+    smallest count dividing f_loc whose tile of f_loc / nf rows of width c
+    stays within 4 Mi values)."""
+    nf = 1
+    while (f_loc // nf) * c > _FFN_TILE_VALUES or f_loc % nf:
+        nf += 1
+        if nf > f_loc:
+            return f_loc
+    return nf
+
+
+def _dims_error(name: str, cfg, tp: int, f_dim: int, w4: bool, inner=()) -> Optional[str]:
+    """The rules K10-K13 share: heads, channels and the FFN split evenly
+    over tp shards; a head size the per-head step takes; rows of K = C,
+    c_loc, the FFN tile and `inner` (the LoRA widths) in whole 16-byte
+    chunks (32 codes under int4)."""
+    c, h, s = cfg.n_embed, cfg.head_count, cfg.head_size
+    if tp < 1 or h % tp or c % tp or f_dim % tp:
+        return f"{name}: heads ({h}), C ({c}) and F ({f_dim}) must split over tp={tp} shards"
+    if s <= 0 or 256 % s or s * s // 256 > 16:
+        return f"{name} supports head sizes dividing 256 up to 64, got {s}"
+    c_loc, f_loc = c // tp, f_dim // tp
+    f_tile = f_loc // _ffn_tiles(c, f_loc)
+    for what, dim in (("C", c), ("C/tp", c_loc), ("the FFN tile", f_tile)) + tuple(inner):
+        if dim % 16:
+            return f"{name} needs {what} to be a multiple of 16, got {dim}"
+        if w4 and what in ("C", "C/tp", "the FFN tile") and dim % 32:
+            return f"{name}: int4 rows need {what} to be a multiple of 32, got {dim}"
+    return None
+
+
+def tp_shape_error(cfg, tp: int, d_lora: int, f_dim: int, w4: bool = False) -> Optional[str]:
+    """Why K10 / K11 cannot take this v7 model at tp shards, or None
+    (shared memory is checked at launch)."""
+    if cfg.version_major != 7:
+        return "K10 / K11 decode RWKV v7 only"
+    return _dims_error("K10 / K11", cfg, tp, f_dim, w4, (("d_lora", d_lora),))
+
+
+def tp_shape_error_v6(cfg, tp: int, d_maa: int, d_dec: int, f_dim: int,
+                      w4: bool = False) -> Optional[str]:
+    """Why K12 / K13 cannot take this v6 model at tp shards, or None."""
+    if cfg.version_major != 6:
+        return "K12 / K13 decode RWKV v6 only"
+    if d_maa % 4:
+        return f"K12 reads maa2 rows in float4 pieces: d_maa must be a multiple of 4, got {d_maa}"
+    return _dims_error("K12 / K13", cfg, tp, f_dim, w4, (("d_dec", d_dec),))
+
+
+# -- packs --------------------------------------------------------------------
+
+
+def _shard_pack(base: dict, mats: dict, w4_mats, rvecs: dict, lvecs: dict, device, meta: dict):
+    """One shard's pack on `device`: the matrices (int4 ones packed two a
+    byte), their scales, the vector blocks and the named views into them."""
+    dev = torch.device(device)
+    out = dict(meta)
+    out["form"], out["w4"], out["quant"] = base["form"], base["w4"], base["quant"]
+    for name, (w, d) in mats.items():
+        w = pack_int4(w) if base["w4"] and name in w4_mats else w
+        out[name] = w.contiguous().to(dev)
+        if d is not None:
+            out[name + "_d"] = d.contiguous().to(dev)
+    for key, block in (("rvecs", rvecs), ("lvecs", lvecs)):
+        out[key] = torch.stack(list(block.values()), dim=1).float().contiguous().to(dev)
+        for i, name in enumerate(block):
+            out[name] = out[key][:, i]
+    return out
+
+
+def _ffn_shard(base: dict, i: int, tp: int, nf: int):
+    """Shard i's FFN matrices: fk rows [L, nf, f_tile, C] (its rows of
+    every tile) with scales [L, nf, f_tile], fv [L, nf, C, f_tile] (those
+    columns, tile-major) with full row scales [L, C]."""
+    L, f_dim, c = base["fk"].shape
+    f4 = f_dim // nf
+    ft = f4 // tp
+    rows = slice(i * ft, (i + 1) * ft)
+    fk = base["fk"].reshape(L, nf, f4, c)[:, :, rows]
+    fv = base["fv"].reshape(L, c, nf, f4).permute(0, 2, 1, 3)[:, :, :, rows]
+    fk_d = base["fk_d"].reshape(L, nf, f4)[:, :, rows] if base["quant"] else None
+    return {"fk": (fk, fk_d), "fv": (fv, base.get("fv_d"))}
+
+
+def _part_rows(t, parts: int, c: int, ch: slice):
+    """Rows `ch` of each of the `parts` blocks of C rows of t [L, parts * C,
+    ...] -> [L, parts, c_loc, ...]; None (the bf16 form's scales) stays."""
+    if t is None:
+        return None
+    return t.reshape(t.shape[0], parts, c, *t.shape[2:])[:, :, ch]
+
+
+def _rows(base: dict, name: str, ch: slice):
+    """(rows `ch` of matrix `name`, their scales)."""
+    d = base.get(name + "_d")
+    return base[name][:, ch], None if d is None else d[:, ch]
+
+
+def _whole(base: dict, name: str):
+    """(matrix `name` whole, its scales): replicated, or split along K
+    (``out``, whose row scales every shard keeps)."""
+    return base[name], base.get(name + "_d")
+
+
+def build_mega_pack_tp(base: dict, cfg, mesh) -> list:
+    """The v7 decode pack ``base`` (``ops.megakernel.build_mega_pack``, on
+    the host, int4 codes one a byte) re-laid out for ``mesh.tp`` shards
+    (JAX's ``build_mega_pack_tp``): a list of shard packs, shard i on
+    ``mesh.devices[i]``, each holding its ``rkv`` rows ``[L, 3, c_loc,
+    C]``, the whole ``lora1`` ``[L, 4d, C]``, its ``lora2`` rows ``[L, 4,
+    c_loc, d]``, its ``out`` columns ``[L, C, c_loc]``, the FFN of
+    ``_ffn_shard``, the scales of those rows (``out_d`` and ``fv_d`` whole),
+    ``rvecs`` (``TP_RVECS``) and ``lvecs`` (``TP_LVECS``, its channels).
+    Codes, scales and vectors are the base pack's, bit for bit."""
+    tp, c = mesh.tp, cfg.n_embed
+    d, f_dim = base["d_lora"], base["f_dim"]
+    err = tp_shape_error(cfg, tp, d, f_dim, base["w4"])
+    if err:
+        raise ValueError(err)
+    c_loc = c // tp
+    nf = _ffn_tiles(c, f_dim // tp)
+    packs = []
+    for i, dev in enumerate(mesh.devices):
+        ch = slice(i * c_loc, (i + 1) * c_loc)
+        mats = {
+            "rkv": (_part_rows(base["rkv"], 3, c, ch), _part_rows(base.get("rkv_d"), 3, c, ch)),
+            "lora1": _whole(base, "lora1"),
+            "lora2": (_part_rows(base["lora2"], 4, c, ch),
+                      _part_rows(base.get("lora2_d"), 4, c, ch)),
+            "out": (base["out"][:, :, ch], base.get("out_d")),
+            **_ffn_shard(base, i, tp, nf),
+        }
+        rvecs = {k: base[k] for k in TP_RVECS[:5]}
+        rvecs.update({f"coeff.{n}": base["coeff"][:, j] for j, n in enumerate("rwkvag")})
+        lvecs = {k: base[k][:, ch] for k in TP_LVECS}
+        meta = {"version": 7, "tp": tp, "shard": i, "c_loc": c_loc, "nf": nf, "d_lora": d,
+                "f_dim": f_dim}
+        packs.append(_shard_pack(base, mats, TP_W4_MATS, rvecs, lvecs, dev, meta))
+    return packs
+
+
+def build_mega_pack_tp_v6(base: dict, cfg, mesh) -> list:
+    """The v6 decode pack ``base`` (``build_mega_pack_v6``) re-laid out for
+    ``mesh.tp`` shards (JAX's ``build_mega_pack_tp_v6``): per shard its
+    ``rkvg`` rows ``[L, 4, c_loc, C]``, the whole ``maa1`` ``[L, 5 d_maa,
+    C]``, ``dw1`` ``[L, d_dec, C]`` and f32 ``maa2`` ``[L, 5C, d_maa]``, its
+    ``dw2`` rows ``[L, c_loc, d_dec]``, ``out`` columns ``[L, C, c_loc]``,
+    FFN gate rows ``fr`` ``[L, c_loc, C]`` and the FFN of ``_ffn_shard``,
+    with their scales, ``rvecs`` (``TP6_RVECS``) and ``lvecs``
+    (``TP6_LVECS``, its channels)."""
+    tp, c = mesh.tp, cfg.n_embed
+    dm, dd, f_dim = base["d_maa"], base["d_dec"], base["f_dim"]
+    err = tp_shape_error_v6(cfg, tp, dm, dd, f_dim, base["w4"])
+    if err:
+        raise ValueError(err)
+    c_loc = c // tp
+    nf = _ffn_tiles(c, f_dim // tp)
+    packs = []
+    for i, dev in enumerate(mesh.devices):
+        ch = slice(i * c_loc, (i + 1) * c_loc)
+        mats = {
+            "rkvg": (_part_rows(base["rkvg"], 4, c, ch),
+                     _part_rows(base.get("rkvg_d"), 4, c, ch)),
+            "maa1": _whole(base, "maa1"),
+            "dw1": _whole(base, "dw1"),
+            "dw2": _rows(base, "dw2", ch),
+            "out": (base["out"][:, :, ch], base.get("out_d")),
+            "fr": _rows(base, "fr", ch),
+            **_ffn_shard(base, i, tp, nf),
+        }
+        rvecs = {k: base[k] for k in TP6_RVECS[:7]}
+        rvecs.update({f"maa5.{n}": base["maa5"][:, j] for j, n in enumerate("wkvrg")})
+        lvecs = {k: base[k][:, ch] for k in TP6_LVECS}
+        meta = {"version": 6, "tp": tp, "shard": i, "c_loc": c_loc, "nf": nf, "d_maa": dm,
+                "d_dec": dd, "f_dim": f_dim}
+        pk = _shard_pack(base, mats, TP6_W4_MATS, rvecs, lvecs, dev, meta)
+        pk["maa2"] = base["maa2"].float().contiguous().to(dev)
+        packs.append(pk)
+    return packs
+
+
+# -- the shard math (JAX's _math_helpers) ----------------------------------------
+
+
+def _codes(pack: dict, name: str, layer: int) -> torch.Tensor:
+    """Layer `layer` of shard matrix `name` as int8 codes (bf16 values in
+    the bf16 form), int4 bytes unpacked."""
+    w4_mats = TP6_W4_MATS if pack["version"] == 6 else TP_W4_MATS
+    q = pack[name][layer]
+    return unpack_int4(q) if pack["w4"] and name in w4_mats else q
+
+
+def _mv(pack: dict, name: str, layer: int, x, rows=None):
+    """``_matvec`` of x [1, K] against layer `layer` of matrix `name` (its
+    leading dims flattened into rows, or part `rows` of them: fv's tile,
+    whose row scales are the whole matrix's)."""
+    q = _codes(pack, name, layer)
+    d = pack.get(name + "_d")
+    d = None if d is None else d[layer]
+    if rows is not None:
+        q = q[rows]
+        if d is not None and d.dim() == q.dim():
+            d = d[rows]
+    return _matvec(q.reshape(-1, q.shape[-1]), None if d is None else d.reshape(-1), x)
+
+
+def _ffn_out(pack: dict, l: int, hk):
+    """The FFN's ``fv`` partial: per tile, its slice of the hidden quantized
+    on its own (JAX's ``mv_big`` per tile), accumulated in tile order."""
+    nf = pack["nf"]
+    ft = hk.shape[-1] // nf
+    acc = None
+    for t in range(nf):
+        y = _mv(pack, "fv", l, hk[:, t * ft : (t + 1) * ft], rows=t)
+        acc = y if acc is None else acc + y
+    return acc
+
+
+def _group_norm_heads(y, s: int, eps: float):
+    """Per-head normalization of y [h, s] (population variance)."""
+    mu = y.mean(-1, keepdim=True)
+    yc = y - mu
+    var = (yc * yc).mean(-1, keepdim=True)
+    return (yc * torch.rsqrt(var + eps)).reshape(1, -1)
+
+
+def tp_att_layer_ref(pack: dict, l: int, x, att_xx, heads, v_first, first: bool, cfg):
+    """Plain PyTorch K10: layer l's v7 attention on one shard (any device;
+    JAX's ``_make_att_kernel``). x, att_xx [C]; heads [h_loc, S, S] (i =
+    value dim, j = key dim); v_first [c_loc] (unused when `first`). Returns
+    (the full-C partial of ``out`` [C], the new att_xx [C], the new heads,
+    the new v_first [c_loc])."""
+    s = cfg.head_size
+    c_loc, d = pack["c_loc"], pack["d_lora"]
+    h_loc = c_loc // s
+
+    def vec(key):
+        return pack[key][l]
+
+    xl = layer_norm(x.float()[None], vec("ln1.weight"), vec("ln1.bias"))
+    sx = att_xx.float()[None] - xl
+    xr, xw, xk, xv, xa, xg = (xl + sx * vec(f"coeff.{n}") for n in "rwkvag")
+    lora1 = pack["lora1"][l]
+
+    def l1(part, xin):
+        rows = slice(part * d, (part + 1) * d)
+        dd = pack.get("lora1_d")
+        return _matvec(lora1[rows], None if dd is None else dd[l][rows], xin)
+
+    w_dn = torch.tanh(l1(0, xw))
+    a_dn = l1(1, xa)
+    g_dn = torch.sigmoid(l1(2, xg))
+    v_dn = l1(3, xv)
+    w_l = _mv(pack, "lora2", l, w_dn, rows=0)
+    a_l = _mv(pack, "lora2", l, a_dn, rows=1)
+    g = _mv(pack, "lora2", l, g_dn, rows=2)
+    vm = _mv(pack, "lora2", l, v_dn, rows=3)
+    w_dec = torch.exp(torch.sigmoid(w_l + vec("att.w0")) * -0.606531)
+    a_gate = torch.sigmoid(a_l + vec("att.a0"))
+    r = _mv(pack, "rkv", l, xr, rows=0)
+    k = _mv(pack, "rkv", l, xk, rows=1)
+    v = _mv(pack, "rkv", l, xv, rows=2)
+    kk = (k * vec("att.k_k")).reshape(h_loc, s)
+    kk = kk / torch.clamp(torch.sqrt((kk * kk).sum(-1, keepdim=True)), min=1e-12)
+    ka = k * vec("att.k_a")
+    k = k + (a_gate * ka - ka)
+    if first:
+        v_first = v[0]
+    else:
+        v = v + (v_first[None] - v) * torch.sigmoid(vm + vec("att.v0"))
+
+    r3, w3, k3, v3 = (t.reshape(h_loc, s) for t in (r, w_dec, k, v))
+    a3, b3 = -kk, kk * a_gate.reshape(h_loc, s)
+    sa = torch.einsum("hij,hj->hi", heads, a3)
+    st = (heads * w3[:, None, :] + v3[:, :, None] * k3[:, None, :]
+          + sa[:, :, None] * b3[:, None, :])
+    y = torch.einsum("hij,hj->hi", st, r3)
+    xo = _group_norm_heads(y, s, 64e-5) * vec("att.ln_x.weight") + vec("att.ln_x.bias")
+    bonus = (v3 * (k3 * r3 * vec("r_k").reshape(h_loc, s)).sum(-1, keepdim=True)).reshape(1, c_loc)
+    xo = (xo + bonus) * g
+    return _mv(pack, "out", l, xo)[0], xl[0], st, v_first
+
+
+def tp_ffn_layer_ref(pack: dict, l: int, x, ffn_xx, cfg):
+    """Plain PyTorch K11: layer l's v7 FFN on one shard (JAX's
+    ``_make_ffn_kernel``). Returns (the full-C partial [C], the new ffn_xx
+    [C])."""
+    xl2 = layer_norm(x.float()[None], pack["ln2.weight"][l], pack["ln2.bias"][l])
+    xk2 = xl2 + (ffn_xx.float()[None] - xl2) * pack["ffn.x_k"][l]
+    hk = torch.square(torch.relu(_mv(pack, "fk", l, xk2)))
+    return _ffn_out(pack, l, hk)[0], xl2[0]
+
+
+def tp_att_layer_v6_ref(pack: dict, l: int, x, att_xx, heads, cfg):
+    """Plain PyTorch K12: layer l's v6 attention on one shard (JAX's
+    ``_make_att_kernel_v6``): the maa chain replicated (maa2 f32 products),
+    the decay LoRA's dw2 rows and the rkvg rows of the shard's channels,
+    wkv6 with the time_faaaa bonus, group norm, ln_x, silu gate. Returns
+    (the full-C partial [C], the new att_xx [C], the new heads)."""
+    s, c = cfg.head_size, cfg.n_embed
+    c_loc, dm = pack["c_loc"], pack["d_maa"]
+    h_loc = c_loc // s
+
+    def vec(key):
+        return pack[key][l]
+
+    xl = layer_norm(x.float()[None], vec("ln1.weight"), vec("ln1.bias"))
+    sx = att_xx.float()[None] - xl
+    xxx = xl + sx * vec("att.time_maa_x")
+    mixdn = torch.tanh(_mv(pack, "maa1", l, xxx))
+    m = torch.einsum("scd,sd->sc", pack["maa2"][l].reshape(5, c, dm), mixdn.reshape(5, dm))
+    xw, xk, xv, xr, xg = (xl + sx * (vec(f"maa5.{n}") + m[i]) for i, n in enumerate("wkvrg"))
+    w_dn = torch.tanh(_mv(pack, "dw1", l, xw))
+    w_dec = torch.exp(-torch.exp(_mv(pack, "dw2", l, w_dn) + vec("tdecay")))
+    r = _mv(pack, "rkvg", l, xr, rows=0)
+    k = _mv(pack, "rkvg", l, xk, rows=1)
+    v = _mv(pack, "rkvg", l, xv, rows=2)
+    gg = _mv(pack, "rkvg", l, xg, rows=3)
+    g = gg * torch.sigmoid(gg)
+
+    r3, k3, v3, w3 = (t.reshape(h_loc, s) for t in (r, k, v, w_dec))
+    dot = (r3 * vec("tf").reshape(h_loc, s) * k3).sum(-1, keepdim=True)
+    y = torch.einsum("hij,hj->hi", heads, r3) + v3 * dot
+    st = heads * w3[:, None, :] + v3[:, :, None] * k3[:, None, :]
+    xo = (_group_norm_heads(y, s, 64e-5) * vec("att.ln_x.weight") + vec("att.ln_x.bias")) * g
+    return _mv(pack, "out", l, xo)[0], xl[0], st
+
+
+def tp_ffn_layer_v6_ref(pack: dict, l: int, x, ffn_xx, cfg, mix45: bool = False):
+    """Plain PyTorch K13: layer l's gated FFN on one shard (JAX's
+    ``_make_ffn_kernel_v6``): the gate rows of the shard's channels with
+    sigmoid, the fk rows with relu^2, the fv partial per tile. mix45: the
+    v4/v5 token-shift mix ``xl * mix + (prev - prev * mix)`` instead of
+    v6's ``xl + (prev - xl) * maa``. Returns (the full-C partial [C], the
+    gate [c_loc], the new ffn_xx [C])."""
+    xl2 = layer_norm(x.float()[None], pack["ln2.weight"][l], pack["ln2.bias"][l])
+    prev = ffn_xx.float()[None]
+    cfk, cfr = pack["ffn.time_maa_k"][l], pack["ffn.time_maa_r"][l]
+    if mix45:
+        xk2 = xl2 * cfk + (prev - prev * cfk)
+        xr2 = xl2 * cfr + (prev - prev * cfr)
+    else:
+        sx2 = prev - xl2
+        xk2 = xl2 + sx2 * cfk
+        xr2 = xl2 + sx2 * cfr
+    rg = torch.sigmoid(_mv(pack, "fr", l, xr2))
+    hk = torch.square(torch.relu(_mv(pack, "fk", l, xk2)))
+    return _ffn_out(pack, l, hk)[0], rg[0], xl2[0]
+
+
+# -- kernels K10-K13 ----------------------------------------------------------------
+
+
+def _entry(kind: str, pack: dict) -> str:
+    return f"rwkv_tp_v{pack['version']}_{kind}" + _SUFFIX[pack["form"]]
+
+
+def _layer_ptrs(pack: dict, l: int, names) -> list:
+    """Device addresses of layer l of the named shard tensors (0 for a
+    scale the bf16 form does not have), cached in the pack: they never
+    change."""
+    cache = pack.setdefault("_ptrs", {})
+    key = (l, names)
+    if key not in cache:
+        cache[key] = [0 if pack.get(n) is None else pack[n][l].data_ptr() for n in names]
+    return cache[key]
+
+
+def _grid(pack: dict, kind: str, *dims: int) -> int:
+    key = "_grid_" + kind
+    if key not in pack:
+        lib = f"tp_v{pack['version']}"
+        pack[key] = _grid_blocks(lib, _entry(kind, pack) + "_grid", *dims)
+    return pack[key]
+
+
+def _launch(pack: dict, kind: str, ptrs: list, ints: tuple, grid: int, dev) -> None:
+    lib = f"tp_v{pack['version']}"
+    name = _entry(kind, pack)
+    fn = _cuda.function(lib, name, len(ptrs), len(ints) + 1)
+    code = fn(*ptrs, *ints, grid, _cuda.stream_ptr(dev))
+    _cuda.check(lib, name, code)
+
+
+def _f32(t, dev):
+    return t.to(dev, torch.float32).contiguous()
+
+
+def _out(out: Optional[dict], key: str, shape, dev):
+    t = None if out is None else out.get(key)
+    return torch.empty(shape, dtype=torch.float32, device=dev) if t is None else t
+
+
+_ATT7_MATS = ("rkv", "rkv_d", "lora1", "lora1_d", "lora2", "lora2_d", "out", "out_d",
+              "rvecs", "lvecs")
+_FFN7_MATS = ("fk", "fk_d", "fv", "fv_d", "rvecs")
+_ATT6_MATS = ("rkvg", "rkvg_d", "maa1", "maa1_d", "dw1", "dw1_d", "dw2", "dw2_d", "out",
+              "out_d", "maa2", "rvecs", "lvecs")
+_FFN6_MATS = ("fr", "fr_d", "fk", "fk_d", "fv", "fv_d", "rvecs")
+
+
+def tp_att_layer(pack: dict, l: int, x, att_xx, heads, v_first, first: bool, cfg,
+                 out: Optional[dict] = None):
+    """Layer l's v7 attention on one shard (see ``tp_att_layer_ref``). A
+    CUDA pack launches kernel K10 once, writing into the tensors of `out`
+    (keys "part", "att_xx", "heads"; allocated where missing); a CPU pack
+    takes the plain version. v_first: written by the kernel when `first`,
+    read otherwise. The inputs are not modified."""
+    dev = pack["rvecs"].device
+    if dev.type == "cpu":
+        return tp_att_layer_ref(pack, l, x, att_xx, heads, v_first, first, cfg)
+    c, s = cfg.n_embed, cfg.head_size
+    c_loc, d = pack["c_loc"], pack["d_lora"]
+    x, att_xx, heads = _f32(x, dev), _f32(att_xx, dev), _f32(heads, dev)
+    if heads.shape != (c_loc // s, s, s):
+        raise ValueError(f"heads {tuple(heads.shape)} != {(c_loc // s, s, s)}")
+    vf = torch.empty((c_loc,), dtype=torch.float32, device=dev) if first else _f32(v_first, dev)
+    part = _out(out, "part", (c,), dev)
+    axx = _out(out, "att_xx", (c,), dev)
+    new_heads = _out(out, "heads", heads.shape, dev)
+    scratch = torch.empty((4 * c_loc + 4 * d,), dtype=torch.float32, device=dev)
+    ptrs = [x.data_ptr(), att_xx.data_ptr(), heads.data_ptr(), vf.data_ptr()]
+    ptrs += _layer_ptrs(pack, l, _ATT7_MATS)
+    ptrs += [part.data_ptr(), axx.data_ptr(), new_heads.data_ptr(), scratch.data_ptr()]
+    grid = _grid(pack, "att", c, s, d)
+    _launch(pack, "att", ptrs, (c, c_loc, s, d, int(first)), grid, dev)
+    _count(tp_att_layer, pack)
+    return part, axx, new_heads, vf
+
+
+tp_att_layer.launches = 0
+tp_att_layer.launches_by_form = dict.fromkeys(FORMS, 0)
+
+
+def tp_ffn_layer(pack: dict, l: int, x, ffn_xx, cfg, out: Optional[dict] = None):
+    """Layer l's v7 FFN on one shard (see ``tp_ffn_layer_ref``). A CUDA
+    pack launches kernel K11 once (`out` keys "part", "ffn_xx"); a CPU pack
+    takes the plain version."""
+    dev = pack["rvecs"].device
+    if dev.type == "cpu":
+        return tp_ffn_layer_ref(pack, l, x, ffn_xx, cfg)
+    c = cfg.n_embed
+    f_loc = pack["f_dim"] // pack["tp"]
+    x, ffn_xx = _f32(x, dev), _f32(ffn_xx, dev)
+    part = _out(out, "part", (c,), dev)
+    fxx = _out(out, "ffn_xx", (c,), dev)
+    scratch = torch.empty((f_loc,), dtype=torch.float32, device=dev)
+    ptrs = [x.data_ptr(), ffn_xx.data_ptr()] + _layer_ptrs(pack, l, _FFN7_MATS)
+    ptrs += [part.data_ptr(), fxx.data_ptr(), scratch.data_ptr()]
+    grid = _grid(pack, "ffn", c, f_loc // pack["nf"])
+    _launch(pack, "ffn", ptrs, (c, f_loc, pack["nf"]), grid, dev)
+    _count(tp_ffn_layer, pack)
+    return part, fxx
+
+
+tp_ffn_layer.launches = 0
+tp_ffn_layer.launches_by_form = dict.fromkeys(FORMS, 0)
+
+
+def tp_att_layer_v6(pack: dict, l: int, x, att_xx, heads, cfg, out: Optional[dict] = None):
+    """Layer l's v6 attention on one shard (see ``tp_att_layer_v6_ref``). A
+    CUDA pack launches kernel K12 once (`out` keys "part", "att_xx",
+    "heads"); a CPU pack takes the plain version."""
+    dev = pack["rvecs"].device
+    if dev.type == "cpu":
+        return tp_att_layer_v6_ref(pack, l, x, att_xx, heads, cfg)
+    c, s = cfg.n_embed, cfg.head_size
+    c_loc, dm, dd = pack["c_loc"], pack["d_maa"], pack["d_dec"]
+    x, att_xx, heads = _f32(x, dev), _f32(att_xx, dev), _f32(heads, dev)
+    if heads.shape != (c_loc // s, s, s):
+        raise ValueError(f"heads {tuple(heads.shape)} != {(c_loc // s, s, s)}")
+    part = _out(out, "part", (c,), dev)
+    axx = _out(out, "att_xx", (c,), dev)
+    new_heads = _out(out, "heads", heads.shape, dev)
+    scratch = torch.empty((5 * dm + 5 * c + 5 * c_loc + dd,), dtype=torch.float32, device=dev)
+    ptrs = [x.data_ptr(), att_xx.data_ptr(), heads.data_ptr()]
+    ptrs += _layer_ptrs(pack, l, _ATT6_MATS)
+    ptrs += [part.data_ptr(), axx.data_ptr(), new_heads.data_ptr(), scratch.data_ptr()]
+    grid = _grid(pack, "att", c, s, dm)
+    _launch(pack, "att", ptrs, (c, c_loc, s, dm, dd), grid, dev)
+    _count(tp_att_layer_v6, pack)
+    return part, axx, new_heads
+
+
+tp_att_layer_v6.launches = 0
+tp_att_layer_v6.launches_by_form = dict.fromkeys(FORMS, 0)
+
+
+def tp_ffn_layer_v6(pack: dict, l: int, x, ffn_xx, cfg, out: Optional[dict] = None):
+    """Layer l's gated v6 FFN on one shard (see ``tp_ffn_layer_v6_ref``). A
+    CUDA pack launches kernel K13 once (`out` keys "part", "rg",
+    "ffn_xx"); a CPU pack takes the plain version."""
+    dev = pack["rvecs"].device
+    if dev.type == "cpu":
+        return tp_ffn_layer_v6_ref(pack, l, x, ffn_xx, cfg)
+    c, c_loc = cfg.n_embed, pack["c_loc"]
+    f_loc = pack["f_dim"] // pack["tp"]
+    x, ffn_xx = _f32(x, dev), _f32(ffn_xx, dev)
+    part = _out(out, "part", (c,), dev)
+    rg = _out(out, "rg", (c_loc,), dev)
+    fxx = _out(out, "ffn_xx", (c,), dev)
+    scratch = torch.empty((f_loc,), dtype=torch.float32, device=dev)
+    ptrs = [x.data_ptr(), ffn_xx.data_ptr()] + _layer_ptrs(pack, l, _FFN6_MATS)
+    ptrs += [part.data_ptr(), rg.data_ptr(), fxx.data_ptr(), scratch.data_ptr()]
+    grid = _grid(pack, "ffn", c, f_loc // pack["nf"])
+    _launch(pack, "ffn", ptrs, (c, c_loc, f_loc, pack["nf"]), grid, dev)
+    _count(tp_ffn_layer_v6, pack)
+    return part, rg, fxx
+
+
+tp_ffn_layer_v6.launches = 0
+tp_ffn_layer_v6.launches_by_form = dict.fromkeys(FORMS, 0)
+
+
+# -- the step --------------------------------------------------------------------
+
+
+def all_reduce(parts: list, devices) -> list:
+    """JAX's ``lax.psum`` over the shards: the sum of `parts` (one tensor
+    per shard, on ``devices[i]``) in shard order on shard 0's device,
+    then on each shard's device (the same tensor where it is shard 0's)."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p.to(acc.device)
+    return [acc if torch.device(dev) == acc.device else acc.to(dev) for dev in devices]
+
+
+def tp_decode_step(packs: list, state: dict, x0: torch.Tensor, cfg, plain: bool = False):
+    """One v7 decode step of all layers at B=1 over the shards of `packs`
+    (``build_mega_pack_tp``; JAX's ``tp_decode_step``). `state` holds one
+    sequence (``att_xx`` / ``ffn_xx`` ``[L, C]``, ``heads`` ``[L, H, S, S]``,
+    on shard 0's device), x0 [C] the embedded, ln0-normalized token.
+    Returns (x [C] before ln_out, new state on shard 0's device). The
+    shards run in turn (K10 / K11 on CUDA packs; plain=True: their plain
+    versions on any device), joined by ``all_reduce`` after each attention
+    and FFN; v_first stays per shard."""
+    fns = (tp_att_layer_ref, tp_ffn_layer_ref) if plain else (tp_att_layer, tp_ffn_layer)
+    return _tp_step(packs, state, x0, cfg, _v7_layer, fns, plain)
+
+
+def tp_decode_step_v6(packs: list, state: dict, x0: torch.Tensor, cfg, plain: bool = False):
+    """One v6 decode step over the shards of `packs`
+    (``build_mega_pack_tp_v6``; JAX's ``tp_decode_step_v6``), as
+    ``tp_decode_step``; the FFN gate rows of each shard are gathered
+    before ``x += gate * all_reduce(fv partials)``."""
+    fns = ((tp_att_layer_v6_ref, tp_ffn_layer_v6_ref) if plain
+           else (tp_att_layer_v6, tp_ffn_layer_v6))
+    return _tp_step(packs, state, x0, cfg, _v6_layer, fns, plain)
+
+
+def _tp_step(packs: list, state: dict, x0, cfg, layer_fn, fns, plain: bool):
+    devs = [p["rvecs"].device for p in packs]
+    home = state["att_xx"].device
+    new = {k: torch.empty_like(v) for k, v in state.items()}
+    xs = [x0.float().to(d) for d in devs]
+    v_first = [None] * len(packs)
+    for l in range(cfg.n_layer):
+        xs = layer_fn(packs, l, xs, state, new, v_first, devs, home, cfg, fns, plain)
+    return xs[0].to(home), new
+
+
+def _heads_slice(t: torch.Tensor, l: int, i: int, h_loc: int) -> torch.Tensor:
+    return t[l, i * h_loc : (i + 1) * h_loc]
+
+
+def _keep(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst := src unless the layer call already wrote it there."""
+    if src is not dst:
+        dst.copy_(src)
+
+
+def _call(fn, plain: bool, dev, home, *args, **views):
+    """A layer call; a kernel wrapper whose shard lies on the state's
+    device writes into `views` of the new state."""
+    if plain:
+        return fn(*args)
+    return fn(*args, out=views if dev == home else {})
+
+
+def _att_shards(packs, l, xs, state, new, devs, home, cfg, fn, plain, extra):
+    """Every shard's attention of layer l, with its heads into its slice of
+    `new` and shard 0's att_xx into `new`; returns the results."""
+    h_loc = packs[0]["c_loc"] // cfg.head_size
+    res = []
+    for i, (pk, dev) in enumerate(zip(packs, devs)):
+        heads_out = _heads_slice(new["heads"], l, i, h_loc)
+        views = {"heads": heads_out}
+        if i == 0:
+            views["att_xx"] = new["att_xx"][l]
+        r = _call(fn, plain, dev, home, pk, l, xs[i], state["att_xx"][l].to(dev),
+                  _heads_slice(state["heads"], l, i, h_loc).to(dev), *extra[i], cfg, **views)
+        _keep(heads_out, r[2])
+        if i == 0:
+            _keep(new["att_xx"][l], r[1])
+        res.append(r)
+    return res
+
+
+def _ffn_shards(packs, l, xs, state, new, devs, home, cfg, fn, plain):
+    """Every shard's FFN of layer l, shard 0's ffn_xx into `new`; returns
+    the results."""
+    res = []
+    for i, (pk, dev) in enumerate(zip(packs, devs)):
+        views = {"ffn_xx": new["ffn_xx"][l]} if i == 0 else {}
+        r = _call(fn, plain, dev, home, pk, l, xs[i], state["ffn_xx"][l].to(dev), cfg, **views)
+        if i == 0:
+            _keep(new["ffn_xx"][l], r[-1])
+        res.append(r)
+    return res
+
+
+def _v7_layer(packs, l, xs, state, new, v_first, devs, home, cfg, fns, plain):
+    extra = [(v_first[i], l == 0) for i in range(len(packs))]
+    res = _att_shards(packs, l, xs, state, new, devs, home, cfg, fns[0], plain, extra)
+    for i, r in enumerate(res):
+        v_first[i] = r[3]
+    xs = [x + a for x, a in zip(xs, all_reduce([r[0] for r in res], devs))]
+    res = _ffn_shards(packs, l, xs, state, new, devs, home, cfg, fns[1], plain)
+    return [x + f for x, f in zip(xs, all_reduce([r[0] for r in res], devs))]
+
+
+def _v6_layer(packs, l, xs, state, new, v_first, devs, home, cfg, fns, plain):
+    res = _att_shards(packs, l, xs, state, new, devs, home, cfg, fns[0], plain,
+                      [()] * len(packs))
+    xs = [x + a for x, a in zip(xs, all_reduce([r[0] for r in res], devs))]
+    res = _ffn_shards(packs, l, xs, state, new, devs, home, cfg, fns[1], plain)
+    rg = torch.cat([r[1].to(devs[0]) for r in res])  # JAX's all_gather of the gate
+    ffn = all_reduce([r[0] for r in res], devs)
+    return [x + rg.to(dev) * f for x, f, dev in zip(xs, ffn, devs)]

@@ -123,10 +123,12 @@ V5_WIDTH = ("5.2", 24, 2048, 65536, 64)
 V4_WIDTH = ("4.0", 12, 768, 65536, 64)
 
 
-def width_models(width, seed: int = 0, precisions=("w8a8", "w4a8", "bf16")):
+def width_models(width, seed: int = 0, precisions=("w8a8", "w4a8", "bf16"),
+                 with_params: bool = False):
     """(cfg, {"w8a8": model, "w4a8": model, "bf16": model}): ServingModels
     with ``megakernel=True`` of one seeded f32 synth tree at `width`, built
-    once for every precision (the int8, int4 and bf16 packs)."""
+    once for every precision (the int8, int4 and bf16 packs); with_params:
+    the tree too, (cfg, models, params)."""
     from rwkv_tpu_torch.models.serve import ServingModel
     from rwkv_tpu_torch.models.synth import synth_config, synth_params
 
@@ -134,7 +136,7 @@ def width_models(width, seed: int = 0, precisions=("w8a8", "w4a8", "bf16")):
     params = synth_params(cfg, seed=seed)
     models = {p: ServingModel((cfg, params), precision=p, megakernel=True)
               for p in precisions}
-    return cfg, models
+    return (cfg, models, params) if with_params else (cfg, models)
 
 
 def v6_models(seed: int = 0):
@@ -217,3 +219,40 @@ def decode_vs_plain(pack, cfg, state: dict, token, depth: int) -> dict:
         "state": max(rel_err(new[k], new_ref[k]) for k in new_ref),
         "logits": rel_err(logits, lm_head_ref(pack, x_ref)),
     }
+
+
+def tp_vs_plain(packs, cfg, state: dict, x0, depth: int) -> dict:
+    """The TP decode step (K10 / K11 or K12 / K13 by the packs' version) on
+    its first `depth` layers against the same step on the shard kernels'
+    plain versions: rel_err of x and of the state (the worst of its
+    arrays). Returns the readings and the kernel step's outputs."""
+    import dataclasses
+
+    from rwkv_tpu_torch.ops import megakernel_tp as TP
+
+    step = TP.tp_decode_step_v6 if packs[0]["version"] == 6 else TP.tp_decode_step
+    cd = dataclasses.replace(cfg, n_layer=depth)
+    st = {k: v[:depth].contiguous() for k, v in state.items()}
+    x, new = step(packs, st, x0, cd)
+    x_ref, new_ref = step(packs, st, x0, cd, plain=True)
+    return {"x": rel_err(x, x_ref), "state": max(rel_err(new[k], new_ref[k]) for k in new_ref),
+            "max_abs_err": max([float((x - x_ref).abs().max())]
+                               + [float((new[k] - new_ref[k]).abs().max()) for k in new])}
+
+
+def single_device_x(model, state: dict, token) -> "torch.Tensor":
+    """x [C] before ln_out of the single-device decode kernel `model`
+    (``megakernel=True``, no mesh) routes B=1 to -- K3, K6, K7 or K8 through
+    its C entry, or K4 where K3 refuses the width -- on `state` (one
+    sequence, [1, L, ...]); launch counters do not move."""
+    from rwkv_tpu_torch.ops import megakernel as M
+
+    pack, cfg = model._mega, model.config
+    if cfg.version_major == 7 and not model._mega_k3:
+        fn = M._cuda.function("v7_decode_batched", M._k4_entry(pack), *M.BATCHED_ARGS)
+        x, _, _ = M.batched_launch(fn, pack, state, token, cfg, pack["_grid_batched"])
+        return x[0]
+    launch = decode_launcher(pack)[0]
+    _, _, scratch = launch(decode_entry(pack), pack, {k: v[0] for k, v in state.items()}, token,
+                           cfg)
+    return scratch[: cfg.n_embed]

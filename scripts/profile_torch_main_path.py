@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the port's main path spends its time, from a torch.profiler trace.
 
-    python3 scripts/profile_torch_main_path.py
+    python3 scripts/profile_torch_main_path.py [--tp]
 
 Builds the 169M v7 model as ``chip_smoke.py`` does (synth seed 0, w8a8,
-``megakernel=True``), warms every path up, then traces one 256-token
+``megakernel=True``; with --tp the v7 World 1.5B width, LoRA 96, over a
+tp=2 mesh on this card, its B=1 decode on K10 / K11), warms every path
+up, then traces one 256-token
 prefill and 8 greedy B=1 decode steps. For each it prints the wall time
 (host clock around synchronised work), the device busy time (the sum of
 the kernels' and copies' durations in the CUDA trace), the number of
@@ -55,13 +57,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_main_path: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import card_line
+    from chip_smoke import V7_TP_LORA, V7_TP_WIDTH
     from rwkv_tpu_torch.models.serve import ServingModel
     from rwkv_tpu_torch.models.synth import synth_config, synth_params
+    from rwkv_tpu_torch.parallel.sharding import make_mesh
+    from rwkv_tpu_torch.tools.card import card_line
 
     print(card_line())
-    cfg = synth_config("7.0", 12, 768, 65536, 64)
-    model = ServingModel((cfg, synth_params(cfg, seed=0)), precision="w8a8", megakernel=True)
+    if "--tp" in sys.argv[1:]:
+        cfg = synth_config(*V7_TP_WIDTH)
+        model = ServingModel((cfg, synth_params(cfg, seed=0, lora_dim=V7_TP_LORA)),
+                             precision="w8a8", megakernel=True,
+                             mesh=make_mesh(1, 2, devices=["cuda:0", "cuda:0"]))
+    else:
+        cfg = synth_config("7.0", 12, 768, 65536, 64)
+        model = ServingModel((cfg, synth_params(cfg, seed=0)), precision="w8a8",
+                             megakernel=True)
     prompt = torch.randint(0, cfg.n_vocab, (256,), generator=torch.Generator().manual_seed(0)).numpy()
     logits, state = model.prefill(prompt)
     for _ in range(3):

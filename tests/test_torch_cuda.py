@@ -634,3 +634,133 @@ def test_card_bf16_serving_matches_cpu_and_goes_through_kernels(cuda_device, ver
         # can flip one rounding (f32: within the band)
         band = BF16_BAND if precision == "f32" else 2e-3
         assert _rel(lg2.cpu(), lc2) <= band
+
+
+# -- K10-K13: the tensor-parallel shard kernels (tp=2 on one card) ------------
+
+def _tp_packs(version: str, precision: str, dev, c: int = 256, n_layer: int = 2, tp: int = 2):
+    from rwkv_tpu_torch.ops import megakernel_tp as TT
+    from rwkv_tpu_torch.parallel.sharding import make_mesh
+
+    tc = synth_config(version, n_layer, c, 256, 64)
+    tp_ = synth_params(tc, seed=13, **({"lora_dim": 32} if version == "7.0" else {}))
+    quant, w4 = precision != "bf16", precision == "w4a8"
+    mesh = make_mesh(1, tp, devices=[dev] * tp)
+    if version == "7.0":
+        return tc, TT.build_mega_pack_tp(TM.build_mega_pack(tp_, tc, w4=w4, quant=quant), tc, mesh)
+    return tc, TT.build_mega_pack_tp_v6(TM.build_mega_pack_v6(tp_, tc, w4=w4, quant=quant), tc,
+                                        mesh)
+
+
+def _tp_close(got, want, precision):
+    """bf16: within 1e-4 of the scale (sums in another order); the int
+    forms: within 2e-2 (an activation code may flip at a .5 boundary)."""
+    for a, b in zip(got, want):
+        if precision == "bf16":
+            assert _rel(a, b) <= 1e-4
+        else:
+            torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("precision", ["w8a8", "w4a8", "bf16"])
+@pytest.mark.parametrize("version", ["7.0", "6.0"])
+def test_tp_shard_kernels_match_ref(cuda_device, version, precision):
+    """K10 / K11 (v7) and K12 / K13 (v6) on both shards of a tp=2 mesh on
+    one card, each layer, against their plain versions on the same CUDA
+    tensors; one launch a call."""
+    from rwkv_tpu_torch.ops import megakernel_tp as TT
+
+    tc, packs = _tp_packs(version, precision, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    c, s = tc.n_embed, tc.head_size
+    h_loc = tc.head_count // 2
+    x = torch.randn((c,), device=cuda_device, generator=gen) * 0.5
+    xx = torch.randn((c,), device=cuda_device, generator=gen) * 0.3
+    heads = torch.randn((h_loc, s, s), device=cuda_device, generator=gen) * 0.1
+    vf = torch.randn((c // 2,), device=cuda_device, generator=gen) * 0.3
+    for pk in packs:
+        for l in range(tc.n_layer):
+            if version == "7.0":
+                n = TT.tp_att_layer.launches
+                got = TT.tp_att_layer(pk, l, x, xx, heads, vf, l == 0, tc)
+                assert TT.tp_att_layer.launches == n + 1
+                _tp_close(got, TT.tp_att_layer_ref(pk, l, x, xx, heads, vf, l == 0, tc), precision)
+                n = TT.tp_ffn_layer.launches
+                got = TT.tp_ffn_layer(pk, l, x, xx, tc)
+                assert TT.tp_ffn_layer.launches == n + 1
+                _tp_close(got, TT.tp_ffn_layer_ref(pk, l, x, xx, tc), precision)
+            else:
+                n = TT.tp_att_layer_v6.launches_by_form[pk["form"]]
+                got = TT.tp_att_layer_v6(pk, l, x, xx, heads, tc)
+                assert TT.tp_att_layer_v6.launches_by_form[pk["form"]] == n + 1
+                _tp_close(got, TT.tp_att_layer_v6_ref(pk, l, x, xx, heads, tc), precision)
+                got = TT.tp_ffn_layer_v6(pk, l, x, xx, tc)
+                _tp_close(got, TT.tp_ffn_layer_v6_ref(pk, l, x, xx, tc), precision)
+
+
+def test_tp_ffn_kernel_with_two_tiles(cuda_device):
+    """K11 at C=2048, F=8192, tp=2, where the FFN runs in nf=2 tiles, each
+    quantized with its own scale."""
+    from rwkv_tpu_torch.ops import megakernel_tp as TT
+
+    tc, packs = _tp_packs("7.0", "w8a8", cuda_device, c=2048)
+    assert packs[0]["nf"] == 2
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn((2048,), device=cuda_device, generator=gen) * 0.5
+    xx = torch.randn((2048,), device=cuda_device, generator=gen) * 0.3
+    for pk in packs:
+        _tp_close(TT.tp_ffn_layer(pk, 0, x, xx, tc), TT.tp_ffn_layer_ref(pk, 0, x, xx, tc), "w8a8")
+
+
+@pytest.mark.parametrize("version", ["7.0", "6.0"])
+def test_card_tp_serving_matches_cpu(cuda_device, version):
+    """ServingModel(mesh=make_mesh(1, 2, devices=[cuda, cuda]),
+    megakernel=True) against the same model on a CPU mesh: from the CPU's
+    prefill state, 3 greedy B=1 steps, each launching the attention and
+    FFN kernels once per shard and layer (2 layers)."""
+    from rwkv_tpu_torch.ops import megakernel_tp as TT
+    from rwkv_tpu_torch.parallel.sharding import make_mesh
+
+    tc = synth_config(version, 2, 256, 256, 64)
+    tp = synth_params(tc, seed=17, **({"lora_dim": 32} if version == "7.0" else {}))
+    gpu = ServingModel((tc, tp), precision="w8a8", megakernel=True,
+                       mesh=make_mesh(1, 2, devices=[cuda_device] * 2))
+    cpu = ServingModel((tc, tp), precision="w8a8", megakernel=True,
+                       mesh=make_mesh(1, 2, devices=["cpu"] * 2))
+    att, ffn = ((TT.tp_att_layer, TT.tp_ffn_layer) if version == "7.0"
+                else (TT.tp_att_layer_v6, TT.tp_ffn_layer_v6))
+    before = (att.launches, ffn.launches)
+    lc, sc = cpu.prefill(list(np.random.default_rng(0).integers(0, tc.n_vocab, 20)))
+    sg = {k: v.to(cuda_device) for k, v in sc.items()}
+    for _ in range(3):
+        tok = [int(lc.argmax())]
+        lg, sg = gpu.decode(tok, sg)
+        lc, sc = cpu.decode(tok, sc)
+        lg, lc = lg[0], lc[0]
+        torch.testing.assert_close(lg.cpu(), lc, rtol=2e-2, atol=2e-2)
+        assert int(lg.argmax()) == int(lc.argmax())
+    for k in sc:
+        torch.testing.assert_close(sg[k].cpu(), sc[k], rtol=2e-2, atol=2e-2)
+    assert (att.launches - before[0], ffn.launches - before[1]) == (3 * 2 * 2, 3 * 2 * 2)
+
+
+def test_card_tp_serving_on_two_cards(cuda_device):
+    """make_mesh(1, 2) on two distinct cards (the default mesh): the shard
+    packs land on cuda:0 and cuda:1, the all-reduce copies across them, and
+    decode gives bit for bit the logits and state of the same shards on one
+    card (the same kernels on the same inputs, summed in the same order)."""
+    from rwkv_tpu_torch.parallel.sharding import make_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    tc = synth_config("7.0", 2, 256, 256, 64)
+    tp = synth_params(tc, seed=19, lora_dim=32)
+    two = ServingModel((tc, tp), precision="w8a8", megakernel=True, mesh=make_mesh(1, 2))
+    one = ServingModel((tc, tp), precision="w8a8", megakernel=True,
+                       mesh=make_mesh(1, 2, devices=["cuda:0", "cuda:0"]))
+    assert [pk["rvecs"].device.index for pk in two._mega_tp] == [0, 1]
+    s2, s1 = two.init_state(1), one.init_state(1)
+    for tok in (3, 77, 200):
+        l2, s2 = two.decode([tok], s2)
+        l1, s1 = one.decode([tok], s1)
+        assert torch.equal(l2, l1) and all(torch.equal(s2[k], s1[k]) for k in s1)
