@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit), builds the
-   hand-written kernels from ``rwkv_tpu_torch/csrc`` (eleven sources, one
+   hand-written kernels from ``rwkv_tpu_torch/csrc`` (twelve sources, one
    nvcc each, all at once) and prints build times and ptxas registers.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, and times kernel, plain version, the card's bound
@@ -49,13 +49,17 @@
      2 layers, at full depth two launches bit-identical, equal argmax and
      the drift within BF16_FULL_DEPTH_REL / B1_FULL_DEPTH_REL (twice the
      worst reading of ``probe_batched --flips --bf16``).
-   - K10 / K11 (``tp_att_layer`` / ``tp_ffn_layer``, v7) and K12 / K13
-     (``_v6``), the tensor-parallel shard kernels (``phase_tp_kernels``): the
-     TP step on packs cut to the first 2 layers of the v7 World 1.5B width
-     (C=2048, F=8192, LoRA 96) and the v6 1.6B width, at depths 1 and 2, tp
-     = 2 and 4 on this card, w8a8, w4a8 and bf16, from 4 seeded states, x
-     and state within TP_SHALLOW_REL of the scale of the step on their
-     plain versions; two launches bit-identical.
+   - The tensor-parallel shard kernels (``phase_tp_kernels``): K10 / K11
+     (``tp_att_layer`` / ``tp_ffn_layer``, v7), K12 / K13 (``_v6``), K15
+     (``tp_att_layer_v5``, v5.2 and v5.1) and K14 (``tp_att_layer_v4``)
+     with K13's MIX45 form (``tp_ffn_layer_v45``): the TP step on packs
+     cut to the first 2 layers of the v7 World 1.5B width (C=2048, F=8192,
+     LoRA 96), the v6 1.6B width, the v5.2 World 1.5B width, a v5.1 tree
+     and the v4 World 1.5B width (C=2048, F=8192), at depths 1 and 2, tp =
+     2 and 4 on this card, w8a8, w4a8 and bf16, from 4 seeded states (v4:
+     and the blank one, pp = -1e30), x and state within TP_SHALLOW_REL of
+     the scale of the step on their plain versions; two launches
+     bit-identical.
    - K9 ``quant_matmul`` on the block formats (``phase_k9``): each form
      (plain Q8_0 and q8, min Q5_1, pack4 Q4_0, pack4_min Q4_1, rowwise
      q8r) at M in {1, 256} x the 169M (K, N) set and the q8 / q8r head
@@ -91,14 +95,17 @@
      of the file); Q5_1 again with ``megakernel=True`` (K9 in prefill, K3
      in decode); ``q8`` and ``q8r`` on the synth tree, prefill and 16
      decode steps (K9 plain, K9 rowwise);
-   - the tensor-parallel B=1 path (``tp_serving_path``):
+   - the tensor-parallel B=1 path (``tp_serving_path``, ``tp_paths``):
      ``ServingModel(mesh=make_mesh(1, 2, devices=[cuda:0, cuda:0]),
-     megakernel=True)`` on the v7 World 1.5B width (24 layers; w8a8, w4a8,
-     bf16) and the v6 1.6B width (w8a8): the 256-token prompt per-op, 64
-     greedy decode steps through K10 / K11 or K12 / K13 (tok/s, launches per
+     megakernel=True)`` on the v7 World 1.5B width, the v6 1.6B width, the
+     v5.2 World 1.5B width and the v4 World 1.5B width, w8a8 at 24 layers
+     and w4a8 and bf16 on the models cut to TP_CUT_DEPTH layers: the
+     256-token prompt per-op, 64 greedy decode steps through K10 / K11,
+     K12 / K13, K15 / K13 mix45 or K14 / K13 mix45 (tok/s, launches per
      token, each kernel's time per launch against its plain version and
-     bound), then 16 steps held to the same model without a mesh from the
-     same state and token (x and logits; TP_VS_SINGLE_*);
+     bound), then 16 steps held to the same model without a mesh (K4 and
+     the head, K6, K7, K8) from the same state and token (x and logits;
+     TP_VS_SINGLE_*);
    and checks their outputs: finite logits and state, tokens in range,
    every request finished within its limits.
 4. Holds the card against the CPU on small models: v7 (L=2, C=128) and
@@ -112,8 +119,9 @@
 5. Prints the total time, the ``{"kernels": [...]}`` JSON line (times per
    launch, in ms; K1's are the mean over the v7 w8a8 path's 169 launches
    per prefill, K4's at B=8, K9's the mean over its file path's mix of
-   decode and prefill shapes, K10-K13's one shard's layer at tp=2; their
-   launches those of a 64-token decode), the card line again, and last
+   decode and prefill shapes, K10-K15's one shard's layer at tp=2 in every
+   form; their launches those of a 64-token decode on that form's TP
+   path, K13 mix45's v5.2's), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero. Without a CUDA device,
@@ -913,8 +921,8 @@ def counted(fn, needed):
     """Run fn() with every kernel's launch counter zeroed just before and
     read just after; raise unless each kernel in `needed` launched. K9
     counts each form on its own ("K9 plain", ..., "K9 rowwise"), and K3, K4,
-    K6-K8 and K10-K13 each weight form beside their total ("K3 bf16", "K4
-    i8")."""
+    K6-K8 and K10-K15 each weight form beside their total ("K3 bf16", "K4
+    i8", "K13 mix45 i4": K13's v4 / v5 form)."""
     from rwkv_tpu_torch.ops.chunked import wkv6_recurrence, wkv7_recurrence
     from rwkv_tpu_torch.ops.kernels import quant_matmul
     from rwkv_tpu_torch.ops import megakernel as M
@@ -923,10 +931,13 @@ def counted(fn, needed):
     counters = {"K1": quant_matmul, "K2": wkv7_recurrence, "K3": M.v7_decode_step,
                 "K4": M.v7_decode_batched, "K5": wkv6_recurrence, "K6": M.v6_decode_step,
                 "K7": M.v5_decode_step, "K8": M.v4_decode_step, "K10": TP.tp_att_layer,
-                "K11": TP.tp_ffn_layer, "K12": TP.tp_att_layer_v6, "K13": TP.tp_ffn_layer_v6}
+                "K11": TP.tp_ffn_layer, "K12": TP.tp_att_layer_v6, "K13": TP.tp_ffn_layer_v6,
+                "K13 mix45": TP.tp_ffn_layer_v45, "K14": TP.tp_att_layer_v4,
+                "K15": TP.tp_att_layer_v5}
     by_form = {"K9": quant_matmul.launches_by_form}
     by_form.update({k: counters[k].launches_by_form
-                    for k in ("K3", "K4", "K6", "K7", "K8", "K10", "K11", "K12", "K13")})
+                    for k in ("K3", "K4", "K6", "K7", "K8", "K10", "K11", "K12", "K13",
+                              "K13 mix45", "K14", "K15")})
     for c in counters.values():
         c.launches = 0
     for forms in by_form.values():
@@ -970,9 +981,9 @@ def single_stream_path(name, model, prompt, cfg, card, n_runs: int,
     return launches
 
 
-# -- the tensor-parallel decode: K10-K13 ------------------------------------
+# -- the tensor-parallel decode: K10-K15 ------------------------------------
 
-# K10-K13 against their plain versions: the TP step on packs cut to the
+# K10-K15 against their plain versions: the TP step on packs cut to the
 # model's first 1 and 2 layers, at tp = 2 and 4 on this card, from seeded
 # states, x and state within TP_SHALLOW_REL of their scale (the int forms:
 # K6's shallow limit, which allows an int8 code flip; bf16: sums in another
@@ -981,29 +992,47 @@ def single_stream_path(name, model, prompt, cfg, card, n_runs: int,
 # argmax in the single-device top 5 (JAX's band between its TP and
 # single-chip kernels, tests/test_megakernel_tp.py: per-shard activation
 # scales on out and fv; the v6 1.6B width at 24 layers read 13.3% in x,
-# PERF.md), bf16 x within TP_VS_SINGLE_BF16[version] (v7 1e-4, v6 1e-3:
-# JAX's).
+# PERF.md), bf16 x within TP_VS_SINGLE_BF16[version] (v7, v5, v4 1e-4, v6
+# 1e-3: JAX's).
 TP_SHALLOW_REL = {"w8a8": 2e-2, "w4a8": 2e-2, "bf16": BF16_SHALLOW_REL}
 TP_VS_SINGLE_REL = 1.5e-1
-TP_VS_SINGLE_BF16 = {7: 1e-4, 6: 1e-3}
-# bf16 logits: the per-op bf16 head rounds x to bf16, so a last-bit
-# difference in x may flip one rounding (tests/test_torch_cuda.py's band)
+TP_VS_SINGLE_BF16 = {7: 1e-4, 6: 1e-3, 5: 1e-4, 4: 1e-4}
+# bf16 logits: the TP route's per-op bf16 head against the same head on
+# the single-device x (K6-K8 run their head in the kernel on f32
+# activations; the per-op head rounds them to bf16, ~2e-3 of the scale
+# apart), so a last-bit difference in x may flip one rounding
+# (tests/test_torch_cuda.py's band)
 TP_BF16_HEAD_REL = 2e-3
 # RWKV-7 World 1.5B width, LoRA 96 (scripts/bench_15b.py:32-33)
 V7_TP_WIDTH = ("7.0", 24, 2048, 65536, 64)
 V7_TP_LORA = 96
+# RWKV-4 World 1.5B width (BlinkDL's RWKV-4-World-1.5B: 24 layers, n_embd
+# 2048), where v4 is sharded; the v4 single-device path runs the 0.1B width
+V4_TP_WIDTH = ("4.0", 24, 2048, 65536, 64)
+# the TP paths served at a cut depth (layers): v7's and v6's w4a8 and bf16
+# forms, whose per-launch times do not depend on depth, keep the run within
+# its time
+TP_CUT_DEPTH = 4
+# (attention, FFN) kernel of each version's TP path
+TP_KERNELS = {7: ("K10", "K11"), 6: ("K12", "K13"), 5: ("K15", "K13 mix45"),
+              4: ("K14", "K13 mix45")}
+
+
+def cut(cfg, params, depth: int):
+    """The model cut to its first `depth` layers: (cfg, params)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, n_layer=depth), {**params, "blocks": params["blocks"][:depth]}
 
 
 def tp_base(cfg, params, precision: str, depth: int):
     """The decode pack of the model cut to its first `depth` layers."""
-    import dataclasses
-
     from rwkv_tpu_torch.ops import megakernel as M
 
-    cd = dataclasses.replace(cfg, n_layer=depth)
-    cut = {**params, "blocks": params["blocks"][:depth]}
-    build = M.build_mega_pack_v6 if cfg.version_major == 6 else M.build_mega_pack
-    return cd, build(cut, cd, w4=precision == "w4a8", quant=precision != "bf16")
+    cd, cp = cut(cfg, params, depth)
+    build = {7: M.build_mega_pack, 6: M.build_mega_pack_v6, 5: M.build_mega_pack_v5,
+             4: M.build_mega_pack_v4}[cfg.version_major]
+    return cd, build(cp, cd, w4=precision == "w4a8", quant=precision != "bf16")
 
 
 def tp_packs_on_card(base, cfg, tp: int):
@@ -1012,16 +1041,18 @@ def tp_packs_on_card(base, cfg, tp: int):
     from rwkv_tpu_torch.parallel.sharding import make_mesh
 
     mesh = make_mesh(1, tp, devices=["cuda:0"] * tp)
-    build = TP.build_mega_pack_tp_v6 if cfg.version_major == 6 else TP.build_mega_pack_tp
+    build = {7: TP.build_mega_pack_tp, 6: TP.build_mega_pack_tp_v6, 5: TP.build_mega_pack_tp_v5,
+             4: TP.build_mega_pack_tp_v4}[cfg.version_major]
     return build(base, cfg, mesh)
 
 
 def phase_tp_kernels(name: str, cfg, params, n_states: int = 4, seed: int = 7) -> dict:
-    """K10 / K11 (v7) or K12 / K13 (v6) in every form against their plain
-    versions (tools/card.py::tp_vs_plain) on packs cut to 2 layers, at
-    depths 1 and 2, tp = 2 and 4, from n_states states of a seeded prefill
-    of the cut model; two launches bit-identical. Returns {precision: max
-    abs err}."""
+    """The TP kernels of a version (K10 / K11, K12 / K13, K15 / K13 mix45
+    or K14 / K13 mix45) in every form against their plain versions
+    (tools/card.py::tp_vs_plain) on packs cut to 2 layers, at depths 1 and
+    2, tp = 2 and 4, from n_states states of a seeded prefill of the cut
+    model (v4: also from the blank state, pp = -1e30); two launches
+    bit-identical. Returns {precision: max abs err}."""
     import torch
 
     from rwkv_tpu_torch.models.serve import ServingModel
@@ -1029,9 +1060,14 @@ def phase_tp_kernels(name: str, cfg, params, n_states: int = 4, seed: int = 7) -
     from rwkv_tpu_torch.tools.card import seeded_states, tp_vs_plain
 
     cd, base = tp_base(cfg, params, "w8a8", 2)
-    probe = ServingModel((cd, {**params, "blocks": params["blocks"][:2]}), precision="w8a8")
+    probe = ServingModel(cut(cfg, params, 2), precision="w8a8")
     states, tokens = seeded_states(probe, cd, n_states, 16, seed=seed)
     x0s = layer_norm(probe.params["emb"][tokens].float(), *probe.params["ln0"])
+    if cfg.version_major == 4:  # the blank state as the last one
+        blank = probe.init_state(1)
+        states = {k: torch.cat([v, blank[k]]) for k, v in states.items()}
+        x0s = torch.cat([x0s, x0s[:1]])
+        n_states += 1
     del probe
     step = tp_step(cfg.version_major)
     out = {}
@@ -1056,7 +1092,7 @@ def phase_tp_kernels(name: str, cfg, params, n_states: int = 4, seed: int = 7) -
             if not torch.equal(a[0], b[0]) or any(not torch.equal(a[1][k], b[1][k]) for k in a[1]):
                 raise AssertionError(f"{name} {prec} tp={tp}: two launches on the same inputs differ")
             del packs
-        print(f"{name} {prec}: {n_states} seeded states, tp = 2 and 4, depths 1 and 2: worst "
+        print(f"{name} {prec}: {n_states} states, tp = 2 and 4, depths 1 and 2: worst "
               f"distance from the plain versions over the scale {worst} (limit "
               f"{TP_SHALLOW_REL[prec]}); max abs err {err:.3e}; two launches bit-identical")
         out[prec] = err
@@ -1068,35 +1104,40 @@ def phase_tp_kernels(name: str, cfg, params, n_states: int = 4, seed: int = 7) -
 def tp_step(version: int):
     from rwkv_tpu_torch.ops import megakernel_tp as TP
 
-    return TP.tp_decode_step_v6 if version == 6 else TP.tp_decode_step
+    return {7: TP.tp_decode_step, 6: TP.tp_decode_step_v6, 5: TP.tp_decode_step_v5,
+            4: TP.tp_decode_step_v4}[version]
 
 
 def tp_launch_bytes(pk: dict, kind: str, cfg) -> tuple:
-    """(bytes, weight values) one K10-K13 launch must move: its shard's
+    """(bytes, weight values) one K10-K15 launch must move: its shard's
     matrices and scales of one layer (the replicated ones too: every shard
     reads them), the vector rows it reads, x and the token-shift input, the
-    shard's heads read and written (attention), its outputs."""
+    shard's wkv state read and written (attention), its outputs."""
     from rwkv_tpu_torch.ops import megakernel_tp as TP
 
-    v6 = pk["version"] == 6
+    v = pk["version"]
     c, c_loc, s = cfg.n_embed, pk["c_loc"], cfg.head_size
     if kind == "att":
-        mats = ("rkvg", "maa1", "dw1", "dw2", "out") if v6 else ("rkv", "lora1", "lora2", "out")
-        rvec_rows, lvec_rows = 8, len(TP.TP6_LVECS if v6 else TP.TP_LVECS)
-        act = (2 + 2) * c + (0 if v6 else c_loc) + 2 * c_loc * s
+        mats = {7: ("rkv", "lora1", "lora2", "out"), 6: ("rkvg", "maa1", "dw1", "dw2", "out"),
+                5: ("rkvg", "out"), 4: ("rkv", "out")}[v]
+        rvec_rows = 8 if v in (6, 7) else 2 + pk["n_mix"]
+        lvec_rows = {7: len(TP.TP_LVECS), 6: len(TP.TP6_LVECS), 5: len(TP.TP5_LVECS),
+                     4: len(TP.TP4_LVECS)}[v]
+        state = 6 * c_loc if v == 4 else 2 * c_loc * s
+        act = (2 + 2) * c + (c_loc if v == 7 else 0) + state
     else:
-        mats = ("fr", "fk", "fv") if v6 else ("fk", "fv")
-        rvec_rows, lvec_rows = (4 if v6 else 3), 0
-        act = (2 + 2) * c + (c_loc if v6 else 0)
+        mats = ("fk", "fv") if v == 7 else ("fr", "fk", "fv")
+        rvec_rows, lvec_rows = (3 if v == 7 else 4), 0
+        act = (2 + 2) * c + (0 if v == 7 else c_loc)
     n = 0
     values = 0
     for m in mats:
         w = pk[m][0]
         n += w.numel() * w.element_size()
-        values += w.numel() * (2 if pk["w4"] and m in TP.TP6_W4_MATS + TP.TP_W4_MATS else 1)
+        values += w.numel() * (2 if pk["w4"] and m in TP._W4_MATS[v] else 1)
         if m + "_d" in pk:
             n += pk[m + "_d"][0].numel() * 4
-    if v6 and kind == "att":
+    if v == 6 and kind == "att":
         n += pk["maa2"][0].numel() * 4
         values += pk["maa2"][0].numel()
     return n + (rvec_rows * c + lvec_rows * c_loc + act) * 4, values
@@ -1109,19 +1150,21 @@ def tp_kernel_times(packs, cfg, state, x0) -> dict:
     from rwkv_tpu_torch.tools.card import device_ms
 
     pk, l = packs[0], 1
-    h_loc = pk["c_loc"] // cfg.head_size
-    xx, fxx, heads = state["att_xx"][l], state["ffn_xx"][l], state["heads"][l, :h_loc]
-    if pk["version"] == 6:
-        calls = {"att": (lambda: TP.tp_att_layer_v6(pk, l, x0, xx, heads, cfg),
-                         lambda: TP.tp_att_layer_v6_ref(pk, l, x0, xx, heads, cfg)),
-                 "ffn": (lambda: TP.tp_ffn_layer_v6(pk, l, x0, fxx, cfg),
-                         lambda: TP.tp_ffn_layer_v6_ref(pk, l, x0, fxx, cfg))}
+    v, c_loc = pk["version"], pk["c_loc"]
+    xx, fxx = state["att_xx"][l], state["ffn_xx"][l]
+    if v == 4:
+        own = tuple(state[k][l, :c_loc] for k in ("aa", "bb", "pp"))
     else:
-        vf = x0[: pk["c_loc"]].contiguous()
-        calls = {"att": (lambda: TP.tp_att_layer(pk, l, x0, xx, heads, vf, False, cfg),
-                         lambda: TP.tp_att_layer_ref(pk, l, x0, xx, heads, vf, False, cfg)),
-                 "ffn": (lambda: TP.tp_ffn_layer(pk, l, x0, fxx, cfg),
-                         lambda: TP.tp_ffn_layer_ref(pk, l, x0, fxx, cfg))}
+        own = (state["heads"][l, : c_loc // cfg.head_size],)
+    if v == 7:
+        own += (x0[:c_loc].contiguous(), False)
+    att = {7: (TP.tp_att_layer, TP.tp_att_layer_ref), 6: (TP.tp_att_layer_v6,
+           TP.tp_att_layer_v6_ref), 5: (TP.tp_att_layer_v5, TP.tp_att_layer_v5_ref),
+           4: (TP.tp_att_layer_v4, TP.tp_att_layer_v4_ref)}[v]
+    ffn = {7: (TP.tp_ffn_layer, TP.tp_ffn_layer_ref), 6: (TP.tp_ffn_layer_v6,
+           TP.tp_ffn_layer_v6_ref)}.get(v, (TP.tp_ffn_layer_v45, TP._ffn45_ref))
+    calls = {"att": tuple((lambda f=f: f(pk, l, x0, xx, *own, cfg)) for f in att),
+             "ffn": tuple((lambda f=f: f(pk, l, x0, fxx, cfg)) for f in ffn)}
     out = {}
     for kind, (kern, plain) in calls.items():
         nb, values = tp_launch_bytes(pk, kind, cfg)
@@ -1137,11 +1180,12 @@ def tp_serving_path(name: str, cfg, params, precision: str, prompt, card, ref=No
     64 greedy decode steps, counted: the attention and FFN kernels must
     launch), then 16 steps from its prefill state, each step's x (before
     ln_out) and logits held to the same model without a mesh (`ref`, built
-    here when None; its decode kernel) on the same state and token
-    (TP_VS_SINGLE_*, TP_BF16_HEAD_REL). Returns (launches, {kind: per-launch
-    times})."""
+    here when None; its decode kernel; under bf16 the per-op head on its x)
+    on the same state and token (TP_VS_SINGLE_*, TP_BF16_HEAD_REL).
+    Returns (launches, {kind: per-launch times})."""
     import torch
 
+    from rwkv_tpu_torch.models import graph as G
     from rwkv_tpu_torch.models.serve import ServingModel
     from rwkv_tpu_torch.ops.parity import layer_norm
     from rwkv_tpu_torch.parallel.sharding import make_mesh
@@ -1152,20 +1196,21 @@ def tp_serving_path(name: str, cfg, params, precision: str, prompt, card, ref=No
                          mesh=make_mesh(1, 2, devices=["cuda:0", "cuda:0"]))
     t_build = time.perf_counter() - t0
     form = model._mega_tp[0]["form"]
-    att, ffn = ("K12", "K13") if cfg.version_major == 6 else ("K10", "K11")
-    needed = B1_NEEDED[precision] + ("K2" if cfg.version_major == 7 else "K5",
-                                     f"{att} {form}", f"{ffn} {form}")
+    version = cfg.version_major
+    att, ffn = TP_KERNELS[version]
+    prefill = {7: ("K2",), 6: ("K5",), 5: ("K5",), 4: ()}[version]
+    needed = B1_NEEDED[precision] + prefill + (f"{att} {form}", f"{ffn} {form}")
     launches = single_stream_path(name, model, prompt, cfg, card, 1, needed=needed)
-    per_token = launches[f"{att} {form}"] / 64
-    print(f"{name}: TP model built in {t_build:.1f} s; {per_token:g} {att} and "
-          f"{launches[f'{ffn} {form}'] / 64:g} {ffn} launches per token (layers x shards)")
+    print(f"{name}: TP model ({cfg.n_layer} layers) built in {t_build:.1f} s; "
+          f"{launches[f'{att} {form}'] / 64:g} {att} and {launches[f'{ffn} {form}'] / 64:g} "
+          f"{ffn} launches per token (layers x shards)")
     own_ref = ref is None
     if own_ref:
         ref = ServingModel((cfg, params), precision=precision, megakernel=True)
     logits, state = model.prefill(prompt)
     worst = {"x": 0.0, "logits": 0.0}
     top5, same = True, True
-    step = tp_step(cfg.version_major)
+    step = tp_step(version)
     for _ in range(16):
         tok = logits.argmax().reshape(1)
         one = {k: v[0] for k, v in state.items()}
@@ -1174,13 +1219,15 @@ def tp_serving_path(name: str, cfg, params, precision: str, prompt, card, ref=No
         lr, _ = ref.decode(tok, state)
         x_tp, _ = step(model._mega_tp, one, x0, cfg)
         x_single = single_device_x(ref, state, tok)
+        if precision == "bf16":
+            lr = G.mm(layer_norm(x_single, *ref.params["ln_out"])[None, :], ref.params["head"])
         worst["x"] = max(worst["x"], rel_err(x_tp, x_single))
         worst["logits"] = max(worst["logits"], float((lt - lr).abs().max()) / float(lr.abs().max()))
         top5 &= int(lt.argmax()) in torch.topk(lr[0], 5).indices.tolist()
         same &= int(lt.argmax()) == int(lr.argmax())
         state, logits = new, lt[0]
     if precision == "bf16":
-        limits = {"x": TP_VS_SINGLE_BF16[cfg.version_major], "logits": TP_BF16_HEAD_REL}
+        limits = {"x": TP_VS_SINGLE_BF16[version], "logits": TP_BF16_HEAD_REL}
     else:
         limits = {"x": TP_VS_SINGLE_REL, "logits": TP_VS_SINGLE_REL}
     print(f"{name}: 16 steps against the model without a mesh, from the same state and token: "
@@ -1199,6 +1246,20 @@ def tp_serving_path(name: str, cfg, params, precision: str, prompt, card, ref=No
     del model
     torch.cuda.empty_cache()
     return launches, times
+
+
+def tp_paths(tag: str, cfg, params, prompt, card, launches: dict, ref=None) -> dict:
+    """The TP main paths of one model (``tp_serving_path``): w8a8 at its
+    full depth (held to `ref`, or to a model built there), w4a8 and bf16 on
+    the model cut to TP_CUT_DEPTH layers. Records each path's launches in
+    `launches` ("tp <tag> <precision>"); returns {precision: (launches,
+    per-launch times)}."""
+    out = {}
+    for prec in ("w8a8", "w4a8", "bf16"):
+        c, p, r = (cfg, params, ref) if prec == "w8a8" else (*cut(cfg, params, TP_CUT_DEPTH), None)
+        out[prec] = tp_serving_path(f"tp {tag} {prec}", c, p, prec, prompt, card, ref=r)
+        launches[f"tp {tag} {prec}"] = out[prec][0]
+    return out
 
 
 def phase_k4_large(model, cfg) -> dict:
@@ -1432,7 +1493,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(root))
     from rwkv_tpu_torch.tools.card import (
-        card_line, seeded_states, v4_models, v5_models, width_models, V4_WIDTH, V5_WIDTH,
+        card_line, seeded_states, v4_models, width_models, V4_WIDTH, V5_WIDTH,
         V6_WIDTH,
     )
 
@@ -1458,6 +1519,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"  {name}: {line.strip()}")
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] the 169M model in both formats")
     # -- the 169M model in both formats: prefill for a real decode state -----
     cfg = synth_config("7.0", 12, 768, 65536, 64)
     t0 = time.perf_counter()
@@ -1471,6 +1533,7 @@ def main() -> int:
     logits, state = model.prefill(prompt)  # warm-up of every path
     token = logits.argmax().reshape(1).to(torch.int32)
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] kernels against their plain versions")
     # -- kernels against their plain versions ---------------------------------
     res = {}
     res["K1"] = phase_k1(cfg, d_lora, f_dim, 256, dev)
@@ -1506,6 +1569,7 @@ def main() -> int:
     del states
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] the main paths")
     # -- the main paths: B=1 in both formats, then the batcher ---------------
     launches = {}
     launches["w8a8"] = single_stream_path("w8a8", model, prompt, cfg, card, 5)
@@ -1532,6 +1596,7 @@ def main() -> int:
     del model16
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] the model files")
     # -- the model files: Q5_1, Q4_0, Q4_1 (and Q5_1 on K3), then q8 and q8r
     launches.update(phase_files(cfg, params, prompt, card))
 
@@ -1541,6 +1606,7 @@ def main() -> int:
     del model, model4, params
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] RWKV-6 at the 1.6B width")
     # -- RWKV-6 at the 1.6B width: K6, then the B=1 main path in both formats -
     t0 = time.perf_counter()
     cfg6, models6, params6 = width_models(V6_WIDTH, with_params=True)
@@ -1554,18 +1620,17 @@ def main() -> int:
         launches[f"v6 {prec}"] = single_stream_path(
             f"v6 {prec}", m, prompt6, cfg6, card, 1 if prec == "bf16" else 2,
             needed=B1_NEEDED[prec] + ("K5", f"K6 {m._mega['form']}"))
-    # tensor-parallel v6 on a tp=2 one-card mesh: K12 / K13 (w8a8, held to
-    # the w8a8 model above)
+    print(f"[{time.perf_counter() - t_start:.1f} s] tensor-parallel v6")
+    # tensor-parallel v6 on a tp=2 one-card mesh: K12 / K13 (w8a8 held to
+    # the w8a8 model above; w4a8 and bf16 at TP_CUT_DEPTH layers)
     tp_errs = {6: phase_tp_kernels("K12 / K13", cfg6, params6)}
-    launches["tp v6 w8a8"], tp_times = tp_serving_path("tp v6 w8a8", cfg6, params6, "w8a8",
-                                                       prompt6, card, ref=models6["w8a8"])
-    res["K12"] = {**tp_times["att"], "max_abs_err": tp_errs[6]["w8a8"]}
-    res["K13"] = {**tp_times["ffn"], "max_abs_err": tp_errs[6]["w8a8"]}
+    tp_runs = {6: tp_paths("v6", cfg6, params6, prompt6, card, launches, models6["w8a8"])}
     del models6, params6
     torch.cuda.empty_cache()
     for precision in ("w8a8", "bf16"):
         small_model_check(dev, "6.0", precision)
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] tensor-parallel v7 at the World 1.5B width")
     # -- tensor-parallel v7 at the World 1.5B width, tp=2 on one card: K10 / K11
     t0 = time.perf_counter()
     cfg7 = synth_config(*V7_TP_WIDTH)
@@ -1573,17 +1638,14 @@ def main() -> int:
     print(f"RWKV-7 World 1.5B-width tree ({cfg7.n_layer} layers, C={cfg7.n_embed}) drawn in "
           f"{time.perf_counter() - t0:.1f} s")
     tp_errs[7] = phase_tp_kernels("K10 / K11", cfg7, params7)
-    for prec, sfx in (("w8a8", ""), ("w4a8", "w4"), ("bf16", "bf16")):
-        launches[f"tp v7 {prec}"], tp_times = tp_serving_path(f"tp v7 {prec}", cfg7, params7, prec,
-                                                              prompt6, card)
-        res["K10" + sfx] = {**tp_times["att"], "max_abs_err": tp_errs[7][prec]}
-        res["K11" + sfx] = {**tp_times["ffn"], "max_abs_err": tp_errs[7][prec]}
+    tp_runs[7] = tp_paths("v7", cfg7, params7, prompt6, card, launches)
     del params7
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] RWKV-5 (v5.2) at the World 1.5B width")
     # -- RWKV-5 (v5.2) at the World 1.5B width: K7, then the B=1 main path ---
     t0 = time.perf_counter()
-    cfg5, models5 = v5_models()
+    cfg5, models5, params5 = width_models(V5_WIDTH, with_params=True)
     print(f"RWKV-5.2 World 1.5B-width models (w8a8, w4a8, bf16; {cfg5.n_layer} layers, "
           f"C={cfg5.n_embed}) built in {time.perf_counter() - t0:.1f} s")
     k7 = phase_b1("K7", models5, cfg5)
@@ -1592,13 +1654,22 @@ def main() -> int:
         launches[f"v5 {prec}"] = single_stream_path(
             f"v5.2 {prec}", m, prompt6, cfg5, card, 1 if prec == "bf16" else 2,
             needed=B1_NEEDED[prec] + ("K5", f"K7 {m._mega['form']}"))
-    del models5
+    print(f"[{time.perf_counter() - t_start:.1f} s] tensor-parallel v5.2")
+    # tensor-parallel v5.2 on a tp=2 one-card mesh: K15 / K13 mix45 (w8a8
+    # held to the w8a8 model above, w4a8 and bf16 at TP_CUT_DEPTH layers),
+    # then K15's v5.1 form on a 2-layer v5.1 tree at the same width
+    tp_errs[5] = phase_tp_kernels("K15 / K13 mix45 v5.2", cfg5, params5)
+    tp_runs[5] = tp_paths("v5.2", cfg5, params5, prompt6, card, launches, models5["w8a8"])
+    del models5, params5
     torch.cuda.empty_cache()
+    cfg51 = synth_config("5.1", 2, *V5_WIDTH[2:])
+    phase_tp_kernels("K15 / K13 mix45 v5.1", cfg51, synth_params(cfg51, seed=0))
     phase_cut_width("K7", ("5.1", 2) + V5_WIDTH[2:])
     for version in ("5.2", "5.1"):
         for precision in ("w8a8", "bf16"):
             small_model_check(dev, version, precision)
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] RWKV-4 at the World 0.1B width")
     # -- RWKV-4 at the World 0.1B width: K8, then the B=1 main path ----------
     cfg4, models4 = v4_models()
     k8 = phase_b1("K8", models4, cfg4)
@@ -1610,12 +1681,25 @@ def main() -> int:
     del models4
     torch.cuda.empty_cache()
     phase_cut_width("K8", ("4.0", 2, 2048) + V4_WIDTH[3:])
+    print(f"[{time.perf_counter() - t_start:.1f} s] tensor-parallel v4 at the World 1.5B width")
+    # tensor-parallel v4 at the World 1.5B width, tp=2 on one card: K14 /
+    # K13 mix45 (w8a8 held to K8 on the same tree without a mesh)
+    t0 = time.perf_counter()
+    cfg4t = synth_config(*V4_TP_WIDTH)
+    params4t = synth_params(cfg4t, seed=0)
+    print(f"RWKV-4 World 1.5B-width tree ({cfg4t.n_layer} layers, C={cfg4t.n_embed}) drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    tp_errs[4] = phase_tp_kernels("K14 / K13 mix45", cfg4t, params4t)
+    tp_runs[4] = tp_paths("v4", cfg4t, params4t, prompt6, card, launches)
+    del params4t
+    torch.cuda.empty_cache()
     for precision in ("w8a8", "bf16"):
         small_model_check(dev, "4.0", precision)
     for version in ("7.0", "6.0", "5.2", "5.1", "4.0"):
         for fmt in ("Q5_1", "Q4_0"):
             small_file_check(dev, version, fmt)
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] the kernels line")
     # name, source, TPU kernel replaced, result key, path whose launches count
     meta = [
         ("quant_matmul_w8a8", "rwkv_tpu_torch/csrc/quant_matmul.cu",
@@ -1665,19 +1749,29 @@ def main() -> int:
         ("block_matmul_rowwise", "rwkv_tpu_torch/csrc/block_matmul.cu",
          "rwkv_tpu/ops/kernels.py:266", "K9 rowwise", ("q8r", "K9 rowwise")),
     ]
-    for prec, sfx, form in (("w8a8", "", "i8"), ("w4a8", "w4", "i4"), ("bf16", "bf16", "bf16")):
-        meta += [
-            (f"tp_v7_att_{prec}", "rwkv_tpu_torch/csrc/tp_v7.cu",
-             "rwkv_tpu/ops/megakernel_tp.py:413", "K10" + sfx, (f"tp v7 {prec}", f"K10 {form}")),
-            (f"tp_v7_ffn_{prec}", "rwkv_tpu_torch/csrc/tp_v7.cu",
-             "rwkv_tpu/ops/megakernel_tp.py:487", "K11" + sfx, (f"tp v7 {prec}", f"K11 {form}")),
-        ]
-    meta += [
-        ("tp_v6_att_w8a8", "rwkv_tpu_torch/csrc/tp_v6.cu", "rwkv_tpu/ops/megakernel_tp.py:935",
-         "K12", ("tp v6 w8a8", "K12 i8")),
-        ("tp_v6_ffn_w8a8", "rwkv_tpu_torch/csrc/tp_v6.cu", "rwkv_tpu/ops/megakernel_tp.py:1007",
-         "K13", ("tp v6 w8a8", "K13 i8")),
-    ]
+    # the TP kernels: each version's attention and FFN kernel in every form,
+    # its launches on that form's TP main path (K13's MIX45 form: v5.2's;
+    # v4's runs it at the same shapes)
+    tp_src = "rwkv_tpu_torch/csrc/"
+    tp_meta = {7: (("tp_v7_att", tp_src + "tp_v7.cu", 413),
+                   ("tp_v7_ffn", tp_src + "tp_v7.cu", 487)),
+               6: (("tp_v6_att", tp_src + "tp_v6.cu", 935),
+                   ("tp_v6_ffn", tp_src + "tp_v6.cu", 1007)),
+               5: (("tp_v5_att", tp_src + "tp_v45.cu", 1644),
+                   ("tp_v45_ffn", tp_src + "tp_v6.cu", 1007)),
+               4: (("tp_v4_att", tp_src + "tp_v45.cu", 1324), None)}
+    for version, rows in tp_meta.items():
+        for prec, form in (("w8a8", "i8"), ("w4a8", "i4"), ("bf16", "bf16")):
+            run_launches, times = tp_runs[version][prec]
+            for row, kind, kernel in zip(rows, ("att", "ffn"), TP_KERNELS[version]):
+                if row is None:
+                    continue
+                stem, source, line = row
+                key = f"tp v{version} {kind} {prec}"
+                res[key] = {**times[kind], "max_abs_err": tp_errs[version][prec]}
+                launches[key] = {kernel: run_launches[f"{kernel} {form}"]}
+                meta.append((f"{stem}_{prec}", source, f"rwkv_tpu/ops/megakernel_tp.py:{line}",
+                             key, (key, kernel)))
     kernels = []
     for name, source, replaces, key, (path, counter) in meta:
         r = res[key]

@@ -5,8 +5,9 @@
 //
 // Replaces rwkv_tpu/ops/megakernel_tp.py::_att_layer_call_v6 (kernel
 // _make_att_kernel_v6: K12) and _ffn_layer_call_v6 (_make_ffn_kernel_v6:
-// K13; MIX45 = the v4/v5 token-shift mix its mix45 switch selects), in
-// their int8, int4 and bf16 forms (maa2 stays f32 in all three).
+// K13; MIX45 = the v4/v5 token-shift mix its mix45 switch selects, the
+// FFN of the v4 / v5 TP paths beside K14 / K15 in tp_v45.cu), in their
+// int8, int4 and bf16 forms (maa2 stays f32 in all three).
 //
 // Bound on this card: bytes. At the 1.6B v6 width (C=2048, F=8192, d_maa
 // 32, d_dec 64) and tp=2 a K12 launch reads its shard's rkvg rows (4 x
@@ -308,11 +309,17 @@ const void* att_kernel(int wf) {
                      : reinterpret_cast<const void*>(tp_v6_att_kernel<kInt8>);
 }
 
-// v6's FFN (MIX45 = false); the v4 / v5 TP paths take the MIX45 instances
-const void* ffn_kernel(int wf) {
-  if (wf == kBf16) return reinterpret_cast<const void*>(tp_v6_ffn_kernel<kBf16, false>);
-  return wf == kInt4 ? reinterpret_cast<const void*>(tp_v6_ffn_kernel<kInt4, false>)
-                     : reinterpret_cast<const void*>(tp_v6_ffn_kernel<kInt8, false>);
+template <int WF>
+const void* ffn_of(bool mix45) {
+  return mix45 ? reinterpret_cast<const void*>(tp_v6_ffn_kernel<WF, true>)
+               : reinterpret_cast<const void*>(tp_v6_ffn_kernel<WF, false>);
+}
+
+// v6's FFN (mix45 false), or the MIX45 instance the v4 / v5 TP paths take
+// (their replicated block holds ln2 and the FFN mixes at RVec6's rows)
+const void* ffn_kernel(int wf, bool mix45) {
+  if (wf == kBf16) return ffn_of<kBf16>(mix45);
+  return wf == kInt4 ? ffn_of<kInt4>(mix45) : ffn_of<kInt8>(mix45);
 }
 
 int att_launch(int wf, const void* x, const void* att_in, const void* heads_in, const void* rkvg,
@@ -348,10 +355,10 @@ int att_launch(int wf, const void* x, const void* att_in, const void* heads_in, 
   return tp_launch(att_kernel(wf), a, att_smem(C, S, DM, wf), grid_blocks, stream);
 }
 
-int ffn_launch(int wf, const void* x, const void* ffn_in, const void* fr, const void* fr_d,
-               const void* fk, const void* fk_d, const void* fv, const void* fv_d,
-               const void* rvec, void* part, void* rg, void* ffn_out, void* scratch, int C,
-               int CL, int FL, int nf, int grid_blocks, void* stream) {
+int ffn_launch(int wf, bool mix45, const void* x, const void* ffn_in, const void* fr,
+               const void* fr_d, const void* fk, const void* fk_d, const void* fv,
+               const void* fv_d, const void* rvec, void* part, void* rg, void* ffn_out,
+               void* scratch, int C, int CL, int FL, int nf, int grid_blocks, void* stream) {
   if (nf <= 0 || FL % nf != 0) return static_cast<int>(cudaErrorInvalidValue);
   FfnArgs a;
   a.x = static_cast<const float*>(x);
@@ -368,13 +375,14 @@ int ffn_launch(int wf, const void* x, const void* ffn_in, const void* fr, const 
   a.ffn_out = static_cast<float*>(ffn_out);
   a.scratch = static_cast<float*>(scratch);
   a.C = C; a.CL = CL; a.FL = FL; a.nf = nf;
-  return tp_launch(ffn_kernel(wf), a, ffn_smem(C, FL / nf, wf), grid_blocks, stream);
+  return tp_launch(ffn_kernel(wf, mix45), a, ffn_smem(C, FL / nf, wf), grid_blocks, stream);
 }
 
 }  // namespace
 
 // The C entries, one per weight form (suffix "", _w4, _bf16): the grid a
-// launch uses (blocks, or a negative CUDA error code) and one launch. The
+// launch uses (blocks, or a negative CUDA error code) and one launch, of
+// K12, K13 and K13's MIX45 form (rwkv_tp_v45_ffn*, the v4 / v5 FFN). The
 // bf16 ones read no scales (pass null).
 #define RWKV_TP_V6_ATT_PARAMS                                                                   \
   const void *x, const void *att_in, const void *heads_in, const void *rkvg,                    \
@@ -403,10 +411,16 @@ int ffn_launch(int wf, const void* x, const void* ffn_in, const void* fr, const 
     return att_launch(wf, RWKV_TP_V6_ATT_ARGS);                                                 \
   }                                                                                             \
   extern "C" int rwkv_tp_v6_ffn##suffix##_grid(int C, int FT) {                                \
-    return tp_grid_blocks(ffn_kernel(wf), ffn_smem(C, FT, wf));                                 \
+    return tp_grid_blocks(ffn_kernel(wf, false), ffn_smem(C, FT, wf));                          \
   }                                                                                             \
   extern "C" int rwkv_tp_v6_ffn##suffix(RWKV_TP_V6_FFN_PARAMS) {                               \
-    return ffn_launch(wf, RWKV_TP_V6_FFN_ARGS);                                                 \
+    return ffn_launch(wf, false, RWKV_TP_V6_FFN_ARGS);                                          \
+  }                                                                                             \
+  extern "C" int rwkv_tp_v45_ffn##suffix##_grid(int C, int FT) {                               \
+    return tp_grid_blocks(ffn_kernel(wf, true), ffn_smem(C, FT, wf));                           \
+  }                                                                                             \
+  extern "C" int rwkv_tp_v45_ffn##suffix(RWKV_TP_V6_FFN_PARAMS) {                              \
+    return ffn_launch(wf, true, RWKV_TP_V6_FFN_ARGS);                                           \
   }
 
 RWKV_TP_V6_ENTRIES(, kInt8)

@@ -25,8 +25,9 @@
 //      redundantly), the fused r, k, v rows (sigmoid on r)
 //   B  every block computes the whole C-wide sigmoid(r) * wkv vector
 //      redundantly (its quantization needs the amax of all of it) with the
-//      max-trick, the grid writes the new aa, bb, pp columns, each block
-//      its share; then the out rows + residual
+//      max-trick (wkv4_out, v45_common.cuh), the grid writes the new aa,
+//      bb, pp columns, each block its share (wkv4_state); then the out
+//      rows + residual
 //   E  ln2 + shift, the fk rows with relu^2 and the fr rows with sigmoid
 //   F  fv rows: x += sigmoid(fr) * fv          (E and F: v45_common.cuh)
 // then ln_out and the head rows (lm_head, decode_common.cuh). Weight rows
@@ -154,23 +155,12 @@ v4_decode_kernel(Args p) {
       const float* aa_in = p.aa_in + lc;
       const float* bb_in = p.bb_in + lc;
       const float* pp_in = p.pp_in + lc;
-      for (int c = tid; c < C; c += blockDim.x) {
-        const float k = att_g[C + c], v = att_g[2 * C + c], pp = pp_in[c];
-        const float ww = add(tf[c], k);
-        const float qq = fmaxf(pp, ww);
-        const float e1 = expf(sub(pp, qq)), e2 = expf(sub(ww, qq));
-        const float wkv = __fdiv_rn(add(mul(e1, aa_in[c]), mul(e2, v)), add(mul(e1, bb_in[c]), e2));
-        xl[c] = mul(att_g[c], wkv);
-      }
-      for (int c = blockIdx.x * blockDim.x + tid; c < C; c += gridDim.x * blockDim.x) {
-        const float k = att_g[C + c], v = att_g[2 * C + c], pp = pp_in[c];
-        const float ww2 = add(pp, td[c]);
-        const float qq2 = fmaxf(ww2, k);
-        const float e1 = expf(sub(ww2, qq2)), e2 = expf(sub(k, qq2));
-        p.aa_out[lc + c] = add(mul(e1, aa_in[c]), mul(e2, v));
-        p.bb_out[lc + c] = add(mul(e1, bb_in[c]), e2);
-        p.pp_out[lc + c] = qq2;
-      }
+      for (int c = tid; c < C; c += blockDim.x)
+        xl[c] = mul(att_g[c], wkv4_out(tf[c], att_g[C + c], att_g[2 * C + c], aa_in[c], bb_in[c],
+                                       pp_in[c]));
+      for (int c = blockIdx.x * blockDim.x + tid; c < C; c += gridDim.x * blockDim.x)
+        wkv4_state(td[c], att_g[C + c], att_g[2 * C + c], aa_in[c], bb_in[c], pp_in[c],
+                   p.aa_out + lc + c, p.bb_out + lc + c, p.pp_out + lc + c);
       __syncthreads();
       act_n<WF, 1>([&](int, int c) { return xl[c]; }, C, q8, 0, dxs, red);
       matvec_grid<WF, 1>(m_layer + mo.out, C, C, 1, [&](int, int) { return q8; },

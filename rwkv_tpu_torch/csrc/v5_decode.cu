@@ -26,7 +26,8 @@
 //      redundantly), the fused r, k, v(, g) rows (silu on g)
 //   C  per head (one block each): the wkv step with the static decay -- the
 //      output reads the OLD state plus the tf bonus, then the state decays
-//      and takes k v^T -- group norm (eps 1e-5), ln_x, times the gate (5.2)
+//      and takes k v^T -- group norm (eps 1e-5; v5_head_step,
+//      v45_common.cuh), ln_x, times the gate (5.2)
 //   D  out rows + residual
 //   E  ln2 + shift, the fk rows with relu^2 and the fr rows with sigmoid
 //   F  fv rows: x += sigmoid(fr) * fv          (E and F: v45_common.cuh)
@@ -149,55 +150,15 @@ v5_decode_kernel(Args p) {
 
     // ---- phase C: per head: wkv with the static decay, group norm, ln_x ---
     for (int h = blockIdx.x; h < H; h += gridDim.x) {  // block-uniform
-      float* h_r = hv;
-      float* h_k = hv + S;
-      float* h_v = hv + 2 * S;
-      float* h_w = hv + 3 * S;
-      float* h_y = hv + 4 * S;
-      const int c = h * S + tid;
-      float dot_part = 0.f;
-      if (tid < S) {
-        const float rr = att_g[c], kk = att_g[C + c];
-        h_r[tid] = rr;
-        h_k[tid] = kk;
-        h_v[tid] = att_g[2 * C + c];
-        h_w[tid] = vec[kTD * C + c];
-        dot_part = mul(mul(rr, vec[kTF * C + c]), kk);
-      }
-      const float dot = block_sum(dot_part, red);  // also orders the h_* stores
-
-      // state rows: tpr threads per row i, entries j = jj * tpr + part
-      const int tpr = blockDim.x / S;
-      const int jn = S / tpr;
-      const int i = tid / tpr, part = tid % tpr;
-      const size_t hoff = (static_cast<size_t>(l) * H * S + static_cast<size_t>(h) * S + i) * S;
-      const float* st_in = p.heads_in + hoff;
-      float* st_out = p.heads_out + hoff;
-      const float vi = h_v[i];
-      float yi = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < kMaxJ; ++jj) {
-        if (jj < jn) {
-          const int j = jj * tpr + part;
-          const float st = st_in[j];
-          yi += st * h_r[j];
-          st_out[j] = add(mul(st, h_w[j]), mul(h_k[j], vi));
-        }
-      }
-      for (int off = tpr >> 1; off > 0; off >>= 1) yi += __shfl_xor_sync(0xffffffffu, yi, off);
-      if (part == 0) h_y[i] = add(yi, mul(vi, dot));
-      __syncthreads();
-
-      const float yv = tid < S ? h_y[tid] : 0.f;
-      const float mu = block_sum(yv, red) / static_cast<float>(S);
-      const float yc = tid < S ? sub(yv, mu) : 0.f;
-      const float var = block_sum(mul(yc, yc), red) / static_cast<float>(S);
-      if (tid < S) {
-        const float yn = mul(yc, rsqrtf(add(var, 1e-5f)));
-        const float xo = add(mul(yn, vec[kLnxW * C + c]), vec[kLnxB * C + c]);
-        xo_g[c] = GATE ? mul(xo, att_g[3 * C + c]) : xo;
-      }
-      __syncthreads();
+      const int c0 = h * S;
+      const size_t hoff = (static_cast<size_t>(l) * H + h) * S * S;
+      v5_head_step(att_g + c0, att_g + C + c0, att_g + 2 * C + c0, vec + kTD * C + c0,
+                   vec + kTF * C + c0, p.heads_in + hoff, p.heads_out + hoff, S, hv, red,
+                   [&](int i, float yn) {
+                     const int c = c0 + i;
+                     const float xo = add(mul(yn, vec[kLnxW * C + c]), vec[kLnxB * C + c]);
+                     xo_g[c] = GATE ? mul(xo, att_g[3 * C + c]) : xo;
+                   });
     }
     barrier();
 

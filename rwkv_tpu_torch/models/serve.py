@@ -33,10 +33,11 @@ Ports the serving side of ``rwkv_tpu.models.serve``:
   and tiled kernels followed by ``G.mm``). v6, v5 and v4: B=1 through K6,
   K7 or K8 (one launch with the LM head, every form); every B > 1 per-op,
   as in the JAX package, whose v4-v6 kernels are B=1 only. With a
-  ``mesh`` (``parallel.sharding.make_mesh``) and ``megakernel=True``, v7
-  and v6 decode B=1 tensor-parallel over its shards (``ops.megakernel_tp``:
-  K10 / K11, K12 / K13; JAX's ``_megatp_fn``), then ``ln_out`` and the
-  per-op head; prefill, B>1 and the head are not sharded yet and run per-op
+  ``mesh`` (``parallel.sharding.make_mesh``) and ``megakernel=True``, every
+  version decodes B=1 tensor-parallel over its shards
+  (``ops.megakernel_tp``: K10 / K11 for v7, K12 / K13 for v6, K15 or K14
+  and K13's v4/v5 form for v5 and v4; JAX's ``_megatp_fn``), then
+  ``ln_out`` and the per-op head; prefill, B>1 and the head are not sharded yet and run per-op
   on the mesh's first device.
 
 State uses the serving layout: ``att_xx`` / ``ffn_xx`` ``[B, L, C]`` and
@@ -260,8 +261,8 @@ def forward_stacked(
 
 
 def _tp_packs(params: dict, cfg: ModelConfig, mesh, w4: bool, quant: bool) -> list:
-    """The shard packs of ``ops.megakernel_tp`` for `mesh` (v7, v6), after
-    the shape checks; v4 and v5 raise."""
+    """The shard packs of ``ops.megakernel_tp`` for `mesh`, after the shape
+    checks."""
     from rwkv_tpu_torch.ops import megakernel as M
     from rwkv_tpu_torch.ops import megakernel_tp as TP
 
@@ -274,19 +275,21 @@ def _tp_packs(params: dict, cfg: ModelConfig, mesh, w4: bool, quant: bool) -> li
         err = TP.tp_shape_error_v6(cfg, tp, b0["att.time_maa_w1"].shape[0] // 5,
                                    b0["att.time_decay_w1"].shape[0], f_dim, w4)
     else:
-        raise NotImplementedError(
-            f"mesh with megakernel=True: the RWKV v{major} TP attention kernels "
-            "(megakernel_tp.py::_att_layer_call_v4 / _v5, PERF.md rows 18-19) are not ported")
+        err = (TP.tp_shape_error_v5 if major == 5 else TP.tp_shape_error_v4)(cfg, tp, f_dim, w4)
     if err:
         raise NotImplementedError(f"mesh with megakernel=True: {err}")
-    if major == 7:
-        return TP.build_mega_pack_tp(M.build_mega_pack(params, cfg, w4=w4, quant=quant), cfg, mesh)
-    return TP.build_mega_pack_tp_v6(M.build_mega_pack_v6(params, cfg, w4=w4, quant=quant), cfg, mesh)
+    build, build_tp = {
+        7: (M.build_mega_pack, TP.build_mega_pack_tp),
+        6: (M.build_mega_pack_v6, TP.build_mega_pack_tp_v6),
+        5: (M.build_mega_pack_v5, TP.build_mega_pack_tp_v5),
+        4: (M.build_mega_pack_v4, TP.build_mega_pack_tp_v4),
+    }[major]
+    return build_tp(build(params, cfg, w4=w4, quant=quant), cfg, mesh)
 
 
 class ServingModel:
-    """RWKV v4 / v5 / v6 / v7 serving engine on one device (B=1 decode of
-    v7 / v6 over the shards of a mesh)."""
+    """RWKV v4 / v5 / v6 / v7 serving engine on one device (B=1 decode
+    over the shards of a mesh)."""
 
     def __init__(
         self,
@@ -312,10 +315,11 @@ class ServingModel:
         there is none.
 
         mesh: a ``parallel.sharding.Mesh`` (``make_mesh(1, tp, ...)``).
-        With megakernel=True, v7 and v6 decode B=1 tensor-parallel over its
-        shards (``ops.megakernel_tp``: kernels K10 / K11, K12 / K13; the
-        int8, int4 or bf16 pack as above); v4 and v5 raise (their TP
-        attention kernels are not ported). Prefill, B>1 decode and the LM
+        With megakernel=True, B=1 decodes tensor-parallel over its shards
+        (``ops.megakernel_tp``: kernels K10 / K11 for v7, K12 / K13 for
+        v6, K15 / K13 for v5, K14 / K13 for v4; the int8, int4 or bf16
+        pack as above); a model whose shapes do not split over the shards
+        raises. Prefill, B>1 decode and the LM
         head are not sharded yet: they run the per-op path on
         ``mesh.devices[0]``, where the state lives too. `device`, if given,
         must be that device."""
@@ -439,7 +443,8 @@ class ServingModel:
         on the mesh's first device."""
         from rwkv_tpu_torch.ops import megakernel_tp as TP
 
-        step = TP.tp_decode_step_v6 if self.config.version_major == 6 else TP.tp_decode_step
+        step = {7: TP.tp_decode_step, 6: TP.tp_decode_step_v6, 5: TP.tp_decode_step_v5,
+                4: TP.tp_decode_step_v4}[self.config.version_major]
         x0 = layer_norm(self.params["emb"][tok[0]].float(), *self.params["ln0"])
         x, new = step(self._mega_tp, {k: v[0] for k, v in state.items()}, x0, self.config)
         xo = layer_norm(x, *self.params["ln_out"])

@@ -32,7 +32,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("quant_matmul", "wkv7", "v7_decode", "v7_decode_batched", "wkv6", "v6_decode",
-           "v5_decode", "v4_decode", "block_matmul", "tp_v7", "tp_v6")
+           "v5_decode", "v4_decode", "block_matmul", "tp_v7", "tp_v6", "tp_v45")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

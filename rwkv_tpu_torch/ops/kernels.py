@@ -160,13 +160,15 @@ def quantize_rows_np(w: np.ndarray, qmax: float = 127.0):
     """Symmetric quantization of ``[..., K]`` float32 along the last axis on
     the host: (codes int8 ``[..., K]``, scales f32 ``[...]``), with the JAX
     package's formula ``d = amax/qmax``, ``inv = 1/max(d, 1e-30)`` (0 when
-    d is 0), ``clip(rint(w * inv), +-qmax)``."""
-    w = np.asarray(w, dtype=np.float32)
-    amax = np.abs(w).max(axis=-1)
-    d = amax / qmax
-    inv = np.where(d > 0, 1.0 / np.maximum(d, 1e-30), 0.0)
-    q = np.clip(np.rint(w * inv[..., None]), -qmax, qmax).astype(np.int8)
-    return q, d.astype(np.float32)
+    d is 0), ``clip(rint(w * inv), +-qmax)``. Computed with torch's CPU
+    ops (every thread; the same f32 roundings as numpy's, half to even) in
+    place of numpy's single-threaded ones: building a model at the 1.5B
+    widths is mostly this function."""
+    t = torch.from_numpy(np.ascontiguousarray(w, dtype=np.float32))
+    d = t.abs().amax(dim=-1) / qmax
+    inv = torch.where(d > 0, 1.0 / torch.clamp(d, min=1e-30), 0.0)
+    q = t.mul(inv[..., None]).round_().clamp_(-qmax, qmax).to(torch.int8)
+    return q.numpy(), d.numpy()
 
 
 def quantize_q8_serving(arr, rowwise: bool = True, int8_act: bool = True) -> PackedQuantWeight:

@@ -1,12 +1,13 @@
-"""Tensor-parallel B=1 decode for RWKV v7 and v6 (kernels K10-K13).
+"""Tensor-parallel B=1 decode for RWKV v7, v6, v5 and v4 (kernels K10-K15).
 
-Ports ``rwkv_tpu.ops.megakernel_tp``'s v7 and v6 paths:
-``build_mega_pack_tp`` / ``_v6`` (the re-layout of a decode pack into one
-pack per shard), the shard math of ``_math_helpers``, the per-layer
-kernels ``_att_layer_call`` / ``_ffn_layer_call`` (v7) and
-``_att_layer_call_v6`` / ``_ffn_layer_call_v6`` (v6; its gated FFN also
-serves v4 and v5 through ``mix45``) and the steps ``tp_decode_step`` /
-``tp_decode_step_v6``. JAX runs the shards under ``shard_map`` over the
+Ports ``rwkv_tpu.ops.megakernel_tp``:
+``build_mega_pack_tp`` / ``_v6`` / ``_v5`` / ``_v4`` (the re-layout of a
+decode pack into one pack per shard), the shard math of
+``_math_helpers``, the per-layer kernels ``_att_layer_call`` /
+``_ffn_layer_call`` (v7), ``_att_layer_call_v6`` / ``_ffn_layer_call_v6``
+(v6; its gated FFN also serves v4 and v5 through ``mix45``),
+``_att_layer_call_v5`` and ``_att_layer_call_v4``, and the steps
+``tp_decode_step`` / ``_v6`` / ``_v5`` / ``_v4``. JAX runs the shards under ``shard_map`` over the
 ``model`` axis of a mesh and joins them with ``lax.psum``; here the layer
 loop runs the shards in turn, each on its own device
 (``parallel.sharding.Mesh``), and ``all_reduce`` sums their partial
@@ -16,11 +17,12 @@ each shard's device (no copy on a one-card mesh).
 Sharding (Megatron style, head-aligned, as in JAX): the activations, the
 layer norms, the token-shift coefficients and the LoRA down-projections
 (v7 lora1; v6 maa1, maa2, dw1) are replicated; the r/k/v(/g) rows, v7's
-lora2 rows, v6's dw2 and FFN gate rows, the per-channel vectors and the
-wkv head state are split by head block (``c_loc = C / tp`` channels a
-shard); ``att.output`` and ``ffn.value`` are split along their
-contraction, so each shard's product is a full-C partial that the
-all-reduce sums. The FFN hidden dim is cut into ``nf`` tiles by JAX's rule
+lora2 rows, v6's dw2, the FFN gate rows (v6, v5, v4), the per-channel
+vectors and the wkv head state are split by head block (``c_loc = C /
+tp`` channels a shard; v4, whose wkv state is a scalar per channel, by
+channel block: its ``aa`` / ``bb`` / ``pp`` columns); ``att.output`` and
+``ffn.value`` are split along their contraction, so each shard's product
+is a full-C partial that the all-reduce sums. The FFN hidden dim is cut into ``nf`` tiles by JAX's rule
 (``_ffn_tiles``: a shard's tile of ``ffn.key`` stays within 4 Mi
 values) and each shard holds an interleaved set of hidden rows, its own
 ``f_loc / nf`` rows of every tile.
@@ -39,12 +41,15 @@ matrices split along K the 32-code blocks never straddle two shards, so
 each shard's bytes are its slice of the packed row; bf16 values), the
 replicated vectors in ``rvecs`` ``[L, n, C]`` and its own in ``lvecs``
 ``[L, m, c_loc]`` (named views into both), and v6's f32 ``maa2``. The
-plain versions ``tp_att_layer_ref`` / ``tp_ffn_layer_ref`` /
-``_v6_ref`` read those tensors; the wrappers ``tp_att_layer``,
-``tp_ffn_layer``, ``tp_att_layer_v6`` and ``tp_ffn_layer_v6`` launch
-``csrc/tp_v7.cu`` (K10, K11) and ``csrc/tp_v6.cu`` (K12, K13) once on a
-CUDA pack, counting launches in ``.launches`` / ``.launches_by_form``,
-and take the plain versions on a CPU pack.
+plain versions ``tp_att_layer_ref`` / ``tp_ffn_layer_ref`` / ``_v6_ref``
+/ ``tp_att_layer_v5_ref`` / ``_v4_ref`` read those tensors; the wrappers
+``tp_att_layer``, ``tp_ffn_layer``, ``tp_att_layer_v6``,
+``tp_ffn_layer_v6``, ``tp_att_layer_v5``, ``tp_att_layer_v4`` and
+``tp_ffn_layer_v45`` launch ``csrc/tp_v7.cu`` (K10, K11),
+``csrc/tp_v6.cu`` (K12, K13 and K13's v4/v5 form) and
+``csrc/tp_v45.cu`` (K15, K14) once on a CUDA pack, counting launches in
+``.launches`` / ``.launches_by_form``, and take the plain versions on a
+CPU pack.
 """
 
 from __future__ import annotations
@@ -55,7 +60,9 @@ import torch
 
 from rwkv_tpu_torch.ops import _cuda
 from rwkv_tpu_torch.ops.kernels import pack_int4, unpack_int4
-from rwkv_tpu_torch.ops.megakernel import FORMS, _SUFFIX, _count, _grid_blocks, _matvec
+from rwkv_tpu_torch.ops.megakernel import (
+    FORMS, _SUFFIX, _count, _grid_blocks, _matvec, _mix45,
+)
 from rwkv_tpu_torch.ops.parity import layer_norm
 
 # the shard matrices of a v7 / v6 pack in the JAX package's order, and
@@ -73,6 +80,19 @@ TP_LVECS = ("att.w0", "att.a0", "att.v0", "att.k_k", "att.k_a", "att.ln_x.weight
 TP6_RVECS = ("ln1.weight", "ln1.bias", "ln2.weight", "ln2.bias", "att.time_maa_x",
              "ffn.time_maa_k", "ffn.time_maa_r") + tuple(f"maa5.{n}" for n in "wkvrg")
 TP6_LVECS = ("tdecay", "att.ln_x.weight", "att.ln_x.bias", "tf")
+# v4 / v5: all five matrices hold int4 codes under w4a8 (att = v4's rkv or
+# v5's rkvg); the replicated rows put ln2 and the FFN mixes where K13
+# reads them in v6's block (rows 2, 3, 5, 6 of TP6_RVECS), the attention
+# mixes k, v, r(, g) around them; v5.2 adds "amix.g"
+TP4_MAT_KEYS = ("rkv", "out", "fk", "fv", "fr")
+TP5_MAT_KEYS = ("rkvg", "out", "fk", "fv", "fr")
+TP45_W4_MATS = ("rkv", "rkvg", "out", "fk", "fv", "fr")
+TP4_RVECS = ("ln1.weight", "ln1.bias", "ln2.weight", "ln2.bias", "amix.k", "fmix.k", "fmix.r",
+             "amix.v", "amix.r")
+TP5_RVECS = TP4_RVECS + ("amix.g",)
+TP4_LVECS = ("td", "tf")
+TP5_LVECS = ("td", "tf", "att.ln_x.weight", "att.ln_x.bias")
+_W4_MATS = {7: TP_W4_MATS, 6: TP6_W4_MATS, 5: TP45_W4_MATS, 4: TP45_W4_MATS}
 
 # a shard's tile of ffn.key holds at most this many values (JAX's rule)
 _FFN_TILE_VALUES = 4 * 1024 * 1024
@@ -90,15 +110,20 @@ def _ffn_tiles(c: int, f_loc: int) -> int:
     return nf
 
 
-def _dims_error(name: str, cfg, tp: int, f_dim: int, w4: bool, inner=()) -> Optional[str]:
-    """The rules K10-K13 share: heads, channels and the FFN split evenly
-    over tp shards; a head size the per-head step takes; rows of K = C,
-    c_loc, the FFN tile and `inner` (the LoRA widths) in whole 16-byte
-    chunks (32 codes under int4)."""
+def _dims_error(name: str, cfg, tp: int, f_dim: int, w4: bool, inner=(),
+                heads: bool = True) -> Optional[str]:
+    """The rules K10-K15 share: heads (unless `heads` is False: v4's
+    recurrence has none), channels and the FFN split evenly over tp
+    shards; a head size the per-head step takes; rows of K = C, c_loc, the
+    FFN tile and `inner` (the LoRA widths) in whole 16-byte chunks (32
+    codes under int4)."""
     c, h, s = cfg.n_embed, cfg.head_count, cfg.head_size
-    if tp < 1 or h % tp or c % tp or f_dim % tp:
+    if not heads:
+        if tp < 1 or c % tp or f_dim % tp:
+            return f"{name}: C ({c}) and F ({f_dim}) must split over tp={tp} shards"
+    elif tp < 1 or h % tp or c % tp or f_dim % tp:
         return f"{name}: heads ({h}), C ({c}) and F ({f_dim}) must split over tp={tp} shards"
-    if s <= 0 or 256 % s or s * s // 256 > 16:
+    elif s <= 0 or 256 % s or s * s // 256 > 16:
         return f"{name} supports head sizes dividing 256 up to 64, got {s}"
     c_loc, f_loc = c // tp, f_dim // tp
     f_tile = f_loc // _ffn_tiles(c, f_loc)
@@ -128,17 +153,33 @@ def tp_shape_error_v6(cfg, tp: int, d_maa: int, d_dec: int, f_dim: int,
     return _dims_error("K12 / K13", cfg, tp, f_dim, w4, (("d_dec", d_dec),))
 
 
+def tp_shape_error_v5(cfg, tp: int, f_dim: int, w4: bool = False) -> Optional[str]:
+    """Why K15 / K13 cannot take this v5 model at tp shards, or None."""
+    if cfg.version_major != 5:
+        return "K15 / K13 decode RWKV v5 only"
+    return _dims_error("K15 / K13", cfg, tp, f_dim, w4)
+
+
+def tp_shape_error_v4(cfg, tp: int, f_dim: int, w4: bool = False) -> Optional[str]:
+    """Why K14 / K13 cannot take this v4 model at tp shards, or None: C
+    and F split over the shards, no head rule (v4's state is a scalar per
+    channel)."""
+    if cfg.version_major != 4:
+        return "K14 / K13 decode RWKV v4 only"
+    return _dims_error("K14 / K13", cfg, tp, f_dim, w4, heads=False)
+
+
 # -- packs --------------------------------------------------------------------
 
 
-def _shard_pack(base: dict, mats: dict, w4_mats, rvecs: dict, lvecs: dict, device, meta: dict):
+def _shard_pack(base: dict, mats: dict, rvecs: dict, lvecs: dict, device, meta: dict):
     """One shard's pack on `device`: the matrices (int4 ones packed two a
     byte), their scales, the vector blocks and the named views into them."""
     dev = torch.device(device)
     out = dict(meta)
     out["form"], out["w4"], out["quant"] = base["form"], base["w4"], base["quant"]
     for name, (w, d) in mats.items():
-        w = pack_int4(w) if base["w4"] and name in w4_mats else w
+        w = pack_int4(w) if base["w4"] and name in _W4_MATS[meta["version"]] else w
         out[name] = w.contiguous().to(dev)
         if d is not None:
             out[name + "_d"] = d.contiguous().to(dev)
@@ -216,7 +257,7 @@ def build_mega_pack_tp(base: dict, cfg, mesh) -> list:
         lvecs = {k: base[k][:, ch] for k in TP_LVECS}
         meta = {"version": 7, "tp": tp, "shard": i, "c_loc": c_loc, "nf": nf, "d_lora": d,
                 "f_dim": f_dim}
-        packs.append(_shard_pack(base, mats, TP_W4_MATS, rvecs, lvecs, dev, meta))
+        packs.append(_shard_pack(base, mats, rvecs, lvecs, dev, meta))
     return packs
 
 
@@ -254,10 +295,62 @@ def build_mega_pack_tp_v6(base: dict, cfg, mesh) -> list:
         lvecs = {k: base[k][:, ch] for k in TP6_LVECS}
         meta = {"version": 6, "tp": tp, "shard": i, "c_loc": c_loc, "nf": nf, "d_maa": dm,
                 "d_dec": dd, "f_dim": f_dim}
-        pk = _shard_pack(base, mats, TP6_W4_MATS, rvecs, lvecs, dev, meta)
+        pk = _shard_pack(base, mats, rvecs, lvecs, dev, meta)
         pk["maa2"] = base["maa2"].float().contiguous().to(dev)
         packs.append(pk)
     return packs
+
+
+def _build_tp45(base: dict, cfg, mesh, version: int) -> list:
+    tp, c = mesh.tp, cfg.n_embed
+    f_dim = base["f_dim"]
+    shape_error = tp_shape_error_v5 if version == 5 else tp_shape_error_v4
+    err = shape_error(cfg, tp, f_dim, base["w4"])
+    if err:
+        raise ValueError(err)
+    att = "rkvg" if version == 5 else "rkv"
+    n_mix = base["amix"].shape[1]
+    c_loc = c // tp
+    nf = _ffn_tiles(c, f_dim // tp)
+    rows = {k: base[k] for k in TP4_RVECS[:4]}
+    rows.update({f"fmix.{n}": base["fmix"][:, j] for j, n in enumerate("kr")})
+    rows.update({f"amix.{n}": base["amix"][:, j] for j, n in enumerate("kvrg"[:n_mix])})
+    rnames = TP5_RVECS if n_mix == 4 else TP4_RVECS
+    packs = []
+    for i, dev in enumerate(mesh.devices):
+        ch = slice(i * c_loc, (i + 1) * c_loc)
+        mats = {
+            att: (_part_rows(base[att], n_mix, c, ch),
+                  _part_rows(base.get(att + "_d"), n_mix, c, ch)),
+            "out": (base["out"][:, :, ch], base.get("out_d")),
+            "fr": _rows(base, "fr", ch),
+            **_ffn_shard(base, i, tp, nf),
+        }
+        lvecs = {k: base[k][:, ch] for k in (TP5_LVECS if version == 5 else TP4_LVECS)}
+        meta = {"version": version, "tp": tp, "shard": i, "c_loc": c_loc, "nf": nf,
+                "f_dim": f_dim, "n_mix": n_mix}
+        packs.append(_shard_pack(base, mats, {k: rows[k] for k in rnames}, lvecs, dev, meta))
+    return packs
+
+
+def build_mega_pack_tp_v5(base: dict, cfg, mesh) -> list:
+    """The v5.1 / v5.2 decode pack ``base`` (``build_mega_pack_v5``)
+    re-laid out for ``mesh.tp`` shards (JAX's ``build_mega_pack_tp_v5``):
+    per shard its ``rkvg`` rows ``[L, n_mix, c_loc, C]`` (``n_mix`` 3 on
+    v5.1, 4 with the gate on v5.2), ``out`` columns ``[L, C, c_loc]``, FFN
+    gate rows ``fr`` ``[L, c_loc, C]`` and the FFN of ``_ffn_shard``, with
+    their scales, ``rvecs`` (``TP5_RVECS``, v5.1 without "amix.g") and
+    ``lvecs`` (``TP5_LVECS``: the decay, bonus and ln_x of its heads)."""
+    return _build_tp45(base, cfg, mesh, 5)
+
+
+def build_mega_pack_tp_v4(base: dict, cfg, mesh) -> list:
+    """The v4 decode pack ``base`` (``build_mega_pack_v4``) re-laid out for
+    ``mesh.tp`` shards (JAX's ``build_mega_pack_tp_v4``): as
+    ``build_mega_pack_tp_v5`` with ``rkv`` rows ``[L, 3, c_loc, C]``,
+    ``rvecs`` ``TP4_RVECS`` and ``lvecs`` ``TP4_LVECS`` (time_decay and
+    time_first of its channels)."""
+    return _build_tp45(base, cfg, mesh, 4)
 
 
 # -- the shard math (JAX's _math_helpers) ----------------------------------------
@@ -266,9 +359,8 @@ def build_mega_pack_tp_v6(base: dict, cfg, mesh) -> list:
 def _codes(pack: dict, name: str, layer: int) -> torch.Tensor:
     """Layer `layer` of shard matrix `name` as int8 codes (bf16 values in
     the bf16 form), int4 bytes unpacked."""
-    w4_mats = TP6_W4_MATS if pack["version"] == 6 else TP_W4_MATS
     q = pack[name][layer]
-    return unpack_int4(q) if pack["w4"] and name in w4_mats else q
+    return unpack_int4(q) if pack["w4"] and name in _W4_MATS[pack["version"]] else q
 
 
 def _mv(pack: dict, name: str, layer: int, x, rows=None):
@@ -410,17 +502,17 @@ def tp_att_layer_v6_ref(pack: dict, l: int, x, att_xx, heads, cfg):
 def tp_ffn_layer_v6_ref(pack: dict, l: int, x, ffn_xx, cfg, mix45: bool = False):
     """Plain PyTorch K13: layer l's gated FFN on one shard (JAX's
     ``_make_ffn_kernel_v6``): the gate rows of the shard's channels with
-    sigmoid, the fk rows with relu^2, the fv partial per tile. mix45: the
-    v4/v5 token-shift mix ``xl * mix + (prev - prev * mix)`` instead of
-    v6's ``xl + (prev - xl) * maa``. Returns (the full-C partial [C], the
-    gate [c_loc], the new ffn_xx [C])."""
+    sigmoid, the fk rows with relu^2, the fv partial per tile. mix45 (a v4
+    / v5 pack): the token-shift mix ``xl * mix + (prev - prev * mix)`` of
+    the ``fmix`` rows instead of v6's ``xl + (prev - xl) * maa``. Returns
+    (the full-C partial [C], the gate [c_loc], the new ffn_xx [C])."""
     xl2 = layer_norm(x.float()[None], pack["ln2.weight"][l], pack["ln2.bias"][l])
     prev = ffn_xx.float()[None]
-    cfk, cfr = pack["ffn.time_maa_k"][l], pack["ffn.time_maa_r"][l]
     if mix45:
-        xk2 = xl2 * cfk + (prev - prev * cfk)
-        xr2 = xl2 * cfr + (prev - prev * cfr)
+        xk2 = _mix45(xl2, prev, pack["fmix.k"][l])
+        xr2 = _mix45(xl2, prev, pack["fmix.r"][l])
     else:
+        cfk, cfr = pack["ffn.time_maa_k"][l], pack["ffn.time_maa_r"][l]
         sx2 = prev - xl2
         xk2 = xl2 + sx2 * cfk
         xr2 = xl2 + sx2 * cfr
@@ -429,11 +521,72 @@ def tp_ffn_layer_v6_ref(pack: dict, l: int, x, ffn_xx, cfg, mix45: bool = False)
     return _ffn_out(pack, l, hk)[0], rg[0], xl2[0]
 
 
-# -- kernels K10-K13 ----------------------------------------------------------------
+def _ffn45_ref(pack: dict, l: int, x, ffn_xx, cfg):
+    return tp_ffn_layer_v6_ref(pack, l, x, ffn_xx, cfg, mix45=True)
 
 
-def _entry(kind: str, pack: dict) -> str:
-    return f"rwkv_tp_v{pack['version']}_{kind}" + _SUFFIX[pack["form"]]
+def _att_mixes(pack: dict, l: int, x, att_xx):
+    """ln1(x) [1, C] and the v4 / v5 attention mixes {"k", "v", "r"(,
+    "g")} in the reference's op order."""
+    xl = layer_norm(x.float()[None], pack["ln1.weight"][l], pack["ln1.bias"][l])
+    prev = att_xx.float()[None]
+    return xl, {n: _mix45(xl, prev, pack[f"amix.{n}"][l]) for n in "kvrg"[: pack["n_mix"]]}
+
+
+def tp_att_layer_v5_ref(pack: dict, l: int, x, att_xx, heads, cfg):
+    """Plain PyTorch K15: layer l's v5.1 / v5.2 attention on one shard
+    (JAX's ``_make_att_kernel_v5``): the mixes k, v, r(, g), each
+    quantized as a whole, into the shard's rkvg rows (silu on g), per head
+    the wkv step with the static decay and the bonus, group norm (eps
+    1e-5), ln_x, the gate. heads [h_loc, S, S] (i = value dim). Returns
+    (the full-C partial of ``out`` [C], the new att_xx [C], the new
+    heads)."""
+    s = cfg.head_size
+    h_loc = pack["c_loc"] // s
+    xl, mix = _att_mixes(pack, l, x, att_xx)
+    r = _mv(pack, "rkvg", l, mix["r"], rows=0)
+    k = _mv(pack, "rkvg", l, mix["k"], rows=1)
+    v = _mv(pack, "rkvg", l, mix["v"], rows=2)
+    r3, k3, v3 = (t.reshape(h_loc, s) for t in (r, k, v))
+    dot = (r3 * pack["tf"][l].reshape(h_loc, s) * k3).sum(-1, keepdim=True)
+    y = torch.einsum("hij,hj->hi", heads.float(), r3) + v3 * dot
+    st = (heads.float() * pack["td"][l].reshape(h_loc, s)[:, None, :]
+          + v3[:, :, None] * k3[:, None, :])
+    xo = _group_norm_heads(y, s, 1e-5) * pack["att.ln_x.weight"][l] + pack["att.ln_x.bias"][l]
+    if "g" in mix:
+        gg = _mv(pack, "rkvg", l, mix["g"], rows=3)
+        xo = xo * (gg * torch.sigmoid(gg))
+    return _mv(pack, "out", l, xo)[0], xl[0], st
+
+
+def tp_att_layer_v4_ref(pack: dict, l: int, x, att_xx, aa, bb, pp, cfg):
+    """Plain PyTorch K14: layer l's v4 attention on one shard (JAX's
+    ``_make_att_kernel_v4``): the mixes k, v, r into the shard's rkv rows
+    (sigmoid on r), the max-trick wkv on its channels with their aa, bb,
+    pp [c_loc], ``xo = r * wkv``. Returns (the full-C partial of ``out``
+    [C], the new att_xx [C], the new aa, bb, pp)."""
+    from rwkv_tpu_torch.models.graph import _wkv4_step
+
+    xl, mix = _att_mixes(pack, l, x, att_xx)
+    r = torch.sigmoid(_mv(pack, "rkv", l, mix["r"], rows=0))
+    k = _mv(pack, "rkv", l, mix["k"], rows=1)
+    v = _mv(pack, "rkv", l, mix["v"], rows=2)
+    wkv, aa, bb, pp = _wkv4_step(pack["tf"][l], pack["td"][l], k[0], v[0], aa.float(), bb.float(),
+                                 pp.float())
+    return _mv(pack, "out", l, r * wkv)[0], xl[0], aa, bb, pp
+
+
+# -- kernels K10-K15 ----------------------------------------------------------------
+
+
+def _lib_entry(kind: str, pack: dict) -> tuple:
+    """(library, C entry) of layer kernel `kind` ("att" or "ffn") for the
+    pack's version and form; v4 / v5 run K13's MIX45 instances."""
+    v, sfx = pack["version"], _SUFFIX[pack["form"]]
+    if v in (4, 5):
+        return ("tp_v6", "rwkv_tp_v45_ffn" + sfx) if kind == "ffn" else (
+            "tp_v45", f"rwkv_tp_v{v}_att" + sfx)
+    return f"tp_v{v}", f"rwkv_tp_v{v}_{kind}" + sfx
 
 
 def _layer_ptrs(pack: dict, l: int, names) -> list:
@@ -450,14 +603,13 @@ def _layer_ptrs(pack: dict, l: int, names) -> list:
 def _grid(pack: dict, kind: str, *dims: int) -> int:
     key = "_grid_" + kind
     if key not in pack:
-        lib = f"tp_v{pack['version']}"
-        pack[key] = _grid_blocks(lib, _entry(kind, pack) + "_grid", *dims)
+        lib, name = _lib_entry(kind, pack)
+        pack[key] = _grid_blocks(lib, name + "_grid", *dims)
     return pack[key]
 
 
 def _launch(pack: dict, kind: str, ptrs: list, ints: tuple, grid: int, dev) -> None:
-    lib = f"tp_v{pack['version']}"
-    name = _entry(kind, pack)
+    lib, name = _lib_entry(kind, pack)
     fn = _cuda.function(lib, name, len(ptrs), len(ints) + 1)
     code = fn(*ptrs, *ints, grid, _cuda.stream_ptr(dev))
     _cuda.check(lib, name, code)
@@ -478,6 +630,8 @@ _FFN7_MATS = ("fk", "fk_d", "fv", "fv_d", "rvecs")
 _ATT6_MATS = ("rkvg", "rkvg_d", "maa1", "maa1_d", "dw1", "dw1_d", "dw2", "dw2_d", "out",
               "out_d", "maa2", "rvecs", "lvecs")
 _FFN6_MATS = ("fr", "fr_d", "fk", "fk_d", "fv", "fv_d", "rvecs")
+_ATT5_MATS = ("rkvg", "rkvg_d", "out", "out_d", "rvecs", "lvecs")
+_ATT4_MATS = ("rkv", "rkv_d", "out", "out_d", "rvecs", "lvecs")
 
 
 def tp_att_layer(pack: dict, l: int, x, att_xx, heads, v_first, first: bool, cfg,
@@ -571,9 +725,32 @@ def tp_ffn_layer_v6(pack: dict, l: int, x, ffn_xx, cfg, out: Optional[dict] = No
     """Layer l's gated v6 FFN on one shard (see ``tp_ffn_layer_v6_ref``). A
     CUDA pack launches kernel K13 once (`out` keys "part", "rg",
     "ffn_xx"); a CPU pack takes the plain version."""
-    dev = pack["rvecs"].device
-    if dev.type == "cpu":
+    if pack["rvecs"].device.type == "cpu":
         return tp_ffn_layer_v6_ref(pack, l, x, ffn_xx, cfg)
+    return _gated_ffn(tp_ffn_layer_v6, pack, l, x, ffn_xx, cfg, out)
+
+
+tp_ffn_layer_v6.launches = 0
+tp_ffn_layer_v6.launches_by_form = dict.fromkeys(FORMS, 0)
+
+
+def tp_ffn_layer_v45(pack: dict, l: int, x, ffn_xx, cfg, out: Optional[dict] = None):
+    """Layer l's gated v4 / v5 FFN on one shard (``tp_ffn_layer_v6_ref``
+    with mix45). A CUDA pack launches K13's MIX45 form once (`out` as
+    ``tp_ffn_layer_v6``); a CPU pack takes the plain version."""
+    if pack["rvecs"].device.type == "cpu":
+        return _ffn45_ref(pack, l, x, ffn_xx, cfg)
+    return _gated_ffn(tp_ffn_layer_v45, pack, l, x, ffn_xx, cfg, out)
+
+
+tp_ffn_layer_v45.launches = 0
+tp_ffn_layer_v45.launches_by_form = dict.fromkeys(FORMS, 0)
+
+
+def _gated_ffn(counter, pack: dict, l: int, x, ffn_xx, cfg, out: Optional[dict]):
+    """One launch of K13 (v6, or its MIX45 form on a v4 / v5 pack),
+    counted in `counter`."""
+    dev = pack["rvecs"].device
     c, c_loc = cfg.n_embed, pack["c_loc"]
     f_loc = pack["f_dim"] // pack["tp"]
     x, ffn_xx = _f32(x, dev), _f32(ffn_xx, dev)
@@ -585,12 +762,67 @@ def tp_ffn_layer_v6(pack: dict, l: int, x, ffn_xx, cfg, out: Optional[dict] = No
     ptrs += [part.data_ptr(), rg.data_ptr(), fxx.data_ptr(), scratch.data_ptr()]
     grid = _grid(pack, "ffn", c, f_loc // pack["nf"])
     _launch(pack, "ffn", ptrs, (c, c_loc, f_loc, pack["nf"]), grid, dev)
-    _count(tp_ffn_layer_v6, pack)
+    _count(counter, pack)
     return part, rg, fxx
 
 
-tp_ffn_layer_v6.launches = 0
-tp_ffn_layer_v6.launches_by_form = dict.fromkeys(FORMS, 0)
+def tp_att_layer_v5(pack: dict, l: int, x, att_xx, heads, cfg, out: Optional[dict] = None):
+    """Layer l's v5.1 / v5.2 attention on one shard (see
+    ``tp_att_layer_v5_ref``). A CUDA pack launches kernel K15 once (`out`
+    keys "part", "att_xx", "heads"); a CPU pack takes the plain version."""
+    dev = pack["rvecs"].device
+    if dev.type == "cpu":
+        return tp_att_layer_v5_ref(pack, l, x, att_xx, heads, cfg)
+    c, s, c_loc = cfg.n_embed, cfg.head_size, pack["c_loc"]
+    gate = int(pack["n_mix"] == 4)
+    x, att_xx, heads = _f32(x, dev), _f32(att_xx, dev), _f32(heads, dev)
+    if heads.shape != (c_loc // s, s, s):
+        raise ValueError(f"heads {tuple(heads.shape)} != {(c_loc // s, s, s)}")
+    part = _out(out, "part", (c,), dev)
+    axx = _out(out, "att_xx", (c,), dev)
+    new_heads = _out(out, "heads", heads.shape, dev)
+    scratch = torch.empty((5 * c_loc,), dtype=torch.float32, device=dev)
+    ptrs = [x.data_ptr(), att_xx.data_ptr(), heads.data_ptr()]
+    ptrs += _layer_ptrs(pack, l, _ATT5_MATS)
+    ptrs += [part.data_ptr(), axx.data_ptr(), new_heads.data_ptr(), scratch.data_ptr()]
+    grid = _grid(pack, "att", c, s, gate)
+    _launch(pack, "att", ptrs, (c, c_loc, s, gate), grid, dev)
+    _count(tp_att_layer_v5, pack)
+    return part, axx, new_heads
+
+
+tp_att_layer_v5.launches = 0
+tp_att_layer_v5.launches_by_form = dict.fromkeys(FORMS, 0)
+
+
+def tp_att_layer_v4(pack: dict, l: int, x, att_xx, aa, bb, pp, cfg,
+                    out: Optional[dict] = None):
+    """Layer l's v4 attention on one shard (see ``tp_att_layer_v4_ref``).
+    A CUDA pack launches kernel K14 once (`out` keys "part", "att_xx",
+    "aa", "bb", "pp"); a CPU pack takes the plain version."""
+    dev = pack["rvecs"].device
+    if dev.type == "cpu":
+        return tp_att_layer_v4_ref(pack, l, x, att_xx, aa, bb, pp, cfg)
+    c, c_loc = cfg.n_embed, pack["c_loc"]
+    x, att_xx = _f32(x, dev), _f32(att_xx, dev)
+    cols = [_f32(t, dev) for t in (aa, bb, pp)]
+    if any(t.shape != (c_loc,) for t in cols):
+        raise ValueError(f"aa / bb / pp {[tuple(t.shape) for t in cols]} != {(c_loc,)}")
+    part = _out(out, "part", (c,), dev)
+    axx = _out(out, "att_xx", (c,), dev)
+    new = [_out(out, k, (c_loc,), dev) for k in ("aa", "bb", "pp")]
+    scratch = torch.empty((3 * c_loc,), dtype=torch.float32, device=dev)
+    ptrs = [x.data_ptr(), att_xx.data_ptr()] + [t.data_ptr() for t in cols]
+    ptrs += _layer_ptrs(pack, l, _ATT4_MATS)
+    ptrs += [part.data_ptr(), axx.data_ptr()] + [t.data_ptr() for t in new] + [scratch.data_ptr()]
+    grid = _grid(pack, "att", c)
+    _launch(pack, "att", ptrs, (c, c_loc), grid, dev)
+    _count(tp_att_layer_v4, pack)
+    return (part, axx, *new)
+
+
+tp_att_layer_v4.launches = 0
+tp_att_layer_v4.launches_by_form = dict.fromkeys(FORMS, 0)
 
 
 # -- the step --------------------------------------------------------------------
@@ -629,6 +861,27 @@ def tp_decode_step_v6(packs: list, state: dict, x0: torch.Tensor, cfg, plain: bo
     return _tp_step(packs, state, x0, cfg, _v6_layer, fns, plain)
 
 
+def tp_decode_step_v5(packs: list, state: dict, x0: torch.Tensor, cfg, plain: bool = False):
+    """One v5.1 / v5.2 decode step over the shards of `packs`
+    (``build_mega_pack_tp_v5``; JAX's ``tp_decode_step_v5``), as
+    ``tp_decode_step_v6``: K15, then K13's MIX45 form (plain=True: their
+    plain versions)."""
+    fns = ((tp_att_layer_v5_ref, _ffn45_ref) if plain
+           else (tp_att_layer_v5, tp_ffn_layer_v45))
+    return _tp_step(packs, state, x0, cfg, _v45_layer, fns, plain)
+
+
+def tp_decode_step_v4(packs: list, state: dict, x0: torch.Tensor, cfg, plain: bool = False):
+    """One v4 decode step over the shards of `packs`
+    (``build_mega_pack_tp_v4``; JAX's ``tp_decode_step_v4``): `state`
+    holds ``att_xx`` / ``ffn_xx`` / ``aa`` / ``bb`` / ``pp`` ``[L, C]``, of
+    which shard i owns channels ``[i C/tp, (i+1) C/tp)`` of aa, bb and pp;
+    K14, then K13's MIX45 form (plain=True: their plain versions)."""
+    fns = ((tp_att_layer_v4_ref, _ffn45_ref) if plain
+           else (tp_att_layer_v4, tp_ffn_layer_v45))
+    return _tp_step(packs, state, x0, cfg, _v45_layer, fns, plain)
+
+
 def _tp_step(packs: list, state: dict, x0, cfg, layer_fn, fns, plain: bool):
     devs = [p["rvecs"].device for p in packs]
     home = state["att_xx"].device
@@ -640,8 +893,10 @@ def _tp_step(packs: list, state: dict, x0, cfg, layer_fn, fns, plain: bool):
     return xs[0].to(home), new
 
 
-def _heads_slice(t: torch.Tensor, l: int, i: int, h_loc: int) -> torch.Tensor:
-    return t[l, i * h_loc : (i + 1) * h_loc]
+def _shard_rows(t: torch.Tensor, l: int, i: int, n: int) -> torch.Tensor:
+    """Shard i's rows [i n, (i+1) n) of layer l of a state array: its
+    heads of ``heads`` [L, H, S, S], its channels of v4's aa / bb / pp."""
+    return t[l, i * n : (i + 1) * n]
 
 
 def _keep(dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -658,19 +913,20 @@ def _call(fn, plain: bool, dev, home, *args, **views):
     return fn(*args, out=views if dev == home else {})
 
 
-def _att_shards(packs, l, xs, state, new, devs, home, cfg, fn, plain, extra):
-    """Every shard's attention of layer l, with its heads into its slice of
-    `new` and shard 0's att_xx into `new`; returns the results."""
-    h_loc = packs[0]["c_loc"] // cfg.head_size
+def _att_shards(packs, l, xs, state, new, devs, home, cfg, fn, plain, extra, keys=("heads",)):
+    """Every shard's attention of layer l, with its part of the sharded
+    state `keys` into its slice of `new` and shard 0's att_xx into `new`;
+    returns the results (the sharded state follows att_xx in each)."""
+    c_loc = packs[0]["c_loc"]
+    rows = {k: c_loc // cfg.head_size if k == "heads" else c_loc for k in keys}
     res = []
     for i, (pk, dev) in enumerate(zip(packs, devs)):
-        heads_out = _heads_slice(new["heads"], l, i, h_loc)
-        views = {"heads": heads_out}
-        if i == 0:
-            views["att_xx"] = new["att_xx"][l]
-        r = _call(fn, plain, dev, home, pk, l, xs[i], state["att_xx"][l].to(dev),
-                  _heads_slice(state["heads"], l, i, h_loc).to(dev), *extra[i], cfg, **views)
-        _keep(heads_out, r[2])
+        views = {k: _shard_rows(new[k], l, i, rows[k]) for k in keys}
+        ins = [_shard_rows(state[k], l, i, rows[k]).to(dev) for k in keys]
+        r = _call(fn, plain, dev, home, pk, l, xs[i], state["att_xx"][l].to(dev), *ins, *extra[i],
+                  cfg, **views, **({"att_xx": new["att_xx"][l]} if i == 0 else {}))
+        for j, k in enumerate(keys):
+            _keep(views[k], r[2 + j])
         if i == 0:
             _keep(new["att_xx"][l], r[1])
         res.append(r)
@@ -704,7 +960,22 @@ def _v6_layer(packs, l, xs, state, new, v_first, devs, home, cfg, fns, plain):
     res = _att_shards(packs, l, xs, state, new, devs, home, cfg, fns[0], plain,
                       [()] * len(packs))
     xs = [x + a for x, a in zip(xs, all_reduce([r[0] for r in res], devs))]
-    res = _ffn_shards(packs, l, xs, state, new, devs, home, cfg, fns[1], plain)
-    rg = torch.cat([r[1].to(devs[0]) for r in res])  # JAX's all_gather of the gate
+    return _gated_ffn_shards(packs, l, xs, state, new, devs, home, cfg, fns[1], plain)
+
+
+def _v45_layer(packs, l, xs, state, new, v_first, devs, home, cfg, fns, plain):
+    keys = ("aa", "bb", "pp") if cfg.version_major == 4 else ("heads",)
+    res = _att_shards(packs, l, xs, state, new, devs, home, cfg, fns[0], plain,
+                      [()] * len(packs), keys)
+    xs = [x + a for x, a in zip(xs, all_reduce([r[0] for r in res], devs))]
+    return _gated_ffn_shards(packs, l, xs, state, new, devs, home, cfg, fns[1], plain)
+
+
+def _gated_ffn_shards(packs, l, xs, state, new, devs, home, cfg, fn, plain):
+    """The gated FFN of v6, v5 and v4: every shard's, its gate rows
+    gathered in shard order (JAX's all_gather), then x += gate *
+    all_reduce(fv partials)."""
+    res = _ffn_shards(packs, l, xs, state, new, devs, home, cfg, fn, plain)
+    rg = torch.cat([r[1].to(devs[0]) for r in res])
     ffn = all_reduce([r[0] for r in res], devs)
     return [x + rg.to(dev) * f for x, f, dev in zip(xs, ffn, devs)]

@@ -222,15 +222,16 @@ def decode_vs_plain(pack, cfg, state: dict, token, depth: int) -> dict:
 
 
 def tp_vs_plain(packs, cfg, state: dict, x0, depth: int) -> dict:
-    """The TP decode step (K10 / K11 or K12 / K13 by the packs' version) on
-    its first `depth` layers against the same step on the shard kernels'
-    plain versions: rel_err of x and of the state (the worst of its
-    arrays). Returns the readings and the kernel step's outputs."""
+    """The TP decode step (K10 / K11, K12 / K13, K15 or K14 / K13's MIX45
+    form by the packs' version) on its first `depth` layers against the
+    same step on the shard kernels' plain versions: rel_err of x and of the
+    state (the worst of its arrays), and the largest absolute difference."""
     import dataclasses
 
     from rwkv_tpu_torch.ops import megakernel_tp as TP
 
-    step = TP.tp_decode_step_v6 if packs[0]["version"] == 6 else TP.tp_decode_step
+    step = {7: TP.tp_decode_step, 6: TP.tp_decode_step_v6, 5: TP.tp_decode_step_v5,
+            4: TP.tp_decode_step_v4}[packs[0]["version"]]
     cd = dataclasses.replace(cfg, n_layer=depth)
     st = {k: v[:depth].contiguous() for k, v in state.items()}
     x, new = step(packs, st, x0, cd)

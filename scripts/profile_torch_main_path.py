@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the port's main path spends its time, from a torch.profiler trace.
 
-    python3 scripts/profile_torch_main_path.py [--tp]
+    python3 scripts/profile_torch_main_path.py [--tp[=7.0|6.0|5.2|4.0]]
 
 Builds the 169M v7 model as ``chip_smoke.py`` does (synth seed 0, w8a8,
-``megakernel=True``; with --tp the v7 World 1.5B width, LoRA 96, over a
-tp=2 mesh on this card, its B=1 decode on K10 / K11), warms every path
-up, then traces one 256-token
+``megakernel=True``; with --tp a model at its tensor-parallel width --
+v7 World 1.5B, LoRA 96 (the default), v6 1.6B, v5.2 World 1.5B or v4
+World 1.5B -- over a tp=2 mesh on this card, its B=1 decode on K10 / K11,
+K12 / K13, K15 / K13 mix45 or K14 / K13 mix45), warms every path up,
+then traces one 256-token
 prefill and 8 greedy B=1 decode steps. For each it prints the wall time
 (host clock around synchronised work), the device busy time (the sum of
 the kernels' and copies' durations in the CUDA trace), the number of
@@ -57,18 +59,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_main_path: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import V7_TP_LORA, V7_TP_WIDTH
+    from chip_smoke import V4_TP_WIDTH, V7_TP_LORA, V7_TP_WIDTH
     from rwkv_tpu_torch.models.serve import ServingModel
     from rwkv_tpu_torch.models.synth import synth_config, synth_params
     from rwkv_tpu_torch.parallel.sharding import make_mesh
-    from rwkv_tpu_torch.tools.card import card_line
+    from rwkv_tpu_torch.tools.card import V5_WIDTH, V6_WIDTH, card_line
 
     print(card_line())
-    if "--tp" in sys.argv[1:]:
-        cfg = synth_config(*V7_TP_WIDTH)
-        model = ServingModel((cfg, synth_params(cfg, seed=0, lora_dim=V7_TP_LORA)),
+    tp = [a for a in sys.argv[1:] if a.split("=")[0] == "--tp"]
+    if tp:
+        widths = {"7.0": V7_TP_WIDTH, "6.0": V6_WIDTH, "5.2": V5_WIDTH, "4.0": V4_TP_WIDTH}
+        cfg = synth_config(*widths[tp[0].partition("=")[2] or "7.0"])
+        kw = {"lora_dim": V7_TP_LORA} if cfg.version_major == 7 else {}
+        model = ServingModel((cfg, synth_params(cfg, seed=0, **kw)),
                              precision="w8a8", megakernel=True,
                              mesh=make_mesh(1, 2, devices=["cuda:0", "cuda:0"]))
+        print(f"RWKV v{cfg.version_major} C={cfg.n_embed} L={cfg.n_layer}, tp=2 on one card")
     else:
         cfg = synth_config("7.0", 12, 768, 65536, 64)
         model = ServingModel((cfg, synth_params(cfg, seed=0)), precision="w8a8",

@@ -1,7 +1,8 @@
-"""Kernels K1-K9 of the PyTorch/CUDA port on the card (K3, K4, K6-K8 also in
-their bf16 form), against their plain PyTorch versions, the batcher's
-decode loop, the v7, v6, v5 and v4 serving paths (int8, int4 and bf16
-packs) and the serving path from quantized ggmf files on the card. Every
+"""Kernels K1-K15 of the PyTorch/CUDA port on the card (K3, K4, K6-K8 also
+in their bf16 form, K10-K15 in all three), against their plain PyTorch
+versions, the batcher's decode loop, the v7, v6, v5 and v4 serving paths
+(int8, int4 and bf16 packs; single-device and tensor-parallel) and the
+serving path from quantized ggmf files on the card. Every
 test here needs a CUDA device and nvcc and skips
 without one. The file imports no JAX, so it runs on a GPU machine without
 it, from the repository root:
@@ -646,10 +647,14 @@ def _tp_packs(version: str, precision: str, dev, c: int = 256, n_layer: int = 2,
     tp_ = synth_params(tc, seed=13, **({"lora_dim": 32} if version == "7.0" else {}))
     quant, w4 = precision != "bf16", precision == "w4a8"
     mesh = make_mesh(1, tp, devices=[dev] * tp)
-    if version == "7.0":
-        return tc, TT.build_mega_pack_tp(TM.build_mega_pack(tp_, tc, w4=w4, quant=quant), tc, mesh)
-    return tc, TT.build_mega_pack_tp_v6(TM.build_mega_pack_v6(tp_, tc, w4=w4, quant=quant), tc,
-                                        mesh)
+    build, build_tp = {
+        "7.0": (TM.build_mega_pack, TT.build_mega_pack_tp),
+        "6.0": (TM.build_mega_pack_v6, TT.build_mega_pack_tp_v6),
+        "5.2": (TM.build_mega_pack_v5, TT.build_mega_pack_tp_v5),
+        "5.1": (TM.build_mega_pack_v5, TT.build_mega_pack_tp_v5),
+        "4.0": (TM.build_mega_pack_v4, TT.build_mega_pack_tp_v4),
+    }[version]
+    return tc, build_tp(build(tp_, tc, w4=w4, quant=quant), tc, mesh)
 
 
 def _tp_close(got, want, precision):
@@ -712,7 +717,59 @@ def test_tp_ffn_kernel_with_two_tiles(cuda_device):
         _tp_close(TT.tp_ffn_layer(pk, 0, x, xx, tc), TT.tp_ffn_layer_ref(pk, 0, x, xx, tc), "w8a8")
 
 
-@pytest.mark.parametrize("version", ["7.0", "6.0"])
+def _tp45_inputs(tc, dev, seed: int):
+    """x, att_xx, ffn_xx and the shard's part of the state (v4: aa, bb, pp
+    of c_loc channels, pp of a seeded state; v5: its heads) at tp=2."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c, c_loc = tc.n_embed, tc.n_embed // 2
+    x, xx, fxx = (torch.randn((c,), device=dev, generator=gen) * a for a in (0.5, 0.3, 0.3))
+    if tc.version_major == 4:
+        own = (torch.randn((c_loc,), device=dev, generator=gen) * 0.3,
+               torch.randn((c_loc,), device=dev, generator=gen).abs() + 1.0,
+               torch.randn((c_loc,), device=dev, generator=gen) * 0.5)
+    else:
+        s = tc.head_size
+        own = (torch.randn((c_loc // s, s, s), device=dev, generator=gen) * 0.1,)
+    return x, xx, fxx, own
+
+
+@pytest.mark.parametrize("precision", ["w8a8", "w4a8", "bf16"])
+@pytest.mark.parametrize("version", ["5.2", "5.1", "4.0"])
+def test_tp_v45_shard_kernels_match_ref(cuda_device, version, precision):
+    """K15 (v5.2, v5.1) or K14 (v4) and K13's MIX45 form on both shards of
+    a tp=2 mesh on one card (C=256), each layer, against their plain
+    versions on the same CUDA tensors (v4 also from a blank state, pp =
+    -1e30); one launch a call, two launches bit-identical."""
+    from rwkv_tpu_torch.ops import megakernel_tp as TT
+
+    tc, packs = _tp_packs(version, precision, cuda_device)
+    x, xx, fxx, own = _tp45_inputs(tc, cuda_device, 1)
+    att, att_ref = ((TT.tp_att_layer_v4, TT.tp_att_layer_v4_ref) if version == "4.0"
+                    else (TT.tp_att_layer_v5, TT.tp_att_layer_v5_ref))
+    states = [own]
+    if version == "4.0":
+        c_loc = tc.n_embed // 2
+        zero = torch.zeros((c_loc,), device=cuda_device)
+        states.append((zero, zero, torch.full((c_loc,), -1e30, device=cuda_device)))
+    for pk in packs:
+        for l in range(tc.n_layer):
+            for st in states:
+                n = att.launches_by_form[pk["form"]]
+                got = att(pk, l, x, xx, *st, tc)
+                assert att.launches_by_form[pk["form"]] == n + 1
+                assert all(bool(torch.isfinite(t).all()) for t in got)
+                _tp_close(got, att_ref(pk, l, x, xx, *st, tc), precision)
+                again = att(pk, l, x, xx, *st, tc)
+                assert all(torch.equal(a, b) for a, b in zip(got, again))
+            n = TT.tp_ffn_layer_v45.launches_by_form[pk["form"]]
+            got = TT.tp_ffn_layer_v45(pk, l, x, fxx, tc)
+            assert TT.tp_ffn_layer_v45.launches_by_form[pk["form"]] == n + 1
+            _tp_close(got, TT.tp_ffn_layer_v6_ref(pk, l, x, fxx, tc, mix45=True), precision)
+            again = TT.tp_ffn_layer_v45(pk, l, x, fxx, tc)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("version", ["7.0", "6.0", "5.2", "4.0"])
 def test_card_tp_serving_matches_cpu(cuda_device, version):
     """ServingModel(mesh=make_mesh(1, 2, devices=[cuda, cuda]),
     megakernel=True) against the same model on a CPU mesh: from the CPU's
@@ -727,8 +784,10 @@ def test_card_tp_serving_matches_cpu(cuda_device, version):
                        mesh=make_mesh(1, 2, devices=[cuda_device] * 2))
     cpu = ServingModel((tc, tp), precision="w8a8", megakernel=True,
                        mesh=make_mesh(1, 2, devices=["cpu"] * 2))
-    att, ffn = ((TT.tp_att_layer, TT.tp_ffn_layer) if version == "7.0"
-                else (TT.tp_att_layer_v6, TT.tp_ffn_layer_v6))
+    att, ffn = {"7.0": (TT.tp_att_layer, TT.tp_ffn_layer),
+                "6.0": (TT.tp_att_layer_v6, TT.tp_ffn_layer_v6),
+                "5.2": (TT.tp_att_layer_v5, TT.tp_ffn_layer_v45),
+                "4.0": (TT.tp_att_layer_v4, TT.tp_ffn_layer_v45)}[version]
     before = (att.launches, ffn.launches)
     lc, sc = cpu.prefill(list(np.random.default_rng(0).integers(0, tc.n_vocab, 20)))
     sg = {k: v.to(cuda_device) for k, v in sc.items()}

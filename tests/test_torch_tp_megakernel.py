@@ -335,7 +335,9 @@ def test_shape_errors():
     assert "d_maa" in TT.tp_shape_error_v6(cfg6, 2, 30, 64, 1024)
 
 
-@pytest.mark.parametrize("module", ["ops/megakernel_tp.py", "parallel/sharding.py"])
+# the TP path's modules, relative to rwkv_tpu_torch/ (chip_smoke.py drives it)
+@pytest.mark.parametrize("module", ["ops/megakernel_tp.py", "parallel/sharding.py",
+                                    "models/serve.py", "tools/card.py", "../chip_smoke.py"])
 def test_tp_modules_import_no_jax(module):
     src = (ROOT / "rwkv_tpu_torch" / module).read_text()
     imports = re.findall(r"^\s*(?:from|import)\s+([\w.]+)", src, flags=re.M)

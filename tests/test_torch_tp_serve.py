@@ -1,8 +1,9 @@
 """``ServingModel(..., mesh=make_mesh(1, 2, ...), megakernel=True)``: the
 port's TP decode route against the JAX package's on the conftest's virtual
-CPU mesh (v7 and v6; w8a8, w4a8, bf16), and the mesh's rules: prefill and
-B>1 decode stay per-op on the mesh's first device, v4 / v5 raise, a
-device other than the mesh's raises."""
+CPU mesh (v7 and v6; w8a8, w4a8, bf16; v5 and v4 in test_torch_tp_v45.py),
+and the mesh's rules: prefill and B>1 decode stay per-op on the mesh's
+first device, a model whose shapes do not split over the shards (v4 / v5
+too) raises, a device other than the mesh's raises."""
 
 import jax
 import numpy as np
@@ -112,9 +113,12 @@ def test_mesh_b1_decode_tracks_single_device_kernels(v7_tree):
 
 @pytest.mark.parametrize("version", ["5.2", "4.0"])
 def test_mesh_megakernel_v4_v5_raise(version):
+    """A v4 / v5 model whose C and F do not split over tp=3 shards raises
+    with K14's / K15's shape error before any pack is built."""
     cfg = synth_config(version, 2, 128, 256, 32)
-    with pytest.raises(NotImplementedError, match="rows 18-19"):
-        ServingModel((cfg, synth_params(cfg, seed=0)), precision="w8a8", mesh=_cpu_mesh(),
+    name = "K14 / K13" if version == "4.0" else "K15 / K13"
+    with pytest.raises(NotImplementedError, match=f"{name}: .*split over tp=3"):
+        ServingModel((cfg, synth_params(cfg, seed=0)), precision="w8a8", mesh=_cpu_mesh(3),
                      megakernel=True)
 
 
