@@ -10,7 +10,9 @@
    main paths' shapes, and times kernel, plain version, the card's bound
    and (K1 only) ``torch._int_mm`` as a yardstick:
    - K1 ``quant_matmul`` (w8a8): M in {1, 256} x the 169M (K, N) set;
-     every element equal or at most one float32 ulp apart.
+     bit-equal to its plain version (0 ulp); each shape's launch plan
+     (``matmul_plan``: GEMV or tensor-core GEMM, tile, K split, blocks)
+     and, on the GEMM route, the time of its quantization launch alone.
    - K2 ``wkv7_recurrence``: T=256, H=12, S=64; rtol 1e-4 / atol 1e-5
      against the token recurrence, rtol 3e-4 / atol 3e-5 against the
      chunked form.
@@ -64,9 +66,10 @@
      (plain Q8_0 and q8, min Q5_1, pack4 Q4_0, pack4_min Q4_1, rowwise
      q8r) at M in {1, 256} x the 169M (K, N) set and the q8 / q8r head
      (768, 65536) at M=1; every output within 1e-5 of sum |x| |W|. Timed
-     against its plain version, the bound and ``torch.matmul`` on a
-     dequantized f32 copy (rowwise: bf16 x against a bf16 copy of the
-     codes), TF32 off.
+     against its plain version, the bound (the f32 forms' operations over
+     the TF32 tensor-core peak, rowwise's over bf16's) and ``torch.matmul``
+     on a dequantized f32 copy (rowwise: bf16 x against a bf16 copy of the
+     codes), TF32 off; each shape's launch plan.
 3. Drives the main paths, each with the launch counters zeroed just before
    and read just after; every kernel of a path must have launched:
    - RWKV v7 169M (synth, seed 0) under w8a8 and under w4a8 with
@@ -139,11 +142,12 @@ from pathlib import Path
 import numpy as np
 
 # H100 SXM data-sheet peaks (dense): HBM bandwidth, int8 tensor-core rate,
-# float32 rate outside the tensor cores, bf16 tensor-core rate.
+# float32 rate outside the tensor cores, bf16 and TF32 tensor-core rates.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float):
@@ -179,11 +183,38 @@ def k1_calls(n_layer: int, c: int, d: int, f: int, v: int, t: int):
     ]
 
 
+def plan_str(plan) -> str:
+    """A K1 / K9 launch plan (ops/kernels.py::matmul_plan) in one phrase."""
+    if plan.route == "gemv":
+        return f"gemv, {plan.lanes} lanes a row, {plan.blocks} blocks"
+    return f"gemm {plan.bm}x{plan.bn}, split {plan.split}, {plan.blocks} blocks"
+
+
+def k1_quantize_ms(x) -> float:
+    """Device time of K1's first launch alone on the tensor-core route (the
+    activation codes, csrc/quant_matmul.cu::rwkv_w8a8_quantize)."""
+    import torch
+
+    from rwkv_tpu_torch.ops import _cuda
+    from rwkv_tpu_torch.tools.card import device_ms
+
+    m, k = x.shape
+    x8 = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    dx = torch.empty((m,), dtype=torch.float32, device=x.device)
+    fn = _cuda.function("quant_matmul", "rwkv_w8a8_quantize", 3, 2)
+
+    def launch():
+        _cuda.check("quant_matmul", "rwkv_w8a8_quantize",
+                    fn(x.data_ptr(), x8.data_ptr(), dx.data_ptr(), m, k, _cuda.stream_ptr(x.device)))
+
+    return device_ms(launch)
+
+
 def phase_k1(cfg, d_lora: int, f_dim: int, t: int, dev):
     import torch
 
     from rwkv_tpu_torch.ops.kernels import (
-        PackedQuantWeight, quant_matmul, quant_matmul_plain,
+        PackedQuantWeight, matmul_plan, quant_matmul, quant_matmul_plain,
     )
     from rwkv_tpu_torch.tools.card import device_ms
 
@@ -191,7 +222,7 @@ def phase_k1(cfg, d_lora: int, f_dim: int, t: int, dev):
     calls = k1_calls(cfg.n_layer, cfg.n_embed, d_lora, f_dim, cfg.n_vocab, t)
     shapes = sorted({(k, n) for _, k, n, _ in calls})
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "t_bytes": 0.0, "t_ops": 0.0}
+           "t_bytes": 0.0, "t_ops": 0.0, "quantize_ms": 0.0}
     max_err, max_ulp = 0.0, 0
     for k, n in shapes:
         q = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev, generator=gen)
@@ -204,8 +235,9 @@ def phase_k1(cfg, d_lora: int, f_dim: int, t: int, dev):
             torch.cuda.synchronize()
             u = ulp_diff(y, y_ref)
             err = float((y - y_ref).abs().max())
-            print(f"K1 M={m} K={k} N={n}: max ulp {u}, max abs err {err:.3e}")
-            if u > 1:
+            print(f"K1 M={m} K={k} N={n} ({plan_str(matmul_plan('w8a8', m, k, n))}): "
+                  f"max ulp {u}, max abs err {err:.3e}")
+            if u > 0:
                 raise AssertionError(f"K1 disagrees with its plain version at M={m} K={k} N={n}: {u} ulp")
             max_err, max_ulp = max(max_err, err), max(max_ulp, u)
     for m, k, n, count in calls:
@@ -222,15 +254,20 @@ def phase_k1(cfg, d_lora: int, f_dim: int, t: int, dev):
         qt = q.t()
         lib = device_ms(lambda: torch._int_mm(x8, qt))
         b, kind = bound_ms(m * k * 4 + k * n + n * 4 + m * n * 4, 2 * m * k * n, INT8_OPS_PER_S)
-        print(f"K1 M={m} K={k} N={n} x{count}: kernel {kern:.4f} ms, plain {plain:.4f} ms, "
+        plan = matmul_plan("w8a8", m, k, n)
+        quant = k1_quantize_ms(x) if plan.route == "gemm" else 0.0
+        print(f"K1 M={m} K={k} N={n} x{count} ({plan_str(plan)}): kernel {kern:.4f} ms "
+              f"(its quantization launch {quant:.4f} ms), plain {plain:.4f} ms, "
               f"_int_mm {lib:.4f} ms, bound {b:.5f} ms ({kind})")
+        tot["quantize_ms"] += count * quant
         tot["ms"] += count * kern
         tot["plain_ms"] += count * plain
         tot["library_ms"] += count * lib
         tot["bound_ms"] += count * b
         tot["t_bytes" if kind == "bytes" else "t_ops"] += count * b
     n_calls = sum(count for *_, count in calls)
-    print(f"K1 per 256-token prefill ({n_calls} calls): kernel {tot['ms']:.4f} ms, plain "
+    print(f"K1 per 256-token prefill ({n_calls} calls): kernel {tot['ms']:.4f} ms (quantization "
+          f"launches {tot['quantize_ms']:.4f} ms, {100 * tot['quantize_ms'] / tot['ms']:.1f}%), plain "
           f"{tot['plain_ms']:.4f} ms, _int_mm {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms")
     # the kernels line gives times per launch: the mean over the main path's mix of shapes
     for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
@@ -291,6 +328,8 @@ def phase_k9(cfg, d_lora: int, f_dim: int, dev):
     from rwkv_tpu_torch.ops import kernels as TK
     from rwkv_tpu_torch.tools.card import device_ms
 
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("K9's f32 yardstick must be torch.matmul in full f32, not TF32")
     c, v = cfg.n_embed, cfg.n_vocab
     gen = torch.Generator(device=dev).manual_seed(9)
     res = {}
@@ -324,11 +363,13 @@ def phase_k9(cfg, d_lora: int, f_dim: int, dev):
                 rate = BF16_FLOPS_PER_S
             else:
                 lib = device_ms(lambda: torch.matmul(x, deq.T))
-                rate = F32_FLOPS_PER_S
+                # no f32-accurate product on this card beats the TF32 tensor cores
+                rate = TF32_FLOPS_PER_S
             n_bytes = m * k * 4 + sum(t.numel() * t.element_size()
                                       for t in (w.q, w.d, w.m) if t is not None) + m * n * 4
             b, kind = bound_ms(n_bytes, 2 * m * k * n, rate)
-            print(f"K9 {case} ({form}) M={m} K={k} N={n}: kernel {kern:.4f} ms, plain "
+            print(f"K9 {case} ({form}) M={m} K={k} N={n} ({plan_str(TK.matmul_plan(form, m, k, n))}): "
+                  f"kernel {kern:.4f} ms, plain "
                   f"{plain:.4f} ms, torch.matmul {lib:.4f} ms, bound {b:.5f} ms ({kind}), "
                   f"{rel:.2e} of the band")
             if (k, n) in ((c, c), (c, f_dim), (f_dim, c)):

@@ -27,6 +27,8 @@ weights ``y = x @ W^T`` with f32 accumulation. ``quant_matmul`` on a CUDA
 tensor launches K1 or K9 (counted in ``quant_matmul.launches`` for K1 and
 ``quant_matmul.launches_by_form`` for K9's forms) and on a CPU tensor runs
 the plain PyTorch versions ``quant_matmul_plain`` / ``block_matmul_plain``.
+``matmul_plan`` picks each launch's route: a GEMV for M <= 8, else a
+tensor-core GEMM with its tile and K split.
 """
 
 from __future__ import annotations
@@ -220,6 +222,110 @@ def quant_matmul_plain(x: torch.Tensor, w: PackedQuantWeight) -> torch.Tensor:
     return int_dot_plain(x8, w.q) * dx * w.d
 
 
+# -- the kernels' launch plan ----------------------------------------------------
+
+SMS = 132  # streaming multiprocessors of an H100 SXM: the blocks a grid should reach
+GEMV_MAX_M = 8  # M up to which both kernels take their GEMV route
+GEMM_TILES = ((64, 64), (32, 32), (32, 16))  # (BM, BN), the GEMM route's tiles, largest first
+GEMM_MIN_BLOCKS = 4 * SMS // 3  # a grid of one block an SM leaves a tail: aim past it
+# K1 (int8 x8, cheap to read again) keeps K whole up to this many stages
+# and takes the smaller tile that fills the card; K9 (f32 x, read again by
+# every column tile) takes the largest tile and splits K (measured on the
+# H100: PERF.md, Findings; scripts/probe_torch_matmul.py)
+GEMM_UNSPLIT_STEPS = {"w8a8": 8, "block": 0}
+MAX_SPLIT = 8  # K ranges of a tile: the blocks of one cluster (the portable cluster size)
+# K a GEMM stage: K1's bytes, K9's columns (kBK of csrc/quant_matmul.cu and
+# csrc/block_matmul.cu; the C entries refuse a split past their stages)
+GEMM_BK = {"w8a8": 128, "block": 64}
+# The GEMV route, by kernel: warps a block, the most 16-code chunks a
+# lane should take (fewer lanes a row keep more loads in flight a lane), the
+# fewest lanes a row, and the blocks the grid should reach before lanes
+# are added (measured on the H100: scripts/probe_torch_matmul.py)
+GEMV_WARPS = {"w8a8": 8, "block": 4}
+GEMV_CHUNKS = {"w8a8": 8, "block": 16}
+GEMV_MIN_LANES = {"w8a8": 1, "block": 4}
+GEMV_MIN_BLOCKS = {"w8a8": SMS, "block": 2 * SMS}
+K1_GEMV_MAX_BLOCKS = 4 * SMS  # K1's GEMV grid loops over the rows past it
+K1_GEMV_MAX_SMEM = 232448  # bytes of shared memory a block may use: K1's GEMV stages M x K codes
+
+
+@dataclass(frozen=True)
+class MatmulPlan:
+    """How one K1 / K9 launch runs: route ``gemv`` (``lanes`` lanes an
+    output row) or ``gemm`` (a ``bm`` x ``bn`` tile a block, K cut into
+    ``split`` ranges of whole GEMM_BK steps, the blocks of a tile one
+    cluster); ``blocks`` the grid's blocks, ``scratch`` the bytes the
+    wrapper allocates (K1's GEMM route: the activation codes and row
+    scales)."""
+
+    route: str
+    bm: int = 0
+    bn: int = 0
+    split: int = 1
+    lanes: int = 0
+    blocks: int = 0
+    scratch: int = 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def matmul_plan(form: str, m: int, k: int, n: int) -> MatmulPlan:
+    """The launch plan of ``quant_matmul`` on x [m, k] against a weight of
+    `form` (``w8a8``: K1; one of ``K9_FORMS``: K9) with n output rows.
+
+    M <= 8 (K1: while x's M x K codes fit in a block's shared memory):
+    the GEMV. A row's chunks of 16 codes (16 int8 bytes, 8 nibble bytes)
+    are shared by the fewest lanes (a power of two, at least
+    GEMV_MIN_LANES) that hold at most GEMV_CHUNKS each, widened while the
+    grid has fewer than GEMV_MIN_BLOCKS blocks.
+
+    M > 8: the GEMM. K1, while K is at most GEMM_UNSPLIT_STEPS stages: the
+    largest tile of GEMM_TILES whose grid reaches GEMM_MIN_BLOCKS with K
+    whole. Otherwise (and always for K9) the largest tile that reaches it
+    with the fewest K ranges; failing that, the smallest tile with the most.
+
+    Raises ValueError on a shape the kernel cannot take (K1: K a multiple
+    of 16; K9: of 32)."""
+    if form != "w8a8" and form not in K9_FORMS:
+        raise ValueError(f"unknown form {form!r}")
+    align = 16 if form == "w8a8" else QK
+    if m < 1 or n < 1 or k < align or k % align:
+        raise ValueError(f"{form} takes M, N >= 1 and K a positive multiple of {align}, "
+                         f"got M={m} K={k} N={n}")
+    kind = "w8a8" if form == "w8a8" else "block"
+    if m <= GEMV_MAX_M and (kind == "block" or m * k <= K1_GEMV_MAX_SMEM):
+        chunks = k // 16
+        lanes = GEMV_MIN_LANES[kind]
+        while lanes < 32 and lanes * GEMV_CHUNKS[kind] < chunks:
+            lanes *= 2
+
+        def grid(lanes):
+            blocks = _cdiv(n, GEMV_WARPS[kind] * (32 // lanes))
+            return min(blocks, K1_GEMV_MAX_BLOCKS) if kind == "w8a8" else blocks
+
+        while lanes < 32 and grid(lanes) < GEMV_MIN_BLOCKS[kind]:
+            lanes *= 2
+        return MatmulPlan("gemv", lanes=lanes, blocks=grid(lanes))
+    steps = _cdiv(k, GEMM_BK[kind])
+    scratch = m * k + 4 * m if kind == "w8a8" else 0
+
+    def plan(bm, bn, split):
+        blocks = _cdiv(m, bm) * _cdiv(n, bn) * split
+        return MatmulPlan("gemm", bm, bn, split, blocks=blocks, scratch=scratch)
+
+    if steps <= GEMM_UNSPLIT_STEPS[kind]:
+        for bm, bn in GEMM_TILES:
+            if plan(bm, bn, 1).blocks >= GEMM_MIN_BLOCKS:
+                return plan(bm, bn, 1)
+    for bm, bn in GEMM_TILES:
+        for split in range(1, min(MAX_SPLIT, steps) + 1):
+            if plan(bm, bn, split).blocks >= GEMM_MIN_BLOCKS:
+                return plan(bm, bn, split)
+    return plan(*GEMM_TILES[-1], min(MAX_SPLIT, steps))
+
+
 def _operands_ok(*ts) -> bool:
     dev = ts[0].device
     return all(t.device == dev and t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ts)
@@ -236,12 +342,17 @@ def _w8a8_matmul_cuda(x: torch.Tensor, w: PackedQuantWeight) -> torch.Tensor:
         raise ValueError(f"the w8a8 kernel needs K % 16 == 0, got K={k}")
     if not _operands_ok(x, w.q, w.d):
         raise ValueError("w8a8 kernel operands must be contiguous, 16-byte aligned, on one device")
-    x8 = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    dx = torch.empty((m,), dtype=torch.float32, device=x.device)
+    plan = matmul_plan("w8a8", m, k, n)
+    x8 = dx = None
+    if plan.route == "gemm":  # the activation codes and row scales, written by a first launch
+        x8 = torch.empty((m, k), dtype=torch.int8, device=x.device)
+        dx = torch.empty((m,), dtype=torch.float32, device=x.device)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    fn = _cuda.function("quant_matmul", "rwkv_w8a8_matmul", 6, 3)
-    code = fn(x.data_ptr(), x8.data_ptr(), dx.data_ptr(), w.q.data_ptr(),
-              w.d.data_ptr(), y.data_ptr(), m, k, n, _cuda.stream_ptr(x.device))
+    fn = _cuda.function("quant_matmul", "rwkv_w8a8_matmul", 6, 8)
+    code = fn(x.data_ptr(), None if x8 is None else x8.data_ptr(),
+              None if dx is None else dx.data_ptr(), w.q.data_ptr(), w.d.data_ptr(),
+              y.data_ptr(), m, k, n, plan.bm, plan.bn, plan.split, plan.lanes, plan.blocks,
+              _cuda.stream_ptr(x.device))
     _cuda.check("quant_matmul", "rwkv_w8a8_matmul", code)
     quant_matmul.launches += 1
     return y
@@ -277,11 +388,13 @@ def _block_matmul_cuda(x: torch.Tensor, w: PackedQuantWeight) -> torch.Tensor:
     ops = [x, w.q, w.d] + ([] if w.m is None else [w.m])
     if not _operands_ok(*ops):
         raise ValueError("K9 operands must be contiguous, 16-byte aligned, on one device")
+    plan = matmul_plan(form, m, k, n)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    fn = _cuda.function("block_matmul", "rwkv_block_matmul", 5, 4)
+    fn = _cuda.function("block_matmul", "rwkv_block_matmul", 5, 9)
     code = fn(x.data_ptr(), w.q.data_ptr(), w.d.data_ptr(),
               None if w.m is None else w.m.data_ptr(), y.data_ptr(), m, k, n,
-              K9_FORMS.index(form), _cuda.stream_ptr(x.device))
+              K9_FORMS.index(form), plan.bm, plan.bn, plan.split, plan.lanes, plan.blocks,
+              _cuda.stream_ptr(x.device))
     _cuda.check("block_matmul", "rwkv_block_matmul", code)
     quant_matmul.launches_by_form[form] += 1
     return y

@@ -45,17 +45,33 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (M, K, N) for K1: the GEMV route (M <= 8: the head, M = 1 and 8), the
+# tensor-core route at M = 9, 33, 256, 300 with its split-K shapes (768 ->
+# 64, 3072 -> 768), the 1.5B widths, K tails (K = 16, 48: not a whole
+# 32-byte mma step), ragged N, and M = 8 with codes past the GEMV's shared
+# memory (the tensor-core route)
+K1_SHAPES = [(1, 768, 65536), (256, 768, 3072), (256, 64, 768), (7, 3072, 768), (20, 32, 200),
+             (8, 768, 768), (1, 16, 200), (9, 768, 64), (33, 48, 200), (300, 16, 195),
+             (256, 768, 64), (256, 768, 768), (256, 3072, 768), (33, 3072, 195), (300, 768, 768),
+             (256, 2048, 2048), (256, 2048, 8192), (256, 8192, 2048), (8, 8192, 2048),
+             (8, 32768, 64)]
+
+
 def test_quant_matmul_kernel_matches_plain(cuda_device):
+    """K1 on every route and edge (K1_SHAPES): bit-equal to its plain
+    version, and two launches bit-identical."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    for m, k, n in [(1, 768, 65536), (256, 768, 3072), (256, 64, 768), (7, 3072, 768), (20, 32, 200)]:
+    for m, k, n in K1_SHAPES:
         w = TK.PackedQuantWeight(
             q=torch.randint(-127, 128, (n, k), dtype=torch.int8, device=cuda_device, generator=gen),
             d=torch.rand((n,), device=cuda_device, generator=gen) * 1e-2)
         x = torch.randn((m, k), device=cuda_device, generator=gen)
         before = TK.quant_matmul.launches
         y = TK.quant_matmul(x, w)
-        assert TK.quant_matmul.launches == before + 1
-        torch.testing.assert_close(y, TK.quant_matmul_plain(x, w), rtol=2e-7, atol=0)
+        y2 = TK.quant_matmul(x, w)
+        assert TK.quant_matmul.launches == before + 2
+        assert torch.equal(y, TK.quant_matmul_plain(x, w)), (m, k, n, TK.matmul_plan("w8a8", m, k, n))
+        assert torch.equal(y, y2), (m, k, n)
 
 
 def test_quant_matmul_kernel_rejects_unaligned_k(cuda_device):
@@ -416,15 +432,27 @@ def _k9_weight(fmt, n, k, seed):
         Weight.from_packed(TQ.quantize_rows(w, dt).tobytes(), dt, (n, k)))
 
 
+# 1.5B-width shapes: every form but the K-quants, whose host quantization
+# of a 16M-element matrix takes a minute (Q5_1 covers their min form)
+K9_WIDE = [(256, 2048, 2048), (256, 2048, 8192), (256, 8192, 2048), (8, 8192, 2048)]
+
+
 @pytest.mark.parametrize("fmt", K9_CASES)
 def test_block_matmul_kernel_matches_plain(cuda_device, fmt):
-    """K9 against its plain version in every form, decode (M <= 8) and
-    prefill (M > 8) shapes, K across the 1024-column staging chunks, odd
-    N: within 1e-5 of sum |x| |W|; two launches bit-identical."""
+    """K9 against its plain version in every form, on both routes: M in
+    {1, 3, 5, 8} (GEMV) and {9, 33, 256, 300} (tensor cores), the split-K
+    shapes (768 -> 64, 3072 -> 768, 768 -> 768), K tails (K % 64 == 32),
+    ragged N, the 1.5B widths: within 1e-5 of sum |x| |W|; two launches
+    bit-identical."""
     shapes = [(1, 768, 768), (8, 3072, 768), (5, 2080, 195), (9, 256, 200), (256, 768, 3072),
-              (3, 32, 64), (256, 64, 768)]
+              (3, 32, 64), (256, 64, 768), (1, 3072, 768), (33, 2080, 195), (300, 768, 768),
+              (256, 768, 64), (256, 3072, 768), (256, 768, 768), (9, 32, 16)]
     if fmt in ("Q4_K", "Q5_K"):
         shapes = [(m, k, n) for m, k, n in shapes if k % 256 == 0]
+    else:
+        shapes += K9_WIDE
+    if fmt in ("q8", "q8r"):
+        shapes.append((1, 768, 65536))  # the head
     for m, k, n in shapes:
         w = _k9_weight(fmt, n, k, m + k + n).to(cuda_device)
         gen = torch.Generator(device=cuda_device).manual_seed(m * k)
