@@ -18,15 +18,17 @@
      chunked form.
    - K3 ``v7_decode_step``: the 169M w8a8 and w4a8 packs after a 256-token
      prefill; logits and state within 2e-2, equal argmax.
-   - K4 ``v7_decode_batched``: the 169M w8a8 pack at B = 1, 8 and 64 and
-     the w4a8 pack at B = 8, from states of a seeded batched prefill, and
+   - K4 ``v7_decode_batched``: the 169M w8a8 and w4a8 packs at B = 1, 8,
+     17 (a ragged last n-tile) and 64, from states of a seeded batched
+     prefill, and
      B=1 at the 1.5B width (C=2048, F=8192; depth cut from 24 to 2);
      x and state within 2e-2 but for a few sequences whose int8 codes
      flipped (``check_k4``), and both packs cut to their first layer at
      B=64 under tighter limits; two launches, a sequence in a batch of 64
      and of 8, and eight lanes fed identical inputs agree bit for bit.
-     Also at B = 128 and 256, where ``decode`` sends it (``MEGA_MAX_BATCH``),
-     from 256 states of a seeded prefill, at the full depth's limits.
+     Also at B = 128 and 256 (both packs), where ``decode`` sends it
+     (``MEGA_MAX_BATCH``), from 256 states of a seeded prefill, at the full
+     depth's limits.
      Beside it, the w8a8 decode step at B = 8 and 64 through K4 and the
      head, and through the per-op path (the card's crossover).
    - K5 ``wkv6_recurrence``: T=256, H=32, S=64 (the 1.6B v6 width);
@@ -1303,16 +1305,17 @@ def tp_paths(tag: str, cfg, params, prompt, card, launches: dict, ref=None) -> d
     return out
 
 
-def phase_k4_large(model, cfg) -> dict:
+def phase_k4_large(model, model4, cfg) -> dict:
     """K4 where decode already sends it: B = 128 and 256 (MEGA_MAX_BATCH)
-    on the 169M w8a8 pack, from states of a seeded batched prefill,
-    check_k4 at the full depth's limits, and its time."""
+    on the 169M w8a8 and w4a8 packs, from states of a seeded batched
+    prefill, check_k4 at the full depth's limits, and its time."""
     from rwkv_tpu_torch.tools.card import seeded_states
 
     states, tokens = seeded_states(model, cfg, 256, 32, seed=10)
     out = {}
     for b in (128, 256):
-        out[b] = phase_k4(model._mega, cfg, states, tokens, b, f"K4 w8a8 B={b}")
+        out[f"K4 B={b}"] = phase_k4(model._mega, cfg, states, tokens, b, f"K4 w8a8 B={b}")
+        out[f"K4w4 B={b}"] = phase_k4(model4._mega, cfg, states, tokens, b, f"K4 w4a8 B={b}")
     return out
 
 
@@ -1590,6 +1593,11 @@ def main() -> int:
         res[f"K4 B={b}"] = phase_k4(model._mega, cfg, states, tokens, b, f"K4 w8a8 B={b}")
     res["K4"] = res["K4 B=8"]
     res["K4w4"] = phase_k4(model4._mega, cfg, states, tokens, 8, "K4 w4a8 B=8")
+    for b in (1, 64):
+        res[f"K4w4 B={b}"] = phase_k4(model4._mega, cfg, states, tokens, b, f"K4 w4a8 B={b}")
+    # a ragged batch: the last n-tile of the tensor-core matvec holds one sequence
+    for m, prec in ((model, "w8a8"), (model4, "w4a8")):
+        phase_k4(m._mega, cfg, states, tokens, 17, f"K4 {prec} B=17")
     k4_identical_lanes(model._mega, cfg, states, tokens)
     # the bf16 pack of the same tree: K3 and K4 in their bf16 form
     t0 = time.perf_counter()
@@ -1605,8 +1613,7 @@ def main() -> int:
                      states, tokens)
     crossover(model, states, tokens)
     phase_k4_wide()
-    for b, r in phase_k4_large(model, cfg).items():
-        res[f"K4 B={b}"] = r
+    res.update(phase_k4_large(model, model4, cfg))
     del states
     torch.cuda.empty_cache()
 

@@ -1,8 +1,9 @@
 // Pieces shared by the two quantized matmuls, K1 (quant_matmul.cu) and K9
 // (block_matmul.cu): cp.async copies that zero-fill what lies outside the
-// operands, ldmatrix, the K split of the tensor-core (M > 8) route, its
-// split-K reduction through the cluster's distributed shared memory, and
-// its launch.
+// operands, ldmatrix, the int8 mma, the K split of the tensor-core (M > 8)
+// route, its split-K reduction through the cluster's distributed shared
+// memory, and its launch. K4's int forms (batch_mma.cuh) take the cp.async
+// copies and the int8 mma.
 //
 // The M > 8 route. A block of WM x WN warps owns a BM x BN output tile, one
 // of three (64x64 on 2 x 4 warps, 32x32 on 2 x 4, 32x16 on 2 x 2), and
@@ -67,6 +68,16 @@ __device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
                : "r"(a));
+}
+
+// c += a (16x32 s8, row) * b (32x8 s8, col), s32 (K1 here, K4's int
+// forms in batch_mma.cuh)
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // K steps [first, last) of cluster rank z out of `split` over `steps`:

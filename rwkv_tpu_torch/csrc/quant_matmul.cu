@@ -77,15 +77,6 @@ constexpr int kBK = 128;             // bytes of K a stage
 constexpr int kPitch = kBK + 16;     // shared row pitch: 8 ldmatrix rows on distinct banks
 constexpr int kStages = 4;
 
-// c += a (16x32 s8, row) * b (32x8 s8, col), s32
-__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 template <int BM, int BN>
 constexpr size_t gemm_smem() {
   constexpr size_t ring = static_cast<size_t>(kStages) * (BM + BN) * kPitch;
@@ -163,7 +154,7 @@ w8a8_gemm(const int8_t* __restrict__ x8, const float* __restrict__ dx,
 #pragma unroll
       for (int i = 0; i < MF; ++i)
 #pragma unroll
-        for (int j = 0; j < NF; ++j) mma_s8(acc[i][j], a[i], b[j]);
+        for (int j = 0; j < NF; ++j) gemm::mma_s8(acc[i][j], a[i], b[j]);
     }
   }
 
@@ -190,6 +181,9 @@ constexpr int kGemvThreads = 256;
 constexpr int kGemvWarps = kGemvThreads / 32;
 constexpr int kGemvRows = 8;   // largest M this route takes
 constexpr int kMaxChunks = 8;  // 16-byte code loads a lane has in flight
+// shared memory a block may use, static included: the GEMV's M x K codes
+// (dynamic) and its reduction scratch (static) together
+constexpr size_t kSmemLimit = 232448;
 
 __global__ void __launch_bounds__(kGemvThreads)
 w8a8_gemv(const float* __restrict__ x, const int8_t* __restrict__ q,
@@ -314,6 +308,16 @@ extern "C" int rwkv_w8a8_quantize(const void* x, void* x8, void* dx, int M, int 
                                    static_cast<cudaStream_t>(stream)));
 }
 
+// The GEMV's static shared memory (bytes), or a negative CUDA error code:
+// ops/kernels.py::K1_GEMV_STATIC_SMEM must match it (a card test reads
+// both), since matmul_plan sends M x K codes to the GEMV only while they
+// fit beside it.
+extern "C" int rwkv_w8a8_gemv_static_smem() {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, w8a8_gemv);
+  return err == cudaSuccess ? static_cast<int>(attr.sharedSizeBytes) : -static_cast<int>(err);
+}
+
 // x [M, K] f32, q [N, K] int8, d [N] f32 -> y [M, N] f32. The plan comes
 // from ops/kernels.py::matmul_plan: bm = 0 takes the GEMV route (M <= 8;
 // `lanes` lanes a row, `blocks` blocks; x8 and dx unused), else the
@@ -334,8 +338,12 @@ extern "C" int rwkv_w8a8_matmul(const void* x, void* x8, void* dx, const void* q
     if (M > kGemvRows || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) || blocks < 1)
       return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = static_cast<size_t>(M) * K;
-    cudaError_t err = cudaFuncSetAttribute(w8a8_gemv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, w8a8_gemv);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (smem + attr.sharedSizeBytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaFuncSetAttribute(w8a8_gemv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     w8a8_gemv<<<blocks, kGemvThreads, smem, st>>>(xp, qp, dp, yp, M, N, K, lanes);
     return static_cast<int>(cudaGetLastError());

@@ -19,35 +19,55 @@
 // 3.35 TB/s), ~402 MB at B=64 (0.120 ms). Its int8 operations (1.4 GOP at
 // B=8) are under a microsecond of tensor-core time.
 //
-// Design: K3's cooperative persistent kernel (one 256-thread block per SM,
-// five grid barriers per layer, v7_common.cuh) with the batch as columns:
-//   A, D, E, F  walk the batch in column tiles of kCols = 8 sequences. For
-//       a tile, warp w prepares sequence tile + w on its own (layer norm,
-//       shift mix, each input vector quantized with its own amax -- the
-//       per-column qx of the TPU kernels), every block redundantly, into
-//       shared memory; then the phase's weight rows are spread over every
-//       warp of the grid and each row, read once, is dotted against all
-//       columns of the tile (matvec_rows, common.cuh).
-//   C   B x H independent (sequence, head) tasks spread over the blocks:
-//       v7_head_step, as in K3, on that sequence's vectors and state.
-// Shared memory per block: the warps' sequence rows (8 x C floats) and the
-// tile's codes (max(6 x 8 x C, 8 x F) bytes) -- 61 KB at C=768, F=3072 and
-// 162 KB at C=2048, F=8192, inside the 227 KB a block may use. The bf16
-// form stages the tile's inputs in f32, four times the bytes: a column
-// tile is then the largest of 8, 4, 2 or 1 sequences that fits (cols_for:
-// 8 at C=768, 172 KB; 2 at C=2048, 116 KB), so at wide C a phase reads its
-// rows again for every two sequences, from L2 after the first. Above one
-// tile (B > 8) a phase reads its rows again for each tile; a layer's
-// weights (7.5 MB at 169M w8a8) stay in the 50 MB L2, so the extra reads
-// come from L2 and only the first from HBM. Sequences with identical
-// inputs get bit-identical outputs: every per-sequence computation runs the
-// same code on its own data, and the integer dots are exact.
+// Both kernels are K3's cooperative persistent design (one 256-thread
+// block per SM, grid barriers between the phases of a layer,
+// v7_common.cuh), with phase C as B x H independent (sequence, head) tasks
+// spread over the blocks (v7_head_step on that sequence's vectors and
+// state). They differ in how a phase's weight rows meet the batch.
 //
-// Numerics follow K3 (explicit round-to-nearest float ops, IEEE division in
-// the activation scale), so at B=1 K4 and K3 agree up to the order of the
-// layer-norm sums (warp sums here, block sums in K3). The bf16 form stages
-// each input vector in f32 where the int forms quantize it (quantize_warp)
-// and reads no scales; its rows' f32 dots are the outputs as they are.
+// The int forms (v7_decode_batched_mma_kernel): each phase's matrices run
+// as sweeps on the int8 tensor cores with the whole batch as mma's N
+// (batch_mma.cuh), so every row is read once a step for any B. The
+// activations are prepared per sequence (layer norm, shift mix, each input
+// vector quantized with its own amax: the per-column qx of the TPU
+// kernels) by one warp each, with the code of the earlier column-tile
+// kernel (layer_norm_warp, quantize_warp), in one of two placements
+// chosen by the launch plan (ops/megakernel.py::batched_plan):
+//   (a) every block prepares all B itself into shared memory (only the
+//       input vectors its tiles read): no extra barrier, work that grows
+//       with B in every block;
+//   (b) one warp of the grid prepares each sequence into a global code
+//       buffer (the scratch's tail), behind one more grid barrier a phase
+//       (nine a layer instead of five); the blocks stage the codes with
+//       their rows.
+// (a) up to B = 8 (at the 1.5B width too), (b) above (the readings of
+// tools/probe_batched.py, PERF.md); each
+// placement is a kernel of its own. At its start the kernel asks L2 for
+// the read-only inputs the preparations read first (the token-shift
+// states, the per-layer vectors, the row scales). The codes, scales and
+// integer dots are those of the column-tile kernel, and every float
+// operation keeps its order, so the outputs are bit for bit the same.
+//
+// The bf16 form (v7_decode_batched_kernel<kBf16>) keeps the column-tile
+// design: A, D, E and F walk the batch in tiles of cols sequences; for a
+// tile, warp w prepares sequence tile + w (every block redundantly) into
+// shared memory as f32, and the phase's rows are spread over every warp of
+// the grid, each row read once for the tile's columns (matvec_rows,
+// common.cuh). Shared memory per block: the warps' sequence rows (cols x C
+// floats) and the tile's f32 inputs; the tile is the largest of 8, 4, 2
+// or 1 sequences that fits (cols_for: 8 at C=768, 172 KB; 2 at C=2048, 116
+// KB), so above one tile a phase reads its rows again for each tile, from
+// L2 after the first.
+//
+// Sequences with identical inputs get bit-identical outputs in every form:
+// every per-sequence computation runs the same code on its own data, and
+// the integer dots are exact. Numerics follow K3 (explicit round-to-nearest
+// float ops, IEEE division in the activation scale), so at B=1 K4 and K3
+// agree up to the order of the layer-norm sums (warp sums here, block sums
+// in K3). The bf16 form stages each input vector in f32 where the int
+// forms quantize it and reads no scales; its rows' f32 dots are the
+// outputs as they are.
+#include "batch_mma.cuh"
 #include "v7_common.cuh"
 
 #include <cooperative_groups.h>
@@ -58,7 +78,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCols = kWarps;  // most sequences a column tile holds: one per warp
+constexpr int kCols = kWarps;  // most sequences a column tile holds: one per warp (bf16)
+constexpr int kSmemLimit = 232448;  // shared memory a block of the H100 may opt into
 
 struct Args {
   const int* tokens;        // [B]
@@ -76,13 +97,15 @@ struct Args {
   float* scratch;           // B * seq_scratch_floats; x [B, C] at its start
   int C, H, S, D, F, L, B;
   int emb_f32;
-  int cols;                 // sequences per column tile (cols_for)
+  int cols;                 // sequences per column tile (cols_for; bf16 form)
 };
 
 // The kernel's global scratch holds, per sequence, x, r, k, v, v_first and
 // xo (C floats each), the four lora downs (4D) and the relu^2 keys (F):
-// (6C + 4D + F) x B floats, which the Python wrapper allocates
-// (batched_scratch_floats), laid out array by array, x first.
+// (6C + 4D + F) x B floats, laid out array by array, x first; the int
+// forms add placement (b)'s activation scales (6 B floats, rounded up to
+// 4) and codes (max(6C, F) x B bytes, rounded up to 16). The Python
+// wrapper allocates it (batched_scratch_floats).
 
 // Per-sequence vectors (n floats, n a multiple of 4, 16-byte aligned) are
 // walked by one warp in float4 pieces: lane l takes pieces l, l + 32, ...
@@ -381,9 +404,331 @@ v7_decode_batched_kernel(Args p) {
   }
 }
 
-// Shared memory of a launch in form wf with column tiles of `cols`
-// sequences: their rows, the per-head and reduction scratch, then the
-// tile's activations (int8 codes, or f32 in the bf16 form).
+
+// ---- the int forms: the batch on the tensor cores ---------------------------
+
+// Sequence b's row of the bf16 embedding table into x (C floats), by one
+// warp in float4 pieces.
+__device__ void embed_warp(const Args& p, int b, float* x) {
+  const int lane = threadIdx.x & 31, C = p.C;
+  const uint2* e = reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(p.emb) +
+                                                  static_cast<size_t>(p.tokens[b]) * C);
+  for (int i = lane; i < C / 4; i += 32) {
+    const uint2 u = e[i];  // four bf16, little end first
+    st4(x, i, make_float4(bf16_to_float(u.x & 0xFFFFu), bf16_to_float(u.x >> 16),
+                          bf16_to_float(u.y & 0xFFFFu), bf16_to_float(u.y >> 16)));
+  }
+}
+
+// Asks L2 for the 128-byte lines of n floats at p, spread over the grid's
+// threads (a hint: nothing waits for it).
+__device__ __forceinline__ void prefetch_l2(const float* p, size_t n) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x * 32;
+  for (size_t i = (static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 32; i < n;
+       i += stride)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + i));
+}
+
+// n floats from src to dst by one warp (each lane its own pieces).
+__device__ __forceinline__ void copy_warp(float* dst, const float* src, int n) {
+  for (int i = threadIdx.x & 31; i < n / 4; i += 32) st4(dst, i, ld4(src, i));
+}
+
+// PB: placement (b). Each placement is a kernel of its own, so that
+// neither carries the other's preparation: registers are the kernel's
+// scarcest resource.
+template <int WF, bool PB>
+__global__ void __launch_bounds__(kThreads, 1)
+v7_decode_batched_mma_kernel(Args p, bmma::Plan pl) {
+  constexpr int LF = small_form(WF);  // the LoRAs' form
+  constexpr bool place_b = PB;
+  cg::grid_group grid = cg::this_grid();
+  const int C = p.C, H = p.H, S = p.S, D = p.D, F = p.F, L = p.L, B = p.B;
+  const int warp = threadIdx.x >> 5, blocks = gridDim.x;
+  const bmma::Layout lay(WF, C, S, D, F, B, blocks, pl);
+  const int nt = lay.nt, bp = lay.bp;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* hv = reinterpret_cast<float*>(smem);          // [12][S] phase C's per-head vectors
+  float* red = hv + 12 * S;                             // [8][32] reduction scratch
+  float* dxc = red + 8 * 32;                            // phase C's activation scales
+  int8_t* q8c = reinterpret_cast<int8_t*>(dxc + 8);     // phase C's 4D codes
+  float* dxs = reinterpret_cast<float*>(smem + lay.dxs);        // [vector][bp] scales
+  float* srow = reinterpret_cast<float*>(smem + lay.srow);      // a sweep's row scales
+  float* xw = reinterpret_cast<float*>(smem + lay.xw);          // (a): [8][C] a warp's row
+  int8_t* acodes = reinterpret_cast<int8_t*>(smem + lay.acodes);  // (a): [vector][bp] codes
+  unsigned char* work = smem + lay.work;                // a sweep's stages and sums
+
+  float* x_g = p.scratch;                  // [B][C] residual stream (the output)
+  float* r_g = x_g + static_cast<size_t>(B) * C;
+  float* k_g = r_g + static_cast<size_t>(B) * C;
+  float* v_g = k_g + static_cast<size_t>(B) * C;
+  float* vf_g = v_g + static_cast<size_t>(B) * C;   // layer-0 values
+  float* xo_g = vf_g + static_cast<size_t>(B) * C;  // attention outputs
+  float* dn_g = xo_g + static_cast<size_t>(B) * C;  // [B][4D] lora downs
+  float* fk_g = dn_g + static_cast<size_t>(B) * 4 * D;  // [B][F] relu^2 keys
+  float* dx_g = fk_g + static_cast<size_t>(B) * F;      // (b): [6][B] scales
+  int8_t* q_g = reinterpret_cast<int8_t*>(dx_g + bmma::round_up(6 * B, 4));  // (b): codes
+  const int code_bytes = bmma::round_up((6 * C > F ? 6 * C : F) * B, 16);
+  // the split sweeps' partial sums [C / 16][bp][16] and tickets [C / 16]
+  int* acc_g = reinterpret_cast<int*>(q_g + code_bytes);
+  int* tickets_g = acc_g + static_cast<size_t>(C) * bp;
+
+#ifdef RWKV_PHASE_TIMES
+  unsigned long long* marks =
+      reinterpret_cast<unsigned long long*>(tickets_g + bmma::round_up(C / 16, 4));
+  int n_marks = 0;
+#endif
+  // a grid-wide barrier, with a timestamp on each side in the timing build
+  auto barrier = [&]() {
+    PHASE_MARK();
+    grid.sync();
+    PHASE_MARK();
+  };
+  PHASE_MARK();
+
+  const MatOffsets mo(C, D, F, WF);
+  const size_t sc_layer = 9ull * C + 4ull * D + F;
+  const bmma::SweepDims sw_rkv = bmma::sweep_dims(bmma::kSwRkv, WF, C, D, F);
+  const bmma::SweepDims sw_l1 = bmma::sweep_dims(bmma::kSwL1, WF, C, D, F);
+  const bmma::SweepDims sw_out = bmma::sweep_dims(bmma::kSwOut, WF, C, D, F);
+  const bmma::SweepDims sw_fk = bmma::sweep_dims(bmma::kSwFk, WF, C, D, F);
+  const bmma::SweepDims sw_fv = bmma::sweep_dims(bmma::kSwFv, WF, C, D, F);
+  const bmma::Tiles t_rkv = bmma::block_tiles(sw_rkv, false), t_l1 = bmma::block_tiles(sw_l1, true);
+  const bmma::Tiles t_fk = bmma::block_tiles(sw_fk, false);
+  const int cs_c = bmma::code_stride(C), cs_f = bmma::code_stride(F);
+  // the input vector each part of a sweep reads: rkv r, k, v the mixes r,
+  // k, v; lora1 w, a, g, v theirs (rkv_mix, lora1_mix); out, fk, fv one
+  const bmma::Mixes kRkvMixes{{rkv_mix(0), rkv_mix(1), rkv_mix(2), 0}};
+  const bmma::Mixes kLora1Mixes{{lora1_mix(0), lora1_mix(1), lora1_mix(2), lora1_mix(3)}};
+  const bmma::Mixes kOneVector{{0, 0, 0, 0}};
+  // (b): this warp prepares sequences first, first + step, ... (spread over the SMs)
+  const int first = warp * blocks + blockIdx.x, step = kWarps * blocks;
+  // (a): the sequences of this warp are warp, warp + kWarps, ...
+  // (a): zero the code rows of sequences B .. bp - 1 of input vectors 0 .. n - 1
+  auto zero_pad = [&](int n, int stride) {
+    const int rows = bp - B, chunks = stride / 16;
+    for (int e = threadIdx.x; e < n * rows * chunks; e += blockDim.x) {
+      const int r = e / chunks, c = e - r * chunks, m = r / rows;
+      reinterpret_cast<int4*>(acodes + (static_cast<size_t>(m) * bp + B + r - m * rows) *
+                                           stride)[c] = make_int4(0, 0, 0, 0);
+    }
+  };
+  const bmma::Source src_a{place_b, place_b ? q_g : acodes, cs_c, dxs, dx_g, acc_g, tickets_g};
+  const bmma::Source src_f{place_b, place_b ? q_g : acodes, cs_f, dxs, dx_g, acc_g, tickets_g};
+  const int split_out = bmma::sweep_split(bmma::kSwOut, sw_out, blocks, place_b);
+  const int split_fv = bmma::sweep_split(bmma::kSwFv, sw_fv, blocks, place_b);
+  const bmma::Tiles t_out = bmma::block_tiles(sw_out, false, split_out);
+  const bmma::Tiles t_fv = bmma::block_tiles(sw_fv, false, split_fv);
+  // the split sweeps' sums and tickets start at zero (each use leaves them
+  // so); their first use is behind a grid barrier
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < static_cast<size_t>(C) * bp + C / 16; i += static_cast<size_t>(blocks) * blockDim.x)
+    acc_g[i] = 0;
+  // the read-only inputs every layer's preparation and epilogues read
+  // first (the token-shift states, the per-layer vectors, the row scales)
+  // towards L2 at once, so their first pass waits on L2 rather than HBM
+  prefetch_l2(p.att_in, static_cast<size_t>(B) * L * C);
+  prefetch_l2(p.ffn_in, static_cast<size_t>(B) * L * C);
+  prefetch_l2(p.vecs, static_cast<size_t>(L) * kNumVec * C);
+  prefetch_l2(p.scales, static_cast<size_t>(L) * sc_layer);
+
+  for (int l = 0; l < L; ++l) {
+    const int8_t* m_layer = p.mats + l * mo.layer;
+    const float* s_rkv = p.scales + l * sc_layer;
+    const float* s_l1 = s_rkv + 3 * C;
+    const float* s_l2 = s_l1 + 4 * D;
+    const float* s_out = s_l2 + 4 * C;
+    const float* s_fk = s_out + C;
+    const float* s_fv = s_fk + F;
+    const float* vec = p.vecs + static_cast<size_t>(l) * kNumVec * C;
+    const float* cf = vec + kCoeff * C;
+    const float* xk = vec + kXK * C;
+
+    // ---- phase A: ln1, the shift mixes, rkv + lora1 rows -------------------
+    // xl + (x_prev - xl) * coeff[m], m = r, w, k, v, a, g
+    if constexpr (place_b) {
+      for (int b = first; b < B; b += step) {
+        float* x = x_g + static_cast<size_t>(b) * C;
+        if (l == 0) {
+          embed_warp(p, b, x);
+          layer_norm_warp(x, p.ln0, p.ln0 + C, C, 1e-5f);
+        }
+        const size_t bl = (static_cast<size_t>(b) * L + l) * C;
+        float* xl = p.att_out + bl;
+        copy_warp(xl, x, C);
+        layer_norm_warp(xl, vec + kLn1W * C, vec + kLn1B * C, C, 1e-5f);
+        const float* att_in = p.att_in + bl;
+        quantize_warp<WF, 6>(
+            [&](int i, float4 (&v)[6]) {
+              const float4 a = ld4(xl, i), xp = ld4(att_in, i);
+#pragma unroll
+              for (int m = 0; m < 6; ++m) v[m] = mix4(a, xp, ld4(cf + m * C, i));
+            },
+            C, q_g + static_cast<size_t>(b) * C, B * C, dx_g + b, B);
+      }
+      barrier();
+    } else {
+      // the mixes this block's tiles read: one bit each
+      int mixes = 0;
+      for (int sl = 0; sl < t_rkv.nslots; ++sl) mixes |= 1 << rkv_mix(t_rkv.p0 + sl);
+      for (int sl = 0; sl < t_l1.nslots; ++sl) mixes |= 1 << lora1_mix(t_l1.p0 + sl);
+      if (mixes != 0 || blockIdx.x == 0) {
+        float* xr = xw + warp * C;
+        for (int b = warp; b < B; b += kWarps) {
+          if (l == 0) {
+            embed_warp(p, b, xr);
+            layer_norm_warp(xr, p.ln0, p.ln0 + C, C, 1e-5f);
+            if (blockIdx.x == 0) copy_warp(x_g + static_cast<size_t>(b) * C, xr, C);
+          } else {
+            copy_warp(xr, x_g + static_cast<size_t>(b) * C, C);
+          }
+          layer_norm_warp(xr, vec + kLn1W * C, vec + kLn1B * C, C, 1e-5f);
+          const size_t bl = (static_cast<size_t>(b) * L + l) * C;
+          if (blockIdx.x == 0) copy_warp(p.att_out + bl, xr, C);
+          const float* att_in = p.att_in + bl;
+          for (int m = 0; m < bmma::kVectors; ++m) {  // the mixes this block's tiles read
+            if (!(mixes >> m & 1)) continue;
+            quantize_warp<WF, 1>(
+                [&](int i, float4 (&v)[1]) {
+                  v[0] = mix4(ld4(xr, i), ld4(att_in, i), ld4(cf + m * C, i));
+                },
+                C, acodes + (static_cast<size_t>(m) * bp + b) * cs_c, 0, dxs + m * bp + b, 0);
+          }
+        }
+        zero_pad(bmma::kVectors, cs_c);
+      }
+      __syncthreads();
+    }
+    bmma::sweep<WF>(sw_rkv, m_layer + mo.rkv, s_rkv, pl.ks[bmma::kSwRkv], pl.ring, false, B, nt,
+        src_a, work, srow, kRkvMixes, 1,
+        [&](int row, int b, int acc, float dx, const float* d) {
+          const int part = row / C;
+          const float y = dequant(acc, dx, d);
+          (part == 0 ? r_g : part == 1 ? k_g : v_g)[static_cast<size_t>(b) * C + row - part * C] =
+              y;
+        });
+    {
+      bmma::sweep<LF>(sw_l1, m_layer + mo.l1, s_l1, pl.ks[bmma::kSwL1], pl.ring, true, B, nt,
+          src_a, work, srow, kLora1Mixes, 1,
+          [&](int row, int b, int acc, float dx, const float* d) {
+            const int part = row / D;
+            float y = dequant(acc, dx, d);
+            if (part == 0) y = tanhf(y);
+            if (part == 2) y = sigmoidf(y);
+            dn_g[static_cast<size_t>(b) * 4 * D + row] = y;
+          });
+    }
+    barrier();
+
+    // ---- phase C: (sequence, head) tasks: lora2, wkv7, group norm, gate --
+    for (int task = blockIdx.x; task < B * H; task += gridDim.x) {  // block-uniform
+      const int b = task / H, h = task % H;
+      const size_t bc = static_cast<size_t>(b) * C;
+      const size_t st = (static_cast<size_t>(b) * L + l) * H * S * S;
+      const HeadIO io{r_g + bc, k_g + bc, v_g + bc, dn_g + static_cast<size_t>(b) * 4 * D,
+                      vf_g + bc, xo_g + bc, p.heads_in + st, p.heads_out + st};
+      v7_head_step<WF>(l, h, io, m_layer + mo.l2, s_l2, head_vecs(vec, C), C, S, D, hv, red,
+                       dxc, q8c);
+    }
+    barrier();
+
+    // ---- phase D: out rows + residual ----------------------------------------
+    if constexpr (place_b) {
+      for (int b = first; b < B; b += step) {
+        const float* xo = xo_g + static_cast<size_t>(b) * C;
+        quantize_warp<WF, 1>([&](int i, float4 (&v)[1]) { v[0] = ld4(xo, i); }, C,
+                                          q_g + static_cast<size_t>(b) * C, 0, dx_g + b, 0);
+      }
+      barrier();
+    } else if (t_out.nslots > 0) {
+      for (int b = warp; b < B; b += kWarps) {
+        const float* xo = xo_g + static_cast<size_t>(b) * C;
+        quantize_warp<WF, 1>([&](int i, float4 (&v)[1]) { v[0] = ld4(xo, i); }, C,
+                                          acodes + static_cast<size_t>(b) * cs_c, 0, dxs + b, 0);
+      }
+      zero_pad(1, cs_c);
+      __syncthreads();
+    }
+    bmma::sweep<WF>(sw_out, m_layer + mo.out, s_out, pl.ks[bmma::kSwOut], pl.ring, false, B, nt,
+        src_a, work, srow, kOneVector, split_out,
+        [&](int row, int b, int acc, float dx, const float* d) {
+          float* x = x_g + static_cast<size_t>(b) * C + row;
+          *x = add(*x, dequant(acc, dx, d));
+        });
+    barrier();
+
+    // ---- phase E: ln2 + shift, fk rows with relu^2 ---------------------------
+    if constexpr (place_b) {
+      for (int b = first; b < B; b += step) {
+        const size_t bl = (static_cast<size_t>(b) * L + l) * C;
+        float* xl = p.ffn_out + bl;
+        copy_warp(xl, x_g + static_cast<size_t>(b) * C, C);
+        layer_norm_warp(xl, vec + kLn2W * C, vec + kLn2B * C, C, 1e-5f);
+        const float* ffn_in = p.ffn_in + bl;
+        quantize_warp<WF, 1>(
+            [&](int i, float4 (&v)[1]) { v[0] = mix4(ld4(xl, i), ld4(ffn_in, i), ld4(xk, i)); },
+            C, q_g + static_cast<size_t>(b) * C, 0, dx_g + b, 0);
+      }
+      barrier();
+    } else {
+      if (t_fk.nslots > 0 || blockIdx.x == 0) {
+        float* xr = xw + warp * C;
+        for (int b = warp; b < B; b += kWarps) {
+          copy_warp(xr, x_g + static_cast<size_t>(b) * C, C);
+          layer_norm_warp(xr, vec + kLn2W * C, vec + kLn2B * C, C, 1e-5f);
+          const size_t bl = (static_cast<size_t>(b) * L + l) * C;
+          if (blockIdx.x == 0) copy_warp(p.ffn_out + bl, xr, C);
+          const float* ffn_in = p.ffn_in + bl;
+          if (t_fk.nslots > 0)
+            quantize_warp<WF, 1>(
+                [&](int i, float4 (&v)[1]) {
+                  v[0] = mix4(ld4(xr, i), ld4(ffn_in, i), ld4(xk, i));
+                },
+                C, acodes + static_cast<size_t>(b) * cs_c, 0, dxs + b, 0);
+        }
+        if (t_fk.nslots > 0) zero_pad(1, cs_c);
+      }
+      __syncthreads();
+    }
+    bmma::sweep<WF>(sw_fk, m_layer + mo.fk, s_fk, pl.ks[bmma::kSwFk], pl.ring, false, B, nt,
+        src_a, work, srow, kOneVector, 1,
+        [&](int row, int b, int acc, float dx, const float* d) {
+          const float y = fmaxf(dequant(acc, dx, d), 0.f);
+          fk_g[static_cast<size_t>(b) * F + row] = mul(y, y);
+        });
+    barrier();
+
+    // ---- phase F: fv rows + residual -----------------------------------------
+    if constexpr (place_b) {
+      for (int b = first; b < B; b += step) {
+        const float* fk = fk_g + static_cast<size_t>(b) * F;
+        quantize_warp<WF, 1>([&](int i, float4 (&v)[1]) { v[0] = ld4(fk, i); }, F,
+                                          q_g + static_cast<size_t>(b) * F, 0, dx_g + b, 0);
+      }
+      barrier();
+    } else if (t_fv.nslots > 0) {
+      for (int b = warp; b < B; b += kWarps) {
+        const float* fk = fk_g + static_cast<size_t>(b) * F;
+        quantize_warp<WF, 1>([&](int i, float4 (&v)[1]) { v[0] = ld4(fk, i); }, F,
+                                          acodes + static_cast<size_t>(b) * cs_f, 0, dxs + b, 0);
+      }
+      zero_pad(1, cs_f);
+      __syncthreads();
+    }
+    bmma::sweep<WF>(sw_fv, m_layer + mo.fv, s_fv, pl.ks[bmma::kSwFv], pl.ring, false, B, nt,
+        src_f, work, srow, kOneVector, split_fv,
+        [&](int row, int b, int acc, float dx, const float* d) {
+          float* x = x_g + static_cast<size_t>(b) * C + row;
+          *x = add(*x, dequant(acc, dx, d));
+        });
+    barrier();
+  }
+}
+
+// Shared memory of a bf16 launch with column tiles of `cols` sequences:
+// their rows, the per-head and reduction scratch, then the tile's f32
+// inputs.
 size_t smem_bytes(int C, int S, int F, int D, int wf, int cols) {
   size_t q = 6ull * cols * C;
   if (static_cast<size_t>(cols) * F > q) q = static_cast<size_t>(cols) * F;
@@ -393,46 +738,102 @@ size_t smem_bytes(int C, int S, int F, int D, int wf, int cols) {
   return floats * sizeof(float) + ((q + 15) / 16) * 16;
 }
 
-// The column tile of a launch: the most sequences (8, 4, 2 or 1) whose
-// shared memory fits a block (227 KB); 0 when not even one does.
+// The column tile of a bf16 launch: the most sequences (8, 4, 2 or 1)
+// whose shared memory fits a block (227 KB); 0 when not even one does.
 int cols_for(int C, int S, int F, int D, int wf) {
   for (int cols = kCols; cols >= 1; cols >>= 1)
-    if (smem_bytes(C, S, F, D, wf, cols) <= 232448) return cols;
+    if (smem_bytes(C, S, F, D, wf, cols) <= kSmemLimit) return cols;
   return 0;
 }
 
-const void* kernel_for(int wf) {
+// The kernel of form wf: the column-tile kernel for bf16, the tensor-core
+// one of placement (b) (place_b) or (a) for the int forms.
+const void* kernel_for(int wf, bool place_b = false) {
   if (wf == kBf16) return reinterpret_cast<const void*>(v7_decode_batched_kernel<kBf16>);
-  return wf == kInt4 ? reinterpret_cast<const void*>(v7_decode_batched_kernel<kInt4>)
-                     : reinterpret_cast<const void*>(v7_decode_batched_kernel<kInt8>);
+  if (wf == kInt4)
+    return place_b ? reinterpret_cast<const void*>(v7_decode_batched_mma_kernel<kInt4, true>)
+                   : reinterpret_cast<const void*>(v7_decode_batched_mma_kernel<kInt4, false>);
+  return place_b ? reinterpret_cast<const void*>(v7_decode_batched_mma_kernel<kInt8, true>)
+                 : reinterpret_cast<const void*>(v7_decode_batched_mma_kernel<kInt8, false>);
+}
+
+// The static shared memory of the kernels of form wf (bytes; the int
+// forms: the larger of the two placements'), or a negative CUDA error code.
+int static_smem(int wf) {
+  int most = 0;
+  for (int pb = 0; pb < (wf == kBf16 ? 1 : 2); ++pb) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel_for(wf, pb != 0));
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    const int bytes = static_cast<int>(attr.sharedSizeBytes);
+    if (bytes > most) most = bytes;
+  }
+  return most;
 }
 
 // Grid size a launch in form wf uses (blocks), or a negative CUDA error
-// code (0: the kernel does not fit on an SM at these sizes).
+// code (0: the kernel does not fit on an SM at these sizes). The int
+// forms' shared memory depends on B (the plan); one block an SM fits
+// whatever a plan asks, up to the limit less the static bytes.
 int grid_for(int wf, int C, int S, int D, int F) {
   int dev = 0, sms = 0, per_sm = 0;
-  const int cols = cols_for(C, S, F, D, wf);
-  if (cols == 0) return 0;
-  const size_t smem = smem_bytes(C, S, F, D, wf, cols);
+  size_t smem;
+  if (wf == kBf16) {
+    const int cols = cols_for(C, S, F, D, wf);
+    if (cols == 0) return 0;
+    smem = smem_bytes(C, S, F, D, wf, cols);
+  } else {
+    const int st = static_smem(wf);
+    if (st < 0) return st;
+    smem = kSmemLimit - st;
+  }
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = set_smem(kernel_for(wf), smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_for(wf), kThreads, smem);
+  per_sm = 1;  // one block per SM, as K3, if every kernel of the form fits one
+  for (int pb = 0; pb < (wf == kBf16 ? 1 : 2) && err == cudaSuccess; ++pb) {
+    int n = 0;
+    err = set_smem(kernel_for(wf, pb != 0), smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel_for(wf, pb != 0), kThreads,
+                                                          smem);
+    if (n < per_sm) per_sm = n;
+  }
   if (err != cudaSuccess) return -static_cast<int>(err);
-  if (per_sm > 1) per_sm = 1;  // one block per SM, as K3
   return per_sm * sms;
 }
 
+// Launches the kernel of form wf on `grid_blocks` blocks: the bf16 form
+// with its column tile (pl null), the int forms with the plan `pl`,
+// checked first: a placement and ring it knows, K slices of whole 128-code
+// steps up to each sweep's K, a batch whose units fit, and the same shared
+// bytes as Layout counts, within the limit with the static bytes.
 int launch(int wf, const void* tokens, const void* emb, const void* ln0, const void* mats,
            const void* scales, const void* vecs, const void* att_in, const void* ffn_in,
            const void* heads_in, void* att_out, void* ffn_out, void* heads_out, void* scratch,
            int C, int H, int S, int D, int F, int L, int B, int emb_f32, int grid_blocks,
-           void* stream) {
-  const int cols = cols_for(C, S, F, D, wf);
+           const bmma::Plan* pl, void* stream) {
+  const int cols = wf == kBf16 ? cols_for(C, S, F, D, wf) : kCols;
   if (grid_blocks <= 0 || B <= 0 || cols == 0 || kThreads % S != 0 || S * S / kThreads > kMaxJ)
     return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem;
+  if (wf == kBf16) {
+    smem = smem_bytes(C, S, F, D, wf, cols);
+  } else {
+    if (pl == nullptr || B > bmma::kMaxBatch || (pl->place != 0 && pl->place != 1) ||
+        (pl->ring != 1 && pl->ring != 2))
+      return static_cast<int>(cudaErrorInvalidValue);
+    for (int i = 0; i < bmma::kNumSweeps; ++i) {
+      const int k = bmma::sweep_dims(i, wf, C, D, F).K;
+      if (pl->ks[i] < 128 || pl->ks[i] % 128 || pl->ks[i] > bmma::round_up(k, 128))
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int st = static_smem(wf);
+    if (st < 0) return -st;
+    const bmma::Layout lay(wf, C, S, D, F, B, grid_blocks, *pl);
+    if (lay.total != static_cast<size_t>(pl->smem) || pl->smem + st > kSmemLimit)
+      return static_cast<int>(cudaErrorInvalidValue);
+    smem = lay.total;
+  }
   Args a;
   a.tokens = static_cast<const int*>(tokens);
   a.emb = emb;
@@ -450,12 +851,15 @@ int launch(int wf, const void* tokens, const void* emb, const void* ln0, const v
   a.C = C; a.H = H; a.S = S; a.D = D; a.F = F; a.L = L; a.B = B;
   a.emb_f32 = emb_f32;
   a.cols = cols;
-  void* kargs[] = {&a};
-  const size_t smem = smem_bytes(C, S, F, D, wf, cols);
-  cudaError_t err = set_smem(kernel_for(wf), smem);
+  bmma::Plan plan = pl == nullptr ? bmma::Plan{} : *pl;
+  void* kargs_bf16[] = {&a};
+  void* kargs_int[] = {&a, &plan};
+  const void* kernel = kernel_for(wf, plan.place != 0);
+  cudaError_t err = set_smem(kernel, smem);
   if (err == cudaSuccess)
-    err = cudaLaunchCooperativeKernel(kernel_for(wf), dim3(grid_blocks), dim3(kThreads), kargs,
-                                      smem, static_cast<cudaStream_t>(stream));
+    err = cudaLaunchCooperativeKernel(kernel, dim3(grid_blocks), dim3(kThreads),
+                                      wf == kBf16 ? kargs_bf16 : kargs_int, smem,
+                                      static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -468,20 +872,33 @@ extern "C" int rwkv_v7_decode_batched_grid(int C, int S, int D, int F, int w4) {
   return grid_for(w4 ? kInt4 : kInt8, C, S, D, F);
 }
 
+// The int forms' kernel's static shared memory (bytes; w4 picks w4a8), or
+// a negative CUDA error code: ops/megakernel.py::K4_STATIC_SMEM must
+// match it (a card test reads both).
+extern "C" int rwkv_v7_decode_batched_static_smem(int w4) {
+  return static_smem(w4 ? kInt4 : kInt8);
+}
+
+// w8a8 / w4a8 (w4). The last eight ints are the plan of
+// ops/megakernel.py::batched_plan: place (0: a, 1: b), ring, the K slices
+// of the rkv, lora1, out, fk and fv sweeps, the dynamic shared bytes.
 extern "C" int rwkv_v7_decode_batched(const void* tokens, const void* emb, const void* ln0,
                                       const void* mats, const void* scales, const void* vecs,
                                       const void* att_in, const void* ffn_in,
                                       const void* heads_in, void* att_out, void* ffn_out,
                                       void* heads_out, void* scratch,
                                       int C, int H, int S, int D, int F, int L, int B, int w4,
-                                      int grid_blocks, void* stream) {
+                                      int grid_blocks, int place, int ring, int ks_rkv,
+                                      int ks_lora1, int ks_out, int ks_fk, int ks_fv, int smem,
+                                      void* stream) {
+  const bmma::Plan pl{place, ring, {ks_rkv, ks_lora1, ks_out, ks_fk, ks_fv}, smem};
   return launch(w4 ? kInt4 : kInt8, tokens, emb, ln0, mats, scales, vecs, att_in, ffn_in,
                 heads_in, att_out, ffn_out, heads_out, scratch, C, H, S, D, F, L, B, 0,
-                grid_blocks, stream);
+                grid_blocks, &pl, stream);
 }
 
 // The bf16 form: the same pointers (no scales are read: pass null), and
-// emb_f32 in place of w4 (the embedding table is f32, not bf16).
+// emb_f32 in place of w4 (the embedding table is f32, not bf16); no plan.
 extern "C" int rwkv_v7_decode_batched_bf16_grid(int C, int S, int D, int F) {
   return grid_for(kBf16, C, S, D, F);
 }
@@ -495,5 +912,6 @@ extern "C" int rwkv_v7_decode_batched_bf16(const void* tokens, const void* emb, 
                                            int L, int B, int emb_f32, int grid_blocks,
                                            void* stream) {
   return launch(kBf16, tokens, emb, ln0, mats, scales, vecs, att_in, ffn_in, heads_in, att_out,
-                ffn_out, heads_out, scratch, C, H, S, D, F, L, B, emb_f32, grid_blocks, stream);
+                ffn_out, heads_out, scratch, C, H, S, D, F, L, B, emb_f32, grid_blocks, nullptr,
+                stream);
 }

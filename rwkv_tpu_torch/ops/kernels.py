@@ -247,6 +247,9 @@ GEMV_MIN_LANES = {"w8a8": 1, "block": 4}
 GEMV_MIN_BLOCKS = {"w8a8": SMS, "block": 2 * SMS}
 K1_GEMV_MAX_BLOCKS = 4 * SMS  # K1's GEMV grid loops over the rows past it
 K1_GEMV_MAX_SMEM = 232448  # bytes of shared memory a block may use: K1's GEMV stages M x K codes
+# ... on top of its static shared memory (csrc/quant_matmul.cu: red[8 * 32]
+# and dxs[8] floats; rwkv_w8a8_gemv_static_smem reads the kernel's own)
+K1_GEMV_STATIC_SMEM = 4 * (8 * 32 + 8)
 
 
 @dataclass(frozen=True)
@@ -275,7 +278,8 @@ def matmul_plan(form: str, m: int, k: int, n: int) -> MatmulPlan:
     """The launch plan of ``quant_matmul`` on x [m, k] against a weight of
     `form` (``w8a8``: K1; one of ``K9_FORMS``: K9) with n output rows.
 
-    M <= 8 (K1: while x's M x K codes fit in a block's shared memory):
+    M <= 8 (K1: while x's M x K codes fit in a block's shared memory
+    beside the GEMV's static bytes):
     the GEMV. A row's chunks of 16 codes (16 int8 bytes, 8 nibble bytes)
     are shared by the fewest lanes (a power of two, at least
     GEMV_MIN_LANES) that hold at most GEMV_CHUNKS each, widened while the
@@ -295,7 +299,7 @@ def matmul_plan(form: str, m: int, k: int, n: int) -> MatmulPlan:
         raise ValueError(f"{form} takes M, N >= 1 and K a positive multiple of {align}, "
                          f"got M={m} K={k} N={n}")
     kind = "w8a8" if form == "w8a8" else "block"
-    if m <= GEMV_MAX_M and (kind == "block" or m * k <= K1_GEMV_MAX_SMEM):
+    if m <= GEMV_MAX_M and (kind == "block" or m * k <= K1_GEMV_MAX_SMEM - K1_GEMV_STATIC_SMEM):
         chunks = k // 16
         lanes = GEMV_MIN_LANES[kind]
         while lanes < 32 and lanes * GEMV_CHUNKS[kind] < chunks:

@@ -59,6 +59,7 @@ S), v5's ``ln_x`` and the attention mixes (k, v, r(, g)).
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -563,27 +564,235 @@ v7_decode_step.launches = 0
 v7_decode_step.launches_by_form = dict.fromkeys(FORMS, 0)
 
 
-def batched_scratch_floats(c: int, d_lora: int, f_dim: int, batch: int) -> int:
-    """Floats of K4's global scratch (see the source); x [B, C] comes
-    first."""
-    return (6 * c + 4 * d_lora + f_dim) * batch
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
-# argument counts of the C entries rwkv_v7_decode_batched and _bf16
-# (pointers, ints: emb_f32 takes w4's place)
-BATCHED_ARGS = (13, 9)
+def _round_up(n: int, m: int) -> int:
+    return _cdiv(n, m) * m
+
+
+# -- K4's launch plan (int forms) ----------------------------------------------
+#
+# The int forms of K4 take each phase's weight rows as the A operand of
+# int8 mma.sync (16 rows a tile) against the batch as N (n-tiles of 8
+# sequences). A phase runs as sweeps, one a matrix: the sweep deals its
+# 16-row tiles over the grid's blocks in contiguous runs (lora1 from the
+# last block down); a block stages its rows and its sequences' codes in
+# shared memory, a K slice a stage (two stages in flight where they fit),
+# and sums the int32 dots of its warps in shared memory before the
+# epilogue. The sequences' activations are prepared either (a) by every
+# block for all of B, in shared memory, or (b) once a sequence by one warp
+# of the grid into a global code buffer, behind one more grid barrier a
+# phase; in (b) the out and fv tiles' K is cut into parts on blocks of
+# their own. ``batched_plan`` chooses; the C entry takes the plan's ints
+# and refuses a plan whose shared bytes differ from its own count of them.
+K4_SMEM_LIMIT = 232448  # shared memory a block of the H100 may opt into
+K4_STATIC_SMEM = 0  # the int kernel's static shared memory (the card tests read the kernel's)
+K4_PLACE_A_MAX_B = 8  # placement (a) up to this B, (b) above (tools/probe_batched.py, PERF.md)
+K4_MAX_BATCH = 256  # a tile's n-tiles fit the block's warps (csrc/batch_mma.cuh: kMaxBatch)
+K4_MAX_SPLIT = 4  # K parts of an out / fv tile in placement (b), at most (kMaxSplit)
+K4_SWEEPS = ("rkv", "lora1", "out", "fk", "fv")
+
+
+@dataclass(frozen=True)
+class BatchedPlan:
+    """How one K4 launch in an int form runs: ``n_tiles`` n-tiles of 8
+    sequences (the last one zero-filled past B), placement ``place`` ("a"
+    or "b") of the activation preparation, ``ring`` stages in flight where
+    a sweep takes K in slices, the K slice in codes of each sweep's stage
+    (``K4_SWEEPS`` order; K rounded up to 128 codes is one stage), the
+    dynamic shared bytes ``smem``, the K parts each tile of a sweep is cut
+    into (``split``: the out and fv sweeps in placement (b), see
+    ``_k4_split``) and the static shared bytes (``static``)."""
+
+    n_tiles: int
+    place: str
+    ring: int
+    k_slice: tuple
+    smem: int
+    split: tuple = (1,) * 5
+    static: int = K4_STATIC_SMEM
+
+    def ints(self) -> tuple:
+        """The C entry's plan arguments: place (0 = a), ring, the five K
+        slices, the dynamic shared bytes."""
+        return (0 if self.place == "a" else 1, self.ring, *self.k_slice, self.smem)
+
+
+def _k4_sweeps(form: str, c: int, f_dim: int, d_lora: int) -> tuple:
+    """Per sweep: (rows, K, rows a part, parts, weight form); each part of
+    a sweep's rows reads one input vector (rkv: mixes r, k, v; lora1: w,
+    a, g, v)."""
+    return ((3 * c, c, c, 3, form), (4 * d_lora, c, d_lora, 4, "i8"), (c, c, c, 1, form),
+            (f_dim, c, f_dim, 1, form), (c, f_dim, c, 1, form))
+
+
+def _k4_split(sweep: int, rows: int, k: int, blocks: int, place: str) -> int:
+    """K parts each 16-row tile of sweep `sweep` (``K4_SWEEPS`` index) is
+    cut into, its blocks adding their int32 partial sums in global memory
+    (csrc/batch_mma.cuh: sweep_split): in placement (b) the out and fv
+    sweeps (C / 16 tiles) take every block they can, at most K4_MAX_SPLIT
+    and one 128-code step a part; else 1."""
+    if place != "b" or K4_SWEEPS[sweep] not in ("out", "fv"):
+        return 1
+    return max(1, min(blocks // (rows // 16), K4_MAX_SPLIT, _cdiv(k, 128)))
+
+
+def _k4_code_stride(k: int) -> int:
+    """Bytes a staged row of codes takes: whole 128-code steps, plus 16
+    bytes that put rows g and g + 1 of a fragment in different banks."""
+    return _round_up(k, 128) + 16
+
+
+def _k4_weight_stride(form: str, k: int) -> int:
+    """Bytes a staged weight row of k codes takes (int8 as the codes; int4
+    rows, k / 2 bytes, padded to 64 mod 128 bytes for the same reason)."""
+    if form != "i4":
+        return _k4_code_stride(k)
+    half = _round_up(k, 128) // 2
+    return half if half % 128 == 64 else half + 64
+
+
+def _k4_stage_bytes(form_k: str, tiles: int, slots: int, bp: int, k: int, ks: int, place: str,
+                    ring: int) -> int:
+    """Shared bytes of a sweep's stages: its tiles' weight rows and, in
+    placement (b), its slots' code rows, for a K slice of ks codes; `ring`
+    stages when K takes more than one slice."""
+    stage = tiles * 16 * _k4_weight_stride(form_k, ks)
+    if place == "b":
+        stage += slots * bp * _k4_code_stride(ks)
+    return stage * (1 if ks >= k else ring)
+
+
+def batched_plan(form: str, batch: int, c: int, f_dim: int, d_lora: int, *, head_size: int = 64,
+                 blocks: int = 132, place: Optional[str] = None) -> BatchedPlan:
+    """The launch plan of K4's int forms (`form` "i8" or "i4") for `batch`
+    sequences at width c, FFN f_dim and LoRA d_lora on a grid of `blocks`
+    blocks (one an SM). `place` forces a placement; by default (a) up to
+    K4_PLACE_A_MAX_B sequences where it fits, else (b). Each sweep takes
+    the largest K slice (a multiple of 128 codes) that fits in what the
+    block's other regions leave of K4_SMEM_LIMIT - K4_STATIC_SMEM, two
+    stages in flight (``ring``) where that fits, else one. Raises
+    ValueError where nothing fits.
+
+    Shared memory, in the kernel's order (all multiples of 16 bytes):
+    phase C's scratch (12 S + 264 floats, 4 D codes), the activation
+    scales (6 input vectors x BP floats, BP = 8 n_tiles), a sweep's row
+    scales (its most tiles x 16 floats), in (a) the warps' sequence rows
+    (8 x C floats) and the prepared codes (6 x BP code rows of C, or BP
+    of F), then the work region: the largest sweep's stages, which its
+    int32 sums (tiles x 16 x BP) reuse once the last stage is read."""
+    if form not in ("i8", "i4"):
+        raise ValueError(f"batched_plan takes the int forms, got {form!r}")
+    if not 1 <= batch <= K4_MAX_BATCH or blocks < 1:
+        raise ValueError(f"batched_plan takes 1 <= B <= {K4_MAX_BATCH} and blocks >= 1, got "
+                         f"B={batch}, blocks={blocks}")
+    nt = _cdiv(batch, 8)
+    bp = 8 * nt
+    sweeps = _k4_sweeps(form, c, f_dim, d_lora)
+    sizes = []  # per sweep: (most tiles a block takes, most parts they span)
+    for rows, _, _, parts, _ in sweeps:
+        tiles = _cdiv(_cdiv(rows, 16), blocks)
+        sizes.append((tiles, min(tiles, parts)))
+    most = max(t for t, _ in sizes)
+    red = most * 16 * bp * 4
+    budget = K4_SMEM_LIMIT - K4_STATIC_SMEM
+    if place is None:
+        order = ("a", "b") if batch <= K4_PLACE_A_MAX_B else ("b",)
+    elif place in ("a", "b"):
+        order = (place,)
+    else:
+        raise ValueError(f"place is 'a' or 'b', got {place!r}")
+    for pl in order:
+        base = ((12 * head_size + 264) * 4 + _round_up(4 * d_lora, 16) + 6 * bp * 4
+                + most * 16 * 4)
+        if pl == "a":
+            codes = max(6 * bp * _k4_code_stride(c), bp * _k4_code_stride(f_dim))
+            base += 8 * c * 4 + codes
+        splits = tuple(_k4_split(i, rows, k, blocks, pl)
+                       for i, (rows, k, *_) in enumerate(sweeps))
+        for ring in (2, 1):
+            slices, work = [], red
+            for (_, k, _, _, fk), (tiles, slots), sp in zip(sweeps, sizes, splits):
+                k = 128 * _cdiv(_cdiv(k, 128), sp)  # the codes of K a block takes
+                ks = _round_up(k, 128)
+
+                def need(ks):
+                    return max(red, _k4_stage_bytes(fk, tiles, slots, bp, k, ks, pl, ring))
+
+                while ks > 128 and base + need(ks) > budget:
+                    ks -= 128
+                if base + need(ks) > budget:
+                    break
+                slices.append(ks)
+                work = max(work, need(ks))
+            else:
+                return BatchedPlan(nt, pl, ring, tuple(slices), base + work, splits)
+    raise ValueError(f"K4 has no plan for B={batch} at C={c}, F={f_dim}, D={d_lora} within "
+                     f"{K4_SMEM_LIMIT} bytes of shared memory a block")
+
+
+def batched_scratch_floats(c: int, d_lora: int, f_dim: int, batch: int,
+                           codes: bool = True) -> int:
+    """Floats of K4's global scratch (see the source): per sequence x, r,
+    k, v, v_first, xo (C each), the lora downs (4D) and the relu^2 keys
+    (F), array by array with x first; then, for the int forms (`codes`),
+    placement (b)'s activation scales (6 B floats, rounded to 4) and codes
+    (max(6C, F) x B bytes), and the split sweeps' int32 partial sums (C x
+    8 ceil(B / 8)) and tickets (C / 16, rounded to 4). The bf16 form's
+    scratch ends before them."""
+    n = (6 * c + 4 * d_lora + f_dim) * batch
+    if codes:
+        n += _round_up(6 * batch, 4) + _round_up(max(6 * c, f_dim) * batch, 16) // 4
+        n += c * 8 * _cdiv(batch, 8) + _round_up(c // 16, 4)
+    return n
+
+
+# argument counts of the C entries rwkv_v7_decode_batched (pointers, ints:
+# the dims, w4, the grid, then the plan's eight ints) and _bf16 (emb_f32
+# in w4's place, no plan); LEGACY_BATCHED_ARGS: the int entry before it
+# took a plan (probe_batched --baseline builds such sources)
+BATCHED_ARGS = {"i8": (13, 17), "i4": (13, 17), "bf16": (13, 9)}
+LEGACY_BATCHED_ARGS = (13, 9)
 
 
 def _k4_entry(pack: dict) -> str:
     return "rwkv_v7_decode_batched" + ("_bf16" if pack["form"] == "bf16" else "")
 
 
+def k4_function(pack: dict, src=None, flags: tuple = (), legacy: bool = False):
+    """K4's C entry for `pack`'s form from csrc (or an earlier source
+    `src`, with nvcc `flags`); `legacy`: the entry takes no plan."""
+    args = LEGACY_BATCHED_ARGS if legacy else BATCHED_ARGS[pack["form"]]
+    if src is None and not flags:
+        return _cuda.function("v7_decode_batched", _k4_entry(pack), *args)
+    src = src or _cuda.CSRC / "v7_decode_batched.cu"
+    return _cuda.function("v7_decode_batched_probe", _k4_entry(pack), *args, src=src,
+                          flags=flags)
+
+
+def k4_plan(pack: dict, batch: int, cfg, grid: int, place: Optional[str] = None):
+    """The plan of a launch of `pack` (an int form) at `batch` on `grid`
+    blocks, cached on the pack per (batch, grid, place)."""
+    key = (batch, grid, place)
+    plans = pack.setdefault("_plans", {})
+    if key not in plans:
+        plans[key] = batched_plan(pack["form"], batch, cfg.n_embed, pack["f_dim"],
+                                  pack["d_lora"], head_size=cfg.head_size, blocks=grid,
+                                  place=place)
+    return plans[key]
+
+
 def batched_launch(fn, pack: dict, state: dict, tokens: torch.Tensor, cfg, grid: int,
-                   scratch_extra: int = 0):
+                   scratch_extra: int = 0, place: Optional[str] = None, legacy: bool = False):
     """Check the operands and launch the C entry `fn`
     (``rwkv_v7_decode_batched``, or ``_bf16`` for a bf16 pack) once on
-    `grid` blocks; returns (x, new state, scratch). `scratch_extra` floats
-    are appended to the kernel's scratch (the timing build writes there)."""
+    `grid` blocks; returns (x, new state, scratch). The int forms pass
+    ``k4_plan``'s ints (`place` forces a placement) unless `legacy` (an
+    earlier source's entry, which takes none and no code buffer).
+    `scratch_extra` floats are appended to the kernel's scratch (the
+    timing build writes there)."""
     dev = pack["mats"].device
     c, h, s = cfg.n_embed, cfg.head_count, cfg.head_size
     d_l, f, w4 = pack["d_lora"], pack["f_dim"], pack["w4"]
@@ -600,9 +809,11 @@ def batched_launch(fn, pack: dict, state: dict, tokens: torch.Tensor, cfg, grid:
         if ins[k].shape != shape:
             raise ValueError(f"{k} state {tuple(ins[k].shape)} != {shape}")
     outs = {k: torch.empty_like(v) for k, v in ins.items()}
+    int_form = pack["form"] != "bf16"
+    plan = k4_plan(pack, b, cfg, grid, place).ints() if int_form and not legacy else ()
     alloc = torch.zeros if scratch_extra else torch.empty
-    scratch = alloc((batched_scratch_floats(c, d_l, f, b) + scratch_extra,),
-                    dtype=torch.float32, device=dev)
+    n_scratch = batched_scratch_floats(c, d_l, f, b, codes=bool(plan))
+    scratch = alloc((n_scratch + scratch_extra,), dtype=torch.float32, device=dev)
     flag = _emb_f32(pack) or (int(w4),)  # emb_f32 (bf16 entry) or w4
     code = fn(
         tok.data_ptr(), pack["emb"].data_ptr(), pack["ln0"].data_ptr(),
@@ -610,7 +821,7 @@ def batched_launch(fn, pack: dict, state: dict, tokens: torch.Tensor, cfg, grid:
         ins["att_xx"].data_ptr(), ins["ffn_xx"].data_ptr(), ins["heads"].data_ptr(),
         outs["att_xx"].data_ptr(), outs["ffn_xx"].data_ptr(), outs["heads"].data_ptr(),
         scratch.data_ptr(),
-        c, h, s, d_l, f, n_layer, b, *flag, grid, _cuda.stream_ptr(dev),
+        c, h, s, d_l, f, n_layer, b, *flag, grid, *plan, _cuda.stream_ptr(dev),
     )
     _cuda.check("v7_decode_batched", _k4_entry(pack), code)
     return scratch[: b * c].view(b, c), outs, scratch
@@ -629,8 +840,7 @@ def v7_decode_batched(pack: dict, state: dict, tokens: torch.Tensor, cfg):
         dims += () if pack["form"] == "bf16" else (int(pack["w4"]),)
         grid = pack["_grid_batched"] = _grid_blocks(
             "v7_decode_batched", _k4_entry(pack) + "_grid", *dims)
-    fn = _cuda.function("v7_decode_batched", _k4_entry(pack), *BATCHED_ARGS)
-    x, outs, _ = batched_launch(fn, pack, state, tokens, cfg, grid)
+    x, outs, _ = batched_launch(k4_function(pack), pack, state, tokens, cfg, grid)
     _count(v7_decode_batched, pack)
     return x, outs
 

@@ -250,8 +250,8 @@ def single_device_x(model, state: dict, token) -> "torch.Tensor":
 
     pack, cfg = model._mega, model.config
     if cfg.version_major == 7 and not model._mega_k3:
-        fn = M._cuda.function("v7_decode_batched", M._k4_entry(pack), *M.BATCHED_ARGS)
-        x, _, _ = M.batched_launch(fn, pack, state, token, cfg, pack["_grid_batched"])
+        x, _, _ = M.batched_launch(M.k4_function(pack), pack, state, token, cfg,
+                                   pack["_grid_batched"])
         return x[0]
     launch = decode_launcher(pack)[0]
     _, _, scratch = launch(decode_entry(pack), pack, {k: v[0] for k, v in state.items()}, token,

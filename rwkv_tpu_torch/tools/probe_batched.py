@@ -7,22 +7,27 @@ kernels K6, K7 and K8.
 
 Times one launch of ``rwkv_tpu_torch.ops.megakernel.v7_decode_batched``
 (K4; device time, launches queued behind a spin kernel so no host time is
-counted) for the 169M v7 shape (C=768, synth seed 0) at B = 1, 8 and 64
-under w8a8 and bf16 and B = 8 under w4a8, from the states of a seeded
-batched prefill, and ``v7_decode_step`` (K3) at B=1 under all three.
+counted) for the 169M v7 shape (C=768, synth seed 0) at B = 1, 3, 8, 9,
+17, 64, 128 and 256 under w8a8 and w4a8 and B = 1, 8 and 64 under bf16,
+from the states of a seeded batched prefill, and ``v7_decode_step`` (K3)
+at B=1 under all three; then the int forms at B = 1-64 in each placement
+of their activation preparation (``batched_plan``: (a) every block, (b)
+one warp a sequence); then the same at the 1.5B width (C=2048, 2 layers):
+B = 1, 3, 8, 9, 17 and 64, and the placements at B = 1-8.
 
 With ``--baseline DIR`` it also builds ``DIR/v7_decode.cu`` and
 ``DIR/v7_decode_batched.cu``, where present (an earlier version of a
 kernel, its headers beside it), prints the largest difference between the
-two versions' outputs and times both on the same inputs in the order
+two versions' outputs (x and state) and times both on the same inputs in the order
 baseline, current, current, baseline (for the forms the earlier version
 has an entry for).
 
 With ``--phases`` it instead builds the kernels with
 ``-DRWKV_PHASE_TIMES`` (thread 0 of block 0 stamps ``%globaltimer``
 before and after every grid barrier) and prints the mean time of each of
-the five phases of a layer and of each barrier: K4 at B = 1, 8 and 64
-(w8a8), K3 at B=1 (w8a8, and the head phase), for the current sources and,
+the five phases of a layer and of each barrier (nine in K4's placement
+(b)): K4 at B = 1, 8 and 64 (w8a8; the current int forms in both
+placements), K3 at B=1 (w8a8, and the head phase), for the current sources and,
 with ``--baseline``, for the earlier ones.
 
 With ``--flips`` it instead holds K4 against its plain version on the
@@ -63,6 +68,9 @@ import sys
 from pathlib import Path
 
 PHASES = "ACDEF"
+# K4's int forms in placement (b): each phase but C after its own
+# preparation and barrier (pA: ln1 and the mixes; pD, pE, pF likewise)
+K4_PHASES_B = ("pA", "A", "C", "pD", "D", "pE", "E", "pF", "F")
 V6_PHASES = "AMBCDEF"
 
 
@@ -81,9 +89,10 @@ def k3_entry(src_dir, pack, flags: tuple = ()):
 
 
 def k4_entry(src_dir, pack, flags: tuple = ()):
-    """(launch entry, grid entry) of K4 for `pack`'s form from
+    """(launch entry, grid entry, legacy) of K4 for `pack`'s form from
     ``src_dir/v7_decode_batched.cu`` (None: csrc), or None when that version
-    has no entry for the form."""
+    has no entry for the form; `legacy`: an int entry from before K4 took a
+    launch plan (no plan ints, no code buffer in its scratch)."""
     from rwkv_tpu_torch.ops import _cuda
     from rwkv_tpu_torch.ops import megakernel as M
 
@@ -92,11 +101,31 @@ def k4_entry(src_dir, pack, flags: tuple = ()):
     name = M._k4_entry(pack)
     if not hasattr(lib, name):
         return None
-    fn = _cuda.function("v7_decode_batched_probe", name, *M.BATCHED_ARGS, src=src, flags=flags)
+    legacy = pack["form"] != "bf16" and not hasattr(lib, "rwkv_v7_decode_batched_static_smem")
+    fn = M.k4_function(pack, src, flags, legacy)
     grid = getattr(lib, name + "_grid")
     grid.argtypes = [ctypes.c_int] * (4 if pack["form"] == "bf16" else 5)
     grid.restype = ctypes.c_int
-    return fn, grid
+    return fn, grid, legacy
+
+
+def k4_places(pack, cfg, b: int, legacy: bool, grid: int) -> tuple:
+    """The placements to measure K4 in at batch b: both that have a plan
+    for the current int forms, none to choose for bf16 or an earlier
+    source (None)."""
+    from rwkv_tpu_torch.ops.megakernel import batched_plan
+
+    if legacy or pack["form"] == "bf16":
+        return (None,)
+    out = []
+    for place in ("a", "b"):
+        try:
+            batched_plan(pack["form"], b, cfg.n_embed, pack["f_dim"], pack["d_lora"],
+                         head_size=cfg.head_size, blocks=grid, place=place)
+        except ValueError:
+            continue
+        out.append(place)
+    return tuple(out)
 
 
 def phase_times(launch, base: int, n_layer: int, n_phases: int = 5, reps: int = 5):
@@ -128,8 +157,9 @@ def print_phases(label: str, times, names: str = PHASES) -> None:
 
 
 def phase_split(models, cfg, states, tokens, src_dir, label: str) -> None:
-    """Per-phase device times of K4 (B = 1, 8, 64) and K3 (B=1), w8a8 (or,
-    with ``--bf16``, bf16), where `src_dir`'s version has the form's entry."""
+    """Per-phase device times of K4 (B = 1, 8, 64; the int forms of the
+    current sources in both placements) and K3 (B=1), w8a8 (or, with
+    ``--bf16``, bf16), where `src_dir`'s version has the form's entry."""
     from rwkv_tpu_torch.ops.megakernel import (
         batched_launch, batched_scratch_floats, decode_launch, decode_scratch_floats,
     )
@@ -138,20 +168,24 @@ def phase_split(models, cfg, states, tokens, src_dir, label: str) -> None:
     prec = "w8a8" if "w8a8" in models else "bf16"
     pack = models[prec]._mega
     c, d_l, f = cfg.n_embed, pack["d_lora"], pack["f_dim"]
-    extra = 2 * (2 + 2 * 5 * cfg.n_layer)
+    extra = 2 * (2 + 2 * len(K4_PHASES_B) * cfg.n_layer)
     entry = None
     if src_dir is None or (Path(src_dir) / "v7_decode_batched.cu").exists():
         entry = k4_entry(src_dir, pack, flags)
     if entry is not None:
-        fn, grid_fn = entry
+        fn, grid_fn, legacy = entry
         grid = grid_fn(c, cfg.head_size, d_l, f, *(() if pack["form"] == "bf16" else (0,)))
+        codes = pack["form"] != "bf16" and not legacy
         for b in (1, 8, 64):
             st = {k: v[:b].contiguous() for k, v in states.items()}
-            times = phase_times(
-                lambda: batched_launch(fn, pack, st, tokens[:b], cfg, grid,
-                                       scratch_extra=extra)[2],
-                batched_scratch_floats(c, d_l, f, b), cfg.n_layer)
-            print_phases(f"{label} K4 {prec} B={b}", times)
+            for place in k4_places(pack, cfg, b, legacy, grid):
+                names = K4_PHASES_B if place == "b" else PHASES
+                times = phase_times(
+                    lambda: batched_launch(fn, pack, st, tokens[:b], cfg, grid,
+                                           scratch_extra=extra, place=place, legacy=legacy)[2],
+                    batched_scratch_floats(c, d_l, f, b, codes=codes), cfg.n_layer, len(names))
+                print_phases(f"{label} K4 {prec} B={b}" + (f" ({place})" if place else ""),
+                             times, names)
     fn = k3_entry(src_dir, pack, flags)
     if fn is None:
         return
@@ -198,15 +232,24 @@ def flips(models, cfg, n_seeds: int = 12) -> None:
                       f"{int(logits.argmax())} vs {int(logits_ref.argmax())}")
 
 
+def _flat(out):
+    """A step's outputs as one list of tensors: a tensor, or (x, state)."""
+    if isinstance(out, tuple):
+        x, new = out
+        return [x] + [new[k] for k in sorted(new)]
+    return [out]
+
+
 def compare(label, cur, old) -> None:
     """Times of cur() (and old(), in the order old, cur, cur, old); both
-    return a tensor to compare."""
+    return a tensor, or (x, state dict), to compare: the largest
+    difference over all of them is printed."""
     from rwkv_tpu_torch.tools.card import device_ms
 
     if old is None:
         print(f"{label}: {device_ms(cur):.4f} ms")
         return
-    diff = float((old() - cur()).abs().max())
+    diff = max(float((a - b).abs().max()) for a, b in zip(_flat(old()), _flat(cur())))
     times = [device_ms(f) for f in (old, cur, cur, old)]
     print(f"{label}: baseline {times[0]:.4f} / {times[3]:.4f} ms, current "
           f"{times[1]:.4f} / {times[2]:.4f} ms (outputs differ by at most {diff:.3e})")
@@ -226,6 +269,13 @@ def decode_entry_name(pack) -> str:
 
     return M._k6_entry(pack) if pack["version"] == 6 else M._v45_entry(pack)
 
+
+# K4's timed (precision, B): w8a8 and w4a8 at B = 1 to 256 (MEGA_MAX_BATCH;
+# 3, 9 and 17 leave a ragged n-tile), bf16 at 1, 8 and 64; at the 1.5B
+# width (2 layers) the int forms at B = 1 to 64
+K4_TIMED = tuple((p, b) for p in ("w8a8", "w4a8") for b in (1, 3, 8, 9, 17, 64, 128, 256)) + tuple(
+    ("bf16", b) for b in (1, 8, 64))
+K4_TIMED_WIDE = tuple((p, b) for p in ("w8a8", "w4a8") for b in (1, 3, 8, 9, 17, 64))
 
 # per version: the phases of a layer of the B=1 decode kernel, the width
 # it is measured at and, for the flips, extra (label, width) packs cut to 1
@@ -335,7 +385,7 @@ def main() -> int:
     params = synth_params(cfg, seed=0)
     models = {p: ServingModel((cfg, params), precision=p, megakernel=True)
               for p in _precisions(args)}
-    states, tokens = seeded_states(next(iter(models.values())), cfg, 64, 32, seed=1)
+    states, tokens = seeded_states(next(iter(models.values())), cfg, 256, 32, seed=1)
     if "--flips" in args:
         flips(models, cfg)
         print(card_line())
@@ -357,26 +407,70 @@ def main() -> int:
         old = None if fn is None else (
             lambda: TM.decode_launch(fn, pack, one, tokens[:1], cfg)[0])  # noqa: E731
         compare(f"K3 {prec} B=1", cur, old)
-    for prec, b in (("w8a8", 1), ("w8a8", 8), ("w8a8", 64), ("w4a8", 8), ("bf16", 1),
-                    ("bf16", 8), ("bf16", 64)):
+    k4_against(models, cfg, states, tokens, base_dir, K4_TIMED)
+    crossover_places(models, cfg, states, tokens)
+    del models, states
+    # the 1.5B width (2 layers), where ServingModel takes K4 at B=1
+    wide = synth_config("7.0", 2, 2048, 65536, 64)
+    wide_params = synth_params(wide, seed=0)
+    models = {p: ServingModel((wide, wide_params), precision=p, megakernel=True)
+              for p in ("w8a8", "w4a8") if p in _precisions(args)}
+    if models:
+        states, tokens = seeded_states(next(iter(models.values())), wide, 64, 16, seed=6)
+        k4_against(models, wide, states, tokens, base_dir, K4_TIMED_WIDE, " C=2048 L=2")
+        crossover_places(models, wide, states, tokens, (1, 2, 4, 8), " C=2048 L=2")
+    print(card_line())
+    return 0
+
+
+def k4_against(models, cfg, states, tokens, base_dir, cases, label: str = "") -> None:
+    """K4 at each (precision, B) of `cases` (where `models` has the
+    precision), against ``base_dir``'s source where given: outputs and
+    times (``compare``)."""
+    from rwkv_tpu_torch.ops import megakernel as TM
+
+    for prec, b in cases:
         if prec not in models:
             continue
         pack = models[prec]._mega
         st = {k: v[:b].contiguous() for k, v in states.items()}
         tok = tokens[:b].contiguous()
-        cur = lambda: TM.v7_decode_batched(pack, st, tok, cfg)[0]  # noqa: E731
+        cur = lambda: TM.v7_decode_batched(pack, st, tok, cfg)  # noqa: E731
         old = None
         entry = None
         if base_dir is not None and (base_dir / "v7_decode_batched.cu").exists():
             entry = k4_entry(base_dir, pack)
         if entry is not None:
-            fn, grid_fn = entry
+            fn, grid_fn, legacy = entry
             dims = (cfg.n_embed, cfg.head_size, pack["d_lora"], pack["f_dim"])
             grid = grid_fn(*dims, *(() if pack["form"] == "bf16" else (int(pack["w4"]),)))
-            old = lambda: TM.batched_launch(fn, pack, st, tok, cfg, grid)[0]  # noqa: E731
-        compare(f"K4 {prec} B={b}", cur, old)
-    print(card_line())
-    return 0
+            old = lambda: TM.batched_launch(fn, pack, st, tok, cfg, grid,  # noqa: E731
+                                            legacy=legacy)[:2]
+        compare(f"K4 {prec}{label} B={b}", cur, old)
+
+
+def crossover_places(models, cfg, states, tokens, batches=(1, 8, 9, 12, 16, 24, 32, 48, 64),
+                     label: str = "") -> None:
+    """K4's int forms at each B of `batches` in each placement that has a
+    plan: the readings that set K4_PLACE_A_MAX_B (ops/megakernel.py)."""
+    from rwkv_tpu_torch.ops import megakernel as TM
+    from rwkv_tpu_torch.tools.card import device_ms
+
+    for prec in ("w8a8", "w4a8"):
+        if prec not in models:
+            continue
+        pack = models[prec]._mega
+        TM.v7_decode_batched(pack, {k: v[:1] for k, v in states.items()}, tokens[:1], cfg)
+        grid, fn = pack["_grid_batched"], TM.k4_function(pack)
+        for b in batches:
+            st = {k: v[:b].contiguous() for k, v in states.items()}
+            tok = tokens[:b].contiguous()
+            times = {place: device_ms(lambda: TM.batched_launch(fn, pack, st, tok, cfg, grid,
+                                                                place=place))
+                     for place in k4_places(pack, cfg, b, False, grid)}
+            print(f"K4 {prec}{label} B={b} by placement: " + ", ".join(
+                f"({p}) {t:.4f} ms" for p, t in times.items())
+                + f"; the plan takes ({TM.k4_plan(pack, b, cfg, grid).place})")
 
 
 if __name__ == "__main__":

@@ -10,6 +10,7 @@ it, from the repository root:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -49,12 +50,14 @@ def cuda_device():
 # tensor-core route at M = 9, 33, 256, 300 with its split-K shapes (768 ->
 # 64, 3072 -> 768), the 1.5B widths, K tails (K = 16, 48: not a whole
 # 32-byte mma step), ragged N, and M = 8 with codes past the GEMV's shared
-# memory (the tensor-core route)
+# memory (the tensor-core route): the last GEMV shapes at M = 8 and 7 (M x K
+# codes beside the GEMV's static bytes, K1_GEMV_STATIC_SMEM) and the first
+# ones past them
 K1_SHAPES = [(1, 768, 65536), (256, 768, 3072), (256, 64, 768), (7, 3072, 768), (20, 32, 200),
              (8, 768, 768), (1, 16, 200), (9, 768, 64), (33, 48, 200), (300, 16, 195),
              (256, 768, 64), (256, 768, 768), (256, 3072, 768), (33, 3072, 195), (300, 768, 768),
              (256, 2048, 2048), (256, 2048, 8192), (256, 8192, 2048), (8, 8192, 2048),
-             (8, 32768, 64)]
+             (8, 32768, 64), (8, 28912, 64), (7, 33056, 64), (8, 28928, 64), (8, 29056, 64)]
 
 
 def test_quant_matmul_kernel_matches_plain(cuda_device):
@@ -72,6 +75,20 @@ def test_quant_matmul_kernel_matches_plain(cuda_device):
         assert TK.quant_matmul.launches == before + 2
         assert torch.equal(y, TK.quant_matmul_plain(x, w)), (m, k, n, TK.matmul_plan("w8a8", m, k, n))
         assert torch.equal(y, y2), (m, k, n)
+
+
+def test_kernels_static_shared_memory_matches_their_plans(cuda_device):
+    """The plans count the kernels' static shared memory (K1's GEMV beside
+    its M x K codes, K4's int forms beside the plan's dynamic bytes): the
+    kernels' own must be what the planners assume."""
+    from rwkv_tpu_torch.ops import _cuda
+
+    fn = _cuda.library("quant_matmul").rwkv_w8a8_gemv_static_smem
+    fn.restype = ctypes.c_int
+    assert fn() == TK.K1_GEMV_STATIC_SMEM
+    fn = _cuda.library("v7_decode_batched").rwkv_v7_decode_batched_static_smem
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    assert fn(0) == fn(1) == TM.K4_STATIC_SMEM
 
 
 def test_quant_matmul_kernel_rejects_unaligned_k(cuda_device):
@@ -141,7 +158,7 @@ def _batched_state(tc, b, dev, seed):
 
 
 @pytest.mark.parametrize("w4", [False, True])
-@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("batch", [1, 3, 8, 9, 17, 64])
 def test_batched_decode_kernel_matches_ref(cuda_device, batch, w4):
     tc, dp = _small_pack(cuda_device, w4)
     state = _batched_state(tc, batch, cuda_device, batch)
@@ -154,6 +171,47 @@ def test_batched_decode_kernel_matches_ref(cuda_device, batch, w4):
     torch.testing.assert_close(x, x_ref, rtol=2e-2, atol=2e-2)
     for k in new:
         torch.testing.assert_close(new[k], new_ref[k], rtol=2e-2, atol=2e-2)
+
+
+def _launch_k4(dp, state, toks, tc, place=None):
+    """K4 once through its C entry, `place` forcing a placement; (x, state)."""
+    TM.v7_decode_batched(dp, {k: v[:1] for k, v in state.items()}, toks[:1], tc)
+    x, new, _ = TM.batched_launch(TM.k4_function(dp), dp, state, toks, tc, dp["_grid_batched"],
+                                  place=place)
+    return x, new
+
+
+@pytest.mark.parametrize("w4", [False, True])
+def test_batched_decode_kernel_same_bits_in_batches_of_1_and_64(cuda_device, w4):
+    """A sequence comes out bit for bit the same alone (placement (a)) and
+    among 64 (placement (b), its n-tile full)."""
+    tc, dp = _small_pack(cuda_device, w4)
+    state = _batched_state(tc, 64, cuda_device, 64)
+    toks = torch.randint(0, tc.n_vocab, (64,), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device).manual_seed(2))
+    x, new = TM.v7_decode_batched(dp, state, toks, tc)
+    for b in (0, 9, 63):
+        one = {k: v[b:b + 1].contiguous() for k, v in state.items()}
+        x1, new1 = TM.v7_decode_batched(dp, one, toks[b:b + 1], tc)
+        assert torch.equal(x1[0], x[b]), b
+        for k in new:
+            assert torch.equal(new1[k][0], new[k][b]), (b, k)
+
+
+@pytest.mark.parametrize("w4", [False, True])
+@pytest.mark.parametrize("batch", [9, 17])
+def test_batched_decode_kernel_placements_agree(cuda_device, batch, w4):
+    """Both placements of the activation preparation give the same bits
+    (the same codes, scales and exact integer dots)."""
+    tc, dp = _small_pack(cuda_device, w4)
+    state = _batched_state(tc, batch, cuda_device, batch + 1)
+    toks = torch.randint(0, tc.n_vocab, (batch,), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device).manual_seed(3))
+    xa, newa = _launch_k4(dp, state, toks, tc, "a")
+    xb, newb = _launch_k4(dp, state, toks, tc, "b")
+    assert torch.equal(xa, xb)
+    for k in newa:
+        assert torch.equal(newa[k], newb[k]), k
 
 
 def test_batched_decode_kernel_identical_lanes(cuda_device):

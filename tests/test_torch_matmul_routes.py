@@ -106,9 +106,16 @@ def test_plan_takes_the_gemv_route_up_to_m8(form, shape):
 
 
 def test_plan_sends_k1_past_its_gemv_shared_memory_to_the_gemm():
-    """K1's GEMV stages x's M x K codes in shared memory: a wider x takes
-    the tensor-core route, which takes any M."""
-    assert TK.matmul_plan("w8a8", 8, 29056, 64).route == "gemv"
+    """K1's GEMV stages x's M x K codes in shared memory beside its static
+    bytes: a wider x takes the tensor-core route, which takes any M. The
+    last GEMV shapes at M = 8 and 7 leave the static bytes room; one more
+    16-code step (and M x K = 232,448, which left none) goes to the GEMM."""
+    room = TK.K1_GEMV_MAX_SMEM - TK.K1_GEMV_STATIC_SMEM
+    assert room == 232448 - 1056
+    assert TK.matmul_plan("w8a8", 8, 28912, 64).route == "gemv"
+    assert TK.matmul_plan("w8a8", 7, 33056, 64).route == "gemv" and 7 * 33056 == room
+    for m, k in ((8, 28928), (8, 29056), (7, 33072)):
+        assert TK.matmul_plan("w8a8", m, k, 64).route == "gemm", (m, k)
     p = TK.matmul_plan("w8a8", 8, 32768, 64)
     assert p.route == "gemm" and p.scratch == 8 * 32768 + 4 * 8
     assert TK.matmul_plan("plain", 8, 32768, 64).route == "gemv"
