@@ -57,7 +57,7 @@ __device__ __forceinline__ float dequant(float acc, float, const float*) { retur
 // kMaxChunksPerLane 16-byte chunks (matvec_rows then keeps the largest
 // power of two dividing the row's chunks), so a warp has the most bytes in
 // flight per round and a phase takes the fewest dependent rounds.
-__device__ __forceinline__ int lanes_for(int K, int wf) {
+__host__ __device__ inline int lanes_for(int K, int wf) {
   const int want = static_cast<int>(form_bytes(wf, K)) / 16 / kMaxChunksPerLane;
   int l = 1;
   while (l < want && l < 32) l <<= 1;

@@ -1,0 +1,400 @@
+// A block's input stream for the whole-model decode kernels (K6): a ring
+// of shared-memory stages fed by 1-D bulk asynchronous copies (TMA,
+// cp.async.bulk) that complete on a "full" mbarrier a stage, the matvec of
+// weight rows that lie in a stage, and the quantization of a phase's input
+// vector from an amax that the producing phase published.
+//
+// The block is warp-specialized: kConsumerWarps warps (kConsumers threads)
+// compute, and one producer warp walks the block's stream of pieces in the
+// order the consumers take them, issuing each piece as soon as its stage's
+// "empty" mbarrier says every consumer warp is done with the piece that
+// was there before. The producer never waits for the consumers' phases, so
+// the copies run ahead of them by the ring's size, across the grid barriers
+// between phases. The consumers synchronize among themselves on named
+// barrier 1 (csync) and cross the grid on a barrier of their own
+// (grid_sync): neither involves the producer, which may have finished and
+// exited. The consumer-side block reductions, layer norm and quantization
+// here repeat decode_common.cuh's arithmetic, in the same order, over the
+// consumer threads.
+#pragma once
+
+#include "decode_common.cuh"
+
+namespace stream {
+
+constexpr int kConsumers = 256;  // the compute threads of a block (its first warps)
+constexpr int kConsumerWarps = kConsumers / 32;
+
+// a barrier among the consumer threads only (named barrier 1)
+__device__ __forceinline__ void csync() { asm volatile("bar.sync 1, 256;" ::: "memory"); }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// makes the initialized mbarriers visible to the async proxy
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global
+// memory into this block's shared memory, completing on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// one arrival on bar (a consumer warp's release of a stage)
+__device__ __forceinline__ void arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Waits until the phase of bar with this parity has completed. A wait that
+// outlasts ~2^32 cycles (a stream whose consumers and producer disagree)
+// traps, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void wait_parity(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  long long t0 = 0;
+  for (int spins = 1;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((spins & 1023) == 0) {
+      const long long t = clock64();
+      if (t0 == 0) {
+        t0 = t;
+      } else if (t - t0 > (1ll << 32)) {
+        __trap();
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// A barrier across the grid for one thread a block (the caller brackets it
+// with csync, so the block's writes before it are ordered before the
+// arrival's release, and its reads after it after the acquire): count
+// (zero between barriers) and gen are the barrier's state in global
+// memory, and gen_seen the generation this block last saw (read once
+// before its first barrier: gen cannot move before every block arrives).
+// The last of `blocks` arrivals resets the count and advances the
+// generation the others wait on. A wait that outlasts ~2^33 cycles traps.
+__device__ __forceinline__ void grid_sync(unsigned* count, unsigned* gen, unsigned blocks,
+                                          unsigned& gen_seen) {
+  unsigned old;
+  asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;" : "=r"(old) : "l"(count) : "memory");
+  if (old == blocks - 1) {
+    asm volatile("st.relaxed.gpu.global.u32 [%0], 0;" ::"l"(count) : "memory");
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(gen) : "memory");
+  } else {
+    const long long t0 = clock64();
+    while (ld_acquire(gen) == gen_seen) {
+      if (clock64() - t0 > (1ll << 33)) __trap();
+    }
+  }
+  ++gen_seen;
+}
+
+// ---- the consumers' block-wide steps (decode_common.cuh's, on csync) ----
+
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  csync();
+  float t = lane < kConsumerWarps ? red[lane] : 0.f;
+  t = warp_sum(t);
+  csync();
+  return t;
+}
+
+template <int N>
+__device__ __forceinline__ void block_max_n(float (&v)[N], float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int m = 0; m < N; ++m) v[m] = warp_max(v[m]);
+  if (lane == 0) {
+#pragma unroll
+    for (int m = 0; m < N; ++m) red[m * 32 + warp] = v[m];
+  }
+  csync();
+#pragma unroll
+  for (int m = 0; m < N; ++m) v[m] = warp_max(lane < kConsumerWarps ? red[m * 32 + lane] : 0.f);
+  csync();
+}
+
+// layer_norm_block over the consumers
+__device__ void layer_norm(const float* src, float* dst, const float* w, const float* b, int n,
+                           float eps, float* red) {
+  float s = 0.f;
+  for (int c = threadIdx.x; c < n; c += kConsumers) s += src[c];
+  const float mu = block_sum(s, red) / static_cast<float>(n);
+  float v = 0.f;
+  for (int c = threadIdx.x; c < n; c += kConsumers) {
+    const float d = sub(src[c], mu);
+    v += mul(d, d);
+  }
+  const float var = block_sum(v, red) / static_cast<float>(n);
+  const float rs = rsqrtf(add(var, eps));
+  for (int c = threadIdx.x; c < n; c += kConsumers)
+    dst[c] = add(mul(mul(sub(src[c], mu), rs), w[c]), b[c]);
+  csync();
+}
+
+// layer_norm of src[0..n) into dst, then act_n of the N vectors f(m, c)
+// that the normalized values feed, with the normalizing pass also taking
+// their amax: after dst[c] is written, g(c, dst[c]) runs in the same
+// thread (it may store what f reads) and f(m, c) may read dst[c]. The
+// values, the amax and the codes are layer_norm's and act_n's.
+template <int WF, int N, typename G, typename Fn>
+__device__ void layer_norm_act(const float* src, float* dst, const float* w, const float* b,
+                               int n, float eps, float* red, G g, Fn f, act_t<WF>* xq,
+                               int stride, float* dxs) {
+  float s = 0.f;
+  for (int c = threadIdx.x; c < n; c += kConsumers) s += src[c];
+  const float mu = block_sum(s, red) / static_cast<float>(n);
+  float v = 0.f;
+  for (int c = threadIdx.x; c < n; c += kConsumers) {
+    const float d = sub(src[c], mu);
+    v += mul(d, d);
+  }
+  const float var = block_sum(v, red) / static_cast<float>(n);
+  const float rs = rsqrtf(add(var, eps));
+  float amax[N];
+#pragma unroll
+  for (int m = 0; m < N; ++m) amax[m] = 0.f;
+  for (int c = threadIdx.x; c < n; c += kConsumers) {
+    const float y = add(mul(mul(sub(src[c], mu), rs), w[c]), b[c]);
+    dst[c] = y;
+    g(c, y);
+#pragma unroll
+    for (int m = 0; m < N; ++m) {
+      if constexpr (WF == kBf16) {
+        xq[m * stride + c] = f(m, c);
+      } else {
+        amax[m] = fmaxf(amax[m], fabsf(f(m, c)));
+      }
+    }
+  }
+  if constexpr (WF != kBf16) {
+    block_max_n<N>(amax, red);
+    float inv[N];
+#pragma unroll
+    for (int m = 0; m < N; ++m) {
+      const float dx = amax[m] / 127.0f;
+      inv[m] = act_inv_scale(dx);
+      if (threadIdx.x == 0) dxs[m] = dx;
+    }
+    for (int c = threadIdx.x; c < n; c += kConsumers) {
+#pragma unroll
+      for (int m = 0; m < N; ++m) xq[m * stride + c] = act_code(f(m, c), inv[m]);
+    }
+  }
+  csync();
+}
+
+// n floats (a multiple of 4, 16-byte aligned) that other blocks wrote
+// before a grid barrier, from global into shared memory: every load of a
+// thread in flight at once (L2 reads, past L1)
+__device__ __forceinline__ void load_vec(float* dst, const float* src, int n) {
+  constexpr int kBatch = 8;
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  float4* d4 = reinterpret_cast<float4*>(dst);
+  const int n4 = n >> 2;
+  for (int base = threadIdx.x; base < n4; base += kBatch * kConsumers) {
+    float4 v[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k)
+      if (base + k * kConsumers < n4) v[k] = __ldcg(s4 + base + k * kConsumers);
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k)
+      if (base + k * kConsumers < n4) d4[base + k * kConsumers] = v[k];
+  }
+}
+
+// One 16-byte chunk of a weight row against the activations x (int8 codes
+// or f32), accumulated in the order matvec_rows (common.cuh) uses.
+template <int WF>
+__device__ __forceinline__ typename FormTraits<WF>::Acc dot_chunk(
+    int4 w, const act_t<WF>* x, int chunk, typename FormTraits<WF>::Acc a) {
+  if constexpr (WF == kBf16) {
+    const float4* xb = reinterpret_cast<const float4*>(x);
+    const float4 x0 = xb[2 * chunk], x1 = xb[2 * chunk + 1];
+    a = fmaf(bf16_lo(w.x), x0.x, a);
+    a = fmaf(bf16_hi(w.x), x0.y, a);
+    a = fmaf(bf16_lo(w.y), x0.z, a);
+    a = fmaf(bf16_hi(w.y), x0.w, a);
+    a = fmaf(bf16_lo(w.z), x1.x, a);
+    a = fmaf(bf16_hi(w.z), x1.y, a);
+    a = fmaf(bf16_lo(w.w), x1.z, a);
+    a = fmaf(bf16_hi(w.w), x1.w, a);
+  } else if constexpr (WF == kInt4) {
+    const int4* xb = reinterpret_cast<const int4*>(x);
+    const int4 xl = xb[2 * chunk], xh = xb[2 * chunk + 1];
+    a = __dp4a(w4_lo16(w.x), xl.x, a);
+    a = __dp4a(w4_lo16(w.y), xl.y, a);
+    a = __dp4a(w4_lo16(w.z), xl.z, a);
+    a = __dp4a(w4_lo16(w.w), xl.w, a);
+    a = __dp4a(w4_hi16(w.x), xh.x, a);
+    a = __dp4a(w4_hi16(w.y), xh.y, a);
+    a = __dp4a(w4_hi16(w.z), xh.z, a);
+    a = __dp4a(w4_hi16(w.w), xh.w, a);
+  } else {
+    const int4 xv = reinterpret_cast<const int4*>(x)[chunk];
+    a = __dp4a(w.x, xv.x, a);
+    a = __dp4a(w.y, xv.y, a);
+    a = __dp4a(w.z, xv.z, a);
+    a = __dp4a(w.w, xv.w, a);
+  }
+  return a;
+}
+
+// The dot of one row (wr, 16-byte chunks) with x in lane sub_lane of the
+// row's lpr lanes: chunks sub_lane, sub_lane + lpr, ... in order (the int
+// forms' exact sum in two chains). One copy of this code serves every
+// matvec of a form, so it stays in the instruction cache from phase to
+// phase.
+template <int WF>
+__device__ __noinline__ typename FormTraits<WF>::Acc row_dot(const int4* wr, const act_t<WF>* x,
+                                                            int per_lane, int lpr, int sub_lane) {
+  using Acc = typename FormTraits<WF>::Acc;
+  Acc a = 0, b = 0;
+#pragma unroll 4
+  for (int k = 0; k < per_lane; ++k) {
+    const int chunk = k * lpr + sub_lane;
+    if (WF == kBf16 || (k & 1) == 0) {
+      a = dot_chunk<WF>(wr[chunk], x, chunk, a);
+    } else {
+      b = dot_chunk<WF>(wr[chunk], x, chunk, b);
+    }
+  }
+  if constexpr (WF != kBf16) a += b;
+  return a;
+}
+
+// Rows [0, n) of width K in form WF, stored one after another in shared
+// memory at `rows`. The block's lane groups of lpr lanes (the largest power
+// of two up to max_lpr dividing the row's 16-byte chunks, as in
+// matvec_rows) take the rows in turn, lane group t (warp t / (32 / lpr))
+// the rows j with (j + skip) % groups == t; lane i of a group sums chunks
+// i, i + lpr, ... in order (row_dot) and the lanes meet in a shuffle tree
+// -- the same sum, in the same order, as matvec_rows gives the row.
+// xsel(j) gives row j's activations; epi(j, acc) its exact int32 dot (int
+// forms) or f32 dot (bf16).
+template <int WF, typename XSel, typename Epi>
+__device__ __forceinline__ void smem_rows(const unsigned char* rows, int n, int K, int max_lpr,
+                                          int skip, XSel xsel, Epi epi) {
+  using Acc = typename FormTraits<WF>::Acc;
+  const int row_bytes = static_cast<int>(form_bytes(WF, K));
+  const int nchunks = row_bytes >> 4;
+  int lpr = max_lpr;
+  while (lpr > 1 && (nchunks % lpr) != 0) lpr >>= 1;
+  const int per_lane = nchunks / lpr;
+  const int lane = threadIdx.x & 31;
+  const int sub_lane = lane % lpr, gpw = 32 / lpr, groups = kConsumerWarps * gpw;
+  const int t = (threadIdx.x >> 5) * gpw + lane / lpr;  // this lane group
+  const int first = (t - skip % groups + groups) % groups;
+  for (int base = 0; base < n; base += groups) {  // warp-uniform
+    const int row = base + first;
+    Acc a = 0;
+    if (row < n)
+      a = row_dot<WF>(reinterpret_cast<const int4*>(rows + static_cast<size_t>(row) * row_bytes),
+                      xsel(row), per_lane, lpr, sub_lane);
+    for (int off = lpr >> 1; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
+    if (sub_lane == 0 && row < n) {
+      if constexpr (WF == kInt4) {
+        epi(row, a >> 4);
+      } else {
+        epi(row, a);
+      }
+    }
+  }
+}
+
+// |v| into a block-local amax slot (shared), as the bits of a non-negative
+// float: their integer order is the floats' order, so the max is exact in
+// any order.
+__device__ __forceinline__ void note_amax(unsigned* slot, float v) {
+  atomicMax(slot, __float_as_uint(fabsf(v)));
+}
+
+// The N vectors of n values each (n a multiple of 4), one after another in
+// global memory at src, that other blocks wrote before a grid barrier --
+// the input of a phase whose amax (amax[m], global) the producing phase
+// published -- into xq (element m * n + c): the int forms write each code
+// in one pass, with dx = amax / 127 and the code exactly as quantize_n
+// gives them and no block reduction; the bf16 form stages the f32 values.
+// Every load of a thread is in flight at once.
+template <int WF, int N>
+__device__ void act_published(const float* src, int n, act_t<WF>* xq, float* dxs,
+                              const unsigned* amax) {
+  constexpr int kBatch = 8;
+  unsigned bits[N];
+#pragma unroll
+  for (int m = 0; m < N; ++m) bits[m] = WF == kBf16 ? 0u : __ldcg(amax + m);
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  const int n4 = N * n >> 2;
+  float inv[N];
+  for (int base = threadIdx.x; base < n4; base += kBatch * kConsumers) {
+    float4 v[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k)
+      if (base + k * kConsumers < n4) v[k] = __ldcg(s4 + base + k * kConsumers);
+    if (base == static_cast<int>(threadIdx.x)) {
+#pragma unroll
+      for (int m = 0; m < N; ++m) {
+        const float dx = __uint_as_float(bits[m]) / 127.0f;
+        inv[m] = act_inv_scale(dx);
+        if (WF != kBf16 && threadIdx.x == 0) dxs[m] = dx;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int e4 = base + k * kConsumers;
+      if (e4 < n4) {
+        if constexpr (WF == kBf16) {
+          reinterpret_cast<float4*>(xq)[e4] = v[k];
+        } else {
+          float iv = inv[0];
+#pragma unroll
+          for (int m = 1; m < N; ++m)
+            if (4 * e4 >= m * n) iv = inv[m];
+          char4 q;
+          q.x = act_code(v[k].x, iv);
+          q.y = act_code(v[k].y, iv);
+          q.z = act_code(v[k].z, iv);
+          q.w = act_code(v[k].w, iv);
+          reinterpret_cast<char4*>(xq)[e4] = q;
+        }
+      }
+    }
+  }
+  csync();
+}
+
+}  // namespace stream

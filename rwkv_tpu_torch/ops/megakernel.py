@@ -982,28 +982,322 @@ def v6_decode_step_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
     return lm_head_ref(pack, x), new
 
 
-def v6_scratch_floats(c: int, d_maa: int, d_dec: int, f_dim: int) -> int:
-    """Floats of K6's global scratch (``scratch_floats`` in the source)."""
-    return 12 * c + 5 * d_maa + d_dec + f_dim
+V6_AMAX_SLOTS = 8  # a layer's published amax: the five mixes, dw1's outputs, xo, relu^2 keys
+
+
+def v6_scratch_floats(c: int, d_maa: int, d_dec: int, f_dim: int, n_layer: int) -> int:
+    """Floats of K6's global scratch (``scratch_floats`` in the source):
+    the activations, then ``V6_AMAX_SLOTS`` amax slots a layer."""
+    return 12 * c + 5 * d_maa + d_dec + f_dim + V6_AMAX_SLOTS * n_layer
+
+
+# -- K6's stream plan -----------------------------------------------------------
+#
+# K6 stages every input that does not depend on the token -- weight rows
+# with their row scales, the vector rows a phase reads, maa2, att_in /
+# ffn_in, phase C's state rows and the head's rows -- in a ring of shared-
+# memory stages fed by 1-D bulk asynchronous copies, in the order the block
+# consumes them. ``v6_stream_plan`` mirrors the kernel's own plan (Layout6,
+# Plan6 and piece_copy in csrc/v6_decode.cu): each phase's rows go to the
+# blocks in contiguous ranges of whole 4-row groups; a range is cut into
+# pieces of as many whole rows as fit a stage, each followed by the 16-byte
+# window of its row scales (or, for maa2, of its maa5 coefficients). Every
+# copy is a multiple of 16 bytes from a 16-byte aligned address.
+V6_SMEM_LIMIT = 232448  # shared memory a block of the H100 may opt into
+V6_STATIC_SMEM = 0  # K6's static shared memory (the card tests read the kernel's)
+V6_MAX_STAGES = 16  # stages' mbarriers reserved
+V6_PLAN_BYTES = 512  # the block's plan in shared memory
+V6_TARGET_STAGES = 4  # the ring's stages where the largest piece allows
+V6_MIN_STAGES = 3  # a block holds at most two pieces while it waits for the next
+V6_NUM_VEC = len(V6_VEC_KEYS) + 7  # vector rows a layer: V6_VEC_KEYS, maa5 (5), tdecay, tf
+_V6_VEC_ROW = dict({k: i for i, k in enumerate(V6_VEC_KEYS)}, maa5=9, tdecay=14, tf=15)
+# the pieces of a layer in stream order (a segment is a run of pieces), then
+# those of the head
+V6_SEGS = ("ln1", "mix_a", "maa1", "maa2", "rkvg", "dw1", "heads", "out", "ln2", "mix_e",
+           "ffn_in", "fk", "fr", "fv")
+V6_HEAD_SEGS = ("ln_out", "head")
+V6_STREAMED = ("maa1", "maa2", "rkvg", "dw1", "out", "fk", "fr", "fv", "head")
+
+
+def _form_bytes(form: str, n: int) -> int:
+    return n // 2 if form == "i4" else 2 * n if form == "bf16" else n
+
+
+def _small_form(form: str) -> str:
+    return "bf16" if form == "bf16" else "i8"
+
+
+def v6_mat_offsets(form: str, c: int, d_maa: int, d_dec: int, f_dim: int) -> dict:
+    """Byte offsets of a layer's matrices in K6's flat ``mats`` buffer and
+    the layer's bytes ("layer"): the kernel's MatOffsets6."""
+    sf = _small_form(form)
+    sizes = (("rkvg", form, 4 * c * c), ("maa1", sf, 5 * d_maa * c), ("dw1", sf, d_dec * c),
+             ("dw2", sf, c * d_dec), ("out", form, c * c), ("fk", form, f_dim * c),
+             ("fv", form, c * f_dim), ("fr", form, c * c))
+    out, at = {}, 0
+    for name, fm, n in sizes:
+        out[name] = at
+        at += _form_bytes(fm, n)
+    out["layer"] = at
+    return out
+
+
+def v6_scale_offsets(c: int, d_maa: int, d_dec: int, f_dim: int) -> dict:
+    """Float offsets of a layer's row scales in ``scales`` and the layer's
+    count ("layer"): the kernel's ScaleOffsets6."""
+    rows = (("rkvg", 4 * c), ("maa1", 5 * d_maa), ("dw1", d_dec), ("dw2", c), ("out", c),
+            ("fk", f_dim), ("fv", c), ("fr", c))
+    out, at = {}, 0
+    for name, n in rows:
+        out[name] = at
+        at += n
+    out["layer"] = at
+    return out
+
+
+@dataclass(frozen=True)
+class V6Rows:
+    """Rows [r0, r1) of a matrix that one block takes (row bytes ``rb``,
+    ``lpr`` lanes a row), ``n`` whole rows a piece; row r0 + j goes to the
+    block's lane group j % (8 * 32 / lpr)."""
+
+    r0: int
+    r1: int
+    n: int
+    rb: int
+    lpr: int
+
+    def pieces(self) -> int:
+        return _cdiv(self.r1 - self.r0, self.n) if self.r1 > self.r0 else 0
+
+    def piece(self, k: int) -> tuple:
+        """Rows [c0, c1) of piece k."""
+        c0 = self.r0 + k * self.n
+        return c0, min(c0 + self.n, self.r1)
+
+
+@dataclass(frozen=True)
+class V6Copy:
+    """One bulk copy: `nbytes` from byte `offset` of the flat tensor
+    `array` of a device pack (``mats``, ``scales``, ``vecs``, ``maa2``,
+    ``head``, ``head_d``, ``ln_out``) or of the state (``att_in`` /
+    ``ffn_in`` = ``att_xx`` / ``ffn_xx``, ``heads_in``), to byte `dst` of
+    a stage."""
+
+    array: str
+    offset: int
+    nbytes: int
+    dst: int
+
+
+def _win_bytes(n: int) -> int:
+    """Bytes at most of the scale window of n consecutive rows."""
+    return 16 * ((n + 6) // 4)
+
+
+def _row_lanes(row_bytes: int, max_lpr: int) -> int:
+    lpr = max_lpr
+    while lpr > 1 and (row_bytes // 16) % lpr:
+        lpr //= 2
+    return lpr
+
+
+def _lanes_for(k: int, form: str) -> int:
+    """The kernels' ``lanes_for``: lanes of a big matvec's row."""
+    want, lanes = _form_bytes(form, k) // 16 // 8, 1
+    while lanes < want and lanes < 32:
+        lanes *= 2
+    return lanes
+
+
+def _v6_part(n: int, blocks: int, b: int, reverse: bool, row_bytes: int, win: bool,
+             stage: int, max_lpr: int) -> V6Rows:
+    q, i = n // 4, (blocks - 1 - b if reverse else b)
+    rows = stage // row_bytes
+    while win and rows > 1 and rows * row_bytes + _win_bytes(rows) > stage:
+        rows -= 1
+    return V6Rows(4 * (q * i // blocks), 4 * (q * (i + 1) // blocks), rows, row_bytes,
+                  _row_lanes(row_bytes, max_lpr))
+
+
+@dataclass(frozen=True)
+class V6StreamPlan:
+    """K6's stream plan for one weight form and grid (``v6_stream_plan``):
+    the shared-memory layout (activations at ``act_off``, mbarriers at
+    ``bar_off``, ``n_stages`` stages of ``stage_bytes`` from ``ring_off``;
+    ``smem_bytes`` in all) and, per block, the rows of each phase and the
+    copies of each piece of its stream."""
+
+    form: str
+    c: int
+    f_dim: int
+    d_maa: int
+    d_dec: int
+    n_heads: int
+    head_size: int
+    vocab: int
+    blocks: int
+    act_off: int
+    bar_off: int
+    ring_off: int
+    stage_bytes: int
+    n_stages: int
+    smem_bytes: int
+
+    def _spec(self, name: str) -> tuple:
+        """(rows, row bytes, scale window, dealt from the last block, most
+        lanes a row)."""
+        c, f, form = self.c, self.f_dim, self.form
+        sf, w = _small_form(form), form != "bf16"
+        big = _lanes_for(c, form)
+        return {"maa1": (5 * self.d_maa, _form_bytes(sf, c), w, False, 32),
+                "maa2": (5 * c, 4 * self.d_maa, True, False, 32),
+                "rkvg": (4 * c, _form_bytes(form, c), w, False, big),
+                "dw1": (self.d_dec, _form_bytes(sf, c), w, True, 32),
+                "out": (c, _form_bytes(form, c), w, False, big),
+                "fk": (f, _form_bytes(form, c), w, False, big),
+                "fr": (c, _form_bytes(form, c), w, True, big),
+                "fv": (c, _form_bytes(form, f), w, False, _lanes_for(f, form)),
+                "head": (self.vocab, _form_bytes(sf, c), w, False, 8)}[name]
+
+    def rows(self, name: str, block: int) -> V6Rows:
+        """Block `block`'s rows of matrix `name` (``V6_STREAMED``)."""
+        n, rb, win, rev, lanes = self._spec(name)
+        return _v6_part(n, self.blocks, block, rev, rb, win, self.stage_bytes, lanes)
+
+    def block_heads(self, block: int) -> list:
+        """The heads phase C runs on block `block`."""
+        return list(range(block, self.n_heads, self.blocks))
+
+    def count(self, seg: str, block: int) -> int:
+        if seg in V6_STREAMED:
+            return self.rows(seg, block).pieces()
+        if seg == "heads":
+            return 2 * len(self.block_heads(block))
+        return 1
+
+    def layer_pieces(self, block: int) -> int:
+        return sum(self.count(s, block) for s in V6_SEGS)
+
+    def head_pieces(self, block: int) -> int:
+        return sum(self.count(s, block) for s in V6_HEAD_SEGS)
+
+    def copies(self, block: int, layer: int, seg: str, idx: int) -> tuple:
+        """The copies of piece `idx` of segment `seg` of `layer`."""
+        c, s, dm = self.c, self.head_size, self.d_maa
+        w = self.form != "bf16"
+        mo = v6_mat_offsets(self.form, c, dm, self.d_dec, self.f_dim)
+        so = v6_scale_offsets(c, dm, self.d_dec, self.f_dim)
+        mats = layer * mo["layer"]
+        scales = 4 * layer * so["layer"]
+
+        def vec(row: str, at: int = 0) -> int:
+            return 4 * ((layer * V6_NUM_VEC + _V6_VEC_ROW[row]) * c + at)
+
+        if seg in V6_STREAMED:
+            r = self.rows(seg, block)
+            c0, c1 = r.piece(idx)
+            nbytes = (c1 - c0) * r.rb
+            w0, w1 = c0 & ~3, (c1 + 3) & ~3
+            array, at, scale = {
+                "maa2": ("maa2", 4 * layer * 5 * c * dm, ("vecs", vec("maa5", w0))),
+                "head": ("head", 0, ("head_d", 4 * w0) if w else None),
+            }.get(seg, ("mats", mats + mo.get(seg, 0),
+                        ("scales", scales + 4 * (so.get(seg, 0) + w0)) if w else None))
+            out = [V6Copy(array, at + c0 * r.rb, nbytes, 0)]
+            if scale is not None:
+                out.append(V6Copy(scale[0], scale[1], 4 * (w1 - w0), nbytes))
+            return tuple(out)
+        if seg == "heads":
+            h = self.block_heads(block)[idx // 2]
+            if idx % 2:
+                return (V6Copy("heads_in", 4 * (layer * self.n_heads + h) * s * s, 4 * s * s,
+                               0),)
+            rb = _form_bytes(_small_form(self.form), self.d_dec)
+            out = [V6Copy("mats", mats + mo["dw2"] + h * s * rb, s * rb, 0)]
+            at = s * rb
+            if w:
+                out.append(V6Copy("scales", scales + 4 * (so["dw2"] + h * s), 4 * s, at))
+                at += 4 * s
+            for i, row in enumerate(("tdecay", "tf", "att.ln_x.weight", "att.ln_x.bias")):
+                out.append(V6Copy("vecs", vec(row, h * s), 4 * s, at + 4 * s * i))
+            return tuple(out)
+        return {
+            "ln1": (V6Copy("vecs", vec("ln1.weight"), 8 * c, 0),),
+            "mix_a": (V6Copy("vecs", vec("att.time_maa_x"), 4 * c, 0),
+                      V6Copy("att_in", 4 * layer * c, 4 * c, 4 * c)),
+            "ln2": (V6Copy("vecs", vec("ln2.weight"), 8 * c, 0),),
+            "mix_e": (V6Copy("vecs", vec("ffn.time_maa_k"), 8 * c, 0),),
+            "ffn_in": (V6Copy("ffn_in", 4 * layer * c, 4 * c, 0),),
+            "ln_out": (V6Copy("ln_out", 0, 8 * c, 0),),
+        }[seg]
+
+    def stream(self, block: int, n_layer: int):
+        """Block `block`'s pieces in stream order: (layer, segment, index,
+        copies); the head's pieces carry layer n_layer."""
+        for layer in range(n_layer):
+            for seg in V6_SEGS:
+                for idx in range(self.count(seg, block)):
+                    yield layer, seg, idx, self.copies(block, layer, seg, idx)
+        for seg in V6_HEAD_SEGS:
+            for idx in range(self.count(seg, block)):
+                yield n_layer, seg, idx, self.copies(block, n_layer, seg, idx)
+
+
+def v6_stream_plan(form: str, c: int, f_dim: int, d_maa: int, d_dec: int, n_heads: int,
+                   head_size: int, vocab: int, blocks: int) -> V6StreamPlan:
+    """K6's stream plan in weight form `form` ("i8", "i4", "bf16") for a
+    grid of `blocks` (the kernel's Layout6 and Plan6). The ring takes what
+    shared memory is left below ``V6_SMEM_LIMIT`` after the activations:
+    about ``V6_TARGET_STAGES`` stages, each at least the largest piece (two
+    vector rows, a head's state or dw2 piece, one row of any matrix with its
+    scale window); raises ValueError below ``V6_MIN_STAGES``."""
+    s, sf = head_size, _small_form(form)
+    floats = 2 * c + max(8 * s, 5 * d_maa) + 256 + 8 + V6_AMAX_SLOTS
+    act_off = 4 * floats
+    # then the block's plan (V6_PLAN_BYTES), a full and an empty mbarrier a stage
+    bar_off = _round_up(act_off + (4 if form == "bf16" else 1) * max(5 * c, f_dim), 16)
+    bar_off += V6_PLAN_BYTES
+    ring_off = _round_up(bar_off + 16 * V6_MAX_STAGES, 128)
+    piece = max(8 * c, 4 * s * s, s * _form_bytes(sf, d_dec) + (16 if form == "bf16" else 20) * s)
+    row = max(_form_bytes(form, c), _form_bytes(form, f_dim), _form_bytes(sf, c), 4 * d_maa)
+    piece = _round_up(max(piece, row + _win_bytes(1)), 16)
+    ring = max(V6_SMEM_LIMIT - ring_off, 0)
+    stage = max(piece, ring // V6_TARGET_STAGES // 16 * 16)
+    stages = min(ring // stage, V6_MAX_STAGES)
+    if stages < V6_MIN_STAGES:
+        raise ValueError(f"K6's ring holds {stages} stages of {stage} bytes at these widths, "
+                         f"it needs {V6_MIN_STAGES}")
+    return V6StreamPlan(form, c, f_dim, d_maa, d_dec, n_heads, head_size, vocab, blocks,
+                        act_off, bar_off, ring_off, stage, stages, ring_off + stages * stage)
 
 
 def v6_decode_shape_error(cfg, d_maa: int, d_dec: int, f_dim: int,
-                          w4: bool = False) -> Optional[str]:
+                          w4: bool = False, form: Optional[str] = None) -> Optional[str]:
     """Why K6 cannot take this model's shapes, or None. K6 walks weight
-    rows of any width in 16-byte chunks; shared memory is checked at
-    launch."""
+    rows of any width in 16-byte chunks and streams them in 16-byte pieces
+    through shared memory (``v6_stream_plan``, checked in `form`: by
+    default the int form `w4` names)."""
     s = cfg.head_size
     if cfg.version_major != 6:
         return "K6 decodes RWKV v6 only"
-    if 256 % s or s * s // 256 > 16:
-        return f"K6 supports head sizes dividing 256 up to 64, got {s}"
+    if 256 % s or s * s // 256 > 16 or s % 4:
+        return f"K6 supports head sizes dividing 256 from 4 up to 64, got {s}"
     for dim in (cfg.n_embed, d_dec, f_dim):
         if dim % 16:
             return f"K6 needs C, d_dec and F to be multiples of 16, got {dim}"
     if d_maa % 4:
         return f"K6 reads maa2 rows in float4 pieces: d_maa must be a multiple of 4, got {d_maa}"
+    if cfg.n_vocab % 4:
+        return ("K6 streams the head's row scales in 16-byte pieces: the vocabulary must be "
+                f"a multiple of 4, got {cfg.n_vocab}")
     if w4 and (cfg.n_embed % 32 or f_dim % 32):
         return "int4 rows need C and F to be multiples of 32"
+    try:
+        v6_stream_plan(form or ("i4" if w4 else "i8"), cfg.n_embed, f_dim, d_maa, d_dec,
+                       cfg.head_count, s, cfg.n_vocab, 1)
+    except ValueError as e:
+        return str(e)
     return None
 
 
@@ -1026,7 +1320,7 @@ def v6_decode_launch(fn, pack: dict, state: dict, token: torch.Tensor, cfg,
     c, h, s = cfg.n_embed, cfg.head_count, cfg.head_size
     dm, dd, f, w4 = pack["d_maa"], pack["d_dec"], pack["f_dim"], pack["w4"]
     n_layer, vocab = cfg.n_layer, cfg.n_vocab
-    err = v6_decode_shape_error(cfg, dm, dd, f, w4)
+    err = v6_decode_shape_error(cfg, dm, dd, f, w4, form=pack["form"])
     if err:
         raise ValueError(err)
     if pack.get("version") != 6:
@@ -1041,7 +1335,7 @@ def v6_decode_launch(fn, pack: dict, state: dict, token: torch.Tensor, cfg,
     outs = {k: torch.empty_like(v) for k, v in ins.items()}
     logits = torch.empty((vocab,), dtype=torch.float32, device=dev)
     alloc = torch.zeros if scratch_extra else torch.empty
-    scratch = alloc((v6_scratch_floats(c, dm, dd, f) + scratch_extra,),
+    scratch = alloc((v6_scratch_floats(c, dm, dd, f, n_layer) + scratch_extra,),
                     dtype=torch.float32, device=dev)
     grid = pack.get("_grid_v6")
     if grid is None:

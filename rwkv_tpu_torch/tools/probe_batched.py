@@ -2,7 +2,7 @@
 against an earlier version of their sources, and the v6, v5 and v4
 kernels K6, K7 and K8.
 
-    python3 -m rwkv_tpu_torch.tools.probe_batched [--baseline DIR] [--phases | --flips] [--bf16]
+    python3 -m rwkv_tpu_torch.tools.probe_batched [--baseline DIR] [--phases | --flips | --k3] [--bf16]
     python3 -m rwkv_tpu_torch.tools.probe_batched --v6 | --v5 | --v4 [--baseline DIR] [--phases] [--flips] [--bf16]
 
 Times one launch of ``rwkv_tpu_torch.ops.megakernel.v7_decode_batched``
@@ -21,6 +21,9 @@ kernel, its headers beside it), prints the largest difference between the
 two versions' outputs (x and state) and times both on the same inputs in the order
 baseline, current, current, baseline (for the forms the earlier version
 has an entry for).
+
+With ``--k3`` it stops after K3 (B=1, against ``DIR/v7_decode.cu`` with
+``--baseline``).
 
 With ``--phases`` it instead builds the kernels with
 ``-DRWKV_PHASE_TIMES`` (thread 0 of block 0 stamps ``%globaltimer``
@@ -43,7 +46,8 @@ models at the 1.6B width (C=2048, 24 layers, synth seed 0; w8a8, w4a8 and
 bf16): its time per launch from a seeded state (against an earlier
 ``DIR/v6_decode.cu`` with ``--baseline``, as above), with ``--phases`` also the
 mean time of each of the seven phases of a layer (A, M, B, C, D, E, F)
-and of each barrier from the timing build, and with ``--flips`` also its
+and of each barrier from the timing build (each source's stamps read at
+that source's own scratch offset, ``v6_stamps_at``), and with ``--flips`` also its
 distance from its plain version (x, state and logits, each over its
 largest value) on the packs cut to their first 1 and 2 layers and at full
 depth, for 12 seeded states: the readings that set ``chip_smoke.py``'s
@@ -307,12 +311,26 @@ def b1_flips(models, cfg, label: str, n_seeds: int = 12, depths=None) -> dict:
     return worst
 
 
+def v6_stamps_at(pack, cfg, src_path, flags: tuple) -> int:
+    """Float offset of the timing build's stamps in K6's scratch for the
+    source `src_path` (None: csrc): behind the per-layer amax slots where
+    that K6 publishes its amax (it has the ``rwkv_v6_decode_plan`` entry),
+    else behind the activations alone."""
+    from rwkv_tpu_torch.ops import _cuda
+    from rwkv_tpu_torch.ops.megakernel import v6_scratch_floats
+
+    src = _cuda.CSRC / "v6_decode.cu" if src_path is None else src_path
+    streamed = hasattr(_cuda.library("v6_decode_probe", src, flags), "rwkv_v6_decode_plan")
+    return v6_scratch_floats(cfg.n_embed, pack["d_maa"], pack["d_dec"], pack["f_dim"],
+                             cfg.n_layer if streamed else 0)
+
+
 def b1_main(args, base_dir, version: int) -> int:
     """--v6 / --v5 / --v4: the B=1 decode kernel's time per launch at its
     published width (against ``base_dir/v<version>_decode.cu`` where given),
     and per phase (--phases) and its drift from the plain version by depth
     (--flips)."""
-    from rwkv_tpu_torch.ops.megakernel import v6_scratch_floats, v45_scratch_floats
+    from rwkv_tpu_torch.ops.megakernel import v45_scratch_floats
     from rwkv_tpu_torch.tools.card import (
         V4_WIDTH, V5_WIDTH, V6_WIDTH, card_line, decode_entry, decode_launcher, seeded_states,
         width_models,
@@ -344,9 +362,10 @@ def b1_main(args, base_dir, version: int) -> int:
         names = B1_PHASES[version]
         for label, src_path in srcs.items() if "--phases" in args else ():
             extra = 2 * (2 + 2 * len(names) * cfg.n_layer)
-            base = (v6_scratch_floats(cfg.n_embed, pack["d_maa"], pack["d_dec"], pack["f_dim"])
-                    if version == 6 else v45_scratch_floats(version, cfg.n_embed, pack["f_dim"]))
-            times = phase_times(lambda: run(src_path, ("-DRWKV_PHASE_TIMES",), extra)[2],
+            flags = ("-DRWKV_PHASE_TIMES",)
+            base = (v6_stamps_at(pack, cfg, src_path, flags) if version == 6
+                    else v45_scratch_floats(version, cfg.n_embed, pack["f_dim"]))
+            times = phase_times(lambda: run(src_path, flags, extra)[2],
                                 base, cfg.n_layer, len(names))
             print_phases(f"{label} {name} {prec} B=1", times, names)
     if "--flips" in args:
@@ -407,6 +426,9 @@ def main() -> int:
         old = None if fn is None else (
             lambda: TM.decode_launch(fn, pack, one, tokens[:1], cfg)[0])  # noqa: E731
         compare(f"K3 {prec} B=1", cur, old)
+    if "--k3" in args:
+        print(card_line())
+        return 0
     k4_against(models, cfg, states, tokens, base_dir, K4_TIMED)
     crossover_places(models, cfg, states, tokens)
     del models, states

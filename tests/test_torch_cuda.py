@@ -355,23 +355,85 @@ def test_card_v6_serving_matches_cpu_and_goes_through_kernels(cuda_device, preci
     assert after[2] - counts[2] == 3
 
 
-def test_v6_decode_kernel_takes_c768(cuda_device):
-    """K6 at C=768 (F=3072), where a row's 16-byte chunks are no power of
-    two per lane: the lane count stays a power of two (lanes_for)."""
+def _c768_pack6(dev, form: str):
     tc = synth_config("6.0", 1, 768, 256, 64)
     tp = synth_params(tc, seed=3)
-    dp = TM.device_pack(TM.build_mega_pack_v6(tp, tc), tp["emb"].to(torch.bfloat16), tp["ln0"],
-                        cuda_device)
-    gen = torch.Generator(device=cuda_device).manual_seed(2)
-    state = {"att_xx": torch.randn((1, 768), device=cuda_device, generator=gen) * 0.5,
-             "ffn_xx": torch.randn((1, 768), device=cuda_device, generator=gen) * 0.5,
-             "heads": torch.randn((1, 12, 64, 64), device=cuda_device, generator=gen) * 0.1}
+    pack = TM.build_mega_pack_v6(tp, tc, w4=form == "i4", quant=form != "bf16")
+    return tc, TM.device_pack(pack, tp["emb"].to(torch.bfloat16), tp["ln0"], dev)
+
+
+def _state6(tc, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    L, c, h, s = tc.n_layer, tc.n_embed, tc.head_count, tc.head_size
+    return {"att_xx": torch.randn((L, c), device=dev, generator=gen) * 0.5,
+            "ffn_xx": torch.randn((L, c), device=dev, generator=gen) * 0.5,
+            "heads": torch.randn((L, h, s, s), device=dev, generator=gen) * 0.1}
+
+
+@pytest.mark.parametrize("form", TM.FORMS)
+def test_v6_decode_kernel_takes_c768(cuda_device, form):
+    """K6 at C=768 (F=3072), where a row's 16-byte chunks are no power of
+    two per lane: the lane count stays a power of two (lanes_for); in each
+    weight form, the int ones within 2e-2 and bf16 within BF16_BAND of the
+    scale."""
+    tc, dp = _c768_pack6(cuda_device, form)
+    state = _state6(tc, cuda_device, 2)
     tok = torch.tensor([7], device=cuda_device)
     logits, new = TM.v6_decode_step(dp, state, tok, tc)
     ref_logits, ref_new = TM.v6_decode_step_ref(dp, state, tok, tc)
+    if form == "bf16":
+        assert _rel(logits, ref_logits) <= BF16_BAND
+        assert all(_rel(new[k], ref_new[k]) <= BF16_BAND for k in new)
+        return
     torch.testing.assert_close(logits, ref_logits, rtol=2e-2, atol=2e-2)
     for k in new:
         torch.testing.assert_close(new[k], ref_new[k], rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("form", TM.FORMS)
+@pytest.mark.parametrize("width", ["SMALL6", "C768"])
+def test_v6_decode_kernel_same_bits_on_every_grid(cuda_device, width, form):
+    """K6's stream plan deals each phase's rows over the grid, but never
+    changes how a row is computed: logits and state are bit-equal on grids
+    of 132, 64, 33 and 7 blocks (pack["_grid_v6"]), in every weight form."""
+    if width == "SMALL6":
+        tc = synth_config(*SMALL6)
+        tp = synth_params(tc, seed=7)
+        pack = TM.build_mega_pack_v6(tp, tc, w4=form == "i4", quant=form != "bf16")
+        dp = TM.device_pack(pack, tp["emb"].to(torch.bfloat16), tp["ln0"], cuda_device)
+    else:
+        tc, dp = _c768_pack6(cuda_device, form)
+    state = _state6(tc, cuda_device, 4)
+    tok = torch.tensor([9], device=cuda_device)
+    outs = {}
+    for grid in (132, 64, 33, 7):
+        dp["_grid_v6"] = grid
+        logits, new = TM.v6_decode_step(dp, state, tok, tc)
+        outs[grid] = [logits] + [new[k] for k in sorted(new)]
+    for grid, out in outs.items():
+        assert all(torch.equal(a, b) for a, b in zip(out, outs[132])), grid
+
+
+def test_v6_decode_plan_matches_the_python_plan(cuda_device):
+    """The kernel's own stream plan (rwkv_v6_decode_plan: shared bytes,
+    stage bytes and count, a block's pieces a layer and of the head) is
+    v6_stream_plan's, in every form at SMALL6, C=768 and the 1.6B width on
+    several grids; K6 has the static shared memory the plan assumes."""
+    from rwkv_tpu_torch.ops import _cuda
+
+    fn = _cuda.library("v6_decode").rwkv_v6_decode_plan
+    fn.argtypes = [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    for c, f, h, v in ((256, 1024, 4, 256), (768, 3072, 12, 65536), (2048, 8192, 32, 65536)):
+        for wf, form in enumerate(TM.FORMS):
+            for blocks in (132, 33, 7):
+                plan = TM.v6_stream_plan(form, c, f, 32, 64, h, 64, v, blocks)
+                for b in sorted({0, 5, blocks - 1}):
+                    out = (ctypes.c_longlong * 6)()
+                    assert fn(wf, c, 64, 32, 64, f, h, v, blocks, b, out) == 0
+                    assert list(out) == [plan.smem_bytes, plan.stage_bytes, plan.n_stages,
+                                         plan.layer_pieces(b), plan.head_pieces(b),
+                                         TM.V6_STATIC_SMEM], (c, form, blocks, b)
 
 
 def _v45_setup(version, dev, w4=False, seed=7, c=256):
