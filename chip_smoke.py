@@ -45,9 +45,9 @@
      scale (twice the worst reading of ``probe_batched --v6 / --v5 / --v4
      --flips``). K7 also on a v5.1 pair and K8 on a pair at C=2048, both
      of 2 layers at the 1.5B width, within 2e-2 (``phase_cut_width``).
-     K6 deals each phase's rows over the grid, so its w8a8, w4a8 and bf16
-     packs cut to 2 layers must give bit-equal logits, x and state on the
-     full grid and on half of it (``k6_grid_invariance``).
+     K6 and K7 deal each phase's rows over the grid, so their w8a8, w4a8
+     and bf16 packs cut to 2 layers must give bit-equal logits, x and
+     state on the full grid and on half of it (``grid_invariance``).
    - The bf16 forms of K3, K4, K6, K7 and K8 (``precision="bf16"``, the
      ``quant=False`` packs of the same trees): K3 at the 169M width and
      K6-K8 at theirs through ``phase_b1``, K4 at B = 1, 8 and 64 on the
@@ -884,11 +884,11 @@ def phase_b1(name: str, models, cfg, n_states: int = 8, seed: int = 7):
     return out
 
 
-def k6_grid_invariance(models, cfg, seed: int = 9) -> None:
-    """K6 on the 1.6B-width packs cut to 2 layers (a shallower config over
-    the same buffers) on the full grid and on half of it: logits, x and
-    state bit-equal in every form. Launches through the C entry, so the
-    launch counters do not move."""
+def grid_invariance(name: str, models, cfg, width: str, seed: int = 9) -> None:
+    """K6 or K7 (by the config's version) on the packs at a published width
+    cut to 2 layers (a shallower config over the same buffers) on the full
+    grid and on half of it: logits, x and state bit-equal in every form.
+    Launches through the C entry, so the launch counters do not move."""
     import dataclasses
 
     import torch
@@ -896,26 +896,27 @@ def k6_grid_invariance(models, cfg, seed: int = 9) -> None:
     from rwkv_tpu_torch.ops import megakernel as M
     from rwkv_tpu_torch.tools.card import decode_entry, seeded_states
 
+    key, launch = {6: ("_grid_v6", M.v6_decode_launch),
+                   5: ("_grid_v45", M.v45_decode_launch)}[cfg.version_major]
     states, tokens = seeded_states(next(iter(models.values())), cfg, 1, 16, seed=seed)
     cd = dataclasses.replace(cfg, n_layer=2)
     st = {k: v[0, :2].contiguous() for k, v in states.items()}
     grids = ()
     for prec, model in models.items():
         pack = model._mega
-        full = pack["_grid_v6"]
+        full = pack[key]
         grids = (full, full // 2)
         outs = []
         for grid in grids:
-            pack["_grid_v6"] = grid
-            logits, new, scratch = M.v6_decode_launch(decode_entry(pack), pack, st, tokens[:1],
-                                                      cd)
+            pack[key] = grid
+            logits, new, scratch = launch(decode_entry(pack), pack, st, tokens[:1], cd)
             outs.append([logits, scratch[: cfg.n_embed]] + [new[k] for k in sorted(new)])
-        pack["_grid_v6"] = full
+        pack[key] = full
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(*outs)):
-            raise AssertionError(f"K6 {prec}: grids of {grids} blocks give different outputs")
-    print(f"K6 {', '.join(models)}: 2 layers at the 1.6B width bit-equal on grids of {grids} "
-          f"blocks")
+            raise AssertionError(f"{name} {prec}: grids of {grids} blocks give different outputs")
+    print(f"{name} {', '.join(models)}: 2 layers at the {width} width bit-equal on grids of "
+          f"{grids} blocks")
 
 
 def phase_cut_width(name: str, width) -> None:
@@ -1698,7 +1699,7 @@ def main() -> int:
     print(f"RWKV-6 1.6B-width models (w8a8, w4a8, bf16; {cfg6.n_layer} layers, "
           f"C={cfg6.n_embed}) built in {time.perf_counter() - t0:.1f} s")
     k6 = phase_b1("K6", models6, cfg6)
-    k6_grid_invariance(models6, cfg6)
+    grid_invariance("K6", models6, cfg6, "1.6B")
     res["K6"], res["K6w4"], res["K6bf16"] = k6["w8a8"], k6["w4a8"], k6["bf16"]
     prompt6 = torch.randint(0, cfg6.n_vocab, (256,),
                             generator=torch.Generator().manual_seed(0)).numpy()
@@ -1735,6 +1736,7 @@ def main() -> int:
     print(f"RWKV-5.2 World 1.5B-width models (w8a8, w4a8, bf16; {cfg5.n_layer} layers, "
           f"C={cfg5.n_embed}) built in {time.perf_counter() - t0:.1f} s")
     k7 = phase_b1("K7", models5, cfg5)
+    grid_invariance("K7", models5, cfg5, "World 1.5B")
     res["K7"], res["K7w4"], res["K7bf16"] = k7["w8a8"], k7["w4a8"], k7["bf16"]
     for prec, m in models5.items():
         launches[f"v5 {prec}"] = single_stream_path(

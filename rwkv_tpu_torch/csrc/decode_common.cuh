@@ -3,7 +3,8 @@
 // (v4_decode.cu): the timing build's phase stamps, IEEE-exact elementwise
 // helpers, the embedding read, the lane count of the big matvecs, the
 // block-wide quantization (int forms) or staging (bf16 form) of a phase's
-// input vectors, the block-wide layer norm and the LM head phase.
+// input vectors, the block-wide layer norm and the LM head phase (K3, K8;
+// K6 and K7 stream theirs, decode_stream.cuh).
 #pragma once
 
 #include "common.cuh"

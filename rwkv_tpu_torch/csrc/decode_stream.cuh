@@ -1,8 +1,12 @@
-// A block's input stream for the whole-model decode kernels (K6): a ring
-// of shared-memory stages fed by 1-D bulk asynchronous copies (TMA,
-// cp.async.bulk) that complete on a "full" mbarrier a stage, the matvec of
-// weight rows that lie in a stage, and the quantization of a phase's input
-// vector from an amax that the producing phase published.
+// A block's input stream for the B=1 whole-model decode kernels K6
+// (v6_decode.cu) and K7 (v5_decode.cu): a ring of shared-memory stages fed
+// by 1-D bulk asynchronous copies (TMA, cp.async.bulk) that complete on a
+// "full" mbarrier a stage, the generic parts of a kernel's stream plan (the
+// ring's size, a block's share of a matrix's rows, the producer's walk over
+// the plan), the consumers' side of the stream (waits, releases, the matvec
+// of weight rows that lie in a stage), the quantization of a phase's input
+// vector from an amax that the producing phase published, and the LM head
+// phase both kernels end with.
 //
 // The block is warp-specialized: kConsumerWarps warps (kConsumers threads)
 // compute, and one producer warp walks the block's stream of pieces in the
@@ -24,6 +28,7 @@ namespace stream {
 
 constexpr int kConsumers = 256;  // the compute threads of a block (its first warps)
 constexpr int kConsumerWarps = kConsumers / 32;
+constexpr int kBlockThreads = kConsumers + 32;  // then one producer warp
 
 // a barrier among the consumer threads only (named barrier 1)
 __device__ __forceinline__ void csync() { asm volatile("bar.sync 1, 256;" ::: "memory"); }
@@ -120,6 +125,93 @@ __device__ __forceinline__ void grid_sync(unsigned* count, unsigned* gen, unsign
   ++gen_seen;
 }
 
+// ---- the stream plan's generic parts (a kernel's Layout / Plan / copies) ---
+//
+// A kernel's plan gives each block contiguous ranges of each phase's rows,
+// in 4-row groups, cut into pieces of as many whole rows as fit a stage,
+// each followed by the 16-byte window of its row scales, and its other
+// inputs (vector rows, state) in pieces of their own; the pieces of a layer
+// come in the order the consumers take them, as segments (runs of pieces),
+// then those of the head. ops/megakernel.py mirrors every rule here.
+
+constexpr size_t kSmemLimit = 232448;  // shared memory a block of the H100 may opt into
+constexpr int kMaxStages = 16;         // mbarriers reserved
+constexpr int kTargetStages = 4;       // the ring's stages where the largest piece allows
+constexpr size_t kPlanBytes = 512;     // the block's plan, in shared memory
+constexpr int kMinStages = 3;          // a block holds at most three pieces at once
+
+__host__ __device__ inline size_t round_up(size_t n, size_t m) { return (n + m - 1) / m * m; }
+__host__ __device__ inline size_t max2(size_t a, size_t b) { return a > b ? a : b; }
+
+// Bytes at most of the scale window of n consecutive rows: whole 16-byte
+// groups of four floats around them.
+__host__ __device__ inline size_t win_bytes(int n) { return 16ull * ((n + 6) / 4); }
+
+// Lanes sharing a row of row_bytes: max_lpr (lanes_for's cap in the big
+// matvecs), down to the largest power of two that divides the row's 16-byte
+// chunks -- the lanes matvec_rows gives the row.
+__host__ __device__ inline int row_lanes(int row_bytes, int max_lpr) {
+  int lpr = max_lpr;
+  while (lpr > 1 && (row_bytes / 16) % lpr != 0) lpr >>= 1;
+  return lpr;
+}
+
+// The block's lane groups of lpr lanes: rows it computes at once.
+__host__ __device__ inline int group_rows(int lpr) { return kConsumerWarps * (32 / lpr); }
+
+// The block's shared bytes from its plan on: the plan at plan_off
+// (kPlanBytes), kMaxStages "full" and as many "empty" mbarriers, then the
+// ring: `stages` stages of `stage` bytes, as many as fit below kSmemLimit,
+// about kTargetStages of them, each at least the largest piece (`piece`
+// bytes, rounded up to 16). A kernel refuses a ring of fewer than
+// kMinStages stages.
+struct Ring {
+  size_t plan_off, bar_off, ring_off, stage, stages, smem;
+  __host__ __device__ Ring(size_t plan_at, size_t piece) {
+    plan_off = plan_at;
+    bar_off = plan_off + kPlanBytes;  // full, then empty
+    ring_off = round_up(bar_off + 16ull * kMaxStages, 128);
+    const size_t ring = kSmemLimit > ring_off ? kSmemLimit - ring_off : 0;
+    stage = max2(round_up(piece, 16), ring / kTargetStages / 16 * 16);
+    stages = ring / stage;
+    if (stages > kMaxStages) stages = kMaxStages;
+    smem = ring_off + stages * stage;
+  }
+};
+
+// Rows [r0, r1) of a matrix that one block takes (rb bytes, lpr lanes a
+// row), n whole rows a piece. The block's lane groups take its rows in turn,
+// from piece to piece: row r0 + j goes to lane group j % group_rows(lpr)
+// (consumer warp (j % group_rows) / (32 / lpr)), so the warps work on
+// different pieces at once and each sums its rows with the lanes, the
+// chunk order and the shuffle tree of matvec_rows.
+struct Rows {
+  int r0, r1, n, rb, lpr;
+  __host__ __device__ int pieces() const { return r1 > r0 ? (r1 - r0 + n - 1) / n : 0; }
+  __host__ __device__ int c0(int k) const { return r0 + k * n; }
+  __host__ __device__ int c1(int k) const { return r0 + (k + 1) * n < r1 ? r0 + (k + 1) * n : r1; }
+};
+
+// Block b's share of N rows of row_bytes (N a multiple of 4): whole 4-row
+// groups, split as evenly as the grid allows (reverse: counted from the
+// last block, so a phase's second matrix lands first on the blocks its
+// first one left with fewer rows), lanes max_lpr at most a row; a piece
+// holds as many rows as fit in a stage with their scale window (win).
+__host__ __device__ inline Rows part(int N, int blocks, int b, bool reverse, int row_bytes,
+                                     bool win, size_t stage, int max_lpr) {
+  const long long q = N / 4, i = reverse ? blocks - 1 - b : b;
+  Rows r;
+  r.r0 = static_cast<int>(4 * (q * i / blocks));
+  r.r1 = static_cast<int>(4 * (q * (i + 1) / blocks));
+  r.rb = row_bytes;
+  r.lpr = row_lanes(row_bytes, max_lpr);
+  int n = static_cast<int>(stage / row_bytes);
+  if (win)
+    while (n > 1 && static_cast<size_t>(n) * row_bytes + win_bytes(n) > stage) --n;
+  r.n = n;
+  return r;
+}
+
 // ---- the consumers' block-wide steps (decode_common.cuh's, on csync) ----
 
 __device__ __forceinline__ float block_sum(float v, float* red) {
@@ -202,6 +294,40 @@ __device__ void layer_norm_act(const float* src, float* dst, const float* w, con
     }
   }
   if constexpr (WF != kBf16) {
+    block_max_n<N>(amax, red);
+    float inv[N];
+#pragma unroll
+    for (int m = 0; m < N; ++m) {
+      const float dx = amax[m] / 127.0f;
+      inv[m] = act_inv_scale(dx);
+      if (threadIdx.x == 0) dxs[m] = dx;
+    }
+    for (int c = threadIdx.x; c < n; c += kConsumers) {
+#pragma unroll
+      for (int m = 0; m < N; ++m) xq[m * stride + c] = act_code(f(m, c), inv[m]);
+    }
+  }
+  csync();
+}
+
+// act_n (decode_common.cuh) over the consumers: the N vectors f(m, c) of n
+// values each, quantized each as a whole (codes into xq[m * stride + c],
+// scales into dxs[m]), or in the bf16 form staged in f32.
+template <int WF, int N, typename Fn>
+__device__ void act_n(Fn f, int n, act_t<WF>* xq, int stride, float* dxs, float* red) {
+  if constexpr (WF == kBf16) {
+    for (int c = threadIdx.x; c < n; c += kConsumers) {
+#pragma unroll
+      for (int m = 0; m < N; ++m) xq[m * stride + c] = f(m, c);
+    }
+  } else {
+    float amax[N];
+#pragma unroll
+    for (int m = 0; m < N; ++m) amax[m] = 0.f;
+    for (int c = threadIdx.x; c < n; c += kConsumers) {
+#pragma unroll
+      for (int m = 0; m < N; ++m) amax[m] = fmaxf(amax[m], fabsf(f(m, c)));
+    }
     block_max_n<N>(amax, red);
     float inv[N];
 #pragma unroll
@@ -395,6 +521,115 @@ __device__ void act_published(const float* src, int n, act_t<WF>* xq, float* dxs
     }
   }
   csync();
+}
+
+// ---- the producer and the consumers' side of the stream --------------------
+
+// The producer warp: walks block b's stream piece by piece, in the order
+// the consumers take it -- segments 0 .. LayerSegs - 1 of each of n_layer
+// layers, then segments LayerSegs .. AllSegs - 1 (the head), pl.count(seg)
+// pieces each --, waits until the piece's stage is empty (every consumer
+// warp released the piece before it there), then posts the piece's bytes
+// on the stage's full barrier and issues its copies, a lane a copy: copy
+// (layer, seg, idx, i, &src, &dst, &bytes) gives copy i of a piece (false
+// past its last; a piece has at most 32).
+template <int LayerSegs, int AllSegs, typename Plan, typename Copy>
+__device__ void produce(const Plan& pl, int n_layer, int stages, unsigned char* ring, size_t stage,
+                        uint64_t* full, uint64_t* empty, Copy copy) {
+  const int lane = threadIdx.x & 31;
+  int layer = 0, seg = 0, idx = 0;
+  for (int j = 0; seg != AllSegs; ++j) {
+    const int s = j % stages;
+    if (j >= stages) wait_parity(&empty[s], static_cast<uint32_t>((j / stages - 1) & 1));
+    const void* src = nullptr;
+    uint32_t at = 0, bytes = 0;
+    const bool mine = copy(layer, seg, idx, lane, &src, &at, &bytes);
+    const uint32_t total = __reduce_add_sync(0xffffffffu, mine ? bytes : 0u);
+    if (lane == 0) arrive_expect_tx(&full[s], total);
+    __syncwarp();
+    if (mine) bulk_copy(ring + static_cast<size_t>(s) * stage + at, src, bytes, &full[s]);
+    ++idx;
+    while (seg < AllSegs && idx >= pl.count(seg)) {
+      idx = 0;
+      ++seg;
+      if (seg == LayerSegs && layer + 1 < n_layer) {
+        ++layer;
+        seg = 0;
+      }
+    }
+  }
+}
+
+// The consumers' side of the ring, in piece order: wait() for the next
+// piece (its stage), release(k) of a warp's k oldest held pieces, and
+// rows<FF>(r, K, xsel, epi) for a matrix's rows r in form FF (width K),
+// piece by piece: epi(row, acc, d) with d the row's scale in its window.
+struct Stream {
+  unsigned char* ring;
+  size_t stage;
+  int stages;
+  uint64_t* full;
+  uint64_t* empty;
+  int next = 0, released = 0;  // the piece the block waits for next; pieces released
+
+  __device__ const unsigned char* wait() {
+    const int s = next % stages;
+    wait_parity(&full[s], static_cast<uint32_t>((next / stages) & 1));
+    ++next;
+    return ring + static_cast<size_t>(s) * stage;
+  }
+
+  __device__ void release(int k) {
+    __syncwarp();
+    for (int i = 0; i < k; ++i, ++released)
+      if ((threadIdx.x & 31) == 0) arrive(&empty[released % stages]);
+  }
+
+  template <int FF, typename XSel, typename Epi>
+  __device__ void rows(const Rows& r, int K, XSel xsel, Epi epi) {
+    const int g = group_rows(r.lpr);
+    for (int k = 0; k < r.pieces(); ++k) {
+      const int c0 = r.c0(k), n = r.c1(k) - c0, w0 = c0 & ~3;
+      const unsigned char* st = wait();
+      const float* win = reinterpret_cast<const float*>(st + static_cast<size_t>(n) * r.rb);
+      smem_rows<FF>(st, n, K, r.lpr, (c0 - r.r0) % g, [&](int j) { return xsel(c0 + j); },
+                    [&](int j, auto acc) { epi(c0 + j, acc, win + (c0 + j - w0)); });
+      release(1);
+    }
+  }
+};
+
+// The block-local amax slots (shared) into the layer's global ones, N of
+// them, clearing the local ones (int forms; after a phase's epilogues).
+template <int N>
+__device__ __forceinline__ void publish_amax(unsigned* local, unsigned* global) {
+  csync();
+  if (threadIdx.x < N) {
+    const unsigned v = local[threadIdx.x];
+    if (v != 0u) atomicMax(global + threadIdx.x, v);
+    local[threadIdx.x] = 0u;
+  }
+}
+
+// The LM head after the last layer's barrier: ln_out of the residual x_g
+// (C floats) with its piece (ln_out w | b) from the stream, the normalized
+// vector quantized as a whole (int forms: int8 rows with row scales; bf16:
+// staged in f32), then the block's head rows from the stream into logits.
+// Shared: xs and xl C floats each, red 256 floats, dxs one, q8 C
+// activations.
+template <int LF>
+__device__ void head_phase(Stream& cs, const Rows& head, const float* x_g, int C, float* xs,
+                           float* xl, float* red, float* dxs, act_t<LF>* q8, float* logits) {
+  load_vec(xs, x_g, C);
+  csync();
+  {
+    const float* ln = reinterpret_cast<const float*>(cs.wait());  // ln_out w | b
+    layer_norm_act<LF, 1>(xs, xl, ln, ln + C, C, 1e-5f, red, [](int, float) {},
+                          [&](int, int c) { return xl[c]; }, q8, 0, dxs);
+    cs.release(1);
+  }
+  cs.rows<LF>(head, C, [&](int) { return q8; },
+              [&](int row, auto acc, const float* d) { logits[row] = dequant(acc, dxs[0], d); });
 }
 
 }  // namespace stream

@@ -2,8 +2,9 @@
 // whole-model decode kernels and their tensor-parallel shard kernels (K15,
 // K14: tp_v45.cu): the per-layer layout of the flat pack, the token-shift
 // mix in the reference's op order, which mix feeds each fused attention
-// projection, v4's max-trick wkv on one channel, v5's wkv step of one
-// head, and the FFN phases E and F.
+// projection, v4's max-trick wkv on one channel, v5's wkv step of one head
+// on a whole block (K15; K7 runs its own over the consumers of its
+// stream), and K8's FFN phases E and F.
 #pragma once
 
 #include "decode_common.cuh"

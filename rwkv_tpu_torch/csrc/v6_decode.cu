@@ -70,14 +70,12 @@
 // quantizing it, and each row's f32 dot is the output as it is (no scales).
 #include "decode_stream.cuh"
 
-#include <type_traits>
-
 namespace {
 
 // a block: kConsumers compute threads (decode_stream.cuh), then one
 // producer warp that issues the block's stream
 constexpr int kThreads = stream::kConsumers;
-constexpr int kBlockThreads = kThreads + 32;
+constexpr int kBlockThreads = stream::kBlockThreads;
 
 // rows of the per-layer vector block [L, kNumVec6, C] (megakernel.py's
 // V6_VEC_KEYS, then maa5, tdecay, tf)
@@ -175,95 +173,41 @@ __host__ __device__ inline int hv_floats(int S, int DM) {
 
 // ---- the stream plan (ops/megakernel.py::v6_stream_plan mirrors it) --------
 
-constexpr size_t kSmemLimit = 232448;  // shared memory a block of the H100 may opt into
-constexpr int kMaxStages = 16;         // mbarriers reserved
-constexpr int kTargetStages = 4;       // the ring's stages where the largest piece allows
-constexpr int kMinStages = 3;          // a block holds at most two pieces while it waits for the next
-
-__host__ __device__ inline size_t round_up(size_t n, size_t m) { return (n + m - 1) / m * m; }
-__host__ __device__ inline size_t max2(size_t a, size_t b) { return a > b ? a : b; }
-
-// Bytes at most of the scale window of n consecutive rows: whole 16-byte
-// groups of four floats around them.
-__host__ __device__ inline size_t win_bytes(int n) { return 16ull * ((n + 6) / 4); }
-
-// Lanes sharing a row of row_bytes: max_lpr (lanes_for's cap in the big
-// matvecs), down to the largest power of two that divides the row's 16-byte
-// chunks -- the lanes matvec_rows gives the row.
-__host__ __device__ inline int row_lanes(int row_bytes, int max_lpr) {
-  int lpr = max_lpr;
-  while (lpr > 1 && (row_bytes / 16) % lpr != 0) lpr >>= 1;
-  return lpr;
-}
-
-// The block's lane groups of lpr lanes: rows it computes at once.
-__host__ __device__ inline int group_rows(int lpr) { return stream::kConsumerWarps * (32 / lpr); }
+using stream::Rows;
+using stream::part;
+using stream::round_up;
+using stream::max2;
 
 // Shared memory of a launch: xs, xl (C floats each), hv, red (256), dxs
 // (8), eight block-local amax slots, the activations (int8 codes, or f32 in
-// the bf16 form; max(5C, F) of them), the block's plan, kMaxStages "full"
-// and as many "empty" mbarriers, then the ring:
-// `stages` stages of `stage` bytes, as many as fit below kSmemLimit, about
-// kTargetStages of them, each at least the largest piece.
-constexpr size_t kPlanBytes = 512;  // the block's Plan6, in shared memory
-
-struct Layout6 {
-  size_t act_off, plan_off, bar_off, ring_off, stage, stages, smem;
-  __host__ __device__ Layout6(int C, int S, int DM, int DD, int F, int wf) {
-    const int sf = small_form(wf);
-    const size_t floats = 2ull * C + hv_floats(S, DM) + 256 + 8 + kAmaxSlots;
-    const size_t acts = static_cast<size_t>(5 * C > F ? 5 * C : F);
-    act_off = 4 * floats;
-    plan_off = round_up(act_off + (wf == kBf16 ? 4 : 1) * acts, 16);
-    bar_off = plan_off + kPlanBytes;                              // full, then empty
-    ring_off = round_up(bar_off + 16ull * kMaxStages, 128);
-    // the largest piece: two vector rows, a head's state, a head's dw2
-    // piece, one row of any matrix with its scale window
-    size_t piece = max2(8ull * C, 4ull * S * S);
-    piece = max2(piece, S * form_bytes(sf, DD) + (wf == kBf16 ? 16ull : 20ull) * S);
-    size_t row = max2(form_bytes(wf, C), form_bytes(wf, F));
-    row = max2(row, max2(form_bytes(sf, C), 4ull * DM));
-    piece = round_up(max2(piece, row + win_bytes(1)), 16);
-    const size_t ring = kSmemLimit > ring_off ? kSmemLimit - ring_off : 0;
-    stage = max2(piece, ring / kTargetStages / 16 * 16);
-    stages = ring / stage;
-    if (stages > kMaxStages) stages = kMaxStages;
-    smem = ring_off + stages * stage;
-  }
-};
-
-// Rows [r0, r1) of a matrix that one block takes (rb bytes, lpr lanes a
-// row), n whole rows a piece. The block's lane groups take its rows in turn,
-// from piece to piece: row r0 + j goes to lane group j % group_rows(lpr)
-// (consumer warp (j % group_rows) / (32 / lpr)), so the warps work on
-// different pieces at once and each sums its rows with the lanes, the
-// chunk order and the shuffle tree of matvec_rows.
-struct Rows {
-  int r0, r1, n, rb, lpr;
-  __host__ __device__ int pieces() const { return r1 > r0 ? (r1 - r0 + n - 1) / n : 0; }
-  __host__ __device__ int c0(int k) const { return r0 + k * n; }
-  __host__ __device__ int c1(int k) const { return r0 + (k + 1) * n < r1 ? r0 + (k + 1) * n : r1; }
-};
-
-// Block b's share of N rows of row_bytes (N a multiple of 4): whole 4-row
-// groups, split as evenly as the grid allows (reverse: counted from the
-// last block, so a phase's second matrix lands first on the blocks its
-// first one left with fewer rows), lanes max_lpr at most a row; a piece
-// holds as many rows as fit in a stage with their scale window (win).
-__host__ __device__ inline Rows part(int N, int blocks, int b, bool reverse, int row_bytes,
-                                     bool win, size_t stage, int max_lpr) {
-  const long long q = N / 4, i = reverse ? blocks - 1 - b : b;
-  Rows r;
-  r.r0 = static_cast<int>(4 * (q * i / blocks));
-  r.r1 = static_cast<int>(4 * (q * (i + 1) / blocks));
-  r.rb = row_bytes;
-  r.lpr = row_lanes(row_bytes, max_lpr);
-  int n = static_cast<int>(stage / row_bytes);
-  if (win)
-    while (n > 1 && static_cast<size_t>(n) * row_bytes + win_bytes(n) > stage) --n;
-  r.n = n;
-  return r;
+// the bf16 form; max(5C, F) of them), then the block's plan, its mbarriers
+// and the ring (stream::Ring), each stage at least the largest piece.
+__host__ __device__ inline size_t act_off6(int C, int S, int DM) {
+  return 4 * (2ull * C + hv_floats(S, DM) + 256 + 8 + kAmaxSlots);
 }
+
+__host__ __device__ inline size_t plan_off6(int C, int S, int DM, int F, int wf) {
+  const size_t acts = static_cast<size_t>(5 * C > F ? 5 * C : F);
+  return round_up(act_off6(C, S, DM) + (wf == kBf16 ? 4 : 1) * acts, 16);
+}
+
+// the largest piece: two vector rows, a head's state, a head's dw2 piece,
+// one row of any matrix with its scale window
+__host__ __device__ inline size_t piece6(int C, int S, int DM, int DD, int F, int wf) {
+  const int sf = small_form(wf);
+  size_t piece = max2(8ull * C, 4ull * S * S);
+  piece = max2(piece, S * form_bytes(sf, DD) + (wf == kBf16 ? 16ull : 20ull) * S);
+  size_t row = max2(form_bytes(wf, C), form_bytes(wf, F));
+  row = max2(row, max2(form_bytes(sf, C), 4ull * DM));
+  return max2(piece, row + stream::win_bytes(1));
+}
+
+struct Layout6 : stream::Ring {
+  size_t act_off;
+  __host__ __device__ Layout6(int C, int S, int DM, int DD, int F, int wf)
+      : stream::Ring(plan_off6(C, S, DM, F, wf), piece6(C, S, DM, DD, F, wf)),
+        act_off(act_off6(C, S, DM)) {}
+};
 
 // The pieces of a layer in stream order (then those of the head). A piece
 // fills one stage; a segment is a run of pieces.
@@ -330,7 +274,7 @@ struct Plan6 {
     return n;
   }
 };
-static_assert(sizeof(Plan6) <= kPlanBytes, "the plan's shared bytes");
+static_assert(sizeof(Plan6) <= stream::kPlanBytes, "the plan's shared bytes");
 
 // Copy i of piece idx of segment seg of layer l for block b of a grid of
 // `blocks` (plan pl): a 16-byte multiple from a 16-byte aligned src into
@@ -403,46 +347,10 @@ __host__ __device__ inline bool piece_copy(const Args& p, const MatOffsets6& mo,
   }
 }
 
-template <int F_>
-using form_c = std::integral_constant<int, F_>;
-
 // The grid barrier's state (stream::grid_sync): the count is back at zero
 // after every barrier, so each launch finds it so.
 __device__ unsigned g_grid_count = 0;
 __device__ unsigned g_grid_gen = 0;
-
-// The producer warp: walks block b's stream piece by piece, in the order
-// the consumers take it, waits until the piece's stage is empty (every
-// consumer warp released the piece before it there), then posts the
-// piece's bytes on the stage's full barrier and issues its copies, a lane
-// a copy.
-__device__ void produce(const Args& p, const MatOffsets6& mo, const ScaleOffsets6& so,
-                        const Plan6& pl, int wf, int stages, unsigned char* ring, size_t stage,
-                        uint64_t* full, uint64_t* empty) {
-  const int lane = threadIdx.x & 31, b = blockIdx.x, blocks = gridDim.x;
-  int layer = 0, seg = 0, idx = 0;
-  for (int j = 0; seg != kAllSegs; ++j) {
-    const int s = j % stages;
-    if (j >= stages) stream::wait_parity(&empty[s], static_cast<uint32_t>((j / stages - 1) & 1));
-    const void* src = nullptr;
-    uint32_t at = 0, bytes = 0;
-    const bool mine = piece_copy(p, mo, so, pl, wf, b, blocks, layer, seg, idx, lane, &src, &at,
-                                 &bytes);  // a piece has at most 32 copies
-    const uint32_t total = __reduce_add_sync(0xffffffffu, mine ? bytes : 0u);
-    if (lane == 0) stream::arrive_expect_tx(&full[s], total);
-    __syncwarp();
-    if (mine) stream::bulk_copy(ring + static_cast<size_t>(s) * stage + at, src, bytes, &full[s]);
-    ++idx;
-    while (seg < kAllSegs && idx >= pl.count(seg)) {
-      idx = 0;
-      ++seg;
-      if (seg == kLayerSegs && layer + 1 < p.L) {
-        ++layer;
-        seg = 0;
-      }
-    }
-  }
-}
 
 template <int WF>
 __global__ void __launch_bounds__(kBlockThreads, 1)
@@ -465,7 +373,7 @@ v6_decode_kernel(Args p) {
   act_t<WF>* q8 = reinterpret_cast<act_t<WF>*>(smem + lo.act_off);  // [max(5C, F)] activations
   Plan6* plan = reinterpret_cast<Plan6*>(smem + lo.plan_off);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lo.bar_off);  // one a stage
-  uint64_t* empty = full + kMaxStages;                              // one a stage
+  uint64_t* empty = full + stream::kMaxStages;                      // one a stage
   unsigned char* ring = smem + lo.ring_off;
   const int stages = static_cast<int>(lo.stages);
 
@@ -481,7 +389,13 @@ v6_decode_kernel(Args p) {
   __syncthreads();  // the last barrier of all 288 threads
   const Plan6& pl = *plan;
   if (tid >= kThreads) {
-    produce(p, mo, so, pl, WF, stages, ring, lo.stage, full, empty);
+    // the producer warp
+    const int b = blockIdx.x, blocks = gridDim.x;
+    stream::produce<kLayerSegs, kAllSegs>(
+        pl, p.L, stages, ring, lo.stage, full, empty,
+        [&](int l, int seg, int idx, int i, const void** src, uint32_t* dst, uint32_t* bytes) {
+          return piece_copy(p, mo, so, pl, WF, b, blocks, l, seg, idx, i, src, dst, bytes);
+        });
     return;
   }
 
@@ -514,43 +428,10 @@ v6_decode_kernel(Args p) {
 
   // ---- the consumers' side of the stream, in piece order ------------------
   const int lane = tid & 31;
-  int next = 0, released = 0;  // the piece the block waits for next; pieces released
-  auto wait_piece = [&]() -> const unsigned char* {
-    const int s = next % stages;
-    stream::wait_parity(&full[s], static_cast<uint32_t>((next / stages) & 1));
-    ++next;
-    return ring + static_cast<size_t>(s) * lo.stage;
-  };
-  // this warp is done with its k oldest held pieces
-  auto release = [&](int k) {
-    __syncwarp();
-    for (int i = 0; i < k; ++i, ++released)
-      if (lane == 0) stream::arrive(&empty[released % stages]);
-  };
+  stream::Stream cs{ring, lo.stage, stages, full, empty};
   // the block-local amax slots into the layer's global ones (int forms)
   auto publish = [&](unsigned* slots) {
-    if constexpr (kQuant) {
-      stream::csync();
-      if (tid < kAmaxSlots) {
-        const unsigned v = amx[tid];
-        if (v != 0u) atomicMax(slots + tid, v);
-        amx[tid] = 0u;
-      }
-    }
-  };
-  // rows r of a matrix in form FF (width K) from the ring, piece by piece:
-  // epi(row, acc, d) with d the row's scale in its window
-  auto stream_rows = [&](auto form, const Rows& r, int K, auto xsel, auto epi) {
-    constexpr int FF = decltype(form)::value;
-    const int g = group_rows(r.lpr);
-    for (int k = 0; k < r.pieces(); ++k) {
-      const int c0 = r.c0(k), n = r.c1(k) - c0, w0 = c0 & ~3;
-      const unsigned char* st = wait_piece();
-      const float* win = reinterpret_cast<const float*>(st + static_cast<size_t>(n) * r.rb);
-      stream::smem_rows<FF>(st, n, K, r.lpr, (c0 - r.r0) % g, [&](int j) { return xsel(c0 + j); },
-                            [&](int j, auto acc) { epi(c0 + j, acc, win + (c0 + j - w0)); });
-      release(1);
-    }
+    if constexpr (kQuant) stream::publish_amax<kAmaxSlots>(amx, slots);
   };
 
   for (int l = 0; l < p.L; ++l) {
@@ -572,18 +453,18 @@ v6_decode_kernel(Args p) {
       stream::csync();
     }
     {
-      const float* ln = reinterpret_cast<const float*>(wait_piece());  // ln1 w | b
-      const float* mx = reinterpret_cast<const float*>(wait_piece());  // maa_x | att_in
+      const float* ln = reinterpret_cast<const float*>(cs.wait());  // ln1 w | b
+      const float* mx = reinterpret_cast<const float*>(cs.wait());  // maa_x | att_in
       const float* ai = mx + C;
       stream::layer_norm_act<WF, 1>(
           xs, xl, ln, ln + C, C, 1e-5f, red,
           [&](int c, float y) { xs[c] = sub(ai[c], y); },  // sx, kept for M
           [&](int, int c) { return add(xl[c], mul(xs[c], mx[c])); }, q8, 0, dxs);
-      release(2);
+      cs.release(2);
     }
     if (blockIdx.x == 0)
       for (int c = tid; c < C; c += kThreads) p.att_out[static_cast<size_t>(l) * C + c] = xl[c];
-    stream_rows(form_c<LF>{}, pl.maa1, C, [&](int) { return q8; },
+    cs.rows<LF>(pl.maa1, C, [&](int) { return q8; },
                 [&](int row, auto acc, const float* d) {
                   mixdn_g[row] = tanhf(dequant(acc, dxs[0], d));
                 });
@@ -600,7 +481,7 @@ v6_decode_kernel(Args p) {
       const int gpw = 32 / lpr, sub_lane = lane % lpr, grp = lane / lpr;
       for (int k = 0; k < pl.maa2.pieces(); ++k) {
         const int c0 = pl.maa2.c0(k), n = pl.maa2.c1(k) - c0;
-        const unsigned char* st = wait_piece();
+        const unsigned char* st = cs.wait();
         const float4* m2 = reinterpret_cast<const float4*>(st);
         const float* cf = reinterpret_cast<const float*>(st + 4ull * n * DM);  // maa5 window
         const int w0 = c0 & ~3;
@@ -625,7 +506,7 @@ v6_decode_kernel(Args p) {
             if constexpr (kQuant) stream::note_amax(&amx[kAmMix + row / C], v);
           }
         }
-        release(1);
+        cs.release(1);
       }
     }
     publish(amax_l);
@@ -633,7 +514,7 @@ v6_decode_kernel(Args p) {
 
     // ---- phase B: five mixes quantized, rkvg rows, dw1 rows with tanh ------
     stream::act_published<WF, 5>(mix_g, C, q8, dxs, amax_l + kAmMix);
-    stream_rows(form_c<WF>{}, pl.rkvg, C,
+    cs.rows<WF>(pl.rkvg, C,
                 [&](int row) { return q8 + rkvg_mix(row / C) * C; },
                 [&](int row, auto acc, const float* d) {
                   const int part = row / C;
@@ -641,7 +522,7 @@ v6_decode_kernel(Args p) {
                   if (part == 3) y = mul(y, sigmoidf(y));  // silu gate
                   rkvg_g[row] = y;
                 });
-    stream_rows(form_c<LF>{}, pl.dw1, C, [&](int) { return q8; },  // mix w
+    cs.rows<LF>(pl.dw1, C, [&](int) { return q8; },  // mix w
                 [&](int row, auto acc, const float* d) {
                   const float v = tanhf(dequant(acc, dxs[0], d));
                   dn_g[row] = v;
@@ -674,7 +555,7 @@ v6_decode_kernel(Args p) {
       float* h_w = hv + 3 * S;
       float* h_y = hv + 4 * S;
       // the head's piece: dw2 rows, (scales,) tdecay, tf, ln_x w, ln_x b
-      const unsigned char* hp = wait_piece();
+      const unsigned char* hp = cs.wait();
       const size_t w2_bytes = S * form_bytes(LF, DD);
       const float* d2 = reinterpret_cast<const float*>(hp + w2_bytes);
       const float* tdecay = d2 + (kQuant ? S : 0);
@@ -698,7 +579,7 @@ v6_decode_kernel(Args p) {
       const float dot = stream::block_sum(dot_part, red);  // also orders the h_* stores
 
       // state rows: tpr threads per row i, entries j = jj * tpr + part
-      const float* st = reinterpret_cast<const float*>(wait_piece());
+      const float* st = reinterpret_cast<const float*>(cs.wait());
       const int tpr = kThreads / S;
       const int jn = S / tpr;
       const int i = tid / tpr, part = tid % tpr;
@@ -732,7 +613,7 @@ v6_decode_kernel(Args p) {
         if constexpr (kQuant) stream::note_amax(&amx[kAmXo], v);
       }
       stream::csync();
-      release(2);
+      cs.release(2);
     }
     publish(amax_l);
     barrier();
@@ -746,7 +627,7 @@ v6_decode_kernel(Args p) {
       stream::act_published<WF, 1>(xo_g, C, q8, dxs, amax_l + kAmXo);
       for (int i = tid; i < nr; i += kThreads) xs[i] = i == tid ? x0 : __ldcg(x_g + r0 + i);
       stream::csync();
-      stream_rows(form_c<WF>{}, pl.out, C, [&](int) { return q8; },
+      cs.rows<WF>(pl.out, C, [&](int) { return q8; },
                   [&](int row, auto acc, const float* d) {
                     x_g[row] = add(xs[row - r0], dequant(acc, dxs[0], d));
                   });
@@ -757,25 +638,25 @@ v6_decode_kernel(Args p) {
     stream::load_vec(xs, x_g, C);
     stream::csync();
     {
-      const float* ln = reinterpret_cast<const float*>(wait_piece());   // ln2 w | b
-      const float* fx = reinterpret_cast<const float*>(wait_piece());   // maa_k | maa_r
-      const float* fin = reinterpret_cast<const float*>(wait_piece());  // ffn_in
+      const float* ln = reinterpret_cast<const float*>(cs.wait());   // ln2 w | b
+      const float* fx = reinterpret_cast<const float*>(cs.wait());   // maa_k | maa_r
+      const float* fin = reinterpret_cast<const float*>(cs.wait());  // ffn_in
       stream::layer_norm_act<WF, 2>(
           xs, xl, ln, ln + C, C, 1e-5f, red, [](int, float) {},
           [&](int m, int c) { return add(xl[c], mul(sub(fin[c], xl[c]), fx[m * C + c])); }, q8, C,
           dxs);
-      release(3);
+      cs.release(3);
     }
     if (blockIdx.x == 0)
       for (int c = tid; c < C; c += kThreads) p.ffn_out[static_cast<size_t>(l) * C + c] = xl[c];
-    stream_rows(form_c<WF>{}, pl.fk, C, [&](int) { return q8; },
+    cs.rows<WF>(pl.fk, C, [&](int) { return q8; },
                 [&](int row, auto acc, const float* d) {
                   const float y = fmaxf(dequant(acc, dxs[0], d), 0.f);
                   const float v = mul(y, y);
                   fk_g[row] = v;
                   if constexpr (kQuant) stream::note_amax(&amx[kAmFk], v);
                 });
-    stream_rows(form_c<WF>{}, pl.fr, C, [&](int) { return q8 + C; },
+    cs.rows<WF>(pl.fr, C, [&](int) { return q8 + C; },
                 [&](int row, auto acc, const float* d) {
                   rg_g[row] = sigmoidf(dequant(acc, dxs[1], d));
                 });
@@ -795,7 +676,7 @@ v6_decode_kernel(Args p) {
         xl[i] = i == tid ? g0 : __ldcg(rg_g + r0 + i);
       }
       stream::csync();
-      stream_rows(form_c<WF>{}, pl.fv, F, [&](int) { return q8; },
+      cs.rows<WF>(pl.fv, F, [&](int) { return q8; },
                   [&](int row, auto acc, const float* d) {
                     x_g[row] = add(xs[row - r0], mul(xl[row - r0], dequant(acc, dxs[0], d)));
                   });
@@ -804,18 +685,7 @@ v6_decode_kernel(Args p) {
   }
 
   // ---- head: ln_out, quantize, the V head rows ------------------------------
-  stream::load_vec(xs, x_g, C);
-  stream::csync();
-  {
-    const float* ln = reinterpret_cast<const float*>(wait_piece());  // ln_out w | b
-    stream::layer_norm_act<LF, 1>(xs, xl, ln, ln + C, C, 1e-5f, red, [](int, float) {},
-                                  [&](int, int c) { return xl[c]; }, q8, 0, dxs);
-    release(1);
-  }
-  stream_rows(form_c<LF>{}, pl.head, C, [&](int) { return q8; },
-              [&](int row, auto acc, const float* d) {
-                p.logits[row] = dequant(acc, dxs[0], d);
-              });
+  stream::head_phase<LF>(cs, pl.head, x_g, C, xs, xl, red, dxs, q8, p.logits);
   PHASE_MARK();
 }
 
@@ -830,7 +700,7 @@ int shape_error(int wf, int C, int H, int S, int DM, int DD, int F, int V) {
   const Layout6 lo(C, S, DM, DD, F, wf);
   if (kThreads % S != 0 || S * S / kThreads > kMaxJ || S % 4 != 0 || DM % 4 != 0 ||
       H * S != C || C % 16 != 0 || DD % 16 != 0 || F % 16 != 0 || V % 4 != 0 ||
-      static_cast<int>(lo.stages) < kMinStages)
+      static_cast<int>(lo.stages) < stream::kMinStages)
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }

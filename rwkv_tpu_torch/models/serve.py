@@ -363,7 +363,8 @@ class ServingModel:
                                               pack["f_dim"], w4)
             elif cfg.version_major == 5:
                 pack = M.build_mega_pack_v5(params, cfg, w4=w4, quant=quant)
-                err = M.v5_decode_shape_error(cfg, pack["f_dim"], w4)
+                err = M.v5_decode_shape_error(cfg, pack["f_dim"], w4, pack["form"],
+                                              4 if pack["has_gate"] else 3)
             else:
                 pack = M.build_mega_pack_v4(params, cfg, w4=w4, quant=quant)
                 err = M.v4_decode_shape_error(cfg, pack["f_dim"], w4)

@@ -991,24 +991,30 @@ def v6_scratch_floats(c: int, d_maa: int, d_dec: int, f_dim: int, n_layer: int) 
     return 12 * c + 5 * d_maa + d_dec + f_dim + V6_AMAX_SLOTS * n_layer
 
 
-# -- K6's stream plan -----------------------------------------------------------
+# -- the B=1 decode kernels' stream plans (K6, K7) -------------------------------
 #
-# K6 stages every input that does not depend on the token -- weight rows
-# with their row scales, the vector rows a phase reads, maa2, att_in /
-# ffn_in, phase C's state rows and the head's rows -- in a ring of shared-
-# memory stages fed by 1-D bulk asynchronous copies, in the order the block
-# consumes them. ``v6_stream_plan`` mirrors the kernel's own plan (Layout6,
-# Plan6 and piece_copy in csrc/v6_decode.cu): each phase's rows go to the
-# blocks in contiguous ranges of whole 4-row groups; a range is cut into
-# pieces of as many whole rows as fit a stage, each followed by the 16-byte
-# window of its row scales (or, for maa2, of its maa5 coefficients). Every
-# copy is a multiple of 16 bytes from a 16-byte aligned address.
-V6_SMEM_LIMIT = 232448  # shared memory a block of the H100 may opt into
+# K6 and K7 stage every input that does not depend on the token -- weight
+# rows with their row scales, the vector rows a phase reads, att_in /
+# ffn_in, phase C's state rows and the head's rows (K6 also maa2) -- in a
+# ring of shared-memory stages fed by 1-D bulk asynchronous copies, in the
+# order the block consumes them (csrc/decode_stream.cuh). ``v6_stream_plan``
+# and ``v5_stream_plan`` mirror the kernels' own plans (Layout6 / Plan6 /
+# piece_copy in csrc/v6_decode.cu, Layout5 / Plan5 / piece_copy in
+# csrc/v5_decode.cu) over the generic parts below (the header's Ring, Rows
+# and part): each phase's rows go to the blocks in contiguous ranges of
+# whole 4-row groups; a range is cut into pieces of as many whole rows as
+# fit a stage, each followed by the 16-byte window of its row scales (or,
+# for K6's maa2, of its maa5 coefficients). Every copy is a multiple of 16
+# bytes from a 16-byte aligned address.
+STREAM_SMEM_LIMIT = 232448  # shared memory a block of the H100 may opt into
+STREAM_MAX_STAGES = 16  # stages' mbarriers reserved
+STREAM_PLAN_BYTES = 512  # the block's plan in shared memory
+STREAM_TARGET_STAGES = 4  # the ring's stages where the largest piece allows
+STREAM_MIN_STAGES = 3  # a block holds at most three pieces at once
+V6_SMEM_LIMIT = STREAM_SMEM_LIMIT
 V6_STATIC_SMEM = 0  # K6's static shared memory (the card tests read the kernel's)
-V6_MAX_STAGES = 16  # stages' mbarriers reserved
-V6_PLAN_BYTES = 512  # the block's plan in shared memory
-V6_TARGET_STAGES = 4  # the ring's stages where the largest piece allows
-V6_MIN_STAGES = 3  # a block holds at most two pieces while it waits for the next
+V6_MAX_STAGES = STREAM_MAX_STAGES
+V6_MIN_STAGES = STREAM_MIN_STAGES
 V6_NUM_VEC = len(V6_VEC_KEYS) + 7  # vector rows a layer: V6_VEC_KEYS, maa5 (5), tdecay, tf
 _V6_VEC_ROW = dict({k: i for i, k in enumerate(V6_VEC_KEYS)}, maa5=9, tdecay=14, tf=15)
 # the pieces of a layer in stream order (a segment is a run of pieces), then
@@ -1034,21 +1040,20 @@ def v6_mat_offsets(form: str, c: int, d_maa: int, d_dec: int, f_dim: int) -> dic
     sizes = (("rkvg", form, 4 * c * c), ("maa1", sf, 5 * d_maa * c), ("dw1", sf, d_dec * c),
              ("dw2", sf, c * d_dec), ("out", form, c * c), ("fk", form, f_dim * c),
              ("fv", form, c * f_dim), ("fr", form, c * c))
-    out, at = {}, 0
-    for name, fm, n in sizes:
-        out[name] = at
-        at += _form_bytes(fm, n)
-    out["layer"] = at
-    return out
+    return _offsets((name, _form_bytes(fm, n)) for name, fm, n in sizes)
 
 
 def v6_scale_offsets(c: int, d_maa: int, d_dec: int, f_dim: int) -> dict:
     """Float offsets of a layer's row scales in ``scales`` and the layer's
     count ("layer"): the kernel's ScaleOffsets6."""
-    rows = (("rkvg", 4 * c), ("maa1", 5 * d_maa), ("dw1", d_dec), ("dw2", c), ("out", c),
-            ("fk", f_dim), ("fv", c), ("fr", c))
+    return _offsets((("rkvg", 4 * c), ("maa1", 5 * d_maa), ("dw1", d_dec), ("dw2", c),
+                     ("out", c), ("fk", f_dim), ("fv", c), ("fr", c)))
+
+
+def _offsets(sizes) -> dict:
+    """Running offsets of (name, size) in order, and their sum ("layer")."""
     out, at = {}, 0
-    for name, n in rows:
+    for name, n in sizes:
         out[name] = at
         at += n
     out["layer"] = at
@@ -1056,7 +1061,7 @@ def v6_scale_offsets(c: int, d_maa: int, d_dec: int, f_dim: int) -> dict:
 
 
 @dataclass(frozen=True)
-class V6Rows:
+class StreamRows:
     """Rows [r0, r1) of a matrix that one block takes (row bytes ``rb``,
     ``lpr`` lanes a row), ``n`` whole rows a piece; row r0 + j goes to the
     block's lane group j % (8 * 32 / lpr)."""
@@ -1077,7 +1082,7 @@ class V6Rows:
 
 
 @dataclass(frozen=True)
-class V6Copy:
+class StreamCopy:
     """One bulk copy: `nbytes` from byte `offset` of the flat tensor
     `array` of a device pack (``mats``, ``scales``, ``vecs``, ``maa2``,
     ``head``, ``head_d``, ``ln_out``) or of the state (``att_in`` /
@@ -1110,23 +1115,102 @@ def _lanes_for(k: int, form: str) -> int:
     return lanes
 
 
-def _v6_part(n: int, blocks: int, b: int, reverse: bool, row_bytes: int, win: bool,
-             stage: int, max_lpr: int) -> V6Rows:
+def _part(n: int, blocks: int, b: int, reverse: bool, row_bytes: int, win: bool,
+          stage: int, max_lpr: int) -> StreamRows:
+    """Block b's share of n rows (the header's ``part``)."""
     q, i = n // 4, (blocks - 1 - b if reverse else b)
     rows = stage // row_bytes
     while win and rows > 1 and rows * row_bytes + _win_bytes(rows) > stage:
         rows -= 1
-    return V6Rows(4 * (q * i // blocks), 4 * (q * (i + 1) // blocks), rows, row_bytes,
-                  _row_lanes(row_bytes, max_lpr))
+    return StreamRows(4 * (q * i // blocks), 4 * (q * (i + 1) // blocks), rows, row_bytes,
+                      _row_lanes(row_bytes, max_lpr))
+
+
+def _ring(plan_off: int, piece: int) -> tuple:
+    """The header's Ring after the block's plan at `plan_off`: (mbarriers'
+    offset, ring's offset, stage bytes, stages) -- about
+    ``STREAM_TARGET_STAGES`` stages below ``STREAM_SMEM_LIMIT``, each at
+    least the largest piece."""
+    bar_off = plan_off + STREAM_PLAN_BYTES
+    ring_off = _round_up(bar_off + 16 * STREAM_MAX_STAGES, 128)
+    ring = max(STREAM_SMEM_LIMIT - ring_off, 0)
+    stage = max(_round_up(piece, 16), ring // STREAM_TARGET_STAGES // 16 * 16)
+    return bar_off, ring_off, stage, min(ring // stage, STREAM_MAX_STAGES)
+
+
+def _stream_rows_copies(r: StreamRows, idx: int, array: str, at: int, scale) -> tuple:
+    """The copies of piece idx of rows r of the matrix at byte `at` of
+    `array`, then (where `scale` = (array, byte offset of the first row's
+    float) is given) the 16-byte window of their row floats."""
+    c0, c1 = r.piece(idx)
+    nbytes = (c1 - c0) * r.rb
+    out = [StreamCopy(array, at + c0 * r.rb, nbytes, 0)]
+    if scale is not None:
+        w0, w1 = c0 & ~3, (c1 + 3) & ~3
+        out.append(StreamCopy(scale[0], scale[1] + 4 * w0, 4 * (w1 - w0), nbytes))
+    return tuple(out)
+
+
+class _StreamPlan:
+    """What K6's and K7's plans share: a block's rows of each streamed
+    matrix (``SEGS`` and ``HEAD_SEGS`` in stream order, ``STREAMED`` the
+    segments of matrix rows, ``_spec`` their shapes) and its pieces in
+    stream order."""
+
+    SEGS: tuple = ()
+    HEAD_SEGS: tuple = ()
+    STREAMED: tuple = ()
+
+    def _spec(self, name: str) -> tuple:
+        raise NotImplementedError
+
+    def _count(self, seg: str, block: int) -> int:
+        """Pieces of a segment that holds no matrix rows."""
+        return 1
+
+    def rows(self, name: str, block: int) -> StreamRows:
+        """Block `block`'s rows of matrix `name` (``STREAMED``)."""
+        n, rb, win, rev, lanes = self._spec(name)
+        return _part(n, self.blocks, block, rev, rb, win, self.stage_bytes, lanes)
+
+    def block_heads(self, block: int) -> list:
+        """The heads phase C runs on block `block`."""
+        return list(range(block, self.n_heads, self.blocks))
+
+    def count(self, seg: str, block: int) -> int:
+        if seg in self.STREAMED:
+            return self.rows(seg, block).pieces()
+        return self._count(seg, block)
+
+    def layer_pieces(self, block: int) -> int:
+        return sum(self.count(s, block) for s in self.SEGS)
+
+    def head_pieces(self, block: int) -> int:
+        return sum(self.count(s, block) for s in self.HEAD_SEGS)
+
+    def stream(self, block: int, n_layer: int):
+        """Block `block`'s pieces in stream order: (layer, segment, index,
+        copies); the head's pieces carry layer n_layer."""
+        for layer in range(n_layer):
+            for seg in self.SEGS:
+                for idx in range(self.count(seg, block)):
+                    yield layer, seg, idx, self.copies(block, layer, seg, idx)
+        for seg in self.HEAD_SEGS:
+            for idx in range(self.count(seg, block)):
+                yield n_layer, seg, idx, self.copies(block, n_layer, seg, idx)
 
 
 @dataclass(frozen=True)
-class V6StreamPlan:
+class V6StreamPlan(_StreamPlan):
     """K6's stream plan for one weight form and grid (``v6_stream_plan``):
     the shared-memory layout (activations at ``act_off``, mbarriers at
     ``bar_off``, ``n_stages`` stages of ``stage_bytes`` from ``ring_off``;
     ``smem_bytes`` in all) and, per block, the rows of each phase and the
     copies of each piece of its stream."""
+
+    SEGS = V6_SEGS
+    HEAD_SEGS = V6_HEAD_SEGS
+    STREAMED = V6_STREAMED
 
     form: str
     c: int
@@ -1160,27 +1244,8 @@ class V6StreamPlan:
                 "fv": (c, _form_bytes(form, f), w, False, _lanes_for(f, form)),
                 "head": (self.vocab, _form_bytes(sf, c), w, False, 8)}[name]
 
-    def rows(self, name: str, block: int) -> V6Rows:
-        """Block `block`'s rows of matrix `name` (``V6_STREAMED``)."""
-        n, rb, win, rev, lanes = self._spec(name)
-        return _v6_part(n, self.blocks, block, rev, rb, win, self.stage_bytes, lanes)
-
-    def block_heads(self, block: int) -> list:
-        """The heads phase C runs on block `block`."""
-        return list(range(block, self.n_heads, self.blocks))
-
-    def count(self, seg: str, block: int) -> int:
-        if seg in V6_STREAMED:
-            return self.rows(seg, block).pieces()
-        if seg == "heads":
-            return 2 * len(self.block_heads(block))
-        return 1
-
-    def layer_pieces(self, block: int) -> int:
-        return sum(self.count(s, block) for s in V6_SEGS)
-
-    def head_pieces(self, block: int) -> int:
-        return sum(self.count(s, block) for s in V6_HEAD_SEGS)
+    def _count(self, seg: str, block: int) -> int:
+        return 2 * len(self.block_heads(block)) if seg == "heads" else 1
 
     def copies(self, block: int, layer: int, seg: str, idx: int) -> tuple:
         """The copies of piece `idx` of segment `seg` of `layer`."""
@@ -1195,53 +1260,35 @@ class V6StreamPlan:
             return 4 * ((layer * V6_NUM_VEC + _V6_VEC_ROW[row]) * c + at)
 
         if seg in V6_STREAMED:
-            r = self.rows(seg, block)
-            c0, c1 = r.piece(idx)
-            nbytes = (c1 - c0) * r.rb
-            w0, w1 = c0 & ~3, (c1 + 3) & ~3
             array, at, scale = {
-                "maa2": ("maa2", 4 * layer * 5 * c * dm, ("vecs", vec("maa5", w0))),
-                "head": ("head", 0, ("head_d", 4 * w0) if w else None),
+                "maa2": ("maa2", 4 * layer * 5 * c * dm, ("vecs", vec("maa5"))),
+                "head": ("head", 0, ("head_d", 0) if w else None),
             }.get(seg, ("mats", mats + mo.get(seg, 0),
-                        ("scales", scales + 4 * (so.get(seg, 0) + w0)) if w else None))
-            out = [V6Copy(array, at + c0 * r.rb, nbytes, 0)]
-            if scale is not None:
-                out.append(V6Copy(scale[0], scale[1], 4 * (w1 - w0), nbytes))
-            return tuple(out)
+                        ("scales", scales + 4 * so.get(seg, 0)) if w else None))
+            return _stream_rows_copies(self.rows(seg, block), idx, array, at, scale)
         if seg == "heads":
             h = self.block_heads(block)[idx // 2]
             if idx % 2:
-                return (V6Copy("heads_in", 4 * (layer * self.n_heads + h) * s * s, 4 * s * s,
-                               0),)
+                return (StreamCopy("heads_in", 4 * (layer * self.n_heads + h) * s * s,
+                                   4 * s * s, 0),)
             rb = _form_bytes(_small_form(self.form), self.d_dec)
-            out = [V6Copy("mats", mats + mo["dw2"] + h * s * rb, s * rb, 0)]
+            out = [StreamCopy("mats", mats + mo["dw2"] + h * s * rb, s * rb, 0)]
             at = s * rb
             if w:
-                out.append(V6Copy("scales", scales + 4 * (so["dw2"] + h * s), 4 * s, at))
+                out.append(StreamCopy("scales", scales + 4 * (so["dw2"] + h * s), 4 * s, at))
                 at += 4 * s
             for i, row in enumerate(("tdecay", "tf", "att.ln_x.weight", "att.ln_x.bias")):
-                out.append(V6Copy("vecs", vec(row, h * s), 4 * s, at + 4 * s * i))
+                out.append(StreamCopy("vecs", vec(row, h * s), 4 * s, at + 4 * s * i))
             return tuple(out)
         return {
-            "ln1": (V6Copy("vecs", vec("ln1.weight"), 8 * c, 0),),
-            "mix_a": (V6Copy("vecs", vec("att.time_maa_x"), 4 * c, 0),
-                      V6Copy("att_in", 4 * layer * c, 4 * c, 4 * c)),
-            "ln2": (V6Copy("vecs", vec("ln2.weight"), 8 * c, 0),),
-            "mix_e": (V6Copy("vecs", vec("ffn.time_maa_k"), 8 * c, 0),),
-            "ffn_in": (V6Copy("ffn_in", 4 * layer * c, 4 * c, 0),),
-            "ln_out": (V6Copy("ln_out", 0, 8 * c, 0),),
+            "ln1": (StreamCopy("vecs", vec("ln1.weight"), 8 * c, 0),),
+            "mix_a": (StreamCopy("vecs", vec("att.time_maa_x"), 4 * c, 0),
+                      StreamCopy("att_in", 4 * layer * c, 4 * c, 4 * c)),
+            "ln2": (StreamCopy("vecs", vec("ln2.weight"), 8 * c, 0),),
+            "mix_e": (StreamCopy("vecs", vec("ffn.time_maa_k"), 8 * c, 0),),
+            "ffn_in": (StreamCopy("ffn_in", 4 * layer * c, 4 * c, 0),),
+            "ln_out": (StreamCopy("ln_out", 0, 8 * c, 0),),
         }[seg]
-
-    def stream(self, block: int, n_layer: int):
-        """Block `block`'s pieces in stream order: (layer, segment, index,
-        copies); the head's pieces carry layer n_layer."""
-        for layer in range(n_layer):
-            for seg in V6_SEGS:
-                for idx in range(self.count(seg, block)):
-                    yield layer, seg, idx, self.copies(block, layer, seg, idx)
-        for seg in V6_HEAD_SEGS:
-            for idx in range(self.count(seg, block)):
-                yield n_layer, seg, idx, self.copies(block, n_layer, seg, idx)
 
 
 def v6_stream_plan(form: str, c: int, f_dim: int, d_maa: int, d_dec: int, n_heads: int,
@@ -1249,22 +1296,16 @@ def v6_stream_plan(form: str, c: int, f_dim: int, d_maa: int, d_dec: int, n_head
     """K6's stream plan in weight form `form` ("i8", "i4", "bf16") for a
     grid of `blocks` (the kernel's Layout6 and Plan6). The ring takes what
     shared memory is left below ``V6_SMEM_LIMIT`` after the activations:
-    about ``V6_TARGET_STAGES`` stages, each at least the largest piece (two
-    vector rows, a head's state or dw2 piece, one row of any matrix with its
-    scale window); raises ValueError below ``V6_MIN_STAGES``."""
+    about ``STREAM_TARGET_STAGES`` stages, each at least the largest piece
+    (two vector rows, a head's state or dw2 piece, one row of any matrix
+    with its scale window); raises ValueError below ``V6_MIN_STAGES``."""
     s, sf = head_size, _small_form(form)
     floats = 2 * c + max(8 * s, 5 * d_maa) + 256 + 8 + V6_AMAX_SLOTS
     act_off = 4 * floats
-    # then the block's plan (V6_PLAN_BYTES), a full and an empty mbarrier a stage
-    bar_off = _round_up(act_off + (4 if form == "bf16" else 1) * max(5 * c, f_dim), 16)
-    bar_off += V6_PLAN_BYTES
-    ring_off = _round_up(bar_off + 16 * V6_MAX_STAGES, 128)
+    plan_off = _round_up(act_off + (4 if form == "bf16" else 1) * max(5 * c, f_dim), 16)
     piece = max(8 * c, 4 * s * s, s * _form_bytes(sf, d_dec) + (16 if form == "bf16" else 20) * s)
     row = max(_form_bytes(form, c), _form_bytes(form, f_dim), _form_bytes(sf, c), 4 * d_maa)
-    piece = _round_up(max(piece, row + _win_bytes(1)), 16)
-    ring = max(V6_SMEM_LIMIT - ring_off, 0)
-    stage = max(piece, ring // V6_TARGET_STAGES // 16 * 16)
-    stages = min(ring // stage, V6_MAX_STAGES)
+    bar_off, ring_off, stage, stages = _ring(plan_off, max(piece, row + _win_bytes(1)))
     if stages < V6_MIN_STAGES:
         raise ValueError(f"K6's ring holds {stages} stages of {stage} bytes at these widths, "
                          f"it needs {V6_MIN_STAGES}")
@@ -1588,11 +1629,167 @@ def v4_decode_step_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
     return lm_head_ref(pack, x), new
 
 
-def v45_scratch_floats(version: int, c: int, f_dim: int) -> int:
+V5_AMAX_SLOTS = 2  # a layer's published amax in K7's scratch: xo, the relu^2 keys
+
+
+def v45_scratch_floats(version: int, c: int, f_dim: int, n_layer: int = 0) -> int:
     """Floats of K7's / K8's global scratch (``scratch_floats`` in the
-    sources): v5 x, r|k|v|g, xo, sigmoid(fr), relu^2 keys -- 7C + F; v4
-    x, sigmoid(r)|k|v, sigmoid(fr), relu^2 keys -- 5C + F."""
-    return (7 if version == 5 else 5) * c + f_dim
+    sources): v5 x, r|k|v|g, xo, sigmoid(fr), relu^2 keys -- 7C + F --, then
+    ``V5_AMAX_SLOTS`` amax slots a layer of `n_layer`; v4 x,
+    sigmoid(r)|k|v, sigmoid(fr), relu^2 keys -- 5C + F."""
+    if version == 5:
+        return 7 * c + f_dim + V5_AMAX_SLOTS * n_layer
+    return 5 * c + f_dim
+
+
+# -- K7's stream plan (csrc/v5_decode.cu: Layout5, Plan5, piece_copy) -----------
+#
+# As K6's (``v6_stream_plan``): a block's rows of each phase in pieces with
+# their row scales' windows; a phase's vector rows (A: ln1 w, b, the
+# attention mixes, att_in; E: ln2 w, b, the FFN mixes k, r, ffn_in) in
+# pieces of ``vec_rows`` rows, as many as fit a stage up to
+# ``V5_MAX_VEC_ROWS``; a head's state, then its td, tf, ln_x w and b, in
+# one piece.
+V5_STATIC_SMEM = 0  # K7's static shared memory (the card tests read the kernel's)
+V5_MAX_VEC_ROWS = 8  # vector rows a piece at most (kMaxVecRows)
+V5_VEC_E = 5  # phase E's vector rows
+V5_SEGS = ("vec_a", "att", "heads", "out", "vec_e", "fk", "fr", "fv")
+V5_HEAD_SEGS = ("ln_out", "head")
+V5_STREAMED = ("att", "out", "fk", "fr", "fv", "head")
+_V5_VEC_ROW = {"ln1.weight": 0, "ln1.bias": 1, "ln2.weight": 2, "ln2.bias": 3, "fmix": 4,
+               "td": 6, "tf": 7, "att.ln_x.weight": 8, "att.ln_x.bias": 9, "amix": 10}
+
+
+def v5_mat_offsets(form: str, c: int, f_dim: int, n_att: int) -> dict:
+    """Byte offsets of a layer's matrices in K7's / K8's flat ``mats``
+    buffer and the layer's bytes ("layer"): the kernels' MatOffsets45
+    (``n_att`` fused attention projections)."""
+    return _offsets((name, _form_bytes(form, n)) for name, n in (
+        ("att", n_att * c * c), ("out", c * c), ("fk", f_dim * c), ("fv", c * f_dim),
+        ("fr", c * c)))
+
+
+def v5_scale_offsets(c: int, f_dim: int, n_att: int) -> dict:
+    """Float offsets of a layer's row scales and its count ("layer"): the
+    kernels' ScaleOffsets45."""
+    return _offsets((("att", n_att * c), ("out", c), ("fk", f_dim), ("fv", c), ("fr", c)))
+
+
+@dataclass(frozen=True)
+class V5StreamPlan(_StreamPlan):
+    """K7's stream plan for one weight form, version (``n_att`` = 4 for
+    v5.2, 3 for v5.1) and grid (``v5_stream_plan``): the shared-memory
+    layout as ``V6StreamPlan``'s, ``vec_rows`` vector rows a piece, and per
+    block the rows of each phase and the copies of each piece."""
+
+    SEGS = V5_SEGS
+    HEAD_SEGS = V5_HEAD_SEGS
+    STREAMED = V5_STREAMED
+
+    form: str
+    n_att: int
+    c: int
+    f_dim: int
+    n_heads: int
+    head_size: int
+    vocab: int
+    blocks: int
+    act_off: int
+    bar_off: int
+    ring_off: int
+    stage_bytes: int
+    n_stages: int
+    smem_bytes: int
+    vec_rows: int
+
+    def _spec(self, name: str) -> tuple:
+        """(rows, row bytes, scale window, dealt from the last block, most
+        lanes a row)."""
+        c, f, form = self.c, self.f_dim, self.form
+        w, big = form != "bf16", _lanes_for(c, form)
+        return {"att": (self.n_att * c, _form_bytes(form, c), w, False, big),
+                "out": (c, _form_bytes(form, c), w, False, big),
+                "fk": (f, _form_bytes(form, c), w, False, big),
+                "fr": (c, _form_bytes(form, c), w, True, big),
+                "fv": (c, _form_bytes(form, f), w, False, _lanes_for(f, form)),
+                "head": (self.vocab, _form_bytes(_small_form(form), c), w, False, 8)}[name]
+
+    def vec_run(self, seg: str) -> tuple:
+        """The vector rows of segment "vec_a" / "vec_e" in order, each as
+        (array, row key): a pack vector row, att_in or ffn_in."""
+        if seg == "vec_a":
+            return ((("vecs", "ln1.weight"), ("vecs", "ln1.bias"))
+                    + tuple(("vecs", ("amix", m)) for m in range(self.n_att))
+                    + (("att_in", None),))
+        return (("vecs", "ln2.weight"), ("vecs", "ln2.bias"), ("vecs", ("fmix", 0)),
+                ("vecs", ("fmix", 1)), ("ffn_in", None))
+
+    def phase_a_fused(self) -> bool:
+        """Whether phase A holds all its vector pieces at once (the kernel's
+        ``phase_a_fused``); else it releases ln1's piece after the layer
+        norm, at two rows a piece, and holds at most three."""
+        return self.count("vec_a", 0) <= self.n_stages
+
+    def _count(self, seg: str, block: int) -> int:
+        if seg in ("vec_a", "vec_e"):
+            return _cdiv(len(self.vec_run(seg)), self.vec_rows)
+        return len(self.block_heads(block)) if seg == "heads" else 1
+
+    def copies(self, block: int, layer: int, seg: str, idx: int) -> tuple:
+        """The copies of piece `idx` of segment `seg` of `layer`."""
+        c, s = self.c, self.head_size
+        w = self.form != "bf16"
+        mo = v5_mat_offsets(self.form, c, self.f_dim, self.n_att)
+        so = v5_scale_offsets(c, self.f_dim, self.n_att)
+        n_vec = _V5_VEC_ROW["amix"] + self.n_att
+
+        def vec(row, at: int = 0) -> int:
+            key, m = row if isinstance(row, tuple) else (row, 0)
+            return 4 * ((layer * n_vec + _V5_VEC_ROW[key] + m) * c + at)
+
+        if seg in V5_STREAMED:
+            if seg == "head":
+                array, at, scale = "head", 0, ("head_d", 0) if w else None
+            else:
+                array, at = "mats", layer * mo["layer"] + mo[seg]
+                scale = ("scales", 4 * (layer * so["layer"] + so[seg])) if w else None
+            return _stream_rows_copies(self.rows(seg, block), idx, array, at, scale)
+        if seg in ("vec_a", "vec_e"):
+            run = self.vec_run(seg)[idx * self.vec_rows:(idx + 1) * self.vec_rows]
+            return tuple(StreamCopy(a, vec(key) if a == "vecs" else 4 * layer * c, 4 * c,
+                                    4 * c * i) for i, (a, key) in enumerate(run))
+        if seg == "heads":
+            h = self.block_heads(block)[idx]
+            out = [StreamCopy("heads_in", 4 * (layer * self.n_heads + h) * s * s, 4 * s * s, 0)]
+            for i, row in enumerate(("td", "tf", "att.ln_x.weight", "att.ln_x.bias")):
+                out.append(StreamCopy("vecs", vec(row, h * s), 4 * s, 4 * s * s + 4 * s * i))
+            return tuple(out)
+        return (StreamCopy("ln_out", 0, 8 * c, 0),)  # ln_out
+
+
+def v5_stream_plan(form: str, c: int, f_dim: int, n_heads: int, head_size: int, vocab: int,
+                   blocks: int, n_att: int = 4) -> V5StreamPlan:
+    """K7's stream plan in weight form `form` ("i8", "i4", "bf16") for a
+    grid of `blocks` and ``n_att`` fused attention projections (4: v5.2, 3:
+    v5.1): the kernel's Layout5 and Plan5. The ring takes what shared memory
+    is left below ``STREAM_SMEM_LIMIT`` after the activations, about
+    ``STREAM_TARGET_STAGES`` stages, each at least the largest piece (two
+    vector rows, a head's state with its vector slices, one row of any
+    matrix with its scale window); raises ValueError below
+    ``STREAM_MIN_STAGES``."""
+    s = head_size
+    act_off = _round_up(4 * (2 * c + 5 * s + 256 + 8 + V5_AMAX_SLOTS), 16)
+    plan_off = _round_up(act_off + (4 if form == "bf16" else 1) * max(4 * c, f_dim), 16)
+    piece = max(8 * c, 4 * s * s + 16 * s)
+    row = max(_form_bytes(form, c), _form_bytes(form, f_dim), _form_bytes(_small_form(form), c))
+    bar_off, ring_off, stage, stages = _ring(plan_off, max(piece, row + _win_bytes(1)))
+    plan = V5StreamPlan(form, n_att, c, f_dim, n_heads, head_size, vocab, blocks, act_off,
+                        bar_off, ring_off, stage, stages, ring_off + stages * stage,
+                        min(stage // (4 * c), V5_MAX_VEC_ROWS))
+    if stages < STREAM_MIN_STAGES:
+        raise ValueError(f"K7's ring holds {stages} stages of {stage} bytes at these widths, "
+                         f"it needs {STREAM_MIN_STAGES}")
+    return plan
 
 
 def _v45_dims_error(name: str, cfg, f_dim: int, w4: bool) -> Optional[str]:
@@ -1604,16 +1801,29 @@ def _v45_dims_error(name: str, cfg, f_dim: int, w4: bool) -> Optional[str]:
     return None
 
 
-def v5_decode_shape_error(cfg, f_dim: int, w4: bool = False) -> Optional[str]:
+def v5_decode_shape_error(cfg, f_dim: int, w4: bool = False, form: Optional[str] = None,
+                          n_att: int = 4) -> Optional[str]:
     """Why K7 cannot take this model's shapes, or None. K7 walks weight
-    rows of any width in 16-byte chunks; shared memory is checked at
-    launch."""
+    rows of any width in 16-byte chunks and streams them in 16-byte pieces
+    through shared memory (``v5_stream_plan``, checked in `form`: by default
+    the int form `w4` names, with `n_att` attention projections)."""
     s = cfg.head_size
     if cfg.version_major != 5:
         return "K7 decodes RWKV v5 only"
-    if s <= 0 or 256 % s or s * s // 256 > 16:
-        return f"K7 supports head sizes dividing 256 up to 64, got {s}"
-    return _v45_dims_error("K7", cfg, f_dim, w4)
+    if s <= 0 or 256 % s or s * s // 256 > 16 or s % 4:
+        return f"K7 supports head sizes dividing 256 from 4 up to 64, got {s}"
+    err = _v45_dims_error("K7", cfg, f_dim, w4)
+    if err:
+        return err
+    if cfg.n_vocab % 4:
+        return ("K7 streams the head's row scales in 16-byte pieces: the vocabulary must be "
+                f"a multiple of 4, got {cfg.n_vocab}")
+    try:
+        v5_stream_plan(form or ("i4" if w4 else "i8"), cfg.n_embed, f_dim, cfg.head_count, s,
+                       cfg.n_vocab, 1, n_att)
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 def v4_decode_shape_error(cfg, f_dim: int, w4: bool = False) -> Optional[str]:
@@ -1651,8 +1861,10 @@ def v45_decode_launch(fn, pack: dict, state: dict, token: torch.Tensor, cfg,
         raise ValueError(f"K7 / K8 need a v5 or v4 pack of this model's version, got {version}")
     c, f, w4 = cfg.n_embed, pack["f_dim"], pack["w4"]
     n_layer, vocab = cfg.n_layer, cfg.n_vocab
-    shape_error = v5_decode_shape_error if version == 5 else v4_decode_shape_error
-    err = shape_error(cfg, f, w4)
+    if version == 5:
+        err = v5_decode_shape_error(cfg, f, w4, pack["form"], 4 if pack["has_gate"] else 3)
+    else:
+        err = v4_decode_shape_error(cfg, f, w4)
     if err:
         raise ValueError(err)
     _check_pack(pack)
@@ -1667,7 +1879,7 @@ def v45_decode_launch(fn, pack: dict, state: dict, token: torch.Tensor, cfg,
     outs = {k: torch.empty_like(v) for k, v in ins.items()}
     logits = torch.empty((vocab,), dtype=torch.float32, device=dev)
     alloc = torch.zeros if scratch_extra else torch.empty
-    scratch = alloc((v45_scratch_floats(version, c, f) + scratch_extra,),
+    scratch = alloc((v45_scratch_floats(version, c, f, n_layer) + scratch_extra,),
                     dtype=torch.float32, device=dev)
     lib = f"v{version}_decode"
     grid = pack.get("_grid_v45")

@@ -47,8 +47,8 @@ bf16): its time per launch from a seeded state (against an earlier
 ``DIR/v6_decode.cu`` with ``--baseline``, as above), with ``--phases`` also the
 mean time of each of the seven phases of a layer (A, M, B, C, D, E, F)
 and of each barrier from the timing build (each source's stamps read at
-that source's own scratch offset, ``v6_stamps_at``), and with ``--flips`` also its
-distance from its plain version (x, state and logits, each over its
+that source's own scratch offset, ``stamps_at``), and with ``--flips``
+also its distance from its plain version (x, state and logits, each over its
 largest value) on the packs cut to their first 1 and 2 layers and at full
 depth, for 12 seeded states: the readings that set ``chip_smoke.py``'s
 limits for K6. ``--v5`` does the same for K7 on the RWKV-5 (v5.2) models
@@ -311,18 +311,22 @@ def b1_flips(models, cfg, label: str, n_seeds: int = 12, depths=None) -> dict:
     return worst
 
 
-def v6_stamps_at(pack, cfg, src_path, flags: tuple) -> int:
-    """Float offset of the timing build's stamps in K6's scratch for the
-    source `src_path` (None: csrc): behind the per-layer amax slots where
-    that K6 publishes its amax (it has the ``rwkv_v6_decode_plan`` entry),
-    else behind the activations alone."""
+def stamps_at(pack, cfg, version: int, src_path, flags: tuple) -> int:
+    """Float offset of the timing build's stamps in the scratch of K6, K7
+    or K8 (`version`) for the source `src_path` (None: csrc): behind the
+    per-layer amax slots where that source streams its inputs and publishes
+    its amax (it has the ``rwkv_v<version>_decode_plan`` entry), else
+    behind the activations alone."""
     from rwkv_tpu_torch.ops import _cuda
-    from rwkv_tpu_torch.ops.megakernel import v6_scratch_floats
+    from rwkv_tpu_torch.ops.megakernel import v6_scratch_floats, v45_scratch_floats
 
-    src = _cuda.CSRC / "v6_decode.cu" if src_path is None else src_path
-    streamed = hasattr(_cuda.library("v6_decode_probe", src, flags), "rwkv_v6_decode_plan")
-    return v6_scratch_floats(cfg.n_embed, pack["d_maa"], pack["d_dec"], pack["f_dim"],
-                             cfg.n_layer if streamed else 0)
+    name = f"v{version}_decode"
+    src = _cuda.CSRC / f"{name}.cu" if src_path is None else src_path
+    streamed = hasattr(_cuda.library(name + "_probe", src, flags), f"rwkv_{name}_plan")
+    layers = cfg.n_layer if streamed else 0
+    if version == 6:
+        return v6_scratch_floats(cfg.n_embed, pack["d_maa"], pack["d_dec"], pack["f_dim"], layers)
+    return v45_scratch_floats(version, cfg.n_embed, pack["f_dim"], layers)
 
 
 def b1_main(args, base_dir, version: int) -> int:
@@ -330,7 +334,6 @@ def b1_main(args, base_dir, version: int) -> int:
     published width (against ``base_dir/v<version>_decode.cu`` where given),
     and per phase (--phases) and its drift from the plain version by depth
     (--flips)."""
-    from rwkv_tpu_torch.ops.megakernel import v45_scratch_floats
     from rwkv_tpu_torch.tools.card import (
         V4_WIDTH, V5_WIDTH, V6_WIDTH, card_line, decode_entry, decode_launcher, seeded_states,
         width_models,
@@ -363,10 +366,9 @@ def b1_main(args, base_dir, version: int) -> int:
         for label, src_path in srcs.items() if "--phases" in args else ():
             extra = 2 * (2 + 2 * len(names) * cfg.n_layer)
             flags = ("-DRWKV_PHASE_TIMES",)
-            base = (v6_stamps_at(pack, cfg, src_path, flags) if version == 6
-                    else v45_scratch_floats(version, cfg.n_embed, pack["f_dim"]))
             times = phase_times(lambda: run(src_path, flags, extra)[2],
-                                base, cfg.n_layer, len(names))
+                                stamps_at(pack, cfg, version, src_path, flags), cfg.n_layer,
+                                len(names))
             print_phases(f"{label} {name} {prec} B=1", times, names)
     if "--flips" in args:
         b1_flips(models, cfg, name)

@@ -506,6 +506,80 @@ def test_v45_decode_kernel_refuses_a_v6_pack(cuda_device):
                           torch.tensor([1], device=cuda_device), tc5)
 
 
+@pytest.mark.parametrize("form", TM.FORMS)
+@pytest.mark.parametrize("version", ["5.2", "5.1"])
+def test_v5_decode_kernel_same_bits_on_every_grid(cuda_device, version, form):
+    """K7's stream plan deals each phase's rows over the grid, but never
+    changes how a row is computed: logits and state are bit-equal on grids
+    of 132, 64, 33 and 7 blocks (pack["_grid_v45"]), in every weight form,
+    at C=256 (H=4) and C=768 (H=12)."""
+    for c in (256, 768):
+        tc = synth_config(version, 2, c, 256, 64)
+        tp = synth_params(tc, seed=7)
+        pack = TM.build_mega_pack_v5(tp, tc, w4=form == "i4", quant=form != "bf16")
+        dp = TM.device_pack(pack, tp["emb"].to(torch.bfloat16), tp["ln0"], cuda_device)
+        state = _v45_state(tc, cuda_device, 4)
+        tok = torch.tensor([9], device=cuda_device)
+        outs = {}
+        for grid in (132, 64, 33, 7):
+            dp["_grid_v45"] = grid
+            logits, new = TM.v5_decode_step(dp, state, tok, tc)
+            outs[grid] = [logits] + [new[k] for k in sorted(new)]
+        for grid, out in outs.items():
+            assert all(torch.equal(a, b) for a, b in zip(out, outs[132])), (c, grid)
+
+
+@pytest.mark.parametrize("version", ["5.2", "5.1"])
+def test_v5_decode_kernel_at_c4096_in_bf16(cuda_device, version):
+    """K7's bf16 form at C=4096 (F=16384, one layer), where the ring holds
+    three stages of two vector rows: v5.1 holds phase A's three vector
+    pieces at once, v5.2 releases ln1's piece before the mixes' amax
+    (v5_stream_plan(...).phase_a_fused() is False). Both within BF16_BAND
+    of the plain version, equal argmax, two launches bit for bit."""
+    tc = synth_config(version, 1, 4096, 256, 64)
+    tp = synth_params(tc, seed=3)
+    dp = TM.device_pack(TM.build_mega_pack_v5(tp, tc, quant=False),
+                        tp["emb"].to(torch.bfloat16), tp["ln0"], cuda_device)
+    n_att = 4 if dp["has_gate"] else 3
+    plan = TM.v5_stream_plan("bf16", 4096, dp["f_dim"], 64, 64, 256, 132, n_att)
+    assert plan.n_stages == 3 and plan.phase_a_fused() == (version == "5.1")
+    state = _v45_state(tc, cuda_device, 5)
+    tok = torch.tensor([3], device=cuda_device)
+    logits, new = TM.v5_decode_step(dp, state, tok, tc)
+    logits2, new2 = TM.v5_decode_step(dp, state, tok, tc)
+    assert torch.equal(logits, logits2) and all(torch.equal(new[k], new2[k]) for k in new)
+    ref_logits, ref_new = TM.v5_decode_step_ref(dp, state, tok, tc)
+    assert _rel(logits, ref_logits) <= BF16_BAND
+    assert int(logits.argmax()) == int(ref_logits.argmax())
+    for k in new:
+        assert _rel(new[k], ref_new[k]) <= BF16_BAND, k
+
+
+def test_v5_decode_plan_matches_the_python_plan(cuda_device):
+    """The kernel's own stream plan (rwkv_v5_decode_plan: shared bytes,
+    stage bytes and count, a block's pieces a layer and of the head) is
+    v5_stream_plan's, in every form, for v5.2 and v5.1, at C=256, 768, 2048
+    and 4096 on several grids; K7 has the static shared memory the plan
+    assumes."""
+    from rwkv_tpu_torch.ops import _cuda
+
+    fn = _cuda.library("v5_decode").rwkv_v5_decode_plan
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    for c, f, h, v in ((256, 1024, 4, 256), (768, 3072, 12, 65536), (2048, 8192, 32, 65536),
+                       (4096, 14336, 64, 65536)):
+        for wf, form in enumerate(TM.FORMS):
+            for gate in (0, 1):
+                for blocks in (132, 33, 7):
+                    plan = TM.v5_stream_plan(form, c, f, h, 64, v, blocks, 3 + gate)
+                    for b in sorted({0, 5, blocks - 1}):
+                        out = (ctypes.c_longlong * 6)()
+                        assert fn(wf, gate, c, 64, f, h, v, blocks, b, out) == 0
+                        assert list(out) == [plan.smem_bytes, plan.stage_bytes, plan.n_stages,
+                                             plan.layer_pieces(b), plan.head_pieces(b),
+                                             TM.V5_STATIC_SMEM], (c, form, gate, blocks, b)
+
+
 @pytest.mark.parametrize("precision", ["w8a8", "w4a8"])
 @pytest.mark.parametrize("version", V45)
 def test_card_v45_serving_matches_cpu_and_goes_through_kernels(cuda_device, version, precision):
