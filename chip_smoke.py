@@ -17,7 +17,11 @@
      against the token recurrence, rtol 3e-4 / atol 3e-5 against the
      chunked form.
    - K3 ``v7_decode_step``: the 169M w8a8 and w4a8 packs after a 256-token
-     prefill; logits and state within 2e-2, equal argmax.
+     prefill; logits and state within 2e-2, equal argmax; its stream plan
+     (stages, stage bytes, pieces a layer) printed beside its time. K3
+     deals each phase's rows over the grid, so both packs (and the bf16
+     one) cut to 2 layers must give bit-equal logits, x and state on the
+     full grid and on half of it (``grid_invariance``).
    - K4 ``v7_decode_batched``: the 169M w8a8 and w4a8 packs at B = 1, 8,
      17 (a ragged last n-tile) and 64, from states of a seeded batched
      prefill, and
@@ -584,9 +588,21 @@ def phase_k3(model, state, token, cfg, name="K3"):
     n_weights = layer_codes(pack) + head_weights(pack)
     b, kind = bound_ms(nb, 2 * n_weights, op_rate(pack))
     print(f"{name}: kernel {kern:.4f} ms, plain {plain:.4f} ms, bound {b:.5f} ms ({kind}, "
-          f"{nb / 1e6:.1f} MB), grid {pack['_grid']} blocks")
+          f"{nb / 1e6:.1f} MB), grid {pack['_grid']} blocks; {k3_plan_str(pack, cfg)}")
     return {"ms": kern, "plain_ms": plain, "library_ms": None, "bound_ms": b,
             "bound_by": kind, "max_abs_err": err}
+
+
+def k3_plan_str(pack: dict, cfg) -> str:
+    """K3's stream plan on the pack's grid: stages, stage bytes and a
+    block's pieces a layer (fewest and most over the grid)."""
+    from rwkv_tpu_torch.ops.megakernel import v7_stream_plan
+
+    plan = v7_stream_plan(pack["form"], cfg.n_embed, pack["f_dim"], pack["d_lora"],
+                          cfg.head_count, cfg.head_size, cfg.n_vocab, pack["_grid"])
+    pieces = [plan.layer_pieces(b) for b in range(plan.blocks)]
+    return (f"stream plan: {plan.n_stages} stages of {plan.stage_bytes} bytes, "
+            f"{min(pieces)}-{max(pieces)} pieces a layer, {plan.head_pieces(0)} of the head")
 
 
 def small_model_check(dev, version: str = "7.0", precision: str = "w8a8"):
@@ -877,18 +893,20 @@ def phase_b1(name: str, models, cfg, n_states: int = 8, seed: int = 7):
         n_weights = layer_codes(pack) + head_weights(pack)
         b, kind = bound_ms(nb, 2 * n_weights, op_rate(pack))
         grid = pack.get("_grid_v6", pack.get("_grid_v45", pack.get("_grid")))
+        plan = f"; {k3_plan_str(pack, cfg)}" if cfg.version_major == 7 else ""
         print(f"{name} {prec}: kernel {kern:.4f} ms, plain {plain:.4f} ms, bound {b:.5f} ms "
-              f"({kind}, {nb / 1e6:.1f} MB), grid {grid} blocks")
+              f"({kind}, {nb / 1e6:.1f} MB), grid {grid} blocks{plan}")
         out[prec] = {"ms": kern, "plain_ms": plain, "library_ms": None, "bound_ms": b,
                      "bound_by": kind, "max_abs_err": err}
     return out
 
 
 def grid_invariance(name: str, models, cfg, width: str, seed: int = 9) -> None:
-    """K6 or K7 (by the config's version) on the packs at a published width
-    cut to 2 layers (a shallower config over the same buffers) on the full
-    grid and on half of it: logits, x and state bit-equal in every form.
-    Launches through the C entry, so the launch counters do not move."""
+    """K3, K6 or K7 (by the config's version) on the packs at a published
+    width cut to 2 layers (a shallower config over the same buffers) on the
+    full grid and on half of it: logits, x and state bit-equal in every
+    form. Launches through the C entry, so the launch counters do not
+    move."""
     import dataclasses
 
     import torch
@@ -896,7 +914,7 @@ def grid_invariance(name: str, models, cfg, width: str, seed: int = 9) -> None:
     from rwkv_tpu_torch.ops import megakernel as M
     from rwkv_tpu_torch.tools.card import decode_entry, seeded_states
 
-    key, launch = {6: ("_grid_v6", M.v6_decode_launch),
+    key, launch = {7: ("_grid", M.decode_launch), 6: ("_grid_v6", M.v6_decode_launch),
                    5: ("_grid_v45", M.v45_decode_launch)}[cfg.version_major]
     states, tokens = seeded_states(next(iter(models.values())), cfg, 1, 16, seed=seed)
     cd = dataclasses.replace(cfg, n_layer=2)
@@ -1626,6 +1644,7 @@ def main() -> int:
     res["K3"] = phase_k3(model, state, token, cfg)
     logits4, state4 = model4.prefill(prompt)
     res["K3w4"] = phase_k3(model4, state4, logits4.argmax().reshape(1), cfg, "K3 w4a8")
+    grid_invariance("K3", {"w8a8": model, "w4a8": model4}, cfg, "169M")
     states, tokens = seeded_states(model, cfg, 64, 32, seed=1)
     for b in (1, 8, 64):
         res[f"K4 B={b}"] = phase_k4(model._mega, cfg, states, tokens, b, f"K4 w8a8 B={b}")
@@ -1642,6 +1661,7 @@ def main() -> int:
     model16 = ServingModel((cfg, params), precision="bf16", megakernel=True)
     print(f"169M bf16 model built in {time.perf_counter() - t0:.1f} s")
     res["K3bf16"] = phase_b1("K3", {"bf16": model16}, cfg)["bf16"]
+    grid_invariance("K3", {"bf16": model16}, cfg, "169M")
     for b in (1, 8, 64):
         res[f"K4bf16 B={b}"] = phase_k4(model16._mega, cfg, states, tokens, b,
                                         f"K4 bf16 B={b}")

@@ -1,12 +1,13 @@
-// A block's input stream for the B=1 whole-model decode kernels K6
-// (v6_decode.cu) and K7 (v5_decode.cu): a ring of shared-memory stages fed
+// A block's input stream for the B=1 whole-model decode kernels K3
+// (v7_decode.cu), K6 (v6_decode.cu) and K7 (v5_decode.cu): a ring of
+// shared-memory stages fed
 // by 1-D bulk asynchronous copies (TMA, cp.async.bulk) that complete on a
 // "full" mbarrier a stage, the generic parts of a kernel's stream plan (the
 // ring's size, a block's share of a matrix's rows, the producer's walk over
 // the plan), the consumers' side of the stream (waits, releases, the matvec
 // of weight rows that lie in a stage), the quantization of a phase's input
 // vector from an amax that the producing phase published, and the LM head
-// phase both kernels end with.
+// phase the kernels end with.
 //
 // The block is warp-specialized: kConsumerWarps warps (kConsumers threads)
 // compute, and one producer warp walks the block's stream of pieces in the
@@ -20,6 +21,12 @@
 // exited. The consumer-side block reductions, layer norm and quantization
 // here repeat decode_common.cuh's arithmetic, in the same order, over the
 // consumer threads.
+//
+// These steps sit on the kernels' critical path once a phase, every phase,
+// and a kernel's code is larger than an SM's instruction cache: the index
+// arithmetic of the stream's hot paths uses shifts, masks and running
+// counters (the lane and group counts are powers of two), not integer
+// division, which the card expands into ~20 instructions a use.
 #pragma once
 
 #include "decode_common.cuh"
@@ -103,26 +110,24 @@ __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
 
 // A barrier across the grid for one thread a block (the caller brackets it
 // with csync, so the block's writes before it are ordered before the
-// arrival's release, and its reads after it after the acquire): count
-// (zero between barriers) and gen are the barrier's state in global
-// memory, and gen_seen the generation this block last saw (read once
-// before its first barrier: gen cannot move before every block arrives).
-// The last of `blocks` arrivals resets the count and advances the
-// generation the others wait on. A wait that outlasts ~2^33 cycles traps.
-__device__ __forceinline__ void grid_sync(unsigned* count, unsigned* gen, unsigned blocks,
-                                          unsigned& gen_seen) {
+// arrival's release, and its reads after it after the acquire): count is
+// the barrier's word in global memory. Each block adds to it once with
+// release semantics -- block 0 2^31 - (blocks - 1), every other block 1 --
+// so the last arrival flips its top bit, which every block waits for with
+// acquire loads. A barrier adds 2^31 in all, so the word needs no reset
+// between barriers or launches (a grid of any size). A wait that outlasts
+// ~2^33 cycles traps.
+__device__ __forceinline__ void grid_sync(unsigned* count, unsigned blocks) {
+  const unsigned add = blockIdx.x == 0 ? 0x80000000u - (blocks - 1) : 1u;
   unsigned old;
-  asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;" : "=r"(old) : "l"(count) : "memory");
-  if (old == blocks - 1) {
-    asm volatile("st.relaxed.gpu.global.u32 [%0], 0;" ::"l"(count) : "memory");
-    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(gen) : "memory");
-  } else {
-    const long long t0 = clock64();
-    while (ld_acquire(gen) == gen_seen) {
-      if (clock64() - t0 > (1ll << 33)) __trap();
-    }
+  asm volatile("atom.add.release.gpu.global.u32 %0, [%1], %2;"
+               : "=r"(old)
+               : "l"(count), "r"(add)
+               : "memory");
+  const long long t0 = clock64();
+  while (((old ^ ld_acquire(count)) & 0x80000000u) == 0) {
+    if (clock64() - t0 > (1ll << 33)) __trap();
   }
-  ++gen_seen;
 }
 
 // ---- the stream plan's generic parts (a kernel's Layout / Plan / copies) ---
@@ -303,8 +308,12 @@ __device__ void layer_norm_act(const float* src, float* dst, const float* w, con
       if (threadIdx.x == 0) dxs[m] = dx;
     }
     for (int c = threadIdx.x; c < n; c += kConsumers) {
+      // the codes first, then the stores: a byte store may alias what f reads
+      int8_t q[N];
 #pragma unroll
-      for (int m = 0; m < N; ++m) xq[m * stride + c] = act_code(f(m, c), inv[m]);
+      for (int m = 0; m < N; ++m) q[m] = act_code(f(m, c), inv[m]);
+#pragma unroll
+      for (int m = 0; m < N; ++m) xq[m * stride + c] = q[m];
     }
   }
   csync();
@@ -337,8 +346,12 @@ __device__ void act_n(Fn f, int n, act_t<WF>* xq, int stride, float* dxs, float*
       if (threadIdx.x == 0) dxs[m] = dx;
     }
     for (int c = threadIdx.x; c < n; c += kConsumers) {
+      // the codes first, then the stores: a byte store may alias what f reads
+      int8_t q[N];
 #pragma unroll
-      for (int m = 0; m < N; ++m) xq[m * stride + c] = act_code(f(m, c), inv[m]);
+      for (int m = 0; m < N; ++m) q[m] = act_code(f(m, c), inv[m]);
+#pragma unroll
+      for (int m = 0; m < N; ++m) xq[m * stride + c] = q[m];
     }
   }
   csync();
@@ -438,13 +451,14 @@ __device__ __forceinline__ void smem_rows(const unsigned char* rows, int n, int 
   using Acc = typename FormTraits<WF>::Acc;
   const int row_bytes = static_cast<int>(form_bytes(WF, K));
   const int nchunks = row_bytes >> 4;
-  int lpr = max_lpr;
-  while (lpr > 1 && (nchunks % lpr) != 0) lpr >>= 1;
-  const int per_lane = nchunks / lpr;
+  int lpr = max_lpr;  // a power of two, as every count below
+  while (lpr > 1 && (nchunks & (lpr - 1)) != 0) lpr >>= 1;
+  const int lg = __ffs(lpr) - 1;
+  const int per_lane = nchunks >> lg;
   const int lane = threadIdx.x & 31;
-  const int sub_lane = lane % lpr, gpw = 32 / lpr, groups = kConsumerWarps * gpw;
-  const int t = (threadIdx.x >> 5) * gpw + lane / lpr;  // this lane group
-  const int first = (t - skip % groups + groups) % groups;
+  const int sub_lane = lane & (lpr - 1), gpw = 32 >> lg, groups = kConsumerWarps * gpw;
+  const int t = (threadIdx.x >> 5) * gpw + (lane >> lg);  // this lane group
+  const int first = (t - (skip & (groups - 1)) + groups) & (groups - 1);
   for (int base = 0; base < n; base += groups) {  // warp-uniform
     const int row = base + first;
     Acc a = 0;
@@ -538,9 +552,10 @@ __device__ void produce(const Plan& pl, int n_layer, int stages, unsigned char* 
                         uint64_t* full, uint64_t* empty, Copy copy) {
   const int lane = threadIdx.x & 31;
   int layer = 0, seg = 0, idx = 0;
+  int s = 0;           // piece j's stage: j = round * stages + s
+  uint32_t round = 0;
   for (int j = 0; seg != AllSegs; ++j) {
-    const int s = j % stages;
-    if (j >= stages) wait_parity(&empty[s], static_cast<uint32_t>((j / stages - 1) & 1));
+    if (j >= stages) wait_parity(&empty[s], (round - 1) & 1u);
     const void* src = nullptr;
     uint32_t at = 0, bytes = 0;
     const bool mine = copy(layer, seg, idx, lane, &src, &at, &bytes);
@@ -548,6 +563,10 @@ __device__ void produce(const Plan& pl, int n_layer, int stages, unsigned char* 
     if (lane == 0) arrive_expect_tx(&full[s], total);
     __syncwarp();
     if (mine) bulk_copy(ring + static_cast<size_t>(s) * stage + at, src, bytes, &full[s]);
+    if (++s == stages) {
+      s = 0;
+      ++round;
+    }
     ++idx;
     while (seg < AllSegs && idx >= pl.count(seg)) {
       idx = 0;
@@ -570,19 +589,26 @@ struct Stream {
   int stages;
   uint64_t* full;
   uint64_t* empty;
-  int next = 0, released = 0;  // the piece the block waits for next; pieces released
+  int next = 0;          // the stage of the piece the block waits for next
+  uint32_t parity = 0;   // and its full barrier's phase parity
+  int released = 0;      // the stage of the oldest piece not yet released
 
   __device__ const unsigned char* wait() {
-    const int s = next % stages;
-    wait_parity(&full[s], static_cast<uint32_t>((next / stages) & 1));
-    ++next;
+    const int s = next;
+    wait_parity(&full[s], parity);
+    if (++next == stages) {
+      next = 0;
+      parity ^= 1u;
+    }
     return ring + static_cast<size_t>(s) * stage;
   }
 
   __device__ void release(int k) {
     __syncwarp();
-    for (int i = 0; i < k; ++i, ++released)
-      if ((threadIdx.x & 31) == 0) arrive(&empty[released % stages]);
+    for (int i = 0; i < k; ++i) {
+      if ((threadIdx.x & 31) == 0) arrive(&empty[released]);
+      if (++released == stages) released = 0;
+    }
   }
 
   template <int FF, typename XSel, typename Epi>
@@ -592,7 +618,7 @@ struct Stream {
       const int c0 = r.c0(k), n = r.c1(k) - c0, w0 = c0 & ~3;
       const unsigned char* st = wait();
       const float* win = reinterpret_cast<const float*>(st + static_cast<size_t>(n) * r.rb);
-      smem_rows<FF>(st, n, K, r.lpr, (c0 - r.r0) % g, [&](int j) { return xsel(c0 + j); },
+      smem_rows<FF>(st, n, K, r.lpr, (c0 - r.r0) & (g - 1), [&](int j) { return xsel(c0 + j); },
                     [&](int j, auto acc) { epi(c0 + j, acc, win + (c0 + j - w0)); });
       release(1);
     }

@@ -347,10 +347,8 @@ __host__ __device__ inline bool piece_copy(const Args& p, const MatOffsets6& mo,
   }
 }
 
-// The grid barrier's state (stream::grid_sync): the count is back at zero
-// after every barrier, so each launch finds it so.
+// The grid barrier's word (stream::grid_sync).
 __device__ unsigned g_grid_count = 0;
-__device__ unsigned g_grid_gen = 0;
 
 template <int WF>
 __global__ void __launch_bounds__(kBlockThreads, 1)
@@ -416,11 +414,10 @@ v6_decode_kernel(Args p) {
 #endif
   // a grid-wide barrier of the consumers, with a timestamp on each side in
   // the timing build
-  unsigned gen_seen = tid == 0 ? stream::ld_acquire(&g_grid_gen) : 0u;
   auto barrier = [&]() {
     PHASE_MARK();
     stream::csync();
-    if (tid == 0) stream::grid_sync(&g_grid_count, &g_grid_gen, gridDim.x, gen_seen);
+    if (tid == 0) stream::grid_sync(&g_grid_count, gridDim.x);
     stream::csync();
     PHASE_MARK();
   };

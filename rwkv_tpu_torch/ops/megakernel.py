@@ -392,9 +392,12 @@ def lm_head_ref(pack: dict, x: torch.Tensor) -> torch.Tensor:
     return _matvec(pack["head8"], pack["head_d"], xo)[0]
 
 
-def decode_scratch_floats(c: int, d_lora: int, f_dim: int) -> int:
-    """Floats of K3's global scratch (``scratch_floats`` in the source)."""
-    return 7 * c + 4 * d_lora + f_dim
+def decode_scratch_floats(c: int, d_lora: int, f_dim: int, n_layer: int) -> int:
+    """Floats of K3's global scratch (``scratch_floats`` in the source):
+    x, r, k, v, the four lora downs, the layer-0 value, xo and the relu^2
+    keys in 7C + 4d + F, then ``V7_AMAX_SLOTS`` amax slots a layer of
+    `n_layer`."""
+    return 7 * c + 4 * d_lora + f_dim + V7_AMAX_SLOTS * n_layer
 
 
 def _chunks_per_lane(k: int, max_lanes: int = 32, bf16: bool = False) -> int:
@@ -439,6 +442,11 @@ def decode_shape_error(cfg, d_lora: int, f_dim: int, w4: bool = False, *,
         if _chunks_per_lane(dim, lanes, bf16) > limit:
             return (f"K3 reads a row of {dim} in at most {limit} 16-byte chunks per lane "
                     f"with {lanes} lanes a row")
+    try:
+        v7_stream_plan("bf16" if bf16 else "i4" if w4 else "i8", cfg.n_embed, f_dim, d_lora,
+                       cfg.head_count, cfg.head_size, cfg.n_vocab, 1)
+    except ValueError as e:
+        return str(e)
     return None
 
 
@@ -530,7 +538,7 @@ def decode_launch(fn, pack: dict, state: dict, token: torch.Tensor, cfg, scratch
     logits = torch.empty((vocab,), dtype=torch.float32, device=dev)
     # the timing build's stamps go into a zeroed tail; otherwise no fill
     alloc = torch.zeros if scratch_extra else torch.empty
-    scratch = alloc((decode_scratch_floats(c, d_l, f) + scratch_extra,),
+    scratch = alloc((decode_scratch_floats(c, d_l, f, n_layer) + scratch_extra,),
                     dtype=torch.float32, device=dev)
     grid = pack.get("_grid")
     if grid is None:
@@ -1789,6 +1797,189 @@ def v5_stream_plan(form: str, c: int, f_dim: int, n_heads: int, head_size: int, 
     if stages < STREAM_MIN_STAGES:
         raise ValueError(f"K7's ring holds {stages} stages of {stage} bytes at these widths, "
                          f"it needs {STREAM_MIN_STAGES}")
+    return plan
+
+
+# -- K3's stream plan (csrc/v7_decode.cu: Layout7, Plan7, piece_copy) ----------
+#
+# As K7's (``v5_stream_plan``): a block's rows of each phase in pieces with
+# their row scales' windows, every matrix's rows with the lanes
+# matvec_grid gave them (32 at most, 8 for the head); phase A's vector rows
+# (ln1 w, b, the six mixes, att_in) and E's (ln2 w, b, xk, ffn_in) in
+# pieces of ``vec_rows`` rows, as many as fit a stage up to
+# ``V7_MAX_VEC_ROWS``; a head's state with its eight vector slices in one
+# piece, then its 4 x S lora2 rows (run q: rows q C + h S + [0, S)) in
+# pieces of ``l2_runs`` runs with their row scales. The head's rows past
+# its last whole 4-row group (V not a multiple of 4) are the last block's,
+# read outside the stream (``head_tail``).
+V7_STATIC_SMEM = 0  # K3's static shared memory (the card tests read the kernel's)
+V7_MAX_VEC_ROWS = 9  # vector rows a piece at most (kMaxVecRows)
+V7_AMAX_SLOTS = 6  # published amax a layer: the four lora downs, xo, the relu^2 keys
+V7_HV_FLOATS = 10  # per-head vectors in shared memory, S floats each
+V7_SEGS = ("vec_a", "rkv", "lora1", "heads", "out", "vec_e", "fk", "fv")
+V7_HEAD_SEGS = ("ln_out", "head")
+V7_STREAMED = ("rkv", "lora1", "out", "fk", "fv", "head")
+# a head's vector slices in its state piece, in order
+V7_HEAD_VECS = ("att.w0", "att.a0", "att.v0", "att.k_k", "att.k_a", "att.ln_x.weight",
+                "att.ln_x.bias", "r_k")
+_V7_VEC_ROW = dict({k: i for i, k in enumerate(VEC_KEYS)}, coeff=len(VEC_KEYS),
+                   r_k=len(VEC_KEYS) + 6)
+V7_NUM_VEC = len(VEC_KEYS) + 7  # vector rows a layer: VEC_KEYS, the six coeff rows, r_k
+
+
+def v7_mat_offsets(form: str, c: int, d_lora: int, f_dim: int) -> dict:
+    """Byte offsets of a layer's matrices in K3's flat ``mats`` buffer and
+    the layer's bytes ("layer"): the kernel's MatOffsets."""
+    sf = _small_form(form)
+    sizes = (("rkv", form, 3 * c * c), ("lora1", sf, 4 * d_lora * c), ("lora2", sf, 4 * c * d_lora),
+             ("out", form, c * c), ("fk", form, f_dim * c), ("fv", form, c * f_dim))
+    return _offsets((name, _form_bytes(fm, n)) for name, fm, n in sizes)
+
+
+def v7_scale_offsets(c: int, d_lora: int, f_dim: int) -> dict:
+    """Float offsets of a layer's row scales and its count ("layer"): the
+    kernel's ScaleOffsets."""
+    return _offsets((("rkv", 3 * c), ("lora1", 4 * d_lora), ("lora2", 4 * c), ("out", c),
+                     ("fk", f_dim), ("fv", c)))
+
+
+@dataclass(frozen=True)
+class V7StreamPlan(_StreamPlan):
+    """K3's stream plan for one weight form and grid (``v7_stream_plan``):
+    the shared-memory layout as ``V5StreamPlan``'s, ``vec_rows`` vector rows
+    and ``l2_runs`` lora2 runs a piece, and per block the rows of each phase
+    and the copies of each piece."""
+
+    SEGS = V7_SEGS
+    HEAD_SEGS = V7_HEAD_SEGS
+    STREAMED = V7_STREAMED
+
+    form: str
+    c: int
+    f_dim: int
+    d_lora: int
+    n_heads: int
+    head_size: int
+    vocab: int
+    blocks: int
+    act_off: int
+    bar_off: int
+    ring_off: int
+    stage_bytes: int
+    n_stages: int
+    smem_bytes: int
+    vec_rows: int
+    l2_runs: int
+
+    def _spec(self, name: str) -> tuple:
+        """(rows, row bytes, scale window, dealt from the last block, most
+        lanes a row)."""
+        c, f, form = self.c, self.f_dim, self.form
+        sf, w = _small_form(form), form != "bf16"
+        return {"rkv": (3 * c, _form_bytes(form, c), w, False, 32),
+                "lora1": (4 * self.d_lora, _form_bytes(sf, c), w, True, 32),
+                "out": (c, _form_bytes(form, c), w, False, 32),
+                "fk": (f, _form_bytes(form, c), w, False, 32),
+                "fv": (c, _form_bytes(form, f), w, False, 32),
+                "head": (self.vocab, _form_bytes(sf, c), w, False, 8)}[name]
+
+    def vec_run(self, seg: str) -> tuple:
+        """The vector rows of segment "vec_a" / "vec_e" in order, each as
+        (array, row key): a pack vector row, att_in or ffn_in."""
+        if seg == "vec_a":
+            return ((("vecs", "ln1.weight"), ("vecs", "ln1.bias"))
+                    + tuple(("vecs", ("coeff", m)) for m in range(6)) + (("att_in", None),))
+        return (("vecs", "ln2.weight"), ("vecs", "ln2.bias"), ("vecs", "ffn.x_k"),
+                ("ffn_in", None))
+
+    def lora2_pieces(self) -> int:
+        """Pieces of a head's lora2 rows (after its state piece)."""
+        return _cdiv(4, self.l2_runs)
+
+    def _count(self, seg: str, block: int) -> int:
+        if seg in ("vec_a", "vec_e"):
+            return _cdiv(len(self.vec_run(seg)), self.vec_rows)
+        if seg == "heads":
+            return len(self.block_heads(block)) * (1 + self.lora2_pieces())
+        return 1
+
+    def head_tail(self, block: int) -> tuple:
+        """The head rows [r0, r1) past its last whole 4-row group that
+        block `block` computes outside the stream (the last block's)."""
+        r0 = self.vocab & ~3
+        return r0, self.vocab if block == self.blocks - 1 else r0
+
+    def copies(self, block: int, layer: int, seg: str, idx: int) -> tuple:
+        """The copies of piece `idx` of segment `seg` of `layer`."""
+        c, s, d = self.c, self.head_size, self.d_lora
+        w = self.form != "bf16"
+        mo = v7_mat_offsets(self.form, c, d, self.f_dim)
+        so = v7_scale_offsets(c, d, self.f_dim)
+
+        def vec(row, at: int = 0) -> int:
+            key, m = row if isinstance(row, tuple) else (row, 0)
+            return 4 * ((layer * V7_NUM_VEC + _V7_VEC_ROW[key] + m) * c + at)
+
+        if seg in V7_STREAMED:
+            if seg == "head":
+                array, at, scale = "head", 0, ("head_d", 0) if w else None
+            else:
+                array, at = "mats", layer * mo["layer"] + mo[seg]
+                scale = ("scales", 4 * (layer * so["layer"] + so[seg])) if w else None
+            return _stream_rows_copies(self.rows(seg, block), idx, array, at, scale)
+        if seg in ("vec_a", "vec_e"):
+            run = self.vec_run(seg)[idx * self.vec_rows:(idx + 1) * self.vec_rows]
+            return tuple(StreamCopy(a, vec(key) if a == "vecs" else 4 * layer * c, 4 * c,
+                                    4 * c * i) for i, (a, key) in enumerate(run))
+        if seg == "heads":
+            per = 1 + self.lora2_pieces()
+            h, k = self.block_heads(block)[idx // per], idx % per
+            if k == 0:
+                out = [StreamCopy("heads_in", 4 * (layer * self.n_heads + h) * s * s, 4 * s * s,
+                                  0)]
+                for i, row in enumerate(V7_HEAD_VECS):
+                    out.append(StreamCopy("vecs", vec(row, h * s), 4 * s, 4 * s * s + 4 * s * i))
+                return tuple(out)
+            q0 = (k - 1) * self.l2_runs
+            runs = range(q0, min(q0 + self.l2_runs, 4))
+            rb = _form_bytes(_small_form(self.form), d)
+            at = layer * mo["layer"] + mo["lora2"]
+            out = [StreamCopy("mats", at + (q * c + h * s) * rb, s * rb, s * rb * j)
+                   for j, q in enumerate(runs)]
+            if w:
+                base = 4 * (layer * so["layer"] + so["lora2"])
+                out += [StreamCopy("scales", base + 4 * (q * c + h * s), 4 * s,
+                                   s * rb * len(runs) + 4 * s * j) for j, q in enumerate(runs)]
+            return tuple(out)
+        return (StreamCopy("ln_out", 0, 8 * c, 0),)  # ln_out
+
+
+def v7_stream_plan(form: str, c: int, f_dim: int, d_lora: int, n_heads: int, head_size: int,
+                   vocab: int, blocks: int) -> V7StreamPlan:
+    """K3's stream plan in weight form `form` ("i8", "i4", "bf16") for a
+    grid of `blocks`: the kernel's Layout7 and Plan7. The ring takes what
+    shared memory is left below ``STREAM_SMEM_LIMIT`` after the activations,
+    about ``STREAM_TARGET_STAGES`` stages, each at least the largest piece
+    (two vector rows, a head's state with its vector slices, one run of its
+    lora2 rows, one row of any matrix with its scale window); raises
+    ValueError below ``STREAM_MIN_STAGES``, or where the ring cannot hold
+    phase A's vector pieces or a head's pieces at once."""
+    s, d, w = head_size, d_lora, form != "bf16"
+    act_off = _round_up(4 * (2 * c + V7_HV_FLOATS * s + 256 + 8 + V7_AMAX_SLOTS), 16)
+    plan_off = _round_up(act_off + (4 if form == "bf16" else 1) * max(6 * c, f_dim, 4 * d), 16)
+    l2_run = s * _form_bytes(_small_form(form), d) + (4 * s if w else 0)
+    piece = max(8 * c, 4 * s * s + 4 * len(V7_HEAD_VECS) * s, l2_run)
+    row = max(_form_bytes(form, c), _form_bytes(form, f_dim), _form_bytes(_small_form(form), c))
+    bar_off, ring_off, stage, stages = _ring(plan_off, max(piece, row + _win_bytes(1)))
+    plan = V7StreamPlan(form, c, f_dim, d, n_heads, s, vocab, blocks, act_off, bar_off,
+                        ring_off, stage, stages, ring_off + stages * stage,
+                        min(stage // (4 * c), V7_MAX_VEC_ROWS), min(stage // l2_run, 4))
+    if stages < STREAM_MIN_STAGES:
+        raise ValueError(f"K3's ring holds {stages} stages of {stage} bytes at these widths, "
+                         f"it needs {STREAM_MIN_STAGES}")
+    held = max(plan.count("vec_a", 0), 1 + plan.lora2_pieces())
+    if held > stages:
+        raise ValueError(f"K3 holds {held} pieces at once, its ring {stages} stages")
     return plan
 
 

@@ -30,8 +30,10 @@ With ``--phases`` it instead builds the kernels with
 before and after every grid barrier) and prints the mean time of each of
 the five phases of a layer and of each barrier (nine in K4's placement
 (b)): K4 at B = 1, 8 and 64 (w8a8; the current int forms in both
-placements), K3 at B=1 (w8a8, and the head phase), for the current sources and,
-with ``--baseline``, for the earlier ones.
+placements; skipped with ``--k3``), K3 at B=1 (each precision, and the
+head phase; each source's stamps read at its own scratch offset,
+``k3_stamps_at``), for the current sources and, with ``--baseline``, for
+the earlier ones.
 
 With ``--flips`` it instead holds K4 against its plain version on the
 169M packs cut to their first 1, 2 and 12 layers (a shallower config over
@@ -160,13 +162,26 @@ def print_phases(label: str, times, names: str = PHASES) -> None:
         + (f"; head {tail:.2f} us" if tail else "") + f"; total {total:.1f} us")
 
 
-def phase_split(models, cfg, states, tokens, src_dir, label: str) -> None:
+def k3_stamps_at(pack, cfg, src_dir, flags: tuple) -> int:
+    """Float offset of the timing build's stamps in K3's scratch for the
+    source in `src_dir` (None: csrc): behind the per-layer amax slots where
+    that source streams its inputs (it has the ``rwkv_v7_decode_plan``
+    entry), else behind the activations alone."""
+    from rwkv_tpu_torch.ops import _cuda
+    from rwkv_tpu_torch.ops.megakernel import decode_scratch_floats
+
+    src = (_cuda.CSRC if src_dir is None else Path(src_dir)) / "v7_decode.cu"
+    streamed = hasattr(_cuda.library("v7_decode_probe", src, flags), "rwkv_v7_decode_plan")
+    return decode_scratch_floats(cfg.n_embed, pack["d_lora"], pack["f_dim"],
+                                 cfg.n_layer if streamed else 0)
+
+
+def phase_split(models, cfg, states, tokens, src_dir, label: str, k4: bool = True) -> None:
     """Per-phase device times of K4 (B = 1, 8, 64; the int forms of the
-    current sources in both placements) and K3 (B=1), w8a8 (or, with
-    ``--bf16``, bf16), where `src_dir`'s version has the form's entry."""
-    from rwkv_tpu_torch.ops.megakernel import (
-        batched_launch, batched_scratch_floats, decode_launch, decode_scratch_floats,
-    )
+    current sources in both placements; w8a8, or with ``--bf16`` bf16;
+    not with `k4` False) and K3 (B=1, every precision of `models`), where
+    `src_dir`'s version has the form's entry."""
+    from rwkv_tpu_torch.ops.megakernel import batched_launch, batched_scratch_floats, decode_launch
 
     flags = ("-DRWKV_PHASE_TIMES",)
     prec = "w8a8" if "w8a8" in models else "bf16"
@@ -174,7 +189,7 @@ def phase_split(models, cfg, states, tokens, src_dir, label: str) -> None:
     c, d_l, f = cfg.n_embed, pack["d_lora"], pack["f_dim"]
     extra = 2 * (2 + 2 * len(K4_PHASES_B) * cfg.n_layer)
     entry = None
-    if src_dir is None or (Path(src_dir) / "v7_decode_batched.cu").exists():
+    if k4 and (src_dir is None or (Path(src_dir) / "v7_decode_batched.cu").exists()):
         entry = k4_entry(src_dir, pack, flags)
     if entry is not None:
         fn, grid_fn, legacy = entry
@@ -190,14 +205,16 @@ def phase_split(models, cfg, states, tokens, src_dir, label: str) -> None:
                     batched_scratch_floats(c, d_l, f, b, codes=codes), cfg.n_layer, len(names))
                 print_phases(f"{label} K4 {prec} B={b}" + (f" ({place})" if place else ""),
                              times, names)
-    fn = k3_entry(src_dir, pack, flags)
-    if fn is None:
-        return
     one = {k: v[0] for k, v in states.items()}
-    times = phase_times(
-        lambda: decode_launch(fn, pack, one, tokens[:1], cfg, scratch_extra=extra)[2],
-        decode_scratch_floats(c, d_l, f), cfg.n_layer)
-    print_phases(f"{label} K3 {prec} B=1", times)
+    for prec, model in models.items():
+        pack = model._mega
+        fn = k3_entry(src_dir, pack, flags)
+        if fn is None:
+            continue
+        times = phase_times(
+            lambda: decode_launch(fn, pack, one, tokens[:1], cfg, scratch_extra=extra)[2],
+            k3_stamps_at(pack, cfg, src_dir, flags), cfg.n_layer)
+        print_phases(f"{label} K3 {prec} B=1", times)
 
 
 def flips(models, cfg, n_seeds: int = 12) -> None:
@@ -412,9 +429,10 @@ def main() -> int:
         print(card_line())
         return 0
     if "--phases" in args:
-        phase_split(models, cfg, states, tokens, None, "current")
+        k4 = "--k3" not in args
+        phase_split(models, cfg, states, tokens, None, "current", k4)
         if base_dir is not None:
-            phase_split(models, cfg, states, tokens, base_dir, "baseline")
+            phase_split(models, cfg, states, tokens, base_dir, "baseline", k4)
         print(card_line())
         return 0
 

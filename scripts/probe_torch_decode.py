@@ -9,9 +9,9 @@ the 169M v7 shape (C=768, H=12, V=65536, synth seed 0, w8a8):
 
 - at depth L = 2, 4, 8 and 12 (the per-layer cost is the slope, the fixed
   cost -- embedding, ln_out, the 50 MB head -- the intercept);
-- at the full depth with the cooperative grid at 66, 132 and 264 blocks
-  (the default is one block per SM; 264 needs two to fit, as they do on
-  an H100 at the kernel's 128 registers a thread).
+- at the full depth with the cooperative grid at 33, 66 and 132 blocks
+  and at its default, one block per SM (the kernel's shared-memory ring
+  takes a whole SM, so a grid of more blocks than SMs cannot launch).
 
 With ``--phases`` it instead builds ``csrc/v7_decode.cu`` with
 ``-DRWKV_PHASE_TIMES`` (thread 0 of block 0 stamps ``%globaltimer``
@@ -51,7 +51,7 @@ def phase_split(model, state, cfg, tok, reps: int = 5) -> None:
     fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     pack = model._mega
-    base = decode_scratch_floats(cfg.n_embed, pack["d_lora"], pack["f_dim"])
+    base = decode_scratch_floats(cfg.n_embed, pack["d_lora"], pack["f_dim"], cfg.n_layer)
     max_marks = 2 + 2 * 8 * cfg.n_layer
     runs = []
     for _ in range(reps + 1):  # the first run warms up
@@ -75,7 +75,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("probe_torch_decode: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import card_line, device_ms
+    from rwkv_tpu_torch.tools.card import card_line, device_ms
     from rwkv_tpu_torch.models.serve import ServingModel
     from rwkv_tpu_torch.models.synth import synth_config, synth_params
     from rwkv_tpu_torch.ops.megakernel import v7_decode_step
@@ -96,7 +96,8 @@ def main() -> int:
         print(f"L={n_layer}: {ms * 1e3:.1f} us per step (grid {model._mega['_grid']} blocks)")
         full = (model, state, cfg)
     model, state, cfg = full
-    for grid in (66, 132, 264, model._mega["_grid"]):
+    default = model._mega["_grid"]
+    for grid in sorted({g for g in (33, 66, 132) if g <= default} | {default}):
         model._mega["_grid"] = grid
         ms = device_ms(lambda: v7_decode_step(model._mega, state, tok, cfg), reps=50)
         print(f"L=12 grid {grid} blocks: {ms * 1e3:.1f} us per step")

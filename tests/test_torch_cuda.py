@@ -149,6 +149,71 @@ def test_decode_kernel_matches_ref(cuda_device, w4):
         torch.testing.assert_close(new[k], ref_new[k], rtol=2e-2, atol=2e-2)
 
 
+def _v7_pack(dev, form: str, c: int = 128, vocab: int = 256, seed: int = 7):
+    """A seeded 2-layer v7 pack in weight form `form` at width c (S = 32 at
+    c = 128, else 64; lora 32) with `vocab` head rows, and a seeded state."""
+    s = 32 if c == 128 else 64
+    tc = synth_config("7.0", 2, c, vocab, s)
+    tp = synth_params(tc, seed=seed, lora_dim=32)
+    pack = TM.build_mega_pack(tp, tc, w4=form == "i4", quant=form != "bf16")
+    dp = TM.device_pack(pack, tp["emb"].to(torch.bfloat16), tp["ln0"], dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = {"att_xx": torch.randn((2, c), device=dev, generator=gen),
+             "ffn_xx": torch.randn((2, c), device=dev, generator=gen),
+             "heads": torch.randn((2, c // s, s, s), device=dev, generator=gen) * 0.1}
+    return tc, dp, state
+
+
+@pytest.mark.parametrize("form", TM.FORMS)
+def test_v7_decode_kernel_same_bits_on_every_grid(cuda_device, form):
+    """K3's stream plan deals each phase's rows over the grid, but never
+    changes how a row is computed: logits and state are bit-equal on grids
+    of 132, 66, 33 and 7 blocks (pack["_grid"]), in every weight form, at
+    C=128 (H=4, 2 heads a block on 1-3 blocks of the smaller grids) and
+    C=768 (H=12) with 258 head rows (two past the last whole 4-row group,
+    on the last block); there also within 2e-2 of the plain version."""
+    for c, vocab in ((128, 256), (768, 258)):
+        tc, dp, state = _v7_pack(cuda_device, form, c, vocab)
+        tok = torch.tensor([9], device=cuda_device)
+        outs = {}
+        for grid in (132, 66, 33, 7):
+            dp["_grid"] = grid
+            logits, new = TM.v7_decode_step(dp, state, tok, tc)
+            outs[grid] = [logits] + [new[k] for k in sorted(new)]
+        for grid, out in outs.items():
+            assert all(torch.equal(a, b) for a, b in zip(out, outs[132])), (c, grid)
+        ref_logits, ref_new = TM.v7_decode_step_ref(dp, state, tok, tc)
+        torch.testing.assert_close(outs[132][0], ref_logits, rtol=2e-2, atol=2e-2)
+        for got, k in zip(outs[132][1:], sorted(ref_new)):
+            torch.testing.assert_close(got, ref_new[k], rtol=2e-2, atol=2e-2)
+
+
+def test_v7_decode_plan_matches_the_python_plan(cuda_device):
+    """The kernel's own stream plan (rwkv_v7_decode_plan: shared bytes,
+    stage bytes and count, a block's pieces a layer and of the head, vector
+    rows and lora2 runs a piece) is v7_stream_plan's, in every form, at the
+    tests' small width, the 169M width and C=1024 with a lora of 128 (two
+    lora2 pieces a head in bf16) on several grids; K3 has the static shared
+    memory the plan assumes."""
+    from rwkv_tpu_torch.ops import _cuda
+
+    fn = _cuda.library("v7_decode").rwkv_v7_decode_plan
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    for c, f, d, h, s, v in ((128, 512, 32, 4, 32, 256), (768, 3072, 64, 12, 64, 65536),
+                             (1024, 4096, 128, 16, 64, 65533)):
+        for wf, form in enumerate(TM.FORMS):
+            for blocks in (132, 66, 33, 7):
+                plan = TM.v7_stream_plan(form, c, f, d, h, s, v, blocks)
+                for b in sorted({0, 5, blocks - 1}):
+                    out = (ctypes.c_longlong * 8)()
+                    assert fn(wf, c, s, d, f, h, v, blocks, b, out) == 0
+                    assert list(out) == [plan.smem_bytes, plan.stage_bytes, plan.n_stages,
+                                         plan.layer_pieces(b), plan.head_pieces(b),
+                                         TM.V7_STATIC_SMEM, plan.vec_rows,
+                                         plan.l2_runs], (c, form, blocks, b)
+
+
 def _batched_state(tc, b, dev, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     L, h, s, c = tc.n_layer, tc.head_count, tc.head_size, tc.n_embed
