@@ -49,8 +49,8 @@
      scale (twice the worst reading of ``probe_batched --v6 / --v5 / --v4
      --flips``). K7 also on a v5.1 pair and K8 on a pair at C=2048, both
      of 2 layers at the 1.5B width, within 2e-2 (``phase_cut_width``).
-     K6 and K7 deal each phase's rows over the grid, so their w8a8, w4a8
-     and bf16 packs cut to 2 layers must give bit-equal logits, x and
+     K6, K7 and K8 deal each phase's rows over the grid, so their w8a8,
+     w4a8 and bf16 packs cut to 2 layers must give bit-equal logits, x and
      state on the full grid and on half of it (``grid_invariance``).
    - The bf16 forms of K3, K4, K6, K7 and K8 (``precision="bf16"``, the
      ``quant=False`` packs of the same trees): K3 at the 169M width and
@@ -902,7 +902,7 @@ def phase_b1(name: str, models, cfg, n_states: int = 8, seed: int = 7):
 
 
 def grid_invariance(name: str, models, cfg, width: str, seed: int = 9) -> None:
-    """K3, K6 or K7 (by the config's version) on the packs at a published
+    """K3, K6, K7 or K8 (by the config's version) on the packs at a published
     width cut to 2 layers (a shallower config over the same buffers) on the
     full grid and on half of it: logits, x and state bit-equal in every
     form. Launches through the C entry, so the launch counters do not
@@ -915,7 +915,8 @@ def grid_invariance(name: str, models, cfg, width: str, seed: int = 9) -> None:
     from rwkv_tpu_torch.tools.card import decode_entry, seeded_states
 
     key, launch = {7: ("_grid", M.decode_launch), 6: ("_grid_v6", M.v6_decode_launch),
-                   5: ("_grid_v45", M.v45_decode_launch)}[cfg.version_major]
+                   5: ("_grid_v45", M.v45_decode_launch),
+                   4: ("_grid_v45", M.v45_decode_launch)}[cfg.version_major]
     states, tokens = seeded_states(next(iter(models.values())), cfg, 1, 16, seed=seed)
     cd = dataclasses.replace(cfg, n_layer=2)
     st = {k: v[0, :2].contiguous() for k, v in states.items()}
@@ -1781,6 +1782,7 @@ def main() -> int:
     # -- RWKV-4 at the World 0.1B width: K8, then the B=1 main path ----------
     cfg4, models4 = v4_models()
     k8 = phase_b1("K8", models4, cfg4)
+    grid_invariance("K8", models4, cfg4, "World 0.1B")
     res["K8"], res["K8w4"], res["K8bf16"] = k8["w8a8"], k8["w4a8"], k8["bf16"]
     for prec, m in models4.items():
         launches[f"v4 {prec}"] = single_stream_path(

@@ -1,10 +1,10 @@
 // Pieces shared by the whole-model decode kernels K3 (v7_decode.cu), K4
 // (v7_decode_batched.cu), K6 (v6_decode.cu), K7 (v5_decode.cu) and K8
-// (v4_decode.cu): the timing build's phase stamps, IEEE-exact elementwise
-// helpers, the embedding read, the lane count of the big matvecs, the
-// block-wide quantization (int forms) or staging (bf16 form) of a phase's
-// input vectors, the block-wide layer norm and the LM head phase (K3, K8;
-// K6 and K7 stream theirs, decode_stream.cuh).
+// (v4_decode.cu) and the tensor-parallel shard kernels: the timing build's
+// phase stamps, IEEE-exact elementwise helpers, the embedding read, the
+// lane count of the big matvecs, the block-wide quantization (int forms)
+// or staging (bf16 form) of a phase's input vectors and the block-wide
+// layer norm (K3 and K6-K8 stream their LM head, decode_stream.cuh).
 #pragma once
 
 #include "common.cuh"
@@ -152,25 +152,4 @@ __device__ void layer_norm_block(const float* src, float* dst, const float* w,
   for (int c = threadIdx.x; c < n; c += blockDim.x)
     dst[c] = add(mul(mul(sub(src[c], mu), rs), w[c]), b[c]);
   __syncthreads();
-}
-
-// The LM head after the last layer's barrier: ln_out of the residual x_g
-// (C floats, global), then the V head rows into logits, eight lanes a row
-// (V rows take half the rounds of the default). The int forms quantize the
-// vector as a whole against int8 rows (int8 under w4a8 too) with scales
-// head_d; the bf16 form stages it in f32 against bf16 rows (head_d unused).
-// Shared scratch: xs and xl C floats each, red 256 floats, dxs one float,
-// xq C activations.
-template <int WF>
-__device__ __forceinline__ void lm_head(const float* x_g, const int8_t* head,
-                                        const float* head_d, const float* ln_out, float* logits,
-                                        int C, int V, float* xs, float* xl, float* red,
-                                        float* dxs, act_t<WF>* xq) {
-  constexpr int HF = small_form(WF);
-  for (int c = threadIdx.x; c < C; c += blockDim.x) xs[c] = x_g[c];
-  __syncthreads();
-  layer_norm_block(xs, xl, ln_out, ln_out + C, C, 1e-5f, red);
-  act_n<HF, 1>([&](int, int c) { return xl[c]; }, C, xq, 0, dxs, red);
-  matvec_grid<HF, 1>(head, V, C, 1, [&](int, int) { return xq; },
-      [&](int row, int, auto acc) { logits[row] = dequant(acc, dxs[0], head_d + row); }, 8);
 }

@@ -1,6 +1,6 @@
 // A block's input stream for the B=1 whole-model decode kernels K3
-// (v7_decode.cu), K6 (v6_decode.cu) and K7 (v5_decode.cu): a ring of
-// shared-memory stages fed
+// (v7_decode.cu), K6 (v6_decode.cu), K7 (v5_decode.cu) and K8
+// (v4_decode.cu): a ring of shared-memory stages fed
 // by 1-D bulk asynchronous copies (TMA, cp.async.bulk) that complete on a
 // "full" mbarrier a stage, the generic parts of a kernel's stream plan (the
 // ring's size, a block's share of a matrix's rows, the producer's walk over

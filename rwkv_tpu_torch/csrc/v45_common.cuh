@@ -4,7 +4,7 @@
 // mix in the reference's op order, which mix feeds each fused attention
 // projection, v4's max-trick wkv on one channel, v5's wkv step of one head
 // on a whole block (K15; K7 runs its own over the consumers of its
-// stream), and K8's FFN phases E and F.
+// stream), and the grid size of a cooperative launch.
 #pragma once
 
 #include "decode_common.cuh"
@@ -133,67 +133,6 @@ __device__ void v5_head_step(const float* r, const float* k, const float* v, con
   const float var = block_sum(mul(yc, yc), red) / static_cast<float>(S);
   if (tid < S) yn_out(tid, mul(yc, rsqrtf(add(var, 1e-5f))));
   __syncthreads();
-}
-
-// Phases E and F of a v4/v5 layer, each ending in `barrier`: ln2 of the
-// residual x_g and the token shift (block 0 writes ln2's output to
-// ffn_out), the two mixes quantized as whole vectors, the fk rows with
-// relu^2 into fk_g and the fr rows with sigmoid into rg_g; then the fv rows,
-// x += sigmoid(fr) * fv. Shared: xs and xl C floats each, red 256 floats,
-// dxs two, q8 max(2C, F) activations (bf16 form: staged in f32).
-template <int WF, typename Barrier>
-__device__ void ffn_v45(const float* vec, const int8_t* m_layer, const float* s_layer,
-                        const MatOffsets45& mo, const ScaleOffsets45& so, const float* ffn_in,
-                        float* ffn_out, float* x_g, float* rg_g, float* fk_g, int C, int F,
-                        float* xs, float* xl, float* red, float* dxs, act_t<WF>* q8,
-                        Barrier barrier) {
-  for (int c = threadIdx.x; c < C; c += blockDim.x) xs[c] = x_g[c];
-  __syncthreads();
-  layer_norm_block(xs, xl, vec + kLn2W * C, vec + kLn2B * C, C, 1e-5f, red);
-  if (blockIdx.x == 0)
-    for (int c = threadIdx.x; c < C; c += blockDim.x) ffn_out[c] = xl[c];
-  const float* fx = vec + kFmixK * C;  // rows k, r
-  act_n<WF, 2>([&](int m, int c) { return mix45(xl[c], ffn_in[c], fx[m * C + c]); }, C, q8, C,
-               dxs, red);
-  matvec_grid<WF, 1>(m_layer + mo.fk, F, C, 1, [&](int, int) { return q8; },
-      [&](int row, int, auto acc) {
-        const float y = fmaxf(dequant(acc, dxs[0], s_layer + so.fk + row), 0.f);
-        fk_g[row] = mul(y, y);
-      },
-      lanes_for(C, WF));
-  matvec_grid<WF, 1>(m_layer + mo.fr, C, C, 1, [&](int, int) { return q8 + C; },
-      [&](int row, int, auto acc) {
-        rg_g[row] = sigmoidf(dequant(acc, dxs[1], s_layer + so.fr + row));
-      },
-      lanes_for(C, WF), true);
-  barrier();
-
-  act_n<WF, 1>([&](int, int c) { return fk_g[c]; }, F, q8, 0, dxs, red);
-  matvec_grid<WF, 1>(m_layer + mo.fv, C, F, 1, [&](int, int) { return q8; },
-      [&](int row, int, auto acc) {
-        x_g[row] = add(x_g[row], mul(rg_g[row], dequant(acc, dxs[0], s_layer + so.fv + row)));
-      },
-      lanes_for(F, WF));
-  barrier();
-}
-
-// The residual before layer l's phase A into xs (shared; every block): at
-// l = 0 ln0 of the token's embedding row (bf16, or f32 when emb_f32; block
-// 0 also writes it to x_g), else x_g.
-__device__ __forceinline__ void load_residual(int l, const int* token, const void* emb,
-                                              bool emb_f32, const float* ln0, float* x_g, int C,
-                                              float* xs, float* tmp, float* red) {
-  if (l == 0) {
-    const size_t e = static_cast<size_t>(*token) * C;
-    for (int c = threadIdx.x; c < C; c += blockDim.x) tmp[c] = emb_at(emb, emb_f32, e + c);
-    __syncthreads();
-    layer_norm_block(tmp, xs, ln0, ln0 + C, C, 1e-5f, red);
-    if (blockIdx.x == 0)
-      for (int c = threadIdx.x; c < C; c += blockDim.x) x_g[c] = xs[c];
-  } else {
-    for (int c = threadIdx.x; c < C; c += blockDim.x) xs[c] = x_g[c];
-    __syncthreads();
-  }
 }
 
 // Grid size a cooperative launch of `kernel` uses (one block per SM), or a

@@ -367,7 +367,7 @@ class ServingModel:
                                               4 if pack["has_gate"] else 3)
             else:
                 pack = M.build_mega_pack_v4(params, cfg, w4=w4, quant=quant)
-                err = M.v4_decode_shape_error(cfg, pack["f_dim"], w4)
+                err = M.v4_decode_shape_error(cfg, pack["f_dim"], w4, pack["form"])
             if err:
                 raise NotImplementedError(f"megakernel=True: {err}")
             self._mega = M.device_pack(pack, self.params["emb"], self.params["ln0"], self.device)

@@ -383,9 +383,9 @@ def v7_decode_step_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
 
 
 def lm_head_ref(pack: dict, x: torch.Tensor) -> torch.Tensor:
-    """The plain versions' head (the kernels' lm_head): ln_out of x [C],
-    quantized as a whole against the int8 head rows, or in f32 against the
-    bf16 rows (``headbf16``) -> logits [V]."""
+    """The plain versions' head (the kernels' ``stream::head_phase``):
+    ln_out of x [C], quantized as a whole against the int8 head rows, or in
+    f32 against the bf16 rows (``headbf16``) -> logits [V]."""
     xo = layer_norm(x[None], pack["ln_out"][0], pack["ln_out"][1])
     if "headbf16" in pack:
         return _matvec(pack["headbf16"], None, xo)[0]
@@ -1638,16 +1638,20 @@ def v4_decode_step_ref(pack: dict, state: dict, token: torch.Tensor, cfg):
 
 
 V5_AMAX_SLOTS = 2  # a layer's published amax in K7's scratch: xo, the relu^2 keys
+V4_AMAX_SLOTS = 1  # a layer's published amax in K8's scratch: the relu^2 keys
 
 
 def v45_scratch_floats(version: int, c: int, f_dim: int, n_layer: int = 0) -> int:
     """Floats of K7's / K8's global scratch (``scratch_floats`` in the
     sources): v5 x, r|k|v|g, xo, sigmoid(fr), relu^2 keys -- 7C + F --, then
     ``V5_AMAX_SLOTS`` amax slots a layer of `n_layer`; v4 x,
-    sigmoid(r)|k|v, sigmoid(fr), relu^2 keys -- 5C + F."""
+    sigmoid(r)|k|v, sigmoid(fr), relu^2 keys -- 5C + F --, then
+    ``V4_AMAX_SLOTS`` a layer, padded to an even count (the timing build's
+    8-byte stamps follow)."""
     if version == 5:
         return 7 * c + f_dim + V5_AMAX_SLOTS * n_layer
-    return 5 * c + f_dim
+    slots = V4_AMAX_SLOTS * n_layer
+    return 5 * c + f_dim + slots + slots % 2
 
 
 # -- K7's stream plan (csrc/v5_decode.cu: Layout5, Plan5, piece_copy) -----------
@@ -1797,6 +1801,151 @@ def v5_stream_plan(form: str, c: int, f_dim: int, n_heads: int, head_size: int, 
     if stages < STREAM_MIN_STAGES:
         raise ValueError(f"K7's ring holds {stages} stages of {stage} bytes at these widths, "
                          f"it needs {STREAM_MIN_STAGES}")
+    return plan
+
+
+# -- K8's stream plan (csrc/v4_decode.cu: Layout4, Plan4, piece_copy) ----------
+#
+# As K7's (``v5_stream_plan``): a block's rows of each phase in pieces with
+# their row scales' windows, every matrix's rows with the lanes matvec_grid
+# gave them (``_lanes_for``; 8 for the head); each phase's vector rows in
+# pieces of ``vec_rows`` rows, as many as fit a stage up to
+# ``V4_MAX_VEC_ROWS``: A's ln1 w, b, the attention mixes k, v, r and
+# att_in, B's td at the block's channels [s0, s1) (the aa / bb / pp it
+# writes), tf and the old aa, bb, pp, E's ln2 w, b, the FFN mixes k, r and
+# ffn_in. The head's rows past its last whole 4-row group are the last
+# block's, read outside the stream (``head_tail``).
+V4_STATIC_SMEM = 0  # K8's static shared memory (the card tests read the kernel's)
+V4_MAX_VEC_ROWS = 8  # vector rows a piece at most (kMaxVecRows)
+V4_SEGS = ("vec_a", "att", "vec_b", "out", "vec_e", "fk", "fr", "fv")
+V4_HEAD_SEGS = ("ln_out", "head")
+V4_STREAMED = ("att", "out", "fk", "fr", "fv", "head")
+_V4_VEC_ROW = {"ln1.weight": 0, "ln1.bias": 1, "ln2.weight": 2, "ln2.bias": 3, "fmix": 4,
+               "td": 6, "tf": 7, "amix": 8}
+V4_NUM_VEC = 11  # vector rows a layer: V45_VEC_KEYS, fmix (2), td, tf, amix (3)
+
+
+@dataclass(frozen=True)
+class V4StreamPlan(_StreamPlan):
+    """K8's stream plan for one weight form and grid (``v4_stream_plan``):
+    the shared-memory layout as ``V5StreamPlan``'s, ``vec_rows`` vector
+    rows a piece, and per block the rows of each phase, its state channels
+    and the copies of each piece."""
+
+    SEGS = V4_SEGS
+    HEAD_SEGS = V4_HEAD_SEGS
+    STREAMED = V4_STREAMED
+
+    form: str
+    c: int
+    f_dim: int
+    vocab: int
+    blocks: int
+    act_off: int
+    bar_off: int
+    ring_off: int
+    stage_bytes: int
+    n_stages: int
+    smem_bytes: int
+    vec_rows: int
+
+    def _spec(self, name: str) -> tuple:
+        """(rows, row bytes, scale window, dealt from the last block, most
+        lanes a row)."""
+        c, f, form = self.c, self.f_dim, self.form
+        w, big = form != "bf16", _lanes_for(c, form)
+        return {"att": (3 * c, _form_bytes(form, c), w, False, big),
+                "out": (c, _form_bytes(form, c), w, False, big),
+                "fk": (f, _form_bytes(form, c), w, False, big),
+                "fr": (c, _form_bytes(form, c), w, True, big),
+                "fv": (c, _form_bytes(form, f), w, False, _lanes_for(f, form)),
+                "head": (self.vocab, _form_bytes(_small_form(form), c), w, False, 8)}[name]
+
+    def channels(self, block: int) -> tuple:
+        """The channels [s0, s1) whose new aa, bb, pp block `block` writes
+        in phase B: whole 4-channel groups, split as evenly as the grid
+        allows."""
+        r = _part(self.c, self.blocks, block, False, 4, False, self.stage_bytes, 1)
+        return r.r0, r.r1
+
+    def vec_run(self, seg: str) -> tuple:
+        """The vector rows of segment "vec_a" / "vec_b" / "vec_e" in order,
+        each as (array, row key): a pack vector row, a state row of the
+        layer (att_in, ffn_in, aa_in, bb_in, pp_in), or B's td slice
+        (``("vecs", "td_slice")``)."""
+        if seg == "vec_a":
+            return ((("vecs", "ln1.weight"), ("vecs", "ln1.bias"))
+                    + tuple(("vecs", ("amix", m)) for m in range(3)) + (("att_in", None),))
+        if seg == "vec_b":
+            return (("vecs", "td_slice"), ("vecs", "tf"), ("aa_in", None), ("bb_in", None),
+                    ("pp_in", None))
+        return (("vecs", "ln2.weight"), ("vecs", "ln2.bias"), ("vecs", ("fmix", 0)),
+                ("vecs", ("fmix", 1)), ("ffn_in", None))
+
+    def _count(self, seg: str, block: int) -> int:
+        if seg in ("vec_a", "vec_b", "vec_e"):
+            return _cdiv(len(self.vec_run(seg)), self.vec_rows)
+        return 1
+
+    def head_tail(self, block: int) -> tuple:
+        """The head rows [r0, r1) past its last whole 4-row group that
+        block `block` computes outside the stream (the last block's)."""
+        r0 = self.vocab & ~3
+        return r0, self.vocab if block == self.blocks - 1 else r0
+
+    def copies(self, block: int, layer: int, seg: str, idx: int) -> tuple:
+        """The copies of piece `idx` of segment `seg` of `layer`."""
+        c = self.c
+        w = self.form != "bf16"
+        mo = v5_mat_offsets(self.form, c, self.f_dim, 3)
+        so = v5_scale_offsets(c, self.f_dim, 3)
+
+        def vec(row, at: int = 0) -> int:
+            key, m = row if isinstance(row, tuple) else (row, 0)
+            return 4 * ((layer * V4_NUM_VEC + _V4_VEC_ROW[key] + m) * c + at)
+
+        if seg in V4_STREAMED:
+            if seg == "head":
+                array, at, scale = "head", 0, ("head_d", 0) if w else None
+            else:
+                array, at = "mats", layer * mo["layer"] + mo[seg]
+                scale = ("scales", 4 * (layer * so["layer"] + so[seg])) if w else None
+            return _stream_rows_copies(self.rows(seg, block), idx, array, at, scale)
+        if seg in ("vec_a", "vec_b", "vec_e"):
+            out = []
+            first = idx * self.vec_rows
+            for i, (array, key) in enumerate(self.vec_run(seg)[first:first + self.vec_rows]):
+                if key == "td_slice":
+                    s0, s1 = self.channels(block)
+                    if s1 > s0:
+                        out.append(StreamCopy(array, vec("td", s0), 4 * (s1 - s0), 0))
+                    continue
+                offset = vec(key) if array == "vecs" else 4 * layer * c
+                out.append(StreamCopy(array, offset, 4 * c, 4 * c * i))
+            return tuple(out)
+        return (StreamCopy("ln_out", 0, 8 * c, 0),)  # ln_out
+
+
+def v4_stream_plan(form: str, c: int, f_dim: int, vocab: int, blocks: int) -> V4StreamPlan:
+    """K8's stream plan in weight form `form` ("i8", "i4", "bf16") for a
+    grid of `blocks`: the kernel's Layout4 and Plan4. The ring takes what
+    shared memory is left below ``STREAM_SMEM_LIMIT`` after the activations,
+    about ``STREAM_TARGET_STAGES`` stages, each at least the largest piece
+    (two vector rows, one row of any matrix with its scale window); raises
+    ValueError below ``STREAM_MIN_STAGES`` stages or two vector rows a
+    piece (phase A holds its vector pieces at once)."""
+    act_off = _round_up(4 * (2 * c + 256 + 8 + V4_AMAX_SLOTS), 16)
+    plan_off = _round_up(act_off + (4 if form == "bf16" else 1) * max(3 * c, f_dim), 16)
+    row = max(_form_bytes(form, c), _form_bytes(form, f_dim), _form_bytes(_small_form(form), c))
+    bar_off, ring_off, stage, stages = _ring(plan_off, max(8 * c, row + _win_bytes(1)))
+    plan = V4StreamPlan(form, c, f_dim, vocab, blocks, act_off, bar_off, ring_off, stage,
+                        stages, ring_off + stages * stage, min(stage // (4 * c), V4_MAX_VEC_ROWS))
+    if stages < STREAM_MIN_STAGES:
+        raise ValueError(f"K8's ring holds {stages} stages of {stage} bytes at these widths, "
+                         f"it needs {STREAM_MIN_STAGES}")
+    if plan.vec_rows < 2 or plan.count("vec_a", 0) > stages:
+        raise ValueError(f"K8 holds phase A's {plan.count('vec_a', 0)} vector pieces at once, "
+                         f"its ring {stages} stages of {plan.vec_rows} rows")
     return plan
 
 
@@ -2017,12 +2166,23 @@ def v5_decode_shape_error(cfg, f_dim: int, w4: bool = False, form: Optional[str]
     return None
 
 
-def v4_decode_shape_error(cfg, f_dim: int, w4: bool = False) -> Optional[str]:
-    """Why K8 cannot take this model's shapes, or None (rows of any width
-    in 16-byte chunks, as K7)."""
+def v4_decode_shape_error(cfg, f_dim: int, w4: bool = False,
+                          form: Optional[str] = None) -> Optional[str]:
+    """Why K8 cannot take this model's shapes, or None. K8 walks weight
+    rows of any width in 16-byte chunks and streams them in 16-byte pieces
+    through shared memory (``v4_stream_plan`` at grid 1, checked in
+    `form`: by default the int form `w4` names); any vocabulary (the head's
+    rows past the last 4-row group are read outside the stream)."""
     if cfg.version_major != 4:
         return "K8 decodes RWKV v4 only"
-    return _v45_dims_error("K8", cfg, f_dim, w4)
+    err = _v45_dims_error("K8", cfg, f_dim, w4)
+    if err:
+        return err
+    try:
+        v4_stream_plan(form or ("i4" if w4 else "i8"), cfg.n_embed, f_dim, cfg.n_vocab, 1)
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 # argument counts of the C entries (pointers, ints): rwkv_v5_decode / _w4
@@ -2055,7 +2215,7 @@ def v45_decode_launch(fn, pack: dict, state: dict, token: torch.Tensor, cfg,
     if version == 5:
         err = v5_decode_shape_error(cfg, f, w4, pack["form"], 4 if pack["has_gate"] else 3)
     else:
-        err = v4_decode_shape_error(cfg, f, w4)
+        err = v4_decode_shape_error(cfg, f, w4, pack["form"])
     if err:
         raise ValueError(err)
     _check_pack(pack)
@@ -2077,6 +2237,9 @@ def v45_decode_launch(fn, pack: dict, state: dict, token: torch.Tensor, cfg,
     if grid is None:
         dims = (c, cfg.head_size, f) if version == 5 else (c, f)
         grid = pack["_grid_v45"] = _grid_blocks(lib, _v45_entry(pack) + "_grid", *dims)
+    if version == 4 and pack.get("_plan_v45") != grid:
+        _v4_plan_check(pack, cfg, grid)
+        pack["_plan_v45"] = grid
     ptrs = [token.data_ptr(), pack["emb"].data_ptr(), pack["ln0"].data_ptr(),
             pack["mats"].data_ptr(), _ptr(pack, "scales"), pack["vecs"].data_ptr(),
             _head(pack).data_ptr(), _ptr(pack, "head_d"), pack["ln_out"].data_ptr()]
@@ -2089,6 +2252,35 @@ def v45_decode_launch(fn, pack: dict, state: dict, token: torch.Tensor, cfg,
     code = fn(*ptrs, *ints, *_emb_f32(pack), grid, _cuda.stream_ptr(dev))
     _cuda.check(lib, _v45_entry(pack), code)
     return logits, outs, scratch
+
+
+def v4_kernel_plan(form: str, c: int, f_dim: int, vocab: int, blocks: int, block: int) -> tuple:
+    """K8's own stream plan (the C entry ``rwkv_v4_decode_plan``): (shared
+    bytes, stage bytes, stages, block `block`'s pieces a layer and of the
+    head of a grid of `blocks`, the kernel's static shared bytes, vector
+    rows a piece)."""
+    fn = _cuda.library("v4_decode").rwkv_v4_decode_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 7)()
+    _cuda.check("v4_decode", "rwkv_v4_decode_plan",
+                fn(FORMS.index(form), c, f_dim, vocab, blocks, block, out))
+    return tuple(out)
+
+
+def _v4_plan_check(pack: dict, cfg, grid: int) -> None:
+    """Raises where K8's own plan on a grid of `grid` blocks (its first and
+    last block) differs from ``v4_stream_plan``: the producer and the
+    consumers would walk different pieces."""
+    c, f, vocab = cfg.n_embed, pack["f_dim"], cfg.n_vocab
+    plan = v4_stream_plan(pack["form"], c, f, vocab, grid)
+    for b in sorted({0, grid - 1}):
+        want = (plan.smem_bytes, plan.stage_bytes, plan.n_stages, plan.layer_pieces(b),
+                plan.head_pieces(b), V4_STATIC_SMEM, plan.vec_rows)
+        got = v4_kernel_plan(pack["form"], c, f, vocab, grid, b)
+        if got != want:
+            raise RuntimeError(f"K8's plan {got} differs from v4_stream_plan's {want} "
+                               f"(block {b} of {grid})")
 
 
 def _v45_function(pack: dict):

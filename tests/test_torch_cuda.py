@@ -645,6 +645,81 @@ def test_v5_decode_plan_matches_the_python_plan(cuda_device):
                                              TM.V5_STATIC_SMEM], (c, form, gate, blocks, b)
 
 
+@pytest.mark.parametrize("form", TM.FORMS)
+def test_v4_decode_kernel_same_bits_on_every_grid(cuda_device, form):
+    """K8's stream plan deals each phase's rows and the state's channels
+    over the grid, but never changes how a row or a channel is computed:
+    logits and aa / bb / pp / att_xx / ffn_xx are bit-equal on grids of
+    132, 64, 33 and 7 blocks (pack["_grid_v45"]), in every weight form, at
+    C=256 and C=768, from a seeded state and from the blank one (pp =
+    -1e30); there also finite and within 2e-2 of the plain version."""
+    for c in (256, 768):
+        tc, dp = _v4_pack(cuda_device, form, c)
+        tok = torch.tensor([9], device=cuda_device)
+        for blank in (False, True):
+            state = _v45_state(tc, cuda_device, 4, blank=blank)
+            outs = {}
+            for grid in (132, 64, 33, 7):
+                dp["_grid_v45"] = grid
+                logits, new = TM.v4_decode_step(dp, state, tok, tc)
+                outs[grid] = [logits] + [new[k] for k in sorted(new)]
+            for grid, out in outs.items():
+                assert all(torch.equal(a, b) for a, b in zip(out, outs[132])), (c, blank, grid)
+            assert all(bool(torch.isfinite(t).all()) for t in outs[132])
+            ref_logits, ref_new = TM.v4_decode_step_ref(dp, state, tok, tc)
+            torch.testing.assert_close(outs[132][0], ref_logits, rtol=2e-2, atol=2e-2)
+            for got, k in zip(outs[132][1:], sorted(ref_new)):
+                torch.testing.assert_close(got, ref_new[k], rtol=2e-2, atol=2e-2)
+
+
+def _v4_pack(dev, form, c):
+    """A 2-layer v4 pack of width c in weight form `form`, V=256."""
+    tc = synth_config("4.0", 2, c, 256, 64)
+    tp = synth_params(tc, seed=7)
+    pack = TM.build_mega_pack_v4(tp, tc, w4=form == "i4", quant=form != "bf16")
+    return tc, TM.device_pack(pack, tp["emb"].to(torch.bfloat16), tp["ln0"], dev)
+
+
+def test_v4_decode_kernel_at_c4096_in_bf16(cuda_device):
+    """K8's bf16 form at C=4096 (F=16384, one layer), where a stage holds
+    two vector rows and phase A holds its three vector pieces at once: within
+    BF16_BAND of the plain version, equal argmax, two launches bit for
+    bit."""
+    tc = synth_config("4.0", 1, 4096, 256, 64)
+    tp = synth_params(tc, seed=3)
+    dp = TM.device_pack(TM.build_mega_pack_v4(tp, tc, quant=False),
+                        tp["emb"].to(torch.bfloat16), tp["ln0"], cuda_device)
+    plan = TM.v4_stream_plan("bf16", 4096, dp["f_dim"], 256, 132)
+    assert plan.vec_rows == 2 and plan.count("vec_a", 0) == 3 <= plan.n_stages
+    state = _v45_state(tc, cuda_device, 5)
+    tok = torch.tensor([3], device=cuda_device)
+    logits, new = TM.v4_decode_step(dp, state, tok, tc)
+    logits2, new2 = TM.v4_decode_step(dp, state, tok, tc)
+    assert torch.equal(logits, logits2) and all(torch.equal(new[k], new2[k]) for k in new)
+    ref_logits, ref_new = TM.v4_decode_step_ref(dp, state, tok, tc)
+    assert _rel(logits, ref_logits) <= BF16_BAND
+    assert int(logits.argmax()) == int(ref_logits.argmax())
+    for k in new:
+        assert _rel(new[k], ref_new[k]) <= BF16_BAND, k
+
+
+def test_v4_decode_plan_matches_the_python_plan(cuda_device):
+    """The kernel's own stream plan (rwkv_v4_decode_plan: shared bytes,
+    stage bytes and count, a block's pieces a layer and of the head, vector
+    rows a piece) is v4_stream_plan's, in every form, at C=256, 768, 2048
+    and 4096 (the head's V a multiple of 4 and not) on several grids; K8 has
+    the static shared memory the plan assumes."""
+    for c, v in ((256, 256), (768, 65536), (768, 258), (2048, 65536), (4096, 65533)):
+        for form in TM.FORMS:
+            for blocks in (132, 64, 33, 7):
+                plan = TM.v4_stream_plan(form, c, 4 * c, v, blocks)
+                for b in sorted({0, 5, blocks - 1}):
+                    got = TM.v4_kernel_plan(form, c, 4 * c, v, blocks, b)
+                    assert got == (plan.smem_bytes, plan.stage_bytes, plan.n_stages,
+                                   plan.layer_pieces(b), plan.head_pieces(b),
+                                   TM.V4_STATIC_SMEM, plan.vec_rows), (c, form, blocks, b)
+
+
 @pytest.mark.parametrize("precision", ["w8a8", "w4a8"])
 @pytest.mark.parametrize("version", V45)
 def test_card_v45_serving_matches_cpu_and_goes_through_kernels(cuda_device, version, precision):
