@@ -1191,14 +1191,43 @@ def phase_tp_kernels(name: str, cfg, params, n_states: int = 4, seed: int = 7) -
             torch.cuda.synchronize()
             if not torch.equal(a[0], b[0]) or any(not torch.equal(a[1][k], b[1][k]) for k in a[1]):
                 raise AssertionError(f"{name} {prec} tp={tp}: two launches on the same inputs differ")
+            if cfg.version_major != 7:
+                tp6_same_on_half_grid(f"{name} {prec} tp={tp}", packs[0], cd, st, x0s[0])
             del packs
         print(f"{name} {prec}: {n_states} states, tp = 2 and 4, depths 1 and 2: worst "
               f"distance from the plain versions over the scale {worst} (limit "
-              f"{TP_SHALLOW_REL[prec]}); max abs err {err:.3e}; two launches bit-identical")
+              f"{TP_SHALLOW_REL[prec]}); max abs err {err:.3e}; two launches bit-identical"
+              + ("" if cfg.version_major == 7 else "; K12 / K13 bit-equal on the full and "
+                 "half grid"))
         out[prec] = err
         del base
         torch.cuda.empty_cache()
     return out
+
+
+def tp6_same_on_half_grid(label: str, pk, cfg, st, x0) -> None:
+    """K12 (v6) and K13 (v6, and its MIX45 form on v5 / v4 packs) on shard
+    pack pk, layer 0, through their C entries on the full grid and on half
+    of it: every output bit-equal (their stream plans deal rows over the
+    grid but never change how a row is computed). The launch counters do
+    not move."""
+    import torch
+
+    from rwkv_tpu_torch.ops import megakernel_tp as TP
+
+    for kind in ("att", "ffn") if pk["version"] == 6 else ("ffn",):
+        full, fn = TP.tp6_grid(pk, kind, cfg), TP.tp6_function(pk, kind)
+        outs = []
+        for grid in (full, full // 2):
+            if kind == "att":
+                heads = st["heads"][0, : pk["c_loc"] // cfg.head_size]
+                outs.append(TP.tp6_att_launch(fn, pk, 0, x0, st["att_xx"][0], heads, cfg, grid))
+            else:
+                outs.append(TP.tp6_ffn_launch(fn, pk, 0, x0, st["ffn_xx"][0], cfg, grid))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*outs)):
+            raise AssertionError(f"{label}: {kind} kernel differs on grids of {full} and "
+                                 f"{full // 2} blocks")
 
 
 def tp_step(version: int):

@@ -1,6 +1,7 @@
 // A block's input stream for the B=1 whole-model decode kernels K3
 // (v7_decode.cu), K6 (v6_decode.cu), K7 (v5_decode.cu) and K8
-// (v4_decode.cu): a ring of shared-memory stages fed
+// (v4_decode.cu) and the v6 tensor-parallel shard kernels K12 / K13
+// (tp_v6.cu): a ring of shared-memory stages fed
 // by 1-D bulk asynchronous copies (TMA, cp.async.bulk) that complete on a
 // "full" mbarrier a stage, the generic parts of a kernel's stream plan (the
 // ring's size, a block's share of a matrix's rows, the producer's walk over
@@ -201,21 +202,27 @@ struct Rows {
 // groups, split as evenly as the grid allows (reverse: counted from the
 // last block, so a phase's second matrix lands first on the blocks its
 // first one left with fewer rows), lanes max_lpr at most a row; a piece
-// holds as many rows as fit in a stage with their scale window (win).
+// holds as many rows as fit in a stage with their scale window (win). The
+// arithmetic is 32-bit (a layer's kernels compute their plan at the start
+// of a launch): N / 4 * blocks stays below 2^31 (part_fits), at the
+// widest ~2.2M, the v7 head's 65536 rows over 132 blocks.
 __host__ __device__ inline Rows part(int N, int blocks, int b, bool reverse, int row_bytes,
-                                     bool win, size_t stage, int max_lpr) {
-  const long long q = N / 4, i = reverse ? blocks - 1 - b : b;
+                                     bool win, int stage, int max_lpr) {
+  const int q = N / 4, i = reverse ? blocks - 1 - b : b;
   Rows r;
-  r.r0 = static_cast<int>(4 * (q * i / blocks));
-  r.r1 = static_cast<int>(4 * (q * (i + 1) / blocks));
+  r.r0 = 4 * (q * i / blocks);
+  r.r1 = 4 * (q * (i + 1) / blocks);
   r.rb = row_bytes;
   r.lpr = row_lanes(row_bytes, max_lpr);
-  int n = static_cast<int>(stage / row_bytes);
+  int n = stage / row_bytes;
   if (win)
-    while (n > 1 && static_cast<size_t>(n) * row_bytes + win_bytes(n) > stage) --n;
+    while (n > 1 && n * row_bytes + static_cast<int>(win_bytes(n)) > stage) --n;
   r.n = n;
   return r;
 }
+
+// Whether part's 32-bit arithmetic holds for `rows` rows over `blocks`.
+inline bool part_fits(long long rows, int blocks) { return rows / 4 * blocks < (1ll << 31); }
 
 // ---- the consumers' block-wide steps (decode_common.cuh's, on csync) ----
 
@@ -263,15 +270,21 @@ __device__ void layer_norm(const float* src, float* dst, const float* w, const f
   csync();
 }
 
+struct NoWait {
+  __device__ void operator()() const {}
+};
+
 // layer_norm of src[0..n) into dst, then act_n of the N vectors f(m, c)
 // that the normalized values feed, with the normalizing pass also taking
 // their amax: after dst[c] is written, g(c, dst[c]) runs in the same
 // thread (it may store what f reads) and f(m, c) may read dst[c]. The
-// values, the amax and the codes are layer_norm's and act_n's.
-template <int WF, int N, typename G, typename Fn>
+// values, the amax and the codes are layer_norm's and act_n's. ready()
+// runs between the statistics and the normalizing pass, before w, b, g or
+// f are read (a kernel waits there for the pieces that hold them).
+template <int WF, int N, typename G, typename Fn, typename R = NoWait>
 __device__ void layer_norm_act(const float* src, float* dst, const float* w, const float* b,
                                int n, float eps, float* red, G g, Fn f, act_t<WF>* xq,
-                               int stride, float* dxs) {
+                               int stride, float* dxs, R ready = R()) {
   float s = 0.f;
   for (int c = threadIdx.x; c < n; c += kConsumers) s += src[c];
   const float mu = block_sum(s, red) / static_cast<float>(n);
@@ -282,6 +295,7 @@ __device__ void layer_norm_act(const float* src, float* dst, const float* w, con
   }
   const float var = block_sum(v, red) / static_cast<float>(n);
   const float rs = rsqrtf(add(var, eps));
+  ready();
   float amax[N];
 #pragma unroll
   for (int m = 0; m < N; ++m) amax[m] = 0.f;

@@ -1,8 +1,9 @@
 // Pieces shared by the tensor-parallel decode kernels K10 / K11 (tp_v7.cu)
-// and K12 / K13 (tp_v6.cu): the two split contractions of a shard (the
+// and K14 / K15 (tp_v45.cu): the two split contractions of a shard (the
 // attention output's and the FFN value's, each a full-C partial that the
 // caller's all-reduce sums over the shards), the grid size and the
-// cooperative launch.
+// cooperative launch; the grid size and launch of K12 / K13 (tp_v6.cu),
+// whose blocks are wider (their producer warp, decode_stream.cuh).
 #pragma once
 
 #include "decode_common.cuh"
@@ -48,31 +49,41 @@ __device__ void tp_fv_tiles(const float* h, const int8_t* fv, const float* fv_d,
 }
 
 // Blocks a cooperative launch of `kernel` with `smem` bytes of shared
-// memory uses (one per SM), or a negative CUDA error code (0: it does not
-// fit on an SM).
-inline int tp_grid_blocks(const void* kernel, size_t smem) {
+// memory and `threads` threads a block uses (one per SM), or a negative
+// CUDA error code (0: it does not fit on an SM).
+inline int tp_grid_blocks_of(const void* kernel, size_t smem, int threads) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = set_smem(kernel, smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTpThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
   return (per_sm > 1 ? 1 : per_sm) * sms;
 }
 
-// One cooperative launch of `kernel` on its argument struct; returns the
-// CUDA error.
+inline int tp_grid_blocks(const void* kernel, size_t smem) {
+  return tp_grid_blocks_of(kernel, smem, kTpThreads);
+}
+
+// One cooperative launch of `kernel` on its argument struct, `threads`
+// threads a block; returns the CUDA error.
 template <typename A>
-int tp_launch(const void* kernel, A& args, size_t smem, int grid_blocks, void* stream) {
+int tp_launch_of(const void* kernel, A& args, size_t smem, int grid_blocks, int threads,
+                 void* stream) {
   if (grid_blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
   void* kargs[] = {&args};
   cudaError_t err = set_smem(kernel, smem);
   if (err == cudaSuccess)
-    err = cudaLaunchCooperativeKernel(kernel, dim3(grid_blocks), dim3(kTpThreads), kargs, smem,
+    err = cudaLaunchCooperativeKernel(kernel, dim3(grid_blocks), dim3(threads), kargs, smem,
                                       static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename A>
+int tp_launch(const void* kernel, A& args, size_t smem, int grid_blocks, void* stream) {
+  return tp_launch_of(kernel, args, smem, grid_blocks, kTpThreads, stream);
 }
 
 // Shared memory a TP launch reserves: `floats` floats, then n activations

@@ -16,29 +16,61 @@
 // rows, ~12.2 MB, and its wkv state twice (0.52 MB); a K13 launch its fr,
 // fk and fv rows, ~18.9 MB int8: ~4 us and ~6 us at 3.35 TB/s.
 //
-// Design: the phases of K6 (v6_decode.cu) for one layer and one shard in a
-// persistent cooperative kernel (one 256-thread block per SM, grid-wide
-// barriers between phases):
+// Design: the phases of K6 (v6_decode.cu) for one layer and one shard, on
+// K6's input stream (decode_stream.cuh): a persistent cooperative kernel,
+// one block per SM, each block eight consumer warps and one producer warp.
 //   K12  A  ln1, shift, xxx quantized, the maa1 rows with tanh (replicated)
 //        M  the five maa2 up-projections in f32 (replicated, all 5C rows)
 //           into the five mixes w, k, v, r, g
 //        B  the mixes quantized, the shard's rkvg rows (r, k, v, silu(g))
 //           and the whole dw1 (d_dec rows) with tanh
-//        C  per head of the shard: its dw2 rows, exp(-exp(.)) decay, wkv6
-//           with the time_faaaa bonus, group norm, ln_x, gate
+//        C  per head of the shard (one block each): its dw2 rows,
+//           exp(-exp(.)) decay, wkv6 with the time_faaaa bonus, group
+//           norm, ln_x, gate
 //        D  the shard's xo quantized with its own scale, the C rows of out
-//           into the partial (tp_out_rows, tp_common.cuh)
+//           [C, CL] into the partial
 //   K13  A  ln2 + shift (v6's, or v4/v5's under MIX45), the two mixes
 //           quantized, the shard's fk rows (nf tiles) with relu^2 and its
 //           fr gate rows with sigmoid
 //        B  per tile, its keys quantized with their own scale, the tile's
-//           fv rows summed into the partial (tp_fv_tiles)
+//           fv rows [C, FT] summed into the partial in tile order
+// Every input that does not depend on another block -- the weight rows
+// with their row scales, the vector rows a phase reads, maa2, att_in /
+// ffn_in and phase C's dw2 rows and state -- reaches shared memory through
+// the block's ring of stages, fed by the producer warp with bulk
+// asynchronous copies in the order the consumers take them (a static plan:
+// AttLayout / AttPlan / att_copy and FfnLayout / FfnPlan / ffn_copy here,
+// ops/megakernel_tp.py::tp_v6_stream_plan mirrors it). A launch is one
+// layer, so its start is on the critical path: the host computes the
+// layout, the producer the block's plan (32-bit arithmetic) while the
+// consumers load x and take its layer norm's statistics, and the producer
+// then issues a piece as soon as its stage is free, so the rows of later
+// phases are in flight while the consumers wait at the grid barriers
+// (stream::grid_sync: one atomic a block). The block's lane groups
+// take a matrix's rows in turn, each row with the lanes, the chunk order
+// and the shuffle tree matvec_rows (common.cuh) gives it, so the outputs
+// are the earlier K12 / K13's bit for bit on any grid. The phases whose
+// input vector other blocks wrote (K12's B: the five mixes, C: the dw1
+// outputs, D: xo; K13's B: the relu^2 keys of each tile) quantize it in one
+// pass from an amax the producing phase published with atomicMax (exact in
+// any order, so the codes are act_n's); the others fold their amax into
+// the layer norm's last pass.
+//
 // Numerics follow the JAX kernels as K6 does (explicit round-to-nearest
 // float ops; each matvec input quantized as a whole, the split
 // contractions' inputs the shard's local slices with their own scales).
 #include "tp_common.cuh"
+#include "decode_stream.cuh"
+
+#include <initializer_list>
 
 namespace {
+
+// a block: kConsumers compute threads (decode_stream.cuh), then one
+// producer warp
+constexpr int kThreads = stream::kConsumers;
+constexpr int kBlockThreads = stream::kBlockThreads;
+constexpr int kMaxTiles = 32;  // K13's FFN tiles at most (one published amax each)
 
 // rows of a shard's replicated vector block [L, kNumRVec6, C] and of its
 // own [L, kNumLVec6, C/tp] (ops/megakernel_tp.py TP6_RVECS, TP6_LVECS)
@@ -49,9 +81,63 @@ enum RVec6 {
 };
 enum LVec6 { kLTDecay = 0, kLLnxW, kLLnxB, kLTF, kNumLVec6 };
 
+using stream::Rows;
+using stream::part;
+using stream::round_up;
+
+// The launch's shared-memory layout, computed on the host (AttLayout /
+// FfnLayout) and passed in the kernel's arguments, so that no thread
+// redoes its 64-bit divisions.
+struct TpLayout {
+  uint32_t act_off, plan_off, bar_off, ring_off, stage, stages, smem;
+  int vec_rows;
+};
+
+template <typename L>
+TpLayout tp_layout(const L& lo) {
+  TpLayout t;
+  t.act_off = static_cast<uint32_t>(lo.act_off);
+  t.plan_off = static_cast<uint32_t>(lo.plan_off);
+  t.bar_off = static_cast<uint32_t>(lo.bar_off);
+  t.ring_off = static_cast<uint32_t>(lo.ring_off);
+  t.stage = static_cast<uint32_t>(lo.stage);
+  t.stages = static_cast<uint32_t>(lo.stages);
+  t.smem = static_cast<uint32_t>(lo.smem);
+  t.vec_rows = lo.vec_rows;
+  return t;
+}
+
+// The start of a launch: the producer warp's lane 0 initializes the
+// mbarriers and computes the block's plan, the warp arrives on named
+// barrier 2 without waiting and starts the stream; the consumers begin
+// their first phase on what needs neither (x and its layer norm's
+// statistics) and wait there before their first piece.
+__device__ __forceinline__ void stream_ready_arrive() {
+  asm volatile("bar.arrive 2, 288;" ::: "memory");
+}
+__device__ __forceinline__ void stream_ready_wait() {
+  asm volatile("bar.sync 2, 288;" ::: "memory");
+}
+
+__device__ __forceinline__ void init_mbarriers(uint64_t* full, uint64_t* empty, int stages) {
+  for (int s = 0; s < stages; ++s) {
+    stream::mbar_init(&full[s], 1);
+    stream::mbar_init(&empty[s], stream::kConsumerWarps);
+  }
+  stream::fence_mbar_init();
+}
+
 // Which of the five mixes (w, k, v, r, g) feeds each part of the fused
 // rkvg rows (r, k, v, g).
 __device__ __forceinline__ int rkvg_mix(int part) { return part == 0 ? 3 : part == 3 ? 4 : part; }
+
+// Vector rows a piece: as many as fit a stage, at most a phase's `n`.
+__host__ __device__ inline int vec_rows_for(size_t stage, int C, int n) {
+  const int r = static_cast<int>(stage / (4ull * C));
+  return r < n ? r : n;
+}
+
+// ---- K12 --------------------------------------------------------------------
 
 struct AttArgs {
   const float* x;          // [C]
@@ -73,173 +159,464 @@ struct AttArgs {
   float* part;             // [C] the shard's partial of out
   float* att_out;          // [C] ln1(x)
   float* heads_out;        // [HL, S, S]
-  float* scratch;          // mixdn (5 DM) | mixes (5C) | r|k|v|silu(g) (4 CL) | dw1 downs (DD) | xo (CL)
+  float* scratch;          // att_scratch_floats(C, CL, DM, DD)
   int C, CL, S, DM, DD;
+  TpLayout lo;
 };
+
+// K12's published amax slots (behind its scratch): the five mixes (w, k,
+// v, r, g), the dw1 outputs, xo.
+constexpr int kAttAmax = 8;
+enum AttAmax { kAmMix = 0, kAmDn = 5, kAmXo = 6 };
+constexpr int kAttVecRows = 4;  // phase A's: ln1 w, ln1 b, maa_x, att_in
+
+// Floats of K12's global scratch: mixdn (5 DM), the five mixes (5C),
+// r|k|v|silu(g) (4 CL), the dw1 downs (DD), xo (CL), then the amax slots
+// (the kernel clears them); the timing build's stamps follow.
+__host__ __device__ inline size_t att_scratch_floats(int C, int CL, int DM, int DD) {
+  return 5ull * DM + 5ull * C + 5ull * CL + DD + kAttAmax;
+}
 
 // Floats of the per-head / maa2 staging area in shared memory.
 __host__ __device__ inline int hv_floats(int S, int DM) { return 8 * S > 5 * DM ? 8 * S : 5 * DM; }
 
-template <int WF>
-__global__ void __launch_bounds__(kTpThreads) tp_v6_att_kernel(AttArgs p) {
-  constexpr int LF = small_form(WF);  // the LoRAs' form
-  cg::grid_group grid = cg::this_grid();
-  const int C = p.C, CL = p.CL, S = p.S, DM = p.DM, DD = p.DD, HL = CL / S;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int n_units = gridDim.x * (blockDim.x >> 5);
-  const int unit = blockIdx.x * (blockDim.x >> 5) + (tid >> 5);
+// Shared memory of a K12 launch: xs, xl (C floats each), hv, red (256),
+// dxs (8), the block-local amax slots, the activations (int8 codes, or f32
+// in the bf16 form; 5C of them), then the block's plan, its mbarriers and
+// the ring.
+__host__ __device__ inline size_t att_act_off(int C, int S, int DM) {
+  return 4 * (2ull * C + hv_floats(S, DM) + 256 + 8 + kAttAmax);
+}
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);  // [C] x
+// the largest piece: two vector rows, a head's state, a head's dw2 piece,
+// one row of any matrix with its scale window
+__host__ __device__ inline size_t att_piece(int C, int CL, int S, int DM, int DD, int wf) {
+  const int sf = small_form(wf);
+  size_t piece = stream::max2(8ull * C, 4ull * S * S);
+  piece = stream::max2(piece, S * form_bytes(sf, DD) + (wf == kBf16 ? 16ull : 20ull) * S);
+  size_t row = stream::max2(form_bytes(wf, C), form_bytes(wf, CL));
+  row = stream::max2(row, stream::max2(form_bytes(sf, C), 4ull * DM));
+  return stream::max2(piece, row + stream::win_bytes(1));
+}
+
+struct AttLayout : stream::Ring {
+  size_t act_off;
+  int vec_rows;
+  __host__ __device__ AttLayout(int C, int CL, int S, int DM, int DD, int wf)
+      : stream::Ring(round_up(att_act_off(C, S, DM) + (wf == kBf16 ? 4 : 1) * 5ull * C, 16),
+                     att_piece(C, CL, S, DM, DD, wf)),
+        act_off(att_act_off(C, S, DM)),
+        vec_rows(vec_rows_for(stage, C, kAttVecRows)) {}
+};
+
+// K12's pieces in stream order; a segment is a run of pieces.
+enum AttSeg {
+  aVec,    // ln1 w, ln1 b, maa_x, att_in: vec_rows rows a piece
+  aMaa1, aMaa2, aRkvg, aDw1,
+  aHeads,  // per head of the block: (dw2 rows, scales, tdecay, tf, ln_x w, b), (state)
+  aOut,
+  kAttSegs
+};
+
+// Block b's share of every phase.
+struct AttPlan {
+  Rows maa1, maa2, rkvg, dw1, out;
+  int heads, vec_pieces;
+  __host__ __device__ AttPlan(const TpLayout& lo, int C, int CL, int S, int DM, int DD, int wf,
+                              int blocks, int b) {
+    const int sf = small_form(wf), st = static_cast<int>(lo.stage);
+    const bool w = wf != kBf16;
+    const int bc = static_cast<int>(form_bytes(wf, C)), sc = static_cast<int>(form_bytes(sf, C));
+    maa1 = part(5 * DM, blocks, b, false, sc, w, st, 32);
+    maa2 = part(5 * C, blocks, b, false, 4 * DM, true, st, 32);
+    rkvg = part(4 * CL, blocks, b, false, bc, w, st, lanes_for(C, wf));
+    dw1 = part(DD, blocks, b, true, sc, w, st, 32);
+    out = part(C, blocks, b, false, static_cast<int>(form_bytes(wf, CL)), w, st,
+                  lanes_for(CL, wf));
+    const int hl = CL / S;
+    heads = b < hl ? (hl - b + blocks - 1) / blocks : 0;
+    vec_pieces = (kAttVecRows + lo.vec_rows - 1) / lo.vec_rows;
+  }
+  __host__ __device__ int count(int seg) const {
+    switch (seg) {
+      case aVec: return vec_pieces;
+      case aMaa1: return maa1.pieces();
+      case aMaa2: return maa2.pieces();
+      case aRkvg: return rkvg.pieces();
+      case aDw1: return dw1.pieces();
+      case aHeads: return 2 * heads;
+      case aOut: return out.pieces();
+      default: return 0;
+    }
+  }
+  __host__ __device__ int pieces() const {
+    int n = 0;
+    for (int s = 0; s < kAttSegs; ++s) n += count(s);
+    return n;
+  }
+};
+static_assert(sizeof(AttPlan) <= stream::kPlanBytes, "the plan's shared bytes");
+
+// Piece idx of r's rows from base (bytes), then the 16-byte window of
+// their floats in win (scales, or maa5) where win is not null: copy i of
+// it (a 16-byte multiple from a 16-byte aligned src to byte dst of the
+// stage), false past its last.
+__host__ __device__ inline bool rows_copy(const Rows& r, const void* base_v, const float* win,
+                                          int idx, int i, const void** src, uint32_t* dst,
+                                          uint32_t* bytes) {
+  const unsigned char* base = static_cast<const unsigned char*>(base_v);
+  const int c0 = r.c0(idx), c1 = r.c1(idx);
+  const uint32_t n = static_cast<uint32_t>((c1 - c0) * r.rb);
+  if (i == 0) {
+    *src = base + static_cast<size_t>(c0) * r.rb;
+    *dst = 0u;
+    *bytes = n;
+    return true;
+  }
+  if (i == 1 && win != nullptr) {
+    const int w0 = c0 & ~3, w1 = (c1 + 3) & ~3;
+    *src = win + w0;
+    *dst = n;
+    *bytes = static_cast<uint32_t>(4 * (w1 - w0));
+    return true;
+  }
+  return false;
+}
+
+// Copy i of piece idx of segment seg for block b of a grid of `blocks`.
+__host__ __device__ inline bool att_copy(const AttArgs& p, const AttPlan& pl, int vec_rows, int wf,
+                                         int b, int blocks, int seg, int idx, int i,
+                                         const void** src, uint32_t* dst, uint32_t* bytes) {
+  const int C = p.C, CL = p.CL, S = p.S;
+  const bool w = wf != kBf16;
+  auto put = [&](const void* s_, uint32_t d_, uint32_t n_) {
+    *src = s_;
+    *dst = d_;
+    *bytes = n_;
+    return true;
+  };
+  switch (seg) {
+    case aVec: {
+      const int j = idx * vec_rows + i;
+      if (i >= vec_rows || j >= kAttVecRows) return false;
+      const int vrows[3] = {kRLn1W, kRLn1B, kRMaaX};
+      return put(j < 3 ? p.rvec + vrows[j] * C : p.att_in, 4u * C * i, 4u * C);
+    }
+    case aMaa1: return rows_copy(pl.maa1, p.maa1, w ? p.maa1_d : nullptr, idx, i, src, dst, bytes);
+    case aMaa2: return rows_copy(pl.maa2, p.maa2, p.rvec + kRMaa5 * C, idx, i, src, dst, bytes);
+    case aRkvg: return rows_copy(pl.rkvg, p.rkvg, w ? p.rkvg_d : nullptr, idx, i, src, dst, bytes);
+    case aDw1: return rows_copy(pl.dw1, p.dw1, w ? p.dw1_d : nullptr, idx, i, src, dst, bytes);
+    case aHeads: {
+      const int h = b + (idx >> 1) * blocks;
+      if ((idx & 1) == 1)
+        return i == 0 && put(p.heads_in + static_cast<size_t>(h) * S * S, 0u, 4u * S * S);
+      const uint32_t rb = static_cast<uint32_t>(form_bytes(small_form(wf), p.DD));
+      if (i == 0) return put(p.dw2 + static_cast<size_t>(h) * S * rb, 0u, S * rb);
+      uint32_t off = S * rb;
+      int j = i - 1;
+      if (w) {
+        if (j == 0) return put(p.dw2_d + h * S, off, 4u * S);
+        off += 4 * S;
+        --j;
+      }
+      const int lrows[4] = {kLTDecay, kLTF, kLLnxW, kLLnxB};
+      return j < 4 && put(p.lvec + lrows[j] * CL + h * S, off + 4u * S * j, 4u * S);
+    }
+    case aOut: return rows_copy(pl.out, p.out, w ? p.out_d : nullptr, idx, i, src, dst, bytes);
+    default: return false;
+  }
+}
+
+#ifdef RWKV_PHASE_TIMES
+// The timing build's first stamps: the kernel's entry (t, read first
+// thing), then the end of its prologue twice -- a phase "P" (the plan, the
+// mbarriers) with no barrier after it.
+#define PHASE_ENTRY(t)                                   \
+  do {                                                   \
+    if (blockIdx.x == 0 && threadIdx.x == 0) marks[0] = (t); \
+    n_marks = 1;                                         \
+    PHASE_MARK();                                        \
+  } while (0)
+#define ENTRY_TIME(t) asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t))
+#else
+#define PHASE_ENTRY(t) \
+  do {                 \
+  } while (0)
+#define ENTRY_TIME(t) \
+  do {                \
+  } while (0)
+#endif
+
+// The grid barriers' words (stream::grid_sync), one a kernel. Each is safe
+// only while the launches on the card run one after another, as every TP
+// launch does (the device's current stream, ops/megakernel_tp.py).
+__device__ unsigned g_att_count = 0;
+__device__ unsigned g_ffn_count = 0;
+
+template <int WF>
+__global__ void __launch_bounds__(kBlockThreads, 1) tp_v6_att_kernel(AttArgs p) {
+  unsigned long long t_entry = 0;
+  ENTRY_TIME(t_entry);
+  constexpr int LF = small_form(WF);  // the LoRAs' form
+  constexpr bool kQuant = WF != kBf16;
+  const int C = p.C, CL = p.CL, S = p.S, DM = p.DM, DD = p.DD;
+  const int tid = threadIdx.x;
+  const TpLayout& lo = p.lo;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);  // [C] x, then sx = att_in - xl
   float* xl = xs + C;                           // [C] ln1(x), kept from A to M
   float* hv = xl + C;                           // [hv_floats] per-head vectors / mixdn
   float* red = hv + hv_floats(S, DM);           // [8][32]
   float* dxs = red + 8 * 32;                    // [8]
-  act_t<WF>* q8 = reinterpret_cast<act_t<WF>*>(dxs + 8);  // [5C] activations
+  unsigned* amx = reinterpret_cast<unsigned*>(dxs + 8);  // [kAttAmax] block-local amax
+  act_t<WF>* q8 = reinterpret_cast<act_t<WF>*>(smem + lo.act_off);  // [5C] activations
+  AttPlan* plan = reinterpret_cast<AttPlan*>(smem + lo.plan_off);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lo.bar_off);
+  uint64_t* empty = full + stream::kMaxStages;
+  unsigned char* ring = smem + lo.ring_off;
+  const int stages = static_cast<int>(lo.stages);
+  const AttPlan& pl = *plan;  // read by the consumers after stream_ready_wait
+
+  if (tid >= kThreads) {
+    // the producer warp
+    const int b = blockIdx.x, blocks = gridDim.x, vr = lo.vec_rows;
+    if (tid == kThreads) {
+      init_mbarriers(full, empty, stages);
+      *plan = AttPlan(lo, C, CL, S, DM, DD, WF, blocks, b);
+    }
+    __syncwarp();
+    stream_ready_arrive();
+    stream::produce<kAttSegs, kAttSegs>(
+        pl, 1, stages, ring, lo.stage, full, empty,
+        [&](int, int seg, int idx, int i, const void** src, uint32_t* dst, uint32_t* bytes) {
+          return att_copy(p, pl, vr, WF, b, blocks, seg, idx, i, src, dst, bytes);
+        });
+    return;
+  }
+  if (tid < kAttAmax) amx[tid] = 0u;  // ordered before their use by csync
 
   float* mixdn_g = p.scratch;        // [5 DM]
   float* mix_g = mixdn_g + 5 * DM;   // [5][C] w, k, v, r, g
   float* rkvg_g = mix_g + 5 * C;     // [4][CL] r, k, v, silu(g)
   float* dn_g = rkvg_g + 4 * CL;     // [DD]
   float* xo_g = dn_g + DD;           // [CL]
-  const float* lv = p.lvec;
+  unsigned* amax_g = reinterpret_cast<unsigned*>(xo_g + CL);
+
+#ifdef RWKV_PHASE_TIMES
+  unsigned long long* marks =
+      reinterpret_cast<unsigned long long*>(p.scratch + att_scratch_floats(C, CL, DM, DD));
+  int n_marks = 0;
+#endif
+  auto barrier = [&]() {
+    PHASE_MARK();
+    stream::csync();
+    if (tid == 0) stream::grid_sync(&g_att_count, gridDim.x);
+    stream::csync();
+    PHASE_MARK();
+  };
+  PHASE_ENTRY(t_entry);
+  PHASE_MARK();
+  const int lane = tid & 31;
+  stream::Stream cs{ring, lo.stage, stages, full, empty};
+  auto publish = [&]() {
+    if constexpr (kQuant) stream::publish_amax<kAttAmax>(amx, amax_g);
+  };
 
   // ---- A: ln1, shift, xxx, maa1 rows with tanh -----------------------------
-  for (int c = tid; c < C; c += blockDim.x) xs[c] = p.x[c];
-  __syncthreads();
-  layer_norm_block(xs, xl, p.rvec + kRLn1W * C, p.rvec + kRLn1B * C, C, 1e-5f, red);
-  if (blockIdx.x == 0)
-    for (int c = tid; c < C; c += blockDim.x) p.att_out[c] = xl[c];
+  stream::load_vec(xs, p.x, C);
+  if (blockIdx.x == 0 && tid < kAttAmax) amax_g[tid] = 0u;  // published from M on
+  stream::csync();
   {
-    const float* mx = p.rvec + kRMaaX * C;
-    act_n<WF, 1>([&](int, int c) { return add(xl[c], mul(sub(p.att_in[c], xl[c]), mx[c])); }, C,
-                 q8, 0, dxs, red);
-    matvec_grid<LF, 1>(p.maa1, 5 * DM, C, 1, [&](int, int) { return q8; },
-        [&](int row, int, auto acc) {
-          mixdn_g[row] = tanhf(dequant(acc, dxs[0], p.maa1_d + row));
+    // the vector pieces are the stream's first, in stages 0, 1, ...; the
+    // layer norm's statistics need only x, so they run while they land
+    const int vr = lo.vec_rows;
+    auto vrow = [&](int j) {
+      return reinterpret_cast<const float*>(ring + (j / vr) * lo.stage + (j % vr) * 4ull * C);
+    };
+    const float *ln_w = vrow(0), *ln_b = vrow(1), *mx = vrow(2), *ai = vrow(3);
+    stream::layer_norm_act<WF, 1>(
+        xs, xl, ln_w, ln_b, C, 1e-5f, red,
+        [&](int c, float y) { xs[c] = sub(ai[c], y); },  // sx, kept for M
+        [&](int, int c) { return add(xl[c], mul(xs[c], mx[c])); }, q8, 0, dxs,
+        [&]() {
+          stream_ready_wait();  // the mbarriers and the plan
+          for (int k = 0; k < pl.vec_pieces; ++k) cs.wait();
         });
+    cs.release(pl.vec_pieces);
   }
-  grid.sync();
+  if (blockIdx.x == 0)
+    for (int c = tid; c < C; c += kThreads) p.att_out[c] = xl[c];
+  cs.rows<LF>(pl.maa1, C, [&](int) { return q8; },
+              [&](int row, auto acc, const float* d) {
+                mixdn_g[row] = tanhf(dequant(acc, dxs[0], d));
+              });
+  barrier();
 
   // ---- M: maa2 up-projections (f32) into the five mixes --------------------
   {
     float* mdn = hv;  // [5 DM]
-    for (int i = tid; i < 5 * DM; i += blockDim.x) mdn[i] = mixdn_g[i];
-    __syncthreads();
+    stream::load_vec(mdn, mixdn_g, 5 * DM);
+    stream::csync();
     // lpr lanes share a maa2 row of DM floats, one float4 at a time
     const int pieces = DM >> 2;
-    int lpr = 32;
-    while (lpr > 1 && pieces % lpr) lpr >>= 1;
+    const int lpr = pl.maa2.lpr;
     const int gpw = 32 / lpr, sub_lane = lane % lpr, grp = lane / lpr;
-    const float4* m2 = reinterpret_cast<const float4*>(p.maa2);
-    const float* cf = p.rvec + kRMaa5 * C;  // row s * C + c: split s's coefficient
-    for (int base = unit * gpw; base < 5 * C; base += n_units * gpw) {  // warp-uniform
-      const int row = base + grp;
-      float acc = 0.f;
-      if (row < 5 * C) {
-        const float* md = mdn + (row / C) * DM;
-        for (int q = sub_lane; q < pieces; q += lpr) {
-          const float4 w = m2[static_cast<size_t>(row) * pieces + q];
-          acc = fmaf(w.x, md[4 * q], acc);
-          acc = fmaf(w.y, md[4 * q + 1], acc);
-          acc = fmaf(w.z, md[4 * q + 2], acc);
-          acc = fmaf(w.w, md[4 * q + 3], acc);
+    for (int k = 0; k < pl.maa2.pieces(); ++k) {
+      const int c0 = pl.maa2.c0(k), n = pl.maa2.c1(k) - c0;
+      const unsigned char* st = cs.wait();
+      const float4* m2 = reinterpret_cast<const float4*>(st);
+      const float* cf = reinterpret_cast<const float*>(st + 4ull * n * DM);  // maa5 window
+      const int w0 = c0 & ~3;
+      for (int base = (tid >> 5) * gpw; base < n; base += stream::kConsumerWarps * gpw) {
+        const int i = base + grp, row = c0 + i;
+        float acc = 0.f;
+        if (i < n) {
+          const float* md = mdn + (row / C) * DM;
+          for (int q = sub_lane; q < pieces; q += lpr) {
+            const float4 w = m2[static_cast<size_t>(i) * pieces + q];
+            acc = fmaf(w.x, md[4 * q], acc);
+            acc = fmaf(w.y, md[4 * q + 1], acc);
+            acc = fmaf(w.z, md[4 * q + 2], acc);
+            acc = fmaf(w.w, md[4 * q + 3], acc);
+          }
+        }
+        for (int off = lpr >> 1; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        if (sub_lane == 0 && i < n) {
+          const int c = row % C;
+          const float v = add(xl[c], mul(xs[c], add(cf[row - w0], acc)));
+          mix_g[row] = v;
+          if constexpr (kQuant) stream::note_amax(&amx[kAmMix + row / C], v);
         }
       }
-      for (int off = lpr >> 1; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (sub_lane == 0 && row < 5 * C) {
-        const int c = row % C;
-        mix_g[row] = add(xl[c], mul(sub(p.att_in[c], xl[c]), add(cf[row], acc)));
-      }
+      cs.release(1);
     }
   }
-  grid.sync();
+  publish();
+  barrier();
 
   // ---- B: the mixes quantized, rkvg rows, dw1 rows with tanh ---------------
-  act_n<WF, 5>([&](int m, int c) { return mix_g[m * C + c]; }, C, q8, C, dxs, red);
-  matvec_grid<WF, 1>(p.rkvg, 4 * CL, C, 1,
-      [&](int row, int) { return q8 + rkvg_mix(row / CL) * C; },
-      [&](int row, int, auto acc) {
-        const int part = row / CL;
-        float y = dequant(acc, dxs[rkvg_mix(part)], p.rkvg_d + row);
-        if (part == 3) y = mul(y, sigmoidf(y));  // silu gate
-        rkvg_g[row] = y;
-      },
-      lanes_for(C, WF));
-  matvec_grid<LF, 1>(p.dw1, DD, C, 1, [&](int, int) { return q8; },  // mix w
-      [&](int row, int, auto acc) { dn_g[row] = tanhf(dequant(acc, dxs[0], p.dw1_d + row)); },
-      32, true);
-  grid.sync();
+  {
+    // the codes of the mixes this block's rows read: its rkvg rows' parts
+    // (r, k, v, g: one or two of them), and w where it has dw1 rows
+    unsigned need = pl.dw1.pieces() > 0 ? 1u : 0u;
+    if (pl.rkvg.pieces() > 0)
+      for (int part = pl.rkvg.r0 / CL; part <= (pl.rkvg.r1 - 1) / CL; ++part)
+        need |= 1u << rkvg_mix(part);
+    for (int m = 0; m < 5; ++m)  // block-uniform
+      if (need & (1u << m))
+        stream::act_published<WF, 1>(mix_g + m * C, C, q8 + m * C, dxs + m, amax_g + kAmMix + m);
+  }
+  cs.rows<WF>(pl.rkvg, C, [&](int row) { return q8 + rkvg_mix(row / CL) * C; },
+              [&](int row, auto acc, const float* d) {
+                const int part = row / CL;
+                float y = dequant(acc, dxs[rkvg_mix(part)], d);
+                if (part == 3) y = mul(y, sigmoidf(y));  // silu gate
+                rkvg_g[row] = y;
+              });
+  cs.rows<LF>(pl.dw1, C, [&](int) { return q8; },  // mix w
+              [&](int row, auto acc, const float* d) {
+                const float v = tanhf(dequant(acc, dxs[0], d));
+                dn_g[row] = v;
+                if constexpr (kQuant) stream::note_amax(&amx[kAmDn], v);
+              });
+  publish();
+  barrier();
 
   // ---- C: per head: dw2 rows, decay, wkv6, group norm, ln_x, gate ----------
-  for (int h = blockIdx.x; h < HL; h += gridDim.x) {  // block-uniform
+  // a head's r, k, v and gate, loaded ahead of their use
+  float hr = 0.f, hk = 0.f, hvv = 0.f, hg = 0.f;
+  auto fetch_head = [&](int h) {
+    if (tid < S) {
+      const int c = h * S + tid;
+      hr = __ldcg(rkvg_g + c);
+      hk = __ldcg(rkvg_g + CL + c);
+      hvv = __ldcg(rkvg_g + 2 * CL + c);
+      hg = __ldcg(rkvg_g + 3 * CL + c);
+    }
+  };
+  if (pl.heads > 0) {
+    fetch_head(blockIdx.x);
+    stream::act_published<LF, 1>(dn_g, DD, q8, dxs, amax_g + kAmDn);
+  }
+  for (int j = 0; j < pl.heads; ++j) {  // block-uniform
+    const int h = blockIdx.x + j * gridDim.x;
     float* h_r = hv;
     float* h_k = hv + S;
     float* h_v = hv + 2 * S;
     float* h_w = hv + 3 * S;
     float* h_y = hv + 4 * S;
-    act_n<LF, 1>([&](int, int c) { return dn_g[c]; }, DD, q8, 0, dxs, red);
-    const float* tdecay = lv + kLTDecay * CL;
-    matvec_rows<LF, 1>(p.dw2, S, DD, tid >> 5, blockDim.x >> 5, 32, 1,
-        [&](int r) { return h * S + r; }, [&](int, int) { return q8; },
-        [&](int r, int, auto acc) {
-          const int c = h * S + r;
-          const float wl = add(dequant(acc, dxs[0], p.dw2_d + c), tdecay[c]);
-          h_w[r] = expf(-expf(wl));
-        });
+    // the head's piece: dw2 rows, (scales,) tdecay, tf, ln_x w, ln_x b
+    const unsigned char* hp = cs.wait();
+    const size_t w2_bytes = S * form_bytes(LF, DD);
+    const float* d2 = reinterpret_cast<const float*>(hp + w2_bytes);
+    const float* tdecay = d2 + (kQuant ? S : 0);
+    const float* tf = tdecay + S;
+    const float* lnx_w = tf + S;
+    const float* lnx_b = lnx_w + S;
+    stream::smem_rows<LF>(hp, S, DD, 32, 0, [&](int) { return q8; }, [&](int r, auto acc) {
+      const float wl = add(dequant(acc, dxs[0], d2 + r), tdecay[r]);
+      h_w[r] = expf(-expf(wl));
+    });
     const int c = h * S + tid;
     float dot_part = 0.f;
+    const float gate = hg;
     if (tid < S) {
-      const float rr = rkvg_g[c], kk = rkvg_g[CL + c];
-      h_r[tid] = rr;
-      h_k[tid] = kk;
-      h_v[tid] = rkvg_g[2 * CL + c];
-      dot_part = mul(mul(rr, lv[kLTF * CL + c]), kk);
+      h_r[tid] = hr;
+      h_k[tid] = hk;
+      h_v[tid] = hvv;
+      dot_part = mul(mul(hr, tf[tid]), hk);
     }
-    const float dot = block_sum(dot_part, red);  // also orders the h_* stores
+    if (j + 1 < pl.heads) fetch_head(h + gridDim.x);
+    const float dot = stream::block_sum(dot_part, red);  // also orders the h_* stores
 
     // state rows: tpr threads per row i, entries j = jj * tpr + part
-    const int tpr = blockDim.x / S;
+    const float* st = reinterpret_cast<const float*>(cs.wait());
+    const int tpr = kThreads / S;
     const int jn = S / tpr;
     const int i = tid / tpr, part = tid % tpr;
-    const size_t hoff = (static_cast<size_t>(h) * S + i) * S;
-    const float* st_in = p.heads_in + hoff;
-    float* st_out = p.heads_out + hoff;
+    const float* st_in = st + i * S;
+    float* st_out = p.heads_out + (static_cast<size_t>(h) * S + i) * S;
     const float vi = h_v[i];
     float yi = 0.f;
 #pragma unroll
     for (int jj = 0; jj < kMaxJ; ++jj) {
       if (jj < jn) {
-        const int j = jj * tpr + part;
-        const float st = st_in[j];
-        yi += st * h_r[j];
-        st_out[j] = add(mul(st, h_w[j]), mul(h_k[j], vi));
+        const int jx = jj * tpr + part;
+        const float sv = st_in[jx];
+        yi += sv * h_r[jx];
+        st_out[jx] = add(mul(sv, h_w[jx]), mul(h_k[jx], vi));
       }
     }
     for (int off = tpr >> 1; off > 0; off >>= 1) yi += __shfl_xor_sync(0xffffffffu, yi, off);
     if (part == 0) h_y[i] = add(yi, mul(vi, dot));
-    __syncthreads();
+    stream::csync();
 
     const float yv = tid < S ? h_y[tid] : 0.f;
-    const float mu = block_sum(yv, red) / static_cast<float>(S);
+    const float mu = stream::block_sum(yv, red) / static_cast<float>(S);
     const float yc = tid < S ? sub(yv, mu) : 0.f;
-    const float var = block_sum(mul(yc, yc), red) / static_cast<float>(S);
+    const float var = stream::block_sum(mul(yc, yc), red) / static_cast<float>(S);
     if (tid < S) {
       const float yn = mul(yc, rsqrtf(add(var, 64e-5f)));
-      const float xo = add(mul(yn, lv[kLLnxW * CL + c]), lv[kLLnxB * CL + c]);
-      xo_g[c] = mul(xo, rkvg_g[3 * CL + c]);
+      const float xo = add(mul(yn, lnx_w[tid]), lnx_b[tid]);
+      const float v = mul(xo, gate);
+      xo_g[c] = v;
+      if constexpr (kQuant) stream::note_amax(&amx[kAmXo], v);
     }
-    __syncthreads();
+    stream::csync();
+    cs.release(2);
   }
-  grid.sync();
+  publish();
+  barrier();
 
-  // ---- D: the shard's partial of out --------------------------------------
-  tp_out_rows<WF>(xo_g, p.out, p.out_d, p.part, C, CL, red, dxs, q8);
+  // ---- D: the shard's xo quantized, the C rows of out into the partial ----
+  stream::act_published<WF, 1>(xo_g, CL, q8, dxs, amax_g + kAmXo);
+  cs.rows<WF>(pl.out, CL, [&](int) { return q8; },
+              [&](int row, auto acc, const float* d) { p.part[row] = dequant(acc, dxs[0], d); });
+  PHASE_MARK();
 }
 
-size_t att_smem(int C, int S, int DM, int wf) {
-  return tp_smem(2ull * C + hv_floats(S, DM) + 8 * 32 + 8, 5ull * C, wf);
-}
+// ---- K13 --------------------------------------------------------------------
 
 struct FfnArgs {
   const float* x;          // [C]
@@ -254,54 +631,242 @@ struct FfnArgs {
   float* part;             // [C] the shard's partial of fv
   float* rg;               // [CL] sigmoid(fr rows)
   float* ffn_out;          // [C] ln2(x)
-  float* scratch;          // [FL] relu^2 keys
+  float* scratch;          // [FL] relu^2 keys (the timing build's stamps follow)
   int C, CL, FL, nf;
+  TpLayout lo;
 };
 
-template <int WF, bool MIX45>
-__global__ void __launch_bounds__(kTpThreads) tp_v6_ffn_kernel(FfnArgs p) {
-  cg::grid_group grid = cg::this_grid();
-  const int C = p.C, tid = threadIdx.x;
+constexpr int kFfnVecRows = 5;  // phase A's: ln2 w, ln2 b, the FFN mixes k and r, ffn_in
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);  // [C]
+// Shared memory of a K13 launch: xs, xl (C floats each), red (256), dxs
+// and the block-local amax slots (kMaxTiles each), the launch's amax set
+// (padded to 16 bytes), the activations (max(2C, FL) codes, or f32 in the
+// bf16 form), then the plan, the mbarriers and the ring.
+__host__ __device__ inline size_t ffn_act_off(int C) {
+  return 4 * (2ull * C + 256 + 2 * kMaxTiles + 4);
+}
+
+// the largest piece: two vector rows, one fk / fr row or one row of an fv
+// tile with its scale window
+__host__ __device__ inline size_t ffn_piece(int C, int FT, int wf) {
+  const size_t row = stream::max2(form_bytes(wf, C), form_bytes(wf, FT));
+  return stream::max2(8ull * C, row + stream::win_bytes(1));
+}
+
+struct FfnLayout : stream::Ring {
+  size_t act_off;
+  int vec_rows;
+  __host__ __device__ FfnLayout(int C, int FL, int nf, int wf)
+      : stream::Ring(round_up(ffn_act_off(C) + (wf == kBf16 ? 4ull : 1ull) *
+                                                  stream::max2(2ull * C, FL), 16),
+                     ffn_piece(C, FL / nf, wf)),
+        act_off(ffn_act_off(C)),
+        vec_rows(vec_rows_for(stage, C, kFfnVecRows)) {}
+};
+
+enum FfnSeg {
+  fVec,  // ln2 w, ln2 b, mix k, mix r, ffn_in: vec_rows rows a piece
+  fFk, fFr,
+  fFv,   // the fv rows of tile 0, then of tile 1, ...
+  kFfnSegs
+};
+
+struct FfnPlan {
+  Rows fk, fr, fv;  // fv: the block's rows of each tile
+  int nf, vec_pieces;
+  __host__ __device__ FfnPlan(const TpLayout& lo, int C, int CL, int FL, int nf_, int wf,
+                              int blocks, int b) {
+    const bool w = wf != kBf16;
+    const int bc = static_cast<int>(form_bytes(wf, C)), ft = FL / nf_, st = static_cast<int>(lo.stage);
+    fk = part(FL, blocks, b, false, bc, w, st, lanes_for(C, wf));
+    fr = part(CL, blocks, b, true, bc, w, st, lanes_for(C, wf));
+    fv = part(C, blocks, b, false, static_cast<int>(form_bytes(wf, ft)), w, st,
+                 lanes_for(ft, wf));
+    nf = nf_;
+    vec_pieces = (kFfnVecRows + lo.vec_rows - 1) / lo.vec_rows;
+  }
+  __host__ __device__ int count(int seg) const {
+    switch (seg) {
+      case fVec: return vec_pieces;
+      case fFk: return fk.pieces();
+      case fFr: return fr.pieces();
+      case fFv: return nf * fv.pieces();
+      default: return 0;
+    }
+  }
+  __host__ __device__ int pieces() const {
+    int n = 0;
+    for (int s = 0; s < kFfnSegs; ++s) n += count(s);
+    return n;
+  }
+};
+static_assert(sizeof(FfnPlan) <= stream::kPlanBytes, "the plan's shared bytes");
+
+__host__ __device__ inline bool ffn_copy(const FfnArgs& p, const FfnPlan& pl, int vec_rows,
+                                         int wf, int seg, int idx, int i, const void** src,
+                                         uint32_t* dst, uint32_t* bytes) {
+  const int C = p.C;
+  const bool w = wf != kBf16;
+  switch (seg) {
+    case fVec: {
+      const int j = idx * vec_rows + i;
+      if (i >= vec_rows || j >= kFfnVecRows) return false;
+      const int vrows[4] = {kRLn2W, kRLn2B, kRFXK, kRFXR};
+      *src = j < 4 ? p.rvec + vrows[j] * C : p.ffn_in;
+      *dst = 4u * C * i;
+      *bytes = 4u * C;
+      return true;
+    }
+    case fFk: return rows_copy(pl.fk, p.fk, w ? p.fk_d : nullptr, idx, i, src, dst, bytes);
+    case fFr: return rows_copy(pl.fr, p.fr, w ? p.fr_d : nullptr, idx, i, src, dst, bytes);
+    case fFv: {
+      const int np = pl.fv.pieces(), t = idx / np;
+      const int8_t* tile = p.fv + form_bytes(wf, static_cast<size_t>(t) * C * (p.FL / pl.nf));
+      return rows_copy(pl.fv, tile, w ? p.fv_d : nullptr, idx - t * np, i, src, dst, bytes);
+    }
+    default: return false;
+  }
+}
+
+// K13's published amax slots: two sets of kMaxTiles. A launch publishes
+// into set (barriers its kernel has crossed) & 1 -- the top bit of its
+// barrier word when it starts, for each launch crosses one -- and clears
+// the other set, which the launch before it used, for the next one. Every
+// launch finds its set cleared, with no barrier before its first publish.
+__device__ unsigned g_ffn_amax[2 * kMaxTiles];
+
+template <int WF, bool MIX45>
+__global__ void __launch_bounds__(kBlockThreads, 1) tp_v6_ffn_kernel(FfnArgs p) {
+  unsigned long long t_entry = 0;
+  ENTRY_TIME(t_entry);
+  constexpr bool kQuant = WF != kBf16;
+  const int C = p.C, FL = p.FL, nf = p.nf, FT = FL / nf;
+  const int tid = threadIdx.x;
+  const TpLayout& lo = p.lo;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);  // [C] x; in B the fv partials of the block's rows
   float* xl = xs + C;                           // [C] ln2(x)
   float* red = xl + C;                          // [8][32]
-  float* dxs = red + 8 * 32;                    // [8]
-  act_t<WF>* q8 = reinterpret_cast<act_t<WF>*>(dxs + 8);  // [max(2C, FT)]
+  float* dxs = red + 8 * 32;                    // [kMaxTiles]
+  unsigned* amx = reinterpret_cast<unsigned*>(dxs + kMaxTiles);  // [kMaxTiles] block-local amax
+  unsigned* set = amx + kMaxTiles;                                 // this launch's amax set
+  act_t<WF>* q8 = reinterpret_cast<act_t<WF>*>(smem + lo.act_off);  // [max(2C, FL)]
+  FfnPlan* plan = reinterpret_cast<FfnPlan*>(smem + lo.plan_off);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lo.bar_off);
+  uint64_t* empty = full + stream::kMaxStages;
+  unsigned char* ring = smem + lo.ring_off;
+  const int stages = static_cast<int>(lo.stages);
+  const FfnPlan& pl = *plan;  // read by the consumers after stream_ready_wait
+
+  if (tid >= kThreads) {
+    // the producer warp
+    const int vr = lo.vec_rows;
+    if (tid == kThreads) {
+      init_mbarriers(full, empty, stages);
+      *plan = FfnPlan(lo, C, p.CL, FL, nf, WF, gridDim.x, blockIdx.x);
+    }
+    __syncwarp();
+    stream_ready_arrive();
+    stream::produce<kFfnSegs, kFfnSegs>(
+        pl, 1, stages, ring, lo.stage, full, empty,
+        [&](int, int seg, int idx, int i, const void** src, uint32_t* dst, uint32_t* bytes) {
+          return ffn_copy(p, pl, vr, WF, seg, idx, i, src, dst, bytes);
+        });
+    return;
+  }
+  // the barrier word as this launch finds it (no block of it can have
+  // crossed the barrier yet); its set is written before the publication
+  const unsigned word = tid == 0 ? __ldcg(&g_ffn_count) : 0u;
+  if (tid < kMaxTiles) amx[tid] = 0u;  // ordered before their use by csync
+
+#ifdef RWKV_PHASE_TIMES
+  unsigned long long* marks = reinterpret_cast<unsigned long long*>(p.scratch + FL);
+  int n_marks = 0;
+#endif
+  PHASE_ENTRY(t_entry);
+  PHASE_MARK();
+  stream::Stream cs{ring, lo.stage, stages, full, empty};
 
   // ---- A: ln2 + shift, fk rows with relu^2, fr rows with sigmoid ----------
-  for (int c = tid; c < C; c += blockDim.x) xs[c] = p.x[c];
-  __syncthreads();
-  layer_norm_block(xs, xl, p.rvec + kRLn2W * C, p.rvec + kRLn2B * C, C, 1e-5f, red);
+  stream::load_vec(xs, p.x, C);
+  stream::csync();
+  {
+    // the vector pieces (stages 0, 1, ...) land during the statistics
+    const int vr = lo.vec_rows;
+    auto vrow = [&](int j) {
+      return reinterpret_cast<const float*>(ring + (j / vr) * lo.stage + (j % vr) * 4ull * C);
+    };
+    const float *ln_w = vrow(0), *ln_b = vrow(1), *mk = vrow(2), *mr = vrow(3), *fin = vrow(4);
+    stream::layer_norm_act<WF, 2>(
+        xs, xl, ln_w, ln_b, C, 1e-5f, red, [](int, float) {},
+        [&](int m, int c) {
+          const float cf = m == 0 ? mk[c] : mr[c], prev = fin[c];
+          return MIX45 ? add(mul(xl[c], cf), sub(prev, mul(prev, cf)))
+                       : add(xl[c], mul(sub(prev, xl[c]), cf));
+        },
+        q8, C, dxs,
+        [&]() {
+          stream_ready_wait();  // the mbarriers and the plan
+          for (int k = 0; k < pl.vec_pieces; ++k) cs.wait();
+        });
+    cs.release(pl.vec_pieces);
+  }
   if (blockIdx.x == 0)
-    for (int c = tid; c < C; c += blockDim.x) p.ffn_out[c] = xl[c];
-  const float* fx = p.rvec + kRFXK * C;  // rows k, r
-  act_n<WF, 2>(
-      [&](int m, int c) {
-        const float cf = fx[m * C + c], prev = p.ffn_in[c];
-        return MIX45 ? add(mul(xl[c], cf), sub(prev, mul(prev, cf)))
-                     : add(xl[c], mul(sub(prev, xl[c]), cf));
-      },
-      C, q8, C, dxs, red);
-  matvec_grid<WF, 1>(p.fk, p.FL, C, 1, [&](int, int) { return q8; },
-      [&](int row, int, auto acc) {
-        const float y = fmaxf(dequant(acc, dxs[0], p.fk_d + row), 0.f);
-        p.scratch[row] = mul(y, y);
-      },
-      lanes_for(C, WF));
-  matvec_grid<WF, 1>(p.fr, p.CL, C, 1, [&](int, int) { return q8 + C; },
-      [&](int row, int, auto acc) { p.rg[row] = sigmoidf(dequant(acc, dxs[1], p.fr_d + row)); },
-      lanes_for(C, WF), true);
-  grid.sync();
+    for (int c = tid; c < C; c += kThreads) p.ffn_out[c] = xl[c];
+  cs.rows<WF>(pl.fk, C, [&](int) { return q8; },
+              [&](int row, auto acc, const float* d) {
+                const float y = fmaxf(dequant(acc, dxs[0], d), 0.f);
+                const float v = mul(y, y);
+                p.scratch[row] = v;
+                if constexpr (kQuant) stream::note_amax(&amx[row / FT], v);
+              });
+  cs.rows<WF>(pl.fr, C, [&](int) { return q8 + C; },
+              [&](int row, auto acc, const float* d) {
+                p.rg[row] = sigmoidf(dequant(acc, dxs[1], d));
+              });
+  if (tid == 0) *set = word >> 31;
+  stream::csync();
+  unsigned* amax_g = g_ffn_amax + *set * kMaxTiles;
+  if (blockIdx.x == 0 && tid < kMaxTiles) g_ffn_amax[(*set ^ 1u) * kMaxTiles + tid] = 0u;
+  if constexpr (kQuant) {  // the tiles' amax
+    if (tid < nf) {
+      const unsigned v = amx[tid];
+      if (v != 0u) atomicMax(amax_g + tid, v);
+    }
+  }
+  PHASE_MARK();
+  stream::csync();
+  if (tid == 0) stream::grid_sync(&g_ffn_count, gridDim.x);
+  stream::csync();
+  PHASE_MARK();
 
-  // ---- B: the fv tiles into the partial ------------------------------------
-  tp_fv_tiles<WF>(p.scratch, p.fv, p.fv_d, p.part, C, p.FL, p.nf, red, dxs, q8);
+  // ---- B: each tile's keys quantized, its fv rows into the partial --------
+  if (nf == 2) {  // the 1.5B / 1.6B widths at tp=2: both tiles in one pass
+    stream::act_published<WF, 2>(p.scratch, FT, q8, dxs, amax_g);
+  } else {
+    for (int t = 0; t < nf; ++t)
+      stream::act_published<WF, 1>(p.scratch + t * FT, FT, q8 + t * FT, dxs + t, amax_g + t);
+  }
+  const int r0 = pl.fv.r0;
+  for (int t = 0; t < nf; ++t) {
+    // a row's lane group is the same in every tile (the same rows a piece),
+    // so the thread that sums tile t - 1 into xs sums tile t onto it
+    cs.rows<WF>(pl.fv, FT, [&](int) { return q8 + t * FT; },
+                [&](int row, auto acc, const float* d) {
+                  const float y = dequant(acc, dxs[t], d);
+                  const float v = t == 0 ? y : add(xs[row - r0], y);
+                  if (t + 1 < nf) {
+                    xs[row - r0] = v;
+                  } else {
+                    p.part[row] = v;
+                  }
+                });
+  }
+  PHASE_MARK();
 }
 
-size_t ffn_smem(int C, int FT, int wf) {
-  return tp_smem(2ull * C + 8 * 32 + 8, 2 * C > FT ? 2 * C : FT, wf);
-}
+// ---- launches ----------------------------------------------------------------
 
 const void* att_kernel(int wf) {
   if (wf == kBf16) return reinterpret_cast<const void*>(tp_v6_att_kernel<kBf16>);
@@ -322,14 +887,49 @@ const void* ffn_kernel(int wf, bool mix45) {
   return wf == kInt4 ? ffn_of<kInt4>(mix45) : ffn_of<kInt8>(mix45);
 }
 
+// Why K12 cannot run these shapes (a CUDA error code), or 0.
+int att_shape_error(int wf, int C, int CL, int S, int DM, int DD) {
+  if (S <= 0 || S % 4 != 0 || kThreads % S != 0 || S * S / kThreads > kMaxJ || CL % S != 0 ||
+      DM % 4 != 0 || C % 16 != 0 || CL % 16 != 0 || DD % 16 != 0 || CL > C)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const AttLayout lo(C, CL, S, DM, DD, wf);
+  if (static_cast<int>(lo.stages) < stream::kMinStages || lo.vec_rows < 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+// Why K13 cannot run these shapes (a CUDA error code), or 0.
+int ffn_shape_error(int wf, int C, int CL, int FL, int nf) {
+  if (nf <= 0 || nf > kMaxTiles || FL % nf != 0 || C % 16 != 0 || CL % 4 != 0 ||
+      (FL / nf) % 16 != 0 || CL > C)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FfnLayout lo(C, FL, nf, wf);
+  if (static_cast<int>(lo.stages) < stream::kMinStages || lo.vec_rows < 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+// every pointer the stream copies from or the consumers read in float4s is
+// 16-byte aligned
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* q : ptrs)
+    if (reinterpret_cast<uintptr_t>(q) % 16 != 0) return false;
+  return true;
+}
+
 int att_launch(int wf, const void* x, const void* att_in, const void* heads_in, const void* rkvg,
                const void* rkvg_d, const void* maa1, const void* maa1_d, const void* dw1,
                const void* dw1_d, const void* dw2, const void* dw2_d, const void* out,
                const void* out_d, const void* maa2, const void* rvec, const void* lvec,
                void* part, void* att_out, void* heads_out, void* scratch, int C, int CL, int S,
                int DM, int DD, int grid_blocks, void* stream) {
-  if (kTpThreads % S != 0 || S * S / kTpThreads > kMaxJ || CL % S != 0 || DM % 4 != 0)
+  const int bad = att_shape_error(wf, C, CL, S, DM, DD);
+  if (bad != 0) return bad;
+  if (grid_blocks <= 0 || !stream::part_fits(5ll * C, grid_blocks))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16({x, att_in, heads_in, rkvg, rkvg_d, maa1, maa1_d, dw1, dw1_d, dw2, dw2_d, out,
+                  out_d, maa2, rvec, lvec, scratch}))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   AttArgs a;
   a.x = static_cast<const float*>(x);
   a.att_in = static_cast<const float*>(att_in);
@@ -352,14 +952,20 @@ int att_launch(int wf, const void* x, const void* att_in, const void* heads_in, 
   a.heads_out = static_cast<float*>(heads_out);
   a.scratch = static_cast<float*>(scratch);
   a.C = C; a.CL = CL; a.S = S; a.DM = DM; a.DD = DD;
-  return tp_launch(att_kernel(wf), a, att_smem(C, S, DM, wf), grid_blocks, stream);
+  a.lo = tp_layout(AttLayout(C, CL, S, DM, DD, wf));
+  return tp_launch_of(att_kernel(wf), a, a.lo.smem, grid_blocks, kBlockThreads, stream);
 }
 
 int ffn_launch(int wf, bool mix45, const void* x, const void* ffn_in, const void* fr,
                const void* fr_d, const void* fk, const void* fk_d, const void* fv,
                const void* fv_d, const void* rvec, void* part, void* rg, void* ffn_out,
                void* scratch, int C, int CL, int FL, int nf, int grid_blocks, void* stream) {
-  if (nf <= 0 || FL % nf != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int bad = ffn_shape_error(wf, C, CL, FL, nf);
+  if (bad != 0) return bad;
+  if (grid_blocks <= 0 || !stream::part_fits(FL > C ? FL : C, grid_blocks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16({x, ffn_in, fr, fr_d, fk, fk_d, fv, fv_d, rvec, scratch}))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   FfnArgs a;
   a.x = static_cast<const float*>(x);
   a.ffn_in = static_cast<const float*>(ffn_in);
@@ -375,15 +981,56 @@ int ffn_launch(int wf, bool mix45, const void* x, const void* ffn_in, const void
   a.ffn_out = static_cast<float*>(ffn_out);
   a.scratch = static_cast<float*>(scratch);
   a.C = C; a.CL = CL; a.FL = FL; a.nf = nf;
-  return tp_launch(ffn_kernel(wf, mix45), a, ffn_smem(C, FL / nf, wf), grid_blocks, stream);
+  a.lo = tp_layout(FfnLayout(C, FL, nf, wf));
+  return tp_launch_of(ffn_kernel(wf, mix45), a, a.lo.smem, grid_blocks, kBlockThreads, stream);
 }
 
 }  // namespace
 
+// K12's / K13's stream plan in form wf (0 int8, 1 int4, 2 bf16) as the
+// kernels compute it, for ops/megakernel_tp.py::tp_v6_stream_plan to be
+// held to: kind 0 K12 (C, CL, S, DM, DD), 1 K13 (C, CL, FL, nf; either
+// MIX45 instance: the same plan). out[0] the launch's dynamic shared
+// bytes, out[1] a stage's bytes, out[2] the stages, out[3] block `block`'s
+// pieces of a grid of `blocks`, out[4] the kernel's static shared bytes,
+// out[5] the vector rows a piece. Returns a CUDA error code (0: none).
+extern "C" int rwkv_tp_v6_plan(int wf, int kind, int C, int CL, int FL, int nf, int S, int DM,
+                               int DD, int blocks, int block, long long* out) {
+  if (wf < kInt8 || wf > kBf16 || blocks <= 0 || block < 0 || block >= blocks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bad = kind == 0 ? att_shape_error(wf, C, CL, S, DM, DD)
+                            : ffn_shape_error(wf, C, CL, FL, nf);
+  if (bad != 0) return bad;
+  cudaFuncAttributes attr;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&attr, kind == 0 ? att_kernel(wf) : ffn_kernel(wf, false));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (kind == 0) {
+    const TpLayout lo = tp_layout(AttLayout(C, CL, S, DM, DD, wf));
+    const AttPlan pl(lo, C, CL, S, DM, DD, wf, blocks, block);
+    out[0] = static_cast<long long>(lo.smem);
+    out[1] = static_cast<long long>(lo.stage);
+    out[2] = static_cast<long long>(lo.stages);
+    out[3] = pl.pieces();
+    out[5] = lo.vec_rows;
+  } else {
+    const TpLayout lo = tp_layout(FfnLayout(C, FL, nf, wf));
+    const FfnPlan pl(lo, C, CL, FL, nf, wf, blocks, block);
+    out[0] = static_cast<long long>(lo.smem);
+    out[1] = static_cast<long long>(lo.stage);
+    out[2] = static_cast<long long>(lo.stages);
+    out[3] = pl.pieces();
+    out[5] = lo.vec_rows;
+  }
+  out[4] = static_cast<long long>(attr.sharedSizeBytes);
+  return 0;
+}
+
 // The C entries, one per weight form (suffix "", _w4, _bf16): the grid a
 // launch uses (blocks, or a negative CUDA error code) and one launch, of
 // K12, K13 and K13's MIX45 form (rwkv_tp_v45_ffn*, the v4 / v5 FFN). The
-// bf16 ones read no scales (pass null).
+// bf16 ones read no scales (pass null). Every pointer but the outputs'
+// must be 16-byte aligned.
 #define RWKV_TP_V6_ATT_PARAMS                                                                   \
   const void *x, const void *att_in, const void *heads_in, const void *rkvg,                    \
       const void *rkvg_d, const void *maa1, const void *maa1_d, const void *dw1,                \
@@ -403,21 +1050,26 @@ int ffn_launch(int wf, bool mix45, const void* x, const void* ffn_in, const void
   x, ffn_in, fr, fr_d, fk, fk_d, fv, fv_d, rvec, part, rg, ffn_out, scratch, C, CL, FL, nf,    \
       grid_blocks, stream
 
+// The grid entries take the widths that set the launch's shared memory:
+// K12 (C, CL, S, DM, DD), K13 (C, FL, nf).
 #define RWKV_TP_V6_ENTRIES(suffix, wf)                                                          \
-  extern "C" int rwkv_tp_v6_att##suffix##_grid(int C, int S, int DM) {                         \
-    return tp_grid_blocks(att_kernel(wf), att_smem(C, S, DM, wf));                             \
+  extern "C" int rwkv_tp_v6_att##suffix##_grid(int C, int CL, int S, int DM, int DD) {         \
+    return tp_grid_blocks_of(att_kernel(wf), AttLayout(C, CL, S, DM, DD, wf).smem,              \
+                             kBlockThreads);                                                    \
   }                                                                                             \
   extern "C" int rwkv_tp_v6_att##suffix(RWKV_TP_V6_ATT_PARAMS) {                               \
     return att_launch(wf, RWKV_TP_V6_ATT_ARGS);                                                 \
   }                                                                                             \
-  extern "C" int rwkv_tp_v6_ffn##suffix##_grid(int C, int FT) {                                \
-    return tp_grid_blocks(ffn_kernel(wf, false), ffn_smem(C, FT, wf));                          \
+  extern "C" int rwkv_tp_v6_ffn##suffix##_grid(int C, int FL, int nf) {                        \
+    return tp_grid_blocks_of(ffn_kernel(wf, false), FfnLayout(C, FL, nf, wf).smem,             \
+                             kBlockThreads);                                                    \
   }                                                                                             \
   extern "C" int rwkv_tp_v6_ffn##suffix(RWKV_TP_V6_FFN_PARAMS) {                               \
     return ffn_launch(wf, false, RWKV_TP_V6_FFN_ARGS);                                          \
   }                                                                                             \
-  extern "C" int rwkv_tp_v45_ffn##suffix##_grid(int C, int FT) {                               \
-    return tp_grid_blocks(ffn_kernel(wf, true), ffn_smem(C, FT, wf));                           \
+  extern "C" int rwkv_tp_v45_ffn##suffix##_grid(int C, int FL, int nf) {                       \
+    return tp_grid_blocks_of(ffn_kernel(wf, true), FfnLayout(C, FL, nf, wf).smem,              \
+                             kBlockThreads);                                                    \
   }                                                                                             \
   extern "C" int rwkv_tp_v45_ffn##suffix(RWKV_TP_V6_FFN_PARAMS) {                              \
     return ffn_launch(wf, true, RWKV_TP_V6_FFN_ARGS);                                           \

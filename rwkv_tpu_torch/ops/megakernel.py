@@ -1125,8 +1125,11 @@ def _lanes_for(k: int, form: str) -> int:
 
 def _part(n: int, blocks: int, b: int, reverse: bool, row_bytes: int, win: bool,
           stage: int, max_lpr: int) -> StreamRows:
-    """Block b's share of n rows (the header's ``part``)."""
+    """Block b's share of n rows (the header's ``part``, whose 32-bit
+    arithmetic needs n / 4 * blocks below 2^31)."""
     q, i = n // 4, (blocks - 1 - b if reverse else b)
+    if q * blocks >= 1 << 31:
+        raise ValueError(f"{n} rows over {blocks} blocks overflow the plans' 32-bit arithmetic")
     rows = stage // row_bytes
     while win and rows > 1 and rows * row_bytes + _win_bytes(rows) > stage:
         rows -= 1

@@ -54,6 +54,8 @@ CPU pack.
 
 from __future__ import annotations
 
+import ctypes
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -61,7 +63,9 @@ import torch
 from rwkv_tpu_torch.ops import _cuda
 from rwkv_tpu_torch.ops.kernels import pack_int4, unpack_int4
 from rwkv_tpu_torch.ops.megakernel import (
-    FORMS, _SUFFIX, _count, _grid_blocks, _matvec, _mix45,
+    FORMS, STREAM_MIN_STAGES, _SUFFIX, StreamCopy, _StreamPlan, _cdiv, _count, _form_bytes,
+    _grid_blocks, _lanes_for, _matvec, _mix45, _ring, _round_up, _small_form,
+    _stream_rows_copies, _win_bytes,
 )
 from rwkv_tpu_torch.ops.parity import layer_norm
 
@@ -143,30 +147,52 @@ def tp_shape_error(cfg, tp: int, d_lora: int, f_dim: int, w4: bool = False) -> O
     return _dims_error("K10 / K11", cfg, tp, f_dim, w4, (("d_lora", d_lora),))
 
 
+def _tp6_plan_error(cfg, tp: int, f_dim: int, w4: bool, form: Optional[str], kinds,
+                    d_maa: int = 0, d_dec: int = 0) -> Optional[str]:
+    """Why the stream plan of K12 ("att") or K13 ("ffn") in `kinds` cannot
+    take these widths (``tp_v6_stream_plan`` at grid 1, in `form`: by
+    default the int form `w4` names), or None."""
+    c, f_loc = cfg.n_embed, f_dim // tp
+    for kind in kinds:
+        try:
+            tp_v6_stream_plan(form or ("i4" if w4 else "i8"), c, c // tp, f_loc,
+                              _ffn_tiles(c, f_loc), d_maa, d_dec, cfg.head_size, 1, kind)
+        except ValueError as e:
+            return str(e)
+    return None
+
+
 def tp_shape_error_v6(cfg, tp: int, d_maa: int, d_dec: int, f_dim: int,
-                      w4: bool = False) -> Optional[str]:
-    """Why K12 / K13 cannot take this v6 model at tp shards, or None."""
+                      w4: bool = False, form: Optional[str] = None) -> Optional[str]:
+    """Why K12 / K13 cannot take this v6 model at tp shards, or None (their
+    stream plans checked in `form`, by default the int form `w4` names)."""
     if cfg.version_major != 6:
         return "K12 / K13 decode RWKV v6 only"
     if d_maa % 4:
         return f"K12 reads maa2 rows in float4 pieces: d_maa must be a multiple of 4, got {d_maa}"
-    return _dims_error("K12 / K13", cfg, tp, f_dim, w4, (("d_dec", d_dec),))
+    return (_dims_error("K12 / K13", cfg, tp, f_dim, w4, (("d_dec", d_dec),))
+            or _tp6_plan_error(cfg, tp, f_dim, w4, form, ("att", "ffn"), d_maa, d_dec))
 
 
-def tp_shape_error_v5(cfg, tp: int, f_dim: int, w4: bool = False) -> Optional[str]:
-    """Why K15 / K13 cannot take this v5 model at tp shards, or None."""
+def tp_shape_error_v5(cfg, tp: int, f_dim: int, w4: bool = False,
+                      form: Optional[str] = None) -> Optional[str]:
+    """Why K15 / K13 cannot take this v5 model at tp shards, or None (K13's
+    stream plan checked in `form`, by default the int form `w4` names)."""
     if cfg.version_major != 5:
         return "K15 / K13 decode RWKV v5 only"
-    return _dims_error("K15 / K13", cfg, tp, f_dim, w4)
+    return (_dims_error("K15 / K13", cfg, tp, f_dim, w4)
+            or _tp6_plan_error(cfg, tp, f_dim, w4, form, ("ffn",)))
 
 
-def tp_shape_error_v4(cfg, tp: int, f_dim: int, w4: bool = False) -> Optional[str]:
+def tp_shape_error_v4(cfg, tp: int, f_dim: int, w4: bool = False,
+                      form: Optional[str] = None) -> Optional[str]:
     """Why K14 / K13 cannot take this v4 model at tp shards, or None: C
     and F split over the shards, no head rule (v4's state is a scalar per
-    channel)."""
+    channel); K13's stream plan checked in `form`."""
     if cfg.version_major != 4:
         return "K14 / K13 decode RWKV v4 only"
-    return _dims_error("K14 / K13", cfg, tp, f_dim, w4, heads=False)
+    return (_dims_error("K14 / K13", cfg, tp, f_dim, w4, heads=False)
+            or _tp6_plan_error(cfg, tp, f_dim, w4, form, ("ffn",)))
 
 
 # -- packs --------------------------------------------------------------------
@@ -272,7 +298,7 @@ def build_mega_pack_tp_v6(base: dict, cfg, mesh) -> list:
     (``TP6_LVECS``, its channels)."""
     tp, c = mesh.tp, cfg.n_embed
     dm, dd, f_dim = base["d_maa"], base["d_dec"], base["f_dim"]
-    err = tp_shape_error_v6(cfg, tp, dm, dd, f_dim, base["w4"])
+    err = tp_shape_error_v6(cfg, tp, dm, dd, f_dim, base["w4"], base["form"])
     if err:
         raise ValueError(err)
     c_loc = c // tp
@@ -305,7 +331,7 @@ def _build_tp45(base: dict, cfg, mesh, version: int) -> list:
     tp, c = mesh.tp, cfg.n_embed
     f_dim = base["f_dim"]
     shape_error = tp_shape_error_v5 if version == 5 else tp_shape_error_v4
-    err = shape_error(cfg, tp, f_dim, base["w4"])
+    err = shape_error(cfg, tp, f_dim, base["w4"], base["form"])
     if err:
         raise ValueError(err)
     att = "rkvg" if version == 5 else "rkv"
@@ -576,6 +602,219 @@ def tp_att_layer_v4_ref(pack: dict, l: int, x, att_xx, aa, bb, pp, cfg):
     return _mv(pack, "out", l, r * wkv)[0], xl[0], aa, bb, pp
 
 
+# -- K12 / K13's stream plans (csrc/tp_v6.cu: AttLayout / AttPlan / att_copy,
+# FfnLayout / FfnPlan / ffn_copy) ------------------------------------------------
+#
+# K12 and K13 run on the B=1 decode kernels' input stream
+# (csrc/decode_stream.cuh; ``ops.megakernel``'s ``_StreamPlan`` mirrors its
+# generic parts): each block's rows of each phase in whole 4-row groups, cut
+# into pieces of as many rows as fit a stage with their row scales' window;
+# phase A's vector rows (and att_in / ffn_in) in pieces of ``vec_rows`` rows;
+# a head's dw2 rows with their scales and its four vector slices in one
+# piece, its state in the next; the ring the other stream kernels' (about
+# ``STREAM_TARGET_STAGES`` stages). The kernels compute the layout on the
+# host and each block's plan at its start (the header's ``part``). Copies
+# read from layer l's tensor of the shard pack (``pack[array][l]``) or from
+# the launch's inputs (``att_in`` / ``ffn_in``, ``heads_in``), at byte
+# ``offset`` of it.
+TP6_STATIC_SMEM = 0  # K12's / K13's static shared memory (the card tests read the kernels')
+TP6_MAX_TILES = 32  # K13's FFN tiles at most (kMaxTiles: one published amax each)
+TP6_ATT_AMAX = 8  # K12's published amax slots behind its scratch
+TP6_ATT_SEGS = ("vec", "maa1", "maa2", "rkvg", "dw1", "heads", "out")
+TP6_FFN_SEGS = ("vec", "fk", "fr", "fv")
+# phase A's vector rows in stream order: (array, row of rvecs; None: the whole input)
+TP6_ATT_VECS = (("rvecs", 0), ("rvecs", 1), ("rvecs", 4), ("att_in", None))
+TP6_FFN_VECS = (("rvecs", 2), ("rvecs", 3), ("rvecs", 5), ("rvecs", 6), ("ffn_in", None))
+_TP6_MAA5_ROW = 7  # maa5's first row in rvecs (the window of maa2's rows)
+# a head's vector slices in its dw2 piece, as lvecs rows: tdecay, tf, ln_x w, ln_x b
+TP6_HEAD_LVECS = (0, 3, 1, 2)
+
+
+@dataclass(frozen=True)
+class TP6StreamPlan(_StreamPlan):
+    """K12's ("att") or K13's ("ffn", either mix) stream plan for one weight
+    form and grid (``tp_v6_stream_plan``): the shared-memory layout
+    (activations at ``act_off``, mbarriers at ``bar_off``, ``n_stages``
+    stages of ``stage_bytes`` from ``ring_off``; ``smem_bytes`` in all),
+    ``vec_rows`` vector rows a piece, and per block the rows of each phase
+    and the copies of each piece of its stream (one layer)."""
+
+    HEAD_SEGS = ()
+
+    kind: str
+    form: str
+    c: int
+    c_loc: int
+    f_loc: int
+    nf: int
+    d_maa: int
+    d_dec: int
+    head_size: int
+    blocks: int
+    act_off: int
+    bar_off: int
+    ring_off: int
+    stage_bytes: int
+    n_stages: int
+    smem_bytes: int
+    vec_rows: int
+
+    @property
+    def SEGS(self) -> tuple:  # noqa: N802 -- _StreamPlan's name
+        return TP6_ATT_SEGS if self.kind == "att" else TP6_FFN_SEGS
+
+    @property
+    def STREAMED(self) -> tuple:  # noqa: N802
+        return ("maa1", "maa2", "rkvg", "dw1", "out") if self.kind == "att" else ("fk", "fr")
+
+    @property
+    def n_heads(self) -> int:
+        """Heads of the shard (phase C's)."""
+        return self.c_loc // self.head_size if self.kind == "att" else 0
+
+    @property
+    def vecs(self) -> tuple:
+        return TP6_ATT_VECS if self.kind == "att" else TP6_FFN_VECS
+
+    def _spec(self, name: str) -> tuple:
+        """(rows, row bytes, scale window, dealt from the last block, most
+        lanes a row)."""
+        c, cl, form = self.c, self.c_loc, self.form
+        sf, w = _small_form(form), form != "bf16"
+        ft = self.f_loc // self.nf
+        return {"maa1": (5 * self.d_maa, _form_bytes(sf, c), w, False, 32),
+                "maa2": (5 * c, 4 * self.d_maa, True, False, 32),
+                "rkvg": (4 * cl, _form_bytes(form, c), w, False, _lanes_for(c, form)),
+                "dw1": (self.d_dec, _form_bytes(sf, c), w, True, 32),
+                "out": (c, _form_bytes(form, cl), w, False, _lanes_for(cl, form)),
+                "fk": (self.f_loc, _form_bytes(form, c), w, False, _lanes_for(c, form)),
+                "fr": (cl, _form_bytes(form, c), w, True, _lanes_for(c, form)),
+                "fv": (c, _form_bytes(form, ft), w, False, _lanes_for(ft, form))}[name]
+
+    def _count(self, seg: str, block: int) -> int:
+        if seg == "vec":
+            return _cdiv(len(self.vecs), self.vec_rows)
+        if seg == "heads":
+            return 2 * len(self.block_heads(block))
+        return self.nf * self.rows("fv", block).pieces()  # fv: every tile's pieces
+
+    def copies(self, block: int, layer: int, seg: str, idx: int) -> tuple:
+        """The copies of piece `idx` of segment `seg` (`layer` unused: the
+        offsets are within layer l's tensors)."""
+        c, s, w = self.c, self.head_size, self.form != "bf16"
+        if seg == "vec":
+            run = self.vecs[idx * self.vec_rows:(idx + 1) * self.vec_rows]
+            return tuple(StreamCopy(a, 0 if row is None else 4 * row * c, 4 * c, 4 * c * j)
+                         for j, (a, row) in enumerate(run))
+        if seg == "maa2":
+            return _stream_rows_copies(self.rows(seg, block), idx, "maa2", 0,
+                                       ("rvecs", 4 * _TP6_MAA5_ROW * c))
+        if seg in self.STREAMED:
+            return _stream_rows_copies(self.rows(seg, block), idx, seg, 0,
+                                       (seg + "_d", 0) if w else None)
+        if seg == "fv":
+            r = self.rows("fv", block)
+            t, k = divmod(idx, r.pieces())
+            ft = self.f_loc // self.nf
+            return _stream_rows_copies(r, k, "fv", _form_bytes(self.form, t * c * ft),
+                                       ("fv_d", 0) if w else None)
+        h = self.block_heads(block)[idx // 2]  # heads
+        if idx % 2:
+            return (StreamCopy("heads_in", 4 * h * s * s, 4 * s * s, 0),)
+        rb = _form_bytes(_small_form(self.form), self.d_dec)
+        out = [StreamCopy("dw2", h * s * rb, s * rb, 0)]
+        at = s * rb
+        if w:
+            out.append(StreamCopy("dw2_d", 4 * h * s, 4 * s, at))
+            at += 4 * s
+        out += [StreamCopy("lvecs", 4 * (row * self.c_loc + h * s), 4 * s, at + 4 * s * i)
+                for i, row in enumerate(TP6_HEAD_LVECS)]
+        return tuple(out)
+
+
+def tp_v6_stream_plan(form: str, c: int, c_loc: int, f_loc: int, nf: int, d_maa: int, d_dec: int,
+                      head_size: int, blocks: int, kind: str) -> TP6StreamPlan:
+    """The stream plan of K12 (`kind` "att") or K13 ("ffn") in weight form
+    `form` ("i8", "i4", "bf16") for a grid of `blocks` on a shard of
+    `c_loc` channels and `f_loc` FFN rows in `nf` tiles (the kernels' own:
+    ``rwkv_tp_v6_plan``). The ring takes what shared memory is left below
+    ``STREAM_SMEM_LIMIT`` after the activations, about
+    ``STREAM_TARGET_STAGES`` stages, each at least the largest piece (two vector rows; K12: a head's state
+    or dw2 piece; one row of any matrix with its scale window); raises
+    ValueError on widths the kernel refuses: fewer than
+    ``STREAM_MIN_STAGES`` stages, under two vector rows a piece, K13 above
+    ``TP6_MAX_TILES`` tiles."""
+    s, sf, bf = head_size, _small_form(form), form == "bf16"
+    name = "K12" if kind == "att" else "K13"
+    ft = f_loc // nf if nf > 0 else 0
+    bad = [c % 16, c_loc % 16, c_loc > c]
+    if kind == "att":
+        bad += [s <= 0 or s % 4 or 256 % s or s * s // 256 > 16 or c_loc % s, d_maa % 4, d_dec % 16]
+        act_off = 4 * (2 * c + max(8 * s, 5 * d_maa) + 256 + 8 + TP6_ATT_AMAX)
+        plan_off = _round_up(act_off + (4 if bf else 1) * 5 * c, 16)
+        row = max(_form_bytes(form, c), _form_bytes(form, c_loc), _form_bytes(sf, c), 4 * d_maa)
+        piece = max(8 * c, 4 * s * s, s * _form_bytes(sf, d_dec) + (16 if bf else 20) * s,
+                    row + _win_bytes(1))
+        n_vecs = len(TP6_ATT_VECS)
+    else:
+        bad += [nf <= 0 or nf > TP6_MAX_TILES or f_loc % nf or ft % 16]
+        act_off = 4 * (2 * c + 256 + 2 * TP6_MAX_TILES + 4)
+        plan_off = _round_up(act_off + (4 if bf else 1) * max(2 * c, f_loc), 16)
+        piece = max(8 * c, max(_form_bytes(form, c), _form_bytes(form, ft)) + _win_bytes(1))
+        n_vecs = len(TP6_FFN_VECS)
+    if any(bad):
+        raise ValueError(f"{name} cannot take these widths: C={c}, C/tp={c_loc}, "
+                         + (f"head size {s}, d_maa {d_maa}, d_dec {d_dec}" if kind == "att" else
+                            f"F/tp={f_loc} in {nf} tiles (at most {TP6_MAX_TILES}, each a "
+                            "multiple of 16)"))
+    bar_off, ring_off, stage, stages = _ring(plan_off, piece)
+    plan = TP6StreamPlan(kind, form, c, c_loc, f_loc, nf, d_maa, d_dec, head_size, blocks,
+                         act_off, bar_off, ring_off, stage, stages, ring_off + stages * stage,
+                         min(stage // (4 * c), n_vecs))
+    if stages < STREAM_MIN_STAGES or plan.vec_rows < 2:
+        raise ValueError(f"{name}'s ring holds {stages} stages of {stage} bytes at these widths "
+                         f"({plan.vec_rows} vector rows a piece); it needs {STREAM_MIN_STAGES} "
+                         "stages of two vector rows")
+    return plan
+
+
+def tp_v6_kernel_plan(form: str, kind: str, c: int, c_loc: int, f_loc: int, nf: int, d_maa: int,
+                      d_dec: int, head_size: int, blocks: int, block: int) -> tuple:
+    """K12's / K13's own stream plan (the C entry ``rwkv_tp_v6_plan``):
+    (shared bytes, stage bytes, stages, block `block`'s pieces of a grid of
+    `blocks`, the kernel's static shared bytes, vector rows a piece)."""
+    fn = _cuda.library("tp_v6").rwkv_tp_v6_plan
+    fn.argtypes = [ctypes.c_int] * 11 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 6)()
+    _cuda.check("tp_v6", "rwkv_tp_v6_plan",
+                fn(FORMS.index(form), int(kind == "ffn"), c, c_loc, f_loc, nf, head_size, d_maa,
+                   d_dec, blocks, block, out))
+    return tuple(out)
+
+
+def _tp6_dims(pack: dict, cfg) -> tuple:
+    """(c, c_loc, f_loc, nf, d_maa, d_dec, head size) of a shard pack (v4 /
+    v5: no maa / decay LoRA)."""
+    return (cfg.n_embed, pack["c_loc"], pack["f_dim"] // pack["tp"], pack["nf"],
+            pack.get("d_maa", 0), pack.get("d_dec", 0), cfg.head_size)
+
+
+def _tp6_plan_check(pack: dict, kind: str, cfg, grid: int) -> None:
+    """Raises where K12's / K13's own plan on a grid of `grid` blocks (its
+    first and last block) differs from ``tp_v6_stream_plan``: the producer
+    and the consumers would walk different pieces."""
+    dims = _tp6_dims(pack, cfg)
+    plan = tp_v6_stream_plan(pack["form"], *dims, grid, kind)
+    for b in sorted({0, grid - 1}):
+        want = (plan.smem_bytes, plan.stage_bytes, plan.n_stages, plan.layer_pieces(b),
+                TP6_STATIC_SMEM, plan.vec_rows)
+        got = tp_v6_kernel_plan(pack["form"], kind, *dims, grid, b)
+        if got != want:
+            raise RuntimeError(f"{'K12' if kind == 'att' else 'K13'}'s plan {got} differs from "
+                               f"tp_v6_stream_plan's {want} (block {b} of {grid})")
+
+
 # -- kernels K10-K15 ----------------------------------------------------------------
 
 
@@ -692,13 +931,38 @@ tp_ffn_layer.launches = 0
 tp_ffn_layer.launches_by_form = dict.fromkeys(FORMS, 0)
 
 
-def tp_att_layer_v6(pack: dict, l: int, x, att_xx, heads, cfg, out: Optional[dict] = None):
-    """Layer l's v6 attention on one shard (see ``tp_att_layer_v6_ref``). A
-    CUDA pack launches kernel K12 once (`out` keys "part", "att_xx",
-    "heads"); a CPU pack takes the plain version."""
+def tp6_grid(pack: dict, kind: str, cfg) -> int:
+    """The grid of K12 (`kind` "att") or K13 ("ffn") for a shard pack, its
+    own plan held to ``tp_v6_stream_plan`` on it at the pack's first
+    launch."""
+    key = "_plan_" + kind
+    if key not in pack:
+        c, c_loc, f_loc, nf, dm, dd, s = _tp6_dims(pack, cfg)
+        dims = (c, c_loc, s, dm, dd) if kind == "att" else (c, f_loc, nf)
+        grid = _grid(pack, kind, *dims)
+        _tp6_plan_check(pack, kind, cfg, grid)
+        pack[key] = grid
+    return pack[key]
+
+
+# argument counts (pointers, ints with the grid) of the C entries of K12 and K13
+TP6_ATT_ARGS = (20, 6)
+TP6_FFN_ARGS = (13, 5)
+
+
+def tp6_function(pack: dict, kind: str):
+    """The C launch entry of K12 (`kind` "att") or K13 ("ffn"; a v4 / v5
+    pack: its MIX45 form) for the pack's form."""
+    lib, name = _lib_entry(kind, pack)
+    return _cuda.function(lib, name, *(TP6_ATT_ARGS if kind == "att" else TP6_FFN_ARGS))
+
+
+def tp6_att_launch(fn, pack: dict, l: int, x, att_xx, heads, cfg, grid: int,
+                   out: Optional[dict] = None):
+    """One launch of K12's C entry `fn` on a CUDA shard pack over `grid`
+    blocks (`out` keys "part", "att_xx", "heads", "scratch"); returns
+    (part, att_xx, heads)."""
     dev = pack["rvecs"].device
-    if dev.type == "cpu":
-        return tp_att_layer_v6_ref(pack, l, x, att_xx, heads, cfg)
     c, s = cfg.n_embed, cfg.head_size
     c_loc, dm, dd = pack["c_loc"], pack["d_maa"], pack["d_dec"]
     x, att_xx, heads = _f32(x, dev), _f32(att_xx, dev), _f32(heads, dev)
@@ -707,14 +971,26 @@ def tp_att_layer_v6(pack: dict, l: int, x, att_xx, heads, cfg, out: Optional[dic
     part = _out(out, "part", (c,), dev)
     axx = _out(out, "att_xx", (c,), dev)
     new_heads = _out(out, "heads", heads.shape, dev)
-    scratch = torch.empty((5 * dm + 5 * c + 5 * c_loc + dd,), dtype=torch.float32, device=dev)
+    scratch = _out(out, "scratch", (5 * dm + 5 * c + 5 * c_loc + dd + TP6_ATT_AMAX,), dev)
     ptrs = [x.data_ptr(), att_xx.data_ptr(), heads.data_ptr()]
     ptrs += _layer_ptrs(pack, l, _ATT6_MATS)
     ptrs += [part.data_ptr(), axx.data_ptr(), new_heads.data_ptr(), scratch.data_ptr()]
-    grid = _grid(pack, "att", c, s, dm)
-    _launch(pack, "att", ptrs, (c, c_loc, s, dm, dd), grid, dev)
-    _count(tp_att_layer_v6, pack)
+    code = fn(*ptrs, c, c_loc, s, dm, dd, grid, _cuda.stream_ptr(dev))
+    if code:
+        _cuda.check("tp_v6", _lib_entry("att", pack)[1], code)
     return part, axx, new_heads
+
+
+def tp_att_layer_v6(pack: dict, l: int, x, att_xx, heads, cfg, out: Optional[dict] = None):
+    """Layer l's v6 attention on one shard (see ``tp_att_layer_v6_ref``). A
+    CUDA pack launches kernel K12 once (`out` keys "part", "att_xx",
+    "heads"); a CPU pack takes the plain version."""
+    if pack["rvecs"].device.type == "cpu":
+        return tp_att_layer_v6_ref(pack, l, x, att_xx, heads, cfg)
+    grid = tp6_grid(pack, "att", cfg)
+    res = tp6_att_launch(tp6_function(pack, "att"), pack, l, x, att_xx, heads, cfg, grid, out)
+    _count(tp_att_layer_v6, pack)
+    return res
 
 
 tp_att_layer_v6.launches = 0
@@ -747,9 +1023,11 @@ tp_ffn_layer_v45.launches = 0
 tp_ffn_layer_v45.launches_by_form = dict.fromkeys(FORMS, 0)
 
 
-def _gated_ffn(counter, pack: dict, l: int, x, ffn_xx, cfg, out: Optional[dict]):
-    """One launch of K13 (v6, or its MIX45 form on a v4 / v5 pack),
-    counted in `counter`."""
+def tp6_ffn_launch(fn, pack: dict, l: int, x, ffn_xx, cfg, grid: int,
+                   out: Optional[dict] = None):
+    """One launch of K13's C entry `fn` (v6, or its MIX45 form on a v4 / v5
+    pack) over `grid` blocks (`out` keys "part", "rg", "ffn_xx",
+    "scratch"); returns (part, rg, ffn_xx)."""
     dev = pack["rvecs"].device
     c, c_loc = cfg.n_embed, pack["c_loc"]
     f_loc = pack["f_dim"] // pack["tp"]
@@ -757,13 +1035,22 @@ def _gated_ffn(counter, pack: dict, l: int, x, ffn_xx, cfg, out: Optional[dict])
     part = _out(out, "part", (c,), dev)
     rg = _out(out, "rg", (c_loc,), dev)
     fxx = _out(out, "ffn_xx", (c,), dev)
-    scratch = torch.empty((f_loc,), dtype=torch.float32, device=dev)
+    scratch = _out(out, "scratch", (f_loc,), dev)
     ptrs = [x.data_ptr(), ffn_xx.data_ptr()] + _layer_ptrs(pack, l, _FFN6_MATS)
     ptrs += [part.data_ptr(), rg.data_ptr(), fxx.data_ptr(), scratch.data_ptr()]
-    grid = _grid(pack, "ffn", c, f_loc // pack["nf"])
-    _launch(pack, "ffn", ptrs, (c, c_loc, f_loc, pack["nf"]), grid, dev)
-    _count(counter, pack)
+    code = fn(*ptrs, c, c_loc, f_loc, pack["nf"], grid, _cuda.stream_ptr(dev))
+    if code:
+        _cuda.check("tp_v6", _lib_entry("ffn", pack)[1], code)
     return part, rg, fxx
+
+
+def _gated_ffn(counter, pack: dict, l: int, x, ffn_xx, cfg, out: Optional[dict]):
+    """One launch of K13 (v6, or its MIX45 form on a v4 / v5 pack),
+    counted in `counter`."""
+    grid = tp6_grid(pack, "ffn", cfg)
+    res = tp6_ffn_launch(tp6_function(pack, "ffn"), pack, l, x, ffn_xx, cfg, grid, out)
+    _count(counter, pack)
+    return res
 
 
 def tp_att_layer_v5(pack: dict, l: int, x, att_xx, heads, cfg, out: Optional[dict] = None):

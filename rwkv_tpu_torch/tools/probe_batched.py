@@ -4,6 +4,7 @@ kernels K6, K7 and K8.
 
     python3 -m rwkv_tpu_torch.tools.probe_batched [--baseline DIR] [--phases | --flips | --k3] [--bf16]
     python3 -m rwkv_tpu_torch.tools.probe_batched --v6 | --v5 | --v4 [--baseline DIR] [--phases] [--flips] [--bf16]
+    python3 -m rwkv_tpu_torch.tools.probe_batched --tp6 [--baseline DIR [DIR ...]] [--phases] [--bf16]
 
 Times one launch of ``rwkv_tpu_torch.ops.megakernel.v7_decode_batched``
 (K4; device time, launches queued behind a spin kernel so no host time is
@@ -58,6 +59,23 @@ at the World 1.5B width (C=2048, 24 layers; phases A, C, D, E, F), its
 flips also on a 2-layer v5.1 pair at that width; ``--v4`` for K8 on the
 RWKV-4 models at the World 0.1B width (C=768, 12 layers; phases A, B, E,
 F), its flips also on a 2-layer pair at the 1.5B width (C=2048).
+
+With ``--tp6`` it measures the v6 tensor-parallel shard kernels K12
+(``tp_att_layer_v6``) and K13 (``tp_ffn_layer_v6``) on shard 0 of a tp=2
+mesh on this card at the 1.6B width (C=2048, F=8192, two layers, layer 1),
+and K13's MIX45 form (``tp_ffn_layer_v45``) at the v5.2 World 1.5B width:
+time per launch, against an earlier ``DIR/tp_v6.cu`` with ``--baseline
+DIR`` (outputs compared at tp=2 and at tp=4, the current kernel on grids
+of 132, 64, 33 and 7 blocks: "outputs differ by at most ..."; times in
+the order baseline, current, current, baseline, also with the L2 cache
+emptied before each launch, as a step of many layers meets the weights).
+Further DIRs after the first (edited copies of ``csrc``) are timed in the
+same turns (their outputs against the first DIR's). With ``--phases``
+also the time of each phase from the timing build (P, the prologue from
+the kernel's entry; K12: A, M, B, C and their barriers, then D; K13: A
+and its barrier, then B) for every source; an earlier source without
+stamps needs them added in a copy, and ``DIR#K12=NAMES#K13=NAMES`` names
+the phases of a copy that stamps more often (one letter a pair).
 
 ``--bf16`` restricts every measurement to the bf16 packs (the readings
 that set ``chip_smoke.py``'s bf16 limits), their seeded states from the
@@ -154,12 +172,12 @@ def phase_times(launch, base: int, n_layer: int, n_phases: int = 5, reps: int = 
     return per_layer, float(d[n:].sum()), float(d.sum())
 
 
-def print_phases(label: str, times, names: str = PHASES) -> None:
+def print_phases(label: str, times, names: str = PHASES, tail_name: str = "head") -> None:
     per_layer, tail, total = times
     print(f"{label} per layer (timing build, block 0): " + ", ".join(
         f"{name} {work:.2f} us + barrier {sync:.2f}"
         for name, (work, sync) in zip(names, per_layer))
-        + (f"; head {tail:.2f} us" if tail else "") + f"; total {total:.1f} us")
+        + (f"; {tail_name} {tail:.2f} us" if tail else "") + f"; total {total:.1f} us")
 
 
 def k3_stamps_at(pack, cfg, src_dir, flags: tuple) -> int:
@@ -398,6 +416,189 @@ def b1_main(args, base_dir, version: int) -> int:
     return 0
 
 
+# -- --tp6: K12, K13 and K13's MIX45 form (one shard's layer) -------------------
+
+# (version, the shard kernels timed) at tp=2: K12 / K13 at the v6 1.6B
+# width, K13 MIX45 at the v5.2 World 1.5B width
+TP6_CASES = (("6.0", ("K12", "K13")), ("5.2", ("K13 mix45",)))
+# phases of the timing build (P: the prologue before the first phase), then the tail
+TP6_PHASES = {"K12": ("PAMBC", "D"), "K13": ("PA", "B"), "K13 mix45": ("PA", "B")}
+TP6_STAMP_FLOATS = 64  # room for the timing build's stamps behind the scratch
+
+
+def tp_width_packs(version: str, precision: str, tp: int, c: int = 2048):
+    """(cfg, shard packs on this card) of a seeded 2-layer synth model of
+    `version` at width c (F = 4c, V=256) in `precision`, over tp shards."""
+    from rwkv_tpu_torch.models.synth import synth_config, synth_params
+    from rwkv_tpu_torch.ops import megakernel as M
+    from rwkv_tpu_torch.ops import megakernel_tp as TP
+    from rwkv_tpu_torch.parallel.sharding import make_mesh
+
+    cfg = synth_config(version, 2, c, 256, 64)
+    params = synth_params(cfg, seed=0)
+    build = {6: M.build_mega_pack_v6, 5: M.build_mega_pack_v5}[cfg.version_major]
+    build_tp = {6: TP.build_mega_pack_tp_v6, 5: TP.build_mega_pack_tp_v5}[cfg.version_major]
+    base = build(params, cfg, w4=precision == "w4a8", quant=precision != "bf16")
+    return cfg, build_tp(base, cfg, make_mesh(1, tp, devices=["cuda:0"] * tp))
+
+
+def tp_inputs(pk, cfg, seed: int = 1) -> tuple:
+    """x, att_xx, ffn_xx and the shard's heads, seeded."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c, s = cfg.n_embed, cfg.head_size
+    x, xx, fxx = (torch.randn((c,), device="cuda", generator=gen) * a for a in (0.5, 0.3, 0.3))
+    heads = torch.randn((pk["c_loc"] // s, s, s), device="cuda", generator=gen) * 0.1
+    return x, xx, fxx, heads
+
+
+def tp6_sources(args) -> dict:
+    """{label: (tp_v6.cu to build, None for csrc's; {kernel: phase names})}
+    in timing order: "baseline" (the first DIR after ``--baseline``), then
+    "current", then each further DIR by its directory's name. A DIR may end
+    in ``#K12=NAMES#K13=NAMES``: the phases of a copy that stamps more often
+    (one letter a pair of stamps)."""
+    dirs = []
+    if "--baseline" in args:
+        for arg in args[args.index("--baseline") + 1:]:
+            if arg.startswith("--"):
+                break
+            d, *extra = arg.split("#")
+            dirs.append((Path(d), dict(e.split("=", 1) for e in extra)))
+    srcs = {}
+    for k, (d, names) in enumerate(dirs):
+        srcs["baseline" if k == 0 else d.name] = (d / "tp_v6.cu", names)
+        if k == 0:
+            srcs["current"] = (None, {})
+    return srcs or {"current": (None, {})}
+
+
+def tp6_stamps_at(pk, cfg, name: str, src, flags: tuple) -> int:
+    """Float offset of the timing build's stamps in the scratch of K12 /
+    K13 for the source `src` (None: csrc): K12's streamed source keeps its
+    amax slots behind its activations, the earlier one none."""
+    from rwkv_tpu_torch.ops import _cuda
+    from rwkv_tpu_torch.ops import megakernel_tp as TP
+
+    c, c_loc, f_loc, _, dm, dd, _ = TP._tp6_dims(pk, cfg)
+    if name != "K12":
+        return f_loc
+    lib = _cuda.library("tp_v6_probe", src or _cuda.CSRC / "tp_v6.cu", flags)
+    slots = TP.TP6_ATT_AMAX if hasattr(lib, "rwkv_tp_v6_plan") else 0
+    return 5 * dm + 5 * c + 5 * c_loc + dd + slots
+
+
+def tp6_runner(pk, cfg, name: str, src=None, flags: tuple = (), grid=None, stamps: bool = False):
+    """run() of one launch of K12 / K13 / K13 mix45 (`name`) on shard pack
+    pk, layer 1, from csrc or the source `src` (its headers beside it) with
+    nvcc `flags`, over `grid` blocks (None: the current kernel's grid, one
+    block an SM, which an earlier version takes too). run() returns the
+    outputs as one tensor or, with `stamps`, the scratch (zeroed, with
+    room for the timing build's stamps)."""
+    import torch
+
+    from rwkv_tpu_torch.ops import _cuda
+    from rwkv_tpu_torch.ops import megakernel_tp as TP
+
+    kind = "att" if name == "K12" else "ffn"
+    if src is None and not flags:
+        fn = TP.tp6_function(pk, kind)
+    else:
+        fn = _cuda.function("tp_v6_probe", TP._lib_entry(kind, pk)[1],
+                            *(TP.TP6_ATT_ARGS if kind == "att" else TP.TP6_FFN_ARGS),
+                            src=src or _cuda.CSRC / "tp_v6.cu", flags=flags)
+    grid = grid or TP.tp6_grid(pk, kind, cfg)
+    x, xx, fxx, heads = tp_inputs(pk, cfg)
+    launch, ins = ((TP.tp6_att_launch, (x, xx, heads)) if kind == "att" else
+                   (TP.tp6_ffn_launch, (x, fxx)))
+    n_scratch = tp6_stamps_at(pk, cfg, name, src, flags) + TP6_STAMP_FLOATS if stamps else 0
+
+    def run():
+        out = {"scratch": torch.zeros((n_scratch,), device="cuda")} if stamps else {}
+        outs = launch(fn, pk, 1, *ins, cfg, grid, out)
+        return out["scratch"] if stamps else torch.cat([t.reshape(-1) for t in outs])
+
+    return run
+
+
+def flushed_ms(fn, buf) -> float:
+    """Device time of fn() as a step of many layers meets it: with the L2
+    cache emptied before each launch (a fill of `buf`, larger than the L2,
+    then fn()), less the fill's own time."""
+    from rwkv_tpu_torch.tools.card import device_ms
+
+    def fill_then():
+        buf.zero_()
+        fn()
+
+    return device_ms(fill_then) - device_ms(buf.zero_)
+
+
+def in_turns(runs: dict, timer) -> str:
+    """Each of `runs` timed twice, in their order and then back."""
+    times = {}
+    for k in list(runs) + list(runs)[::-1]:
+        times.setdefault(k, []).append(timer(runs[k]))
+    return ", ".join(f"{k} {t[0]:.4f} / {t[1]:.4f} ms" for k, t in times.items())
+
+
+def tp6_main(args) -> int:
+    """--tp6: K12, K13 and K13 mix45 from csrc against the sources of
+    ``tp6_sources`` (outputs at tp = 2 and 4, csrc's on four grids; times
+    at tp=2, also with the L2 emptied; phases)."""
+    import torch
+
+    from rwkv_tpu_torch.ops import _cuda
+    from rwkv_tpu_torch.tools.card import card_line, device_ms
+
+    print(card_line())
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")  # over the 50 MB L2
+    srcs = tp6_sources(args)
+    flags = ("-DRWKV_PHASE_TIMES",)
+    _cuda.build_all()  # then every other build at once
+    _cuda._build([("tp_v6_probe", path or _cuda.CSRC / "tp_v6.cu", fl)
+                  for path, _ in srcs.values() for fl in ((), flags)
+                  if (path is not None or fl) and (not fl or "--phases" in args)])
+    for version, names in TP6_CASES:
+        for prec in _precisions(args):
+            for tp in (2, 4):
+                cfg, packs = tp_width_packs(version, prec, tp)
+                pk = packs[0]
+                for name in names:
+                    label = f"{name} {prec} tp={tp} nf={pk['nf']}"
+                    runs = {k: tp6_runner(pk, cfg, name, path) for k, (path, _) in srcs.items()}
+                    if "baseline" not in runs:
+                        if tp == 2:
+                            print(f"{label}: {device_ms(runs['current']):.4f} ms")
+                        continue
+                    want = runs["baseline"]()
+                    diff = max(float((tp6_runner(pk, cfg, name, grid=g)() - want).abs().max())
+                               for g in (132, 64, 33, 7))
+                    note = (f"outputs differ by at most {diff:.3e} on grids 132 / 64 / 33 / 7"
+                            + "".join(f"; {k} by {float((r() - want).abs().max()):.3e}"
+                                      for k, r in runs.items() if k not in ("baseline", "current")))
+                    if tp != 2:
+                        print(f"{label}: {note}")
+                        continue
+                    print(f"{label}: {in_turns(runs, device_ms)} ({note})")
+                    print(f"{label}, L2 emptied before each launch: "
+                          + in_turns(runs, lambda f: flushed_ms(f, flush)))
+                    if "--phases" not in args:
+                        continue
+                    for k, (path, named) in srcs.items():
+                        phases, tail = TP6_PHASES[name]
+                        phases = named.get(name.split()[0], phases)
+                        times = phase_times(tp6_runner(pk, cfg, name, path, flags, stamps=True),
+                                            tp6_stamps_at(pk, cfg, name, path, flags), 1,
+                                            len(phases))
+                        print_phases(f"{k} {label}", times, phases, tail)
+                del packs
+                torch.cuda.empty_cache()
+    print(card_line())
+    return 0
+
+
 def _precisions(args) -> tuple:
     return ("bf16",) if "--bf16" in args else ("w8a8", "w4a8", "bf16")
 
@@ -413,6 +614,8 @@ def main() -> int:
     for version in (6, 5, 4):
         if f"--v{version}" in args:
             return b1_main(args, base_dir, version)
+    if "--tp6" in args:
+        return tp6_main(args)
     from rwkv_tpu_torch.models.serve import ServingModel
     from rwkv_tpu_torch.models.synth import synth_config, synth_params
     from rwkv_tpu_torch.ops import megakernel as TM

@@ -1079,6 +1079,73 @@ def test_tp_ffn_kernel_with_two_tiles(cuda_device):
         _tp_close(TT.tp_ffn_layer(pk, 0, x, xx, tc), TT.tp_ffn_layer_ref(pk, 0, x, xx, tc), "w8a8")
 
 
+# (version, C, tp) of the K12 / K13 grid tests: the small width, and the
+# 1.6B (v6) / World 1.5B (v5.2, v4) width at tp = 2 (nf = 2 FFN tiles) and
+# tp = 4 (nf = 1)
+TP6_GRID_CASES = [("6.0", 256, 2), ("6.0", 2048, 2), ("6.0", 2048, 4), ("5.2", 2048, 2),
+                  ("4.0", 2048, 4), ("4.0", 256, 2)]
+_PRECISION = {"i8": "w8a8", "i4": "w4a8", "bf16": "bf16"}
+
+
+@pytest.mark.parametrize("form", TM.FORMS)
+@pytest.mark.parametrize("version, c, tp", TP6_GRID_CASES)
+def test_tp_v6_kernels_same_bits_on_every_grid(cuda_device, version, c, tp, form):
+    """K12 and K13 (v6) and K13's MIX45 form (v5.2, v4) deal each phase's
+    rows over the grid but never change how a row is computed: every
+    output bit-equal on grids of 132, 64, 33 and 7 blocks, on the first and
+    the last shard of a one-layer pack; finite and within the plain
+    versions' band (int forms 2e-2, bf16 1e-4 of the scale)."""
+    from rwkv_tpu_torch.ops import megakernel_tp as TT
+
+    tc, packs = _tp_packs(version, _PRECISION[form], cuda_device, c=c, n_layer=1, tp=tp)
+    assert packs[0]["nf"] == (2 if (c, tp) == (2048, 2) else 1)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x, xx, fxx = (torch.randn((c,), device=cuda_device, generator=gen) * a for a in (0.5, 0.3, 0.3))
+    s = tc.head_size
+    for pk in (packs[0], packs[-1]):
+        kinds = ("att", "ffn") if version == "6.0" else ("ffn",)
+        for kind in kinds:
+            fn = TT.tp6_function(pk, kind)
+            if kind == "att":
+                heads = torch.randn((pk["c_loc"] // s, s, s), device=cuda_device,
+                                    generator=gen) * 0.1
+                outs = {g: TT.tp6_att_launch(fn, pk, 0, x, xx, heads, tc, g)
+                        for g in (132, 64, 33, 7)}
+                ref = TT.tp_att_layer_v6_ref(pk, 0, x, xx, heads, tc)
+            else:
+                outs = {g: TT.tp6_ffn_launch(fn, pk, 0, x, fxx, tc, g)
+                        for g in (132, 64, 33, 7)}
+                ref = TT.tp_ffn_layer_v6_ref(pk, 0, x, fxx, tc, mix45=version != "6.0")
+            for g, out in outs.items():
+                assert all(torch.equal(a, b) for a, b in zip(out, outs[132])), (kind, g)
+            assert all(bool(torch.isfinite(t).all()) for t in outs[132])
+            _tp_close(outs[132], ref, _PRECISION[form])
+
+
+def test_tp_v6_plan_matches_the_python_plan(cuda_device):
+    """K12's and K13's own stream plans (rwkv_tp_v6_plan: shared bytes,
+    stage bytes and count, a block's pieces, the kernel's static shared
+    bytes, vector rows a piece) are tp_v6_stream_plan's, in every form, at
+    the small width, C=768 and C=2048 at tp = 2 and 4 (nf = 1 and 2), on
+    several grids."""
+    from rwkv_tpu_torch.ops import megakernel_tp as TT
+
+    for c, tp in ((256, 2), (768, 2), (2048, 2), (2048, 4)):
+        c_loc, f_loc = c // tp, 4 * c // tp
+        for nf in sorted({TT._ffn_tiles(c, f_loc), 2}):
+            for form in TM.FORMS:
+                for kind in ("att", "ffn"):
+                    for blocks in (132, 64, 33, 7):
+                        plan = TT.tp_v6_stream_plan(form, c, c_loc, f_loc, nf, 32, 64, 64, blocks,
+                                                    kind)
+                        for b in sorted({0, 5, blocks - 1}):
+                            got = TT.tp_v6_kernel_plan(form, kind, c, c_loc, f_loc, nf, 32, 64,
+                                                       64, blocks, b)
+                            assert got == (plan.smem_bytes, plan.stage_bytes, plan.n_stages,
+                                           plan.layer_pieces(b), TT.TP6_STATIC_SMEM,
+                                           plan.vec_rows), (c, tp, nf, form, kind, blocks, b)
+
+
 def _tp45_inputs(tc, dev, seed: int):
     """x, att_xx, ffn_xx and the shard's part of the state (v4: aa, bb, pp
     of c_loc channels, pp of a seeded state; v5: its heads) at tp=2."""
