@@ -13,9 +13,12 @@
      bit-equal to its plain version (0 ulp); each shape's launch plan
      (``matmul_plan``: GEMV or tensor-core GEMM, tile, K split, blocks)
      and, on the GEMM route, the time of its quantization launch alone.
-   - K2 ``wkv7_recurrence``: T=256, H=12, S=64; rtol 1e-4 / atol 1e-5
-     against the token recurrence, rtol 3e-4 / atol 3e-5 against the
-     chunked form.
+   - K2 ``wkv7_recurrence`` (the chunked two-pass form; the token
+     recurrence below its crossover T): T in {3, 4, 16, 64, 256} x BH in
+     {12, 96} (the 169M heads; a batched B=8 prefill), S=64, each with its
+     launch plan; rtol 1e-4 / atol 1e-5 against the token recurrence, rtol
+     3e-4 / atol 3e-5 against the plain two-pass and (T a multiple of 16)
+     chunked forms; timed at T=256, BH=12.
    - K3 ``v7_decode_step``: the 169M w8a8 and w4a8 packs after a 256-token
      prefill; logits and state within 2e-2, equal argmax; its stream plan
      (stages, stage bytes, pieces a layer) printed beside its time. K3
@@ -35,9 +38,9 @@
      depth's limits.
      Beside it, the w8a8 decode step at B = 8 and 64 through K4 and the
      head, and through the per-op path (the card's crossover).
-   - K5 ``wkv6_recurrence``: T=256, H=32, S=64 (the 1.6B v6 width);
-     rtol 1e-4 / atol 1e-5 against the token recurrence, also with extreme
-     decays, rtol 3e-4 / atol 3e-5 against the chunked form.
+   - K5 ``wkv6_recurrence``: the same T x BH in {32, 96} (the 1.6B v6 and
+     World 1.5B v5.2 width), BH=32 also with extreme decays; the same
+     tolerances; timed at T=256, BH=32.
    - K6 ``v6_decode_step``, K7 ``v5_decode_step`` and K8
      ``v4_decode_step`` (``phase_b1``): the w8a8 and w4a8 packs of RWKV-6
      at the 1.6B width (C=2048, F=8192, 24 layers), RWKV-5.2 at the World
@@ -83,7 +86,10 @@
    and read just after; every kernel of a path must have launched:
    - RWKV v7 169M (synth, seed 0) under w8a8 and under w4a8 with
      ``megakernel=True``: prefill of a 256-token prompt, then 64 greedy
-     decode steps at B=1 (K1, K2, K3);
+     decode steps at B=1 (K1, K2, K3); the w8a8 and f32 prefills (and v6
+     1.6B's f32 one) also against the same prefill with the plain token
+     recurrence in K2's / K5's place (``prefill_vs_plain``: f32 within
+     2e-4 of the scale, w8a8 1.2e-1 and the same top token);
    - ``ContinuousBatcher(max_batch=8, sync_every=8).run(on_device=True)``
      over the 169M w8a8 model: 16 requests, prompts of 8 to 256 tokens
      (seeded), greedy and sampled (temperature 1, top_p 0.8), two with
@@ -402,49 +408,74 @@ def phase_k9(cfg, d_lora: int, f_dim: int, dev):
     return res
 
 
-def wkv7_operands(t: int, bh: int, s: int, dev, seed: int = 2):
-    """Realistic v7 operands: bounded decay, a = -kk, b = kk * gate."""
+# K2 / K5 at the prefill buckets (T = 3: the card tests' ragged T, below
+# the crossover; 256: the main path's) and the heads of the main paths (v7
+# 169M 12, v6 1.6B / v5.2 World 1.5B 32) and of a batched B=8 prefill at
+# 169M (96): within rtol 1e-4 / atol 1e-5 of the token recurrence and rtol
+# 3e-4 / atol 3e-5 of the plain two-pass form and (T a multiple of 16) of the
+# plain chunked form
+WKV_TS = (3, 4, 16, 64, 256)
+
+
+def wkv_check(kind: int, t: int, bh: int, s: int, dev, extreme: bool = False) -> float:
+    """One launch of K2 (kind 7) / K5 (kind 6) against the token recurrence,
+    the kernel's plain two-pass form and the plain chunked form; prints its
+    plan (``wkv_chunk_plan``); returns the largest error against the
+    recurrence."""
     import torch
 
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    from rwkv_tpu_torch.ops import chunked as TC
+    from rwkv_tpu_torch.tools.card import wkv6_operands, wkv7_operands
 
-    def rnd(*shape, scale=1.0):
-        return torch.randn(shape, device=dev, generator=gen) * scale
-
-    r, k, v = rnd(t, bh, s, scale=0.3), rnd(t, bh, s, scale=0.3), rnd(t, bh, s, scale=0.3)
-    w = torch.exp(torch.sigmoid(rnd(t, bh, s)) * -0.606531)
-    kk = rnd(t, bh, s)
-    kk = kk / kk.norm(dim=-1, keepdim=True)
-    gate = torch.sigmoid(rnd(t, bh, s))
-    s0 = rnd(bh, s, s, scale=0.3)
-    return s0, r, w, k, v, -kk, kk * gate
+    name = "K2" if kind == 7 else "K5"
+    if kind == 7:
+        ops = wkv7_operands(t, bh, s, dev)
+        y, s_t = TC.wkv7_recurrence(*ops)
+        refs = {"scan": TC.wkv7_recurrence_plain(*ops), "two-pass": TC.wkv7_twopass(*ops)}
+        if t % 16 == 0:
+            s0, *rest = ops
+            y_c, s_c = TC.wkv7_chunked(s0[None], *(x[:, None] for x in rest))
+            refs["chunked"] = (y_c[:, 0], s_c[0])
+    else:
+        ops = wkv6_operands(t, bh, s, dev, extreme=extreme)
+        y, s_t = TC.wkv6_recurrence(*ops)
+        refs = {"scan": TC.wkv6_recurrence_plain(*ops), "two-pass": TC.wkv6_twopass(*ops)}
+        if t % 16 == 0 and not extreme:
+            s0, r, k, v, w, tf = ops
+            y_c, s_c = TC.wkv6_chunked(s0[None], r[:, None], k[:, None], v[:, None],
+                                       w[:, None], tf)
+            refs["chunked"] = (y_c[:, 0], s_c[0])
+    torch.cuda.synchronize()
+    plan = TC.wkv_chunk_plan(kind, t, bh, s, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    err = max(float((y - refs["scan"][0]).abs().max()), float((s_t - refs["scan"][1]).abs().max()))
+    print(f"{name} T={t} BH={bh} S={s}{' extreme decays' if extreme else ''}: max abs err "
+          f"{err:.3e} vs scan; plan {'recurrence' if plan.recurrent else 'two-pass'}, "
+          f"{plan.n_chunks} chunks, {plan.rows} rows a block, grid {plan.grid}, "
+          f"{plan.stages} stages, {plan.smem_bytes} B shared")
+    for what, (y_r, s_r) in refs.items():
+        rtol, atol = (1e-4, 1e-5) if what == "scan" else (3e-4, 3e-5)
+        for a, b, part in ((y, y_r, "y"), (s_t, s_r, "state")):
+            if not torch.allclose(a, b, rtol=rtol, atol=atol):
+                raise AssertionError(f"{name} T={t} BH={bh} {part} vs {what} outside rtol "
+                                     f"{rtol} / atol {atol}: max abs err "
+                                     f"{float((a - b).abs().max()):.3e}")
+    if not (bool(torch.isfinite(y).all()) and bool(torch.isfinite(s_t).all())):
+        raise AssertionError(f"{name} T={t} BH={bh}: outputs not finite")
+    return err
 
 
 def phase_k2(t: int, bh: int, s: int, dev):
-    import torch
+    from rwkv_tpu_torch.ops.chunked import wkv7_chunked, wkv7_recurrence
+    from rwkv_tpu_torch.tools.card import device_ms, wkv7_operands
 
-    from rwkv_tpu_torch.ops.chunked import (
-        wkv7_chunked, wkv7_recurrence, wkv7_recurrence_plain,
-    )
-    from rwkv_tpu_torch.tools.card import device_ms
-
+    for b in (bh, 96):
+        for tt in WKV_TS:
+            e = wkv_check(7, tt, b, s, dev)
+            if (tt, b) == (t, bh):
+                err = e
     ops = wkv7_operands(t, bh, s, dev)
-    y, s_t = wkv7_recurrence(*ops)
-    y_scan, s_scan = wkv7_recurrence_plain(*ops)
     s0, *rest = ops
-    y_chk, s_chk = wkv7_chunked(s0[None], *(x[:, None] for x in rest))
-    y_chk, s_chk = y_chk[:, 0], s_chk[0]
-    torch.cuda.synchronize()
-    err = max(float((y - y_scan).abs().max()), float((s_t - s_scan).abs().max()))
-    err_chk = max(float((y - y_chk).abs().max()), float((s_t - s_chk).abs().max()))
-    print(f"K2 T={t} BH={bh} S={s}: max abs err {err:.3e} vs scan, {err_chk:.3e} vs chunked")
-    for a, b, rtol, atol, what in (
-        (y, y_scan, 1e-4, 1e-5, "y vs scan"), (s_t, s_scan, 1e-4, 1e-5, "state vs scan"),
-        (y, y_chk, 3e-4, 3e-5, "y vs chunked"), (s_t, s_chk, 3e-4, 3e-5, "state vs chunked"),
-    ):
-        if not torch.allclose(a, b, rtol=rtol, atol=atol):
-            raise AssertionError(f"K2 {what} outside rtol {rtol} / atol {atol}: "
-                                 f"max abs err {float((a - b).abs().max()):.3e}")
     kern = device_ms(lambda: wkv7_recurrence(*ops))
     plain = device_ms(lambda: wkv7_chunked(s0[None], *(x[:, None] for x in rest)), reps=5)
     n_bytes = (7 * t * bh * s + 2 * bh * s * s) * 4
@@ -454,59 +485,21 @@ def phase_k2(t: int, bh: int, s: int, dev):
             "bound_by": kind, "max_abs_err": err}
 
 
-def wkv6_operands(t: int, bh: int, s: int, dev, seed: int = 3, extreme: bool = False):
-    """v6 operands: the decay exp(-exp(N(0, 1))), or with extreme=True half
-    the channels at exp(-20) a token and the rest exp(-exp(3 N(0, 1))),
-    some of which underflow to 0."""
-    import torch
-
-    gen = torch.Generator(device=dev).manual_seed(seed)
-
-    def rnd(*shape, scale=1.0):
-        return torch.randn(shape, device=dev, generator=gen) * scale
-
-    r, k, v = rnd(t, bh, s, scale=0.3), rnd(t, bh, s, scale=0.3), rnd(t, bh, s, scale=0.3)
-    if extreme:
-        w = torch.where(torch.rand((t, bh, s), device=dev, generator=gen) < 0.5,
-                        torch.full((t, bh, s), float(np.exp(-20.0)), device=dev),
-                        torch.exp(-torch.exp(rnd(t, bh, s, scale=3.0))))
-    else:
-        w = torch.exp(-torch.exp(rnd(t, bh, s)))
-    return rnd(bh, s, s, scale=0.3), r, k, v, w, rnd(bh, s, scale=0.2)
-
-
 def phase_k5(t: int, bh: int, s: int, dev):
-    import torch
-
-    from rwkv_tpu_torch.ops.chunked import (
-        wkv6_chunked, wkv6_recurrence, wkv6_recurrence_plain,
-    )
-    from rwkv_tpu_torch.tools.card import device_ms
+    from rwkv_tpu_torch.ops.chunked import wkv6_chunked, wkv6_recurrence
+    from rwkv_tpu_torch.tools.card import device_ms, wkv6_operands
 
     def chunked(s0, r, k, v, w, tf):
         y, s_new = wkv6_chunked(s0[None], r[:, None], k[:, None], v[:, None], w[:, None], tf)
         return y[:, 0], s_new[0]
 
-    err = 0.0
-    for extreme in (False, True):
-        ops = wkv6_operands(t, bh, s, dev, extreme=extreme)
-        y, s_t = wkv6_recurrence(*ops)
-        y_scan, s_scan = wkv6_recurrence_plain(*ops)
-        checks = [(y, y_scan, 1e-4, 1e-5, "y vs scan"), (s_t, s_scan, 1e-4, 1e-5, "state vs scan")]
-        if not extreme:
-            y_chk, s_chk = chunked(*ops)
-            checks += [(y, y_chk, 3e-4, 3e-5, "y vs chunked"),
-                       (s_t, s_chk, 3e-4, 3e-5, "state vs chunked")]
-        torch.cuda.synchronize()
-        e = max(float((y - y_scan).abs().max()), float((s_t - s_scan).abs().max()))
-        print(f"K5 T={t} BH={bh} S={s}{' extreme decays' if extreme else ''}: max abs err "
-              f"{e:.3e} vs scan, finite {bool(torch.isfinite(y).all() and torch.isfinite(s_t).all())}")
-        for a, b, rtol, atol, what in checks:
-            if not torch.allclose(a, b, rtol=rtol, atol=atol):
-                raise AssertionError(f"K5 {what} outside rtol {rtol} / atol {atol}: "
-                                     f"max abs err {float((a - b).abs().max()):.3e}")
-        if not extreme:
-            err = e
+    for b in (bh, 96):
+        for tt in WKV_TS:
+            e = wkv_check(6, tt, b, s, dev)
+            if (tt, b) == (t, bh):
+                err = e
+            if b == bh:
+                wkv_check(6, tt, b, s, dev, extreme=True)
     ops = wkv6_operands(t, bh, s, dev)
     kern = device_ms(lambda: wkv6_recurrence(*ops))
     plain = device_ms(lambda: chunked(*ops), reps=5)
@@ -515,6 +508,44 @@ def phase_k5(t: int, bh: int, s: int, dev):
     print(f"K5: kernel {kern:.4f} ms, plain (chunked) {plain:.4f} ms, bound {b:.5f} ms ({kind})")
     return {"ms": kern, "plain_ms": plain, "library_ms": None, "bound_ms": b,
             "bound_by": kind, "max_abs_err": err}
+
+
+# The 256-token prefill at full depth with K2 / K5 against the same prefill
+# with the plain token recurrence in their place, on the card: f32 within
+# PREFILL_F32_REL of the scale (the two forms' f32 sums in another order,
+# ~1e-6 a launch, grown through the layers: v7 169M 1.6-2.0e-6, v6 1.6B
+# 7.8-9.5e-5, the parent's kernels 1.4-2.2e-6 / 7.9e-5-1.01e-4; twice the
+# worst), w8a8 within PREFILL_INT_REL (int8 codes flip at .5 boundaries and
+# the flips compound: v7 169M 4.3-4.9e-2, the parent's 3.5-5.6e-2; twice
+# the worst) with the same top token; readings of `probe_wkv --drift`, 6
+# prompts, PERF.md. v6's w8a8 prefill at the 1.6B width drifts 0.52-0.71 of
+# the scale from the plain recurrence with either kernel, so v6 is held at
+# f32.
+PREFILL_F32_REL = 2e-4
+PREFILL_INT_REL = 1.2e-1
+
+
+def prefill_vs_plain(name: str, model, prompt) -> float:
+    """Logits and every state tensor of `model`'s prefill against the same
+    prefill on the plain recurrence; returns the worst distance over its
+    scale."""
+    import torch
+
+    from rwkv_tpu_torch.ops import chunked as TC
+    from rwkv_tpu_torch.tools.probe_wkv import prefill_distance, wkv_swapped
+
+    out = model.prefill(prompt)
+    with wkv_swapped(TC.wkv7_recurrence_plain, TC.wkv6_recurrence_plain):
+        ref = model.prefill(prompt)
+    torch.cuda.synchronize()
+    rel = PREFILL_F32_REL if model.precision == "f32" else PREFILL_INT_REL
+    worst = prefill_distance(out, ref)
+    same_top = int(out[0].argmax()) == int(ref[0].argmax())
+    print(f"{name} prefill of {len(prompt)} tokens, K2 / K5 against the plain recurrence: "
+          f"{worst:.3e} of the scale (limit {rel:g}), same top token {same_top}")
+    if worst > rel or not same_top:
+        raise AssertionError(f"{name} prefill with K2 / K5 leaves the plain recurrence's band")
+    return worst
 
 
 def pack_bytes(pack: dict, cfg) -> int:
@@ -1709,6 +1740,7 @@ def main() -> int:
     # -- the main paths: B=1 in both formats, then the batcher ---------------
     launches = {}
     launches["w8a8"] = single_stream_path("w8a8", model, prompt, cfg, card, 5)
+    prefill_vs_plain("v7 169M w8a8", model, prompt)
     launches["w4a8"] = single_stream_path("w4a8", model4, prompt, cfg, card, 3)
     warm = batcher_requests(model, cfg, 2, 16, 8, seed=3)
     batcher_path("warm-up", model, cfg, warm)
@@ -1725,6 +1757,7 @@ def main() -> int:
     model32 = ServingModel((cfg, params), precision="f32", megakernel=True)
     launches["f32"] = single_stream_path("f32", model32, prompt, cfg, card, 1,
                                          needed=("K2", "K3 bf16"))
+    prefill_vs_plain("v7 169M f32", model32, prompt)
     del model32
     reqs16 = batcher_requests(model16, cfg, 8, 64, 32, seed=4)
     launches["batcher bf16"], _, _ = batcher_path("bf16", model16, cfg, reqs16,
@@ -1757,6 +1790,9 @@ def main() -> int:
         launches[f"v6 {prec}"] = single_stream_path(
             f"v6 {prec}", m, prompt6, cfg6, card, 1 if prec == "bf16" else 2,
             needed=B1_NEEDED[prec] + ("K5", f"K6 {m._mega['form']}"))
+    model6f = ServingModel((cfg6, params6), precision="f32")
+    prefill_vs_plain("v6 1.6B f32", model6f, prompt6)
+    del model6f
     print(f"[{time.perf_counter() - t_start:.1f} s] tensor-parallel v6")
     # tensor-parallel v6 on a tp=2 one-card mesh: K12 / K13 (w8a8 held to
     # the w8a8 model above; w4a8 and bf16 at TP_CUT_DEPTH layers)

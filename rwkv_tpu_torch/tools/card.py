@@ -13,6 +13,7 @@ need a CUDA device.
 
 from __future__ import annotations
 
+import math
 import subprocess
 import time
 
@@ -257,3 +258,42 @@ def single_device_x(model, state: dict, token) -> "torch.Tensor":
     _, _, scratch = launch(decode_entry(pack), pack, {k: v[0] for k, v in state.items()}, token,
                            cfg)
     return scratch[: cfg.n_embed]
+
+
+def wkv7_operands(t: int, bh: int, s: int, dev, seed: int = 2):
+    """Realistic v7 operands: bounded decay, a = -kk, b = kk * gate."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, device=dev, generator=gen) * scale
+
+    r, k, v = rnd(t, bh, s, scale=0.3), rnd(t, bh, s, scale=0.3), rnd(t, bh, s, scale=0.3)
+    w = torch.exp(torch.sigmoid(rnd(t, bh, s)) * -0.606531)
+    kk = rnd(t, bh, s)
+    kk = kk / kk.norm(dim=-1, keepdim=True)
+    gate = torch.sigmoid(rnd(t, bh, s))
+    s0 = rnd(bh, s, s, scale=0.3)
+    return s0, r, w, k, v, -kk, kk * gate
+
+
+def wkv6_operands(t: int, bh: int, s: int, dev, seed: int = 3, extreme: bool = False):
+    """v6 operands: the decay exp(-exp(N(0, 1))), or with extreme=True half
+    the channels at exp(-20) a token and the rest exp(-exp(3 N(0, 1))),
+    some of which underflow to 0."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, device=dev, generator=gen) * scale
+
+    r, k, v = rnd(t, bh, s, scale=0.3), rnd(t, bh, s, scale=0.3), rnd(t, bh, s, scale=0.3)
+    if extreme:
+        w = torch.where(torch.rand((t, bh, s), device=dev, generator=gen) < 0.5,
+                        torch.full((t, bh, s), math.exp(-20.0), device=dev),
+                        torch.exp(-torch.exp(rnd(t, bh, s, scale=3.0))))
+    else:
+        w = torch.exp(-torch.exp(rnd(t, bh, s)))
+    return rnd(bh, s, s, scale=0.3), r, k, v, w, rnd(bh, s, scale=0.2)

@@ -2,6 +2,7 @@
 """Where the port's main path spends its time, from a torch.profiler trace.
 
     python3 scripts/profile_torch_main_path.py [--tp[=7.0|6.0|5.2|4.0]]
+    python3 scripts/profile_torch_main_path.py [--v6] --baseline DIR
 
 Builds the 169M v7 model as ``chip_smoke.py`` does (synth seed 0, w8a8,
 ``megakernel=True``; with --tp a model at its tensor-parallel width --
@@ -14,6 +15,13 @@ prefill and 8 greedy B=1 decode steps. For each it prints the wall time
 the kernels' and copies' durations in the CUDA trace), the number of
 launches the host issued, and the kernels with the most device time.
 Needs a CUDA device; builds the kernels on first use.
+
+With ``--baseline DIR`` it traces only the prefill (the v7 169M model, or
+with ``--v6`` the v6 1.6B width, w8a8), four times in turns: with the
+prefill wkv kernels K2 / K5 built from ``DIR/wkv7.cu`` and ``DIR/wkv6.cu``
+(an earlier version: the parent's ``rwkv_tpu_torch/csrc`` from ``git
+archive``) in place of the current ones, then the current, the current,
+the earlier (``tools/probe_wkv.py::wkv_swapped``).
 """
 
 from __future__ import annotations
@@ -67,6 +75,23 @@ def main() -> int:
 
     print(card_line())
     tp = [a for a in sys.argv[1:] if a.split("=")[0] == "--tp"]
+    if "--baseline" in sys.argv:
+        from rwkv_tpu_torch.tools.probe_wkv import baseline_kernels, wkv_swapped
+
+        src = Path(sys.argv[sys.argv.index("--baseline") + 1])
+        cfg = synth_config(*(V6_WIDTH if "--v6" in sys.argv else ("7.0", 12, 768, 65536, 64)))
+        model = ServingModel((cfg, synth_params(cfg, seed=0)), precision="w8a8",
+                             megakernel=True)
+        prompt = torch.randint(0, cfg.n_vocab, (256,),
+                               generator=torch.Generator().manual_seed(0)).numpy()
+        wkv7, wkv6 = baseline_kernels(src)
+        for turn in ("baseline", "current", "current", "baseline"):
+            swap = wkv_swapped(wkv7, wkv6) if turn == "baseline" else wkv_swapped()
+            with swap:
+                model.prefill(prompt)
+                traced(lambda: model.prefill(prompt),
+                       f"v{cfg.version_major} prefill 256 tokens, {turn} K2 / K5")
+        return 0
     if tp:
         widths = {"7.0": V7_TP_WIDTH, "6.0": V6_WIDTH, "5.2": V5_WIDTH, "4.0": V4_TP_WIDTH}
         cfg = synth_config(*widths[tp[0].partition("=")[2] or "7.0"])

@@ -112,15 +112,64 @@ def _wkv7_operands(t, bh, s, dev, seed):
     return rnd(bh, s, s, scale=0.3), r, w, k, v, -kk, kk * gate
 
 
-@pytest.mark.parametrize("t,bh,s", [(256, 12, 64), (64, 8, 32), (3, 2, 128)])
+# K2 / K5 shapes: the prefill buckets (3 and 17 ragged, below and past a
+# chunk), the heads of the v7 169M (12) and of a batched B=8 prefill (96) at
+# S=64, and the other head sizes (40 heads of 128: pass B's 32-row groups)
+WKV_TS = (3, 4, 16, 17, 64, 256)
+WKV_HEADS = ((12, 64), (96, 64), (2, 128), (8, 32), (40, 128))
+
+
+@pytest.mark.parametrize("bh,s", WKV_HEADS)
+@pytest.mark.parametrize("t", WKV_TS)
 def test_wkv7_kernel_matches_scan(cuda_device, t, bh, s):
+    """K2 within rtol 1e-4 / atol 1e-5 of the token recurrence and 3e-4 /
+    3e-5 of its plain two-pass form; two launches bit-identical."""
     ops = _wkv7_operands(t, bh, s, cuda_device, seed=t + s)
     before = TC.wkv7_recurrence.launches
     y, s_new = TC.wkv7_recurrence(*ops)
-    assert TC.wkv7_recurrence.launches == before + 1
+    y2, s2 = TC.wkv7_recurrence(*ops)
+    assert TC.wkv7_recurrence.launches == before + 2
     y_ref, s_ref = TC.wkv7_recurrence_plain(*ops)
     torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(s_new, s_ref, rtol=1e-4, atol=1e-5)
+    y_tp, s_tp = TC.wkv7_twopass(*ops)
+    torch.testing.assert_close(y, y_tp, rtol=3e-4, atol=3e-5)
+    torch.testing.assert_close(s_new, s_tp, rtol=3e-4, atol=3e-5)
+    assert torch.equal(y, y2) and torch.equal(s_new, s2)
+
+
+@pytest.mark.parametrize("kind", [6, 7])
+@pytest.mark.parametrize("route,below", [("two-pass", 0), ("recurrence", 1 << 20)])
+def test_wkv_kernels_on_either_route(cuda_device, kind, route, below):
+    """K2 / K5 built with their route forced (-DRWKV_WKV_BELOW: the two
+    passes even for T < P, a single padded chunk; the recurrence at T=256)
+    within rtol 1e-4 / atol 1e-5 of the token recurrence at every head
+    shape."""
+    lib = (None, (f"-DRWKV_WKV_BELOW={below}",))
+    for t in (3, 17, 256):
+        for bh, s in WKV_HEADS:
+            if kind == 7:
+                s0, *ops = _wkv7_operands(t, bh, s, cuda_device, seed=t)
+                y, s_new = TC._wkv_launch(7, ops, s0, lib=lib, below=below)
+                y_ref, s_ref = TC.wkv7_recurrence_plain(s0, *ops)
+            else:
+                s0, *ops, tf = _wkv6_operands(t, bh, s, cuda_device, seed=t, extreme=True)
+                y, s_new = TC._wkv_launch(6, ops, s0, tf, lib=lib, below=below)
+                y_ref, s_ref = TC.wkv6_recurrence_plain(s0, *ops, tf)
+            torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-5, msg=f"{route} {t} {bh} {s}")
+            torch.testing.assert_close(s_new, s_ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", [6, 7])
+def test_wkv_kernel_plans_match_wkv_chunk_plan(cuda_device, kind):
+    """K2's and K5's own plans (the C entry rwkv_wkv_chunk_plan) equal
+    ops/chunked.py::wkv_chunk_plan on this card, both routes."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for t in WKV_TS + (1, 31, 32, 1000):
+        for bh in (1, 12, 32, 96, 300):
+            for s in (32, 64, 128):
+                assert TC.wkv_kernel_plan(kind, t, bh, s, sms) == TC.wkv_chunk_plan(
+                    kind, t, bh, s, sms), (t, bh, s)
 
 
 def _small_pack(dev, w4=False, seed=7):
@@ -344,16 +393,25 @@ def _wkv6_operands(t, bh, s, dev, seed, extreme=False):
     return rnd(bh, s, s, scale=0.3), r, k, v, w, rnd(bh, s, scale=0.2)
 
 
-@pytest.mark.parametrize("t,bh,s,extreme", [(256, 32, 64, False), (256, 32, 64, True),
-                                            (64, 8, 32, False), (3, 2, 128, False)])
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("bh,s", ((32, 64), (96, 64), (2, 128), (8, 32)))
+@pytest.mark.parametrize("t", WKV_TS)
 def test_wkv6_kernel_matches_scan(cuda_device, t, bh, s, extreme):
+    """K5 within rtol 1e-4 / atol 1e-5 of the token recurrence and 3e-4 /
+    3e-5 of its plain two-pass form, also on extreme decays; two launches
+    bit-identical."""
     ops = _wkv6_operands(t, bh, s, cuda_device, seed=t + s, extreme=extreme)
     before = TC.wkv6_recurrence.launches
     y, s_new = TC.wkv6_recurrence(*ops)
-    assert TC.wkv6_recurrence.launches == before + 1
+    y2, s2 = TC.wkv6_recurrence(*ops)
+    assert TC.wkv6_recurrence.launches == before + 2
     y_ref, s_ref = TC.wkv6_recurrence_plain(*ops)
     torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(s_new, s_ref, rtol=1e-4, atol=1e-5)
+    y_tp, s_tp = TC.wkv6_twopass(*ops)
+    torch.testing.assert_close(y, y_tp, rtol=3e-4, atol=3e-5)
+    torch.testing.assert_close(s_new, s_tp, rtol=3e-4, atol=3e-5)
+    assert torch.equal(y, y2) and torch.equal(s_new, s2)
 
 
 def _small_pack6(dev, w4=False, seed=7):
