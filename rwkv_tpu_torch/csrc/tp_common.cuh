@@ -1,9 +1,10 @@
-// Pieces shared by the tensor-parallel decode kernels K10 / K11 (tp_v7.cu)
-// and K14 / K15 (tp_v45.cu): the two split contractions of a shard (the
-// attention output's and the FFN value's, each a full-C partial that the
-// caller's all-reduce sums over the shards), the grid size and the
-// cooperative launch; the grid size and launch of K12 / K13 (tp_v6.cu),
-// whose blocks are wider (their producer warp, decode_stream.cuh).
+// Pieces shared by the tensor-parallel decode kernels K11 (tp_v7.cu) and
+// K14 (tp_v45.cu): the two split contractions of a shard (the attention
+// output's and the FFN value's, each a full-C partial that the caller's
+// all-reduce sums over the shards), the grid size and the cooperative
+// launch; the grid size and launch of the stream kernels K10 (tp_v7.cu),
+// K12, K13 and K15 (tp_v6.cu), whose blocks are wider (their producer
+// warp, decode_stream.cuh).
 #pragma once
 
 #include "decode_common.cuh"

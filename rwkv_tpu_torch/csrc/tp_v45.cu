@@ -1,39 +1,30 @@
-// K14 and K15: the attention of one layer of an RWKV v4 (K14) or v5.1 /
-// v5.2 (K15) decode step at B=1 on one shard of a tensor-parallel mesh,
-// w8a8, w4a8 or bf16. One launch per shard per layer; the caller sums the
-// shards' full-C partials, then runs the gated FFN on K13's MIX45 form
-// (tp_v6.cu) and gathers its gate (ops/megakernel_tp.py).
+// K14: the attention of one layer of an RWKV v4 decode step at B=1 on one
+// shard of a tensor-parallel mesh, w8a8, w4a8 or bf16. One launch per
+// shard per layer; the caller sums the shards' full-C partials, then runs
+// the gated FFN on K13's MIX45 form (tp_v6.cu) and gathers its gate
+// (ops/megakernel_tp.py). The v5 attention (K15) is a form of K12's kernel
+// in tp_v6.cu.
 //
 // Replaces rwkv_tpu/ops/megakernel_tp.py::_att_layer_call_v4 (kernel
-// _make_att_kernel_v4: K14) and _att_layer_call_v5 (_make_att_kernel_v5:
-// K15), in their int8, int4 and bf16 forms.
+// _make_att_kernel_v4), in its int8, int4 and bf16 forms.
 //
-// Bound on this card: bytes. At the World 1.5B widths (C=2048) and tp=2 a
-// K14 launch reads its shard's rkv rows (3 x 1024 x 2048) and out columns
-// (2048 x 1024), ~8.4 MB int8: ~2.5 us at 3.35 TB/s; a K15 launch (v5.2)
-// its rkvg rows (4 x 1024 x 2048) and out columns, ~10.5 MB, and its wkv
-// state twice (0.52 MB): ~3.3 us. int4 moves about half of that, bf16
-// twice.
+// Bound on this card: bytes. At the World 1.5B width (C=2048) and tp=2 a
+// launch reads its shard's rkv rows (3 x 1024 x 2048) and out columns
+// (2048 x 1024), ~8.4 MB int8: ~2.5 us at 3.35 TB/s. int4 moves about half
+// of that, bf16 twice.
 //
-// Design: persistent cooperative kernels (one 256-thread block per SM,
-// grid-wide barriers between phases), K8's and K7's phases for one layer
-// and one shard:
-//   K14 A  ln1, shift, the three mixes (k, v, r) each quantized as a whole
-//          (replicated input), the shard's rkv rows (sigmoid on r)
-//       B  every block computes the shard's c_loc-wide sigmoid(r) * wkv
-//          redundantly with the max-trick (wkv4_out, v45_common.cuh; its
-//          quantization needs the amax of all of it), the grid writes the
-//          new aa, bb, pp, each block its share (wkv4_state); then the
-//          shard's xo quantized with its own scale and the C rows of out
-//          into the partial (tp_out_rows, tp_common.cuh)
-//   K15 A  ln1, shift, the 3 (5.1) or 4 (5.2) mixes (k, v, r(, g)), the
-//          shard's rkvg rows (silu on g)
-//       C  per head of the shard (one block each): K7's wkv step
-//          (v5_head_step, v45_common.cuh: static decay, bonus, group norm
-//          with eps 1e-5), ln_x, times the gate (5.2)
-//       D  the shard's xo quantized with its own scale, the C rows of out
-//          into the partial
-// Numerics follow the JAX kernels as K7 / K8 do (explicit round-to-nearest
+// Design: a persistent cooperative kernel (one 256-thread block per SM,
+// grid-wide barriers between phases), K8's phases for one layer and one
+// shard:
+//   A  ln1, shift, the three mixes (k, v, r) each quantized as a whole
+//      (replicated input), the shard's rkv rows (sigmoid on r)
+//   B  every block computes the shard's c_loc-wide sigmoid(r) * wkv
+//      redundantly with the max-trick (wkv4_out, v45_common.cuh; its
+//      quantization needs the amax of all of it), the grid writes the new
+//      aa, bb, pp, each block its share (wkv4_state); then the shard's xo
+//      quantized with its own scale and the C rows of out into the partial
+//      (tp_out_rows, tp_common.cuh)
+// Numerics follow the JAX kernel as K8 does (explicit round-to-nearest
 // float ops, each matvec input quantized as a whole, the out input the
 // shard's local slice with its own scale).
 #include "tp_common.cuh"
@@ -42,20 +33,19 @@
 namespace {
 
 // rows of a shard's replicated vector block [L, rows, C] and of its own
-// [L, rows, C/tp] (ops/megakernel_tp.py TP4_RVECS / TP5_RVECS, TP4_LVECS /
-// TP5_LVECS). Rows 2, 3, 5 and 6 hold ln2 and the FFN mixes where K13
-// (tp_v6.cu RVec6) reads them; the attention mixes k, v, r(, g) sit around
-// them.
+// [L, rows, C/tp] (ops/megakernel_tp.py TP4_RVECS, TP4_LVECS). Rows 2, 3, 5
+// and 6 hold ln2 and the FFN mixes where K13 (tp_v6.cu RVec6) reads them;
+// the attention mixes k, v, r sit around them.
 enum RVec45 { kRLn1W = 0, kRLn1B, kRLn2W, kRLn2B, kRMixK, kRFmixK, kRFmixR, kRMixV };
-enum LVec45 { kLTD = 0, kLTF, kLLnxW, kLLnxB };
+enum LVec45 { kLTD = 0, kLTF };
 
-// The row of attention mix m (amix order k, v, r, g) in the replicated block.
+// The row of attention mix m (amix order k, v, r) in the replicated block.
 __device__ __forceinline__ int mix_row(int m) { return m == 0 ? kRMixK : kRMixV + m - 1; }
 
-// Phase A of both kernels: ln1 of x into xl (block 0 writes it to
-// att_out), the NA mixes quantized as whole vectors, the shard's NA * CL
-// fused rows (r, k, v(, g)) into att_g; sigmoid on r (v4), silu on g.
-template <int WF, int NA, bool V4>
+// Phase A: ln1 of x into xl (block 0 writes it to att_out), the three
+// mixes quantized as whole vectors, the shard's 3 CL fused rows (r, k, v)
+// into att_g, sigmoid on r.
+template <int WF>
 __device__ void att_rows(const float* x, const float* att_in, const int8_t* w, const float* w_d,
                          const float* rvec, float* att_out, float* att_g, int C, int CL,
                          float* xs, float* xl, float* red, float* dxs, act_t<WF>* q8) {
@@ -64,14 +54,13 @@ __device__ void att_rows(const float* x, const float* att_in, const int8_t* w, c
   layer_norm_block(xs, xl, rvec + kRLn1W * C, rvec + kRLn1B * C, C, 1e-5f, red);
   if (blockIdx.x == 0)
     for (int c = threadIdx.x; c < C; c += blockDim.x) att_out[c] = xl[c];
-  act_n<WF, NA>([&](int m, int c) { return mix45(xl[c], att_in[c], rvec[mix_row(m) * C + c]); },
-                C, q8, C, dxs, red);
-  matvec_grid<WF, 1>(w, NA * CL, C, 1, [&](int row, int) { return q8 + att_mix(row / CL) * C; },
+  act_n<WF, 3>([&](int m, int c) { return mix45(xl[c], att_in[c], rvec[mix_row(m) * C + c]); },
+               C, q8, C, dxs, red);
+  matvec_grid<WF, 1>(w, 3 * CL, C, 1, [&](int row, int) { return q8 + att_mix(row / CL) * C; },
       [&](int row, int, auto acc) {
         const int part = row / CL;
         float y = dequant(acc, dxs[att_mix(part)], w_d + row);
-        if (V4 && part == 0) y = sigmoidf(y);
-        if (part == 3) y = mul(y, sigmoidf(y));  // silu gate
+        if (part == 0) y = sigmoidf(y);
         att_g[row] = y;
       },
       lanes_for(C, WF));
@@ -112,7 +101,7 @@ __global__ void __launch_bounds__(kTpThreads) tp_v4_att_kernel(Att4Args p) {
   float* att_g = p.scratch;
 
   // ---- A: ln1, shift, the mixes quantized, the shard's r k v rows ---------
-  att_rows<WF, 3, true>(p.x, p.att_in, p.rkv, p.rkv_d, p.rvec, p.att_out, att_g, C, CL, xs, xl,
+  att_rows<WF>(p.x, p.att_in, p.rkv, p.rkv_d, p.rvec, p.att_out, att_g, C, CL, xs, xl,
                         red, dxs, q8);
   grid.sync();
 
@@ -132,82 +121,10 @@ __global__ void __launch_bounds__(kTpThreads) tp_v4_att_kernel(Att4Args p) {
 
 size_t att4_smem(int C, int wf) { return tp_smem(2ull * C + 8 * 32 + 8, 3ull * C, wf); }
 
-struct Att5Args {
-  const float* x;          // [C]
-  const float* att_in;     // [C]
-  const float* heads_in;   // [HL, S, S] the shard's heads
-  const int8_t* rkvg;      // [NA, CL, C] form WF
-  const float* rkvg_d;     // [NA CL] (int forms)
-  const int8_t* out;       // [C, CL] form WF
-  const float* out_d;      // [C]
-  const float* rvec;       // [kRMixV + NA - 1, C]
-  const float* lvec;       // [4, CL] td, tf, ln_x weight, ln_x bias
-  float* part;             // [C] the shard's partial of out
-  float* att_out;          // [C] ln1(x)
-  float* heads_out;        // [HL, S, S]
-  float* scratch;          // r | k | v | silu(g) (4 CL) | xo (CL)
-  int C, CL, S;
-};
-
-template <int WF, bool GATE>
-__global__ void __launch_bounds__(kTpThreads) tp_v5_att_kernel(Att5Args p) {
-  constexpr int NA = GATE ? 4 : 3;
-  cg::grid_group grid = cg::this_grid();
-  const int C = p.C, CL = p.CL, S = p.S, HL = CL / S;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);  // [C] x
-  float* xl = xs + C;                           // [C] ln1(x)
-  float* hv = xl + C;                           // [5S] per-head vectors
-  float* red = hv + 5 * S;                      // [8][32]
-  float* dxs = red + 8 * 32;                    // [8]
-  act_t<WF>* q8 = reinterpret_cast<act_t<WF>*>(dxs + 8);  // [4C] activations
-  float* att_g = p.scratch;                     // [4][CL] r, k, v, silu(g)
-  float* xo_g = att_g + 4 * CL;                 // [CL]
-  const float* lv = p.lvec;
-
-  // ---- A: ln1, shift, the mixes quantized, the shard's rkvg rows ---------
-  att_rows<WF, NA, false>(p.x, p.att_in, p.rkvg, p.rkvg_d, p.rvec, p.att_out, att_g, C, CL, xs,
-                          xl, red, dxs, q8);
-  grid.sync();
-
-  // ---- C: per head: wkv with the static decay, group norm, ln_x, gate ----
-  for (int h = blockIdx.x; h < HL; h += gridDim.x) {  // block-uniform
-    const int c0 = h * S;
-    const size_t hoff = static_cast<size_t>(h) * S * S;
-    v5_head_step(att_g + c0, att_g + CL + c0, att_g + 2 * CL + c0, lv + kLTD * CL + c0,
-                 lv + kLTF * CL + c0, p.heads_in + hoff, p.heads_out + hoff, S, hv, red,
-                 [&](int i, float yn) {
-                   const int c = c0 + i;
-                   const float xo = add(mul(yn, lv[kLLnxW * CL + c]), lv[kLLnxB * CL + c]);
-                   xo_g[c] = GATE ? mul(xo, att_g[3 * CL + c]) : xo;
-                 });
-  }
-  grid.sync();
-
-  // ---- D: the shard's partial of out --------------------------------------
-  tp_out_rows<WF>(xo_g, p.out, p.out_d, p.part, C, CL, red, dxs, q8);
-}
-
-size_t att5_smem(int C, int S, int wf) {
-  return tp_smem(2ull * C + 5 * S + 8 * 32 + 8, 4ull * C, wf);
-}
-
 const void* att4_kernel(int wf) {
   if (wf == kBf16) return reinterpret_cast<const void*>(tp_v4_att_kernel<kBf16>);
   return wf == kInt4 ? reinterpret_cast<const void*>(tp_v4_att_kernel<kInt4>)
                      : reinterpret_cast<const void*>(tp_v4_att_kernel<kInt8>);
-}
-
-template <int WF>
-const void* att5_of(bool gate) {
-  return gate ? reinterpret_cast<const void*>(tp_v5_att_kernel<WF, true>)
-              : reinterpret_cast<const void*>(tp_v5_att_kernel<WF, false>);
-}
-
-const void* att5_kernel(int wf, bool gate) {
-  if (wf == kBf16) return att5_of<kBf16>(gate);
-  return wf == kInt4 ? att5_of<kInt4>(gate) : att5_of<kInt8>(gate);
 }
 
 int att4_launch(int wf, const void* x, const void* att_in, const void* aa_in, const void* bb_in,
@@ -238,30 +155,6 @@ int att4_launch(int wf, const void* x, const void* att_in, const void* aa_in, co
   return tp_launch(att4_kernel(wf), a, att4_smem(C, wf), grid_blocks, stream);
 }
 
-int att5_launch(int wf, const void* x, const void* att_in, const void* heads_in,
-                const void* rkvg, const void* rkvg_d, const void* out, const void* out_d,
-                const void* rvec, const void* lvec, void* part, void* att_out, void* heads_out,
-                void* scratch, int C, int CL, int S, int gate, int grid_blocks, void* stream) {
-  if (S <= 0 || kTpThreads % S != 0 || S * S / kTpThreads > kMaxJ || CL % S != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Att5Args a;
-  a.x = static_cast<const float*>(x);
-  a.att_in = static_cast<const float*>(att_in);
-  a.heads_in = static_cast<const float*>(heads_in);
-  a.rkvg = static_cast<const int8_t*>(rkvg);
-  a.rkvg_d = static_cast<const float*>(rkvg_d);
-  a.out = static_cast<const int8_t*>(out);
-  a.out_d = static_cast<const float*>(out_d);
-  a.rvec = static_cast<const float*>(rvec);
-  a.lvec = static_cast<const float*>(lvec);
-  a.part = static_cast<float*>(part);
-  a.att_out = static_cast<float*>(att_out);
-  a.heads_out = static_cast<float*>(heads_out);
-  a.scratch = static_cast<float*>(scratch);
-  a.C = C; a.CL = CL; a.S = S;
-  return tp_launch(att5_kernel(wf, gate != 0), a, att5_smem(C, S, wf), grid_blocks, stream);
-}
-
 }  // namespace
 
 // The C entries, one per weight form (suffix "", _w4, _bf16): the grid a
@@ -275,27 +168,12 @@ int att5_launch(int wf, const void* x, const void* att_in, const void* heads_in,
 #define RWKV_TP_V4_ATT_ARGS                                                                     \
   x, att_in, aa_in, bb_in, pp_in, rkv, rkv_d, out, out_d, rvec, lvec, part, att_out, aa_out,    \
       bb_out, pp_out, scratch, C, CL, grid_blocks, stream
-#define RWKV_TP_V5_ATT_PARAMS                                                                   \
-  const void *x, const void *att_in, const void *heads_in, const void *rkvg,                    \
-      const void *rkvg_d, const void *out, const void *out_d, const void *rvec,                 \
-      const void *lvec, void *part, void *att_out, void *heads_out, void *scratch, int C,       \
-      int CL, int S, int gate, int grid_blocks, void *stream
-#define RWKV_TP_V5_ATT_ARGS                                                                     \
-  x, att_in, heads_in, rkvg, rkvg_d, out, out_d, rvec, lvec, part, att_out, heads_out,          \
-      scratch, C, CL, S, gate, grid_blocks, stream
-
 #define RWKV_TP_V45_ENTRIES(suffix, wf)                                                         \
   extern "C" int rwkv_tp_v4_att##suffix##_grid(int C) {                                        \
     return tp_grid_blocks(att4_kernel(wf), att4_smem(C, wf));                                   \
   }                                                                                             \
   extern "C" int rwkv_tp_v4_att##suffix(RWKV_TP_V4_ATT_PARAMS) {                               \
     return att4_launch(wf, RWKV_TP_V4_ATT_ARGS);                                                \
-  }                                                                                             \
-  extern "C" int rwkv_tp_v5_att##suffix##_grid(int C, int S, int gate) {                       \
-    return tp_grid_blocks(att5_kernel(wf, gate != 0), att5_smem(C, S, wf));                     \
-  }                                                                                             \
-  extern "C" int rwkv_tp_v5_att##suffix(RWKV_TP_V5_ATT_PARAMS) {                               \
-    return att5_launch(wf, RWKV_TP_V5_ATT_ARGS);                                                \
   }
 
 RWKV_TP_V45_ENTRIES(, kInt8)

@@ -1,10 +1,9 @@
 // Pieces shared by the v5 (K7, v5_decode.cu) and v4 (K8, v4_decode.cu)
 // whole-model decode kernels and their tensor-parallel shard kernels (K15,
-// K14: tp_v45.cu): the per-layer layout of the flat pack, the token-shift
-// mix in the reference's op order, which mix feeds each fused attention
-// projection, v4's max-trick wkv on one channel, v5's wkv step of one head
-// on a whole block (K15; K7 runs its own over the consumers of its
-// stream), and the grid size of a cooperative launch.
+// tp_v6.cu; K14, tp_v45.cu): the per-layer layout of the flat pack, the
+// token-shift mix in the reference's op order, which mix feeds each fused
+// attention projection, v4's max-trick wkv on one channel, and the grid
+// size of a cooperative launch.
 #pragma once
 
 #include "decode_common.cuh"
@@ -76,63 +75,6 @@ __device__ __forceinline__ void wkv4_state(float td, float k, float v, float aa,
   *aa_out = add(mul(e1, aa), mul(e2, v));
   *bb_out = add(mul(e1, bb), e2);
   *pp_out = qq2;
-}
-
-// v5's wkv step of one head on one block (blockDim.x a multiple of S, S * S
-// / blockDim.x <= kMaxJ): r, k, v, the static decay w and the bonus tf hold
-// the head's S values, st_in / st_out its S x S state (row i = value dim).
-// The output reads the OLD state plus the bonus, then the state decays and
-// takes k v^T; the output is group-normed (eps 1e-5) and handed to
-// yn_out(i, yn) on thread i < S. hv: 5S floats of shared memory. Ends with
-// a barrier.
-template <typename YOut>
-__device__ void v5_head_step(const float* r, const float* k, const float* v, const float* w,
-                             const float* tf, const float* st_in, float* st_out, int S,
-                             float* hv, float* red, YOut yn_out) {
-  const int tid = threadIdx.x;
-  float* h_r = hv;
-  float* h_k = hv + S;
-  float* h_v = hv + 2 * S;
-  float* h_w = hv + 3 * S;
-  float* h_y = hv + 4 * S;
-  float dot_part = 0.f;
-  if (tid < S) {
-    const float rr = r[tid], kk = k[tid];
-    h_r[tid] = rr;
-    h_k[tid] = kk;
-    h_v[tid] = v[tid];
-    h_w[tid] = w[tid];
-    dot_part = mul(mul(rr, tf[tid]), kk);
-  }
-  const float dot = block_sum(dot_part, red);  // also orders the h_* stores
-
-  // state rows: tpr threads per row i, entries j = jj * tpr + part
-  const int tpr = blockDim.x / S;
-  const int jn = S / tpr;
-  const int i = tid / tpr, part = tid % tpr;
-  const float* st_row = st_in + static_cast<size_t>(i) * S;
-  float* st_row_out = st_out + static_cast<size_t>(i) * S;
-  const float vi = h_v[i];
-  float yi = 0.f;
-#pragma unroll
-  for (int jj = 0; jj < kMaxJ; ++jj) {
-    if (jj < jn) {
-      const int j = jj * tpr + part;
-      const float st = st_row[j];
-      yi += st * h_r[j];
-      st_row_out[j] = add(mul(st, h_w[j]), mul(h_k[j], vi));
-    }
-  }
-  for (int off = tpr >> 1; off > 0; off >>= 1) yi += __shfl_xor_sync(0xffffffffu, yi, off);
-  if (part == 0) h_y[i] = add(yi, mul(vi, dot));
-  __syncthreads();
-
-  const float yv = tid < S ? h_y[tid] : 0.f;
-  const float mu = block_sum(yv, red) / static_cast<float>(S);
-  const float yc = tid < S ? sub(yv, mu) : 0.f;
-  const float var = block_sum(mul(yc, yc), red) / static_cast<float>(S);
-  if (tid < S) yn_out(tid, mul(yc, rsqrtf(add(var, 1e-5f))));
-  __syncthreads();
 }
 
 // Grid size a cooperative launch of `kernel` uses (one block per SM), or a

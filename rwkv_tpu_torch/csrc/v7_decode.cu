@@ -19,7 +19,8 @@
 //      whole vectors (every block redundantly), the rkv and lora1 rows
 //   C  per head (one block each): the lora2 rows of the head's channels,
 //      kk norm, k update, value residual, wkv7 state update, group norm,
-//      bonus, gate (v7_common.cuh's v7_head_step, in the same order)
+//      bonus, gate (v7_stream.cuh's v7_stream_head, shared with K10:
+//      v7_common.cuh's v7_head_step, in the same order)
 //   D  out rows + residual      E  ln2 + shift, fk rows with relu^2
 //   F  fv rows + residual
 // then ln_out and the head rows (stream::head_phase).
@@ -53,8 +54,7 @@
 // every matrix and the head in bf16: the input vectors are staged in f32
 // instead of quantized, and each row's f32 dot is the output as it is (no
 // scales).
-#include "decode_stream.cuh"
-#include "v7_common.cuh"
+#include "v7_stream.cuh"
 
 namespace {
 
@@ -506,134 +506,22 @@ v7_decode_kernel(Args p) {
         fetch_head(blockIdx.x);
         stream::act_published<LF, 4>(dn_g, D, q8, dxs, dn_amax);
       }
-      const int l2_pieces = run_pieces(4, pl.l2_runs);
-      const int lg_s = __ffs(S) - 1;  // S divides 256: a power of two
-      const int lg_tpr = __ffs(kThreads >> lg_s) - 1;
-      const size_t l2_rb = form_bytes(LF, D);
-      float* h_r = hv;
-      float* h_w = hv + S;       // decay
-      float* h_k = hv + 2 * S;
-      float* h_a = hv + 3 * S;
-      float* h_b = hv + 4 * S;
-      float* h_v = hv + 5 * S;
-      float* h_y = hv + 6 * S;
-      float* h_ag = hv + 7 * S;  // a gate
-      float* h_g = hv + 8 * S;   // output gate
-      float* h_vm = hv + 9 * S;  // value-residual gate
       for (int j = 0; j < pl.heads; ++j) {  // block-uniform
         const int h = blockIdx.x + j * gridDim.x;
-        // the head's state [S, S], then its slices of w0, a0, v0, kk, ka,
-        // ln_x w, ln_x b, r_k
-        const float* st = reinterpret_cast<const float*>(cs.wait());
-        const float* w0 = st + S * S;
-        const float* a0 = w0 + S;
-        const float* v0 = a0 + S;
-        const float* kkw = v0 + S;
-        const float* kaw = kkw + S;
-        const float* lnx_w = kaw + S;
-        const float* lnx_b = lnx_w + S;
-        const float* rkw = lnx_b + S;
-        // the 4 x S lora2 rows of the head's channels (decay, a gate, output
-        // gate, value gate), l2_runs runs a piece, one lane a row
-        for (int q0 = 0; q0 < 4; q0 += pl.l2_runs) {
-          const int nq = q0 + pl.l2_runs < 4 ? pl.l2_runs : 4 - q0;
-          const unsigned char* rows = cs.wait();
-          const float* d2 = reinterpret_cast<const float*>(rows + nq * S * l2_rb);
-          stream::smem_rows<LF>(rows, nq * S, D, 1, q0 * S,
-              [&](int r) { return q8 + (q0 + (r >> lg_s)) * D; },
-              [&](int r, auto acc) {
-                const int part = q0 + (r >> lg_s), i = r & (S - 1);
-                const float y = dequant(acc, dxs[part], d2 + r);
-                if (part == 0) {
-                  h_w[i] = expf(mul(sigmoidf(add(y, w0[i])), -0.606531f));
-                } else if (part == 1) {
-                  h_ag[i] = sigmoidf(add(y, a0[i]));
-                } else if (part == 2) {
-                  h_g[i] = y;
-                } else {
-                  h_vm[i] = sigmoidf(add(y, v0[i]));
-                }
-              });
-        }
-        stream::csync();
-
-        const int c = h * S + tid;
-        float kkv = 0.f, kraw = 0.f, rr = 0.f, vv = 0.f, vf = 0.f;
-        if (tid < S) {
-          kraw = hk;
-          rr = hr;
-          vv = hvv;
-          vf = hvf;
-          kkv = mul(kraw, kkw[tid]);
-        }
-        if (j + 1 < pl.heads) fetch_head(h + gridDim.x);
-        const float nrm = sqrtf(stream::block_sum(mul(kkv, kkv), red));
-        float dot_part = 0.f;
-        if (tid < S) {
-          const float kk = kkv / fmaxf(nrm, 1e-12f);
-          const float ka = mul(kraw, kaw[tid]);
-          const float ag = h_ag[tid];
-          const float knew = add(kraw, sub(mul(ag, ka), ka));
-          if (l == 0) {
-            vf_g[c] = vv;
-          } else {
-            vv = add(vv, mul(sub(vf, vv), h_vm[tid]));
-          }
-          h_r[tid] = rr;
-          h_k[tid] = knew;
-          h_a[tid] = -kk;
-          h_b[tid] = mul(kk, ag);
-          h_v[tid] = vv;
-          dot_part = mul(mul(knew, rr), rkw[tid]);
-        }
-        const float dot = stream::block_sum(dot_part, red);  // also orders the h_* stores
-
-        // state rows: tpr threads per row i, entries jx = jj * tpr + part
-        // (read from the stage in both passes)
-        const int tpr = 1 << lg_tpr;
-        const int jn = S >> lg_tpr;
-        const int i = tid >> lg_tpr, part = tid & (tpr - 1);
-        const float* st_in = st + i * S;
-        float* st_out =
-            p.heads_out + (static_cast<size_t>(l) * H * S + static_cast<size_t>(h) * S + i) * S;
-        float sa = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < kMaxJ; ++jj) {
-          if (jj < jn) {
-            const int jx = jj * tpr + part;
-            sa += h_a[jx] * st_in[jx];
-          }
-        }
-        for (int off = tpr >> 1; off > 0; off >>= 1) sa += __shfl_xor_sync(0xffffffffu, sa, off);
-        const float vi = h_v[i];
-        float yi = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < kMaxJ; ++jj) {
-          if (jj < jn) {
-            const int jx = jj * tpr + part;
-            const float s2 = add(add(mul(st_in[jx], h_w[jx]), mul(h_k[jx], vi)), mul(sa, h_b[jx]));
-            st_out[jx] = s2;
-            yi += s2 * h_r[jx];
-          }
-        }
-        for (int off = tpr >> 1; off > 0; off >>= 1) yi += __shfl_xor_sync(0xffffffffu, yi, off);
-        if (part == 0) h_y[i] = yi;
-        stream::csync();
-
-        const float yv = tid < S ? h_y[tid] : 0.f;
-        const float mu = stream::block_sum(yv, red) / static_cast<float>(S);
-        const float yc = tid < S ? sub(yv, mu) : 0.f;
-        const float var = stream::block_sum(mul(yc, yc), red) / static_cast<float>(S);
-        if (tid < S) {
-          const float yn = mul(yc, rsqrtf(add(var, 64e-5f)));
-          const float xo = add(mul(yn, lnx_w[tid]), lnx_b[tid]);
-          const float bonus = mul(h_v[tid], dot);
-          const float v = mul(add(xo, bonus), h_g[tid]);
-          xo_g[c] = v;
-          if constexpr (kQuant) stream::note_amax(&amx[kAmXo], v);
-        }
-        stream::csync();
-        cs.release(1 + l2_pieces);
+        stream::v7_stream_head<LF>(
+            cs, pl.l2_runs, S, D, hr, hk, hvv, hvf, l == 0, false,
+            [&](int i) {
+              return p.heads_out +
+                     (static_cast<size_t>(l) * H * S + static_cast<size_t>(h) * S + i) * S;
+            },
+            [&](float v) { vf_g[h * S + tid] = v; },
+            [&](float v) {
+              xo_g[h * S + tid] = v;
+              if constexpr (kQuant) stream::note_amax(&amx[kAmXo], v);
+            },
+            hv, red, dxs, q8, [&]() {
+              if (j + 1 < pl.heads) fetch_head(h + gridDim.x);
+            });
       }
     }
     publish(amax_l);

@@ -46,15 +46,18 @@ plain versions ``tp_att_layer_ref`` / ``tp_ffn_layer_ref`` / ``_v6_ref``
 ``tp_att_layer``, ``tp_ffn_layer``, ``tp_att_layer_v6``,
 ``tp_ffn_layer_v6``, ``tp_att_layer_v5``, ``tp_att_layer_v4`` and
 ``tp_ffn_layer_v45`` launch ``csrc/tp_v7.cu`` (K10, K11),
-``csrc/tp_v6.cu`` (K12, K13 and K13's v4/v5 form) and
-``csrc/tp_v45.cu`` (K15, K14) once on a CUDA pack, counting launches in
+``csrc/tp_v6.cu`` (K12, K13 and K13's v4/v5 form, K15) and
+``csrc/tp_v45.cu`` (K14) once on a CUDA pack, counting launches in
 ``.launches`` / ``.launches_by_form``, and take the plain versions on a
-CPU pack.
+CPU pack. K10, K12, K13 and K15 run on the shared weight stream; their
+plans (``tp_v6_stream_plan``) are held to the kernels' own at a pack's
+first launch (``tp6_grid``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -139,24 +142,29 @@ def _dims_error(name: str, cfg, tp: int, f_dim: int, w4: bool, inner=(),
     return None
 
 
-def tp_shape_error(cfg, tp: int, d_lora: int, f_dim: int, w4: bool = False) -> Optional[str]:
-    """Why K10 / K11 cannot take this v7 model at tp shards, or None
-    (shared memory is checked at launch)."""
+def tp_shape_error(cfg, tp: int, d_lora: int, f_dim: int, w4: bool = False,
+                   form: Optional[str] = None) -> Optional[str]:
+    """Why K10 / K11 cannot take this v7 model at tp shards, or None (K10's
+    stream plan checked in `form`, by default the int form `w4` names; K11's
+    shared memory at launch)."""
     if cfg.version_major != 7:
         return "K10 / K11 decode RWKV v7 only"
-    return _dims_error("K10 / K11", cfg, tp, f_dim, w4, (("d_lora", d_lora),))
+    return (_dims_error("K10 / K11", cfg, tp, f_dim, w4, (("d_lora", d_lora),))
+            or _tp6_plan_error(cfg, tp, f_dim, w4, form, ("att7",), d_lora=d_lora))
 
 
 def _tp6_plan_error(cfg, tp: int, f_dim: int, w4: bool, form: Optional[str], kinds,
-                    d_maa: int = 0, d_dec: int = 0) -> Optional[str]:
-    """Why the stream plan of K12 ("att") or K13 ("ffn") in `kinds` cannot
-    take these widths (``tp_v6_stream_plan`` at grid 1, in `form`: by
-    default the int form `w4` names), or None."""
+                    d_maa: int = 0, d_dec: int = 0, d_lora: int = 0) -> Optional[str]:
+    """Why the stream plan of K12 ("att"), K13 ("ffn"), K15 ("att5") or K10
+    ("att7") in `kinds` cannot take these widths (``tp_v6_stream_plan`` at
+    grid 1, in `form`: by default the int form `w4` names), or None."""
     c, f_loc = cfg.n_embed, f_dim // tp
+    n_mix = 4 if cfg.version_minor == 2 else 3
     for kind in kinds:
         try:
             tp_v6_stream_plan(form or ("i4" if w4 else "i8"), c, c // tp, f_loc,
-                              _ffn_tiles(c, f_loc), d_maa, d_dec, cfg.head_size, 1, kind)
+                              _ffn_tiles(c, f_loc), d_maa, d_dec, cfg.head_size, 1, kind,
+                              n_mix=n_mix, d_lora=d_lora)
         except ValueError as e:
             return str(e)
     return None
@@ -176,12 +184,12 @@ def tp_shape_error_v6(cfg, tp: int, d_maa: int, d_dec: int, f_dim: int,
 
 def tp_shape_error_v5(cfg, tp: int, f_dim: int, w4: bool = False,
                       form: Optional[str] = None) -> Optional[str]:
-    """Why K15 / K13 cannot take this v5 model at tp shards, or None (K13's
-    stream plan checked in `form`, by default the int form `w4` names)."""
+    """Why K15 / K13 cannot take this v5 model at tp shards, or None (their
+    stream plans checked in `form`, by default the int form `w4` names)."""
     if cfg.version_major != 5:
         return "K15 / K13 decode RWKV v5 only"
     return (_dims_error("K15 / K13", cfg, tp, f_dim, w4)
-            or _tp6_plan_error(cfg, tp, f_dim, w4, form, ("ffn",)))
+            or _tp6_plan_error(cfg, tp, f_dim, w4, form, ("att5", "ffn")))
 
 
 def tp_shape_error_v4(cfg, tp: int, f_dim: int, w4: bool = False,
@@ -262,7 +270,7 @@ def build_mega_pack_tp(base: dict, cfg, mesh) -> list:
     Codes, scales and vectors are the base pack's, bit for bit."""
     tp, c = mesh.tp, cfg.n_embed
     d, f_dim = base["d_lora"], base["f_dim"]
-    err = tp_shape_error(cfg, tp, d, f_dim, base["w4"])
+    err = tp_shape_error(cfg, tp, d, f_dim, base["w4"], base["form"])
     if err:
         raise ValueError(err)
     c_loc = c // tp
@@ -602,29 +610,45 @@ def tp_att_layer_v4_ref(pack: dict, l: int, x, att_xx, aa, bb, pp, cfg):
     return _mv(pack, "out", l, r * wkv)[0], xl[0], aa, bb, pp
 
 
-# -- K12 / K13's stream plans (csrc/tp_v6.cu: AttLayout / AttPlan / att_copy,
-# FfnLayout / FfnPlan / ffn_copy) ------------------------------------------------
+# -- the stream plans of K10, K12, K13 and K15 (csrc/tp_v6.cu: AttLayout /
+# AttPlan / att_copy, FfnLayout / FfnPlan / ffn_copy; csrc/tp_v7.cu: K10's
+# AttLayout / AttPlan / att_copy) ---------------------------------------------
 #
-# K12 and K13 run on the B=1 decode kernels' input stream
-# (csrc/decode_stream.cuh; ``ops.megakernel``'s ``_StreamPlan`` mirrors its
-# generic parts): each block's rows of each phase in whole 4-row groups, cut
-# into pieces of as many rows as fit a stage with their row scales' window;
-# phase A's vector rows (and att_in / ffn_in) in pieces of ``vec_rows`` rows;
-# a head's dw2 rows with their scales and its four vector slices in one
-# piece, its state in the next; the ring the other stream kernels' (about
-# ``STREAM_TARGET_STAGES`` stages). The kernels compute the layout on the
-# host and each block's plan at its start (the header's ``part``). Copies
-# read from layer l's tensor of the shard pack (``pack[array][l]``) or from
-# the launch's inputs (``att_in`` / ``ffn_in``, ``heads_in``), at byte
-# ``offset`` of it.
-TP6_STATIC_SMEM = 0  # K12's / K13's static shared memory (the card tests read the kernels')
+# The shard kernels run on the B=1 decode kernels' input stream
+# (csrc/decode_stream.cuh, csrc/tp_stream.cuh; ``ops.megakernel``'s
+# ``_StreamPlan`` mirrors its generic parts): each block's rows of each
+# phase in whole 4-row groups, cut into pieces of as many rows as fit a stage
+# with their row scales' window; phase A's vector rows (and att_in / ffn_in)
+# in pieces of ``vec_rows`` rows; per head: K12 its dw2 rows with their
+# scales and its four vector slices in one piece, its state in the next;
+# K15 its state with its four vector slices in one piece; K10 its state
+# with its eight vector slices and v_first in one piece, then its lora2
+# rows, ``l2_runs`` runs of S rows with their scales a piece; the ring the
+# other stream kernels' (about ``STREAM_TARGET_STAGES`` stages). The
+# kernels compute the layout on the host and each block's plan at its start
+# (the header's ``part``). Copies read from layer l's tensor of the shard
+# pack (``pack[array][l]``) or from the launch's inputs (``att_in`` /
+# ``ffn_in``, ``heads_in``, ``vf``), at byte ``offset`` of it.
+TP6_STATIC_SMEM = 0  # the stream kernels' static shared memory (the card tests read the kernels')
 TP6_MAX_TILES = 32  # K13's FFN tiles at most (kMaxTiles: one published amax each)
-TP6_ATT_AMAX = 8  # K12's published amax slots behind its scratch
-TP6_ATT_SEGS = ("vec", "maa1", "maa2", "rkvg", "dw1", "heads", "out")
-TP6_FFN_SEGS = ("vec", "fk", "fr", "fv")
+TP6_ATT_AMAX = 8  # K12's / K15's published amax slots behind the scratch
+TP7_ATT_AMAX = 4  # K10's (xo's, padded)
+TP_KERNEL = {"att": "K12", "ffn": "K13", "att5": "K15", "att7": "K10"}
+TP_SEGS = {"att": ("vec", "maa1", "maa2", "rkvg", "dw1", "heads", "out"),
+           "ffn": ("vec", "fk", "fr", "fv"),
+           "att5": ("vec", "rkvg", "heads", "out"),
+           "att7": ("vec", "rkv", "lora1", "heads", "out")}
+TP_STREAMED = {"att": ("maa1", "maa2", "rkvg", "dw1", "out"), "ffn": ("fk", "fr"),
+               "att5": ("rkvg", "out"), "att7": ("rkv", "lora1", "out")}
 # phase A's vector rows in stream order: (array, row of rvecs; None: the whole input)
 TP6_ATT_VECS = (("rvecs", 0), ("rvecs", 1), ("rvecs", 4), ("att_in", None))
 TP6_FFN_VECS = (("rvecs", 2), ("rvecs", 3), ("rvecs", 5), ("rvecs", 6), ("ffn_in", None))
+# K15: ln1 w, b, att_in, then the mixes k, v, r(, g) (TP5_RVECS rows 4, 7, 8, 9)
+TP5_ATT_VECS = (("rvecs", 0), ("rvecs", 1), ("att_in", None), ("rvecs", 4), ("rvecs", 7),
+                ("rvecs", 8), ("rvecs", 9))
+# K10: ln1 w, b, the six coefficient rows r, w, k, v, a, g (TP_RVECS 5-10), att_in
+TP7_ATT_VECS = (("rvecs", 0), ("rvecs", 1)) + tuple(("rvecs", 5 + m) for m in range(6)) + (
+    ("att_in", None),)
 _TP6_MAA5_ROW = 7  # maa5's first row in rvecs (the window of maa2's rows)
 # a head's vector slices in its dw2 piece, as lvecs rows: tdecay, tf, ln_x w, ln_x b
 TP6_HEAD_LVECS = (0, 3, 1, 2)
@@ -632,12 +656,15 @@ TP6_HEAD_LVECS = (0, 3, 1, 2)
 
 @dataclass(frozen=True)
 class TP6StreamPlan(_StreamPlan):
-    """K12's ("att") or K13's ("ffn", either mix) stream plan for one weight
-    form and grid (``tp_v6_stream_plan``): the shared-memory layout
-    (activations at ``act_off``, mbarriers at ``bar_off``, ``n_stages``
-    stages of ``stage_bytes`` from ``ring_off``; ``smem_bytes`` in all),
-    ``vec_rows`` vector rows a piece, and per block the rows of each phase
-    and the copies of each piece of its stream (one layer)."""
+    """The stream plan of K12 ("att"), K13 ("ffn", either mix), K15
+    ("att5", ``n_mix`` 3 on v5.1, 4 on v5.2) or K10 ("att7", ``d_lora``)
+    for one weight form and grid (``tp_v6_stream_plan``): the
+    shared-memory layout (activations at ``act_off``, mbarriers at
+    ``bar_off``, ``n_stages`` stages of ``stage_bytes`` from ``ring_off``;
+    ``smem_bytes`` in all), ``vec_rows`` vector rows a piece (K10:
+    ``l2_runs`` lora2 runs a piece), and per block the rows of each phase
+    and the copies of each piece of its stream (one layer; K10's with
+    v_first read, unless ``first``)."""
 
     HEAD_SEGS = ()
 
@@ -658,44 +685,58 @@ class TP6StreamPlan(_StreamPlan):
     n_stages: int
     smem_bytes: int
     vec_rows: int
+    n_mix: int = 0
+    d_lora: int = 0
+    l2_runs: int = 0
+    first: bool = False
 
     @property
     def SEGS(self) -> tuple:  # noqa: N802 -- _StreamPlan's name
-        return TP6_ATT_SEGS if self.kind == "att" else TP6_FFN_SEGS
+        return TP_SEGS[self.kind]
 
     @property
     def STREAMED(self) -> tuple:  # noqa: N802
-        return ("maa1", "maa2", "rkvg", "dw1", "out") if self.kind == "att" else ("fk", "fr")
+        return TP_STREAMED[self.kind]
 
     @property
     def n_heads(self) -> int:
-        """Heads of the shard (phase C's)."""
-        return self.c_loc // self.head_size if self.kind == "att" else 0
+        """Heads of the shard (the attention kernels' per-head phase)."""
+        return 0 if self.kind == "ffn" else self.c_loc // self.head_size
 
     @property
     def vecs(self) -> tuple:
-        return TP6_ATT_VECS if self.kind == "att" else TP6_FFN_VECS
+        return {"att": TP6_ATT_VECS, "ffn": TP6_FFN_VECS, "att7": TP7_ATT_VECS,
+                "att5": TP5_ATT_VECS[:3 + self.n_mix]}[self.kind]
+
+    @property
+    def head_pieces(self) -> int:
+        """Pieces of a head's phase: K12 2, K15 1, K10 its state piece and
+        its lora2 pieces."""
+        return {"att": 2, "att5": 1, "att7": 1 + _cdiv(4, max(self.l2_runs, 1))}.get(self.kind, 0)
 
     def _spec(self, name: str) -> tuple:
         """(rows, row bytes, scale window, dealt from the last block, most
         lanes a row)."""
         c, cl, form = self.c, self.c_loc, self.form
         sf, w = _small_form(form), form != "bf16"
-        ft = self.f_loc // self.nf
+        ft = self.f_loc // self.nf if self.nf else 0
+        big = _lanes_for(c, form)
         return {"maa1": (5 * self.d_maa, _form_bytes(sf, c), w, False, 32),
                 "maa2": (5 * c, 4 * self.d_maa, True, False, 32),
-                "rkvg": (4 * cl, _form_bytes(form, c), w, False, _lanes_for(c, form)),
+                "rkvg": ((self.n_mix or 4) * cl, _form_bytes(form, c), w, False, big),
+                "rkv": (3 * cl, _form_bytes(form, c), w, False, big),
+                "lora1": (4 * self.d_lora, _form_bytes(sf, c), w, True, 32),
                 "dw1": (self.d_dec, _form_bytes(sf, c), w, True, 32),
                 "out": (c, _form_bytes(form, cl), w, False, _lanes_for(cl, form)),
-                "fk": (self.f_loc, _form_bytes(form, c), w, False, _lanes_for(c, form)),
-                "fr": (cl, _form_bytes(form, c), w, True, _lanes_for(c, form)),
+                "fk": (self.f_loc, _form_bytes(form, c), w, False, big),
+                "fr": (cl, _form_bytes(form, c), w, True, big),
                 "fv": (c, _form_bytes(form, ft), w, False, _lanes_for(ft, form))}[name]
 
     def _count(self, seg: str, block: int) -> int:
         if seg == "vec":
             return _cdiv(len(self.vecs), self.vec_rows)
         if seg == "heads":
-            return 2 * len(self.block_heads(block))
+            return self.head_pieces * len(self.block_heads(block))
         return self.nf * self.rows("fv", block).pieces()  # fv: every tile's pieces
 
     def copies(self, block: int, layer: int, seg: str, idx: int) -> tuple:
@@ -718,100 +759,185 @@ class TP6StreamPlan(_StreamPlan):
             ft = self.f_loc // self.nf
             return _stream_rows_copies(r, k, "fv", _form_bytes(self.form, t * c * ft),
                                        ("fv_d", 0) if w else None)
-        h = self.block_heads(block)[idx // 2]  # heads
-        if idx % 2:
-            return (StreamCopy("heads_in", 4 * h * s * s, 4 * s * s, 0),)
+        h, k = divmod(idx, self.head_pieces)  # heads
+        h = self.block_heads(block)[h]
+        state = StreamCopy("heads_in", 4 * h * s * s, 4 * s * s, 0)
+
+        def slices(rows, at):
+            return [StreamCopy("lvecs", 4 * (row * self.c_loc + h * s), 4 * s, at + 4 * s * i)
+                    for i, row in enumerate(rows)]
+
+        if self.kind == "att5":  # the state, then td, tf, ln_x w, ln_x b
+            return tuple([state] + slices(range(len(TP5_LVECS)), 4 * s * s))
+        if self.kind == "att7":
+            if k == 0:  # the state, its eight slices, v_first where read
+                out = [state] + slices(range(len(TP_LVECS)), 4 * s * s)
+                if not self.first:
+                    out.append(StreamCopy("vf", 4 * h * s, 4 * s,
+                                          4 * s * s + 4 * s * len(TP_LVECS)))
+                return tuple(out)
+            # runs q0 .. q1 - 1 of the lora2 rows (run q: rows q c_loc + h s +
+            # [0, s)), then their row scales
+            q0 = (k - 1) * self.l2_runs
+            q1 = min(q0 + self.l2_runs, 4)
+            rb = _form_bytes(_small_form(self.form), self.d_lora)
+            out = [StreamCopy("lora2", (q * self.c_loc + h * s) * rb, s * rb, s * rb * (q - q0))
+                   for q in range(q0, q1)]
+            if w:
+                out += [StreamCopy("lora2_d", 4 * (q * self.c_loc + h * s), 4 * s,
+                                   s * rb * (q1 - q0) + 4 * s * (q - q0)) for q in range(q0, q1)]
+            return tuple(out)
+        if k:
+            return (state,)
         rb = _form_bytes(_small_form(self.form), self.d_dec)
         out = [StreamCopy("dw2", h * s * rb, s * rb, 0)]
         at = s * rb
         if w:
             out.append(StreamCopy("dw2_d", 4 * h * s, 4 * s, at))
             at += 4 * s
-        out += [StreamCopy("lvecs", 4 * (row * self.c_loc + h * s), 4 * s, at + 4 * s * i)
-                for i, row in enumerate(TP6_HEAD_LVECS)]
-        return tuple(out)
+        return tuple(out + slices(TP6_HEAD_LVECS, at))
+
+
+def _lora2_run(s: int, d: int, form: str) -> int:
+    """Bytes of one run of a head's lora2 rows with their scales (K10)."""
+    return s * _form_bytes(_small_form(form), d) + (0 if form == "bf16" else 4 * s)
 
 
 def tp_v6_stream_plan(form: str, c: int, c_loc: int, f_loc: int, nf: int, d_maa: int, d_dec: int,
-                      head_size: int, blocks: int, kind: str) -> TP6StreamPlan:
-    """The stream plan of K12 (`kind` "att") or K13 ("ffn") in weight form
-    `form` ("i8", "i4", "bf16") for a grid of `blocks` on a shard of
-    `c_loc` channels and `f_loc` FFN rows in `nf` tiles (the kernels' own:
-    ``rwkv_tp_v6_plan``). The ring takes what shared memory is left below
+                      head_size: int, blocks: int, kind: str, n_mix: int = 0,
+                      d_lora: int = 0) -> TP6StreamPlan:
+    """The stream plan of K12 (`kind` "att"), K13 ("ffn"), K15 ("att5",
+    `n_mix` 3 or 4) or K10 ("att7", `d_lora`) in weight form `form` ("i8",
+    "i4", "bf16") for a grid of `blocks` on a shard of `c_loc` channels and
+    `f_loc` FFN rows in `nf` tiles (the kernels' own: ``rwkv_tp_v6_plan``,
+    ``rwkv_tp_v7_plan``). The ring takes what shared memory is left below
     ``STREAM_SMEM_LIMIT`` after the activations, about
-    ``STREAM_TARGET_STAGES`` stages, each at least the largest piece (two vector rows; K12: a head's state
-    or dw2 piece; one row of any matrix with its scale window); raises
+    ``STREAM_TARGET_STAGES`` stages, each at least the largest piece (two
+    vector rows; a head's state (K15, K10: with its slices), K12's dw2 piece,
+    K10's lora2 run; one row of any matrix with its scale window); raises
     ValueError on widths the kernel refuses: fewer than
-    ``STREAM_MIN_STAGES`` stages, under two vector rows a piece, K13 above
+    ``STREAM_MIN_STAGES`` stages, under two vector rows a piece, phase A's
+    vector pieces (K10: a head's pieces) more than the stages, K13 above
     ``TP6_MAX_TILES`` tiles."""
     s, sf, bf = head_size, _small_form(form), form == "bf16"
-    name = "K12" if kind == "att" else "K13"
+    name = TP_KERNEL[kind]
     ft = f_loc // nf if nf > 0 else 0
     bad = [c % 16, c_loc % 16, c_loc > c]
+    bad_head = s <= 0 or s % 4 or 256 % s or s * s // 256 > 16 or c_loc % s
+    row = max(_form_bytes(form, c), _form_bytes(form, c_loc))
     if kind == "att":
-        bad += [s <= 0 or s % 4 or 256 % s or s * s // 256 > 16 or c_loc % s, d_maa % 4, d_dec % 16]
+        bad += [bad_head, d_maa % 4, d_dec % 16]
         act_off = 4 * (2 * c + max(8 * s, 5 * d_maa) + 256 + 8 + TP6_ATT_AMAX)
         plan_off = _round_up(act_off + (4 if bf else 1) * 5 * c, 16)
-        row = max(_form_bytes(form, c), _form_bytes(form, c_loc), _form_bytes(sf, c), 4 * d_maa)
+        row = max(row, _form_bytes(sf, c), 4 * d_maa)
         piece = max(8 * c, 4 * s * s, s * _form_bytes(sf, d_dec) + (16 if bf else 20) * s,
                     row + _win_bytes(1))
-        n_vecs = len(TP6_ATT_VECS)
+    elif kind == "att5":
+        bad += [bad_head, n_mix not in (3, 4)]
+        act_off = 4 * (2 * c + 8 * s + 256 + 8 + TP6_ATT_AMAX)
+        plan_off = _round_up(act_off + (4 if bf else 1) * 5 * c, 16)
+        piece = max(8 * c, 4 * s * s + 4 * len(TP5_LVECS) * s, row + _win_bytes(1))
+    elif kind == "att7":
+        bad += [bad_head, d_lora <= 0 or d_lora % 16]
+        act_off = _round_up(4 * (2 * c + 10 * s + 256 + 8 + 8), 16)
+        plan_off = _round_up(act_off + (4 if bf else 1) * max(6 * c, 4 * d_lora), 16)
+        row = max(row, _form_bytes(sf, c))
+        piece = max(8 * c, 4 * s * s + 4 * (len(TP_LVECS) + 1) * s,
+                    _lora2_run(s, d_lora, form), row + _win_bytes(1))
     else:
         bad += [nf <= 0 or nf > TP6_MAX_TILES or f_loc % nf or ft % 16]
         act_off = 4 * (2 * c + 256 + 2 * TP6_MAX_TILES + 4)
         plan_off = _round_up(act_off + (4 if bf else 1) * max(2 * c, f_loc), 16)
         piece = max(8 * c, max(_form_bytes(form, c), _form_bytes(form, ft)) + _win_bytes(1))
-        n_vecs = len(TP6_FFN_VECS)
     if any(bad):
-        raise ValueError(f"{name} cannot take these widths: C={c}, C/tp={c_loc}, "
-                         + (f"head size {s}, d_maa {d_maa}, d_dec {d_dec}" if kind == "att" else
-                            f"F/tp={f_loc} in {nf} tiles (at most {TP6_MAX_TILES}, each a "
-                            "multiple of 16)"))
+        widths = {"att": f"head size {s}, d_maa {d_maa}, d_dec {d_dec}",
+                  "att5": f"head size {s}, {n_mix} mixes",
+                  "att7": f"head size {s}, d_lora {d_lora}",
+                  "ffn": f"F/tp={f_loc} in {nf} tiles (at most {TP6_MAX_TILES}, each a "
+                         "multiple of 16)"}[kind]
+        raise ValueError(f"{name} cannot take these widths: C={c}, C/tp={c_loc}, {widths}")
     bar_off, ring_off, stage, stages = _ring(plan_off, piece)
     plan = TP6StreamPlan(kind, form, c, c_loc, f_loc, nf, d_maa, d_dec, head_size, blocks,
-                         act_off, bar_off, ring_off, stage, stages, ring_off + stages * stage,
-                         min(stage // (4 * c), n_vecs))
-    if stages < STREAM_MIN_STAGES or plan.vec_rows < 2:
+                         act_off, bar_off, ring_off, stage, stages, ring_off + stages * stage, 0,
+                         n_mix if kind == "att5" else 0, d_lora if kind == "att7" else 0)
+    plan = dataclasses.replace(plan, vec_rows=min(stage // (4 * c), len(plan.vecs)),
+                               l2_runs=min(stage // _lora2_run(s, d_lora, form), 4)
+                               if kind == "att7" else 0)
+    if (stages < STREAM_MIN_STAGES or plan.vec_rows < 2
+            or _cdiv(len(plan.vecs), plan.vec_rows) > stages or plan.head_pieces > stages):
         raise ValueError(f"{name}'s ring holds {stages} stages of {stage} bytes at these widths "
                          f"({plan.vec_rows} vector rows a piece); it needs {STREAM_MIN_STAGES} "
-                         "stages of two vector rows")
+                         "stages of two vector rows, phase A's vector pieces and a head's "
+                         "pieces at once")
     return plan
 
 
 def tp_v6_kernel_plan(form: str, kind: str, c: int, c_loc: int, f_loc: int, nf: int, d_maa: int,
-                      d_dec: int, head_size: int, blocks: int, block: int) -> tuple:
-    """K12's / K13's own stream plan (the C entry ``rwkv_tp_v6_plan``):
-    (shared bytes, stage bytes, stages, block `block`'s pieces of a grid of
-    `blocks`, the kernel's static shared bytes, vector rows a piece)."""
+                      d_dec: int, head_size: int, blocks: int, block: int, n_mix: int = 0,
+                      d_lora: int = 0) -> tuple:
+    """The kernel's own stream plan (the C entries ``rwkv_tp_v6_plan``, K10's
+    ``rwkv_tp_v7_plan``): (shared bytes, stage bytes, stages, block
+    `block`'s pieces of a grid of `blocks`, the kernel's static shared
+    bytes, vector rows a piece; K10: lora2 runs a piece)."""
+    if kind == "att7":
+        fn = _cuda.library("tp_v7").rwkv_tp_v7_plan
+        fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_longlong * 7)()
+        _cuda.check("tp_v7", "rwkv_tp_v7_plan",
+                    fn(FORMS.index(form), c, c_loc, head_size, d_lora, blocks, block, out))
+        return tuple(out)
     fn = _cuda.library("tp_v6").rwkv_tp_v6_plan
     fn.argtypes = [ctypes.c_int] * 11 + [ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_longlong * 6)()
+    k = {"att": 0, "ffn": 1}.get(kind, 2 if n_mix == 3 else 3)
     _cuda.check("tp_v6", "rwkv_tp_v6_plan",
-                fn(FORMS.index(form), int(kind == "ffn"), c, c_loc, f_loc, nf, head_size, d_maa,
-                   d_dec, blocks, block, out))
+                fn(FORMS.index(form), k, c, c_loc, f_loc, nf, head_size, d_maa, d_dec, blocks,
+                   block, out))
     return tuple(out)
+
+
+def tp_plan_want(plan: TP6StreamPlan, block: int) -> tuple:
+    """What ``tp_v6_kernel_plan`` must return for `plan`'s block `block`."""
+    want = (plan.smem_bytes, plan.stage_bytes, plan.n_stages, plan.layer_pieces(block),
+            TP6_STATIC_SMEM, plan.vec_rows)
+    return want + ((plan.l2_runs,) if plan.kind == "att7" else ())
 
 
 def _tp6_dims(pack: dict, cfg) -> tuple:
     """(c, c_loc, f_loc, nf, d_maa, d_dec, head size) of a shard pack (v4 /
-    v5: no maa / decay LoRA)."""
+    v5 / v7: no maa / decay LoRA)."""
     return (cfg.n_embed, pack["c_loc"], pack["f_dim"] // pack["tp"], pack["nf"],
             pack.get("d_maa", 0), pack.get("d_dec", 0), cfg.head_size)
 
 
+def _plan_kind(pack: dict, kind: str) -> str:
+    """The plan kind of layer kernel `kind` ("att" or "ffn") on the pack's
+    version: K12 / K13 ("att", "ffn"), K15 ("att5"), K10 ("att7")."""
+    return kind if kind == "ffn" else {7: "att7", 6: "att", 5: "att5"}[pack["version"]]
+
+
+def tp_pack_plan(pack: dict, kind: str, cfg, blocks: int) -> TP6StreamPlan:
+    """The stream plan of layer kernel `kind` ("att" or "ffn") on a shard
+    pack of any version but v4's attention (K14 streams nothing)."""
+    pk = _plan_kind(pack, kind)
+    return tp_v6_stream_plan(pack["form"], *_tp6_dims(pack, cfg), blocks, pk,
+                             n_mix=pack.get("n_mix", 0) if pk == "att5" else 0,
+                             d_lora=pack.get("d_lora", 0) if pk == "att7" else 0)
+
+
 def _tp6_plan_check(pack: dict, kind: str, cfg, grid: int) -> None:
-    """Raises where K12's / K13's own plan on a grid of `grid` blocks (its
+    """Raises where the kernel's own plan on a grid of `grid` blocks (its
     first and last block) differs from ``tp_v6_stream_plan``: the producer
     and the consumers would walk different pieces."""
-    dims = _tp6_dims(pack, cfg)
-    plan = tp_v6_stream_plan(pack["form"], *dims, grid, kind)
+    plan = tp_pack_plan(pack, kind, cfg, grid)
     for b in sorted({0, grid - 1}):
-        want = (plan.smem_bytes, plan.stage_bytes, plan.n_stages, plan.layer_pieces(b),
-                TP6_STATIC_SMEM, plan.vec_rows)
-        got = tp_v6_kernel_plan(pack["form"], kind, *dims, grid, b)
+        want = tp_plan_want(plan, b)
+        got = tp_v6_kernel_plan(pack["form"], plan.kind, *_tp6_dims(pack, cfg), grid, b,
+                                n_mix=plan.n_mix, d_lora=plan.d_lora)
         if got != want:
-            raise RuntimeError(f"{'K12' if kind == 'att' else 'K13'}'s plan {got} differs from "
+            raise RuntimeError(f"{TP_KERNEL[plan.kind]}'s plan {got} differs from "
                                f"tp_v6_stream_plan's {want} (block {b} of {grid})")
 
 
@@ -820,11 +946,12 @@ def _tp6_plan_check(pack: dict, kind: str, cfg, grid: int) -> None:
 
 def _lib_entry(kind: str, pack: dict) -> tuple:
     """(library, C entry) of layer kernel `kind` ("att" or "ffn") for the
-    pack's version and form; v4 / v5 run K13's MIX45 instances."""
+    pack's version and form; v4 / v5 run K13's MIX45 instances, v5's
+    attention (K15) is a form of K12's kernel."""
     v, sfx = pack["version"], _SUFFIX[pack["form"]]
     if v in (4, 5):
         return ("tp_v6", "rwkv_tp_v45_ffn" + sfx) if kind == "ffn" else (
-            "tp_v45", f"rwkv_tp_v{v}_att" + sfx)
+            "tp_v6" if v == 5 else "tp_v45", f"rwkv_tp_v{v}_att" + sfx)
     return f"tp_v{v}", f"rwkv_tp_v{v}_{kind}" + sfx
 
 
@@ -880,26 +1007,13 @@ def tp_att_layer(pack: dict, l: int, x, att_xx, heads, v_first, first: bool, cfg
     (keys "part", "att_xx", "heads"; allocated where missing); a CPU pack
     takes the plain version. v_first: written by the kernel when `first`,
     read otherwise. The inputs are not modified."""
-    dev = pack["rvecs"].device
-    if dev.type == "cpu":
+    if pack["rvecs"].device.type == "cpu":
         return tp_att_layer_ref(pack, l, x, att_xx, heads, v_first, first, cfg)
-    c, s = cfg.n_embed, cfg.head_size
-    c_loc, d = pack["c_loc"], pack["d_lora"]
-    x, att_xx, heads = _f32(x, dev), _f32(att_xx, dev), _f32(heads, dev)
-    if heads.shape != (c_loc // s, s, s):
-        raise ValueError(f"heads {tuple(heads.shape)} != {(c_loc // s, s, s)}")
-    vf = torch.empty((c_loc,), dtype=torch.float32, device=dev) if first else _f32(v_first, dev)
-    part = _out(out, "part", (c,), dev)
-    axx = _out(out, "att_xx", (c,), dev)
-    new_heads = _out(out, "heads", heads.shape, dev)
-    scratch = torch.empty((4 * c_loc + 4 * d,), dtype=torch.float32, device=dev)
-    ptrs = [x.data_ptr(), att_xx.data_ptr(), heads.data_ptr(), vf.data_ptr()]
-    ptrs += _layer_ptrs(pack, l, _ATT7_MATS)
-    ptrs += [part.data_ptr(), axx.data_ptr(), new_heads.data_ptr(), scratch.data_ptr()]
-    grid = _grid(pack, "att", c, s, d)
-    _launch(pack, "att", ptrs, (c, c_loc, s, d, int(first)), grid, dev)
+    grid = tp6_grid(pack, "att", cfg)
+    res = tp7_att_launch(tp6_function(pack, "att"), pack, l, x, att_xx, heads, v_first, first,
+                         cfg, grid, out)
     _count(tp_att_layer, pack)
-    return part, axx, new_heads, vf
+    return res
 
 
 tp_att_layer.launches = 0
@@ -932,29 +1046,85 @@ tp_ffn_layer.launches_by_form = dict.fromkeys(FORMS, 0)
 
 
 def tp6_grid(pack: dict, kind: str, cfg) -> int:
-    """The grid of K12 (`kind` "att") or K13 ("ffn") for a shard pack, its
-    own plan held to ``tp_v6_stream_plan`` on it at the pack's first
-    launch."""
+    """The grid of a stream kernel for a shard pack -- `kind` "att": K10,
+    K12 or K15 by the pack's version; "ffn": K13 --, its own plan held to
+    ``tp_v6_stream_plan`` on it at the pack's first launch."""
     key = "_plan_" + kind
     if key not in pack:
         c, c_loc, f_loc, nf, dm, dd, s = _tp6_dims(pack, cfg)
-        dims = (c, c_loc, s, dm, dd) if kind == "att" else (c, f_loc, nf)
+        dims = {"att": (c, c_loc, s, dm, dd), "ffn": (c, f_loc, nf),
+                "att5": (c, c_loc, s, int(pack.get("n_mix") == 4)),
+                "att7": (c, c_loc, s, pack.get("d_lora", 0))}[_plan_kind(pack, kind)]
         grid = _grid(pack, kind, *dims)
         _tp6_plan_check(pack, kind, cfg, grid)
         pack[key] = grid
     return pack[key]
 
 
-# argument counts (pointers, ints with the grid) of the C entries of K12 and K13
+# argument counts (pointers, ints with the grid) of the stream kernels' C
+# entries, by plan kind: K12, K13, K15, K10
 TP6_ATT_ARGS = (20, 6)
 TP6_FFN_ARGS = (13, 5)
+TP5_ATT_ARGS = (13, 5)
+TP7_ATT_ARGS = (18, 6)
+TP_ARGS = {"att": TP6_ATT_ARGS, "ffn": TP6_FFN_ARGS, "att5": TP5_ATT_ARGS, "att7": TP7_ATT_ARGS}
 
 
 def tp6_function(pack: dict, kind: str):
-    """The C launch entry of K12 (`kind` "att") or K13 ("ffn"; a v4 / v5
-    pack: its MIX45 form) for the pack's form."""
+    """The C launch entry of a stream kernel for the pack's form: `kind`
+    "att" K10, K12 or K15 by the pack's version; "ffn" K13 (a v4 / v5 pack:
+    its MIX45 form)."""
     lib, name = _lib_entry(kind, pack)
-    return _cuda.function(lib, name, *(TP6_ATT_ARGS if kind == "att" else TP6_FFN_ARGS))
+    return _cuda.function(lib, name, *TP_ARGS[_plan_kind(pack, kind)])
+
+
+def tp7_att_launch(fn, pack: dict, l: int, x, att_xx, heads, v_first, first: bool, cfg,
+                   grid: int, out: Optional[dict] = None):
+    """One launch of K10's C entry `fn` on a CUDA shard pack over `grid`
+    blocks (`out` keys "part", "att_xx", "heads", "scratch"); v_first
+    written when `first` (a new tensor), read otherwise. Returns (part,
+    att_xx, heads, v_first)."""
+    dev = pack["rvecs"].device
+    c, s = cfg.n_embed, cfg.head_size
+    c_loc, d = pack["c_loc"], pack["d_lora"]
+    x, att_xx, heads = _f32(x, dev), _f32(att_xx, dev), _f32(heads, dev)
+    if heads.shape != (c_loc // s, s, s):
+        raise ValueError(f"heads {tuple(heads.shape)} != {(c_loc // s, s, s)}")
+    vf = torch.empty((c_loc,), dtype=torch.float32, device=dev) if first else _f32(v_first, dev)
+    part = _out(out, "part", (c,), dev)
+    axx = _out(out, "att_xx", (c,), dev)
+    new_heads = _out(out, "heads", heads.shape, dev)
+    scratch = _out(out, "scratch", (4 * c_loc + 4 * d + TP7_ATT_AMAX,), dev)
+    ptrs = [x.data_ptr(), att_xx.data_ptr(), heads.data_ptr(), vf.data_ptr()]
+    ptrs += _layer_ptrs(pack, l, _ATT7_MATS)
+    ptrs += [part.data_ptr(), axx.data_ptr(), new_heads.data_ptr(), scratch.data_ptr()]
+    code = fn(*ptrs, c, c_loc, s, d, int(first), grid, _cuda.stream_ptr(dev))
+    if code:
+        _cuda.check("tp_v7", _lib_entry("att", pack)[1], code)
+    return part, axx, new_heads, vf
+
+
+def tp5_att_launch(fn, pack: dict, l: int, x, att_xx, heads, cfg, grid: int,
+                   out: Optional[dict] = None):
+    """One launch of K15's C entry `fn` on a CUDA v5.1 / v5.2 shard pack
+    over `grid` blocks (`out` keys "part", "att_xx", "heads", "scratch");
+    returns (part, att_xx, heads)."""
+    dev = pack["rvecs"].device
+    c, s, c_loc = cfg.n_embed, cfg.head_size, pack["c_loc"]
+    x, att_xx, heads = _f32(x, dev), _f32(att_xx, dev), _f32(heads, dev)
+    if heads.shape != (c_loc // s, s, s):
+        raise ValueError(f"heads {tuple(heads.shape)} != {(c_loc // s, s, s)}")
+    part = _out(out, "part", (c,), dev)
+    axx = _out(out, "att_xx", (c,), dev)
+    new_heads = _out(out, "heads", heads.shape, dev)
+    scratch = _out(out, "scratch", (5 * c_loc + TP6_ATT_AMAX,), dev)
+    ptrs = [x.data_ptr(), att_xx.data_ptr(), heads.data_ptr()]
+    ptrs += _layer_ptrs(pack, l, _ATT5_MATS)
+    ptrs += [part.data_ptr(), axx.data_ptr(), new_heads.data_ptr(), scratch.data_ptr()]
+    code = fn(*ptrs, c, c_loc, s, int(pack["n_mix"] == 4), grid, _cuda.stream_ptr(dev))
+    if code:
+        _cuda.check("tp_v6", _lib_entry("att", pack)[1], code)
+    return part, axx, new_heads
 
 
 def tp6_att_launch(fn, pack: dict, l: int, x, att_xx, heads, cfg, grid: int,
@@ -1057,25 +1227,12 @@ def tp_att_layer_v5(pack: dict, l: int, x, att_xx, heads, cfg, out: Optional[dic
     """Layer l's v5.1 / v5.2 attention on one shard (see
     ``tp_att_layer_v5_ref``). A CUDA pack launches kernel K15 once (`out`
     keys "part", "att_xx", "heads"); a CPU pack takes the plain version."""
-    dev = pack["rvecs"].device
-    if dev.type == "cpu":
+    if pack["rvecs"].device.type == "cpu":
         return tp_att_layer_v5_ref(pack, l, x, att_xx, heads, cfg)
-    c, s, c_loc = cfg.n_embed, cfg.head_size, pack["c_loc"]
-    gate = int(pack["n_mix"] == 4)
-    x, att_xx, heads = _f32(x, dev), _f32(att_xx, dev), _f32(heads, dev)
-    if heads.shape != (c_loc // s, s, s):
-        raise ValueError(f"heads {tuple(heads.shape)} != {(c_loc // s, s, s)}")
-    part = _out(out, "part", (c,), dev)
-    axx = _out(out, "att_xx", (c,), dev)
-    new_heads = _out(out, "heads", heads.shape, dev)
-    scratch = torch.empty((5 * c_loc,), dtype=torch.float32, device=dev)
-    ptrs = [x.data_ptr(), att_xx.data_ptr(), heads.data_ptr()]
-    ptrs += _layer_ptrs(pack, l, _ATT5_MATS)
-    ptrs += [part.data_ptr(), axx.data_ptr(), new_heads.data_ptr(), scratch.data_ptr()]
-    grid = _grid(pack, "att", c, s, gate)
-    _launch(pack, "att", ptrs, (c, c_loc, s, gate), grid, dev)
+    grid = tp6_grid(pack, "att", cfg)
+    res = tp5_att_launch(tp6_function(pack, "att"), pack, l, x, att_xx, heads, cfg, grid, out)
     _count(tp_att_layer_v5, pack)
-    return part, axx, new_heads
+    return res
 
 
 tp_att_layer_v5.launches = 0

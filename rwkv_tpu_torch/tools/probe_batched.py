@@ -4,7 +4,7 @@ kernels K6, K7 and K8.
 
     python3 -m rwkv_tpu_torch.tools.probe_batched [--baseline DIR] [--phases | --flips | --k3] [--bf16]
     python3 -m rwkv_tpu_torch.tools.probe_batched --v6 | --v5 | --v4 [--baseline DIR] [--phases] [--flips] [--bf16]
-    python3 -m rwkv_tpu_torch.tools.probe_batched --tp6 [--baseline DIR [DIR ...]] [--phases] [--bf16]
+    python3 -m rwkv_tpu_torch.tools.probe_batched --tp6 | --tp7 | --tp5 [--baseline DIR [DIR ...]] [--phases] [--bf16]
 
 Times one launch of ``rwkv_tpu_torch.ops.megakernel.v7_decode_batched``
 (K4; device time, launches queued behind a spin kernel so no host time is
@@ -63,19 +63,24 @@ F), its flips also on a 2-layer pair at the 1.5B width (C=2048).
 With ``--tp6`` it measures the v6 tensor-parallel shard kernels K12
 (``tp_att_layer_v6``) and K13 (``tp_ffn_layer_v6``) on shard 0 of a tp=2
 mesh on this card at the 1.6B width (C=2048, F=8192, two layers, layer 1),
-and K13's MIX45 form (``tp_ffn_layer_v45``) at the v5.2 World 1.5B width:
-time per launch, against an earlier ``DIR/tp_v6.cu`` with ``--baseline
-DIR`` (outputs compared at tp=2 and at tp=4, the current kernel on grids
-of 132, 64, 33 and 7 blocks: "outputs differ by at most ..."; times in
-the order baseline, current, current, baseline, also with the L2 cache
-emptied before each launch, as a step of many layers meets the weights).
-Further DIRs after the first (edited copies of ``csrc``) are timed in the
-same turns (their outputs against the first DIR's). With ``--phases``
-also the time of each phase from the timing build (P, the prologue from
-the kernel's entry; K12: A, M, B, C and their barriers, then D; K13: A
-and its barrier, then B) for every source; an earlier source without
-stamps needs them added in a copy, and ``DIR#K12=NAMES#K13=NAMES`` names
-the phases of a copy that stamps more often (one letter a pair).
+and K13's MIX45 form (``tp_ffn_layer_v45``) at the v5.2 World 1.5B width;
+``--tp7`` K10 (``tp_att_layer``) at the v7 World 1.5B width (d_lora 96),
+reading v_first and, as layer 0 does, writing it ("K10 first"); ``--tp5``
+K15 (``tp_att_layer_v5``) on v5.2 and v5.1 at the World 1.5B width: time
+per launch, against the sources of an earlier csrc with ``--baseline DIR``
+(``DIR/tp_v6.cu``, ``DIR/tp_v7.cu``; K15 from ``DIR/tp_v45.cu`` where
+``DIR/tp_v6.cu`` has no v5 entry; outputs compared at tp=2 and at tp=4,
+the current kernel on grids of 132, 64, 33 and 7 blocks: "outputs differ
+by at most ..."; times in the order baseline, current, current, baseline,
+also with the L2 cache emptied before each launch, as a step of many
+layers meets the weights). Further DIRs after the first (edited copies of
+``csrc``) are timed in the same turns (their outputs against the first
+DIR's). With ``--phases`` also the time of each phase from the timing
+build (P, the prologue from the kernel's entry; K12: A, M, B, C and their
+barriers, then D; K13: A and its barrier, then B; K10: A, B, then C; K15:
+A, C, then D) for every source; an earlier source without stamps needs
+them added in a copy, and ``DIR#K12=NAMES#K13=NAMES`` names the phases of
+a copy that stamps more often (one letter a pair).
 
 ``--bf16`` restricts every measurement to the bf16 packs (the readings
 that set ``chip_smoke.py``'s bf16 limits), their seeded states from the
@@ -416,45 +421,57 @@ def b1_main(args, base_dir, version: int) -> int:
     return 0
 
 
-# -- --tp6: K12, K13 and K13's MIX45 form (one shard's layer) -------------------
+# -- --tp6 / --tp7 / --tp5: the stream TP kernels (one shard's layer) -------------
 
-# (version, the shard kernels timed) at tp=2: K12 / K13 at the v6 1.6B
-# width, K13 MIX45 at the v5.2 World 1.5B width
-TP6_CASES = (("6.0", ("K12", "K13")), ("5.2", ("K13 mix45",)))
+# (version, the shard kernels timed) at tp=2 and 4 by flag: K12 / K13 at
+# the v6 1.6B width and K13 MIX45 at the v5.2 World 1.5B width (--tp6),
+# K10 at the v7 World 1.5B width (d_lora 96) reading v_first and writing
+# it ("K10 first", --tp7), K15 on v5.2 and v5.1 at the World 1.5B width
+# (--tp5)
+TP_CASES = {"--tp6": (("6.0", ("K12", "K13")), ("5.2", ("K13 mix45",))),
+            "--tp7": (("7.0", ("K10", "K10 first")),),
+            "--tp5": (("5.2", ("K15",)), ("5.1", ("K15",)))}
 # phases of the timing build (P: the prologue before the first phase), then the tail
-TP6_PHASES = {"K12": ("PAMBC", "D"), "K13": ("PA", "B"), "K13 mix45": ("PA", "B")}
+TP_PHASES = {"K12": ("PAMBC", "D"), "K13": ("PA", "B"), "K13 mix45": ("PA", "B"),
+             "K10": ("PAB", "C"), "K10 first": ("PAB", "C"), "K15": ("PAC", "D")}
 TP6_STAMP_FLOATS = 64  # room for the timing build's stamps behind the scratch
+V7_TP_LORA = 96  # the v7 World 1.5B LoRA width (chip_smoke.py's)
 
 
 def tp_width_packs(version: str, precision: str, tp: int, c: int = 2048):
     """(cfg, shard packs on this card) of a seeded 2-layer synth model of
-    `version` at width c (F = 4c, V=256) in `precision`, over tp shards."""
+    `version` at width c (F = 4c, V=256; v7 with LoRAs of V7_TP_LORA) in
+    `precision`, over tp shards."""
     from rwkv_tpu_torch.models.synth import synth_config, synth_params
     from rwkv_tpu_torch.ops import megakernel as M
     from rwkv_tpu_torch.ops import megakernel_tp as TP
     from rwkv_tpu_torch.parallel.sharding import make_mesh
 
     cfg = synth_config(version, 2, c, 256, 64)
-    params = synth_params(cfg, seed=0)
-    build = {6: M.build_mega_pack_v6, 5: M.build_mega_pack_v5}[cfg.version_major]
-    build_tp = {6: TP.build_mega_pack_tp_v6, 5: TP.build_mega_pack_tp_v5}[cfg.version_major]
+    v = cfg.version_major
+    params = synth_params(cfg, seed=0, **({"lora_dim": V7_TP_LORA} if v == 7 else {}))
+    build = {7: M.build_mega_pack, 6: M.build_mega_pack_v6, 5: M.build_mega_pack_v5}[v]
+    build_tp = {7: TP.build_mega_pack_tp, 6: TP.build_mega_pack_tp_v6,
+                5: TP.build_mega_pack_tp_v5}[v]
     base = build(params, cfg, w4=precision == "w4a8", quant=precision != "bf16")
     return cfg, build_tp(base, cfg, make_mesh(1, tp, devices=["cuda:0"] * tp))
 
 
 def tp_inputs(pk, cfg, seed: int = 1) -> tuple:
-    """x, att_xx, ffn_xx and the shard's heads, seeded."""
+    """x, att_xx, ffn_xx, the shard's heads and a v_first of its channels,
+    seeded."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     c, s = cfg.n_embed, cfg.head_size
     x, xx, fxx = (torch.randn((c,), device="cuda", generator=gen) * a for a in (0.5, 0.3, 0.3))
     heads = torch.randn((pk["c_loc"] // s, s, s), device="cuda", generator=gen) * 0.1
-    return x, xx, fxx, heads
+    vf = torch.randn((pk["c_loc"],), device="cuda", generator=gen) * 0.3
+    return x, xx, fxx, heads, vf
 
 
-def tp6_sources(args) -> dict:
-    """{label: (tp_v6.cu to build, None for csrc's; {kernel: phase names})}
+def tp_sources(args) -> dict:
+    """{label: (csrc directory, or None for csrc's; {kernel: phase names})}
     in timing order: "baseline" (the first DIR after ``--baseline``), then
     "current", then each further DIR by its directory's name. A DIR may end
     in ``#K12=NAMES#K13=NAMES``: the phases of a copy that stamps more often
@@ -468,51 +485,75 @@ def tp6_sources(args) -> dict:
             dirs.append((Path(d), dict(e.split("=", 1) for e in extra)))
     srcs = {}
     for k, (d, names) in enumerate(dirs):
-        srcs["baseline" if k == 0 else d.name] = (d / "tp_v6.cu", names)
+        srcs["baseline" if k == 0 else d.name] = (d, names)
         if k == 0:
             srcs["current"] = (None, {})
     return srcs or {"current": (None, {})}
 
 
+def tp_kernel_src(name: str, src_dir):
+    """The source file of TP kernel `name` in `src_dir` (None: csrc): K10's
+    tp_v7.cu; K12's and K13's tp_v6.cu; K15's tp_v6.cu, or tp_v45.cu in a
+    tree from before K15 moved there."""
+    from rwkv_tpu_torch.ops import _cuda
+
+    d = _cuda.CSRC if src_dir is None else Path(src_dir)
+    if name.startswith("K10"):
+        return d / "tp_v7.cu"
+    if name == "K15" and "rwkv_tp_v5_att" not in (d / "tp_v6.cu").read_text():
+        return d / "tp_v45.cu"
+    return d / "tp_v6.cu"
+
+
 def tp6_stamps_at(pk, cfg, name: str, src, flags: tuple) -> int:
-    """Float offset of the timing build's stamps in the scratch of K12 /
-    K13 for the source `src` (None: csrc): K12's streamed source keeps its
-    amax slots behind its activations, the earlier one none."""
+    """Float offset of the timing build's stamps in the scratch of kernel
+    `name` built from the file `src`: behind the amax slots of a streamed
+    source (it has a plan entry), else behind the activations alone."""
     from rwkv_tpu_torch.ops import _cuda
     from rwkv_tpu_torch.ops import megakernel_tp as TP
 
     c, c_loc, f_loc, _, dm, dd, _ = TP._tp6_dims(pk, cfg)
-    if name != "K12":
+    if name.startswith("K13"):
         return f_loc
-    lib = _cuda.library("tp_v6_probe", src or _cuda.CSRC / "tp_v6.cu", flags)
+    lib = _cuda.library(src.stem + "_probe", src, flags)
+    if name.startswith("K10"):
+        streamed = hasattr(lib, "rwkv_tp_v7_plan")
+        return 4 * c_loc + 4 * pk["d_lora"] + (TP.TP7_ATT_AMAX if streamed else 0)
     slots = TP.TP6_ATT_AMAX if hasattr(lib, "rwkv_tp_v6_plan") else 0
+    if name == "K15":
+        return 5 * c_loc + (slots if src.name == "tp_v6.cu" else 0)
     return 5 * dm + 5 * c + 5 * c_loc + dd + slots
 
 
-def tp6_runner(pk, cfg, name: str, src=None, flags: tuple = (), grid=None, stamps: bool = False):
-    """run() of one launch of K12 / K13 / K13 mix45 (`name`) on shard pack
-    pk, layer 1, from csrc or the source `src` (its headers beside it) with
-    nvcc `flags`, over `grid` blocks (None: the current kernel's grid, one
-    block an SM, which an earlier version takes too). run() returns the
-    outputs as one tensor or, with `stamps`, the scratch (zeroed, with
-    room for the timing build's stamps)."""
+def tp6_runner(pk, cfg, name: str, src_dir=None, flags: tuple = (), grid=None,
+               stamps: bool = False):
+    """run() of one launch of TP kernel `name` (K10, "K10 first", K12, K13,
+    "K13 mix45", K15) on shard pack pk, layer 1, from csrc or the sources in
+    `src_dir` with nvcc `flags`, over `grid` blocks (None: the current
+    kernel's grid, one block an SM, which an earlier version takes too).
+    run() returns the outputs as one tensor or, with `stamps`, the scratch
+    (zeroed, with room for the timing build's stamps)."""
     import torch
 
     from rwkv_tpu_torch.ops import _cuda
     from rwkv_tpu_torch.ops import megakernel_tp as TP
 
-    kind = "att" if name == "K12" else "ffn"
-    if src is None and not flags:
+    kind = "ffn" if name.startswith("K13") else "att"
+    if src_dir is None and not flags:
         fn = TP.tp6_function(pk, kind)
     else:
-        fn = _cuda.function("tp_v6_probe", TP._lib_entry(kind, pk)[1],
-                            *(TP.TP6_ATT_ARGS if kind == "att" else TP.TP6_FFN_ARGS),
-                            src=src or _cuda.CSRC / "tp_v6.cu", flags=flags)
+        src = tp_kernel_src(name, src_dir)
+        fn = _cuda.function(src.stem + "_probe", TP._lib_entry(kind, pk)[1],
+                            *TP.TP_ARGS[TP._plan_kind(pk, kind)], src=src, flags=flags)
     grid = grid or TP.tp6_grid(pk, kind, cfg)
-    x, xx, fxx, heads = tp_inputs(pk, cfg)
-    launch, ins = ((TP.tp6_att_launch, (x, xx, heads)) if kind == "att" else
-                   (TP.tp6_ffn_launch, (x, fxx)))
-    n_scratch = tp6_stamps_at(pk, cfg, name, src, flags) + TP6_STAMP_FLOATS if stamps else 0
+    x, xx, fxx, heads, vf = tp_inputs(pk, cfg)
+    launch, ins = {
+        "K12": (TP.tp6_att_launch, (x, xx, heads)), "K13": (TP.tp6_ffn_launch, (x, fxx)),
+        "K13 mix45": (TP.tp6_ffn_launch, (x, fxx)), "K15": (TP.tp5_att_launch, (x, xx, heads)),
+        "K10": (TP.tp7_att_launch, (x, xx, heads, vf, False)),
+        "K10 first": (TP.tp7_att_launch, (x, xx, heads, vf, True))}[name]
+    n_scratch = (tp6_stamps_at(pk, cfg, name, tp_kernel_src(name, src_dir), flags)
+                 + TP6_STAMP_FLOATS if stamps else 0)
 
     def run():
         out = {"scratch": torch.zeros((n_scratch,), device="cuda")} if stamps else {}
@@ -543,10 +584,11 @@ def in_turns(runs: dict, timer) -> str:
     return ", ".join(f"{k} {t[0]:.4f} / {t[1]:.4f} ms" for k, t in times.items())
 
 
-def tp6_main(args) -> int:
-    """--tp6: K12, K13 and K13 mix45 from csrc against the sources of
-    ``tp6_sources`` (outputs at tp = 2 and 4, csrc's on four grids; times
-    at tp=2, also with the L2 emptied; phases)."""
+def tp_main(args, flag: str) -> int:
+    """--tp6 / --tp7 / --tp5: the stream TP kernels of ``TP_CASES[flag]``
+    from csrc against the sources of ``tp_sources`` (outputs at tp = 2 and
+    4, csrc's on four grids; times at tp=2, also with the L2 emptied;
+    phases)."""
     import torch
 
     from rwkv_tpu_torch.ops import _cuda
@@ -554,20 +596,22 @@ def tp6_main(args) -> int:
 
     print(card_line())
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")  # over the 50 MB L2
-    srcs = tp6_sources(args)
+    srcs = tp_sources(args)
     flags = ("-DRWKV_PHASE_TIMES",)
+    names = {n for _, ns in TP_CASES[flag] for n in ns}
     _cuda.build_all()  # then every other build at once
-    _cuda._build([("tp_v6_probe", path or _cuda.CSRC / "tp_v6.cu", fl)
-                  for path, _ in srcs.values() for fl in ((), flags)
-                  if (path is not None or fl) and (not fl or "--phases" in args)])
-    for version, names in TP6_CASES:
+    jobs = {(f.stem + "_probe", f, fl) for d, _ in srcs.values() for n in names
+            for f in (tp_kernel_src(n, d),) for fl in ((), flags)
+            if (d is not None or fl) and (not fl or "--phases" in args)}
+    _cuda._build(sorted(jobs, key=str))
+    for version, kernels in TP_CASES[flag]:
         for prec in _precisions(args):
             for tp in (2, 4):
                 cfg, packs = tp_width_packs(version, prec, tp)
                 pk = packs[0]
-                for name in names:
-                    label = f"{name} {prec} tp={tp} nf={pk['nf']}"
-                    runs = {k: tp6_runner(pk, cfg, name, path) for k, (path, _) in srcs.items()}
+                for name in kernels:
+                    label = f"{name} v{version} {prec} tp={tp} nf={pk['nf']}"
+                    runs = {k: tp6_runner(pk, cfg, name, d) for k, (d, _) in srcs.items()}
                     if "baseline" not in runs:
                         if tp == 2:
                             print(f"{label}: {device_ms(runs['current']):.4f} ms")
@@ -586,12 +630,12 @@ def tp6_main(args) -> int:
                           + in_turns(runs, lambda f: flushed_ms(f, flush)))
                     if "--phases" not in args:
                         continue
-                    for k, (path, named) in srcs.items():
-                        phases, tail = TP6_PHASES[name]
+                    for k, (d, named) in srcs.items():
+                        phases, tail = TP_PHASES[name]
                         phases = named.get(name.split()[0], phases)
-                        times = phase_times(tp6_runner(pk, cfg, name, path, flags, stamps=True),
-                                            tp6_stamps_at(pk, cfg, name, path, flags), 1,
-                                            len(phases))
+                        times = phase_times(tp6_runner(pk, cfg, name, d, flags, stamps=True),
+                                            tp6_stamps_at(pk, cfg, name, tp_kernel_src(name, d),
+                                                          flags), 1, len(phases))
                         print_phases(f"{k} {label}", times, phases, tail)
                 del packs
                 torch.cuda.empty_cache()
@@ -614,8 +658,9 @@ def main() -> int:
     for version in (6, 5, 4):
         if f"--v{version}" in args:
             return b1_main(args, base_dir, version)
-    if "--tp6" in args:
-        return tp6_main(args)
+    for flag in TP_CASES:
+        if flag in args:
+            return tp_main(args, flag)
     from rwkv_tpu_torch.models.serve import ServingModel
     from rwkv_tpu_torch.models.synth import synth_config, synth_params
     from rwkv_tpu_torch.ops import megakernel as TM

@@ -1204,6 +1204,69 @@ def test_tp_v6_plan_matches_the_python_plan(cuda_device):
                                            plan.vec_rows), (c, tp, nf, form, kind, blocks, b)
 
 
+# (version, C, tp) of the K10 / K15 grid tests: the small width, and the
+# World 1.5B width at tp = 2 and 4 (v5.1 at tp=4)
+TP_ATT_GRID_CASES = [("7.0", 256, 2), ("7.0", 2048, 2), ("7.0", 2048, 4), ("5.2", 256, 2),
+                     ("5.2", 2048, 2), ("5.1", 2048, 4)]
+
+
+@pytest.mark.parametrize("form", TM.FORMS)
+@pytest.mark.parametrize("version, c, tp", TP_ATT_GRID_CASES)
+def test_tp_stream_att_kernels_same_bits_on_every_grid(cuda_device, version, c, tp, form):
+    """K10 (v7; reading v_first and writing it) and K15 (v5.2, v5.1) deal
+    each phase's rows over the grid but never change how a row is
+    computed: every output bit-equal on grids of 132, 64, 33 and 7 blocks,
+    on the first and the last shard of a one-layer pack; finite and within
+    the plain versions' band (int forms 2e-2, bf16 1e-4 of the scale)."""
+    from rwkv_tpu_torch.ops import megakernel_tp as TT
+
+    # a one-layer pack (v7: two, whose packs take a later layer's value-residual LoRA)
+    tc, packs = _tp_packs(version, _PRECISION[form], cuda_device, c=c,
+                          n_layer=2 if version == "7.0" else 1, tp=tp)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x, xx = (torch.randn((c,), device=cuda_device, generator=gen) * a for a in (0.5, 0.3))
+    s = tc.head_size
+    for pk in (packs[0], packs[-1]):
+        fn = TT.tp6_function(pk, "att")
+        heads = torch.randn((pk["c_loc"] // s, s, s), device=cuda_device, generator=gen) * 0.1
+        vf = torch.randn((pk["c_loc"],), device=cuda_device, generator=gen) * 0.3
+        for first in ((False, True) if version == "7.0" else (None,)):
+            if first is None:
+                outs = {g: TT.tp5_att_launch(fn, pk, 0, x, xx, heads, tc, g)
+                        for g in (132, 64, 33, 7)}
+                ref = TT.tp_att_layer_v5_ref(pk, 0, x, xx, heads, tc)
+            else:
+                outs = {g: TT.tp7_att_launch(fn, pk, 0, x, xx, heads, vf, first, tc, g)
+                        for g in (132, 64, 33, 7)}
+                ref = TT.tp_att_layer_ref(pk, 0, x, xx, heads, vf, first, tc)
+            for g, out in outs.items():
+                assert all(torch.equal(a, b) for a, b in zip(out, outs[132])), (first, g)
+            assert all(bool(torch.isfinite(t).all()) for t in outs[132])
+            _tp_close(outs[132], ref, _PRECISION[form])
+
+
+def test_tp_stream_att_plan_matches_the_python_plan(cuda_device):
+    """K10's own stream plan (rwkv_tp_v7_plan: shared bytes, stage bytes
+    and count, a block's pieces, the kernel's static shared bytes, vector
+    rows and lora2 runs a piece) and K15's (rwkv_tp_v6_plan kinds 2 and 3)
+    are tp_v6_stream_plan's, in every form, at the small width, C=768 and
+    C=2048 at tp = 2 and 4, d_lora 32 and 96, v5.1 and v5.2, on several
+    grids."""
+    from rwkv_tpu_torch.ops import megakernel_tp as TT
+
+    for c, tp in ((256, 2), (768, 2), (2048, 2), (2048, 4)):
+        c_loc = c // tp
+        for form in TM.FORMS:
+            for kind, kw in (("att7", {"d_lora": 32}), ("att7", {"d_lora": 96}),
+                             ("att5", {"n_mix": 3}), ("att5", {"n_mix": 4})):
+                for blocks in (132, 64, 33, 7):
+                    plan = TT.tp_v6_stream_plan(form, c, c_loc, 0, 0, 0, 0, 64, blocks, kind, **kw)
+                    for b in sorted({0, 5, blocks - 1}):
+                        got = TT.tp_v6_kernel_plan(form, kind, c, c_loc, 0, 0, 0, 0, 64, blocks, b,
+                                                   **kw)
+                        assert got == TT.tp_plan_want(plan, b), (c, tp, form, kind, kw, blocks, b)
+
+
 def _tp45_inputs(tc, dev, seed: int):
     """x, att_xx, ffn_xx and the shard's part of the state (v4: aa, bb, pp
     of c_loc channels, pp of a seeded state; v5: its heads) at tp=2."""
