@@ -73,8 +73,9 @@
      2 and 4 on this card, w8a8, w4a8 and bf16, from 4 seeded states (v4:
      and the blank one, pp = -1e30), x and state within TP_SHALLOW_REL of
      the scale of the step on their plain versions; two launches
-     bit-identical; the stream kernels (K10, K12, K13, K15) bit-equal on
-     the full grid and on half of it (``tp6_same_on_half_grid``).
+     bit-identical; every TP kernel (K10-K15, all on the shared stream)
+     bit-equal on the full grid and on half of it
+     (``tp6_same_on_half_grid``).
    - K9 ``quant_matmul`` on the block formats (``phase_k9``): each form
      (plain Q8_0 and q8, min Q5_1, pack4 Q4_0, pack4_min Q4_1, rowwise
      q8r) at M in {1, 256} x the 169M (K, N) set and the q8 / q8r head
@@ -1225,11 +1226,10 @@ def phase_tp_kernels(name: str, cfg, params, n_states: int = 4, seed: int = 7) -
                 raise AssertionError(f"{name} {prec} tp={tp}: two launches on the same inputs differ")
             tp6_same_on_half_grid(f"{name} {prec} tp={tp}", packs[0], cd, st, x0s[0])
             del packs
-        streamed = {7: "K10", 6: "K12 / K13", 5: "K15 / K13", 4: "K13"}[cfg.version_major]
         print(f"{name} {prec}: {n_states} states, tp = 2 and 4, depths 1 and 2: worst "
               f"distance from the plain versions over the scale {worst} (limit "
               f"{TP_SHALLOW_REL[prec]}); max abs err {err:.3e}; two launches bit-identical; "
-              f"{streamed} bit-equal on the full and half grid")
+              f"{name} bit-equal on the full and half grid")
         out[prec] = err
         del base
         torch.cuda.empty_cache()
@@ -1238,23 +1238,28 @@ def phase_tp_kernels(name: str, cfg, params, n_states: int = 4, seed: int = 7) -
 
 def tp6_same_on_half_grid(label: str, pk, cfg, st, x0) -> None:
     """The stream TP kernels of shard pack pk -- K10 (v7; layer 1, reading
-    v_first), K12 (v6), K15 (v5) and K13 (v6, and its MIX45 form on v5 / v4
-    packs) -- at layer 0 (K10 1) through their C entries on the full grid
-    and on half of it: every output bit-equal (their stream plans deal rows
-    over the grid but never change how a row is computed). The launch
-    counters do not move."""
+    v_first), K11 (v7), K12 (v6), K15 (v5), K14 (v4) and K13 (v6, and its
+    MIX45 form on v5 / v4 packs) -- at layer 0 (K10 1) through their C
+    entries on the full grid and on half of it: every output bit-equal
+    (their stream plans deal rows over the grid but never change how a row
+    is computed). The launch counters do not move."""
     import torch
 
     from rwkv_tpu_torch.ops import megakernel_tp as TP
 
-    v = pk["version"]
-    for kind in {7: ("att",), 4: ("ffn",)}.get(v, ("att", "ffn")):
+    v, c_loc = pk["version"], pk["c_loc"]
+    for kind in ("att", "ffn"):
         full, fn = TP.tp6_grid(pk, kind, cfg), TP.tp6_function(pk, kind)
         outs = []
         for grid in (full, full // 2):
-            heads = st["heads"][int(v == 7), : pk["c_loc"] // cfg.head_size] if v != 4 else None
-            if kind == "ffn":
+            heads = st["heads"][int(v == 7), : c_loc // cfg.head_size] if v != 4 else None
+            if kind == "ffn" and v == 7:
+                outs.append(TP.tp7_ffn_launch(fn, pk, 0, x0, st["ffn_xx"][0], cfg, grid))
+            elif kind == "ffn":
                 outs.append(TP.tp6_ffn_launch(fn, pk, 0, x0, st["ffn_xx"][0], cfg, grid))
+            elif v == 4:
+                own = tuple(st[k][0, :c_loc] for k in ("aa", "bb", "pp"))
+                outs.append(TP.tp4_att_launch(fn, pk, 0, x0, st["att_xx"][0], *own, cfg, grid))
             elif v == 7:
                 vf = x0[: pk["c_loc"]].contiguous()
                 outs.append(TP.tp7_att_launch(fn, pk, 1, x0, st["att_xx"][1], heads, vf, False,
@@ -1937,7 +1942,7 @@ def main() -> int:
     # v4's runs it at the same shapes)
     tp_src = "rwkv_tpu_torch/csrc/"
     tp_meta = {7: (("tp_v7_att", tp_src + "tp_v7.cu", 413),
-                   ("tp_v7_ffn", tp_src + "tp_v7.cu", 487)),
+                   ("tp_v7_ffn", tp_src + "tp_v6.cu", 487)),
                6: (("tp_v6_att", tp_src + "tp_v6.cu", 935),
                    ("tp_v6_ffn", tp_src + "tp_v6.cu", 1007)),
                5: (("tp_v5_att", tp_src + "tp_v6.cu", 1644),

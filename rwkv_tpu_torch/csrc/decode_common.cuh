@@ -2,9 +2,10 @@
 // (v7_decode_batched.cu), K6 (v6_decode.cu), K7 (v5_decode.cu) and K8
 // (v4_decode.cu) and the tensor-parallel shard kernels: the timing build's
 // phase stamps, IEEE-exact elementwise helpers, the embedding read, the
-// lane count of the big matvecs, the block-wide quantization (int forms)
-// or staging (bf16 form) of a phase's input vectors and the block-wide
-// layer norm (K3 and K6-K8 stream their LM head, decode_stream.cuh).
+// lane count of the big matvecs and the block-wide quantization (int
+// forms) or staging (bf16 form) of a phase's input vectors (K4's; the
+// stream kernels' versions over their consumer warps, with the layer norm,
+// are in decode_stream.cuh).
 #pragma once
 
 #include "common.cuh"
@@ -133,23 +134,4 @@ __device__ void act_n(Fn f, int n, act_t<WF>* xq, int stride, float* dxs, float*
   } else {
     quantize_n<N>(f, n, xq, stride, dxs, red);
   }
-}
-
-// Block-wide layer norm of src[0..n) into dst (both shared), as
-// (x - mu) * rsqrt(var + eps) * w + b with population variance.
-__device__ void layer_norm_block(const float* src, float* dst, const float* w,
-                                 const float* b, int n, float eps, float* red) {
-  float s = 0.f;
-  for (int c = threadIdx.x; c < n; c += blockDim.x) s += src[c];
-  const float mu = block_sum(s, red) / static_cast<float>(n);
-  float v = 0.f;
-  for (int c = threadIdx.x; c < n; c += blockDim.x) {
-    const float d = sub(src[c], mu);
-    v += mul(d, d);
-  }
-  const float var = block_sum(v, red) / static_cast<float>(n);
-  const float rs = rsqrtf(add(var, eps));
-  for (int c = threadIdx.x; c < n; c += blockDim.x)
-    dst[c] = add(mul(mul(sub(src[c], mu), rs), w[c]), b[c]);
-  __syncthreads();
 }

@@ -252,7 +252,8 @@ __device__ __forceinline__ void block_max_n(float (&v)[N], float* red) {
   csync();
 }
 
-// layer_norm_block over the consumers
+// Layer norm of src[0..n) into dst (both shared) over the consumers, as
+// (x - mu) * rsqrt(var + eps) * w + b with population variance.
 __device__ void layer_norm(const float* src, float* dst, const float* w, const float* b, int n,
                            float eps, float* red) {
   float s = 0.f;

@@ -1,11 +1,11 @@
-// What the tensor-parallel shard kernels on the shared stream (K10,
-// tp_v7.cu; K12, K13 and K15, tp_v6.cu) have in common beside
+// What the tensor-parallel shard kernels (K10, tp_v7.cu; K11, K12, K13
+// and K15, tp_v6.cu; K14, tp_v45.cu) have in common beside
 // decode_stream.cuh: the launch's layout as the host computes it, the start
 // of a launch (the producer warp's lane 0 initializes the mbarriers and
 // computes the block's plan while the consumers take x's layer-norm
-// statistics), the copies of a piece of matrix rows, and the timing
-// build's first stamps. A launch is one layer, so its start is on the
-// critical path.
+// statistics), the copies of a piece of matrix rows, the timing build's
+// first stamps, the grid size and the cooperative launch. A launch is one
+// layer, so its start is on the critical path.
 #pragma once
 
 #include "decode_stream.cuh"
@@ -116,3 +116,32 @@ inline bool aligned16(std::initializer_list<const void*> ptrs) {
   do {                \
   } while (0)
 #endif
+
+// Blocks a cooperative launch of `kernel` with `smem` bytes of shared
+// memory and `threads` threads a block uses (one per SM), or a negative
+// CUDA error code (0: it does not fit on an SM).
+inline int tp_grid_blocks_of(const void* kernel, size_t smem, int threads) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = set_smem(kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return (per_sm > 1 ? 1 : per_sm) * sms;
+}
+
+// One cooperative launch of `kernel` on its argument struct, `threads`
+// threads a block; returns the CUDA error.
+template <typename A>
+int tp_launch_of(const void* kernel, A& args, size_t smem, int grid_blocks, int threads,
+                 void* stream) {
+  if (grid_blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  void* kargs[] = {&args};
+  cudaError_t err = set_smem(kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaLaunchCooperativeKernel(kernel, dim3(grid_blocks), dim3(threads), kargs, smem,
+                                      static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}

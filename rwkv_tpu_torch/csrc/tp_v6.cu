@@ -1,15 +1,17 @@
-// K12, K13 and K15: one layer of an RWKV v6 (Finch) decode step at B=1 on
-// one shard of a tensor-parallel mesh (K12 the attention, K13 the gated
-// FFN), and the attention of an RWKV v5.1 / v5.2 layer (K15, a form of
-// K12's kernel), w8a8, w4a8 or bf16. One launch per shard per layer each;
-// the caller sums the shards' full-C partials and gathers the FFN gate
-// between them (ops/megakernel_tp.py).
+// K12, K13, K15 and K11: one layer of an RWKV v6 (Finch) decode step at
+// B=1 on one shard of a tensor-parallel mesh (K12 the attention, K13 the
+// gated FFN), the attention of an RWKV v5.1 / v5.2 layer (K15, a form of
+// K12's kernel) and the FFN of an RWKV v7 layer (K11, a form of K13's),
+// w8a8, w4a8 or bf16. One launch per shard per layer each; the caller sums
+// the shards' full-C partials and gathers the FFN gate between them
+// (ops/megakernel_tp.py).
 //
 // Replaces rwkv_tpu/ops/megakernel_tp.py::_att_layer_call_v6 (kernel
 // _make_att_kernel_v6: K12), _ffn_layer_call_v6 (_make_ffn_kernel_v6:
-// K13; MIX45 = the v4/v5 token-shift mix its mix45 switch selects, the
-// FFN of the v4 / v5 TP paths beside K14 in tp_v45.cu and K15 here) and
-// _att_layer_call_v5 (_make_att_kernel_v5: K15), in their int8, int4 and
+// K13; its mix45 switch selects the v4/v5 token-shift mix, the FFN of the
+// v4 / v5 TP paths beside K14 in tp_v45.cu and K15 here),
+// _att_layer_call_v5 (_make_att_kernel_v5: K15) and _ffn_layer_call
+// (_make_ffn_kernel: K11, beside K10 in tp_v7.cu), in their int8, int4 and
 // bf16 forms (maa2 stays f32 in all three).
 //
 // Bound on this card: bytes. At the 1.6B v6 width (C=2048, F=8192, d_maa
@@ -19,7 +21,8 @@
 // rows, ~12.2 MB, and its wkv state twice (0.52 MB); a K13 launch its fr,
 // fk and fv rows, ~18.9 MB int8: ~4 us and ~6 us at 3.35 TB/s. A K15
 // launch (v5.2, World 1.5B width) reads its rkvg rows and out columns,
-// ~10.5 MB, and its state twice: ~3.3 us. int4 moves about half, bf16
+// ~10.5 MB, and its state twice: ~3.3 us; a K11 launch (v7, World 1.5B
+// width) its fk and fv rows, 16.8 MB: ~5 us. int4 moves about half, bf16
 // twice.
 //
 // Design: the phases of K6 (v6_decode.cu) and K7 (v5_decode.cu) for one
@@ -41,11 +44,14 @@
 //        C  per head: K12's step with the static decay td and bonus tf in
 //           K7's order, group norm (eps 1e-5), ln_x, the gate (v5.2)
 //        D  as K12's
-//   K13  A  ln2 + shift (v6's, or v4/v5's under MIX45), the two mixes
-//           quantized, the shard's fk rows (nf tiles) with relu^2 and its
-//           fr gate rows with sigmoid
+//   K13  A  ln2 + shift (v6's, or v4/v5's in the MIX45 form), the two
+//           mixes quantized, the shard's fk rows (nf tiles) with relu^2 and
+//           its fr gate rows with sigmoid
 //        B  per tile, its keys quantized with their own scale, the tile's
 //           fv rows [C, FT] summed into the partial in tile order
+//   K11  A  ln2 + v6's shift with v7's one mix x_k, quantized, the fk rows
+//           with relu^2 (no gate rows)
+//        B  as K13's
 // Every input that does not depend on another block -- the weight rows
 // with their row scales, the vector rows a phase reads, maa2, att_in /
 // ffn_in and phase C's dw2 rows, vector slices and state -- reaches shared
@@ -53,7 +59,7 @@
 // bulk asynchronous copies in the order the consumers take them (a static
 // plan: AttLayout / AttPlan / att_copy and FfnLayout / FfnPlan / ffn_copy
 // here, ops/megakernel_tp.py::tp_v6_stream_plan mirrors it, kinds "att",
-// "att5" and "ffn"). A launch is one layer, so its start is on the
+// "att5", "ffn" and "ffn7"). A launch is one layer, so its start is on the
 // critical path: the host computes the layout, the producer the block's
 // plan (32-bit arithmetic) while the consumers load x and take its layer
 // norm's statistics, and the producer then issues a piece as soon as its
@@ -62,9 +68,11 @@
 // block). The block's lane groups take a matrix's rows in turn, each row
 // with the lanes, the chunk order and the shuffle tree matvec_rows
 // (common.cuh) gives it, so the outputs are the earlier K12 / K13 / K15's
-// bit for bit on any grid. The phases whose input vector other blocks
-// wrote (K12's B: the five mixes, C: the dw1 outputs, D: xo; K15's D: xo;
-// K13's B: the relu^2 keys of each tile) quantize it in one pass from an
+// bit for bit on any grid (K11: the earlier cooperative kernel's, whose
+// matvec_grid gave each fk row lanes_for(C) lanes and each fv row
+// lanes_for(FT)). The phases whose input vector other blocks wrote (K12's
+// B: the five mixes, C: the dw1 outputs, D: xo; K15's D: xo; K13's and
+// K11's B: the relu^2 keys of each tile) quantize it in one pass from an
 // amax the producing phase published with atomicMax (exact in any order,
 // so the codes are act_n's); the others fold their amax into the layer
 // norm's last pass.
@@ -73,7 +81,6 @@
 // round-to-nearest float ops; each matvec input quantized as a whole, the
 // split contractions' inputs the shard's local slices with their own
 // scales).
-#include "tp_common.cuh"
 #include "tp_stream.cuh"
 #include "v45_common.cuh"
 
@@ -101,8 +108,13 @@ enum RVec5 { kR5MixK = 4, kR5MixV = 7 };
 enum LVec5 { kL5TD = 0, kL5TF, kL5LnxW, kL5LnxB, kNumLVec5 };
 
 // The attention kernels: K12 (v6) and K15 (v5.1: mixes k, v, r; v5.2:
-// and the gate g).
+// and the gate g); the FFN kernels: K13 (v6's mix), its MIX45 form (the
+// v4 / v5 mix) and K11 (v7: v6's mix of the one row x_k, no gate rows).
 enum AttKind { kAttV6 = 0, kAttV51 = 1, kAttV52 = 2 };
+enum FfnKind { kFfnV6 = 0, kFfnV45 = 1, kFfnV7 = 2 };
+// K11's row of x_k in the v7 replicated block (ops/megakernel_tp.py
+// TP_RVECS, whose ln2 rows are RVec6's)
+constexpr int kR7XK = 4;
 
 using stream::Rows;
 using stream::part;
@@ -308,7 +320,8 @@ __host__ __device__ inline bool att_copy(const AttArgs& p, const AttPlan& pl, in
 }
 
 // The grid barriers' words (stream::grid_sync), one a kernel (K12 and K15
-// share theirs: no model runs both). Each is safe only while the launches
+// share theirs, as K13, its MIX45 form and K11 share theirs: no model runs
+// two of one). Each is safe only while the launches
 // on the card run one after another, as every TP launch does (the device's
 // current stream, ops/megakernel_tp.py).
 __device__ unsigned g_att_count = 0;
@@ -619,22 +632,24 @@ __global__ void __launch_bounds__(kBlockThreads, 1) tp_v6_att_kernel(AttArgs p) 
 struct FfnArgs {
   const float* x;          // [C]
   const float* ffn_in;     // [C]
-  const int8_t* fr;        // [CL, C] form WF: the shard's gate rows
+  const int8_t* fr;        // [CL, C] form WF: the shard's gate rows (K11: none)
   const float* fr_d;       // [CL]
   const int8_t* fk;        // [FL, C] form WF
   const float* fk_d;       // [FL]
   const int8_t* fv;        // [nf, C, FT] form WF
   const float* fv_d;       // [C]
-  const float* rvec;       // [kNumRVec6, C]
+  const float* rvec;       // [kNumRVec6, C] (K11: TP_RVECS)
   float* part;             // [C] the shard's partial of fv
-  float* rg;               // [CL] sigmoid(fr rows)
+  float* rg;               // [CL] sigmoid(fr rows) (K11: none)
   float* ffn_out;          // [C] ln2(x)
   float* scratch;          // [FL] relu^2 keys (the timing build's stamps follow)
   int C, CL, FL, nf;
   TpLayout lo;
 };
 
-constexpr int kFfnVecRows = 5;  // phase A's: ln2 w, ln2 b, the FFN mixes k and r, ffn_in
+// Phase A's vector rows: K13 ln2 w, ln2 b, the FFN mixes k and r, ffn_in;
+// K11 ln2 w, ln2 b, x_k, ffn_in.
+__host__ __device__ inline int ffn_vec_rows(int kind) { return kind == kFfnV7 ? 4 : 5; }
 
 // Shared memory of a K13 launch: xs, xl (C floats each), red (256), dxs
 // and the block-local amax slots (kMaxTiles each), the launch's amax set
@@ -654,17 +669,17 @@ __host__ __device__ inline size_t ffn_piece(int C, int FT, int wf) {
 struct FfnLayout : stream::Ring {
   size_t act_off;
   int vec_rows;
-  __host__ __device__ FfnLayout(int C, int FL, int nf, int wf)
+  __host__ __device__ FfnLayout(int C, int FL, int nf, int wf, int kind)
       : stream::Ring(round_up(ffn_act_off(C) + (wf == kBf16 ? 4ull : 1ull) *
                                                   stream::max2(2ull * C, FL), 16),
                      ffn_piece(C, FL / nf, wf)),
         act_off(ffn_act_off(C)),
-        vec_rows(vec_rows_for(stage, C, kFfnVecRows)) {}
+        vec_rows(vec_rows_for(stage, C, ffn_vec_rows(kind))) {}
 };
 
 enum FfnSeg {
-  fVec,  // ln2 w, ln2 b, mix k, mix r, ffn_in: vec_rows rows a piece
-  fFk, fFr,
+  fVec,  // phase A's vector rows: vec_rows rows a piece
+  fFk, fFr,  // K11: no fr pieces
   fFv,   // the fv rows of tile 0, then of tile 1, ...
   kFfnSegs
 };
@@ -673,15 +688,15 @@ struct FfnPlan {
   Rows fk, fr, fv;  // fv: the block's rows of each tile
   int nf, vec_pieces;
   __host__ __device__ FfnPlan(const TpLayout& lo, int C, int CL, int FL, int nf_, int wf,
-                              int blocks, int b) {
+                              int kind, int blocks, int b) {
     const bool w = wf != kBf16;
     const int bc = static_cast<int>(form_bytes(wf, C)), ft = FL / nf_, st = static_cast<int>(lo.stage);
     fk = part(FL, blocks, b, false, bc, w, st, lanes_for(C, wf));
-    fr = part(CL, blocks, b, true, bc, w, st, lanes_for(C, wf));
+    fr = part(kind == kFfnV7 ? 0 : CL, blocks, b, true, bc, w, st, lanes_for(C, wf));
     fv = part(C, blocks, b, false, static_cast<int>(form_bytes(wf, ft)), w, st,
                  lanes_for(ft, wf));
     nf = nf_;
-    vec_pieces = (kFfnVecRows + lo.vec_rows - 1) / lo.vec_rows;
+    vec_pieces = (ffn_vec_rows(kind) + lo.vec_rows - 1) / lo.vec_rows;
   }
   __host__ __device__ int count(int seg) const {
     switch (seg) {
@@ -701,16 +716,18 @@ struct FfnPlan {
 static_assert(sizeof(FfnPlan) <= stream::kPlanBytes, "the plan's shared bytes");
 
 __host__ __device__ inline bool ffn_copy(const FfnArgs& p, const FfnPlan& pl, int vec_rows,
-                                         int wf, int seg, int idx, int i, const void** src,
-                                         uint32_t* dst, uint32_t* bytes) {
+                                         int wf, int kind, int seg, int idx, int i,
+                                         const void** src, uint32_t* dst, uint32_t* bytes) {
   const int C = p.C;
   const bool w = wf != kBf16;
   switch (seg) {
     case fVec: {
-      const int j = idx * vec_rows + i;
-      if (i >= vec_rows || j >= kFfnVecRows) return false;
-      const int vrows[4] = {kRLn2W, kRLn2B, kRFXK, kRFXR};
-      *src = j < 4 ? p.rvec + vrows[j] * C : p.ffn_in;
+      // the rows of rvec (K13: RVec6's ln2 w, b, mix k, r; K11: ln2 w, b,
+      // x_k), then ffn_in
+      const int j = idx * vec_rows + i, n = ffn_vec_rows(kind);
+      if (i >= vec_rows || j >= n) return false;
+      const int vrows[4] = {kRLn2W, kRLn2B, kind == kFfnV7 ? kR7XK : kRFXK, kRFXR};
+      *src = j < n - 1 ? p.rvec + vrows[j] * C : p.ffn_in;
       *dst = 4u * C * i;
       *bytes = 4u * C;
       return true;
@@ -726,14 +743,15 @@ __host__ __device__ inline bool ffn_copy(const FfnArgs& p, const FfnPlan& pl, in
   }
 }
 
-// K13's published amax slots: two sets of kMaxTiles. A launch publishes
+// The FFN kernels' published amax slots (every KIND's: one barrier word,
+// g_ffn_count, for all of them): two sets of kMaxTiles. A launch publishes
 // into set (barriers its kernel has crossed) & 1 -- the top bit of its
 // barrier word when it starts, for each launch crosses one -- and clears
 // the other set, which the launch before it used, for the next one. Every
 // launch finds its set cleared, with no barrier before its first publish.
 __device__ unsigned g_ffn_amax[2 * kMaxTiles];
 
-template <int WF, bool MIX45>
+template <int WF, int KIND>
 __global__ void __launch_bounds__(kBlockThreads, 1) tp_v6_ffn_kernel(FfnArgs p) {
   unsigned long long t_entry = 0;
   ENTRY_TIME(t_entry);
@@ -762,14 +780,14 @@ __global__ void __launch_bounds__(kBlockThreads, 1) tp_v6_ffn_kernel(FfnArgs p) 
     const int vr = lo.vec_rows;
     if (tid == kThreads) {
       init_mbarriers(full, empty, stages);
-      *plan = FfnPlan(lo, C, p.CL, FL, nf, WF, gridDim.x, blockIdx.x);
+      *plan = FfnPlan(lo, C, p.CL, FL, nf, WF, KIND, gridDim.x, blockIdx.x);
     }
     __syncwarp();
     stream_ready_arrive();
     stream::produce<kFfnSegs, kFfnSegs>(
         pl, 1, stages, ring, lo.stage, full, empty,
         [&](int, int seg, int idx, int i, const void** src, uint32_t* dst, uint32_t* bytes) {
-          return ffn_copy(p, pl, vr, WF, seg, idx, i, src, dst, bytes);
+          return ffn_copy(p, pl, vr, WF, KIND, seg, idx, i, src, dst, bytes);
         });
     return;
   }
@@ -795,19 +813,28 @@ __global__ void __launch_bounds__(kBlockThreads, 1) tp_v6_ffn_kernel(FfnArgs p) 
     auto vrow = [&](int j) {
       return reinterpret_cast<const float*>(ring + (j / vr) * lo.stage + (j % vr) * 4ull * C);
     };
-    const float *ln_w = vrow(0), *ln_b = vrow(1), *mk = vrow(2), *mr = vrow(3), *fin = vrow(4);
-    stream::layer_norm_act<WF, 2>(
-        xs, xl, ln_w, ln_b, C, 1e-5f, red, [](int, float) {},
-        [&](int m, int c) {
-          const float cf = m == 0 ? mk[c] : mr[c], prev = fin[c];
-          return MIX45 ? add(mul(xl[c], cf), sub(prev, mul(prev, cf)))
-                       : add(xl[c], mul(sub(prev, xl[c]), cf));
-        },
-        q8, C, dxs,
-        [&]() {
-          stream_ready_wait();  // the mbarriers and the plan
-          for (int k = 0; k < pl.vec_pieces; ++k) cs.wait();
-        });
+    auto ready = [&]() {
+      stream_ready_wait();  // the mbarriers and the plan
+      for (int k = 0; k < pl.vec_pieces; ++k) cs.wait();
+    };
+    const float *ln_w = vrow(0), *ln_b = vrow(1), *mk = vrow(2);
+    if constexpr (KIND == kFfnV7) {
+      const float* fin = vrow(3);
+      stream::layer_norm_act<WF, 1>(
+          xs, xl, ln_w, ln_b, C, 1e-5f, red, [](int, float) {},
+          [&](int, int c) { return add(xl[c], mul(sub(fin[c], xl[c]), mk[c])); }, q8, C, dxs,
+          ready);
+    } else {
+      const float *mr = vrow(3), *fin = vrow(4);
+      stream::layer_norm_act<WF, 2>(
+          xs, xl, ln_w, ln_b, C, 1e-5f, red, [](int, float) {},
+          [&](int m, int c) {
+            const float cf = m == 0 ? mk[c] : mr[c], prev = fin[c];
+            return KIND == kFfnV45 ? add(mul(xl[c], cf), sub(prev, mul(prev, cf)))
+                                   : add(xl[c], mul(sub(prev, xl[c]), cf));
+          },
+          q8, C, dxs, ready);
+    }
     cs.release(pl.vec_pieces);
   }
   if (blockIdx.x == 0)
@@ -819,10 +846,11 @@ __global__ void __launch_bounds__(kBlockThreads, 1) tp_v6_ffn_kernel(FfnArgs p) 
                 p.scratch[row] = v;
                 if constexpr (kQuant) stream::note_amax(&amx[row / FT], v);
               });
-  cs.rows<WF>(pl.fr, C, [&](int) { return q8 + C; },
-              [&](int row, auto acc, const float* d) {
-                p.rg[row] = sigmoidf(dequant(acc, dxs[1], d));
-              });
+  if constexpr (KIND != kFfnV7)
+    cs.rows<WF>(pl.fr, C, [&](int) { return q8 + C; },
+                [&](int row, auto acc, const float* d) {
+                  p.rg[row] = sigmoidf(dequant(acc, dxs[1], d));
+                });
   if (tid == 0) *set = word >> 31;
   stream::csync();
   unsigned* amax_g = g_ffn_amax + *set * kMaxTiles;
@@ -880,16 +908,18 @@ const void* att_kernel(int wf, int kind) {
 }
 
 template <int WF>
-const void* ffn_of(bool mix45) {
-  return mix45 ? reinterpret_cast<const void*>(tp_v6_ffn_kernel<WF, true>)
-               : reinterpret_cast<const void*>(tp_v6_ffn_kernel<WF, false>);
+const void* ffn_of(int kind) {
+  if (kind == kFfnV6) return reinterpret_cast<const void*>(tp_v6_ffn_kernel<WF, kFfnV6>);
+  return kind == kFfnV45 ? reinterpret_cast<const void*>(tp_v6_ffn_kernel<WF, kFfnV45>)
+                         : reinterpret_cast<const void*>(tp_v6_ffn_kernel<WF, kFfnV7>);
 }
 
-// v6's FFN (mix45 false), or the MIX45 instance the v4 / v5 TP paths take
-// (their replicated block holds ln2 and the FFN mixes at RVec6's rows)
-const void* ffn_kernel(int wf, bool mix45) {
-  if (wf == kBf16) return ffn_of<kBf16>(mix45);
-  return wf == kInt4 ? ffn_of<kInt4>(mix45) : ffn_of<kInt8>(mix45);
+// K13 (kind kFfnV6), its MIX45 form the v4 / v5 TP paths take (kFfnV45:
+// their replicated block holds ln2 and the FFN mixes at RVec6's rows), or
+// K11 (kFfnV7)
+const void* ffn_kernel(int wf, int kind) {
+  if (wf == kBf16) return ffn_of<kBf16>(kind);
+  return wf == kInt4 ? ffn_of<kInt4>(kind) : ffn_of<kInt8>(kind);
 }
 
 // Why K12 / K15 cannot run these shapes (a CUDA error code), or 0.
@@ -905,12 +935,12 @@ int att_shape_error(int wf, int kind, int C, int CL, int S, int DM, int DD) {
   return 0;
 }
 
-// Why K13 cannot run these shapes (a CUDA error code), or 0.
-int ffn_shape_error(int wf, int C, int CL, int FL, int nf) {
+// Why K13 / K11 cannot run these shapes (a CUDA error code), or 0.
+int ffn_shape_error(int wf, int kind, int C, int CL, int FL, int nf) {
   if (nf <= 0 || nf > kMaxTiles || FL % nf != 0 || C % 16 != 0 || CL % 4 != 0 ||
       (FL / nf) % 16 != 0 || CL > C)
     return static_cast<int>(cudaErrorInvalidValue);
-  const FfnLayout lo(C, FL, nf, wf);
+  const FfnLayout lo(C, FL, nf, wf, kind);
   if (static_cast<int>(lo.stages) < stream::kMinStages || lo.vec_rows < 2)
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
@@ -955,11 +985,11 @@ int att_launch(int wf, int kind, const void* x, const void* att_in, const void* 
   return tp_launch_of(att_kernel(wf, kind), a, a.lo.smem, grid_blocks, kBlockThreads, stream);
 }
 
-int ffn_launch(int wf, bool mix45, const void* x, const void* ffn_in, const void* fr,
+int ffn_launch(int wf, int kind, const void* x, const void* ffn_in, const void* fr,
                const void* fr_d, const void* fk, const void* fk_d, const void* fv,
                const void* fv_d, const void* rvec, void* part, void* rg, void* ffn_out,
                void* scratch, int C, int CL, int FL, int nf, int grid_blocks, void* stream) {
-  const int bad = ffn_shape_error(wf, C, CL, FL, nf);
+  const int bad = ffn_shape_error(wf, kind, C, CL, FL, nf);
   if (bad != 0) return bad;
   if (grid_blocks <= 0 || !stream::part_fits(FL > C ? FL : C, grid_blocks))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -980,34 +1010,37 @@ int ffn_launch(int wf, bool mix45, const void* x, const void* ffn_in, const void
   a.ffn_out = static_cast<float*>(ffn_out);
   a.scratch = static_cast<float*>(scratch);
   a.C = C; a.CL = CL; a.FL = FL; a.nf = nf;
-  a.lo = tp_layout(FfnLayout(C, FL, nf, wf));
-  return tp_launch_of(ffn_kernel(wf, mix45), a, a.lo.smem, grid_blocks, kBlockThreads, stream);
+  a.lo = tp_layout(FfnLayout(C, FL, nf, wf, kind));
+  return tp_launch_of(ffn_kernel(wf, kind), a, a.lo.smem, grid_blocks, kBlockThreads, stream);
 }
 
 }  // namespace
 
-// The stream plan of K12, K13 or K15 in form wf (0 int8, 1 int4, 2 bf16)
-// as the kernels compute it, for ops/megakernel_tp.py::tp_v6_stream_plan
-// to be held to: kind 0 K12 (C, CL, S, DM, DD), 1 K13 (C, CL, FL, nf;
-// either MIX45 instance: the same plan), 2 K15 on v5.1 and 3 on v5.2 (C,
-// CL, S). out[0] the launch's dynamic shared bytes, out[1] a stage's
-// bytes, out[2] the stages, out[3] block `block`'s pieces of a grid of
-// `blocks`, out[4] the kernel's static shared bytes, out[5] the vector
-// rows a piece. Returns a CUDA error code (0: none).
+// The stream plan of K12, K13, K15 or K11 in form wf (0 int8, 1 int4, 2
+// bf16) as the kernels compute it, for ops/megakernel_tp.py::
+// tp_v6_stream_plan to be held to: kind 0 K12 (C, CL, S, DM, DD), 1 K13
+// (C, CL, FL, nf; either of its forms: the same plan), 2 K15 on v5.1 and 3
+// on v5.2 (C, CL, S), 4 K11 (C, FL, nf). out[0] the launch's dynamic
+// shared bytes, out[1] a stage's bytes, out[2] the stages, out[3] block
+// `block`'s pieces of a grid of `blocks`, out[4] the kernel's static
+// shared bytes, out[5] the vector rows a piece. Returns a CUDA error code
+// (0: none).
 extern "C" int rwkv_tp_v6_plan(int wf, int kind, int C, int CL, int FL, int nf, int S, int DM,
                                int DD, int blocks, int block, long long* out) {
-  if (wf < kInt8 || wf > kBf16 || kind < 0 || kind > 3 || blocks <= 0 || block < 0 ||
+  if (wf < kInt8 || wf > kBf16 || kind < 0 || kind > 4 || blocks <= 0 || block < 0 ||
       block >= blocks)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool ffn = kind == 1 || kind == 4;
   const int att = kind == 0 ? kAttV6 : kind == 2 ? kAttV51 : kAttV52;
-  const int bad = kind == 1 ? ffn_shape_error(wf, C, CL, FL, nf)
-                            : att_shape_error(wf, att, C, CL, S, DM, DD);
+  const int fk = kind == 4 ? kFfnV7 : kFfnV6;
+  const int bad = ffn ? ffn_shape_error(wf, fk, C, CL, FL, nf)
+                      : att_shape_error(wf, att, C, CL, S, DM, DD);
   if (bad != 0) return bad;
   cudaFuncAttributes attr;
   const cudaError_t err =
-      cudaFuncGetAttributes(&attr, kind == 1 ? ffn_kernel(wf, false) : att_kernel(wf, att));
+      cudaFuncGetAttributes(&attr, ffn ? ffn_kernel(wf, fk) : att_kernel(wf, att));
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (kind != 1) {
+  if (!ffn) {
     const TpLayout lo = tp_layout(AttLayout(C, CL, S, DM, DD, wf, att));
     const AttPlan pl(lo, C, CL, S, DM, DD, wf, att, blocks, block);
     out[0] = static_cast<long long>(lo.smem);
@@ -1016,8 +1049,8 @@ extern "C" int rwkv_tp_v6_plan(int wf, int kind, int C, int CL, int FL, int nf, 
     out[3] = pl.pieces();
     out[5] = lo.vec_rows;
   } else {
-    const TpLayout lo = tp_layout(FfnLayout(C, FL, nf, wf));
-    const FfnPlan pl(lo, C, CL, FL, nf, wf, blocks, block);
+    const TpLayout lo = tp_layout(FfnLayout(C, FL, nf, wf, fk));
+    const FfnPlan pl(lo, C, CL, FL, nf, wf, fk, blocks, block);
     out[0] = static_cast<long long>(lo.smem);
     out[1] = static_cast<long long>(lo.stage);
     out[2] = static_cast<long long>(lo.stages);
@@ -1030,10 +1063,10 @@ extern "C" int rwkv_tp_v6_plan(int wf, int kind, int C, int CL, int FL, int nf, 
 
 // The C entries, one per weight form (suffix "", _w4, _bf16): the grid a
 // launch uses (blocks, or a negative CUDA error code) and one launch, of
-// K12, K13, K13's MIX45 form (rwkv_tp_v45_ffn*, the v4 / v5 FFN) and K15
-// (rwkv_tp_v5_att*; gate 0 on v5.1, 1 on v5.2). The bf16 ones read no
-// scales (pass null). Every pointer but the outputs' must be 16-byte
-// aligned.
+// K12, K13, K13's MIX45 form (rwkv_tp_v45_ffn*, the v4 / v5 FFN), K15
+// (rwkv_tp_v5_att*; gate 0 on v5.1, 1 on v5.2) and K11 (rwkv_tp_v7_ffn*).
+// The bf16 ones read no scales (pass null). Every pointer but the outputs'
+// must be 16-byte aligned.
 #define RWKV_TP_V6_ATT_PARAMS                                                                   \
   const void *x, const void *att_in, const void *heads_in, const void *rkvg,                    \
       const void *rkvg_d, const void *maa1, const void *maa1_d, const void *dw1,                \
@@ -1053,7 +1086,11 @@ extern "C" int rwkv_tp_v6_plan(int wf, int kind, int C, int CL, int FL, int nf, 
   x, ffn_in, fr, fr_d, fk, fk_d, fv, fv_d, rvec, part, rg, ffn_out, scratch, C, CL, FL, nf,    \
       grid_blocks, stream
 // The grid entries take the widths that set the launch's shared memory:
-// K12 (C, CL, S, DM, DD), K13 (C, FL, nf), K15 (C, CL, S, gate).
+// K12 (C, CL, S, DM, DD), K13 and K11 (C, FL, nf), K15 (C, CL, S, gate).
+#define RWKV_TP_V7_FFN_PARAMS                                                                   \
+  const void *x, const void *ffn_in, const void *fk, const void *fk_d, const void *fv,          \
+      const void *fv_d, const void *rvec, void *part, void *ffn_out, void *scratch, int C,      \
+      int FL, int nf, int grid_blocks, void *stream
 #define RWKV_TP_V5_ATT_PARAMS                                                                   \
   const void *x, const void *att_in, const void *heads_in, const void *rkvg,                    \
       const void *rkvg_d, const void *out, const void *out_d, const void *rvec,                 \
@@ -1068,18 +1105,26 @@ extern "C" int rwkv_tp_v6_plan(int wf, int kind, int C, int CL, int FL, int nf, 
     return att_launch(wf, kAttV6, RWKV_TP_V6_ATT_ARGS);                                         \
   }                                                                                             \
   extern "C" int rwkv_tp_v6_ffn##suffix##_grid(int C, int FL, int nf) {                        \
-    return tp_grid_blocks_of(ffn_kernel(wf, false), FfnLayout(C, FL, nf, wf).smem,             \
+    return tp_grid_blocks_of(ffn_kernel(wf, kFfnV6), FfnLayout(C, FL, nf, wf, kFfnV6).smem,    \
                              kBlockThreads);                                                    \
   }                                                                                             \
   extern "C" int rwkv_tp_v6_ffn##suffix(RWKV_TP_V6_FFN_PARAMS) {                               \
-    return ffn_launch(wf, false, RWKV_TP_V6_FFN_ARGS);                                          \
+    return ffn_launch(wf, kFfnV6, RWKV_TP_V6_FFN_ARGS);                                         \
   }                                                                                             \
   extern "C" int rwkv_tp_v45_ffn##suffix##_grid(int C, int FL, int nf) {                       \
-    return tp_grid_blocks_of(ffn_kernel(wf, true), FfnLayout(C, FL, nf, wf).smem,              \
+    return tp_grid_blocks_of(ffn_kernel(wf, kFfnV45), FfnLayout(C, FL, nf, wf, kFfnV45).smem,  \
                              kBlockThreads);                                                    \
   }                                                                                             \
   extern "C" int rwkv_tp_v45_ffn##suffix(RWKV_TP_V6_FFN_PARAMS) {                              \
-    return ffn_launch(wf, true, RWKV_TP_V6_FFN_ARGS);                                           \
+    return ffn_launch(wf, kFfnV45, RWKV_TP_V6_FFN_ARGS);                                        \
+  }                                                                                             \
+  extern "C" int rwkv_tp_v7_ffn##suffix##_grid(int C, int FL, int nf) {                        \
+    return tp_grid_blocks_of(ffn_kernel(wf, kFfnV7), FfnLayout(C, FL, nf, wf, kFfnV7).smem,    \
+                             kBlockThreads);                                                    \
+  }                                                                                             \
+  extern "C" int rwkv_tp_v7_ffn##suffix(RWKV_TP_V7_FFN_PARAMS) {                               \
+    return ffn_launch(wf, kFfnV7, x, ffn_in, nullptr, nullptr, fk, fk_d, fv, fv_d, rvec, part,  \
+                      nullptr, ffn_out, scratch, C, 0, FL, nf, grid_blocks, stream);            \
   }                                                                                             \
   extern "C" int rwkv_tp_v5_att##suffix##_grid(int C, int CL, int S, int gate) {               \
     const int kind = gate ? kAttV52 : kAttV51;                                                  \

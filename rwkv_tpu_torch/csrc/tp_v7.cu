@@ -1,22 +1,21 @@
-// K10 and K11: one layer of an RWKV v7 decode step at B=1 on one shard of
-// a tensor-parallel mesh, w8a8, w4a8 or bf16. One launch per shard per
-// layer each; the caller sums the shards' full-C partials (all_reduce in
-// ops/megakernel_tp.py) between them.
+// K10: the attention of one layer of an RWKV v7 decode step at B=1 on one
+// shard of a tensor-parallel mesh, w8a8, w4a8 or bf16. One launch per
+// shard per layer; the caller sums the shards' full-C partials (all_reduce
+// in ops/megakernel_tp.py), then runs the FFN (K11, a form of K13's kernel
+// in tp_v6.cu).
 //
 // Replaces rwkv_tpu/ops/megakernel_tp.py::_att_layer_call (kernel
-// _make_att_kernel: K10) and _ffn_layer_call (_make_ffn_kernel: K11), in
-// their int8 (w8a8), int4 (w4a8: matv4) and bf16 (quant=False) forms.
+// _make_att_kernel), in its int8 (w8a8), int4 (w4a8: matv4) and bf16
+// (quant=False) forms.
 //
-// Bound on this card: bytes. At the World 1.5B v7 width (C=2048, F=8192,
-// d_lora 96) and tp=2 a K10 launch reads its shard's rkv rows (3 x 1024 x
-// 2048), the whole lora1 (4 x 96 x 2048: replicated, so every shard reads
-// it), its lora2 rows and out columns (2048 x 1024), ~9.2 MB int8, and
-// the shard's wkv state (16 heads, 0.26 MB) twice; a K11 launch its fk
-// rows and fv columns, 2 x 4096 x 2048 = 16.8 MB int8. At 3.35 TB/s that
-// is ~3 us and ~5 us a launch; the int4 form halves the big matrices, the
-// bf16 form doubles every matrix.
+// Bound on this card: bytes. At the World 1.5B v7 width (C=2048, d_lora
+// 96) and tp=2 a launch reads its shard's rkv rows (3 x 1024 x 2048), the
+// whole lora1 (4 x 96 x 2048: replicated, so every shard reads it), its
+// lora2 rows and out columns (2048 x 1024), ~9.2 MB int8, and the shard's
+// wkv state (16 heads, 0.26 MB) twice: ~3 us at 3.35 TB/s; the int4 form
+// halves the big matrices, the bf16 form doubles every matrix.
 //
-// K10: the phases of K3 (v7_decode.cu) for one layer and one shard, on the
+// Design: K3's phases (v7_decode.cu) for one layer and one shard, on the
 // shared input stream (decode_stream.cuh, tp_stream.cuh): a persistent
 // cooperative kernel, one block per SM, each block eight consumer warps and
 // one producer warp.
@@ -45,32 +44,24 @@
 // downs and C the shard's xo in one pass from an amax the producing phase
 // published with atomicMax (exact in any order).
 //
-// K11 (the FFN) is a cooperative kernel of one 256-thread block per SM:
-//   A  ln2 + shift, quantized, the shard's fk rows (F/tp, nf tiles) with
-//      relu^2
-//   B  per tile, its keys quantized with their own scale and the C rows of
-//      the tile's fv summed into the partial (tp_fv_tiles)
-// Weight rows are spread over every warp of the grid with 16-byte loads and
-// __dp4a (matvec_rows, common.cuh), one grid barrier between the phases.
-//
-// Numerics follow the JAX kernels (explicit round-to-nearest float ops,
+// Numerics follow the JAX kernel (explicit round-to-nearest float ops,
 // IEEE division in the activation scale): each matvec input is quantized
-// as a whole, and the split contractions' inputs are the shard's local
-// slices with their own scales, as the TP kernels do (and the single-device
-// ones do not). The bf16 form stages f32 activations and reads no scales.
+// as a whole, and the out input is the shard's local slice with its own
+// scale, as the TP kernels do (and the single-device ones do not). The
+// bf16 form stages f32 activations and reads no scales.
 #include "v7_stream.cuh"
-#include "tp_common.cuh"
 #include "tp_stream.cuh"
 
 namespace {
 
-// a K10 block: kConsumers compute threads (decode_stream.cuh), then one
+// a block: kConsumers compute threads (decode_stream.cuh), then one
 // producer warp
 constexpr int kThreads = stream::kConsumers;
 constexpr int kBlockThreads = stream::kBlockThreads;
 
 // rows of a shard's replicated vector block [L, kNumRVec7, C] and of its
-// own [L, kNumLVec7, C/tp] (ops/megakernel_tp.py TP_RVECS, TP_LVECS)
+// own [L, kNumLVec7, C/tp] (ops/megakernel_tp.py TP_RVECS, TP_LVECS; K11
+// reads ln2 and x_k at rows 2-4)
 enum RVec7 { kRLn1W = 0, kRLn1B, kRLn2W, kRLn2B, kRXK, kRCoeff, kNumRVec7 = kRCoeff + 6 };
 enum LVec7 { kLW0 = 0, kLA0, kLV0, kLKK, kLKA, kLLnxW, kLLnxB, kLRK, kNumLVec7 };
 
@@ -434,71 +425,12 @@ __global__ void __launch_bounds__(kBlockThreads, 1) tp_v7_att_kernel(AttArgs p) 
   PHASE_MARK();
 }
 
-// ---- K11 --------------------------------------------------------------------
-
-struct FfnArgs {
-  const float* x;          // [C]
-  const float* ffn_in;     // [C]
-  const int8_t* fk;        // [FL, C] form WF: the shard's rows of nf tiles
-  const float* fk_d;       // [FL]
-  const int8_t* fv;        // [nf, C, FT] form WF
-  const float* fv_d;       // [C]
-  const float* rvec;       // [kNumRVec7, C]
-  float* part;             // [C] the shard's partial of fv
-  float* ffn_out;          // [C] ln2(x), the new ffn_xx
-  float* scratch;          // [FL] relu^2 keys
-  int C, FL, nf;
-};
-
-template <int WF>
-__global__ void __launch_bounds__(kTpThreads) tp_v7_ffn_kernel(FfnArgs p) {
-  cg::grid_group grid = cg::this_grid();
-  const int C = p.C, tid = threadIdx.x;
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);  // [C]
-  float* xl = xs + C;                           // [C] ln2(x)
-  float* red = xl + C;                          // [8][32]
-  float* dxs = red + 8 * 32;                    // [8]
-  act_t<WF>* q8 = reinterpret_cast<act_t<WF>*>(dxs + 8);  // [max(C, FT)]
-
-  // ---- A: ln2 + shift, fk rows with relu^2 ---------------------------------
-  for (int c = tid; c < C; c += blockDim.x) xs[c] = p.x[c];
-  __syncthreads();
-  layer_norm_block(xs, xl, p.rvec + kRLn2W * C, p.rvec + kRLn2B * C, C, 1e-5f, red);
-  if (blockIdx.x == 0)
-    for (int c = tid; c < C; c += blockDim.x) p.ffn_out[c] = xl[c];
-  const float* xk = p.rvec + kRXK * C;
-  act_n<WF, 1>([&](int, int c) { return add(xl[c], mul(sub(p.ffn_in[c], xl[c]), xk[c])); }, C, q8,
-               0, dxs, red);
-  matvec_grid<WF, 1>(p.fk, p.FL, C, 1, [&](int, int) { return q8; },
-      [&](int row, int, auto acc) {
-        const float y = fmaxf(dequant(acc, dxs[0], p.fk_d + row), 0.f);
-        p.scratch[row] = mul(y, y);
-      },
-      lanes_for(C, WF));
-  grid.sync();
-
-  // ---- B: the fv tiles into the partial ------------------------------------
-  tp_fv_tiles<WF>(p.scratch, p.fv, p.fv_d, p.part, C, p.FL, p.nf, red, dxs, q8);
-}
-
-size_t ffn_smem(int C, int FT, int wf) {
-  return tp_smem(2ull * C + 8 * 32 + 8, C > FT ? C : FT, wf);
-}
-
 // ---- launches ----------------------------------------------------------------
 
 const void* att_kernel(int wf) {
   if (wf == kBf16) return reinterpret_cast<const void*>(tp_v7_att_kernel<kBf16>);
   return wf == kInt4 ? reinterpret_cast<const void*>(tp_v7_att_kernel<kInt4>)
                      : reinterpret_cast<const void*>(tp_v7_att_kernel<kInt8>);
-}
-
-const void* ffn_kernel(int wf) {
-  if (wf == kBf16) return reinterpret_cast<const void*>(tp_v7_ffn_kernel<kBf16>);
-  return wf == kInt4 ? reinterpret_cast<const void*>(tp_v7_ffn_kernel<kInt4>)
-                     : reinterpret_cast<const void*>(tp_v7_ffn_kernel<kInt8>);
 }
 
 // Why K10 cannot run these shapes (a CUDA error code), or 0.
@@ -553,25 +485,6 @@ int att_launch(int wf, const void* x, const void* att_in, const void* heads_in, 
   return tp_launch_of(att_kernel(wf), a, a.lo.smem, grid_blocks, kBlockThreads, stream);
 }
 
-int ffn_launch(int wf, const void* x, const void* ffn_in, const void* fk, const void* fk_d,
-               const void* fv, const void* fv_d, const void* rvec, void* part, void* ffn_out,
-               void* scratch, int C, int FL, int nf, int grid_blocks, void* stream) {
-  if (nf <= 0 || FL % nf != 0) return static_cast<int>(cudaErrorInvalidValue);
-  FfnArgs a;
-  a.x = static_cast<const float*>(x);
-  a.ffn_in = static_cast<const float*>(ffn_in);
-  a.fk = static_cast<const int8_t*>(fk);
-  a.fk_d = static_cast<const float*>(fk_d);
-  a.fv = static_cast<const int8_t*>(fv);
-  a.fv_d = static_cast<const float*>(fv_d);
-  a.rvec = static_cast<const float*>(rvec);
-  a.part = static_cast<float*>(part);
-  a.ffn_out = static_cast<float*>(ffn_out);
-  a.scratch = static_cast<float*>(scratch);
-  a.C = C; a.FL = FL; a.nf = nf;
-  return tp_launch(ffn_kernel(wf), a, ffn_smem(C, FL / nf, wf), grid_blocks, stream);
-}
-
 }  // namespace
 
 // K10's stream plan in form wf (0 int8, 1 int4, 2 bf16) as the kernel
@@ -615,27 +528,14 @@ extern "C" int rwkv_tp_v7_plan(int wf, int C, int CL, int S, int D, int blocks, 
 #define RWKV_TP_V7_ATT_ARGS                                                                     \
   x, att_in, heads_in, vf, rkv, rkv_d, lora1, lora1_d, lora2, lora2_d, out, out_d, rvec, lvec,  \
       part, att_out, heads_out, scratch, C, CL, S, D, first, grid_blocks, stream
-#define RWKV_TP_V7_FFN_PARAMS                                                                   \
-  const void *x, const void *ffn_in, const void *fk, const void *fk_d, const void *fv,          \
-      const void *fv_d, const void *rvec, void *part, void *ffn_out, void *scratch, int C,      \
-      int FL, int nf, int grid_blocks, void *stream
-#define RWKV_TP_V7_FFN_ARGS \
-  x, ffn_in, fk, fk_d, fv, fv_d, rvec, part, ffn_out, scratch, C, FL, nf, grid_blocks, stream
 
-// The grid entries take the widths that set the launch's shared memory:
-// K10 (C, CL, S, D), K11 (C, FT).
+// The grid entry takes the widths that set the launch's shared memory.
 #define RWKV_TP_V7_ENTRIES(suffix, wf)                                                          \
   extern "C" int rwkv_tp_v7_att##suffix##_grid(int C, int CL, int S, int D) {                  \
     return tp_grid_blocks_of(att_kernel(wf), AttLayout(C, CL, S, D, wf).smem, kBlockThreads);  \
   }                                                                                             \
   extern "C" int rwkv_tp_v7_att##suffix(RWKV_TP_V7_ATT_PARAMS) {                               \
     return att_launch(wf, RWKV_TP_V7_ATT_ARGS);                                                 \
-  }                                                                                             \
-  extern "C" int rwkv_tp_v7_ffn##suffix##_grid(int C, int FT) {                                \
-    return tp_grid_blocks(ffn_kernel(wf), ffn_smem(C, FT, wf));                                 \
-  }                                                                                             \
-  extern "C" int rwkv_tp_v7_ffn##suffix(RWKV_TP_V7_FFN_PARAMS) {                               \
-    return ffn_launch(wf, RWKV_TP_V7_FFN_ARGS);                                                 \
   }
 
 RWKV_TP_V7_ENTRIES(, kInt8)

@@ -45,13 +45,12 @@ plain versions ``tp_att_layer_ref`` / ``tp_ffn_layer_ref`` / ``_v6_ref``
 / ``tp_att_layer_v5_ref`` / ``_v4_ref`` read those tensors; the wrappers
 ``tp_att_layer``, ``tp_ffn_layer``, ``tp_att_layer_v6``,
 ``tp_ffn_layer_v6``, ``tp_att_layer_v5``, ``tp_att_layer_v4`` and
-``tp_ffn_layer_v45`` launch ``csrc/tp_v7.cu`` (K10, K11),
-``csrc/tp_v6.cu`` (K12, K13 and K13's v4/v5 form, K15) and
-``csrc/tp_v45.cu`` (K14) once on a CUDA pack, counting launches in
-``.launches`` / ``.launches_by_form``, and take the plain versions on a
-CPU pack. K10, K12, K13 and K15 run on the shared weight stream; their
-plans (``tp_v6_stream_plan``) are held to the kernels' own at a pack's
-first launch (``tp6_grid``).
+``tp_ffn_layer_v45`` launch ``csrc/tp_v7.cu`` (K10), ``csrc/tp_v6.cu``
+(K11, K12, K13 and K13's v4/v5 form, K15) and ``csrc/tp_v45.cu`` (K14)
+once on a CUDA pack, counting launches in ``.launches`` /
+``.launches_by_form``, and take the plain versions on a CPU pack. All six
+run on the shared weight stream; their plans (``tp_v6_stream_plan``) are
+held to the kernels' own at a pack's first launch (``tp6_grid``).
 """
 
 from __future__ import annotations
@@ -67,7 +66,7 @@ from rwkv_tpu_torch.ops import _cuda
 from rwkv_tpu_torch.ops.kernels import pack_int4, unpack_int4
 from rwkv_tpu_torch.ops.megakernel import (
     FORMS, STREAM_MIN_STAGES, _SUFFIX, StreamCopy, _StreamPlan, _cdiv, _count, _form_bytes,
-    _grid_blocks, _lanes_for, _matvec, _mix45, _ring, _round_up, _small_form,
+    _grid_blocks, _lanes_for, _matvec, _mix45, _part, _ring, _round_up, _small_form,
     _stream_rows_copies, _win_bytes,
 )
 from rwkv_tpu_torch.ops.parity import layer_norm
@@ -144,20 +143,20 @@ def _dims_error(name: str, cfg, tp: int, f_dim: int, w4: bool, inner=(),
 
 def tp_shape_error(cfg, tp: int, d_lora: int, f_dim: int, w4: bool = False,
                    form: Optional[str] = None) -> Optional[str]:
-    """Why K10 / K11 cannot take this v7 model at tp shards, or None (K10's
-    stream plan checked in `form`, by default the int form `w4` names; K11's
-    shared memory at launch)."""
+    """Why K10 / K11 cannot take this v7 model at tp shards, or None (their
+    stream plans checked in `form`, by default the int form `w4` names)."""
     if cfg.version_major != 7:
         return "K10 / K11 decode RWKV v7 only"
     return (_dims_error("K10 / K11", cfg, tp, f_dim, w4, (("d_lora", d_lora),))
-            or _tp6_plan_error(cfg, tp, f_dim, w4, form, ("att7",), d_lora=d_lora))
+            or _tp6_plan_error(cfg, tp, f_dim, w4, form, ("att7", "ffn7"), d_lora=d_lora))
 
 
 def _tp6_plan_error(cfg, tp: int, f_dim: int, w4: bool, form: Optional[str], kinds,
                     d_maa: int = 0, d_dec: int = 0, d_lora: int = 0) -> Optional[str]:
-    """Why the stream plan of K12 ("att"), K13 ("ffn"), K15 ("att5") or K10
-    ("att7") in `kinds` cannot take these widths (``tp_v6_stream_plan`` at
-    grid 1, in `form`: by default the int form `w4` names), or None."""
+    """Why the stream plan of K12 ("att"), K13 ("ffn"), K15 ("att5"), K10
+    ("att7"), K11 ("ffn7") or K14 ("att4") in `kinds` cannot take these
+    widths (``tp_v6_stream_plan`` at grid 1, in `form`: by default the int
+    form `w4` names), or None."""
     c, f_loc = cfg.n_embed, f_dim // tp
     n_mix = 4 if cfg.version_minor == 2 else 3
     for kind in kinds:
@@ -196,11 +195,11 @@ def tp_shape_error_v4(cfg, tp: int, f_dim: int, w4: bool = False,
                       form: Optional[str] = None) -> Optional[str]:
     """Why K14 / K13 cannot take this v4 model at tp shards, or None: C
     and F split over the shards, no head rule (v4's state is a scalar per
-    channel); K13's stream plan checked in `form`."""
+    channel); their stream plans checked in `form`."""
     if cfg.version_major != 4:
         return "K14 / K13 decode RWKV v4 only"
     return (_dims_error("K14 / K13", cfg, tp, f_dim, w4, heads=False)
-            or _tp6_plan_error(cfg, tp, f_dim, w4, form, ("ffn",)))
+            or _tp6_plan_error(cfg, tp, f_dim, w4, form, ("ffn", "att4")))
 
 
 # -- packs --------------------------------------------------------------------
@@ -610,9 +609,9 @@ def tp_att_layer_v4_ref(pack: dict, l: int, x, att_xx, aa, bb, pp, cfg):
     return _mv(pack, "out", l, r * wkv)[0], xl[0], aa, bb, pp
 
 
-# -- the stream plans of K10, K12, K13 and K15 (csrc/tp_v6.cu: AttLayout /
-# AttPlan / att_copy, FfnLayout / FfnPlan / ffn_copy; csrc/tp_v7.cu: K10's
-# AttLayout / AttPlan / att_copy) ---------------------------------------------
+# -- the stream plans of K10-K15 (csrc/tp_v6.cu: AttLayout / AttPlan /
+# att_copy, FfnLayout / FfnPlan / ffn_copy; csrc/tp_v7.cu: K10's AttLayout /
+# AttPlan / att_copy; csrc/tp_v45.cu: Att4Layout / Att4Plan / att4_copy) ----
 #
 # The shard kernels run on the B=1 decode kernels' input stream
 # (csrc/decode_stream.cuh, csrc/tp_stream.cuh; ``ops.megakernel``'s
@@ -623,26 +622,39 @@ def tp_att_layer_v4_ref(pack: dict, l: int, x, att_xx, aa, bb, pp, cfg):
 # scales and its four vector slices in one piece, its state in the next;
 # K15 its state with its four vector slices in one piece; K10 its state
 # with its eight vector slices and v_first in one piece, then its lora2
-# rows, ``l2_runs`` runs of S rows with their scales a piece; the ring the
-# other stream kernels' (about ``STREAM_TARGET_STAGES`` stages). The
-# kernels compute the layout on the host and each block's plan at its start
-# (the header's ``part``). Copies read from layer l's tensor of the shard
-# pack (``pack[array][l]``) or from the launch's inputs (``att_in`` /
-# ``ffn_in``, ``heads_in``, ``vf``), at byte ``offset`` of it.
+# rows, ``l2_runs`` runs of S rows with their scales a piece; K14's phase B
+# its td at the block's channels, tf and the old aa, bb, pp, ``vec_rows`` a
+# piece; the ring the other stream kernels' (about
+# ``STREAM_TARGET_STAGES`` stages). The kernels compute the layout on the
+# host and each block's plan at its start (the header's ``part``). Copies
+# read from layer l's tensor of the shard pack (``pack[array][l]``) or from
+# the launch's inputs (``att_in`` / ``ffn_in``, ``heads_in``, ``vf``,
+# ``aa_in`` / ``bb_in`` / ``pp_in``), at byte ``offset`` of it.
 TP6_STATIC_SMEM = 0  # the stream kernels' static shared memory (the card tests read the kernels')
-TP6_MAX_TILES = 32  # K13's FFN tiles at most (kMaxTiles: one published amax each)
+TP6_MAX_TILES = 32  # K13's and K11's FFN tiles at most (kMaxTiles: one published amax each)
 TP6_ATT_AMAX = 8  # K12's / K15's published amax slots behind the scratch
 TP7_ATT_AMAX = 4  # K10's (xo's, padded)
-TP_KERNEL = {"att": "K12", "ffn": "K13", "att5": "K15", "att7": "K10"}
+TP_KERNEL = {"att": "K12", "ffn": "K13", "att5": "K15", "att7": "K10", "ffn7": "K11",
+             "att4": "K14"}
 TP_SEGS = {"att": ("vec", "maa1", "maa2", "rkvg", "dw1", "heads", "out"),
            "ffn": ("vec", "fk", "fr", "fv"),
            "att5": ("vec", "rkvg", "heads", "out"),
-           "att7": ("vec", "rkv", "lora1", "heads", "out")}
+           "att7": ("vec", "rkv", "lora1", "heads", "out"),
+           "ffn7": ("vec", "fk", "fv"),
+           "att4": ("vec", "rkv", "vec_b", "out")}
 TP_STREAMED = {"att": ("maa1", "maa2", "rkvg", "dw1", "out"), "ffn": ("fk", "fr"),
-               "att5": ("rkvg", "out"), "att7": ("rkv", "lora1", "out")}
+               "att5": ("rkvg", "out"), "att7": ("rkv", "lora1", "out"), "ffn7": ("fk",),
+               "att4": ("rkv", "out")}
 # phase A's vector rows in stream order: (array, row of rvecs; None: the whole input)
 TP6_ATT_VECS = (("rvecs", 0), ("rvecs", 1), ("rvecs", 4), ("att_in", None))
 TP6_FFN_VECS = (("rvecs", 2), ("rvecs", 3), ("rvecs", 5), ("rvecs", 6), ("ffn_in", None))
+# K11: ln2 w, b, x_k (TP_RVECS 2-4), ffn_in
+TP7_FFN_VECS = (("rvecs", 2), ("rvecs", 3), ("rvecs", 4), ("ffn_in", None))
+# K14: ln1 w, b, the mixes k, v, r (TP4_RVECS 4, 7, 8), att_in; phase B's five
+# rows (td at the block's channels, tf, aa_in, bb_in, pp_in)
+TP4_ATT_VECS = (("rvecs", 0), ("rvecs", 1), ("rvecs", 4), ("rvecs", 7), ("rvecs", 8),
+                ("att_in", None))
+TP4_VEC_B = 5
 # K15: ln1 w, b, att_in, then the mixes k, v, r(, g) (TP5_RVECS rows 4, 7, 8, 9)
 TP5_ATT_VECS = (("rvecs", 0), ("rvecs", 1), ("att_in", None), ("rvecs", 4), ("rvecs", 7),
                 ("rvecs", 8), ("rvecs", 9))
@@ -657,14 +669,14 @@ TP6_HEAD_LVECS = (0, 3, 1, 2)
 @dataclass(frozen=True)
 class TP6StreamPlan(_StreamPlan):
     """The stream plan of K12 ("att"), K13 ("ffn", either mix), K15
-    ("att5", ``n_mix`` 3 on v5.1, 4 on v5.2) or K10 ("att7", ``d_lora``)
-    for one weight form and grid (``tp_v6_stream_plan``): the
-    shared-memory layout (activations at ``act_off``, mbarriers at
-    ``bar_off``, ``n_stages`` stages of ``stage_bytes`` from ``ring_off``;
-    ``smem_bytes`` in all), ``vec_rows`` vector rows a piece (K10:
-    ``l2_runs`` lora2 runs a piece), and per block the rows of each phase
-    and the copies of each piece of its stream (one layer; K10's with
-    v_first read, unless ``first``)."""
+    ("att5", ``n_mix`` 3 on v5.1, 4 on v5.2), K10 ("att7", ``d_lora``), K11
+    ("ffn7") or K14 ("att4") for one weight form and grid
+    (``tp_v6_stream_plan``): the shared-memory layout (activations at
+    ``act_off``, mbarriers at ``bar_off``, ``n_stages`` stages of
+    ``stage_bytes`` from ``ring_off``; ``smem_bytes`` in all), ``vec_rows``
+    vector rows a piece (K10: ``l2_runs`` lora2 runs a piece), and per
+    block the rows of each phase and the copies of each piece of its stream
+    (one layer; K10's with v_first read, unless ``first``)."""
 
     HEAD_SEGS = ()
 
@@ -700,13 +712,20 @@ class TP6StreamPlan(_StreamPlan):
 
     @property
     def n_heads(self) -> int:
-        """Heads of the shard (the attention kernels' per-head phase)."""
-        return 0 if self.kind == "ffn" else self.c_loc // self.head_size
+        """Heads of the shard (the per-head phase of K10, K12 and K15)."""
+        return self.c_loc // self.head_size if self.kind in ("att", "att5", "att7") else 0
 
     @property
     def vecs(self) -> tuple:
         return {"att": TP6_ATT_VECS, "ffn": TP6_FFN_VECS, "att7": TP7_ATT_VECS,
+                "ffn7": TP7_FFN_VECS, "att4": TP4_ATT_VECS,
                 "att5": TP5_ATT_VECS[:3 + self.n_mix]}[self.kind]
+
+    def channels(self, block: int) -> tuple:
+        """K14: the channels [s0, s1) whose new aa, bb, pp block `block`
+        writes (whole 4-channel groups, as the header's ``part`` deals rows)."""
+        r = _part(self.c_loc, self.blocks, block, False, 4, False, self.stage_bytes, 1)
+        return r.r0, r.r1
 
     @property
     def head_pieces(self) -> int:
@@ -735,6 +754,8 @@ class TP6StreamPlan(_StreamPlan):
     def _count(self, seg: str, block: int) -> int:
         if seg == "vec":
             return _cdiv(len(self.vecs), self.vec_rows)
+        if seg == "vec_b":
+            return _cdiv(TP4_VEC_B, self.vec_rows)
         if seg == "heads":
             return self.head_pieces * len(self.block_heads(block))
         return self.nf * self.rows("fv", block).pieces()  # fv: every tile's pieces
@@ -747,6 +768,14 @@ class TP6StreamPlan(_StreamPlan):
             run = self.vecs[idx * self.vec_rows:(idx + 1) * self.vec_rows]
             return tuple(StreamCopy(a, 0 if row is None else 4 * row * c, 4 * c, 4 * c * j)
                          for j, (a, row) in enumerate(run))
+        if seg == "vec_b":  # row slot j of the piece at 4 c j, as phase A's
+            s0, s1 = self.channels(block)
+            cl = self.c_loc
+            rows = [("lvecs", 4 * s0, 4 * (s1 - s0)), ("lvecs", 4 * cl, 4 * cl),
+                    ("aa_in", 0, 4 * cl), ("bb_in", 0, 4 * cl), ("pp_in", 0, 4 * cl)]
+            run = rows[idx * self.vec_rows:(idx + 1) * self.vec_rows]
+            return tuple(StreamCopy(a, off, n, 4 * c * j)
+                         for j, (a, off, n) in enumerate(run) if n > 0)
         if seg == "maa2":
             return _stream_rows_copies(self.rows(seg, block), idx, "maa2", 0,
                                        ("rvecs", 4 * _TP6_MAA5_ROW * c))
@@ -807,18 +836,19 @@ def tp_v6_stream_plan(form: str, c: int, c_loc: int, f_loc: int, nf: int, d_maa:
                       head_size: int, blocks: int, kind: str, n_mix: int = 0,
                       d_lora: int = 0) -> TP6StreamPlan:
     """The stream plan of K12 (`kind` "att"), K13 ("ffn"), K15 ("att5",
-    `n_mix` 3 or 4) or K10 ("att7", `d_lora`) in weight form `form` ("i8",
-    "i4", "bf16") for a grid of `blocks` on a shard of `c_loc` channels and
-    `f_loc` FFN rows in `nf` tiles (the kernels' own: ``rwkv_tp_v6_plan``,
-    ``rwkv_tp_v7_plan``). The ring takes what shared memory is left below
+    `n_mix` 3 or 4), K10 ("att7", `d_lora`), K11 ("ffn7") or K14 ("att4")
+    in weight form `form` ("i8", "i4", "bf16") for a grid of `blocks` on a
+    shard of `c_loc` channels and `f_loc` FFN rows in `nf` tiles (the
+    kernels' own: ``rwkv_tp_v6_plan``, ``rwkv_tp_v7_plan``,
+    ``rwkv_tp_v4_plan``). The ring takes what shared memory is left below
     ``STREAM_SMEM_LIMIT`` after the activations, about
     ``STREAM_TARGET_STAGES`` stages, each at least the largest piece (two
     vector rows; a head's state (K15, K10: with its slices), K12's dw2 piece,
     K10's lora2 run; one row of any matrix with its scale window); raises
     ValueError on widths the kernel refuses: fewer than
     ``STREAM_MIN_STAGES`` stages, under two vector rows a piece, phase A's
-    vector pieces (K10: a head's pieces) more than the stages, K13 above
-    ``TP6_MAX_TILES`` tiles."""
+    vector pieces (K10: a head's pieces) more than the stages, K13 / K11
+    above ``TP6_MAX_TILES`` tiles."""
     s, sf, bf = head_size, _small_form(form), form == "bf16"
     name = TP_KERNEL[kind]
     ft = f_loc // nf if nf > 0 else 0
@@ -844,17 +874,21 @@ def tp_v6_stream_plan(form: str, c: int, c_loc: int, f_loc: int, nf: int, d_maa:
         row = max(row, _form_bytes(sf, c))
         piece = max(8 * c, 4 * s * s + 4 * (len(TP_LVECS) + 1) * s,
                     _lora2_run(s, d_lora, form), row + _win_bytes(1))
+    elif kind == "att4":
+        act_off = _round_up(4 * (2 * c + 256 + 8), 16)
+        plan_off = _round_up(act_off + (4 if bf else 1) * 3 * c, 16)
+        piece = max(8 * c, row + _win_bytes(1))
     else:
         bad += [nf <= 0 or nf > TP6_MAX_TILES or f_loc % nf or ft % 16]
         act_off = 4 * (2 * c + 256 + 2 * TP6_MAX_TILES + 4)
         plan_off = _round_up(act_off + (4 if bf else 1) * max(2 * c, f_loc), 16)
         piece = max(8 * c, max(_form_bytes(form, c), _form_bytes(form, ft)) + _win_bytes(1))
     if any(bad):
+        tiles = f"F/tp={f_loc} in {nf} tiles (at most {TP6_MAX_TILES}, each a multiple of 16)"
         widths = {"att": f"head size {s}, d_maa {d_maa}, d_dec {d_dec}",
                   "att5": f"head size {s}, {n_mix} mixes",
-                  "att7": f"head size {s}, d_lora {d_lora}",
-                  "ffn": f"F/tp={f_loc} in {nf} tiles (at most {TP6_MAX_TILES}, each a "
-                         "multiple of 16)"}[kind]
+                  "att7": f"head size {s}, d_lora {d_lora}", "att4": "no heads",
+                  "ffn": tiles, "ffn7": tiles}[kind]
         raise ValueError(f"{name} cannot take these widths: C={c}, C/tp={c_loc}, {widths}")
     bar_off, ring_off, stage, stages = _ring(plan_off, piece)
     plan = TP6StreamPlan(kind, form, c, c_loc, f_loc, nf, d_maa, d_dec, head_size, blocks,
@@ -876,9 +910,18 @@ def tp_v6_kernel_plan(form: str, kind: str, c: int, c_loc: int, f_loc: int, nf: 
                       d_dec: int, head_size: int, blocks: int, block: int, n_mix: int = 0,
                       d_lora: int = 0) -> tuple:
     """The kernel's own stream plan (the C entries ``rwkv_tp_v6_plan``, K10's
-    ``rwkv_tp_v7_plan``): (shared bytes, stage bytes, stages, block
-    `block`'s pieces of a grid of `blocks`, the kernel's static shared
-    bytes, vector rows a piece; K10: lora2 runs a piece)."""
+    ``rwkv_tp_v7_plan``, K14's ``rwkv_tp_v4_plan``): (shared bytes, stage
+    bytes, stages, block `block`'s pieces of a grid of `blocks`, the
+    kernel's static shared bytes, vector rows a piece; K10: lora2 runs a
+    piece)."""
+    if kind == "att4":
+        fn = _cuda.library("tp_v45").rwkv_tp_v4_plan
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_longlong * 6)()
+        _cuda.check("tp_v45", "rwkv_tp_v4_plan",
+                    fn(FORMS.index(form), c, c_loc, blocks, block, out))
+        return tuple(out)
     if kind == "att7":
         fn = _cuda.library("tp_v7").rwkv_tp_v7_plan
         fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
@@ -891,7 +934,7 @@ def tp_v6_kernel_plan(form: str, kind: str, c: int, c_loc: int, f_loc: int, nf: 
     fn.argtypes = [ctypes.c_int] * 11 + [ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_longlong * 6)()
-    k = {"att": 0, "ffn": 1}.get(kind, 2 if n_mix == 3 else 3)
+    k = {"att": 0, "ffn": 1, "ffn7": 4}.get(kind, 2 if n_mix == 3 else 3)
     _cuda.check("tp_v6", "rwkv_tp_v6_plan",
                 fn(FORMS.index(form), k, c, c_loc, f_loc, nf, head_size, d_maa, d_dec, blocks,
                    block, out))
@@ -914,13 +957,17 @@ def _tp6_dims(pack: dict, cfg) -> tuple:
 
 def _plan_kind(pack: dict, kind: str) -> str:
     """The plan kind of layer kernel `kind` ("att" or "ffn") on the pack's
-    version: K12 / K13 ("att", "ffn"), K15 ("att5"), K10 ("att7")."""
-    return kind if kind == "ffn" else {7: "att7", 6: "att", 5: "att5"}[pack["version"]]
+    version: K12 / K13 ("att", "ffn"; v4 / v5 "ffn", K13's MIX45 form), K15
+    ("att5"), K10 / K11 ("att7", "ffn7"), K14 ("att4")."""
+    v = pack["version"]
+    if kind == "ffn":
+        return "ffn7" if v == 7 else "ffn"
+    return {7: "att7", 6: "att", 5: "att5", 4: "att4"}[v]
 
 
 def tp_pack_plan(pack: dict, kind: str, cfg, blocks: int) -> TP6StreamPlan:
     """The stream plan of layer kernel `kind` ("att" or "ffn") on a shard
-    pack of any version but v4's attention (K14 streams nothing)."""
+    pack of any version."""
     pk = _plan_kind(pack, kind)
     return tp_v6_stream_plan(pack["form"], *_tp6_dims(pack, cfg), blocks, pk,
                              n_mix=pack.get("n_mix", 0) if pk == "att5" else 0,
@@ -946,13 +993,13 @@ def _tp6_plan_check(pack: dict, kind: str, cfg, grid: int) -> None:
 
 def _lib_entry(kind: str, pack: dict) -> tuple:
     """(library, C entry) of layer kernel `kind` ("att" or "ffn") for the
-    pack's version and form; v4 / v5 run K13's MIX45 instances, v5's
-    attention (K15) is a form of K12's kernel."""
+    pack's version and form: every FFN and v5's attention (K15, a form of
+    K12's kernel) in ``tp_v6``, v4 / v5 on K13's MIX45 instances, v7's
+    attention in ``tp_v7``, v4's in ``tp_v45``."""
     v, sfx = pack["version"], _SUFFIX[pack["form"]]
-    if v in (4, 5):
-        return ("tp_v6", "rwkv_tp_v45_ffn" + sfx) if kind == "ffn" else (
-            "tp_v6" if v == 5 else "tp_v45", f"rwkv_tp_v{v}_att" + sfx)
-    return f"tp_v{v}", f"rwkv_tp_v{v}_{kind}" + sfx
+    if kind == "ffn":
+        return "tp_v6", f"rwkv_tp_v{45 if v in (4, 5) else v}_ffn" + sfx
+    return {7: "tp_v7", 4: "tp_v45"}.get(v, "tp_v6"), f"rwkv_tp_v{v}_att" + sfx
 
 
 def _layer_ptrs(pack: dict, l: int, names) -> list:
@@ -964,21 +1011,6 @@ def _layer_ptrs(pack: dict, l: int, names) -> list:
     if key not in cache:
         cache[key] = [0 if pack.get(n) is None else pack[n][l].data_ptr() for n in names]
     return cache[key]
-
-
-def _grid(pack: dict, kind: str, *dims: int) -> int:
-    key = "_grid_" + kind
-    if key not in pack:
-        lib, name = _lib_entry(kind, pack)
-        pack[key] = _grid_blocks(lib, name + "_grid", *dims)
-    return pack[key]
-
-
-def _launch(pack: dict, kind: str, ptrs: list, ints: tuple, grid: int, dev) -> None:
-    lib, name = _lib_entry(kind, pack)
-    fn = _cuda.function(lib, name, len(ptrs), len(ints) + 1)
-    code = fn(*ptrs, *ints, grid, _cuda.stream_ptr(dev))
-    _cuda.check(lib, name, code)
 
 
 def _f32(t, dev):
@@ -1024,21 +1056,12 @@ def tp_ffn_layer(pack: dict, l: int, x, ffn_xx, cfg, out: Optional[dict] = None)
     """Layer l's v7 FFN on one shard (see ``tp_ffn_layer_ref``). A CUDA
     pack launches kernel K11 once (`out` keys "part", "ffn_xx"); a CPU pack
     takes the plain version."""
-    dev = pack["rvecs"].device
-    if dev.type == "cpu":
+    if pack["rvecs"].device.type == "cpu":
         return tp_ffn_layer_ref(pack, l, x, ffn_xx, cfg)
-    c = cfg.n_embed
-    f_loc = pack["f_dim"] // pack["tp"]
-    x, ffn_xx = _f32(x, dev), _f32(ffn_xx, dev)
-    part = _out(out, "part", (c,), dev)
-    fxx = _out(out, "ffn_xx", (c,), dev)
-    scratch = torch.empty((f_loc,), dtype=torch.float32, device=dev)
-    ptrs = [x.data_ptr(), ffn_xx.data_ptr()] + _layer_ptrs(pack, l, _FFN7_MATS)
-    ptrs += [part.data_ptr(), fxx.data_ptr(), scratch.data_ptr()]
-    grid = _grid(pack, "ffn", c, f_loc // pack["nf"])
-    _launch(pack, "ffn", ptrs, (c, f_loc, pack["nf"]), grid, dev)
+    grid = tp6_grid(pack, "ffn", cfg)
+    res = tp7_ffn_launch(tp6_function(pack, "ffn"), pack, l, x, ffn_xx, cfg, grid, out)
     _count(tp_ffn_layer, pack)
-    return part, fxx
+    return res
 
 
 tp_ffn_layer.launches = 0
@@ -1047,33 +1070,32 @@ tp_ffn_layer.launches_by_form = dict.fromkeys(FORMS, 0)
 
 def tp6_grid(pack: dict, kind: str, cfg) -> int:
     """The grid of a stream kernel for a shard pack -- `kind` "att": K10,
-    K12 or K15 by the pack's version; "ffn": K13 --, its own plan held to
-    ``tp_v6_stream_plan`` on it at the pack's first launch."""
+    K12, K15 or K14 by the pack's version; "ffn": K11 or K13 --, its own
+    plan held to ``tp_v6_stream_plan`` on it at the pack's first launch."""
     key = "_plan_" + kind
     if key not in pack:
         c, c_loc, f_loc, nf, dm, dd, s = _tp6_dims(pack, cfg)
-        dims = {"att": (c, c_loc, s, dm, dd), "ffn": (c, f_loc, nf),
+        dims = {"att": (c, c_loc, s, dm, dd), "ffn": (c, f_loc, nf), "ffn7": (c, f_loc, nf),
                 "att5": (c, c_loc, s, int(pack.get("n_mix") == 4)),
-                "att7": (c, c_loc, s, pack.get("d_lora", 0))}[_plan_kind(pack, kind)]
-        grid = _grid(pack, kind, *dims)
+                "att7": (c, c_loc, s, pack.get("d_lora", 0)),
+                "att4": (c, c_loc)}[_plan_kind(pack, kind)]
+        lib, name = _lib_entry(kind, pack)
+        grid = _grid_blocks(lib, name + "_grid", *dims)
         _tp6_plan_check(pack, kind, cfg, grid)
         pack[key] = grid
     return pack[key]
 
 
 # argument counts (pointers, ints with the grid) of the stream kernels' C
-# entries, by plan kind: K12, K13, K15, K10
-TP6_ATT_ARGS = (20, 6)
-TP6_FFN_ARGS = (13, 5)
-TP5_ATT_ARGS = (13, 5)
-TP7_ATT_ARGS = (18, 6)
-TP_ARGS = {"att": TP6_ATT_ARGS, "ffn": TP6_FFN_ARGS, "att5": TP5_ATT_ARGS, "att7": TP7_ATT_ARGS}
+# entries, by plan kind: K12, K13, K15, K10, K11, K14
+TP_ARGS = {"att": (20, 6), "ffn": (13, 5), "att5": (13, 5), "att7": (18, 6), "ffn7": (10, 4),
+           "att4": (17, 3)}
 
 
 def tp6_function(pack: dict, kind: str):
     """The C launch entry of a stream kernel for the pack's form: `kind`
-    "att" K10, K12 or K15 by the pack's version; "ffn" K13 (a v4 / v5 pack:
-    its MIX45 form)."""
+    "att" K10, K12, K15 or K14 by the pack's version; "ffn" K11 or K13 (a
+    v4 / v5 pack: its MIX45 form)."""
     lib, name = _lib_entry(kind, pack)
     return _cuda.function(lib, name, *TP_ARGS[_plan_kind(pack, kind)])
 
@@ -1102,6 +1124,51 @@ def tp7_att_launch(fn, pack: dict, l: int, x, att_xx, heads, v_first, first: boo
     if code:
         _cuda.check("tp_v7", _lib_entry("att", pack)[1], code)
     return part, axx, new_heads, vf
+
+
+def tp7_ffn_launch(fn, pack: dict, l: int, x, ffn_xx, cfg, grid: int,
+                   out: Optional[dict] = None):
+    """One launch of K11's C entry `fn` on a CUDA v7 shard pack over `grid`
+    blocks (`out` keys "part", "ffn_xx", "scratch"); returns (part,
+    ffn_xx)."""
+    dev = pack["rvecs"].device
+    c = cfg.n_embed
+    f_loc = pack["f_dim"] // pack["tp"]
+    x, ffn_xx = _f32(x, dev), _f32(ffn_xx, dev)
+    part = _out(out, "part", (c,), dev)
+    fxx = _out(out, "ffn_xx", (c,), dev)
+    scratch = _out(out, "scratch", (f_loc,), dev)
+    ptrs = [x.data_ptr(), ffn_xx.data_ptr()] + _layer_ptrs(pack, l, _FFN7_MATS)
+    ptrs += [part.data_ptr(), fxx.data_ptr(), scratch.data_ptr()]
+    code = fn(*ptrs, c, f_loc, pack["nf"], grid, _cuda.stream_ptr(dev))
+    if code:
+        _cuda.check("tp_v6", _lib_entry("ffn", pack)[1], code)
+    return part, fxx
+
+
+def tp4_att_launch(fn, pack: dict, l: int, x, att_xx, aa, bb, pp, cfg, grid: int,
+                   out: Optional[dict] = None):
+    """One launch of K14's C entry `fn` on a CUDA v4 shard pack over `grid`
+    blocks (`out` keys "part", "att_xx", "aa", "bb", "pp", "scratch"); aa,
+    bb, pp: the shard's channels of the state (views at its channel offset
+    stay views). Returns (part, att_xx, aa, bb, pp)."""
+    dev = pack["rvecs"].device
+    c, c_loc = cfg.n_embed, pack["c_loc"]
+    x, att_xx = _f32(x, dev), _f32(att_xx, dev)
+    cols = [_f32(t, dev) for t in (aa, bb, pp)]
+    if any(t.shape != (c_loc,) for t in cols):
+        raise ValueError(f"aa / bb / pp {[tuple(t.shape) for t in cols]} != {(c_loc,)}")
+    part = _out(out, "part", (c,), dev)
+    axx = _out(out, "att_xx", (c,), dev)
+    new = [_out(out, k, (c_loc,), dev) for k in ("aa", "bb", "pp")]
+    scratch = _out(out, "scratch", (3 * c_loc,), dev)
+    ptrs = [x.data_ptr(), att_xx.data_ptr()] + [t.data_ptr() for t in cols]
+    ptrs += _layer_ptrs(pack, l, _ATT4_MATS)
+    ptrs += [part.data_ptr(), axx.data_ptr()] + [t.data_ptr() for t in new] + [scratch.data_ptr()]
+    code = fn(*ptrs, c, c_loc, grid, _cuda.stream_ptr(dev))
+    if code:
+        _cuda.check("tp_v45", _lib_entry("att", pack)[1], code)
+    return (part, axx, *new)
 
 
 def tp5_att_launch(fn, pack: dict, l: int, x, att_xx, heads, cfg, grid: int,
@@ -1244,25 +1311,13 @@ def tp_att_layer_v4(pack: dict, l: int, x, att_xx, aa, bb, pp, cfg,
     """Layer l's v4 attention on one shard (see ``tp_att_layer_v4_ref``).
     A CUDA pack launches kernel K14 once (`out` keys "part", "att_xx",
     "aa", "bb", "pp"); a CPU pack takes the plain version."""
-    dev = pack["rvecs"].device
-    if dev.type == "cpu":
+    if pack["rvecs"].device.type == "cpu":
         return tp_att_layer_v4_ref(pack, l, x, att_xx, aa, bb, pp, cfg)
-    c, c_loc = cfg.n_embed, pack["c_loc"]
-    x, att_xx = _f32(x, dev), _f32(att_xx, dev)
-    cols = [_f32(t, dev) for t in (aa, bb, pp)]
-    if any(t.shape != (c_loc,) for t in cols):
-        raise ValueError(f"aa / bb / pp {[tuple(t.shape) for t in cols]} != {(c_loc,)}")
-    part = _out(out, "part", (c,), dev)
-    axx = _out(out, "att_xx", (c,), dev)
-    new = [_out(out, k, (c_loc,), dev) for k in ("aa", "bb", "pp")]
-    scratch = torch.empty((3 * c_loc,), dtype=torch.float32, device=dev)
-    ptrs = [x.data_ptr(), att_xx.data_ptr()] + [t.data_ptr() for t in cols]
-    ptrs += _layer_ptrs(pack, l, _ATT4_MATS)
-    ptrs += [part.data_ptr(), axx.data_ptr()] + [t.data_ptr() for t in new] + [scratch.data_ptr()]
-    grid = _grid(pack, "att", c)
-    _launch(pack, "att", ptrs, (c, c_loc), grid, dev)
+    grid = tp6_grid(pack, "att", cfg)
+    res = tp4_att_launch(tp6_function(pack, "att"), pack, l, x, att_xx, aa, bb, pp, cfg, grid,
+                         out)
     _count(tp_att_layer_v4, pack)
-    return (part, axx, *new)
+    return res
 
 
 tp_att_layer_v4.launches = 0

@@ -4,7 +4,7 @@ kernels K6, K7 and K8.
 
     python3 -m rwkv_tpu_torch.tools.probe_batched [--baseline DIR] [--phases | --flips | --k3] [--bf16]
     python3 -m rwkv_tpu_torch.tools.probe_batched --v6 | --v5 | --v4 [--baseline DIR] [--phases] [--flips] [--bf16]
-    python3 -m rwkv_tpu_torch.tools.probe_batched --tp6 | --tp7 | --tp5 [--baseline DIR [DIR ...]] [--phases] [--bf16]
+    python3 -m rwkv_tpu_torch.tools.probe_batched --tp6 | --tp7 | --tp5 | --tp4 [--baseline DIR [DIR ...]] [--phases] [--bf16]
 
 Times one launch of ``rwkv_tpu_torch.ops.megakernel.v7_decode_batched``
 (K4; device time, launches queued behind a spin kernel so no host time is
@@ -65,11 +65,14 @@ With ``--tp6`` it measures the v6 tensor-parallel shard kernels K12
 mesh on this card at the 1.6B width (C=2048, F=8192, two layers, layer 1),
 and K13's MIX45 form (``tp_ffn_layer_v45``) at the v5.2 World 1.5B width;
 ``--tp7`` K10 (``tp_att_layer``) at the v7 World 1.5B width (d_lora 96),
-reading v_first and, as layer 0 does, writing it ("K10 first"); ``--tp5``
-K15 (``tp_att_layer_v5``) on v5.2 and v5.1 at the World 1.5B width: time
-per launch, against the sources of an earlier csrc with ``--baseline DIR``
-(``DIR/tp_v6.cu``, ``DIR/tp_v7.cu``; K15 from ``DIR/tp_v45.cu`` where
-``DIR/tp_v6.cu`` has no v5 entry; outputs compared at tp=2 and at tp=4,
+reading v_first and, as layer 0 does, writing it ("K10 first"), and K11
+(``tp_ffn_layer``); ``--tp5`` K15 (``tp_att_layer_v5``) on v5.2 and v5.1
+at the World 1.5B width; ``--tp4`` K14 (``tp_att_layer_v4``) and K13's
+MIX45 form at the v4 World 1.5B width: time per launch, against the
+sources of an earlier csrc with ``--baseline DIR`` (``DIR/tp_v6.cu``,
+``DIR/tp_v7.cu``, ``DIR/tp_v45.cu``; K15 from ``DIR/tp_v45.cu`` where
+``DIR/tp_v6.cu`` has no v5 entry, K11 from ``DIR/tp_v7.cu`` where
+``DIR/tp_v6.cu`` has no v7 entry; outputs compared at tp=2 and at tp=4,
 the current kernel on grids of 132, 64, 33 and 7 blocks: "outputs differ
 by at most ..."; times in the order baseline, current, current, baseline,
 also with the L2 cache emptied before each launch, as a step of many
@@ -77,10 +80,12 @@ layers meets the weights). Further DIRs after the first (edited copies of
 ``csrc``) are timed in the same turns (their outputs against the first
 DIR's). With ``--phases`` also the time of each phase from the timing
 build (P, the prologue from the kernel's entry; K12: A, M, B, C and their
-barriers, then D; K13: A and its barrier, then B; K10: A, B, then C; K15:
-A, C, then D) for every source; an earlier source without stamps needs
-them added in a copy, and ``DIR#K12=NAMES#K13=NAMES`` names the phases of
-a copy that stamps more often (one letter a pair).
+barriers, then D; K13 and K11: A and its barrier, then B; K10: A, B, then
+C; K15: A, C, then D; K14: A and its barrier, then B) for every source
+that stamps (K11 and K14 from before they ran on the stream do not); an
+earlier source without stamps needs them added in a copy, and
+``DIR#K12=NAMES#K13=NAMES`` names the phases of a copy that stamps more
+often (one letter a pair).
 
 ``--bf16`` restricts every measurement to the bf16 packs (the readings
 that set ``chip_smoke.py``'s bf16 limits), their seeded states from the
@@ -421,19 +426,22 @@ def b1_main(args, base_dir, version: int) -> int:
     return 0
 
 
-# -- --tp6 / --tp7 / --tp5: the stream TP kernels (one shard's layer) -------------
+# -- --tp6 / --tp7 / --tp5 / --tp4: the stream TP kernels (one shard's layer) ------
 
 # (version, the shard kernels timed) at tp=2 and 4 by flag: K12 / K13 at
 # the v6 1.6B width and K13 MIX45 at the v5.2 World 1.5B width (--tp6),
 # K10 at the v7 World 1.5B width (d_lora 96) reading v_first and writing
-# it ("K10 first", --tp7), K15 on v5.2 and v5.1 at the World 1.5B width
-# (--tp5)
+# it ("K10 first") and K11 (--tp7), K15 on v5.2 and v5.1 at the World 1.5B
+# width (--tp5), K14 and K13 MIX45 at the v4 World 1.5B width (--tp4)
 TP_CASES = {"--tp6": (("6.0", ("K12", "K13")), ("5.2", ("K13 mix45",))),
-            "--tp7": (("7.0", ("K10", "K10 first")),),
-            "--tp5": (("5.2", ("K15",)), ("5.1", ("K15",)))}
+            "--tp7": (("7.0", ("K10", "K10 first", "K11")),),
+            "--tp5": (("5.2", ("K15",)), ("5.1", ("K15",))),
+            "--tp4": (("4.0", ("K14", "K13 mix45")),)}
 # phases of the timing build (P: the prologue before the first phase), then the tail
 TP_PHASES = {"K12": ("PAMBC", "D"), "K13": ("PA", "B"), "K13 mix45": ("PA", "B"),
-             "K10": ("PAB", "C"), "K10 first": ("PAB", "C"), "K15": ("PAC", "D")}
+             "K10": ("PAB", "C"), "K10 first": ("PAB", "C"), "K15": ("PAC", "D"),
+             "K11": ("PA", "B"), "K14": ("PA", "B")}
+_FFN_NAMES = ("K11", "K13", "K13 mix45")
 TP6_STAMP_FLOATS = 64  # room for the timing build's stamps behind the scratch
 V7_TP_LORA = 96  # the v7 World 1.5B LoRA width (chip_smoke.py's)
 
@@ -450,24 +458,30 @@ def tp_width_packs(version: str, precision: str, tp: int, c: int = 2048):
     cfg = synth_config(version, 2, c, 256, 64)
     v = cfg.version_major
     params = synth_params(cfg, seed=0, **({"lora_dim": V7_TP_LORA} if v == 7 else {}))
-    build = {7: M.build_mega_pack, 6: M.build_mega_pack_v6, 5: M.build_mega_pack_v5}[v]
+    build = {7: M.build_mega_pack, 6: M.build_mega_pack_v6, 5: M.build_mega_pack_v5,
+             4: M.build_mega_pack_v4}[v]
     build_tp = {7: TP.build_mega_pack_tp, 6: TP.build_mega_pack_tp_v6,
-                5: TP.build_mega_pack_tp_v5}[v]
+                5: TP.build_mega_pack_tp_v5, 4: TP.build_mega_pack_tp_v4}[v]
     base = build(params, cfg, w4=precision == "w4a8", quant=precision != "bf16")
     return cfg, build_tp(base, cfg, make_mesh(1, tp, devices=["cuda:0"] * tp))
 
 
 def tp_inputs(pk, cfg, seed: int = 1) -> tuple:
-    """x, att_xx, ffn_xx, the shard's heads and a v_first of its channels,
-    seeded."""
+    """x, att_xx, ffn_xx, the shard's part of the state (a tuple: its heads;
+    v4: its aa, bb, pp) and a v_first of its channels, seeded."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    c, s = cfg.n_embed, cfg.head_size
+    c, s, c_loc = cfg.n_embed, cfg.head_size, pk["c_loc"]
     x, xx, fxx = (torch.randn((c,), device="cuda", generator=gen) * a for a in (0.5, 0.3, 0.3))
-    heads = torch.randn((pk["c_loc"] // s, s, s), device="cuda", generator=gen) * 0.1
-    vf = torch.randn((pk["c_loc"],), device="cuda", generator=gen) * 0.3
-    return x, xx, fxx, heads, vf
+    if cfg.version_major == 4:
+        own = (torch.randn((c_loc,), device="cuda", generator=gen) * 0.3,
+               torch.randn((c_loc,), device="cuda", generator=gen).abs() + 1.0,
+               torch.randn((c_loc,), device="cuda", generator=gen) * 0.5)
+    else:
+        own = (torch.randn((c_loc // s, s, s), device="cuda", generator=gen) * 0.1,)
+    vf = torch.randn((c_loc,), device="cuda", generator=gen) * 0.3
+    return x, xx, fxx, own, vf
 
 
 def tp_sources(args) -> dict:
@@ -493,29 +507,36 @@ def tp_sources(args) -> dict:
 
 def tp_kernel_src(name: str, src_dir):
     """The source file of TP kernel `name` in `src_dir` (None: csrc): K10's
-    tp_v7.cu; K12's and K13's tp_v6.cu; K15's tp_v6.cu, or tp_v45.cu in a
-    tree from before K15 moved there."""
+    tp_v7.cu; K12's and K13's tp_v6.cu; K14's tp_v45.cu; K15's tp_v6.cu, or
+    tp_v45.cu in a tree from before K15 moved there; K11's tp_v6.cu, or
+    tp_v7.cu in a tree from before K11 moved there."""
     from rwkv_tpu_torch.ops import _cuda
 
     d = _cuda.CSRC if src_dir is None else Path(src_dir)
-    if name.startswith("K10"):
-        return d / "tp_v7.cu"
-    if name == "K15" and "rwkv_tp_v5_att" not in (d / "tp_v6.cu").read_text():
-        return d / "tp_v45.cu"
+    if name.startswith("K10") or name == "K14":
+        return d / ("tp_v7.cu" if name.startswith("K10") else "tp_v45.cu")
+    entry = {"K15": "rwkv_tp_v5_att", "K11": "rwkv_tp_v7_ffn"}.get(name)
+    if entry and entry not in (d / "tp_v6.cu").read_text():
+        return d / ("tp_v45.cu" if name == "K15" else "tp_v7.cu")
     return d / "tp_v6.cu"
 
 
-def tp6_stamps_at(pk, cfg, name: str, src, flags: tuple) -> int:
+def tp6_stamps_at(pk, cfg, name: str, src, flags: tuple):
     """Float offset of the timing build's stamps in the scratch of kernel
     `name` built from the file `src`: behind the amax slots of a streamed
-    source (it has a plan entry), else behind the activations alone."""
+    source (it has a plan entry), else behind the activations alone; None
+    for K11 and K14 from before they ran on the stream (no stamps)."""
     from rwkv_tpu_torch.ops import _cuda
     from rwkv_tpu_torch.ops import megakernel_tp as TP
 
     c, c_loc, f_loc, _, dm, dd, _ = TP._tp6_dims(pk, cfg)
     if name.startswith("K13"):
         return f_loc
+    if name == "K11":
+        return f_loc if src.name == "tp_v6.cu" else None
     lib = _cuda.library(src.stem + "_probe", src, flags)
+    if name == "K14":
+        return 3 * c_loc if hasattr(lib, "rwkv_tp_v4_plan") else None
     if name.startswith("K10"):
         streamed = hasattr(lib, "rwkv_tp_v7_plan")
         return 4 * c_loc + 4 * pk["d_lora"] + (TP.TP7_ATT_AMAX if streamed else 0)
@@ -527,8 +548,9 @@ def tp6_stamps_at(pk, cfg, name: str, src, flags: tuple) -> int:
 
 def tp6_runner(pk, cfg, name: str, src_dir=None, flags: tuple = (), grid=None,
                stamps: bool = False):
-    """run() of one launch of TP kernel `name` (K10, "K10 first", K12, K13,
-    "K13 mix45", K15) on shard pack pk, layer 1, from csrc or the sources in
+    """run() of one launch of TP kernel `name` (K10, "K10 first", K11, K12,
+    K13, "K13 mix45", K14, K15) on shard pack pk, layer 1, from csrc or the
+    sources in
     `src_dir` with nvcc `flags`, over `grid` blocks (None: the current
     kernel's grid, one block an SM, which an earlier version takes too).
     run() returns the outputs as one tensor or, with `stamps`, the scratch
@@ -538,7 +560,7 @@ def tp6_runner(pk, cfg, name: str, src_dir=None, flags: tuple = (), grid=None,
     from rwkv_tpu_torch.ops import _cuda
     from rwkv_tpu_torch.ops import megakernel_tp as TP
 
-    kind = "ffn" if name.startswith("K13") else "att"
+    kind = "ffn" if name in _FFN_NAMES else "att"
     if src_dir is None and not flags:
         fn = TP.tp6_function(pk, kind)
     else:
@@ -546,12 +568,13 @@ def tp6_runner(pk, cfg, name: str, src_dir=None, flags: tuple = (), grid=None,
         fn = _cuda.function(src.stem + "_probe", TP._lib_entry(kind, pk)[1],
                             *TP.TP_ARGS[TP._plan_kind(pk, kind)], src=src, flags=flags)
     grid = grid or TP.tp6_grid(pk, kind, cfg)
-    x, xx, fxx, heads, vf = tp_inputs(pk, cfg)
+    x, xx, fxx, own, vf = tp_inputs(pk, cfg)
     launch, ins = {
-        "K12": (TP.tp6_att_launch, (x, xx, heads)), "K13": (TP.tp6_ffn_launch, (x, fxx)),
-        "K13 mix45": (TP.tp6_ffn_launch, (x, fxx)), "K15": (TP.tp5_att_launch, (x, xx, heads)),
-        "K10": (TP.tp7_att_launch, (x, xx, heads, vf, False)),
-        "K10 first": (TP.tp7_att_launch, (x, xx, heads, vf, True))}[name]
+        "K12": (TP.tp6_att_launch, (x, xx, *own)), "K13": (TP.tp6_ffn_launch, (x, fxx)),
+        "K13 mix45": (TP.tp6_ffn_launch, (x, fxx)), "K15": (TP.tp5_att_launch, (x, xx, *own)),
+        "K10": (TP.tp7_att_launch, (x, xx, *own, vf, False)),
+        "K10 first": (TP.tp7_att_launch, (x, xx, *own, vf, True)),
+        "K11": (TP.tp7_ffn_launch, (x, fxx)), "K14": (TP.tp4_att_launch, (x, xx, *own))}[name]
     n_scratch = (tp6_stamps_at(pk, cfg, name, tp_kernel_src(name, src_dir), flags)
                  + TP6_STAMP_FLOATS if stamps else 0)
 
@@ -585,7 +608,7 @@ def in_turns(runs: dict, timer) -> str:
 
 
 def tp_main(args, flag: str) -> int:
-    """--tp6 / --tp7 / --tp5: the stream TP kernels of ``TP_CASES[flag]``
+    """--tp6 / --tp7 / --tp5 / --tp4: the stream TP kernels of ``TP_CASES[flag]``
     from csrc against the sources of ``tp_sources`` (outputs at tp = 2 and
     4, csrc's on four grids; times at tp=2, also with the L2 emptied;
     phases)."""
@@ -633,9 +656,11 @@ def tp_main(args, flag: str) -> int:
                     for k, (d, named) in srcs.items():
                         phases, tail = TP_PHASES[name]
                         phases = named.get(name.split()[0], phases)
-                        times = phase_times(tp6_runner(pk, cfg, name, d, flags, stamps=True),
-                                            tp6_stamps_at(pk, cfg, name, tp_kernel_src(name, d),
-                                                          flags), 1, len(phases))
+                        at = tp6_stamps_at(pk, cfg, name, tp_kernel_src(name, d), flags)
+                        if at is None:
+                            continue
+                        times = phase_times(tp6_runner(pk, cfg, name, d, flags, stamps=True), at,
+                                            1, len(phases))
                         print_phases(f"{k} {label}", times, phases, tail)
                 del packs
                 torch.cuda.empty_cache()

@@ -1057,7 +1057,7 @@ def test_card_bf16_serving_matches_cpu_and_goes_through_kernels(cuda_device, ver
         assert _rel(lg2.cpu(), lc2) <= band
 
 
-# -- K10-K13: the tensor-parallel shard kernels (tp=2 on one card) ------------
+# -- K10-K15: the tensor-parallel shard kernels (tp=2 on one card) ------------
 
 def _tp_packs(version: str, precision: str, dev, c: int = 256, n_layer: int = 2, tp: int = 2):
     from rwkv_tpu_torch.ops import megakernel_tp as TT
@@ -1181,18 +1181,18 @@ def test_tp_v6_kernels_same_bits_on_every_grid(cuda_device, version, c, tp, form
 
 
 def test_tp_v6_plan_matches_the_python_plan(cuda_device):
-    """K12's and K13's own stream plans (rwkv_tp_v6_plan: shared bytes,
-    stage bytes and count, a block's pieces, the kernel's static shared
-    bytes, vector rows a piece) are tp_v6_stream_plan's, in every form, at
-    the small width, C=768 and C=2048 at tp = 2 and 4 (nf = 1 and 2), on
-    several grids."""
+    """K12's, K13's and K11's own stream plans (rwkv_tp_v6_plan: shared
+    bytes, stage bytes and count, a block's pieces, the kernel's static
+    shared bytes, vector rows a piece) are tp_v6_stream_plan's, in every
+    form, at the small width, C=768 and C=2048 at tp = 2 and 4 (nf = 1 and
+    2), on several grids."""
     from rwkv_tpu_torch.ops import megakernel_tp as TT
 
     for c, tp in ((256, 2), (768, 2), (2048, 2), (2048, 4)):
         c_loc, f_loc = c // tp, 4 * c // tp
         for nf in sorted({TT._ffn_tiles(c, f_loc), 2}):
             for form in TM.FORMS:
-                for kind in ("att", "ffn"):
+                for kind in ("att", "ffn", "ffn7"):
                     for blocks in (132, 64, 33, 7):
                         plan = TT.tp_v6_stream_plan(form, c, c_loc, f_loc, nf, 32, 64, 64, blocks,
                                                     kind)
@@ -1248,23 +1248,70 @@ def test_tp_stream_att_kernels_same_bits_on_every_grid(cuda_device, version, c, 
 def test_tp_stream_att_plan_matches_the_python_plan(cuda_device):
     """K10's own stream plan (rwkv_tp_v7_plan: shared bytes, stage bytes
     and count, a block's pieces, the kernel's static shared bytes, vector
-    rows and lora2 runs a piece) and K15's (rwkv_tp_v6_plan kinds 2 and 3)
-    are tp_v6_stream_plan's, in every form, at the small width, C=768 and
-    C=2048 at tp = 2 and 4, d_lora 32 and 96, v5.1 and v5.2, on several
-    grids."""
+    rows and lora2 runs a piece), K15's (rwkv_tp_v6_plan kinds 2 and 3) and
+    K14's (rwkv_tp_v4_plan) are tp_v6_stream_plan's, in every form, at the
+    small width, C=768 and C=2048 at tp = 2 and 4, d_lora 32 and 96, v5.1
+    and v5.2, on several grids."""
     from rwkv_tpu_torch.ops import megakernel_tp as TT
 
     for c, tp in ((256, 2), (768, 2), (2048, 2), (2048, 4)):
         c_loc = c // tp
         for form in TM.FORMS:
             for kind, kw in (("att7", {"d_lora": 32}), ("att7", {"d_lora": 96}),
-                             ("att5", {"n_mix": 3}), ("att5", {"n_mix": 4})):
+                             ("att5", {"n_mix": 3}), ("att5", {"n_mix": 4}), ("att4", {})):
                 for blocks in (132, 64, 33, 7):
                     plan = TT.tp_v6_stream_plan(form, c, c_loc, 0, 0, 0, 0, 64, blocks, kind, **kw)
                     for b in sorted({0, 5, blocks - 1}):
                         got = TT.tp_v6_kernel_plan(form, kind, c, c_loc, 0, 0, 0, 0, 64, blocks, b,
                                                    **kw)
                         assert got == TT.tp_plan_want(plan, b), (c, tp, form, kind, kw, blocks, b)
+
+
+# (version, C, tp) of the K11 / K14 grid tests: the small width, and the
+# World 1.5B width at tp = 2 (K11: nf = 2 FFN tiles) and tp = 4
+TP_K11_K14_GRID_CASES = [("7.0", 256, 2), ("7.0", 2048, 2), ("7.0", 2048, 4), ("4.0", 256, 2),
+                         ("4.0", 2048, 2), ("4.0", 2048, 4)]
+
+
+@pytest.mark.parametrize("form", TM.FORMS)
+@pytest.mark.parametrize("version, c, tp", TP_K11_K14_GRID_CASES)
+def test_tp_k11_k14_same_bits_on_every_grid(cuda_device, version, c, tp, form):
+    """K11 (v7's FFN) and K14 (v4's attention, from a seeded and a blank
+    state) deal each phase's rows over the grid but never change how a row
+    is computed: every output bit-equal on grids of 132, 64, 33 and 7
+    blocks, on the first and the last shard of a one-layer pack (v7: two,
+    whose packs take a later layer's value-residual LoRA); finite and
+    within the plain versions' band (int forms 2e-2, bf16 1e-4 of the
+    scale)."""
+    from rwkv_tpu_torch.ops import megakernel_tp as TT
+
+    tc, packs = _tp_packs(version, _PRECISION[form], cuda_device, c=c,
+                          n_layer=2 if version == "7.0" else 1, tp=tp)
+    if version == "7.0":
+        assert packs[0]["nf"] == (2 if (c, tp) == (2048, 2) else 1)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x, xx = (torch.randn((c,), device=cuda_device, generator=gen) * a for a in (0.5, 0.3))
+    for pk in (packs[0], packs[-1]):
+        c_loc = pk["c_loc"]
+        if version == "7.0":
+            fn = TT.tp6_function(pk, "ffn")
+            runs = [(lambda g: TT.tp7_ffn_launch(fn, pk, 0, x, xx, tc, g),
+                     TT.tp_ffn_layer_ref(pk, 0, x, xx, tc))]
+        else:
+            fn = TT.tp6_function(pk, "att")
+            seeded = (torch.randn((c_loc,), device=cuda_device, generator=gen) * 0.3,
+                      torch.randn((c_loc,), device=cuda_device, generator=gen).abs() + 1.0,
+                      torch.randn((c_loc,), device=cuda_device, generator=gen) * 0.5)
+            zero = torch.zeros((c_loc,), device=cuda_device)
+            blank = (zero, zero, torch.full((c_loc,), -1e30, device=cuda_device))
+            runs = [(lambda g, st=st: TT.tp4_att_launch(fn, pk, 0, x, xx, *st, tc, g),
+                     TT.tp_att_layer_v4_ref(pk, 0, x, xx, *st, tc)) for st in (seeded, blank)]
+        for run, ref in runs:
+            outs = {g: run(g) for g in (132, 64, 33, 7)}
+            for g, out in outs.items():
+                assert all(torch.equal(a, b) for a, b in zip(out, outs[132])), g
+            assert all(bool(torch.isfinite(t).all()) for t in outs[132])
+            _tp_close(outs[132], ref, _PRECISION[form])
 
 
 def _tp45_inputs(tc, dev, seed: int):

@@ -1,13 +1,15 @@
-"""The stream plans of the TP shard kernels K12, K13, K15 and K10
+"""The stream plans of the TP shard kernels K12, K13, K15, K10, K11 and K14
 (``ops/megakernel_tp.py::tp_v6_stream_plan``, kinds "att", "ffn", "att5",
-"att7"; the kernels' AttLayout / AttPlan / att_copy and FfnLayout / FfnPlan /
-ffn_copy in ``csrc/tp_v6.cu``, K10's in ``csrc/tp_v7.cu``) on the CPU:
-every phase's rows are covered once over the grid in whole 4-row groups,
-the per-head phase's heads go one to a block, every copy is a 16-byte
+"att7", "ffn7", "att4"; the kernels' AttLayout / AttPlan / att_copy and
+FfnLayout / FfnPlan / ffn_copy in ``csrc/tp_v6.cu``, K10's in
+``csrc/tp_v7.cu``, K14's Att4Layout / Att4Plan / att4_copy in
+``csrc/tp_v45.cu``) on the CPU: every phase's rows are covered once over
+the grid in whole 4-row groups, the per-head phase's heads go one to a
+block (K14: its channels in 4-channel groups), every copy is a 16-byte
 multiple from a 16-byte aligned offset that fits its stage, shared memory
 stays within the block's limit, the copies land on the shard pack's rows
-(v6, v7, v5.1 / v5.2, and the v5.2 / v4 packs K13's MIX45 form reads), a
-published amax (per-block partial maxima in any order) quantizes exactly
+(v6, v7, v5.1 / v5.2, v4, and the v5.2 / v4 packs K13's MIX45 form reads),
+a published amax (per-block partial maxima in any order) quantizes exactly
 as the plain quantizer does, the ctypes argument counts are the C entries'
 and the plans refuse what the kernels refuse. The card tests compare the
 kernels' own plans with these (``tests/test_torch_cuda.py``)."""
@@ -29,14 +31,17 @@ from rwkv_tpu_torch.parallel.sharding import make_mesh
 WIDTHS = {"1.6B": (2048, 8192, 32, 64, 64), "C768": (768, 3072, 32, 64, 64),
           "SMALL": (256, 1024, 32, 64, 64)}
 GRIDS = (1, 7, 33, 66, 132)
-KINDS = ("att", "ffn", "att5", "att7")
+KINDS = ("att", "ffn", "att5", "att7", "ffn7", "att4")
+FFN_KINDS = ("ffn", "ffn7")
+HEAD_KINDS = ("att", "att5", "att7")
 # K15's mixes (v5.1, v5.2) and K10's LoRA widths (the tests', World 1.5B's)
 EXTRA = {"att5": [{"n_mix": 3}, {"n_mix": 4}], "att7": [{"d_lora": 32}, {"d_lora": 96}]}
 
 
 def _plans(width: str, tp: int, kind: str, form: str):
-    """The plan on every grid: K12 / K13 at the shard's own tile count and
-    at nf=2, K15 with 3 and 4 mixes, K10 at d_lora 32 and 96."""
+    """The plan on every grid: K12 / K13 / K11 / K14 at the shard's own
+    tile count and at nf=2, K15 with 3 and 4 mixes, K10 at d_lora 32 and
+    96."""
     c, f, dm, dd, s = WIDTHS[width]
     c_loc, f_loc = c // tp, f // tp
     for nf in sorted({TT._ffn_tiles(c, f_loc), 2}):
@@ -59,10 +64,12 @@ def _n_rows(plan, name: str) -> int:
 def test_tp6_plan_covers_every_row_once(width, tp, kind, form):
     """Over each grid, the blocks' ranges of every phase's rows tile
     [0, N) in order, each in whole 4-row groups, and the pieces of a range
-    tile it (K13's fv rows once a tile); K12's, K15's and K10's heads go
-    one to a block, each head to exactly one, with its pieces."""
+    tile it (K13's and K11's fv rows once a tile); K12's, K15's and K10's
+    heads go one to a block, each head to exactly one, with its pieces;
+    K14's channels (whose state a block writes) tile [0, C/tp) in whole
+    4-channel groups."""
     for plan in _plans(width, tp, kind, form):
-        names = plan.STREAMED + (("fv",) if kind == "ffn" else ())
+        names = plan.STREAMED + (("fv",) if kind in FFN_KINDS else ())
         for name in names:
             seen = np.zeros(_n_rows(plan, name), np.int32)
             for b in range(plan.blocks):
@@ -74,7 +81,14 @@ def test_tp6_plan_covers_every_row_once(width, tp, kind, form):
                     assert r.r0 <= c0 < c1 <= r.r1
                     seen[c0:c1] += 1
             assert (seen == 1).all(), (name, plan.blocks)
-        if kind != "ffn":
+        if kind == "att4":
+            seen = np.zeros(plan.c_loc, np.int32)
+            for b in range(plan.blocks):
+                s0, s1 = plan.channels(b)
+                assert s0 % 4 == 0 and s1 % 4 == 0 and s0 <= s1
+                seen[s0:s1] += 1
+            assert (seen == 1).all() and plan.n_heads == 0
+        elif kind in HEAD_KINDS:
             heads = [h for b in range(plan.blocks) for h in plan.block_heads(b)]
             assert sorted(heads) == list(range(plan.n_heads))
             per = 1 + -(-4 // plan.l2_runs) if kind == "att7" else {"att": 2, "att5": 1}[kind]
@@ -159,6 +173,31 @@ def test_tp_stream_att_plans_refuse_what_the_kernels_refuse(kind):
         assert TT.tp_shape_error(synth_config("7.0", 1, 2048, 256, 64), 2, 96, 8192) is None
 
 
+def test_tp_ffn7_and_att4_plans_refuse_what_the_kernels_refuse():
+    """K11 (the v7 FFN) refuses as K13 does: more tiles than it publishes an
+    amax for, tiles off the 16-byte rows, activations that leave the ring
+    too few stages; K14 refuses a shard width off the 16-byte rows, wider
+    than C, and activations that leave too few stages (bf16 at C=8192);
+    the shape errors build_mega_pack_tp / _v4 call report them, and the
+    World 1.5B widths pass."""
+    with pytest.raises(ValueError, match="tiles"):
+        TT.tp_v6_stream_plan("i8", 2048, 1024, 4096, TT.TP6_MAX_TILES * 2, 0, 0, 64, 132, "ffn7")
+    with pytest.raises(ValueError, match="tiles"):
+        TT.tp_v6_stream_plan("i8", 2048, 1024, 4104, 1, 0, 0, 64, 132, "ffn7")
+    with pytest.raises(ValueError, match="stages"):
+        TT.tp_v6_stream_plan("bf16", 16384, 8192, 32768, 8, 0, 0, 64, 132, "ffn7")
+    with pytest.raises(ValueError, match="stages"):
+        TT.tp_v6_stream_plan("bf16", 8192, 2048, 0, 0, 0, 0, 0, 132, "att4")
+    for c, c_loc in ((2048, 1000), (1024, 2048)):
+        with pytest.raises(ValueError, match="K14 cannot take"):
+            TT.tp_v6_stream_plan("i8", c, c_loc, 0, 0, 0, 0, 0, 132, "att4")
+    assert "tiles" in TT.tp_shape_error(synth_config("7.0", 1, 2048, 256, 64), 2, 96, 262144)
+    assert "stages" in TT.tp_shape_error_v4(synth_config("4.0", 1, 8192, 256, 64), 4, 32768,
+                                            form="bf16")
+    assert TT.tp_shape_error(synth_config("7.0", 1, 2048, 256, 64), 2, 96, 8192) is None
+    assert TT.tp_shape_error_v4(synth_config("4.0", 1, 2048, 256, 64), 2, 8192) is None
+
+
 def _shard_packs(version: str, form: str, nf, monkeypatch):
     """Both shards of a one-layer C=256 model (v7: two, the packs take the
     value-residual LoRA of a later layer) at tp=2 on the CPU, cut into `nf`
@@ -195,38 +234,44 @@ def _as_rows(raw, pk, name: str, n: int, form: str):
 @pytest.mark.parametrize("version, kind, nf", [("6.0", "att", None), ("6.0", "ffn", None),
                                                ("6.0", "ffn", 2), ("5.2", "ffn", 2),
                                                ("4.0", "ffn", None), ("7.0", "att7", None),
-                                               ("5.2", "att5", None), ("5.1", "att5", None)])
+                                               ("5.2", "att5", None), ("5.1", "att5", None),
+                                               ("7.0", "ffn7", None), ("7.0", "ffn7", 2),
+                                               ("4.0", "att4", None)])
 def test_tp6_plan_copies_land_on_the_shard_rows(version, kind, nf, form, monkeypatch):
     """Over 7 blocks, the bytes each copy reads from layer 0 of a shard
     pack's tensors (and the launch's inputs) are the rows ``_codes`` gives
     (int4 unpacked) of every streamed matrix and fv tile, their row scales'
     16-byte windows, maa2 rows with their maa5 window, the vector rows of
-    phase A (v6's ln / mixes, v7's ln1 and six coefficient rows, v5's ln1
-    and attention mixes, and for v5.2 / v4 the ln2 and FFN mix rows K13's
-    MIX45 form reads at RVec6's rows), each head's dw2 rows, scales, decay /
-    bonus / ln_x slices and state (K12), state with td / tf / ln_x slices
-    (K15), state with its eight slices and v_first (unless written: K10
-    with `first`), and K10's lora2 runs with their scales."""
+    phase A (v6's ln / mixes, v7's ln1 and six coefficient rows, v7's ln2
+    and x_k (K11), v5's and v4's ln1 and attention mixes, and for v5.2 / v4
+    the ln2 and FFN mix rows K13's MIX45 form reads at RVec6's rows), each
+    head's dw2 rows, scales, decay / bonus / ln_x slices and state (K12),
+    state with td / tf / ln_x slices (K15), state with its eight slices and
+    v_first (unless written: K10 with `first`), K10's lora2 runs with their
+    scales, and K14's phase-B rows: td at the block's channels, tf and the
+    old aa, bb, pp."""
     tc, packs = _shard_packs(version, form, nf, monkeypatch)
     c, s = tc.n_embed, tc.head_size
     gen = torch.Generator().manual_seed(1)
     x_in = torch.randn((c,), generator=gen)
     for pk in packs:
         c_loc, f_loc = pk["c_loc"], pk["f_dim"] // pk["tp"]
-        plan = TT.tp_pack_plan(pk, "ffn" if kind == "ffn" else "att", tc, 7)
+        plan = TT.tp_pack_plan(pk, "ffn" if kind in FFN_KINDS else "att", tc, 7)
         assert plan.kind == kind
         heads = torch.randn((max(c_loc // max(s, 1), 1), s, s), generator=gen)
         vf = torch.randn((c_loc,), generator=gen)
+        state = {k: torch.randn((c_loc,), generator=gen) for k in ("aa_in", "bb_in", "pp_in")}
+        mats = (TT._ATT6_MATS + TT._FFN6_MATS + TT._ATT7_MATS + TT._ATT5_MATS + TT._FFN7_MATS
+                + TT._ATT4_MATS)
         flat = {k: _bytes(v[0]) for k, v in pk.items()
-                if isinstance(v, torch.Tensor) and v.dim() >= 1 and k in
-                TT._ATT6_MATS + TT._FFN6_MATS + TT._ATT7_MATS + TT._ATT5_MATS and v is not None}
+                if isinstance(v, torch.Tensor) and v.dim() >= 1 and k in mats and v is not None}
         flat.update(att_in=_bytes(x_in), ffn_in=_bytes(x_in), heads_in=_bytes(heads),
-                    vf=_bytes(vf))
+                    vf=_bytes(vf), **{k: _bytes(v) for k, v in state.items()})
         for plan in [plan] + ([dataclasses.replace(plan, first=True)] if kind == "att7" else []):
-            _land_on_rows(plan, pk, kind, form, x_in, heads, vf, s, f_loc, flat)
+            _land_on_rows(plan, pk, kind, form, x_in, heads, vf, s, f_loc, flat, state)
 
 
-def _land_on_rows(plan, pk, kind, form, x_in, heads, vf, s, f_loc, flat):
+def _land_on_rows(plan, pk, kind, form, x_in, heads, vf, s, f_loc, flat, state):
     """The checks of test_tp6_plan_copies_land_on_the_shard_rows on one
     shard pack's plan."""
 
@@ -246,6 +291,18 @@ def _land_on_rows(plan, pk, kind, form, x_in, heads, vf, s, f_loc, flat):
                 want = [x_in.numpy() if row is None else pk["rvecs"][0, row].numpy()
                         for _, row in keys]
                 np.testing.assert_array_equal(got, np.concatenate(want))
+                continue
+            if seg == "vec_b":  # K14: td[s0:s1], tf, aa, bb, pp at slots 4 c j
+                s0, s1 = plan.channels(b)
+                rows = [pk["td"][0][s0:s1], pk["tf"][0]] + [state[k] for k in
+                                                              ("aa_in", "bb_in", "pp_in")]
+                run = range(idx * plan.vec_rows, min((idx + 1) * plan.vec_rows, len(rows)))
+                want = [(rows[j].numpy(), 4 * plan.c * (j - idx * plan.vec_rows)) for j in run
+                        if rows[j].numel()]
+                assert len(copies) == len(want)
+                for cp, (w, dst) in zip(copies, want):
+                    assert cp.dst == dst
+                    np.testing.assert_array_equal(f32(read(cp)), w)
                 continue
             if seg == "heads" and kind != "att":
                 _head_copies(plan, pk, kind, form, b, idx, copies, heads, vf, s, read)
@@ -292,7 +349,7 @@ def _land_on_rows(plan, pk, kind, form, x_in, heads, vf, s, f_loc, flat):
             if window is not None:
                 np.testing.assert_array_equal(f32(read(window)),
                                               pk[seg + "_d"][0].reshape(-1)[w0:w1].numpy())
-        if kind == "ffn":
+        if kind in FFN_KINDS:
             assert fv_seen == pk["nf"] * plan.rows("fv", b).pieces()
     assert ft * pk["nf"] == f_loc
 
@@ -339,9 +396,10 @@ def _codes_from_amax(x: np.ndarray, amax: np.float32):
 
 @pytest.mark.parametrize("blocks", GRIDS)
 def test_tp6_published_amax_quantizes_as_the_plain_quantizer(blocks):
-    """K13's relu^2 keys (two tiles at the 1.6B width, tp=2), K12's five
-    mixes, K10's four lora downs (d_lora 96, rows dealt from the last
-    block) and the xo of K10's / K15's heads: each block's partial amax
+    """K13's and K11's relu^2 keys (two tiles at the 1.6B / World 1.5B
+    width, tp=2), K12's five mixes, K10's four lora downs (d_lora 96, rows
+    dealt from the last block) and the xo of K10's / K15's heads: each
+    block's partial amax
     over the rows (heads) its plan gives it (a block's fk rows may straddle
     two tiles), as float bits combined in a random order per slot, equals
     the tile's / mix's / down's / xo's amax, and the codes and scale it
@@ -352,6 +410,7 @@ def test_tp6_published_amax_quantizes_as_the_plain_quantizer(blocks):
     att = TT.tp_v6_stream_plan("i8", 2048, 1024, 4096, 2, 32, 64, 64, blocks, "att")
     att7 = TT.tp_v6_stream_plan("i8", 2048, 1024, 0, 0, 0, 0, 64, blocks, "att7", d_lora=96)
     att5 = TT.tp_v6_stream_plan("i8", 2048, 1024, 0, 0, 0, 0, 64, blocks, "att5", n_mix=4)
+    ffn7 = TT.tp_v6_stream_plan("i8", 2048, 1024, 4096, 2, 0, 0, 64, blocks, "ffn7")
     keys = np.square(np.maximum(rng.standard_normal(4096), 0)).astype(np.float32)
     keys[rng.integers(0, 4096, 5)] = [0.0, 3e4, 1e-45, 5.5, 0.0]
     mixes = rng.standard_normal(5 * 2048).astype(np.float32)
@@ -361,7 +420,7 @@ def test_tp6_published_amax_quantizes_as_the_plain_quantizer(blocks):
     xo = (rng.standard_normal(1024) * 3).astype(np.float32)
     xo[rng.integers(0, 1024, 3)] = [-0.0, 1e-45, -2e3]
     cases = ((ffn, keys, "fk", 2048), (att, mixes, "maa2", 2048), (att7, downs, "lora1", 96),
-             (att7, xo, "heads", 1024), (att5, xo, "heads", 1024))
+             (att7, xo, "heads", 1024), (att5, xo, "heads", 1024), (ffn7, keys, "fk", 2048))
     for plan, vec, name, n in cases:
         slots = vec.size // n
         partial = np.zeros((blocks, slots), np.uint32)
@@ -392,13 +451,14 @@ def test_tp6_published_amax_quantizes_as_the_plain_quantizer(blocks):
 def test_tp6_argument_counts_match_the_c_entries(kind):
     """TP_ARGS (the ctypes signature of the stream kernels' C launch
     entries: pointers, then ints with the grid, then the stream) count the
-    parameters of the entries of ``csrc/tp_v6.cu`` (K12, K13, K15) and
-    ``csrc/tp_v7.cu`` (K10)."""
+    parameters of the entries of ``csrc/tp_v6.cu`` (K12, K13, K15, K11),
+    ``csrc/tp_v7.cu`` (K10) and ``csrc/tp_v45.cu`` (K14)."""
     from rwkv_tpu_torch.ops import _cuda
 
-    src = (_cuda.CSRC / ("tp_v7.cu" if kind == "att7" else "tp_v6.cu")).read_text()
+    src = (_cuda.CSRC / {"att7": "tp_v7.cu", "att4": "tp_v45.cu"}.get(kind, "tp_v6.cu"))
+    src = src.read_text()
     macro = {"att": "RWKV_TP_V6_ATT", "ffn": "RWKV_TP_V6_FFN", "att5": "RWKV_TP_V5_ATT",
-             "att7": "RWKV_TP_V7_ATT"}[kind]
+             "att7": "RWKV_TP_V7_ATT", "ffn7": "RWKV_TP_V7_FFN", "att4": "RWKV_TP_V4_ATT"}[kind]
     macro = f"#define {macro}_PARAMS"
     body = src[src.index(macro) + len(macro):].split("#define", 1)[0]
     params = [p.strip() for p in body.replace("\\", " ").split(",")]
