@@ -57,12 +57,17 @@
      state on the full grid and on half of it (``grid_invariance``).
    - The bf16 forms of K3, K4, K6, K7 and K8 (``precision="bf16"``, the
      ``quant=False`` packs of the same trees): K3 at the 169M width and
-     K6-K8 at theirs through ``phase_b1``, K4 at B = 1, 8 and 64 on the
-     169M pack, at B=64 cut to one layer and at B = 1 and 3 on the C=2048
-     v7 width (2 layers); within 1e-4 of the scale on packs cut to 1 and
-     2 layers, at full depth two launches bit-identical, equal argmax and
-     the drift within BF16_FULL_DEPTH_REL / B1_FULL_DEPTH_REL (twice the
-     worst reading of ``probe_batched --flips --bf16``).
+     K6-K8 at theirs through ``phase_b1``, K4 (on the bf16 tensor cores,
+     x in three bf16 parts) at B = 1, 8, 64, 128 and 256 on the 169M pack,
+     at B=64 cut to one layer and at B = 1 and 3 on the C=2048 v7 width (2
+     layers); within 1e-4 of the scale on packs cut to 1 and 2 layers, at
+     full depth two launches bit-identical, equal argmax and the drift
+     within BF16_FULL_DEPTH_REL / B1_FULL_DEPTH_REL (twice the worst
+     reading of ``probe_batched --flips --bf16``); K4's bf16 sums take an
+     order fixed by K alone, so each of its checks also holds x and state
+     bit-equal on grids of 132, 64, 33 and 7 blocks, a sequence of a batch
+     of 64 bit-equal to its run in a batch of 8, and identical lanes
+     identical.
    - The tensor-parallel shard kernels (``phase_tp_kernels``): K10 / K11
      (``tp_att_layer`` / ``tp_ffn_layer``, v7), K12 / K13 (``_v6``), K15
      (``tp_att_layer_v5``, v5.2 and v5.1) and K14 (``tp_att_layer_v4``)
@@ -569,9 +574,16 @@ def head_weights(pack: dict) -> int:
 
 
 def op_rate(pack: dict) -> float:
-    """Peak rate of a decode kernel's multiply-adds: int8 dp4a for the int
-    forms, float32 FMAs (bf16 values widened) for the bf16 form."""
+    """Peak rate of a B=1 decode kernel's multiply-adds: int8 dp4a for the
+    int forms, float32 FMAs (bf16 values widened) for the bf16 form."""
     return F32_FLOPS_PER_S if pack["form"] == "bf16" else INT8_OPS_PER_S
+
+
+def k4_rate(pack: dict) -> float:
+    """Peak rate of K4's products: int8 tensor cores for the int forms; for
+    the bf16 form, which runs f32 products as three bf16 passes, TF32's
+    tensor-core rate (as K9's f32 forms are reckoned)."""
+    return TF32_FLOPS_PER_S if pack["form"] == "bf16" else INT8_OPS_PER_S
 
 
 def layer_codes(pack: dict) -> int:
@@ -701,13 +713,21 @@ BF16_SHALLOW_REL = 1e-4
 BF16_FULL_DEPTH_REL = 2.2e-6
 
 
+# grids K4's bf16 form must give equal bits on (its sums' order is K's alone)
+K4_GRIDS = (132, 64, 33, 7)
+
+
 def check_k4(pack, cfg, st, tok, name: str, max_out: int, max_rel: float) -> float:
     """K4 on (st, tok) against its plain version (see EXACT_ABS); two
     launches on the same inputs agree bit for bit, and so does a sequence
-    run in this batch and in a batch of 8. Returns the max abs error."""
+    run in this batch and in a batch of 8; the bf16 form also on grids of
+    K4_GRIDS blocks (through the C entry: the launch counters do not move).
+    Returns the max abs error."""
     import torch
 
-    from rwkv_tpu_torch.ops.megakernel import v7_decode_batched, v7_decode_batched_ref
+    from rwkv_tpu_torch.ops.megakernel import (
+        batched_launch, k4_function, v7_decode_batched, v7_decode_batched_ref,
+    )
     from rwkv_tpu_torch.tools.card import seq_errors
 
     b = tok.shape[0]
@@ -716,6 +736,11 @@ def check_k4(pack, cfg, st, tok, name: str, max_out: int, max_rel: float) -> flo
     torch.cuda.synchronize()
     if not torch.equal(x, x2) or any(not torch.equal(new[k], new2[k]) for k in new):
         raise AssertionError(f"{name}: two launches on the same inputs differ")
+    if pack["form"] == "bf16":
+        for grid in K4_GRIDS:
+            xg, newg, _ = batched_launch(k4_function(pack), pack, st, tok, cfg, grid)
+            if not torch.equal(xg, x) or any(not torch.equal(newg[k], new[k]) for k in new):
+                raise AssertionError(f"{name}: a grid of {grid} blocks gives other bits")
     if not bool(torch.isfinite(x).all()):
         raise AssertionError(f"{name}: x is not finite")
     for lo in range(0, b, 8) if b > 8 else ():
@@ -731,7 +756,7 @@ def check_k4(pack, cfg, st, tok, name: str, max_out: int, max_rel: float) -> flo
     if pack["form"] == "bf16":
         worst = float(rel.max())
         msg = (f"{name}: max abs err {float(err.max()):.3e}, every sequence within "
-               f"{worst:.3e} of its scale")
+               f"{worst:.3e} of its scale; grids of {K4_GRIDS} blocks bit-equal")
         if worst > max_rel:
             raise AssertionError(f"{msg} (limit {max_rel:g})")
         print(msg)
@@ -750,11 +775,14 @@ def check_k4(pack, cfg, st, tok, name: str, max_out: int, max_rel: float) -> flo
     return float(err.max())
 
 
-def phase_k4(pack, cfg, states, tokens, b: int, name: str, max_rel=None):
+def phase_k4(pack, cfg, states, tokens, b: int, name: str, max_rel=None,
+             show_f32_bound: bool = False):
     """K4 at batch b (check_k4 at the full depth's limits, or `max_rel` of
-    the scale for the bf16 form), its time, the plain version's and the
-    bound."""
-    from rwkv_tpu_torch.ops.megakernel import v7_decode_batched, v7_decode_batched_ref
+    the scale for the bf16 form), its time, the plain version's, the bound
+    (bytes, or the products at k4_rate) and the plan; `show_f32_bound`
+    also prints the bound the products would set as f32 FMAs (the earlier
+    CUDA-core bf16 form's)."""
+    from rwkv_tpu_torch.ops.megakernel import k4_plan, v7_decode_batched, v7_decode_batched_ref
     from rwkv_tpu_torch.tools.card import device_ms
 
     st = {k: v[:b].contiguous() for k, v in states.items()}
@@ -765,9 +793,15 @@ def phase_k4(pack, cfg, states, tokens, b: int, name: str, max_rel=None):
     kern = device_ms(lambda: v7_decode_batched(pack, st, tok, cfg), reps=20)
     plain = device_ms(lambda: v7_decode_batched_ref(pack, st, tok, cfg), reps=2, warmup=1)
     nb = batched_bytes(pack, cfg, b)
-    bd, kind = bound_ms(nb, 2 * b * layer_codes(pack), op_rate(pack))
+    bd, kind = bound_ms(nb, 2 * b * layer_codes(pack), k4_rate(pack))
+    plan = k4_plan(pack, b, cfg, pack["_grid_batched"])
     print(f"{name}: kernel {kern:.4f} ms, plain {plain:.4f} ms, bound {bd:.5f} ms ({kind}, "
-          f"{nb / 1e6:.1f} MB), grid {pack['_grid_batched']} blocks")
+          f"{nb / 1e6:.1f} MB), grid {pack['_grid_batched']} blocks, placement ({plan.place}), "
+          f"K slices {plan.k_slice}")
+    if show_f32_bound:
+        old, old_kind = bound_ms(nb, 2 * b * layer_codes(pack), F32_FLOPS_PER_S)
+        print(f"{name}: reckoned as f32 FMAs at {F32_FLOPS_PER_S / 1e12:g} TFLOP/s (the "
+              f"earlier CUDA-core form's bound) {old:.5f} ms ({old_kind})")
     return {"ms": kern, "plain_ms": plain, "library_ms": None, "bound_ms": bd,
             "bound_by": kind, "max_abs_err": err}
 
@@ -987,7 +1021,7 @@ def phase_cut_width(name: str, width) -> None:
 def phase_k4_wide():
     """K4 at B=1 on the 1.5B width (C=2048, F=8192, depth cut to 2), where
     ServingModel routes B=1 to K4 and the head (K3 refuses the width),
-    w8a8 and bf16 (two-sequence column tiles there; B=3 too)."""
+    w8a8 and bf16 (placement (b) at every B there; B=3 too)."""
     import torch
 
     from rwkv_tpu_torch.models.serve import ServingModel
@@ -1008,8 +1042,8 @@ def phase_k4_wide():
                                   f"K4 {precision} C=2048 L=2 B=1",
                                   BF16_SHALLOW_REL if bf16 else None)
         if bf16:
-            check_k4(model._mega, cfg, states, tokens, "K4 bf16 C=2048 L=2 B=3", 0,
-                     BF16_SHALLOW_REL)
+            res["bf16 B=3"] = phase_k4(model._mega, cfg, states, tokens, 3,
+                                       "K4 bf16 C=2048 L=2 B=3", BF16_SHALLOW_REL)
         before = v7_decode_batched.launches_by_form[model._mega["form"]]
         one = {k: v[:1] for k, v in states.items()}
         logits, _ = model.decode(tokens[:1], one)
@@ -1435,9 +1469,9 @@ def tp_paths(tag: str, cfg, params, prompt, card, launches: dict, ref=None) -> d
     return out
 
 
-def phase_k4_large(model, model4, cfg) -> dict:
+def phase_k4_large(model, model4, model16, cfg) -> dict:
     """K4 where decode already sends it: B = 128 and 256 (MEGA_MAX_BATCH)
-    on the 169M w8a8 and w4a8 packs, from states of a seeded batched
+    on the 169M w8a8, w4a8 and bf16 packs, from states of a seeded batched
     prefill, check_k4 at the full depth's limits, and its time."""
     from rwkv_tpu_torch.tools.card import seeded_states
 
@@ -1446,6 +1480,8 @@ def phase_k4_large(model, model4, cfg) -> dict:
     for b in (128, 256):
         out[f"K4 B={b}"] = phase_k4(model._mega, cfg, states, tokens, b, f"K4 w8a8 B={b}")
         out[f"K4w4 B={b}"] = phase_k4(model4._mega, cfg, states, tokens, b, f"K4 w4a8 B={b}")
+        out[f"K4bf16 B={b}"] = phase_k4(model16._mega, cfg, states, tokens, b,
+                                        f"K4 bf16 B={b}")
     return out
 
 
@@ -1738,14 +1774,14 @@ def main() -> int:
     grid_invariance("K3", {"bf16": model16}, cfg, "169M")
     for b in (1, 8, 64):
         res[f"K4bf16 B={b}"] = phase_k4(model16._mega, cfg, states, tokens, b,
-                                        f"K4 bf16 B={b}")
+                                        f"K4 bf16 B={b}", show_f32_bound=b == 64)
     res["K4bf16"] = res["K4bf16 B=8"]
     k4_identical_lanes(model16._mega, cfg, states, tokens)
     phase_k4_shallow({"w8a8": model._mega, "w4a8": model4._mega, "bf16": model16._mega},
                      states, tokens)
     crossover(model, states, tokens)
     phase_k4_wide()
-    res.update(phase_k4_large(model, model4, cfg))
+    res.update(phase_k4_large(model, model4, model16, cfg))
     del states
     torch.cuda.empty_cache()
 

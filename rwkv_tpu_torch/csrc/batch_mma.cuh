@@ -1,9 +1,10 @@
-// K4's tensor-core matvec (v7_decode_batched.cu, int forms): one matrix of
-// a decode phase against the whole batch in one pass over its rows, on the
-// int8 tensor cores (mma.sync m16n8k32 s8.s8.s32). The launch plan comes
-// from rwkv_tpu_torch/ops/megakernel.py::batched_plan; `Layout` below
-// counts the same shared bytes, and the C entry refuses a plan whose count
-// differs.
+// K4's tensor-core matvec (v7_decode_batched.cu): one matrix of a decode
+// phase against the whole batch in one pass over its rows, on the int8
+// tensor cores (mma.sync m16n8k32 s8.s8.s32; the int forms) or the bf16
+// ones (m16n8k16 bf16.bf16.f32, x in three bf16 parts; the bf16 form, see
+// sweep_pass_bf16 below). The launch plan comes from
+// rwkv_tpu_torch/ops/megakernel.py::batched_plan; `Layout` below counts the
+// same shared bytes, and the C entry refuses a plan whose count differs.
 //
 // A sweep takes one matrix of a phase (rkv, lora1, out, fk or fv). Its rows
 // are the A operand in tiles of 16; the batch is the N operand in n-tiles
@@ -45,10 +46,21 @@
 // CUDA-core matvec's epilogue did. The staging and the products
 // (sweep_pass) are one function a weight form, not inlined into each
 // sweep: the kernel's code and registers stay smaller.
+//
+// The bf16 form (sweep_pass_bf16) shares the tiles, units, passes and
+// staging, with its rows as bf16 (64-value K steps, 128 bytes a row) and
+// its inputs as f32 (4 bytes a value, split into three bf16 parts in
+// registers as each B fragment is loaded), and differs where float sums
+// must keep one order: every block takes a tile's K whole (no split), each
+// unit's K goes to four fixed leaves, one a warp, summed in f32 and added
+// in a fixed order, and in placement (a) the pad columns past B are left
+// as they are (a column of mma's B feeds only its own column).
 #pragma once
 
 #include "decode_common.cuh"
 #include "gemm_common.cuh"
+
+#include <type_traits>
 
 namespace bmma {
 
@@ -76,9 +88,23 @@ __host__ __device__ inline int round_up(int n, int m) { return cdiv(n, m) * m; }
 // bytes that put rows g and g + 1 of a fragment in different banks.
 __host__ __device__ inline int code_stride(int k) { return round_up(k, 128) + 16; }
 
+// Values of K a step of the bf16 form takes (128 bytes of a weight row):
+// its sweeps' K slices are multiples of it, those of the int forms of 128.
+constexpr int kBf16Step = 64;
+
+// Bytes a staged row of k activations takes: int8 codes (code_stride), or
+// the bf16 form's f32 values in whole steps plus 64 bytes (four lanes read
+// 64 contiguous bytes of a row, so rows g and g + 1 fall in different
+// banks).
+__host__ __device__ inline int act_stride(int wf, int k) {
+  return wf == kBf16 ? 4 * round_up(k, kBf16Step) + 64 : code_stride(k);
+}
+
 // Bytes a staged weight row of k codes takes (int4: k / 2 bytes, padded
-// to 64 mod 128 for the same reason).
+// to 64 mod 128 for the same reason; bf16: 2k bytes in whole steps, plus
+// 32, as four lanes read 32 contiguous bytes of each of rows g .. g + 3).
 __host__ __device__ inline int weight_stride(int wf, int k) {
+  if (wf == kBf16) return 2 * round_up(k, kBf16Step) + 32;
   if (wf != kInt4) return code_stride(k);
   const int half = round_up(k, 128) / 2;
   return half % 128 == 64 ? half : half + 64;
@@ -93,7 +119,7 @@ struct SweepDims {
 __host__ __device__ inline SweepDims sweep_dims(int id, int wf, int C, int D, int F) {
   switch (id) {
     case kSwRkv: return {3 * C, C, C, 3, wf};
-    case kSwL1: return {4 * D, C, D, 4, kInt8};  // the LoRAs stay int8 under w4a8
+    case kSwL1: return {4 * D, C, D, 4, small_form(wf)};  // the LoRAs stay int8 under w4a8
     case kSwOut: return {C, C, C, 1, wf};
     case kSwFk: return {F, C, F, 1, wf};
     default: return {C, F, C, 1, wf};
@@ -128,16 +154,31 @@ __host__ __device__ inline int part_k(const SweepDims& s, int split) {
 __host__ __device__ inline size_t stage_bytes(const SweepDims& s, int tiles, int slots, int bp,
                                               int ks, bool place_b) {
   size_t b = static_cast<size_t>(tiles) * 16 * weight_stride(s.wf, ks);
-  if (place_b) b += static_cast<size_t>(slots) * bp * code_stride(ks);
+  if (place_b) b += static_cast<size_t>(slots) * bp * act_stride(s.wf, ks);
   return b;
 }
 
-// The int kernel's dynamic shared memory, region by region (byte offsets,
-// all multiples of 16): phase C's scratch (hv 12 S floats, red 256, dxs 8,
-// q8 4 D codes), the activation scales (kVectors x bp), a sweep's row
-// scales (most tiles x 16 floats), in placement (a) the warps' sequence
-// rows and the prepared codes (kVectors x bp rows of C, or bp of F), then
-// the work region (a sweep's stages, then its int32 sums).
+// Tiles a pass of a sweep takes at most: its units (tile x n-group of
+// kGroup n-tiles) fill the block's warps.
+__host__ __device__ inline int pass_tiles(int nt) {
+  const int groups = cdiv(nt, kGroup);
+  return groups >= kWarps ? 1 : kWarps / groups;
+}
+
+// The bf16 form's partial sums of a row: the 16-value blocks b of a row
+// go to leaf b % kLeaves (see sweep_pass_bf16).
+constexpr int kLeaves = 4;
+
+// The kernel's dynamic shared memory, region by region (byte offsets, all
+// multiples of 16): phase C's scratch (hv 12 S floats, red 256, dxs 8, q8
+// 4 D codes, or 4 D floats in the bf16 form), the activation scales
+// (kVectors x bp) and a sweep's row scales (most tiles x 16 floats; the
+// bf16 form has neither), in placement (a) the warps' sequence rows and
+// the prepared inputs (kVectors x bp rows of C, or bp of F: codes, or f32
+// in the bf16 form), then the work region (a sweep's stages, then its
+// sums: int32, or the bf16 form's kLeaves f32 partial sums of a pass).
+// The bf16 form sizes its stages by the tiles of a pass, the int forms by
+// all of the block's tiles.
 struct Layout {
   int nt, bp;       // n-tiles, padded batch (8 nt)
   size_t dxs, srow, xw, acodes, work, total;
@@ -145,29 +186,33 @@ struct Layout {
                              const Plan& pl) {
     nt = cdiv(B, 8);
     bp = 8 * nt;
-    const bool place_b = pl.place != 0;
+    const bool place_b = pl.place != 0, bf16 = wf == kBf16;
+    const int per_pass = pass_tiles(nt);
     int tiles[kNumSweeps], slots[kNumSweeps], most = 0;
     for (int i = 0; i < kNumSweeps; ++i) {
       const SweepDims s = sweep_dims(i, wf, C, D, F);
       tiles[i] = max_tiles(s, blocks);
-      slots[i] = tiles[i] < s.parts ? tiles[i] : s.parts;
       most = tiles[i] > most ? tiles[i] : most;
+      if (bf16 && tiles[i] > per_pass) tiles[i] = per_pass;
+      slots[i] = tiles[i] < s.parts ? tiles[i] : s.parts;
     }
-    dxs = (12ull * S + 264) * sizeof(float) + round_up(4 * D, 16);
-    srow = dxs + static_cast<size_t>(kVectors) * bp * sizeof(float);
-    xw = srow + static_cast<size_t>(most) * 16 * sizeof(float);
+    dxs = (12ull * S + 264) * sizeof(float) + (bf16 ? 16ull * D : round_up(4 * D, 16));
+    srow = dxs + (bf16 ? 0 : static_cast<size_t>(kVectors) * bp * sizeof(float));
+    xw = srow + (bf16 ? 0 : static_cast<size_t>(most) * 16 * sizeof(float));
     acodes = xw;
     work = xw;
     if (!place_b) {
       acodes = xw + 8ull * C * sizeof(float);
-      const size_t codes = static_cast<size_t>(kVectors) * bp * code_stride(C);
-      const size_t f = static_cast<size_t>(bp) * code_stride(F);
+      const size_t codes = static_cast<size_t>(kVectors) * bp * act_stride(wf, C);
+      const size_t f = static_cast<size_t>(bp) * act_stride(wf, F);
       work = acodes + (f > codes ? f : codes);
     }
-    size_t w = static_cast<size_t>(most) * 16 * bp * sizeof(int);
+    size_t w = bf16 ? static_cast<size_t>(kLeaves) * (most < per_pass ? most : per_pass) * 16 *
+                          bp * sizeof(float)
+                    : static_cast<size_t>(most) * 16 * bp * sizeof(int);
     for (int i = 0; i < kNumSweeps; ++i) {
       const SweepDims s = sweep_dims(i, wf, C, D, F);
-      const int k = part_k(s, sweep_split(i, s, blocks, place_b));
+      const int k = bf16 ? round_up(s.K, kBf16Step) : part_k(s, sweep_split(i, s, blocks, place_b));
       const size_t st = stage_bytes(s, tiles[i], slots[i], bp, pl.ks[i], place_b) *
                         (pl.ks[i] >= k ? 1 : pl.ring);
       w = st > w ? st : w;
@@ -236,7 +281,7 @@ __device__ __forceinline__ Geo geometry(const SweepDims& s, int ks, int ring, bo
   g.nks = cdiv(g.tl.k_hi - g.tl.k_lo, ks);
   g.nst = g.nks > 1 ? ring : 1;
   g.wst = weight_stride(WF, ks);
-  g.cst = code_stride(ks);
+  g.cst = act_stride(WF, ks);
   g.row_bytes = static_cast<int>(form_bytes(WF, s.K));
   g.groups = cdiv(nt, kGroup);
   g.per_pass = g.groups >= kWarps ? 1 : kWarps / g.groups;
@@ -291,7 +336,7 @@ template <int WF>
 __device__ __forceinline__ void load_rows(const Geo& g, const Pass& p, const int8_t* W,
                                           const float* scales, int st, unsigned char* work,
                                           float* srow) {
-  constexpr int kCodesPerChunk = WF == kInt4 ? 32 : 16;
+  constexpr int kCodesPerChunk = WF == kInt4 ? 32 : WF == kBf16 ? 8 : 16;
   unsigned char* buf = work + static_cast<size_t>(st % g.nst) * p.stage;
   const int k0 = g.tl.k_lo + st * g.ks;
   for (Walk w(g.ks / kCodesPerChunk); w.row < p.ntc * 16; w.next()) {
@@ -301,7 +346,7 @@ __device__ __forceinline__ void load_rows(const Geo& g, const Pass& p, const int
                          (valid ? form_bytes(WF, kc) : 0);
     gemm::cp_async16(buf + static_cast<size_t>(w.row) * g.wst + w.c * 16, from, valid);
   }
-  if (st == 0)
+  if (WF != kBf16 && st == 0)  // the bf16 form has no row scales
     for (int e = threadIdx.x; e < p.ntc * 4; e += blockDim.x)
       gemm::cp_async16(srow + 4 * e, scales + p.c0 * 16 + 4 * e, true);
 }
@@ -326,6 +371,193 @@ __device__ __forceinline__ void load_codes(const Geo& g, const Pass& p, const So
         src.codes + (valid ? (static_cast<size_t>(mix.m[p.p0 + sl]) * B + b) * g.K + kc : 0);
     gemm::cp_async16(cb + static_cast<size_t>(w.row) * g.cst + w.c * 16, from, valid);
   }
+}
+
+// Issues (no commit) the copies of K slice st of the bf16 form's f32
+// inputs of pass p's slots (placement (b)), zero past B and past K.
+__device__ __forceinline__ void load_x(const Geo& g, const Pass& p, const Source& src, int B,
+                                       int st, unsigned char* work, const Mixes& mix) {
+  unsigned char* cb = work + static_cast<size_t>(st % g.nst) * p.stage +
+                      static_cast<size_t>(p.ntc) * 16 * g.wst;
+  const float* x = reinterpret_cast<const float*>(src.codes);
+  const int k0 = g.tl.k_lo + st * g.ks;
+  for (Walk w(g.ks / 4); w.row < p.nslots * g.bp; w.next()) {  // row = slot * bp + b
+    const int sl = w.row / g.bp, b = w.row - sl * g.bp;
+    const int kc = k0 + w.c * 4;
+    const bool valid = b < B && kc < g.tl.k_hi;
+    const float* from =
+        x + (valid ? (static_cast<size_t>(mix.m[p.p0 + sl]) * B + b) * g.K + kc : 0);
+    gemm::cp_async16(cb + static_cast<size_t>(w.row) * g.cst + w.c * 16, from, valid);
+  }
+}
+
+// One 16-value block of the bf16 form: d = the product of the A fragment
+// `a` (bf16 weights) with four f32 inputs of the lane's column, x.x, x.y
+// (b0) and x.z, x.w (b1), each split into three bf16 parts (exact
+// products, hi + mid + lo == x): three mmas from zero, parts lo, mid, hi.
+// The caller adds d into its sum with one round-to-nearest add an
+// element: chaining the mmas through the sum instead (the tensor cores'
+// adds truncate) moved K4 four times as far from its plain version.
+__device__ __forceinline__ void block_bf16(float (&d)[4], const unsigned (&a)[4], float4 x) {
+  unsigned p01[3], p23[3];
+  gemm::bf16_parts<3>(x.x, x.y, p01);
+  gemm::bf16_parts<3>(x.z, x.w, p23);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] = 0.f;
+#pragma unroll
+  for (int q = 2; q >= 0; --q) {
+    const unsigned b[2] = {p01[q], p23[q]};
+    gemm::mma_bf16(d, a, b);
+  }
+}
+
+// One pass of a bf16 sweep (tiles c0 .. c0 + ntc - 1, see `sweep`) up to
+// its sums: stages its rows (and in placement (b) the f32 inputs of its
+// slots) a K slice at a time, runs the products, and leaves in red
+// [kLeaves][bp][ntc x 16] f32 at the start of the work region the
+// kLeaves partial sums of each row and sequence. Leaf q holds the 16-value
+// blocks 4 s + q of K (q of each 64-value step s), taken in increasing s:
+// each block's product (block_bf16) added in turn, two steps' products
+// computed at once. Warp w sums leaf w % kLeaves of the pass's units
+// w / kLeaves, + 2, + 4, + 6 (a pass has at most kWarps units), and the
+// epilogue adds the leaves as (L0 + L2) + (L1 + L3): a row's sum order
+// depends on K alone, not on B, the placement, the grid or the K slice,
+// so a sequence gets the same bits in any batch and on any grid, and
+// every warp works in every step. The bf16 sweeps take K whole on one
+// block (no split).
+//
+// Fragments. Block q of a step is 32 bytes of a weight row; lane (g =
+// lane / 4, t = lane % 4) reads 8 bytes of it at 8 t (values 16 q + 4 t ..
+// + 3) from rows g and g + 8, and the same four values of sequence g's f32
+// inputs (16 bytes). Words 0 and 1 of the 8 bytes are a0 and a2 (a1, a3
+// from row g + 8), the inputs, each split into three bf16 parts, b0 and b1:
+// mma's k = 2 t + i and 2 t + 8 + i hold values 16 q + 4 t + i and + 2 + i,
+// a permutation of the block, the same for both operands.
+__device__ __noinline__ void sweep_pass_bf16(SweepDims s, const int8_t* __restrict__ W, int ks,
+                                             int ring, bool reverse, int B, int nt, Source src,
+                                             unsigned char* work, Mixes mix, int c0) {
+  const Geo g = geometry<kBf16>(s, ks, ring, reverse, nt, 1);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gi = lane >> 2, t = lane & 3;
+  const int bp = g.bp;
+  const Pass p = pass_at(g, s, c0, src.place_b);
+  auto load = [&](int st) {  // K slice st, rows and inputs, one commit group
+    load_rows<kBf16>(g, p, W, nullptr, st, work, nullptr);
+    if (src.place_b) load_x(g, p, src, B, st, work, mix);
+    gemm::cp_async_commit();
+  };
+  load(0);
+  if (g.nst > 1) load(1);
+
+  const int leaf = warp % kLeaves, u0 = warp / kLeaves;  // units u0 + 2 r
+  float acc[kWarps / 2][kGroup][4];
+#pragma unroll
+  for (int r = 0; r < kWarps / 2; ++r)
+#pragma unroll
+    for (int n = 0; n < kGroup; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][n][e] = 0.f;
+
+  for (int st = 0; st < g.nks; ++st) {
+    if (g.nst > 1 && st + 1 < g.nks) {
+      gemm::cp_async_wait<1>();
+    } else {
+      gemm::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const unsigned char* buf = work + static_cast<size_t>(st % g.nst) * p.stage;
+    const int k0 = g.tl.k_lo + st * g.ks;
+    const int steps = cdiv((g.tl.k_hi - k0 < g.ks ? g.tl.k_hi - k0 : g.ks), kBf16Step);
+    // this warp's units in the slice: lane's weight bytes of rows gi (+ 8)
+    // and input bytes of sequence gi of n-tile 0, at step 0
+    // n-tiles of each unit (0 past the pass's units)
+    const unsigned char* wp[kWarps / 2];
+    const unsigned char* xp[kWarps / 2];
+    int xs[kWarps / 2], nn[kWarps / 2];
+#pragma unroll
+    for (int r = 0; r < kWarps / 2; ++r) {
+      const int u = u0 + 2 * r;
+      const int j = u / g.groups, n0 = (u - j * g.groups) * kGroup;
+      nn[r] = u < p.units ? (nt - n0 < kGroup ? nt - n0 : kGroup) : 0;
+      const int sl = (c0 + j) * 16 / s.part_rows - p.p0;
+      wp[r] = buf + static_cast<size_t>(j * 16 + gi) * g.wst + leaf * 32 + t * 8;
+      if (src.place_b) {
+        xs[r] = g.cst;
+        xp[r] = buf + static_cast<size_t>(p.ntc) * 16 * g.wst +
+                static_cast<size_t>(sl) * bp * g.cst;
+      } else {
+        xs[r] = src.stride;
+        xp[r] = reinterpret_cast<const unsigned char*>(src.codes) +
+                static_cast<size_t>(u < p.units ? mix.m[p.p0 + sl] : 0) * bp * src.stride +
+                k0 * 4;
+      }
+      xp[r] += static_cast<size_t>(n0 * 8 + gi) * xs[r] + leaf * 64 + t * 16;
+    }
+    // steps kk and kk + 1 (`two`) of every unit and n-tile: both blocks'
+    // products, then their adds in step order
+    auto steps_at = [&](int kk, auto two) {
+      constexpr int kN = decltype(two)::value ? 2 : 1;
+#pragma unroll
+      for (int r = 0; r < kWarps / 2; ++r) {
+        if (nn[r] > 0) {  // warp-uniform
+          unsigned a[kN][4];
+#pragma unroll
+          for (int i = 0; i < kN; ++i) {
+            const uint2 wa = *reinterpret_cast<const uint2*>(wp[r] + (kk + i) * 128);
+            const uint2 wb = *reinterpret_cast<const uint2*>(wp[r] + 8 * g.wst + (kk + i) * 128);
+            a[i][0] = wa.x;
+            a[i][1] = wb.x;
+            a[i][2] = wa.y;
+            a[i][3] = wb.y;
+          }
+#pragma unroll
+          for (int n = 0; n < kGroup; ++n) {
+            if (n < nn[r]) {  // warp-uniform
+              float d[kN][4];
+#pragma unroll
+              for (int i = 0; i < kN; ++i)
+                block_bf16(d[i], a[i], *reinterpret_cast<const float4*>(
+                                           xp[r] + static_cast<size_t>(n * 8) * xs[r] +
+                                           (kk + i) * 256));
+#pragma unroll
+              for (int i = 0; i < kN; ++i)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[r][n][e] = __fadd_rn(acc[r][n][e], d[i][e]);
+            }
+          }
+        }
+      }
+    };
+    int kk = 0;
+    for (; kk + 1 < steps; kk += 2) steps_at(kk, std::true_type{});
+    if (kk < steps) steps_at(kk, std::false_type{});
+    __syncthreads();  // the stage is free again
+    if (st + g.nst < g.nks) load(st + g.nst);
+  }
+
+  // the leaves into red [kLeaves][bp][rows] over the work region (its
+  // stages are read); every (leaf, unit) has one writer
+  const int rows = p.ntc * 16;
+  float* red = reinterpret_cast<float*>(work);
+#pragma unroll
+  for (int r = 0; r < kWarps / 2; ++r) {
+    const int u = u0 + 2 * r;
+    if (u < p.units) {
+      const int j = u / g.groups, n0 = (u - j * g.groups) * kGroup;
+#pragma unroll
+      for (int n = 0; n < kGroup; ++n) {
+        if (n0 + n < nt) {
+          float* r0 = red + (static_cast<size_t>(leaf) * bp + (n0 + n) * 8 + 2 * t) * rows +
+                      j * 16 + gi;
+          r0[0] = acc[r][n][0];
+          r0[rows] = acc[r][n][1];
+          r0[8] = acc[r][n][2];
+          r0[rows + 8] = acc[r][n][3];
+        }
+      }
+    }
+  }
+  __syncthreads();
 }
 
 // One pass of a sweep (tiles c0 .. c0 + ntc - 1, see `sweep`) up to its
@@ -483,8 +715,9 @@ __device__ __noinline__ bool sweep_pass(SweepDims s, const int8_t* __restrict__ 
 // acc, dx, d) for each of its rows (of a split sweep: those whose last
 // part it computed) and each sequence b < B, acc the exact int32 dot of
 // the row with sequence b's codes of the input vector mix.m[part] of the
-// row's part, dx their scale, d the row's scale (in shared memory).
-// Block-uniform; ends with a barrier, so every shared region may be
+// row's part, dx their scale, d the row's scale (in shared memory); in the
+// bf16 form acc is the f32 dot with its f32 inputs (no scales: dx 0, d
+// null). Block-uniform; ends with a barrier, so every shared region may be
 // reused after it.
 template <int WF, typename Epi>
 __device__ __forceinline__ void sweep(const SweepDims& s, const int8_t* __restrict__ W,
@@ -492,19 +725,36 @@ __device__ __forceinline__ void sweep(const SweepDims& s, const int8_t* __restri
                                       int nt, const Source& src, unsigned char* work, float* srow,
                                       const Mixes& mix, int split, Epi epi) {
   const Geo g = geometry<WF>(s, ks, ring, reverse, nt, split);
-  for (int c0 = g.tl.t0; c0 < g.tl.t1; c0 += g.per_pass) {  // block-uniform
-    if (!sweep_pass<WF>(s, W, scales, ks, ring, reverse, B, nt, src, work, srow, mix, c0, split))
-      continue;
-    const int rows = ((c0 + g.per_pass < g.tl.t1 ? c0 + g.per_pass : g.tl.t1) - c0) * 16;
-    const int* red = reinterpret_cast<const int*>(work);
-    for (int e = threadIdx.x; e < rows * B; e += blockDim.x) {
-      const int b = e / rows, r = e - b * rows;
-      const int row = c0 * 16 + r;
-      int a = red[b * rows + r];
-      if constexpr (WF == kInt4) a >>= 4;  // the int4 codes were taken times 16
-      epi(row, b, a, src.dxs[mix.m[row / s.part_rows] * g.bp + b], srow + r);
+  if constexpr (WF == kBf16) {
+    for (int c0 = g.tl.t0; c0 < g.tl.t1; c0 += g.per_pass) {  // block-uniform
+      sweep_pass_bf16(s, W, ks, ring, reverse, B, nt, src, work, mix, c0);
+      const int rows = ((c0 + g.per_pass < g.tl.t1 ? c0 + g.per_pass : g.tl.t1) - c0) * 16;
+      const float* red = reinterpret_cast<const float*>(work);
+      const size_t leaf = static_cast<size_t>(g.bp) * rows;
+      for (int e = threadIdx.x; e < rows * B; e += blockDim.x) {
+        const int b = e / rows, r = e - b * rows;
+        const float* v = red + b * rows + r;
+        epi(c0 * 16 + r, b, add(add(v[0], v[2 * leaf]), add(v[leaf], v[3 * leaf])), 0.f,
+            static_cast<const float*>(nullptr));
+      }
+      __syncthreads();
     }
-    __syncthreads();
+  } else {
+    for (int c0 = g.tl.t0; c0 < g.tl.t1; c0 += g.per_pass) {  // block-uniform
+      if (!sweep_pass<WF>(s, W, scales, ks, ring, reverse, B, nt, src, work, srow, mix, c0,
+                          split))
+        continue;
+      const int rows = ((c0 + g.per_pass < g.tl.t1 ? c0 + g.per_pass : g.tl.t1) - c0) * 16;
+      const int* red = reinterpret_cast<const int*>(work);
+      for (int e = threadIdx.x; e < rows * B; e += blockDim.x) {
+        const int b = e / rows, r = e - b * rows;
+        const int row = c0 * 16 + r;
+        int a = red[b * rows + r];
+        if constexpr (WF == kInt4) a >>= 4;  // the int4 codes were taken times 16
+        epi(row, b, a, src.dxs[mix.m[row / s.part_rows] * g.bp + b], srow + r);
+      }
+      __syncthreads();
+    }
   }
 }
 

@@ -227,26 +227,6 @@ template <int F, int BM, int BN> struct Layout {
   static constexpr size_t kSmem = kRing + kOps > kRed ? kRing + kOps : kRed;
 };
 
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), f32
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two values as a bf16 pair, lo in the low half (RNE)
-__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&h);
-}
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // codes k .. k + 3 (k % 4 == 0, within the stage's kBK) of a shared code row
 template <int F>
 __device__ __forceinline__ void codes4(const unsigned char* row, int k, int (&c)[4]) {
@@ -336,18 +316,13 @@ block_gemm(const float* __restrict__ x, const int8_t* __restrict__ q,
       const int r = i / (kBK / 4), k = 4 * (i % (kBK / 4));
       if (r < BM) {
         const float4 xv = *reinterpret_cast<const float4*>(xs + r * kXPitch + k);
-        float v[4] = {xv.x, xv.y, xv.z, xv.w};
+        unsigned h01[P], h23[P];
+        gemm::bf16_parts<P>(xv.x, xv.y, h01);
+        gemm::bf16_parts<P>(xv.z, xv.w, h23);
 #pragma unroll
-        for (int p = 0; p < P; ++p) {
-          uint2 h;
-          h.x = bf16x2(v[0], v[1]);
-          h.y = bf16x2(v[2], v[3]);
-          *reinterpret_cast<uint2*>(xh + p * L::kXh + (r * kHPitch + k) * 2) = h;
-          if (p + 1 < P) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) v[e] = __fsub_rn(v[e], bf16_round(v[e]));
-          }
-        }
+        for (int p = 0; p < P; ++p)
+          *reinterpret_cast<uint2*>(xh + p * L::kXh + (r * kHPitch + k) * 2) =
+              make_uint2(h01[p], h23[p]);
         if constexpr (Traits<F>::kHasMin) {
           // eight lanes hold a row's quant block
           float s = __fadd_rn(__fadd_rn(xv.x, xv.y), __fadd_rn(xv.z, xv.w));
@@ -360,8 +335,8 @@ block_gemm(const float* __restrict__ x, const int8_t* __restrict__ q,
         int c[4];
         codes4<F>(cs + n * L::kCPitch, k, c);
         uint2 h;
-        h.x = bf16x2(static_cast<float>(c[0]), static_cast<float>(c[1]));
-        h.y = bf16x2(static_cast<float>(c[2]), static_cast<float>(c[3]));
+        h.x = gemm::bf16x2(static_cast<float>(c[0]), static_cast<float>(c[1]));
+        h.y = gemm::bf16x2(static_cast<float>(c[2]), static_cast<float>(c[3]));
         *reinterpret_cast<uint2*>(wh + (n * kHPitch + k) * 2) = h;
       }
     }
@@ -418,7 +393,7 @@ block_gemm(const float* __restrict__ x, const int8_t* __restrict__ q,
 #pragma unroll
           for (int i = 0; i < MF; ++i)
 #pragma unroll
-            for (int j = 0; j < NF; ++j) mma_bf16(sum[i][j], a[i], b[j]);
+            for (int j = 0; j < NF; ++j) gemm::mma_bf16(sum[i][j], a[i], b[j]);
         }
       }
       if constexpr (!Traits<F>::kRow) {

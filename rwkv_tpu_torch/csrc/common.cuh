@@ -218,16 +218,3 @@ __device__ void matvec_rows(const int8_t* __restrict__ W, int nrows, int K, int 
     }
   }
 }
-
-// All rows of a matvec, spread over every warp of the grid; reverse = true
-// deals them from the last warp down (a second matvec of a phase then
-// lands on the warps the first one left with fewer rows).
-template <int WF, int NB, typename XSel, typename Epi>
-__device__ void matvec_grid(const int8_t* __restrict__ W, int nrows, int K, int nb, XSel xsel,
-                            Epi epi, int max_lpr = 32, bool reverse = false) {
-  const int warps_per_block = blockDim.x >> 5;
-  const int n_units = gridDim.x * warps_per_block;
-  const int unit = blockIdx.x * warps_per_block + (threadIdx.x >> 5);
-  matvec_rows<WF, NB>(W, nrows, K, reverse ? n_units - 1 - unit : unit, n_units, max_lpr, nb,
-                      [](int r) { return r; }, xsel, epi);
-}

@@ -2,8 +2,9 @@
 // (block_matmul.cu): cp.async copies that zero-fill what lies outside the
 // operands, ldmatrix, the int8 mma, the K split of the tensor-core (M > 8)
 // route, its split-K reduction through the cluster's distributed shared
-// memory, and its launch. K4's int forms (batch_mma.cuh) take the cp.async
-// copies and the int8 mma.
+// memory, and its launch. K4 (batch_mma.cuh) takes the cp.async copies,
+// the int8 mma (its int forms) and the bf16 mma with x split into three
+// bf16 parts (its bf16 form, as K9's f32 forms split x).
 //
 // The M > 8 route. A block of WM x WN warps owns a BM x BN output tile, one
 // of three (64x64 on 2 x 4 warps, 32x32 on 2 x 4, 32x16 on 2 x 2), and
@@ -20,6 +21,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -78,6 +80,42 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], cons
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a (16x16 bf16, row) * b (16x8 bf16, col), f32 (K9, K4's bf16 form)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two values as a bf16 pair, lo in the low half (RNE)
+__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// The first P bf16 parts of the pair (a, b), each a bf16x2 word (a in the
+// low half): part 0 is (bf16(a), bf16(b)), each next part the same of what
+// the parts before it leave (a - hi, then a - hi - mid: each difference
+// exact in f32, the parts widened exactly by a shift). Three parts carry a
+// finite f32's 24-bit significand, so hi + mid + lo == a for 2^-110 <= |a|
+// < 2^128 (1 - 2^-9) (bf16's largest value and a half ulp); smaller values
+// keep what bf16's subnormals can hold (within 2^-134), larger ones round
+// to infinity in part 0.
+template <int P>
+__device__ __forceinline__ void bf16_parts(float a, float b, unsigned (&h)[P]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    h[p] = bf16x2(a, b);
+    if (p + 1 < P) {
+      a = __fsub_rn(a, __uint_as_float(h[p] << 16));
+      b = __fsub_rn(b, __uint_as_float(h[p] & 0xFFFF0000u));
+    }
+  }
 }
 
 // K steps [first, last) of cluster rank z out of `split` over `steps`:

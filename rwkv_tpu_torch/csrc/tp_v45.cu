@@ -37,7 +37,7 @@
 // computes the layout, the producer the block's plan while the consumers
 // take x's statistics (K12's start, tp_stream.cuh). Each row is summed
 // with the lanes, the chunk order and the shuffle tree that the earlier
-// cooperative kernel's matvec_grid (common.cuh) gave it (lanes_for(C) for
+// cooperative kernel's grid-wide matvec gave it (lanes_for(C) for
 // rkv, lanes_for(C/tp) for out), so the outputs are that kernel's bit for
 // bit on any grid.
 //
@@ -133,7 +133,7 @@ struct Att4Plan {
   __host__ __device__ Att4Plan(const TpLayout& lo, int C, int CL, int wf, int blocks, int b) {
     const bool w = wf != kBf16;
     const int st = static_cast<int>(lo.stage);
-    // the lanes the earlier kernel's matvec_grid gave each matrix's rows
+    // the lanes the earlier kernel's grid-wide matvec gave each matrix's rows
     att = part(3 * CL, blocks, b, false, static_cast<int>(form_bytes(wf, C)), w, st,
                lanes_for(C, wf));
     out = part(C, blocks, b, false, static_cast<int>(form_bytes(wf, CL)), w, st,

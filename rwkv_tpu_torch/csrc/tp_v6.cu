@@ -69,7 +69,7 @@
 // with the lanes, the chunk order and the shuffle tree matvec_rows
 // (common.cuh) gives it, so the outputs are the earlier K12 / K13 / K15's
 // bit for bit on any grid (K11: the earlier cooperative kernel's, whose
-// matvec_grid gave each fk row lanes_for(C) lanes and each fv row
+// grid-wide matvec gave each fk row lanes_for(C) lanes and each fv row
 // lanes_for(FT)). The phases whose input vector other blocks wrote (K12's
 // B: the five mixes, C: the dw1 outputs, D: xo; K15's D: xo; K13's and
 // K11's B: the relu^2 keys of each tile) quantize it in one pass from an

@@ -176,7 +176,7 @@ struct AttPlan {
                               int blocks, int b) {
     const int sf = small_form(wf), st = static_cast<int>(lo.stage);
     const bool w = wf != kBf16;
-    // the lanes matvec_grid gave each matrix's rows in the earlier K10
+    // the lanes the grid-wide matvec gave each matrix's rows in the earlier K10
     rkv = part(3 * CL, blocks, b, false, static_cast<int>(form_bytes(wf, C)), w, st,
                lanes_for(C, wf));
     l1 = part(4 * D, blocks, b, true, static_cast<int>(form_bytes(sf, C)), w, st, 32);

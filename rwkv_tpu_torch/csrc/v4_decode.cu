@@ -185,7 +185,8 @@ struct Plan4 {
     const int sf = small_form(wf);
     const bool w = wf != kBf16;
     const int bc = static_cast<int>(form_bytes(wf, C)), sc = static_cast<int>(form_bytes(sf, C));
-    // the lanes matvec_grid gave each matrix's rows: lanes_for(K), 8 for the head
+    // the lanes the earlier grid-wide matvec gave each matrix's rows:
+    // lanes_for(K), 8 for the head
     const int big = lanes_for(C, wf);
     att = part(3 * C, blocks, b, false, bc, w, lo.stage, big);
     out = part(C, blocks, b, false, bc, w, lo.stage, big);

@@ -202,7 +202,7 @@ struct Plan7 {
     const int sf = small_form(wf);
     const bool w = wf != kBf16;
     const int bc = static_cast<int>(form_bytes(wf, C)), sc = static_cast<int>(form_bytes(sf, C));
-    // the lanes matvec_grid gives each matrix's rows: 32 at most, 8 for the head
+    // the lanes the earlier grid-wide matvec gave each matrix's rows: 32 at most, 8 for the head
     rkv = part(3 * C, blocks, b, false, bc, w, lo.stage, 32);
     l1 = part(4 * D, blocks, b, true, sc, w, lo.stage, 32);
     out = part(C, blocks, b, false, bc, w, lo.stage, 32);

@@ -580,39 +580,43 @@ def _round_up(n: int, m: int) -> int:
     return _cdiv(n, m) * m
 
 
-# -- K4's launch plan (int forms) ----------------------------------------------
+# -- K4's launch plan -----------------------------------------------------------
 #
-# The int forms of K4 take each phase's weight rows as the A operand of
-# int8 mma.sync (16 rows a tile) against the batch as N (n-tiles of 8
-# sequences). A phase runs as sweeps, one a matrix: the sweep deals its
-# 16-row tiles over the grid's blocks in contiguous runs (lora1 from the
-# last block down); a block stages its rows and its sequences' codes in
-# shared memory, a K slice a stage (two stages in flight where they fit),
-# and sums the int32 dots of its warps in shared memory before the
+# K4 takes each phase's weight rows as the A operand of mma.sync (16 rows
+# a tile; int8 m16n8k32 in the int forms, bf16 m16n8k16 in the bf16 form,
+# whose f32 inputs split into three bf16 parts) against the batch as N
+# (n-tiles of 8 sequences). A phase runs as sweeps, one a matrix: the sweep
+# deals its 16-row tiles over the grid's blocks in contiguous runs (lora1
+# from the last block down); a block stages its rows and its sequences'
+# inputs in shared memory, a K slice a stage (two stages in flight where
+# they fit), and sums its warps' products in shared memory before the
 # epilogue. The sequences' activations are prepared either (a) by every
 # block for all of B, in shared memory, or (b) once a sequence by one warp
-# of the grid into a global code buffer, behind one more grid barrier a
-# phase; in (b) the out and fv tiles' K is cut into parts on blocks of
+# of the grid into a global buffer, behind one more grid barrier a phase;
+# in (b) the int forms cut the out and fv tiles' K into parts on blocks of
 # their own. ``batched_plan`` chooses; the C entry takes the plan's ints
 # and refuses a plan whose shared bytes differ from its own count of them.
 K4_SMEM_LIMIT = 232448  # shared memory a block of the H100 may opt into
-K4_STATIC_SMEM = 0  # the int kernel's static shared memory (the card tests read the kernel's)
+K4_STATIC_SMEM = 0  # the kernels' static shared memory (the card tests read the kernels')
 K4_PLACE_A_MAX_B = 8  # placement (a) up to this B, (b) above (tools/probe_batched.py, PERF.md)
 K4_MAX_BATCH = 256  # a tile's n-tiles fit the block's warps (csrc/batch_mma.cuh: kMaxBatch)
 K4_MAX_SPLIT = 4  # K parts of an out / fv tile in placement (b), at most (kMaxSplit)
 K4_SWEEPS = ("rkv", "lora1", "out", "fk", "fv")
+K4_BF16_STEP = 64  # values of K a bf16 step takes (kBf16Step); its K slices are multiples
+K4_LEAVES = 4  # partial sums of a bf16 row, its 16-value blocks modulo 4 (kLeaves)
 
 
 @dataclass(frozen=True)
 class BatchedPlan:
-    """How one K4 launch in an int form runs: ``n_tiles`` n-tiles of 8
-    sequences (the last one zero-filled past B), placement ``place`` ("a"
-    or "b") of the activation preparation, ``ring`` stages in flight where
-    a sweep takes K in slices, the K slice in codes of each sweep's stage
-    (``K4_SWEEPS`` order; K rounded up to 128 codes is one stage), the
-    dynamic shared bytes ``smem``, the K parts each tile of a sweep is cut
-    into (``split``: the out and fv sweeps in placement (b), see
-    ``_k4_split``) and the static shared bytes (``static``)."""
+    """How one K4 launch runs: ``n_tiles`` n-tiles of 8 sequences (the
+    last one padded past B), placement ``place`` ("a" or "b") of the
+    activation preparation, ``ring`` stages in flight where a sweep takes
+    K in slices, the K slice of each sweep's stage (``K4_SWEEPS`` order;
+    codes, K rounded up to 128 being one stage, or in the bf16 form values,
+    K rounded up to 64), the dynamic shared bytes ``smem``, the K parts
+    each tile of a sweep is cut into (``split``: the int forms' out and fv
+    sweeps in placement (b), see ``_k4_split``) and the static shared bytes
+    (``static``)."""
 
     n_tiles: int
     place: str
@@ -631,8 +635,9 @@ class BatchedPlan:
 def _k4_sweeps(form: str, c: int, f_dim: int, d_lora: int) -> tuple:
     """Per sweep: (rows, K, rows a part, parts, weight form); each part of
     a sweep's rows reads one input vector (rkv: mixes r, k, v; lora1: w,
-    a, g, v)."""
-    return ((3 * c, c, c, 3, form), (4 * d_lora, c, d_lora, 4, "i8"), (c, c, c, 1, form),
+    a, g, v). The LoRA is int8 in both int forms."""
+    small = "bf16" if form == "bf16" else "i8"
+    return ((3 * c, c, c, 3, form), (4 * d_lora, c, d_lora, 4, small), (c, c, c, 1, form),
             (f_dim, c, f_dim, 1, form), (c, f_dim, c, 1, form))
 
 
@@ -653,9 +658,18 @@ def _k4_code_stride(k: int) -> int:
     return _round_up(k, 128) + 16
 
 
+def _k4_act_stride(form: str, k: int) -> int:
+    """Bytes a staged row of k activations takes: codes, or the bf16
+    form's f32 values in whole 64-value steps plus 64 bytes."""
+    return 4 * _round_up(k, K4_BF16_STEP) + 64 if form == "bf16" else _k4_code_stride(k)
+
+
 def _k4_weight_stride(form: str, k: int) -> int:
     """Bytes a staged weight row of k codes takes (int8 as the codes; int4
-    rows, k / 2 bytes, padded to 64 mod 128 bytes for the same reason)."""
+    rows, k / 2 bytes, padded to 64 mod 128 bytes for the same reason;
+    bf16 rows, 2k bytes in whole steps, plus 32)."""
+    if form == "bf16":
+        return 2 * _round_up(k, K4_BF16_STEP) + 32
     if form != "i4":
         return _k4_code_stride(k)
     half = _round_up(k, 128) // 2
@@ -665,46 +679,76 @@ def _k4_weight_stride(form: str, k: int) -> int:
 def _k4_stage_bytes(form_k: str, tiles: int, slots: int, bp: int, k: int, ks: int, place: str,
                     ring: int) -> int:
     """Shared bytes of a sweep's stages: its tiles' weight rows and, in
-    placement (b), its slots' code rows, for a K slice of ks codes; `ring`
-    stages when K takes more than one slice."""
+    placement (b), its slots' input rows, for a K slice of ks codes;
+    `ring` stages when K takes more than one slice."""
     stage = tiles * 16 * _k4_weight_stride(form_k, ks)
     if place == "b":
-        stage += slots * bp * _k4_code_stride(ks)
+        stage += slots * bp * _k4_act_stride(form_k, ks)
     return stage * (1 if ks >= k else ring)
+
+
+def _k4_pass_tiles(nt: int) -> int:
+    """Tiles a pass of a sweep takes at most: its units (tile x group of 4
+    n-tiles) fill the block's 8 warps (csrc/batch_mma.cuh: pass_tiles)."""
+    groups = _cdiv(nt, 4)
+    return 1 if groups >= 8 else 8 // groups
 
 
 def batched_plan(form: str, batch: int, c: int, f_dim: int, d_lora: int, *, head_size: int = 64,
                  blocks: int = 132, place: Optional[str] = None) -> BatchedPlan:
-    """The launch plan of K4's int forms (`form` "i8" or "i4") for `batch`
+    """The launch plan of K4 (`form` "i8", "i4" or "bf16") for `batch`
     sequences at width c, FFN f_dim and LoRA d_lora on a grid of `blocks`
     blocks (one an SM). `place` forces a placement; by default (a) up to
     K4_PLACE_A_MAX_B sequences where it fits, else (b). Each sweep takes
-    the largest K slice (a multiple of 128 codes) that fits in what the
-    block's other regions leave of K4_SMEM_LIMIT - K4_STATIC_SMEM, two
-    stages in flight (``ring``) where that fits, else one. Raises
-    ValueError where nothing fits.
+    the largest K slice (a multiple of 128 codes, or of K4_BF16_STEP values
+    in the bf16 form) that fits in what the block's other regions leave of
+    K4_SMEM_LIMIT - K4_STATIC_SMEM, two stages in flight (``ring``) where
+    that fits, else one. Raises ValueError where nothing fits.
 
     Shared memory, in the kernel's order (all multiples of 16 bytes):
-    phase C's scratch (12 S + 264 floats, 4 D codes), the activation
-    scales (6 input vectors x BP floats, BP = 8 n_tiles), a sweep's row
-    scales (its most tiles x 16 floats), in (a) the warps' sequence rows
-    (8 x C floats) and the prepared codes (6 x BP code rows of C, or BP
-    of F), then the work region: the largest sweep's stages, which its
-    int32 sums (tiles x 16 x BP) reuse once the last stage is read."""
-    if form not in ("i8", "i4"):
-        raise ValueError(f"batched_plan takes the int forms, got {form!r}")
+    phase C's scratch (12 S + 264 floats, 4 D codes or, bf16, 4 D floats),
+    the int forms' activation scales (6 input vectors x BP floats, BP = 8
+    n_tiles) and a sweep's row scales (its most tiles x 16 floats), in (a)
+    the warps' sequence rows (8 x C floats) and the prepared inputs (6 x BP
+    rows of C, or BP of F: codes, or f32 in the bf16 form), then the work
+    region: the largest sweep's stages, which its sums reuse once the last
+    stage is read (int32, tiles x 16 x BP; bf16, K4_LEAVES f32 partial sums
+    of a pass's tiles).
+
+    The bf16 form keeps its inputs in f32 (4 bytes a value, split into
+    bf16 parts in registers as its fragments are loaded), not as three bf16
+    parts (6 bytes), and sizes its stages by the tiles of a pass. At C=768,
+    B <= 8, placement (a) holds 6 x 8 input rows of 3,136 bytes (150.5 KB)
+    beside the sequence rows (24.6 KB) and phase C's 5 KB: 180,256 bytes,
+    which leave 52 KB for a sweep's stages (rkv's two 16-row tiles with K
+    whole, 50,176 bytes; fv in 768-value slices, two in flight). (a) beat
+    (b) there at B = 1 and 8 (tools/probe_batched.py, PERF.md), so the int
+    forms' K4_PLACE_A_MAX_B holds for it too. At C=2048 (a)'s inputs alone
+    (6 x 8 x 8,256 bytes) pass the limit, so (b) takes every B; (b) stages
+    each K slice of the f32 inputs (4 K + 64 bytes a sequence) beside the
+    rows: at B=256 a 64-value slice of one tile and one input vector is
+    84,480 bytes, two in flight.
+    """
+    bf16 = form == "bf16"
+    if form not in ("i8", "i4", "bf16"):
+        raise ValueError(f"batched_plan takes the forms i8, i4 and bf16, got {form!r}")
     if not 1 <= batch <= K4_MAX_BATCH or blocks < 1:
         raise ValueError(f"batched_plan takes 1 <= B <= {K4_MAX_BATCH} and blocks >= 1, got "
                          f"B={batch}, blocks={blocks}")
     nt = _cdiv(batch, 8)
     bp = 8 * nt
+    per_pass = _k4_pass_tiles(nt)
+    step = K4_BF16_STEP if bf16 else 128
     sweeps = _k4_sweeps(form, c, f_dim, d_lora)
-    sizes = []  # per sweep: (most tiles a block takes, most parts they span)
+    sizes = []  # per sweep: (most tiles a stage holds, most parts they span)
+    most = 0
     for rows, _, _, parts, _ in sweeps:
         tiles = _cdiv(_cdiv(rows, 16), blocks)
+        most = max(most, tiles)
+        if bf16:
+            tiles = min(tiles, per_pass)
         sizes.append((tiles, min(tiles, parts)))
-    most = max(t for t, _ in sizes)
-    red = most * 16 * bp * 4
+    red = K4_LEAVES * min(most, per_pass) * 16 * bp * 4 if bf16 else most * 16 * bp * 4
     budget = K4_SMEM_LIMIT - K4_STATIC_SMEM
     if place is None:
         order = ("a", "b") if batch <= K4_PLACE_A_MAX_B else ("b",)
@@ -713,45 +757,52 @@ def batched_plan(form: str, batch: int, c: int, f_dim: int, d_lora: int, *, head
     else:
         raise ValueError(f"place is 'a' or 'b', got {place!r}")
     for pl in order:
-        base = ((12 * head_size + 264) * 4 + _round_up(4 * d_lora, 16) + 6 * bp * 4
-                + most * 16 * 4)
+        if bf16:
+            base = (12 * head_size + 264) * 4 + 16 * d_lora
+        else:
+            base = ((12 * head_size + 264) * 4 + _round_up(4 * d_lora, 16) + 6 * bp * 4
+                    + most * 16 * 4)
         if pl == "a":
-            codes = max(6 * bp * _k4_code_stride(c), bp * _k4_code_stride(f_dim))
+            codes = max(6 * bp * _k4_act_stride(form, c), bp * _k4_act_stride(form, f_dim))
             base += 8 * c * 4 + codes
-        splits = tuple(_k4_split(i, rows, k, blocks, pl)
+        splits = tuple(1 if bf16 else _k4_split(i, rows, k, blocks, pl)
                        for i, (rows, k, *_) in enumerate(sweeps))
         for ring in (2, 1):
             slices, work = [], red
             for (_, k, _, _, fk), (tiles, slots), sp in zip(sweeps, sizes, splits):
-                k = 128 * _cdiv(_cdiv(k, 128), sp)  # the codes of K a block takes
-                ks = _round_up(k, 128)
+                # the codes (values) of K a block takes
+                k = _round_up(k, step) if bf16 else 128 * _cdiv(_cdiv(k, 128), sp)
+                ks = _round_up(k, step)
 
                 def need(ks):
                     return max(red, _k4_stage_bytes(fk, tiles, slots, bp, k, ks, pl, ring))
 
-                while ks > 128 and base + need(ks) > budget:
-                    ks -= 128
+                while ks > step and base + need(ks) > budget:
+                    ks -= step
                 if base + need(ks) > budget:
                     break
                 slices.append(ks)
                 work = max(work, need(ks))
             else:
                 return BatchedPlan(nt, pl, ring, tuple(slices), base + work, splits)
-    raise ValueError(f"K4 has no plan for B={batch} at C={c}, F={f_dim}, D={d_lora} within "
-                     f"{K4_SMEM_LIMIT} bytes of shared memory a block")
+    raise ValueError(f"K4 has no {form} plan for B={batch} at C={c}, F={f_dim}, D={d_lora} "
+                     f"within {K4_SMEM_LIMIT} bytes of shared memory a block")
 
 
 def batched_scratch_floats(c: int, d_lora: int, f_dim: int, batch: int,
-                           codes: bool = True) -> int:
+                           codes: bool = True, bf16: bool = False) -> int:
     """Floats of K4's global scratch (see the source): per sequence x, r,
     k, v, v_first, xo (C each), the lora downs (4D) and the relu^2 keys
-    (F), array by array with x first; then, for the int forms (`codes`),
-    placement (b)'s activation scales (6 B floats, rounded to 4) and codes
-    (max(6C, F) x B bytes), and the split sweeps' int32 partial sums (C x
-    8 ceil(B / 8)) and tickets (C / 16, rounded to 4). The bf16 form's
-    scratch ends before them."""
+    (F), array by array with x first; then, with `codes`, placement (b)'s
+    inputs: for the int forms the activation scales (6 B floats, rounded
+    to 4) and codes (max(6C, F) x B bytes), and the split sweeps' int32
+    partial sums (C x 8 ceil(B / 8)) and tickets (C / 16, rounded to 4);
+    for the bf16 form (`bf16`) the f32 inputs (max(6C, F) x B floats). The
+    timing build's stamps follow."""
     n = (6 * c + 4 * d_lora + f_dim) * batch
-    if codes:
+    if codes and bf16:
+        n += max(6 * c, f_dim) * batch
+    elif codes:
         n += _round_up(6 * batch, 4) + _round_up(max(6 * c, f_dim) * batch, 16) // 4
         n += c * 8 * _cdiv(batch, 8) + _round_up(c // 16, 4)
     return n
@@ -759,10 +810,14 @@ def batched_scratch_floats(c: int, d_lora: int, f_dim: int, batch: int,
 
 # argument counts of the C entries rwkv_v7_decode_batched (pointers, ints:
 # the dims, w4, the grid, then the plan's eight ints) and _bf16 (emb_f32
-# in w4's place, no plan); LEGACY_BATCHED_ARGS: the int entry before it
-# took a plan (probe_batched --baseline builds such sources)
-BATCHED_ARGS = {"i8": (13, 17), "i4": (13, 17), "bf16": (13, 9)}
+# in w4's place); LEGACY_BATCHED_ARGS: an entry of an earlier source that
+# takes no plan (the int entry before its tensor-core form, the bf16 entry
+# before its own; probe_batched --baseline builds such sources)
+BATCHED_ARGS = {"i8": (13, 17), "i4": (13, 17), "bf16": (13, 17)}
 LEGACY_BATCHED_ARGS = (13, 9)
+# the form argument of the C entries rwkv_v7_decode_batched_static_smem
+# and _smem
+K4_FORM_CODE = {"i8": 0, "i4": 1, "bf16": 2}
 
 
 def _k4_entry(pack: dict) -> str:
@@ -781,8 +836,8 @@ def k4_function(pack: dict, src=None, flags: tuple = (), legacy: bool = False):
 
 
 def k4_plan(pack: dict, batch: int, cfg, grid: int, place: Optional[str] = None):
-    """The plan of a launch of `pack` (an int form) at `batch` on `grid`
-    blocks, cached on the pack per (batch, grid, place)."""
+    """The plan of a launch of `pack` at `batch` on `grid` blocks, cached
+    on the pack per (batch, grid, place)."""
     key = (batch, grid, place)
     plans = pack.setdefault("_plans", {})
     if key not in plans:
@@ -796,9 +851,9 @@ def batched_launch(fn, pack: dict, state: dict, tokens: torch.Tensor, cfg, grid:
                    scratch_extra: int = 0, place: Optional[str] = None, legacy: bool = False):
     """Check the operands and launch the C entry `fn`
     (``rwkv_v7_decode_batched``, or ``_bf16`` for a bf16 pack) once on
-    `grid` blocks; returns (x, new state, scratch). The int forms pass
+    `grid` blocks; returns (x, new state, scratch). It passes
     ``k4_plan``'s ints (`place` forces a placement) unless `legacy` (an
-    earlier source's entry, which takes none and no code buffer).
+    earlier source's entry, which takes none and no input buffer).
     `scratch_extra` floats are appended to the kernel's scratch (the
     timing build writes there)."""
     dev = pack["mats"].device
@@ -817,10 +872,10 @@ def batched_launch(fn, pack: dict, state: dict, tokens: torch.Tensor, cfg, grid:
         if ins[k].shape != shape:
             raise ValueError(f"{k} state {tuple(ins[k].shape)} != {shape}")
     outs = {k: torch.empty_like(v) for k, v in ins.items()}
-    int_form = pack["form"] != "bf16"
-    plan = k4_plan(pack, b, cfg, grid, place).ints() if int_form and not legacy else ()
+    plan = () if legacy else k4_plan(pack, b, cfg, grid, place).ints()
     alloc = torch.zeros if scratch_extra else torch.empty
-    n_scratch = batched_scratch_floats(c, d_l, f, b, codes=bool(plan))
+    n_scratch = batched_scratch_floats(c, d_l, f, b, codes=bool(plan),
+                                       bf16=pack["form"] == "bf16")
     scratch = alloc((n_scratch + scratch_extra,), dtype=torch.float32, device=dev)
     flag = _emb_f32(pack) or (int(w4),)  # emb_f32 (bf16 entry) or w4
     code = fn(

@@ -9,19 +9,22 @@ kernels K6, K7 and K8.
 Times one launch of ``rwkv_tpu_torch.ops.megakernel.v7_decode_batched``
 (K4; device time, launches queued behind a spin kernel so no host time is
 counted) for the 169M v7 shape (C=768, synth seed 0) at B = 1, 3, 8, 9,
-17, 64, 128 and 256 under w8a8 and w4a8 and B = 1, 8 and 64 under bf16,
-from the states of a seeded batched prefill, and ``v7_decode_step`` (K3)
-at B=1 under all three; then the int forms at B = 1-64 in each placement
-of their activation preparation (``batched_plan``: (a) every block, (b)
-one warp a sequence); then the same at the 1.5B width (C=2048, 2 layers):
-B = 1, 3, 8, 9, 17 and 64, and the placements at B = 1-8.
+17, 64, 128 and 256 under w8a8 and w4a8 and B = 1, 8, 64, 128 and 256
+under bf16, from the states of a seeded batched prefill, and
+``v7_decode_step`` (K3) at B=1 under all three; then every form at B =
+1-64 in each placement of its activation preparation (``batched_plan``:
+(a) every block, (b) one warp a sequence); then the same at the 1.5B
+width (C=2048, 2 layers): B = 1, 3, 8, 9, 17 and 64 (bf16: 1 and 3), and
+the placements at B = 1-8.
 
 With ``--baseline DIR`` it also builds ``DIR/v7_decode.cu`` and
 ``DIR/v7_decode_batched.cu``, where present (an earlier version of a
 kernel, its headers beside it), prints the largest difference between the
-two versions' outputs (x and state) and times both on the same inputs in the order
-baseline, current, current, baseline (for the forms the earlier version
-has an entry for).
+two versions' outputs (x and state; for bf16 also over each tensor's
+scale, against K4_BF16_BAND, as a change of the sums' order moves the
+last bits) and times both on the same inputs in the order baseline,
+current, current, baseline (for the forms the earlier version has an
+entry for).
 
 With ``--k3`` it stops after K3 (B=1, against ``DIR/v7_decode.cu`` with
 ``--baseline``).
@@ -30,8 +33,8 @@ With ``--phases`` it instead builds the kernels with
 ``-DRWKV_PHASE_TIMES`` (thread 0 of block 0 stamps ``%globaltimer``
 before and after every grid barrier) and prints the mean time of each of
 the five phases of a layer and of each barrier (nine in K4's placement
-(b)): K4 at B = 1, 8 and 64 (w8a8; the current int forms in both
-placements; skipped with ``--k3``), K3 at B=1 (each precision, and the
+(b)): K4 at B = 1, 8 and 64 (w8a8 and bf16, the current sources in
+both placements; skipped with ``--k3``), K3 at B=1 (each precision, and the
 head phase; each source's stamps read at its own scratch offset,
 ``k3_stamps_at``), for the current sources and, with ``--baseline``, for
 the earlier ones.
@@ -41,8 +44,9 @@ With ``--flips`` it instead holds K4 against its plain version on the
 the same buffers), w8a8, w4a8 and bf16, for 12 seeded batches of 64: per
 batch and depth, the sequences outside the element-wise 2e-2 band (int8
 code flips), their worst error over the sequence's largest value and in
-absolute terms, and the sequences within 1e-4; and K3 on each batch's
-first sequence at the same depths (logits and state over their scale).
+absolute terms, and the sequences within 1e-4, then the worst over the
+seeds by form and depth; and K3 on each batch's first sequence at the
+same depths (logits and state over their scale).
 
 With ``--v6`` it measures K6 (``v6_decode_step``) instead, on the RWKV-6
 models at the 1.6B width (C=2048, 24 layers, synth seed 0; w8a8, w4a8 and
@@ -125,8 +129,10 @@ def k3_entry(src_dir, pack, flags: tuple = ()):
 def k4_entry(src_dir, pack, flags: tuple = ()):
     """(launch entry, grid entry, legacy) of K4 for `pack`'s form from
     ``src_dir/v7_decode_batched.cu`` (None: csrc), or None when that version
-    has no entry for the form; `legacy`: an int entry from before K4 took a
-    launch plan (no plan ints, no code buffer in its scratch)."""
+    has no entry for the form; `legacy`: an entry from before the form ran
+    on the tensor cores (an int entry without the static-smem entry, a
+    bf16 entry without the smem entry: no plan ints, no input buffer in its
+    scratch)."""
     from rwkv_tpu_torch.ops import _cuda
     from rwkv_tpu_torch.ops import megakernel as M
 
@@ -135,7 +141,9 @@ def k4_entry(src_dir, pack, flags: tuple = ()):
     name = M._k4_entry(pack)
     if not hasattr(lib, name):
         return None
-    legacy = pack["form"] != "bf16" and not hasattr(lib, "rwkv_v7_decode_batched_static_smem")
+    marker = ("rwkv_v7_decode_batched_smem" if pack["form"] == "bf16"
+              else "rwkv_v7_decode_batched_static_smem")
+    legacy = not hasattr(lib, marker)
     fn = M.k4_function(pack, src, flags, legacy)
     grid = getattr(lib, name + "_grid")
     grid.argtypes = [ctypes.c_int] * (4 if pack["form"] == "bf16" else 5)
@@ -145,11 +153,11 @@ def k4_entry(src_dir, pack, flags: tuple = ()):
 
 def k4_places(pack, cfg, b: int, legacy: bool, grid: int) -> tuple:
     """The placements to measure K4 in at batch b: both that have a plan
-    for the current int forms, none to choose for bf16 or an earlier
-    source (None)."""
+    for the current sources, none to choose for an earlier source
+    (None)."""
     from rwkv_tpu_torch.ops.megakernel import batched_plan
 
-    if legacy or pack["form"] == "bf16":
+    if legacy:
         return (None,)
     out = []
     for place in ("a", "b"):
@@ -205,24 +213,26 @@ def k3_stamps_at(pack, cfg, src_dir, flags: tuple) -> int:
 
 
 def phase_split(models, cfg, states, tokens, src_dir, label: str, k4: bool = True) -> None:
-    """Per-phase device times of K4 (B = 1, 8, 64; the int forms of the
-    current sources in both placements; w8a8, or with ``--bf16`` bf16;
-    not with `k4` False) and K3 (B=1, every precision of `models`), where
+    """Per-phase device times of K4 (B = 1, 8, 64; the current sources in
+    both placements; w8a8 and bf16, or with ``--bf16`` bf16 alone; not
+    with `k4` False) and K3 (B=1, every precision of `models`), where
     `src_dir`'s version has the form's entry."""
     from rwkv_tpu_torch.ops.megakernel import batched_launch, batched_scratch_floats, decode_launch
 
     flags = ("-DRWKV_PHASE_TIMES",)
-    prec = "w8a8" if "w8a8" in models else "bf16"
-    pack = models[prec]._mega
-    c, d_l, f = cfg.n_embed, pack["d_lora"], pack["f_dim"]
     extra = 2 * (2 + 2 * len(K4_PHASES_B) * cfg.n_layer)
-    entry = None
-    if k4 and (src_dir is None or (Path(src_dir) / "v7_decode_batched.cu").exists()):
+    for prec in ("w8a8", "bf16") if k4 else ():
+        if prec not in models or not (src_dir is None
+                                      or (Path(src_dir) / "v7_decode_batched.cu").exists()):
+            continue
+        pack = models[prec]._mega
+        c, d_l, f = cfg.n_embed, pack["d_lora"], pack["f_dim"]
         entry = k4_entry(src_dir, pack, flags)
-    if entry is not None:
+        if entry is None:
+            continue
         fn, grid_fn, legacy = entry
-        grid = grid_fn(c, cfg.head_size, d_l, f, *(() if pack["form"] == "bf16" else (0,)))
-        codes = pack["form"] != "bf16" and not legacy
+        bf16 = pack["form"] == "bf16"
+        grid = grid_fn(c, cfg.head_size, d_l, f, *(() if bf16 else (0,)))
         for b in (1, 8, 64):
             st = {k: v[:b].contiguous() for k, v in states.items()}
             for place in k4_places(pack, cfg, b, legacy, grid):
@@ -230,7 +240,8 @@ def phase_split(models, cfg, states, tokens, src_dir, label: str, k4: bool = Tru
                 times = phase_times(
                     lambda: batched_launch(fn, pack, st, tokens[:b], cfg, grid,
                                            scratch_extra=extra, place=place, legacy=legacy)[2],
-                    batched_scratch_floats(c, d_l, f, b, codes=codes), cfg.n_layer, len(names))
+                    batched_scratch_floats(c, d_l, f, b, codes=not legacy, bf16=bf16),
+                    cfg.n_layer, len(names))
                 print_phases(f"{label} K4 {prec} B={b}" + (f" ({place})" if place else ""),
                              times, names)
     one = {k: v[0] for k, v in states.items()}
@@ -254,6 +265,7 @@ def flips(models, cfg, n_seeds: int = 12) -> None:
     from rwkv_tpu_torch.ops.megakernel import v7_decode_batched, v7_decode_batched_ref
     from rwkv_tpu_torch.tools.card import rel_err, seeded_states, seq_errors
 
+    worst = {}
     for seed in range(1, n_seeds + 1):
         states, tokens = seeded_states(next(iter(models.values())), cfg, 64, 32, seed=seed)
         for prec, model in models.items():
@@ -266,6 +278,7 @@ def flips(models, cfg, n_seeds: int = 12) -> None:
                 err, rel, ok = seq_errors([x] + [new[k] for k in keys],
                                           [x_ref] + [new_ref[k] for k in keys])
                 out = (~ok).nonzero().flatten().tolist()
+                worst[(prec, depth)] = max(worst.get((prec, depth), 0.0), float(rel.max()))
                 per8 = int((~ok).reshape(8, 8).sum(dim=1).max())
                 print(f"K4 {prec} seed {seed} depth {depth}: {len(out)} of 64 outside 2e-2 "
                       f"{out} (at most {per8} of 8), worst {float(rel.max()):.3e} of its scale, "
@@ -275,10 +288,13 @@ def flips(models, cfg, n_seeds: int = 12) -> None:
                                     *M._args(M.DECODE_ARGS, model._mega))
                 logits, new3, _ = M.decode_launch(fn, model._mega, one, tokens[:1], cd)
                 logits_ref, new3_ref = M.v7_decode_step_ref(model._mega, one, tokens[:1], cd)
-                worst = max([rel_err(logits, logits_ref)]
-                            + [rel_err(new3[k], new3_ref[k]) for k in new3])
-                print(f"K3 {prec} seed {seed} depth {depth}: {worst:.3e} of the scale, argmax "
+                k3 = max([rel_err(logits, logits_ref)]
+                         + [rel_err(new3[k], new3_ref[k]) for k in new3])
+                print(f"K3 {prec} seed {seed} depth {depth}: {k3:.3e} of the scale, argmax "
                       f"{int(logits.argmax())} vs {int(logits_ref.argmax())}")
+    for (prec, depth), w in sorted(worst.items()):
+        print(f"K4 {prec} depth {depth}: worst {w:.3e} of a sequence's scale over {n_seeds} "
+              f"seeded batches of 64")
 
 
 def _flat(out):
@@ -289,19 +305,26 @@ def _flat(out):
     return [out]
 
 
-def compare(label, cur, old) -> None:
+def compare(label, cur, old, band=None) -> None:
     """Times of cur() (and old(), in the order old, cur, cur, old); both
     return a tensor, or (x, state dict), to compare: the largest
-    difference over all of them is printed."""
+    difference over all of them is printed, and with `band` (two versions
+    whose sums take another order) also the largest over each tensor's
+    scale, max(1, max |old|), which must stay within it."""
     from rwkv_tpu_torch.tools.card import device_ms
 
     if old is None:
         print(f"{label}: {device_ms(cur):.4f} ms")
         return
-    diff = max(float((a - b).abs().max()) for a, b in zip(_flat(old()), _flat(cur())))
+    pairs = list(zip(_flat(old()), _flat(cur())))
+    diff = max(float((a - b).abs().max()) for a, b in pairs)
+    note = ""
+    if band is not None:
+        rel = max(float((a - b).abs().max()) / max(1.0, float(a.abs().max())) for a, b in pairs)
+        note = f", {rel:.3e} of the scale; band {band:g}" + ("" if rel <= band else ": OUTSIDE")
     times = [device_ms(f) for f in (old, cur, cur, old)]
     print(f"{label}: baseline {times[0]:.4f} / {times[3]:.4f} ms, current "
-          f"{times[1]:.4f} / {times[2]:.4f} ms (outputs differ by at most {diff:.3e})")
+          f"{times[1]:.4f} / {times[2]:.4f} ms (outputs differ by at most {diff:.3e}{note})")
 
 
 def has_entry(lib_name: str, src, name: str) -> bool:
@@ -320,11 +343,15 @@ def decode_entry_name(pack) -> str:
 
 
 # K4's timed (precision, B): w8a8 and w4a8 at B = 1 to 256 (MEGA_MAX_BATCH;
-# 3, 9 and 17 leave a ragged n-tile), bf16 at 1, 8 and 64; at the 1.5B
-# width (2 layers) the int forms at B = 1 to 64
+# 3, 9 and 17 leave a ragged n-tile), bf16 at 1, 8, 64, 128 and 256; at
+# the 1.5B width (2 layers) the int forms at B = 1 to 64, bf16 at 1 and 3
 K4_TIMED = tuple((p, b) for p in ("w8a8", "w4a8") for b in (1, 3, 8, 9, 17, 64, 128, 256)) + tuple(
-    ("bf16", b) for b in (1, 8, 64))
-K4_TIMED_WIDE = tuple((p, b) for p in ("w8a8", "w4a8") for b in (1, 3, 8, 9, 17, 64))
+    ("bf16", b) for b in (1, 8, 64, 128, 256))
+K4_TIMED_WIDE = tuple((p, b) for p in ("w8a8", "w4a8") for b in (1, 3, 8, 9, 17, 64)) + (
+    ("bf16", 1), ("bf16", 3))
+# the band K4's bf16 form is held to against an earlier source whose f32
+# sums take another order (of each tensor's scale, as its plain version)
+K4_BF16_BAND = 1e-4
 
 # per version: the phases of a layer of the B=1 decode kernel, the width
 # it is measured at and, for the flips, extra (label, width) packs cut to 1
@@ -729,7 +756,7 @@ def main() -> int:
     wide = synth_config("7.0", 2, 2048, 65536, 64)
     wide_params = synth_params(wide, seed=0)
     models = {p: ServingModel((wide, wide_params), precision=p, megakernel=True)
-              for p in ("w8a8", "w4a8") if p in _precisions(args)}
+              for p in _precisions(args)}
     if models:
         states, tokens = seeded_states(next(iter(models.values())), wide, 64, 16, seed=6)
         k4_against(models, wide, states, tokens, base_dir, K4_TIMED_WIDE, " C=2048 L=2")
@@ -761,17 +788,18 @@ def k4_against(models, cfg, states, tokens, base_dir, cases, label: str = "") ->
             grid = grid_fn(*dims, *(() if pack["form"] == "bf16" else (int(pack["w4"]),)))
             old = lambda: TM.batched_launch(fn, pack, st, tok, cfg, grid,  # noqa: E731
                                             legacy=legacy)[:2]
-        compare(f"K4 {prec}{label} B={b}", cur, old)
+        compare(f"K4 {prec}{label} B={b}", cur, old,
+                K4_BF16_BAND if pack["form"] == "bf16" else None)
 
 
 def crossover_places(models, cfg, states, tokens, batches=(1, 8, 9, 12, 16, 24, 32, 48, 64),
                      label: str = "") -> None:
-    """K4's int forms at each B of `batches` in each placement that has a
-    plan: the readings that set K4_PLACE_A_MAX_B (ops/megakernel.py)."""
+    """K4 at each B of `batches` in each placement that has a plan: the
+    readings that set K4_PLACE_A_MAX_B (ops/megakernel.py)."""
     from rwkv_tpu_torch.ops import megakernel as TM
     from rwkv_tpu_torch.tools.card import device_ms
 
-    for prec in ("w8a8", "w4a8"):
+    for prec in ("w8a8", "w4a8", "bf16"):
         if prec not in models:
             continue
         pack = models[prec]._mega

@@ -88,7 +88,7 @@ def test_kernels_static_shared_memory_matches_their_plans(cuda_device):
     assert fn() == TK.K1_GEMV_STATIC_SMEM
     fn = _cuda.library("v7_decode_batched").rwkv_v7_decode_batched_static_smem
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-    assert fn(0) == fn(1) == TM.K4_STATIC_SMEM
+    assert fn(0) == fn(1) == fn(2) == TM.K4_STATIC_SMEM
 
 
 def test_quant_matmul_kernel_rejects_unaligned_k(cuda_device):
@@ -988,15 +988,18 @@ def test_bf16_batched_decode_kernel_matches_ref(cuda_device, batch):
 
 
 def test_bf16_batched_decode_kernel_at_c2048(cuda_device):
-    """K4's bf16 form at C=2048, F=8192, where a column tile holds two
-    sequences (cols_for): B=3 spans two tiles, each sequence within
-    BF16_BAND of the plain version; identical lanes agree bit for bit."""
+    """K4's bf16 form at C=2048, F=8192, where batched_plan takes
+    placement (b) at every B and the rows in K slices: B=3, each sequence
+    within BF16_BAND of the plain version; identical lanes agree bit for
+    bit."""
     tc, dp, _ = _bf16_setup("7.0", cuda_device, depth=1, c=2048)
     state = _batched_state(tc, 3, cuda_device, 4)
     toks = torch.tensor([3, 100, 3], device=cuda_device)
     state["heads"][2] = state["heads"][0]
     state["att_xx"][2], state["ffn_xx"][2] = state["att_xx"][0], state["ffn_xx"][0]
     x, new = TM.v7_decode_batched(dp, state, toks, tc)
+    plan = dp["_plans"][(3, dp["_grid_batched"], None)]
+    assert plan.place == "b" and plan.k_slice[0] < 2048
     x_ref, new_ref = TM.v7_decode_batched_ref(dp, state, toks, tc)
     assert _rel(x, x_ref) <= BF16_BAND
     for k in new:
@@ -1004,11 +1007,71 @@ def test_bf16_batched_decode_kernel_at_c2048(cuda_device):
     assert torch.equal(x[0], x[2]) and torch.equal(new["heads"][0], new["heads"][2])
 
 
+@pytest.mark.parametrize("c", [128, 768])
+def test_bf16_batched_decode_kernel_same_bits_on_every_grid(cuda_device, c):
+    """The bf16 form's row sums take an order fixed by K alone: x and
+    state are bit-equal on grids of 132, 64, 33 and 7 blocks, in both
+    placements (B = 8 in (a) and (b), B = 64 in (b)), and a sequence of the
+    batch of 64 equals, bit for bit, its run alone and in a batch of 8."""
+    tc, dp, _ = _bf16_setup("7.0", cuda_device, depth=1, c=c)
+    state = _batched_state(tc, 64, cuda_device, 11)
+    toks = torch.randint(0, tc.n_vocab, (64,), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device).manual_seed(4))
+    TM.v7_decode_batched(dp, {k: v[:1] for k, v in state.items()}, toks[:1], tc)
+    fn = TM.k4_function(dp)
+    outs = {}
+    for b, place in ((8, "a"), (8, "b"), (64, "b")):
+        st = {k: v[:b].contiguous() for k, v in state.items()}
+        for grid in (132, 64, 33, 7):
+            x, new, _ = TM.batched_launch(fn, dp, st, toks[:b], tc, grid, place=place)
+            outs[(b, place, grid)] = [x] + [new[k] for k in sorted(new)]
+    ref = outs[(64, "b", 132)]
+    for key, out in outs.items():
+        for got, want in zip(out, ref):
+            assert torch.equal(got, want[:key[0]]), key
+    for b in (0, 9, 63):
+        one = {k: v[b:b + 1].contiguous() for k, v in state.items()}
+        x1, new1 = TM.v7_decode_batched(dp, one, toks[b:b + 1], tc)
+        assert torch.equal(x1[0], ref[0][b]), b
+        for got, k in zip(ref[1:], sorted(new1)):
+            assert torch.equal(new1[k][0], got[b]), (b, k)
+
+
+def test_batched_decode_plan_matches_the_python_plan(cuda_device):
+    """The kernel's count of a plan's shared bytes (rwkv_v7_decode_batched_
+    smem) is batched_plan's, in every form and each placement with a plan,
+    at the tests' small width, the 169M width and the 1.5B width, B =
+    1-256, on grids of 132, 64, 33 and 7 blocks (the bf16 form has a plan
+    at every one)."""
+    from rwkv_tpu_torch.ops import _cuda
+
+    fn = _cuda.library("v7_decode_batched").rwkv_v7_decode_batched_smem
+    fn.argtypes = [ctypes.c_int] * 14
+    fn.restype = ctypes.c_longlong
+    for c, f, d, s in ((128, 512, 32, 32), (768, 3072, 64, 64), (2048, 8192, 96, 64)):
+        for form, code in TM.K4_FORM_CODE.items():
+            for blocks in (132, 64, 33, 7):
+                for b in (1, 3, 8, 9, 17, 64, 65, 128, 256):
+                    plans = []
+                    if form == "bf16":
+                        plans.append(TM.batched_plan(form, b, c, f, d, head_size=s,
+                                                     blocks=blocks))
+                    for place in ("a", "b"):
+                        try:
+                            plans.append(TM.batched_plan(form, b, c, f, d, head_size=s,
+                                                         blocks=blocks, place=place))
+                        except ValueError:
+                            continue
+                    for p in plans:
+                        got = fn(code, c, s, d, f, b, blocks, *p.ints()[:-1])
+                        assert got == p.smem, (form, c, b, blocks, got, p)
+
+
 def test_bf16_batched_decode_kernel_after_a_wider_model(cuda_device):
-    """K4's bf16 form at C=768 (an 8-sequence tile, 172 KB of shared
-    memory), then at C=2048 (a 2-sequence tile, 116 KB), then at C=768
-    again on its cached grid: the kernel's shared-memory limit is the
-    device's, not the last launch's."""
+    """K4's bf16 form at C=768 (B=8: placement (a)), then at C=2048 (B=2:
+    (b)), each plan within a few KB of the limit, then at C=768 again on
+    its cached grid: the kernel's shared-memory limit is the device's, not
+    the last launch's."""
     narrow, dp_n, _ = _bf16_setup("7.0", cuda_device, depth=1, c=768)
     wide, dp_w, _ = _bf16_setup("7.0", cuda_device, depth=1, c=2048)
     st_n = _batched_state(narrow, 8, cuda_device, 5)

@@ -69,8 +69,8 @@ def test_plan_placement_follows_the_batch_and_can_be_forced():
     assert TM.batched_plan("i8", 32, 768, 3072, 64, place="a").place == "a"
     with pytest.raises(ValueError):
         TM.batched_plan("i8", 64, 768, 3072, 64, place="a")
-    with pytest.raises(ValueError):
-        TM.batched_plan("bf16", 8, 768, 3072, 64)
+    with pytest.raises(ValueError):  # the forms are i8, i4 and bf16
+        TM.batched_plan("q8", 8, 768, 3072, 64)
     with pytest.raises(ValueError):
         TM.batched_plan("i8", 8, 768, 3072, 64, place="c")
     with pytest.raises(ValueError):  # past MEGA_MAX_BATCH the serving route is per-op
@@ -96,12 +96,15 @@ def test_plan_splits_the_out_and_fv_tiles_only_in_placement_b():
 
 def test_plan_ints_match_the_c_entry():
     """The int entry takes the dims, w4 and the grid (9 ints), then the
-    plan's eight: place, ring, five K slices, the shared bytes."""
+    plan's eight: place, ring, five K slices, the shared bytes; the bf16
+    entry the same with emb_f32 in w4's place; an earlier source's entry
+    without a plan the first nine alone."""
     p = TM.batched_plan("i4", 17, 768, 3072, 64)
     ints = p.ints()
     assert ints == (1, p.ring, *p.k_slice, p.smem)
     assert TM.BATCHED_ARGS["i8"] == TM.BATCHED_ARGS["i4"] == (13, 9 + len(ints))
-    assert TM.BATCHED_ARGS["bf16"] == TM.LEGACY_BATCHED_ARGS == (13, 9)
+    assert TM.BATCHED_ARGS["bf16"] == (13, 9 + len(ints))
+    assert TM.LEGACY_BATCHED_ARGS == (13, 9)
 
 
 @pytest.mark.parametrize("batch", [1, 8, 17, 64])
