@@ -106,6 +106,16 @@
      ``megakernel=True``: the 256-token prompt per-op (K2), 64 greedy
      decode steps on K3's bf16 form; the batcher over it (8 requests, K4's
      bf16 form);
+   - speculative decoding (``phase_speculative``) with the 169M w8a8 and
+     bf16 models as targets and a 4-layer C=256 draft (seed 1), prompt
+     range(16), 128 tokens, k=4: the target's plain greedy, the host loop
+     (K1, K2), the device loop with the weak draft, with force_accept and
+     with the target as its own draft (K1, K2), ms a token, acceptance and
+     rounds; the greedy streams must equal the target's own, the perfect
+     draft accept everything; under w8a8 the sampling loop at temperature
+     0.9 too; then a pack-cache round trip (``pack_cache_round_trip``):
+     the 169M w8a8 pack written to a temporary directory and read back
+     gives K3's logits of the freshly built pack bit for bit;
    - RWKV-6 at the 1.6B width, RWKV-5.2 at the World 1.5B width and
      RWKV-4 at the World 0.1B width (the models above) under w8a8, w4a8
      and bf16 with ``megakernel=True``: prefill of a 256-token prompt (one
@@ -194,11 +204,12 @@ def ulp_diff(a, b) -> int:
 # per-op w8a8 path makes 14 projections: r, k, v, out (768 -> 768), the four
 # LoRA downs (768 -> 64), the four LoRA ups (64 -> 768), fk (768 -> 3072),
 # fv (3072 -> 768); the head (768 -> 65536) runs once, on the last token.
+# Layer 0 skips its value-residual LoRA (selected away), two projections fewer.
 def k1_calls(n_layer: int, c: int, d: int, f: int, v: int, t: int):
     return [
         (t, c, c, 4 * n_layer),
-        (t, c, d, 4 * n_layer),
-        (t, d, c, 4 * n_layer),
+        (t, c, d, 4 * n_layer - 1),
+        (t, d, c, 4 * n_layer - 1),
         (t, c, f, n_layer),
         (t, f, c, n_layer),
         (1, c, v, 1),
@@ -1691,6 +1702,120 @@ def small_batcher_check(dev):
           f"greedy requests with penalties")
 
 
+# -- speculative decoding: the v7 169M target, a 4-layer C=256 draft ---------
+
+# scripts/bench_speculative.py's pair: the 169M target (seed 0) and
+# synth_config("7.0", 4, 256, 65536, 64) (seed 1) as the draft, prompt
+# range(16), 128 tokens, k = 4
+SPEC_DRAFT = ("7.0", 4, 256, 65536, 64)
+SPEC_PROMPT = list(range(16))
+SPEC_TOKENS, SPEC_K = 128, 4
+
+
+def host_seconds(fn):
+    """(fn(), host seconds around it, ending in a synchronise)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_speculative(name: str, target, cfg, card, needed_host=(), needed_device=(),
+                      sample: bool = True) -> dict:
+    """Greedy speculative decoding with `target` (per-op paths; its decode
+    kernel only where the target is its own draft in the host loop): the
+    target's plain greedy, the host loop with the weak draft, and the
+    device loop with the weak draft, with force_accept and with the target
+    as a perfect draft, each timed once (ms a generated token, host clock)
+    and counted. The weak and perfect streams must equal the plain greedy
+    stream, the perfect draft accept everything, and the host / device
+    loops launch `needed_host` / `needed_device`. With `sample`, the
+    sampling loop at temperature 0.9 must give tokens in range and
+    coherent stats. Returns the launches of each run."""
+    from rwkv_tpu_torch.models import speculative as S
+    from rwkv_tpu_torch.models.serve import ServingModel
+    from rwkv_tpu_torch.models.synth import synth_config, synth_params
+
+    dcfg = synth_config(*SPEC_DRAFT)
+    draft = ServingModel((dcfg, synth_params(dcfg, seed=1)), precision=target.precision)
+    # warm-up: each loop once on a few tokens
+    S.speculative_generate(target, draft, SPEC_PROMPT, 6, k=SPEC_K)
+    S.speculative_generate_device(target, draft, SPEC_PROMPT, 6, k=SPEC_K)
+    (want, _, _), t_plain = host_seconds(
+        lambda: target.generate(SPEC_PROMPT, SPEC_TOKENS, temperature=0.0))
+    want = want.tolist()
+    print(f"speculative {name}: plain greedy {1e3 * t_plain / SPEC_TOKENS:.3f} ms/token "
+          f"({SPEC_TOKENS / t_plain:.1f} tok/s) on {card}")
+    runs = {
+        "host loop, weak draft": (S.speculative_generate, draft, {}, needed_host),
+        "device loop, weak draft": (S.speculative_generate_device, draft, {}, needed_device),
+        "device loop, force_accept": (S.speculative_generate_device, draft,
+                                      {"force_accept": True}, needed_device),
+        "device loop, perfect draft": (S.speculative_generate_device, target, {}, needed_device),
+    }
+    launches = {}
+    for run, (fn, d, kw, needed) in runs.items():
+        ((toks, stats), t), launches[run] = counted(
+            lambda: host_seconds(lambda: fn(target, d, SPEC_PROMPT, SPEC_TOKENS, k=SPEC_K, **kw)),
+            needed)
+        used = {k: n for k, n in launches[run].items() if n}
+        print(f"speculative {name} {run}: {1e3 * t / SPEC_TOKENS:.3f} ms/token "
+              f"({SPEC_TOKENS / t:.1f} tok/s, {t_plain / t:.2f}x plain greedy), acceptance "
+              f"{stats['acceptance_rate']:.3f}, rounds {stats['rounds']}, launches {used}")
+        if len(toks) != SPEC_TOKENS or not all(0 <= x < cfg.n_vocab for x in toks.tolist()):
+            raise AssertionError(f"speculative {name} {run}: tokens out of range")
+        if "force_accept" not in kw and toks.tolist() != want:
+            raise AssertionError(f"speculative {name} {run}: not the target's greedy stream")
+        if d is target and stats["acceptance_rate"] != 1.0:
+            raise AssertionError(f"speculative {name} {run}: perfect draft accepted {stats}")
+    if not sample:
+        return launches
+    (toks, stats), t = host_seconds(lambda: S.speculative_sample_generate_device(
+        target, draft, SPEC_PROMPT, SPEC_TOKENS, k=SPEC_K, temperature=0.9, seed=0))
+    print(f"speculative {name} sampling at 0.9, seed 0: {1e3 * t / SPEC_TOKENS:.3f} ms/token, "
+          f"acceptance {stats['acceptance_rate']:.3f}, rounds {stats['rounds']}")
+    if (len(toks) != SPEC_TOKENS or not all(0 <= x < cfg.n_vocab for x in toks.tolist())
+            or stats["drafted"] != SPEC_K * stats["rounds"] or stats["rounds"] < 1
+            or not 0 <= stats["accepted"] <= stats["drafted"]):
+        raise AssertionError(f"speculative {name} sampling: {toks.tolist()[:8]} {stats}")
+    return launches
+
+
+def pack_cache_round_trip(model, cfg, params) -> None:
+    """ServingModel(mega_pack_cache=...) on the 169M w8a8 pack in a
+    temporary directory: the first model builds and writes the pack, the
+    second reads it; the second's K3 logits over two tokens equal those of
+    `model` (a freshly built pack) bit for bit."""
+    import tempfile
+
+    import torch
+
+    from rwkv_tpu_torch.models.serve import ServingModel
+    from rwkv_tpu_torch.ops import megakernel as M
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "v7_169m_w8a8.npz")
+        _, t_build = host_seconds(lambda: ServingModel(
+            (cfg, params), precision="w8a8", megakernel=True, mega_pack_cache=path))
+        size = Path(path).stat().st_size
+        cached, t_load = host_seconds(lambda: ServingModel(
+            (cfg, params), precision="w8a8", megakernel=True, mega_pack_cache=path))
+    before = M.v7_decode_step.launches
+    sa, sb = model.init_state(1), cached.init_state(1)
+    for tok in (3, 77):
+        la, sa = model.decode([tok], sa)
+        lb, sb = cached.decode([tok], sb)
+        if not torch.equal(la, lb):
+            raise AssertionError("pack cache: K3 logits differ from the freshly built pack")
+    if M.v7_decode_step.launches != before + 4:
+        raise AssertionError("pack cache: the decode steps did not run K3")
+    print(f"pack cache 169M w8a8: model with the pack built and written {t_build:.1f} s "
+          f"({size / 2**20:.1f} MiB), read back {t_load:.1f} s; K3 logits bit-equal over 2 tokens")
+
+
 def main() -> int:
     import torch
 
@@ -1811,6 +1936,14 @@ def main() -> int:
     reqs16 = batcher_requests(model16, cfg, 8, 64, 32, seed=4)
     launches["batcher bf16"], _, _ = batcher_path("bf16", model16, cfg, reqs16,
                                                   needed=("K2", "K4 bf16"))
+
+    print(f"[{time.perf_counter() - t_start:.1f} s] speculative decoding")
+    # -- speculative decoding: w8a8 (K1, K2) and bf16 (the fused dense path)
+    phase_speculative("w8a8", model, cfg, card, needed_host=("K1", "K2"),
+                      needed_device=("K1", "K2"))
+    phase_speculative("bf16", model16, cfg, card, needed_host=("K2",), needed_device=("K2",),
+                      sample=False)
+    pack_cache_round_trip(model, cfg, params)
     del model16
     torch.cuda.empty_cache()
 

@@ -60,17 +60,32 @@ def wkv4_scan(tf, td, k, v, aa, bb, pp):
     return torch.stack(ys), aa, bb, pp
 
 
-def wkv4_scan_trace(tf, td, k, v, aa, bb, pp):
+def wkv4_scan_trace(tf, td, k, v, aa, bb, pp, wkv_fn=None):
     """wkv4_scan that also returns aa/bb/pp AFTER every step:
-    (wkv, aa_all, bb_all, pp_all), each [T, ..., C]."""
+    (wkv, aa_all, bb_all, pp_all), each [T, ..., C]. `wkv_fn` (default
+    ``wkv4_scan``) runs each token: the serving path passes its own
+    dispatch, so that every position's state has the bits its one-token
+    decode step gives it."""
     ys, aas, bbs, pps = [], [], [], []
     for t in range(k.shape[0]):
-        y, aa, bb, pp = _wkv4_step(tf, td, k[t], v[t], aa, bb, pp)
+        y, aa, bb, pp = (wkv_fn or wkv4_scan)(tf, td, k[t : t + 1], v[t : t + 1], aa, bb, pp)
         ys.append(y)
         aas.append(aa)
         bbs.append(bb)
         pps.append(pp)
-    return torch.stack(ys), torch.stack(aas), torch.stack(bbs), torch.stack(pps)
+    return torch.cat(ys), torch.stack(aas), torch.stack(bbs), torch.stack(pps)
+
+
+def _scan_trace(wkv_fn, s, seq, static=()):
+    """`wkv_fn` one token at a time from state `s`: the per-token operands
+    `seq` ([T, ...], each call a [1, ...] slice) then `static`. Returns
+    (y [T, ...], the state after every token [T, ...])."""
+    ys, states = [], []
+    for t in range(seq[0].shape[0]):
+        y, s = wkv_fn(s, *(x[t : t + 1] for x in seq), *static)
+        ys.append(y)
+        states.append(s)
+    return torch.cat(ys), torch.stack(states)
 
 
 def _wkv6_step(s, rt, kt, vt, wt, tf):
@@ -96,17 +111,13 @@ def wkv6_scan(s, r, k, v, w, tf):
     return torch.stack(ys), s
 
 
-def wkv6_scan_trace(s, r, k, v, w, tf):
+def wkv6_scan_trace(s, r, k, v, w, tf, wkv_fn=None):
     """wkv6_scan that also returns the state AFTER every step:
-    (y [T, ..., H, S], s_all [T, ..., H, S, S])."""
-    if w.ndim == 2:
-        w = w.expand(r.shape)
-    ys, states = [], []
-    for t in range(r.shape[0]):
-        s, y = _wkv6_step(s, r[t], k[t], v[t], w[t], tf)
-        ys.append(y)
-        states.append(s)
-    return torch.stack(ys), torch.stack(states)
+    (y [T, ..., H, S], s_all [T, ..., H, S, S]). `wkv_fn` as in
+    ``wkv4_scan_trace`` (default ``wkv6_scan``)."""
+    if w.ndim == r.ndim:
+        return _scan_trace(wkv_fn or wkv6_scan, s, (r, k, v, w), (tf,))
+    return _scan_trace(wkv_fn or wkv6_scan, s, (r, k, v), (w, tf))
 
 
 def wkv7_scan(s, r, w, k, v, a, b):
@@ -123,23 +134,19 @@ def wkv7_scan(s, r, w, k, v, a, b):
     return torch.stack(ys), s
 
 
-def wkv7_scan_trace(s, r, w, k, v, a, b):
+def wkv7_scan_trace(s, r, w, k, v, a, b, wkv_fn=None):
     """wkv7_scan that also returns the state AFTER every step:
-    (y [T, ..., H, S], s_all [T, ..., H, S, S])."""
-    ys, states = [], []
-    for t in range(r.shape[0]):
-        sa = torch.einsum("...ij,...j->...i", s, a[t])
-        s = s * w[t][..., None, :] + v[t][..., :, None] * k[t][..., None, :] + sa[..., :, None] * b[t][..., None, :]
-        ys.append(torch.einsum("...ij,...j->...i", s, r[t]))
-        states.append(s)
-    return torch.stack(ys), torch.stack(states)
+    (y [T, ..., H, S], s_all [T, ..., H, S, S]). `wkv_fn` as in
+    ``wkv4_scan_trace`` (default ``wkv7_scan``)."""
+    return _scan_trace(wkv_fn or wkv7_scan, s, (r, w, k, v, a, b))
 
 
 def att_v4(layer: Params, x, att_xx, aa, bb, pp, trace=False, wkv_fn=None):
     """v4 time mix: three-way shift mix, sigmoid receptance multiplying
     the scalar-state wkv before the output projection. `wkv_fn` overrides
     the recurrence (the prefill dispatch ``ops.chunked.wkv4_auto``);
-    trace=True additionally returns (xl, aa_all, bb_all, pp_all)."""
+    trace=True additionally returns (xl, aa_all, bb_all, pp_all), the
+    recurrence run token by token (through `wkv_fn` where given)."""
     xl = layer_norm(x, layer["ln1.weight"], layer["ln1.bias"])
     x_prev, new_xx = _token_shift(xl, att_xx)
 
@@ -153,7 +160,7 @@ def att_v4(layer: Params, x, att_xx, aa, bb, pp, trace=False, wkv_fn=None):
 
     tf, td = layer["att.time_first"], layer["att.time_decay"]
     if trace:
-        wkv, aa_all, bb_all, pp_all = wkv4_scan_trace(tf, td, k, v, aa, bb, pp)
+        wkv, aa_all, bb_all, pp_all = wkv4_scan_trace(tf, td, k, v, aa, bb, pp, wkv_fn)
         out = mm(r * wkv, layer["att.output.weight"])
         return (out, new_xx, aa_all[-1], bb_all[-1], pp_all[-1],
                 (xl, aa_all, bb_all, pp_all))
@@ -191,7 +198,7 @@ def att_v5(layer: Params, x, att_xx, heads, cfg: ModelConfig, wkv_fn=None, trace
         td = layer["att.time_decay"][:, None].expand(h, s)
 
     if trace:
-        y, heads_all = wkv6_scan_trace(heads, r, k, v, td, tf)
+        y, heads_all = wkv6_scan_trace(heads, r, k, v, td, tf, wkv_fn)
         heads = heads_all[-1]
     else:
         y, heads = (wkv_fn or wkv6_scan)(heads, r, k, v, td, tf)
@@ -211,7 +218,8 @@ def att_v6(layer: Params, x, att_xx, heads, cfg: ModelConfig, wkv_fn=None, trace
     """v6 time mix: LoRA-style dynamic five-way token-shift mix and dynamic
     decay, silu gate. `wkv_fn` overrides the recurrence (the prefill
     dispatch ``ops.chunked.wkv6_auto``); trace=True additionally returns
-    (xl, heads_all), the per-position recurrent state.
+    (xl, heads_all), the per-position recurrent state, the recurrence run
+    token by token (through `wkv_fn` where given).
 
     The ``time_maa_w2`` up-projection is a float32 product (the JAX
     package's f32 HIGHEST einsum): callers on the card keep TF32 off."""
@@ -244,7 +252,7 @@ def att_v6(layer: Params, x, att_xx, heads, cfg: ModelConfig, wkv_fn=None, trace
 
     tf = layer["att.time_faaaa"]
     if trace:
-        y, heads_all = wkv6_scan_trace(heads, r, k, v, w, tf)
+        y, heads_all = wkv6_scan_trace(heads, r, k, v, w, tf, wkv_fn)
         heads = heads_all[-1]
     else:
         y, heads = (wkv_fn or wkv6_scan)(heads, r, k, v, w, tf)
@@ -257,6 +265,22 @@ def att_v6(layer: Params, x, att_xx, heads, cfg: ModelConfig, wkv_fn=None, trace
     return out, new_xx, heads
 
 
+def v7_projections(layer: Params, xxx: torch.Tensor, v_lora: bool) -> tuple:
+    """The products of v7's time mix on the six mixes ``xxx`` [6, ..., C]
+    (r, w, k, v, a, g): (r, k, v, g, w_l, a_l, vmix_l), w_l / a_l / vmix_l
+    the w, a and value-residual LoRAs before their biases (vmix_l None
+    without `v_lora`)."""
+    xr, xw, xk, xv, xa, xg = (xxx[i] for i in range(6))
+    r = mm(xr, layer["att.receptance.weight"])
+    g = mm(torch.sigmoid(mm(xg, layer["att.g1"])), layer["att.g2"])
+    a_l = mm(mm(xa, layer["att.a1"]), layer["att.a2"])
+    w_l = mm(torch.tanh(mm(xw, layer["att.w1"])), layer["att.w2"])
+    k = mm(xk, layer["att.key.weight"])
+    v = mm(xv, layer["att.value.weight"])
+    vmix_l = mm(mm(xv, layer["att.v1"]), layer["att.v2"]) if v_lora else None
+    return r, k, v, g, w_l, a_l, vmix_l
+
+
 def att_v7(
     layer: Params,
     x,
@@ -267,55 +291,44 @@ def att_v7(
     is_first: Optional[bool] = None,
     wkv_fn=None,
     trace=False,
+    projections=v7_projections,
 ):
     """v7 time mix: six-way shift, low-rank w/a/g/v gates, l2-normalized
     kk, cross-layer value residual and the r.k.r_k bonus.
 
     `is_first`: None for the unrolled path (v_first=None marks layer 0);
-    a bool for the stacked serving path, where layer 0's v0/v1/v2 are
-    zero-padded and the value residual is computed and selected away, as
-    the JAX package's scan over layers does.
+    a bool for the stacked serving path. Layer 0 takes v as the value
+    residual and needs no v0/v1/v2 (the JAX package's scan computes its
+    residual on zero-padded ones and selects it away), so a one-layer
+    model serves too.
+
+    `projections`: ``v7_projections`` or a function of the same contract
+    (the serving path's fused products, ``models.serve``).
 
     trace=True additionally returns (xl, heads_all), the per-position
-    recurrent state."""
+    recurrent state, the recurrence run token by token (through `wkv_fn`
+    where given)."""
     h, s = cfg.head_count, cfg.head_size
     lead, c = x.shape[:-1], x.shape[-1]
+    first = v_first is None if is_first is None else is_first
     xl = layer_norm(x, layer["ln1.weight"], layer["ln1.bias"])
     x_prev, new_xx = _token_shift(xl, att_xx)
     sx = x_prev - xl
 
     coeff = layer["att.x_rwkvag"].reshape(6, *([1] * len(lead)), c)
     xxx = xl[None] + sx[None] * coeff  # [6, ..., C]
-    xr, xw, xk, xv, xa, xg = (xxx[i] for i in range(6))
+    r, k, v, g, w_l, a_l, vmix_l = projections(layer, xxx, not first)
+    a = torch.sigmoid(a_l + layer["att.a0"])
+    w = torch.exp(torch.sigmoid(w_l + layer["att.w0"]) * -0.606531)
 
-    r = mm(xr, layer["att.receptance.weight"])
-    g = mm(torch.sigmoid(mm(xg, layer["att.g1"])), layer["att.g2"])
-    a = torch.sigmoid(mm(mm(xa, layer["att.a1"]), layer["att.a2"]) + layer["att.a0"])
-
-    w = mm(torch.tanh(mm(xw, layer["att.w1"])), layer["att.w2"]) + layer["att.w0"]
-    w = torch.exp(torch.sigmoid(w) * -0.606531)
-
-    k = mm(xk, layer["att.key.weight"])
     kk = l2_normalize((k * layer["att.k_k"]).reshape(*lead, h, s))
     ka = k * layer["att.k_a"]
     k = k + (a * ka - ka)
 
-    v = mm(xv, layer["att.value.weight"])
-    if is_first is None:
-        if v_first is None:
-            v_first = v
-        else:
-            v = v + (v_first - v) * torch.sigmoid(
-                mm(mm(xv, layer["att.v1"]), layer["att.v2"]) + layer["att.v0"]
-            )
+    if first:
+        v_first = v
     else:
-        v_mix = v + (v_first - v) * torch.sigmoid(
-            mm(mm(xv, layer["att.v1"]), layer["att.v2"]) + layer["att.v0"]
-        )
-        if is_first:
-            v_first = v
-        else:
-            v = v_mix
+        v = v + (v_first - v) * torch.sigmoid(vmix_l + layer["att.v0"])
 
     rh = r.reshape(*lead, h, s)
     wh = w.reshape(*lead, h, s)
@@ -324,7 +337,7 @@ def att_v7(
     ah = a.reshape(*lead, h, s)
 
     if trace:
-        y, heads_all = wkv7_scan_trace(heads, rh, wh, kh, vh, -kk, kk * ah)
+        y, heads_all = wkv7_scan_trace(heads, rh, wh, kh, vh, -kk, kk * ah, wkv_fn)
         heads = heads_all[-1]
     else:
         y, heads = (wkv_fn or wkv7_scan)(heads, rh, wh, kh, vh, -kk, kk * ah)

@@ -9,23 +9,31 @@ Ports the serving side of ``rwkv_tpu.models.serve``:
   per row, K9's bf16 form); w8a8 (rowwise int8 weights, per-row int8
   activations, kernel K1). Under every packed mode a file-quantized leaf
   keeps its blocks (``PackedQuantWeight.from_weight``) and only dense
-  leaves are requantized, as in the JAX package. Projections stay unfused,
-  as they do there under every packed mode. w4a8 runs these per-op paths
-  as w8a8, as JAX does; only the decode kernels see int4.
+  leaves are requantized, as in the JAX package. Projections stay unfused
+  under every packed mode, as they do there; dense v7 stacks (f32, bf16)
+  are fused (``fuse=True``): r / k / v into ``att.rkv.weight`` and the
+  LoRAs into ``att.lora1`` / ``att.lora2``, run by
+  ``_v7_fused_projections`` as three batched products. w4a8 runs these
+  per-op paths as w8a8, as JAX does; only the decode kernels see int4.
 - ``run_blocks`` / ``forward_stacked`` run the layers as a Python loop over
-  ``models.graph.att_v7`` / ``ffn_v7`` (v7), ``att_v6`` / ``ffn_v6`` (v6),
-  ``att_v5`` / ``ffn_v4_v5`` (v5) or, in ``forward_stacked``'s own loop with
-  the ``aa`` / ``bb`` / ``pp`` state, ``att_v4`` / ``ffn_v4_v5`` (v4). For
-  T > 1 the wkv recurrence goes through ``ops.chunked.wkv7_auto`` (kernel
-  K2 on the card), ``wkv6_auto`` (kernel K5, v6 and v5 with its static
-  decay) or ``wkv4_auto`` (a log-depth scan in plain PyTorch).
+  ``models.graph.att_v7`` / ``ffn_v7`` (v7; the fused products on a
+  fused stack), ``att_v6`` / ``ffn_v6`` (v6), ``att_v5`` / ``ffn_v4_v5``
+  (v5) or, in ``forward_stacked``'s own loop with the ``aa`` / ``bb`` /
+  ``pp`` state, ``att_v4`` / ``ffn_v4_v5`` (v4). The wkv recurrence goes
+  through ``ops.chunked.wkv7_auto`` (kernel K2 on the card),
+  ``wkv6_auto`` (kernel K5, v6 and v5 with its static decay) or
+  ``wkv4_auto`` (a log-depth scan in plain PyTorch for T > 1), at T=1 too.
+  ``forward_stacked_trace`` is the scoring pass that also returns the
+  state after every position (the speculative commit, every version).
 - ``ServingModel`` serves a ggmf file (``models.loader.load_params``) or a
   ``(cfg, params)`` tree: ``prefill`` splits a prompt into
   ``PREFILL_BUCKETS``, ``decode`` runs one step for a batch, ``generate``
-  samples. With ``megakernel=True`` decode goes through the whole-model
+  samples, ``score`` / ``score_trace`` give every position's logits (and
+  states). With ``megakernel=True`` decode goes through the whole-model
   kernels (w8a8 and w4a8; ``quant``, ``q8`` and ``q8r`` hand them the w8
   pack of the dequantized weights, and ``bf16`` and ``f32`` the bf16 pack
-  of the f32 dense weights, as the JAX package does). v7: B=1 through K3
+  of the f32 dense weights, as the JAX package does; ``mega_pack_cache``
+  keeps the host pack in a file). v7: B=1 through K3
   (one launch with the LM head) when K3 takes the model's shapes, else K4
   and the head; ``mega_min_batch`` <= B <= ``MEGA_MAX_BATCH`` through K4,
   then ``ln_out`` and the per-op head (K1 at M=B under w8a8; the model's
@@ -43,11 +51,17 @@ Ports the serving side of ``rwkv_tpu.models.serve``:
 State uses the serving layout: ``att_xx`` / ``ffn_xx`` ``[B, L, C]`` and
 ``heads`` ``[B, L, H, S_i, S_j]`` (v5-v7) or ``aa`` / ``bb`` / ``pp``
 ``[B, L, C]`` (v4).
+
+One fault of the JAX package is not copied: its ``stack_layer_params``
+pads layer 0's v0 / v1 / v2 only when there is a second layer to copy them
+from, so a one-layer v7 model raises ``KeyError`` there. Here layer 0 never
+reads them, and a one-layer model serves.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Optional, Sequence
 
@@ -60,7 +74,7 @@ from rwkv_tpu_torch.models.config import ModelConfig
 from rwkv_tpu_torch.models.loader import LAYER_WEIGHT_KEYS, load_params
 from rwkv_tpu_torch.models.state import init_state
 from rwkv_tpu_torch.ops.kernels import PackedQuantWeight, quantize_q8_serving
-from rwkv_tpu_torch.ops.parity import Weight, layer_norm
+from rwkv_tpu_torch.ops.parity import Weight, bmm, layer_norm
 
 # Prefill chunk buckets, largest first; any length is decomposed greedily.
 PREFILL_BUCKETS = (256, 64, 16, 4, 1)
@@ -116,12 +130,39 @@ def _to(x, device):
     return x.to(device) if isinstance(x, (torch.Tensor, PackedQuantWeight)) else x
 
 
+_V7_FUSED_RKV = ("att.receptance.weight", "att.key.weight", "att.value.weight")
+_V7_FUSED_LORA1 = ("att.w1", "att.a1", "att.g1", "att.v1")
+_V7_FUSED_LORA2 = ("att.w2", "att.a2", "att.g2", "att.v2")
+
+
+def _fuse_v7(stacked: dict) -> None:
+    """JAX's fuse block: r / k / v into ``att.rkv.weight`` ``[L, 3, C, C]``
+    and the LoRAs into ``att.lora1`` ``[L, n, d, C]`` (w1, a1, g1, v1) and
+    ``att.lora2`` ``[L, n, C, d]`` (w2, a2, g2, v2), where every one of them
+    is a dense tensor and the LoRAs share one width. n is 4, or 3 in a
+    one-layer model, which has no value-residual LoRA."""
+    lora1 = [k for k in _V7_FUSED_LORA1 if k in stacked]
+    lora2 = [k for k in _V7_FUSED_LORA2 if k in stacked]
+    keys = _V7_FUSED_RKV + tuple(lora1) + tuple(lora2)
+    if not all(isinstance(stacked.get(k), torch.Tensor) for k in keys):
+        return
+    if len({stacked[k].shape for k in lora1}) != 1 or len({stacked[k].shape for k in lora2}) != 1:
+        return
+    for name, group in (("att.rkv.weight", _V7_FUSED_RKV), ("att.lora1", lora1),
+                        ("att.lora2", lora2)):
+        stacked[name] = torch.stack([stacked.pop(k) for k in group], dim=1)
+
+
 def stack_layer_params(
-    params: dict, cfg: ModelConfig, dtype=torch.bfloat16, mode: str = "dense", device=None
+    params: dict, cfg: ModelConfig, dtype=torch.bfloat16, mode: str = "dense", device=None,
+    fuse: bool = True,
 ) -> dict:
     """Prepare and stack per-layer params into ``[L, ...]`` leaves on
     `device` (default: the card). Layer 0's missing v0/v1/v2 are
-    zero-padded; its value residual is computed and selected away."""
+    zero-padded where a later layer gives their shapes; layer 0 never reads
+    them (its value residual is selected away). `fuse`: dense v7 stacks
+    get JAX's fused projections (``_fuse_v7``), which ``run_blocks`` runs
+    through ``_v7_fused_projections``."""
     dev = resolve_device(device)
     if cfg.version_major not in _VERSIONS:
         raise NotImplementedError(f"the port does not serve RWKV v{cfg.version}")
@@ -139,6 +180,8 @@ def stack_layer_params(
         else:
             leaves = [b[k].float() for b in blocks]
         stacked[k] = _to(_stack(leaves), dev)
+    if fuse and cfg.version_major == 7:
+        _fuse_v7(stacked)
     head = params["head"]
     return {
         "emb": params["emb"].to(dtype).to(dev),
@@ -154,6 +197,30 @@ def _layer(blocks: dict, i: int) -> dict:
     for k, v in blocks.items():
         out[k] = v.map(lambda t: t[i]) if isinstance(v, PackedQuantWeight) else v[i]
     return out
+
+
+def _v7_fused_projections(layer: dict, xxx: torch.Tensor, v_lora: bool) -> tuple:
+    """``graph.v7_projections`` on a fused stack (``_fuse_v7``): r / k / v,
+    the LoRA downs and the LoRA ups each as one batched product
+    (``ops.parity.bmm``: f32 out, as JAX's ``preferred_element_type=f32``)."""
+    lead, c = xxx.shape[1:-1], xxx.shape[-1]
+    xr, xw, xk, xv, xa, xg = (xxx[i] for i in range(6))
+    rkv = bmm(torch.stack([xr, xk, xv]).reshape(3, -1, c), layer["att.rkv.weight"])
+    r, k, v = (rkv[i].reshape(*lead, c) for i in range(3))
+    l1 = layer["att.lora1"]  # [n, d, C] (w1, a1, g1(, v1))
+    n = 4 if v_lora else 3
+    down = bmm(torch.stack([xw, xa, xg, xv][:n]).reshape(n, -1, c), l1[:n])
+    act = torch.stack([torch.tanh(down[0]), down[1], torch.sigmoid(down[2]), *down[3:]])
+    up = bmm(act, layer["att.lora2"][:n])  # [n, M, C] (w2, a2, g2(, v2))
+    w_l, a_l, g = (up[i].reshape(*lead, c) for i in range(3))
+    return r, k, v, g, w_l, a_l, up[3].reshape(*lead, c) if v_lora else None
+
+
+def _att_v7(layer: dict):
+    """``graph.att_v7`` with the layer's own products: fused or not."""
+    if "att.rkv.weight" in layer:
+        return functools.partial(G.att_v7, projections=_v7_fused_projections)
+    return G.att_v7
 
 
 def run_blocks(
@@ -177,7 +244,7 @@ def run_blocks(
     for i in range(n_local):
         layer = _layer(blocks, i)
         if cfg.version_major == 7:
-            dx, att_xx, h, v_first = G.att_v7(
+            dx, att_xx, h, v_first = _att_v7(layer)(
                 layer, x, state["att_xx"][i], state["heads"][i], v_first, cfg,
                 is_first=(layer_offset + i == 0), wkv_fn=wkv_fn,
             )
@@ -202,27 +269,36 @@ def run_blocks(
     }
 
 
-def _forward_v4(blocks: dict, state: dict, x: torch.Tensor, prefill: bool):
-    """The v4 layers over `x` with the ``aa`` / ``bb`` / ``pp`` state;
-    prefill (T > 1) runs the wkv through ``ops.chunked.wkv4_auto``.
-    Returns (x, new state)."""
-    wkv_fn = None
-    if prefill:
-        from rwkv_tpu_torch.ops.chunked import wkv4_auto
+def _forward_v4(blocks: dict, state: dict, x: torch.Tensor):
+    """The v4 layers over `x` with the ``aa`` / ``bb`` / ``pp`` state, the
+    wkv through ``ops.chunked.wkv4_auto``. Returns (x, new state)."""
+    from rwkv_tpu_torch.ops.chunked import wkv4_auto
 
-        wkv_fn = wkv4_auto
     keys = ("att_xx", "ffn_xx", "aa", "bb", "pp")
     out = {k: [] for k in keys}
     for i in range(state["att_xx"].shape[0]):
         layer = _layer(blocks, i)
         dx, att_xx, aa, bb, pp = G.att_v4(layer, x, state["att_xx"][i], state["aa"][i],
-                                          state["bb"][i], state["pp"][i], wkv_fn=wkv_fn)
+                                          state["bb"][i], state["pp"][i], wkv_fn=wkv4_auto)
         x = x + dx
         dx, ffn_xx = G.ffn_v4_v5(layer, x, state["ffn_xx"][i])
         x = x + dx
         for k, v in zip(keys, (att_xx, ffn_xx, aa, bb, pp)):
             out[k].append(v)
     return x, {k: torch.stack(v) for k, v in out.items()}
+
+
+def _wkv_auto(cfg: ModelConfig):
+    """The serving path's wkv dispatch, at every T (``ops.chunked``). On the
+    card v7 and v5 / v6 run one kernel at T=1 and T>1 (K2, K5), whose
+    token recurrence gives a token the same bits at any T below its
+    crossover: a pass over a few positions then agrees with the one-token
+    decode chain bit for bit (v4's log-depth scan at T>1 does not). On the
+    CPU: the JAX package's dispatch (the scan at T=1)."""
+    from rwkv_tpu_torch.ops import chunked
+
+    return {7: chunked.wkv7_auto, 6: chunked.wkv6_auto, 5: chunked.wkv6_auto,
+            4: chunked.wkv4_auto}[cfg.version_major]
 
 
 def forward_stacked(
@@ -240,14 +316,9 @@ def forward_stacked(
     emb = params["emb"][tokens]
     x = layer_norm(emb.float(), *params["ln0"])
     if cfg.version_major == 4:
-        x, new_state = _forward_v4(params["blocks"], state, x, tokens.shape[0] > 1)
+        x, new_state = _forward_v4(params["blocks"], state, x)
     else:
-        wkv_fn = None
-        if tokens.shape[0] > 1:
-            from rwkv_tpu_torch.ops.chunked import wkv6_auto, wkv7_auto
-
-            wkv_fn = wkv7_auto if cfg.version_major == 7 else wkv6_auto
-        x, _, new_state = run_blocks(params["blocks"], state, x, cfg, wkv_fn=wkv_fn)
+        x, _, new_state = run_blocks(params["blocks"], state, x, cfg, wkv_fn=_wkv_auto(cfg))
     logits = None
     if compute_logits == "all":
         logits = G.mm(layer_norm(x, *params["ln_out"]), params["head"])
@@ -260,10 +331,74 @@ def forward_stacked(
     return logits, new_state
 
 
-def _tp_packs(params: dict, cfg: ModelConfig, mesh, w4: bool, quant: bool) -> list:
-    """The shard packs of ``ops.megakernel_tp`` for `mesh`, after the shape
-    checks."""
+def forward_stacked_trace(params: dict, state: dict, tokens: torch.Tensor, cfg: ModelConfig):
+    """Single-sequence scoring pass that returns every position's logits
+    and the recurrent state after every position (JAX's
+    ``forward_stacked_trace``, all five architectures). tokens [T]; state
+    arrays [L, ...]. Returns (logits [T, V], trace) with trace arrays
+    ``[L, T, ...]`` (``att_xx``, ``ffn_xx`` and ``heads``, or ``aa`` /
+    ``bb`` / ``pp`` for v4): position j holds the state after
+    tokens[:j+1], the speculative commit without a replay pass. The
+    recurrences run token by token through the serving path's dispatch
+    (``_wkv_auto``), so each position's state has the bits a one-token
+    decode step gives it."""
+    major = cfg.version_major
+    x = layer_norm(params["emb"][tokens].float(), *params["ln0"])
+    blocks = params["blocks"]
+    keys = ("att_xx", "ffn_xx") + (("aa", "bb", "pp") if major == 4 else ("heads",))
+    trace = {k: [] for k in keys}
+    v_first = torch.zeros_like(x)
+    wkv_fn = _wkv_auto(cfg)
+    for i in range(state["att_xx"].shape[0]):
+        layer = _layer(blocks, i)
+        if major == 4:
+            dx, *_, (xl, *rec) = G.att_v4(layer, x, state["att_xx"][i], state["aa"][i],
+                                         state["bb"][i], state["pp"][i], trace=True,
+                                         wkv_fn=wkv_fn)
+        elif major in (5, 6):
+            att = G.att_v5 if major == 5 else G.att_v6
+            dx, _, _, (xl, *rec) = att(layer, x, state["att_xx"][i], state["heads"][i], cfg,
+                                       wkv_fn=wkv_fn, trace=True)
+        else:
+            dx, _, _, v_first, (xl, *rec) = _att_v7(layer)(
+                layer, x, state["att_xx"][i], state["heads"][i], v_first, cfg, is_first=i == 0,
+                wkv_fn=wkv_fn, trace=True)
+        x = x + dx
+        # ffn_xx after position t is ln2(x)[t], the ffn's own token shift
+        xl2 = layer_norm(x, layer["ln2.weight"], layer["ln2.bias"])
+        ffn = G.ffn_v7 if major == 7 else G.ffn_v6 if major == 6 else G.ffn_v4_v5
+        dx, _ = ffn(layer, x, state["ffn_xx"][i])
+        x = x + dx
+        for k, v in zip(keys, (xl, xl2, *rec)):
+            trace[k].append(v)
+    logits = G.mm(layer_norm(x, *params["ln_out"]), params["head"])
+    return logits, {k: torch.stack(v) for k, v in trace.items()}
+
+
+def _host_pack(params: dict, cfg: ModelConfig, w4: bool, quant: bool, cache=None) -> dict:
+    """The decode kernels' host pack (before ``device_pack``): read from the
+    file `cache` where it exists, else built (``build_mega_pack*`` of the
+    model's version) and, with `cache` given, written there (the JAX
+    package's ``mega_pack_cache``). A cached pack that does not fit the
+    model or the precision raises ValueError."""
     from rwkv_tpu_torch.ops import megakernel as M
+
+    if cache is not None and os.path.exists(cache):
+        pack = M.load_mega_pack(cache)
+        err = M.mega_pack_mismatch(pack, cfg, M._form(quant, w4))
+        if err:
+            raise ValueError(f"mega_pack_cache {os.fspath(cache)}: {err}")
+        return pack
+    build = {7: M.build_mega_pack, 6: M.build_mega_pack_v6, 5: M.build_mega_pack_v5,
+             4: M.build_mega_pack_v4}[cfg.version_major]
+    pack = build(params, cfg, w4=w4, quant=quant)
+    if cache is not None:
+        M.save_mega_pack(cache, pack)
+    return pack
+
+
+def _tp_shape_check(params: dict, cfg: ModelConfig, mesh, w4: bool) -> None:
+    """Raise unless ``ops.megakernel_tp`` splits the model over `mesh`."""
     from rwkv_tpu_torch.ops import megakernel_tp as TP
 
     major, tp = cfg.version_major, mesh.tp
@@ -278,13 +413,16 @@ def _tp_packs(params: dict, cfg: ModelConfig, mesh, w4: bool, quant: bool) -> li
         err = (TP.tp_shape_error_v5 if major == 5 else TP.tp_shape_error_v4)(cfg, tp, f_dim, w4)
     if err:
         raise NotImplementedError(f"mesh with megakernel=True: {err}")
-    build, build_tp = {
-        7: (M.build_mega_pack, TP.build_mega_pack_tp),
-        6: (M.build_mega_pack_v6, TP.build_mega_pack_tp_v6),
-        5: (M.build_mega_pack_v5, TP.build_mega_pack_tp_v5),
-        4: (M.build_mega_pack_v4, TP.build_mega_pack_tp_v4),
-    }[major]
-    return build_tp(build(params, cfg, w4=w4, quant=quant), cfg, mesh)
+
+
+def _tp_packs(base: dict, cfg: ModelConfig, mesh) -> list:
+    """The shard packs of ``ops.megakernel_tp`` for `mesh`, cut from the
+    host pack `base`."""
+    from rwkv_tpu_torch.ops import megakernel_tp as TP
+
+    build_tp = {7: TP.build_mega_pack_tp, 6: TP.build_mega_pack_tp_v6,
+                5: TP.build_mega_pack_tp_v5, 4: TP.build_mega_pack_tp_v4}[cfg.version_major]
+    return build_tp(base, cfg, mesh)
 
 
 class ServingModel:
@@ -298,6 +436,7 @@ class ServingModel:
         megakernel: bool = False,
         device=None,
         mesh=None,
+        mega_pack_cache=None,
     ):
         """source: the path of a ggmf model file (FP32, FP16, Q4_0, Q4_1,
         Q5_0, Q5_1, Q8_0, Q4_K or Q5_K; ``models.loader.load_params``) or
@@ -322,7 +461,13 @@ class ServingModel:
         raises. Prefill, B>1 decode and the LM
         head are not sharded yet: they run the per-op path on
         ``mesh.devices[0]``, where the state lives too. `device`, if given,
-        must be that device."""
+        must be that device.
+
+        mega_pack_cache: the path of a .npz pack cache
+        (``ops.megakernel.save_mega_pack``). With megakernel=True an
+        existing file is loaded instead of building the host pack (a mesh
+        cuts its shard packs from it), and a missing one is written after
+        the build. A file of another layout, model or precision raises."""
         if isinstance(source, (str, os.PathLike)):
             cfg, params = load_params(os.fspath(source))
         else:
@@ -352,40 +497,32 @@ class ServingModel:
         # the decode kernels' pack: int4 big matrices under w4a8, bf16 under
         # bf16 and f32, int8 otherwise
         w4, quant = precision == "w4a8", precision not in ("bf16", "f32")
-        if megakernel and mesh is not None:
-            self._mega_tp = _tp_packs(params, cfg, mesh, w4, quant)
-        elif megakernel and cfg.version_major in (4, 5, 6):
-            from rwkv_tpu_torch.ops import megakernel as M
+        if not megakernel:
+            return
+        if mesh is not None:
+            _tp_shape_check(params, cfg, mesh, w4)
+        pack = _host_pack(params, cfg, w4, quant, mega_pack_cache)
+        if mesh is not None:
+            self._mega_tp = _tp_packs(pack, cfg, mesh)
+            return
+        from rwkv_tpu_torch.ops import megakernel as M
 
-            if cfg.version_major == 6:
-                pack = M.build_mega_pack_v6(params, cfg, w4=w4, quant=quant)
-                err = M.v6_decode_shape_error(cfg, pack["d_maa"], pack["d_dec"],
-                                              pack["f_dim"], w4)
-            elif cfg.version_major == 5:
-                pack = M.build_mega_pack_v5(params, cfg, w4=w4, quant=quant)
-                err = M.v5_decode_shape_error(cfg, pack["f_dim"], w4, pack["form"],
-                                              4 if pack["has_gate"] else 3)
-            else:
-                pack = M.build_mega_pack_v4(params, cfg, w4=w4, quant=quant)
-                err = M.v4_decode_shape_error(cfg, pack["f_dim"], w4, pack["form"])
-            if err:
-                raise NotImplementedError(f"megakernel=True: {err}")
-            self._mega = M.device_pack(pack, self.params["emb"], self.params["ln0"], self.device)
-        elif megakernel:
-            from rwkv_tpu_torch.ops.megakernel import (
-                batched_shape_error, build_mega_pack, decode_shape_error, device_pack,
-            )
-
-            self._mega = device_pack(
-                build_mega_pack(params, cfg, w4=w4, quant=quant), self.params["emb"],
-                self.params["ln0"], self.device,
-            )
-            dims = (cfg, self._mega["d_lora"], self._mega["f_dim"], w4)
-            err = batched_shape_error(*dims)
-            if err:
-                raise NotImplementedError(f"megakernel=True: {err}")
+        if cfg.version_major == 6:
+            err = M.v6_decode_shape_error(cfg, pack["d_maa"], pack["d_dec"], pack["f_dim"], w4)
+        elif cfg.version_major == 5:
+            err = M.v5_decode_shape_error(cfg, pack["f_dim"], w4, pack["form"],
+                                          4 if pack["has_gate"] else 3)
+        elif cfg.version_major == 4:
+            err = M.v4_decode_shape_error(cfg, pack["f_dim"], w4, pack["form"])
+        else:
+            err = M.batched_shape_error(cfg, pack["d_lora"], pack["f_dim"], w4)
+        if err:
+            raise NotImplementedError(f"megakernel=True: {err}")
+        self._mega = M.device_pack(pack, self.params["emb"], self.params["ln0"], self.device)
+        if cfg.version_major == 7:
             # static route: K3 for B=1 where it takes the shapes, else K4 + head
-            self._mega_k3 = decode_shape_error(*dims, bf16=not quant) is None
+            self._mega_k3 = M.decode_shape_error(
+                cfg, pack["d_lora"], pack["f_dim"], w4, bf16=not quant) is None
 
     # -- state -------------------------------------------------------------
     def init_state(self, batch_size: int = 1) -> dict:
@@ -478,6 +615,24 @@ class ServingModel:
             )
             pos += size
         return (logits[0] if logits is not None else None), state
+
+    def score(self, tokens, state: dict):
+        """Every position's logits: tokens [B, t] and state [B, L, ...] ->
+        (logits [B, t, V], state after the t tokens). Position i's logits
+        predict token i+1 (the speculative verification). One per-op pass
+        over all t tokens (K1 / K9 and K2 / K5 on the card)."""
+        tok = self._tokens(tokens)
+        tok = tok.reshape(1, -1) if tok.ndim < 2 else tok
+        logits, new_state = self._batched(state, tok, "all")
+        return logits.transpose(0, 1), new_state
+
+    def score_trace(self, tokens, state: dict):
+        """Single-sequence scoring with the state after every position:
+        tokens [t] and state [1, L, ...] -> (logits [t, V], trace arrays
+        [L, t, ...]); see ``forward_stacked_trace`` (every version)."""
+        tok = self._tokens(tokens).reshape(-1)
+        return forward_stacked_trace(self.params, {k: v[0] for k, v in state.items()}, tok,
+                                     self.config)
 
     def generate(
         self,

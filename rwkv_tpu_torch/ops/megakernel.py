@@ -54,6 +54,10 @@ whole-layer and tiled kernels ``v5_decode_megakernel`` /
 w4a8, and per layer the vector rows ``V45_VEC_KEYS`` followed by the FFN
 mixes, the static decay and bonus (v5.1's per-head scalars broadcast over
 S), v5's ``ln_x`` and the attention mixes (k, v, r(, g)).
+
+``save_mega_pack`` / ``load_mega_pack`` keep a host pack of any version
+and form in one .npz file (the JAX package's pack cache, in the port's own
+layout; ``ServingModel(mega_pack_cache=...)``).
 """
 
 from __future__ import annotations
@@ -165,11 +169,11 @@ def build_mega_pack(params: dict, cfg, w4: bool = False, quant: bool = True) -> 
     c = cfg.n_embed
     blocks = [dict(b) for b in params["blocks"]]
     n_layer = len(blocks)
-    if n_layer > 1:
-        # layer 0 has no v0/v1/v2; its value residual is selected away
-        for key in ("att.v0", "att.v1", "att.v2"):
-            if key not in blocks[0]:
-                blocks[0][key] = np.zeros_like(_np(blocks[1][key]))
+    # layer 0 has no v0/v1/v2; its value residual is selected away (a
+    # one-layer model takes their shapes from w0/w1/w2)
+    for key, like in (("att.v0", "att.w0"), ("att.v1", "att.w1"), ("att.v2", "att.w2")):
+        if key not in blocks[0]:
+            blocks[0][key] = np.zeros_like(_np(blocks[1][key] if n_layer > 1 else blocks[0][like]))
 
     def stack(keys_or_key):
         if isinstance(keys_or_key, tuple):
@@ -2375,3 +2379,80 @@ def v4_decode_step(pack: dict, state: dict, token: torch.Tensor, cfg):
 
 v4_decode_step.launches = 0
 v4_decode_step.launches_by_form = dict.fromkeys(FORMS, 0)
+
+
+# -- the pack cache --------------------------------------------------------------
+#
+# Building a pack quantizes every matrix on the host. save_mega_pack /
+# load_mega_pack keep a built host pack (before ``device_pack``) in one .npz
+# file, as the JAX package's functions of the same names do: arrays under
+# ``arr::<key>``, the pack's scalars under ``__meta__`` as JSON bytes. The
+# port's layouts are its own (int4 values one a byte, bf16 as its 16-bit
+# pattern), so the meta also names the layout and each array's dtype, and a
+# file without that name (the JAX package's, say) is refused.
+
+MEGA_PACK_LAYOUT = "rwkv_tpu_torch.mega_pack/1"
+
+
+def save_mega_pack(path, pack: dict) -> None:
+    """Write a host pack (``build_mega_pack*``) to one .npz file at `path`."""
+    import json
+
+    arrays, meta, dtypes = {}, {}, {}
+    for k, v in pack.items():
+        if isinstance(v, torch.Tensor):
+            t = v.detach().cpu().contiguous()
+            dtypes[k] = str(t.dtype).removeprefix("torch.")
+            arrays["arr::" + k] = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+        else:
+            meta[k] = v
+    meta["__layout__"] = MEGA_PACK_LAYOUT
+    meta["__dtypes__"] = dtypes
+    arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+
+
+def load_mega_pack(path) -> dict:
+    """Read a pack written by ``save_mega_pack``: host tensors in their
+    saved dtypes, scalars as Python values. Raises ValueError for a file
+    without the port's layout name, or one whose arrays disagree with it."""
+    import json
+
+    with np.load(path) as z:
+        if "__meta__" not in z.files:
+            raise ValueError(f"{path}: not a mega pack (no __meta__)")
+        meta = json.loads(bytes(z["__meta__"]).decode())
+        layout = meta.pop("__layout__", None)
+        if layout != MEGA_PACK_LAYOUT:
+            raise ValueError(f"{path}: pack layout {layout!r}, not this package's "
+                             f"{MEGA_PACK_LAYOUT!r} (a pack of another layout cannot be read)")
+        dtypes = meta.pop("__dtypes__")
+        names = {k[len("arr::"):] for k in z.files if k.startswith("arr::")}
+        if names != set(dtypes):
+            raise ValueError(f"{path}: arrays {sorted(names ^ set(dtypes))} disagree with the meta")
+        pack = dict(meta)
+        for k, name in dtypes.items():
+            t = torch.from_numpy(z["arr::" + k].copy())
+            pack[k] = t.view(torch.bfloat16) if name == "bfloat16" else t
+            if str(pack[k].dtype).removeprefix("torch.") != name:
+                raise ValueError(f"{path}: {k} is {pack[k].dtype}, the meta says {name}")
+    return pack
+
+
+def mega_pack_mismatch(pack: dict, cfg, form: str) -> Optional[str]:
+    """Why `pack` cannot serve `cfg` in weight form `form` ("i8", "i4" or
+    "bf16"), or None: its version, form, depth, width, vocabulary and (v5)
+    gate must be the model's."""
+    version = pack.get("version", 7)
+    head = pack.get("headbf16", pack.get("head8"))
+    got = {"version": version, "form": pack.get("form"),
+           "n_layer": pack[_layout(pack)[0][0]].shape[0],
+           "n_embed": pack["ln_out.weight"].shape[0],
+           "n_vocab": None if head is None else head.shape[0]}
+    want = {"version": cfg.version_major, "form": form, "n_layer": cfg.n_layer,
+            "n_embed": cfg.n_embed, "n_vocab": cfg.n_vocab}
+    if version == 5 == cfg.version_major:
+        got["has_gate"], want["has_gate"] = pack.get("has_gate"), cfg.version_minor >= 2
+    bad = [f"{k} {got[k]} (the model's {want[k]})" for k in want if got[k] != want[k]]
+    return "; ".join(bad) or None

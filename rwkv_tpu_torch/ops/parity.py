@@ -88,6 +88,26 @@ class Weight:
         return arr.reshape(self.q.shape[0], -1)
 
 
+# On the card a dense product of fewer rows than this runs padded to this
+# many: cuBLAS picks its kernel, and with it the order of each dot
+# product's sum, by shape, so a row's bits would otherwise depend on how
+# many rows share the call. Padded, a pass over a few positions (the
+# speculative verification) gives each position the bits the one-token
+# decode chain gives it.
+ROW_INVARIANT_ROWS = 16
+
+
+def _matmul(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """x @ wt for x [..., M, K]; on the card M < ROW_INVARIANT_ROWS is
+    zero-padded to ROW_INVARIANT_ROWS rows."""
+    m = x.shape[-2]
+    if not x.is_cuda or m >= ROW_INVARIANT_ROWS:
+        return torch.matmul(x, wt)
+    pad = x.new_zeros(*x.shape[:-2], ROW_INVARIANT_ROWS, x.shape[-1])
+    pad[..., :m, :] = x
+    return torch.matmul(pad, wt)[..., :m, :]
+
+
 def _matmul_f32(x2: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
     """x2 @ wt in float32 at full precision: on the card with TF32 off for
     the call (the JAX package's ``precision=HIGHEST``)."""
@@ -96,7 +116,7 @@ def _matmul_f32(x2: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
     flag = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return torch.matmul(x2, wt)
+        return _matmul(x2, wt)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = flag
 
@@ -108,9 +128,11 @@ def mm(x: torch.Tensor, w) -> torch.Tensor:
     ``rwkv_tpu_torch.ops.kernels.PackedQuantWeight`` or a ``Weight`` of a
     loaded file. Dense f32 weights run an f32 matmul; bf16 weights see
     bf16-rounded activations with float32 accumulation (the JAX package's
-    ``preferred_element_type=f32``). A dense ``Weight`` runs in f32 at full
-    precision against the raw f32 activations, an FP16 one converted to
-    f32 (what ggml's FP16 matmul computes); a quantized ``Weight`` needs
+    ``preferred_element_type=f32``); on the card both with a row's bits
+    independent of the other rows (``ROW_INVARIANT_ROWS``). A dense
+    ``Weight`` runs in f32 at full precision against the raw f32
+    activations, an FP16 one converted to f32 (what ggml's FP16 matmul
+    computes); a quantized ``Weight`` needs
     the ggml-parity matmul, not ported (ROADMAP queue A item 9). Leading
     dims are flattened into one ``[M, in]`` product."""
     if isinstance(w, Weight):
@@ -129,10 +151,20 @@ def mm(x: torch.Tensor, w) -> torch.Tensor:
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if w.dtype == torch.bfloat16:
-        y = torch.matmul(x2.to(torch.bfloat16).float(), w.float().T)
+        y = _matmul(x2.to(torch.bfloat16).float(), w.float().T)
     else:
-        y = torch.matmul(x2, w.T)
+        y = _matmul(x2, w.T)
     return y.reshape(*lead, w.shape[0])
+
+
+def bmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y[p, m, o] = sum_i x[p, m, i] * W[p, o, i]: P products in one call
+    on a stack of dense ``[P, out, in]`` weights, with ``mm``'s numerics
+    (bf16 weights see bf16-rounded activations, f32 accumulation and an
+    f32 result)."""
+    if w.dtype == torch.bfloat16:
+        return _matmul(x.to(torch.bfloat16).float(), w.float().transpose(-1, -2))
+    return _matmul(x, w.transpose(-1, -2))
 
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5):

@@ -145,16 +145,22 @@ def _log_kept(probs, cutoff):
                        torch.full_like(probs, -torch.inf))
 
 
+def gumbel_noise(like: torch.Tensor, generator=None) -> torch.Tensor:
+    """Standard Gumbel noise of `like`'s shape on its device, from
+    `generator`: -log of an Exp(1) draw, clamped finite (as JAX's
+    uniform(minval=tiny) is), so -inf logits stay -inf."""
+    e = torch.empty(like.shape, dtype=torch.float32, device=like.device).exponential_(
+        generator=generator)
+    return -torch.log(torch.clamp(e, min=torch.finfo(torch.float32).tiny))
+
+
 def _categorical(logp, temperature, generator, gumbel):
     """argmax(logp / T + Gumbel noise) per row: a draw from p^(1/T). The
     noise comes from `generator`, or is `gumbel` (same shape) when given
     (tests feed ``jax.random.gumbel``'s draws to match JAX bit for bit)."""
     safe_t = torch.clamp(temperature, min=1e-6)[:, None]
     if gumbel is None:
-        # -log of an Exp(1) draw is Gumbel; the clamp keeps it finite (as
-        # JAX's uniform(minval=tiny) does), so -inf stays -inf
-        e = torch.empty_like(logp).exponential_(generator=generator)
-        gumbel = -torch.log(torch.clamp(e, min=torch.finfo(torch.float32).tiny))
+        gumbel = gumbel_noise(logp, generator)
     return torch.argmax(gumbel.to(logp.device) + logp / safe_t, dim=-1)
 
 

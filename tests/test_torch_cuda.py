@@ -1,8 +1,9 @@
 """Kernels K1-K15 of the PyTorch/CUDA port on the card (K3, K4, K6-K8 also
 in their bf16 form, K10-K15 in all three), against their plain PyTorch
 versions, the batcher's decode loop, the v7, v6, v5 and v4 serving paths
-(int8, int4 and bf16 packs; single-device and tensor-parallel) and the
-serving path from quantized ggmf files on the card. Every
+(int8, int4 and bf16 packs; single-device and tensor-parallel), the
+serving path from quantized ggmf files, ``score`` / ``score_trace``, both
+greedy speculative loops and the pack cache on the card. Every
 test here needs a CUDA device and nvcc and skips
 without one. The file imports no JAX, so it runs on a GPU machine without
 it, from the repository root:
@@ -373,7 +374,9 @@ def test_card_serving_matches_cpu_and_goes_through_kernels(cuda_device):
     for k in sc:
         torch.testing.assert_close(sg[k].cpu(), sc[k], rtol=2e-2, atol=2e-2)
     after = (TK.quant_matmul.launches, TC.wkv7_recurrence.launches, TM.v7_decode_step.launches)
-    assert after[0] - counts[0] == 2 * 14 * tc.n_layer + 1  # two prefill chunks, one head
+    # two prefill chunks of 14 projections a layer but layer 0's two
+    # value-residual LoRA products (its residual is selected away), one head
+    assert after[0] - counts[0] == 2 * (14 * tc.n_layer - 2) + 1
     assert after[1] - counts[1] == 2 * tc.n_layer
     assert after[2] - counts[2] == 3
 
@@ -1483,3 +1486,124 @@ def test_card_tp_serving_on_two_cards(cuda_device):
         l2, s2 = two.decode([tok], s2)
         l1, s1 = one.decode([tok], s1)
         assert torch.equal(l2, l1) and all(torch.equal(s2[k], s1[k]) for k in s1)
+
+
+# -- speculative decoding and the pack cache ----------------------------------
+
+@pytest.mark.parametrize("precision", ["w8a8", "bf16", "f32"])
+@pytest.mark.parametrize("version", ["7.0", "6.0", "4.0"])
+def test_card_score_and_score_trace_match_cpu(cuda_device, version, precision):
+    """score (two sequences of 5 tokens: K1 and K2 / K5 under w8a8) and
+    score_trace (K1) on the card against the same calls on the CPU, from
+    the CPU's prefill state: logits and states within 2e-2 element-wise
+    under w8a8 (an activation code may flip), 1e-4 of the scale under f32
+    (sums in another order) and 5e-3 under bf16 (a last-bit difference can
+    flip the bf16 rounding of an activation: the band of the CPU tests
+    against JAX, tests/test_torch_speculative.py), argmax equal."""
+    shape = SMALL if version == "7.0" else (version, 2, 256, 256, 64)
+    tc = synth_config(*shape)
+    tp = synth_params(tc, seed=23, **({"lora_dim": 32} if version == "7.0" else {}))
+    gpu = ServingModel((tc, tp), precision=precision, device=cuda_device)
+    cpu = ServingModel((tc, tp), precision=precision, device="cpu")
+    _, sc = cpu.prefill(list(range(1, 21)))
+    seqs = [[7, 8, 9, 10, 11], [11, 10, 9, 8, 7]]
+    two = {k: torch.cat([v, v]) for k, v in sc.items()}
+    before = TK.quant_matmul.launches
+
+    def close(a, b):
+        if precision == "w8a8":
+            torch.testing.assert_close(a.cpu(), b, rtol=2e-2, atol=2e-2)
+        else:
+            assert _rel(a.cpu(), b) <= (1e-4 if precision == "f32" else 5e-3)
+
+    lg, sg = gpu.score(seqs, {k: v.to(cuda_device) for k, v in two.items()})
+    lc, sc2 = cpu.score(seqs, two)
+    close(lg, lc)
+    assert lg.argmax(-1).tolist() == lc.argmax(-1).tolist()
+    for k in sc2:
+        close(sg[k], sc2[k])
+    tg, trg = gpu.score_trace(seqs[0], {k: v.to(cuda_device) for k, v in sc.items()})
+    tcpu, trc = cpu.score_trace(seqs[0], sc)
+    close(tg, tcpu)
+    assert tg.argmax(-1).tolist() == tcpu.argmax(-1).tolist()
+    for k in trc:
+        close(trg[k], trc[k])
+    if precision == "w8a8":
+        assert TK.quant_matmul.launches > before
+
+
+@pytest.mark.parametrize("precision", ["w8a8", "bf16"])
+@pytest.mark.parametrize("loop", ["host", "device"])
+def test_card_speculative_greedy_is_exact(cuda_device, loop, precision):
+    """Both greedy loops on the card, weak and perfect draft, 32 tokens:
+    the target's own greedy stream on the card, K2 launched (the score,
+    commit and trace passes' wkv, the chain's too) and under w8a8 K1."""
+    from rwkv_tpu_torch.models import speculative as S
+
+    tc = synth_config(*SMALL)
+    target = ServingModel((tc, synth_params(tc, seed=3, lora_dim=32)), precision=precision,
+                          device=cuda_device)
+    dc = synth_config("7.0", 2, 64, 256, 32)
+    draft = ServingModel((dc, synth_params(dc, seed=4, lora_dim=32)), precision=precision,
+                         device=cuda_device)
+    want, _, _ = target.generate(list(range(16)), 32, temperature=0.0)
+    fn = S.speculative_generate if loop == "host" else S.speculative_generate_device
+    k1, k2 = TK.quant_matmul.launches, TC.wkv7_recurrence.launches
+    got, stats = fn(target, draft, list(range(16)), 32, k=4)
+    assert got.tolist() == want.tolist(), (got.tolist(), want.tolist(), stats)
+    assert TC.wkv7_recurrence.launches > k2
+    if precision == "w8a8":
+        assert TK.quant_matmul.launches > k1
+    got, stats = fn(target, target, list(range(16)), 32, k=4)
+    assert got.tolist() == want.tolist() and stats["acceptance_rate"] == 1.0
+
+
+def test_card_small_passes_give_a_row_the_bits_it_gets_alone(cuda_device):
+    """What the speculative loops' exactness rests on: dense products of
+    up to 16 rows (``parity.ROW_INVARIANT_ROWS``) give each row the bits
+    it gets alone, in f32 and against bf16 weights, stacked too; K2 and K5
+    give five tokens in one launch the bits of five one-token launches."""
+    from rwkv_tpu_torch.ops.parity import bmm, mm
+
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(9, 768, generator=gen).to(cuda_device)
+    for dtype in (torch.float32, torch.bfloat16):
+        w = (torch.randn(3, 3072, 768, generator=gen) * 0.02).to(cuda_device, dtype)
+        alone = torch.cat([mm(x[i:i + 1], w[0]) for i in range(9)])
+        assert torch.equal(mm(x, w[0]), alone) and torch.equal(mm(x[:5], w[0]), alone[:5])
+        stacked = torch.cat([bmm(torch.stack([x[i:i + 1]] * 3), w)[2] for i in range(9)])
+        assert torch.equal(bmm(torch.stack([x] * 3), w)[2], stacked)
+    h, s = 12, 64
+    st = torch.randn(h, s, s, generator=gen).to(cuda_device) * 0.1
+    r, k, v, b, tf = (torch.randn(5, h, s, generator=gen).to(cuda_device) * 0.1 for _ in range(5))
+    w = (torch.rand(5, h, s, generator=gen) * 0.3 + 0.6).to(cuda_device)
+    a = -torch.nn.functional.normalize(torch.randn(5, h, s, generator=gen), dim=-1).to(cuda_device)
+    for fn, ops, extra in ((TC.wkv7_recurrence, (r, w, k, v, a, b), ()),
+                           (TC.wkv6_recurrence, (r, k, v, w), (tf[0],))):
+        y5, s5 = fn(st, *ops, *extra)
+        ys, s1 = [], st
+        for t in range(5):
+            y, s1 = fn(s1, *(o[t:t + 1] for o in ops), *extra)
+            ys.append(y)
+        assert torch.equal(torch.cat(ys), y5) and torch.equal(s1, s5)
+
+
+@pytest.mark.parametrize("precision", ["w8a8", "w4a8", "bf16"])
+def test_card_pack_cache_round_trip_through_k3(cuda_device, tmp_path, precision):
+    """A model built with mega_pack_cache writes the pack; a second one
+    reads it; both decode through K3 to the same bits."""
+    tc = synth_config("7.0", 2, 128, 256, 32)
+    tp = synth_params(tc, seed=29, lora_dim=32)
+    cache = str(tmp_path / "mega.npz")
+    a = ServingModel((tc, tp), precision=precision, megakernel=True, device=cuda_device,
+                     mega_pack_cache=cache)
+    b = ServingModel((tc, tp), precision=precision, megakernel=True, device=cuda_device,
+                     mega_pack_cache=cache)
+    assert a._mega_k3 and b._mega_k3
+    before = TM.v7_decode_step.launches
+    sa, sb = a.init_state(1), b.init_state(1)
+    for tok in (3, 77):
+        la, sa = a.decode([tok], sa)
+        lb, sb = b.decode([tok], sb)
+        assert torch.equal(la, lb)
+    assert TM.v7_decode_step.launches == before + 4
