@@ -130,6 +130,21 @@
      of the file); Q5_1 again with ``megakernel=True`` (K9 in prefill, K3
      in decode); ``q8`` and ``q8r`` on the synth tree, prefill and 16
      decode steps (K9 plain, K9 rowwise);
+   - the ggml-parity engine and the tools (``phase_parity``) on the same
+     169M files, an FP16 one and a Q4_K one: ``RWKVModel`` on the card
+     (plain PyTorch: the JAX package computes it in XLA, with no Pallas
+     kernel) against ``RWKVModel(path, device="cpu")`` on FP32, FP16,
+     Q4_0 (q8_0 activations), Q5_1 (q8_1) and Q4_K (q8_K): a 64-token
+     prompt in chunks of 16, then 16 greedy steps fed to both, the
+     prompt's and each step's logits and state, FP32 / FP16 within
+     PARITY_DENSE_REL of the scale, the quantized files within
+     PARITY_QUANT_REL with equal argmax on the prompt's logits, ms a chunk
+     and a token; then the tools' loops as functions with the World
+     tokenizer and seeded rngs: generation on the parity engine and on
+     ``--serve w4a8 --megakernel`` (K1, K2, K3), perplexity over a fixed
+     text on Q5_1 through the parity engine and ``--serve quant`` (K2, K9
+     min), two turns of ``ChatSession`` and a replay from its snapshot;
+     the phase's time;
    - the tensor-parallel B=1 path (``tp_serving_path``, ``tp_paths``):
      ``ServingModel(mesh=make_mesh(1, 2, devices=[cuda:0, cuda:0]),
      megakernel=True)`` on the v7 World 1.5B width, the v6 1.6B width, the
@@ -148,7 +163,10 @@
    logits and state (prefill 20 tokens, 4 decode steps); the same from
    Q5_1 and Q4_0 files
    of v7, v6, v5.2, v5.1 and v4 (L=2, C=256) under ``precision="quant"``,
-   within QUANT_SMALL_REL of the scale (bf16 head and LoRAs); and the
+   within QUANT_SMALL_REL of the scale (bf16 head and LoRAs); the parity
+   engine (``RWKVModel``) on FP16, Q4_1, Q5_0, Q8_0 and Q5_K files of the
+   same five versions (``small_parity_check``: 20 tokens in chunks of 8, 4
+   greedy steps, the quantized files within PARITY_SMALL_QUANT_REL); and the
    batcher's token streams on the card, its device loop against its host
    loop (greedy with penalties).
 5. Prints the total time, the ``{"kernels": [...]}`` JSON line (times per
@@ -168,6 +186,7 @@ from __future__ import annotations
 
 import json
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1500,17 +1519,16 @@ def phase_k4_large(model, model4, model16, cfg) -> dict:
 FILE_PATHS = (("Q5_1", "min"), ("Q4_0", "pack4"), ("Q4_1", "pack4_min"))
 
 
-def phase_files(cfg, params, prompt, card) -> dict:
-    """The v7 169M model (cfg, params) written as an FP32 ggmf into a
-    temporary directory and quantized by the port to each of FILE_PATHS;
+def phase_files(cfg, params, prompt, card, tmp: str) -> dict:
+    """The v7 169M model (cfg, params) written as an FP32 ggmf into `tmp`
+    and quantized by the port to each of FILE_PATHS;
     ServingModel(path, precision="quant") per file: a 256-token prompt and
     64 greedy decode steps at B=1 on the per-op path (K2, K9); Q5_1 again
     with megakernel=True (K9 in prefill, K3 in decode); then q8 and q8r on
-    (cfg, params), prefill and 16 decode steps. The files are deleted.
-    Returns the launches of each path."""
+    (cfg, params), prefill and 16 decode steps. The FP32, Q5_1 and Q4_0
+    files stay in `tmp` for ``phase_parity``. Returns the launches of each
+    path."""
     import os
-    import shutil
-    import tempfile
 
     import torch
 
@@ -1519,40 +1537,232 @@ def phase_files(cfg, params, prompt, card) -> dict:
     from rwkv_tpu_torch.tools.synth_file import write_synth_ggmf
 
     launches = {}
-    tmp = tempfile.mkdtemp(prefix="rwkv_smoke_")
-    try:
-        src = os.path.join(tmp, "v7-169m-FP32.bin")
+    src = os.path.join(tmp, "v7-169m-FP32.bin")
+    t0 = time.perf_counter()
+    write_synth_ggmf(cfg, params, src)
+    print(f"169M FP32 ggmf written in {time.perf_counter() - t0:.1f} s "
+          f"({os.path.getsize(src) / 1e6:.1f} MB)")
+    for fmt, form in FILE_PATHS:
+        path = os.path.join(tmp, f"v7-169m-{fmt}.bin")
         t0 = time.perf_counter()
-        write_synth_ggmf(cfg, params, src)
-        print(f"169M FP32 ggmf written in {time.perf_counter() - t0:.1f} s "
-              f"({os.path.getsize(src) / 1e6:.1f} MB)")
-        for fmt, form in FILE_PATHS:
-            path = os.path.join(tmp, f"v7-169m-{fmt}.bin")
-            t0 = time.perf_counter()
-            quantize_model_file(src, path, fmt, verbose=False)
-            t1 = time.perf_counter()
-            model = ServingModel(path, precision="quant")
-            print(f"{fmt}: quantized in {t1 - t0:.1f} s ({os.path.getsize(path) / 1e6:.1f} MB), "
-                  f"loaded in {time.perf_counter() - t1:.1f} s")
-            launches[f"quant {fmt}"] = single_stream_path(
-                f"quant {fmt}", model, prompt, cfg, card, 2, needed=("K2", f"K9 {form}"))
+        quantize_model_file(src, path, fmt, verbose=False)
+        t1 = time.perf_counter()
+        model = ServingModel(path, precision="quant")
+        print(f"{fmt}: quantized in {t1 - t0:.1f} s ({os.path.getsize(path) / 1e6:.1f} MB), "
+              f"loaded in {time.perf_counter() - t1:.1f} s")
+        launches[f"quant {fmt}"] = single_stream_path(
+            f"quant {fmt}", model, prompt, cfg, card, 2, needed=("K2", f"K9 {form}"))
+        del model
+        if fmt == "Q5_1":
+            model = ServingModel(path, precision="quant", megakernel=True)
+            launches["quant Q5_1 megakernel"] = single_stream_path(
+                "quant Q5_1 megakernel=True", model, prompt, cfg, card, 2,
+                needed=("K2", "K3", "K9 min"))
             del model
-            if fmt == "Q5_1":
-                model = ServingModel(path, precision="quant", megakernel=True)
-                launches["quant Q5_1 megakernel"] = single_stream_path(
-                    "quant Q5_1 megakernel=True", model, prompt, cfg, card, 2,
-                    needed=("K2", "K3", "K9 min"))
-                del model
+        if fmt not in PARITY_FORMATS:
             os.unlink(path)
-            torch.cuda.empty_cache()
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
     for precision, form in (("q8", "plain"), ("q8r", "rowwise")):
         model = ServingModel((cfg, params), precision=precision)
         launches[precision] = single_stream_path(precision, model, prompt, cfg, card, 1,
                                                  needed=("K2", f"K9 {form}"), n_decode=16)
         del model
         torch.cuda.empty_cache()
+    return launches
+
+
+# -- the ggml-parity engine and the tools -------------------------------------
+
+# The parity engine (models.model.RWKVModel) on the card against the same
+# file on the CPU. FP32 / FP16 files run float32 products on both (TF32
+# off): within PARITY_DENSE_REL of the scale. Quantized files quantize the
+# activations to int8 codes with fp16-rounded block scales, so a last-bit
+# difference upstream can move a code across a .5 boundary or a scale
+# across its rounding midpoint, and the flip grows through the layers (the
+# port against JAX on the CPU: scripts/probe_torch_parity_flips.py, PERF.md);
+# the prompt and every greedy step are held within PARITY_QUANT_REL at
+# the 169M width and PARITY_SMALL_QUANT_REL on the small files (L=2,
+# C=256), each about twice the worst reading that
+# scripts/parity_card_readings.py printed on the H100 (169M Q4_K 4.47e-2,
+# small v6 Q4_1 1.56e-2, both at a greedy step; PERF.md), with equal
+# argmax on the prompt's logits.
+PARITY_FORMATS = ("FP32", "FP16", "Q4_0", "Q5_1", "Q4_K")
+PARITY_DENSE_REL = 1e-4
+PARITY_QUANT_REL = 9e-2
+PARITY_SMALL_QUANT_REL = 3e-2
+PARITY_PROMPT, PARITY_CHUNK, PARITY_GREEDY = 64, 16, 16
+# the fixed text of the tools' perplexity runs
+TOOLS_TEXT = ("The quick brown fox jumps over the lazy dog. RWKV is a recurrent network "
+              "with the quality of a transformer: its state has a fixed size, so a token "
+              "costs the same however long the text before it.")
+
+
+def parity_rel(a, b) -> float:
+    """max |a - b| over max |b| (b on the CPU)."""
+    return float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def parity_run(gpu, cpu, tokens, chunk: int, n_greedy: int, band: float, name: str) -> dict:
+    """`tokens` through eval_sequence_in_chunks on both models, then
+    `n_greedy` eval steps with the card's greedy tokens fed to both, so
+    both models see the same tokens throughout: the prompt's logits and
+    state and every step's within `band` of their scale, with equal argmax
+    on the prompt's logits. Returns the worst reading of the prompt and of
+    each step, how many of the CPU's greedy picks equal the card's, and the
+    card's ms a chunk and a token."""
+    import torch
+
+    gpu.eval(0)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, sg = gpu.eval_sequence_in_chunks(tokens, chunk_size=chunk)
+    torch.cuda.synchronize()
+    ms_chunk = (time.perf_counter() - t0) * 1e3 / -(-len(tokens) // chunk)
+    lc, sc = cpu.eval_sequence_in_chunks(tokens, chunk_size=chunk)
+    rels, agree, ms_token = [], 0, 0.0
+    for step in range(n_greedy + 1):
+        if step:
+            tok = int(lg.argmax())
+            agree += int(lc.argmax()) == tok
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, sg = gpu.eval(tok, sg)
+            torch.cuda.synchronize()
+            ms_token += (time.perf_counter() - t0) * 1e3 / n_greedy
+            lc, sc = cpu.eval(tok, sc)
+        if lg.shape != lc.shape or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"parity {name} step {step}: logits not finite [V]")
+        rels.append(max([parity_rel(lg, lc)] + [parity_rel(sg[k], sc[k]) for k in sc]))
+        if rels[-1] > band:
+            raise AssertionError(f"parity {name} step {step}: card vs CPU {rels[-1]:.3e} of "
+                                 f"the scale, limit {band}")
+        if not step and int(lg.argmax()) != int(lc.argmax()):
+            raise AssertionError(f"parity {name}: the prompt's argmax differs")
+    return {"rel": max(rels), "rel_prompt": rels[0], "rel_steps": rels[1:], "agree": agree,
+            "ms_chunk": ms_chunk, "ms_token": ms_token}
+
+
+def parity_line(r: dict) -> str:
+    """parity_run's readings as text: the prompt's and the steps' worst."""
+    return (f"card vs CPU {r['rel_prompt']:.3e} of the scale on the prompt, "
+            f"{max(r['rel_steps']):.3e} over the greedy steps "
+            f"(by step: {', '.join(f'{e:.2e}' for e in r['rel_steps'])})")
+
+
+def phase_parity(cfg, params, card, tmp: str) -> dict:
+    """The ggml-parity engine at the 169M width: RWKVModel on the card
+    against the CPU on the FP32, Q5_1 and Q4_0 files of ``phase_files``, an
+    FP16 file and a Q4_K one (PARITY_FORMATS): a PARITY_PROMPT-token prompt
+    in chunks of PARITY_CHUNK, then PARITY_GREEDY greedy steps. Then the
+    tools' loops as functions, with the World tokenizer and seeded rngs:
+    the generation loop on the parity engine (FP32) and on ``--serve w4a8
+    --megakernel`` (K1, K2, K3), perplexity over TOOLS_TEXT on Q5_1 through
+    the parity engine and through ``--serve quant`` (K2, K9 min), and two
+    turns of ChatSession with a replay from its snapshot. Returns the
+    launches of the serve routes."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+
+    from rwkv_tpu_torch.io.quantize import quantize_model_file
+    from rwkv_tpu_torch.models.model import RWKVModel
+    from rwkv_tpu_torch.tools.chat_with_bot import PROMPTS_DIR, ChatSession
+    from rwkv_tpu_torch.tools.generate_completions import generate, load_model
+    from rwkv_tpu_torch.tools.measure_perplexity import measure_perplexity
+    from rwkv_tpu_torch.tools.synth_file import write_synth_ggmf
+    from rwkv_tpu_torch.utils.tokenizer import get_tokenizer
+
+    t_phase = time.perf_counter()
+    path = {fmt: os.path.join(tmp, f"v7-169m-{fmt}.bin") for fmt in PARITY_FORMATS}
+    t0 = time.perf_counter()
+    write_synth_ggmf(cfg, params, path["FP16"], "FP16")
+    t1 = time.perf_counter()
+    quantize_model_file(path["FP32"], path["Q4_K"], "Q4_K", verbose=False)
+    print(f"parity files: FP16 written in {t1 - t0:.1f} s, Q4_K quantized in "
+          f"{time.perf_counter() - t1:.1f} s")
+    prompt = np.random.default_rng(11).integers(0, cfg.n_vocab, PARITY_PROMPT).tolist()
+    models = {}
+    for fmt in PARITY_FORMATS:
+        t0 = time.perf_counter()
+        gpu, cpu = RWKVModel(path[fmt]), RWKVModel(path[fmt], device="cpu")
+        t_load = time.perf_counter() - t0
+        band = PARITY_DENSE_REL if fmt in ("FP32", "FP16") else PARITY_QUANT_REL
+        r = parity_run(gpu, cpu, prompt, PARITY_CHUNK, PARITY_GREEDY, band, f"169M {fmt}")
+        print(f"parity 169M {fmt} on {card}: {parity_line(r)}, limit {band}; prompt argmax "
+              f"equal, CPU greedy picks equal to the card's at "
+              f"{r['agree']} of {PARITY_GREEDY} steps; {r['ms_chunk']:.2f} ms a "
+              f"{PARITY_CHUNK}-token chunk, {r['ms_token']:.2f} ms a token "
+              f"(both models loaded in {t_load:.1f} s)")
+        if fmt in ("FP32", "Q5_1"):
+            models[fmt] = gpu
+        del gpu, cpu
+    torch.cuda.empty_cache()
+
+    decode, encode = get_tokenizer("auto", cfg.n_vocab)
+    words = encode("One upon a time,")
+    launches = {}
+
+    def gen(model):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            streams = generate(model, "One upon a time,", words, decode, 1, PARITY_GREEDY, 0.8,
+                               0.5, np.random.default_rng(0))
+        took = [ln for ln in out.getvalue().splitlines() if ln.startswith("Took")]
+        return streams[0], took[0]
+
+    stream, took = gen(models["FP32"])
+    print(f"generation loop, parity engine FP32: tokens {stream[:8]}...; {took}")
+    serve = load_model(path["FP32"], "w4a8", True)
+    gen(serve)  # warm-up
+    (stream, took), launches["tools w4a8"] = counted(lambda: gen(serve), ("K1", "K2", "K3"))
+    print(f"generation loop, --serve w4a8 --megakernel: tokens {stream[:8]}...; {took}; "
+          f"launches {launches['tools w4a8']}")
+    del serve
+    torch.cuda.empty_cache()
+    if any(not 0 <= t < cfg.n_vocab for t in stream):
+        raise AssertionError("generation loop: token out of range")
+
+    text = encode(TOOLS_TEXT)
+    ppl, ms = measure_perplexity(models["Q5_1"], text)
+    serve = load_model(path["Q5_1"], "quant")
+    measure_perplexity(serve, text[:4])  # warm-up
+    (ppl_s, ms_s), launches["tools quant"] = counted(
+        lambda: measure_perplexity(serve, text), ("K2", "K9 min"))
+    del serve
+    print(f"perplexity over {len(text)} tokens, Q5_1 on {card}: parity engine {ppl:.4f} "
+          f"({ms:.2f} ms a token), --serve quant {ppl_s:.4f} ({ms_s:.2f} ms a token); "
+          f"launches {launches['tools quant']}")
+    if not (np.isfinite(ppl) and np.isfinite(ppl_s)):
+        raise AssertionError("perplexity is not finite")
+
+    script = json.loads((PROMPTS_DIR / "English-Chat.json").read_text())
+    user, bot, sep = script["user"], script["bot"], script["separator"]
+    chat = ChatSession(models["FP32"], decode, encode, seed=0)
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        chat.process_tokens(encode(script["prompt"]))
+        n_init = len(chat.tokens)
+        replies = []
+        for msg in ("Hello, who are you?", "What is a recurrent network?"):
+            chat.process_tokens(encode(f"{user}{sep} {msg}\n\n{bot}{sep}"))
+            snap = chat.snapshot()
+            chat.rng = np.random.default_rng(len(replies))
+            replies.append(chat.generate(max_len=PARITY_GREEDY))
+        chat.restore(snap)
+        chat.rng = np.random.default_rng(1)
+        replay = chat.generate(max_len=PARITY_GREEDY)
+    if replay != replies[1]:
+        raise AssertionError(f"ChatSession: the replay from a snapshot differs: {replay} vs "
+                             f"{replies[1]}")
+    print(f"ChatSession, parity engine FP32: {n_init}-token persona prompt, two turns of "
+          f"{[len(r) for r in replies]} tokens, the replay from the snapshot equal, "
+          f"{time.perf_counter() - t0:.1f} s")
+    del models, chat
+    torch.cuda.empty_cache()
+    print(f"parity engine and tools phase: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1563,26 +1773,38 @@ def phase_files(cfg, params, prompt, card) -> dict:
 QUANT_SMALL_REL = 5e-3
 
 
+def small_file(tmp: str, version: str, fmt: str) -> tuple:
+    """The small synth model of `version` (L=2, C=256, V=256, seed 3) as a
+    ggmf file in `fmt` in `tmp` (FP32 / FP16 written, the rest quantized
+    from FP32 by the port): (cfg, path)."""
+    import os
+
+    from rwkv_tpu_torch.io.quantize import quantize_model_file
+    from rwkv_tpu_torch.models.synth import synth_config, synth_params
+    from rwkv_tpu_torch.tools.synth_file import write_synth_ggmf
+
+    cfg = synth_config(version, 2, 256, 256, 64)
+    path = os.path.join(tmp, f"{fmt}.bin")
+    if fmt in ("FP32", "FP16"):
+        write_synth_ggmf(cfg, synth_params(cfg, seed=3), path, fmt)
+    else:
+        src = os.path.join(tmp, "f32.bin")
+        write_synth_ggmf(cfg, synth_params(cfg, seed=3), src)
+        quantize_model_file(src, path, fmt, verbose=False)
+    return cfg, path
+
+
 def small_file_check(dev, version: str, fmt: str) -> float:
     """ServingModel(path, precision="quant") on the card against the CPU on
     a small file (L=2, C=256, V=256) in `fmt`: prefill 20 tokens and 4
     decode steps, logits and state within QUANT_SMALL_REL of their scale,
     equal argmax. Returns the worst reading."""
-    import os
-    import tempfile
-
     import torch
 
-    from rwkv_tpu_torch.io.quantize import quantize_model_file
     from rwkv_tpu_torch.models.serve import ServingModel
-    from rwkv_tpu_torch.models.synth import synth_config, synth_params
-    from rwkv_tpu_torch.tools.synth_file import write_synth_ggmf
 
-    cfg = synth_config(version, 2, 256, 256, 64)
     with tempfile.TemporaryDirectory(prefix="rwkv_smoke_") as tmp:
-        src, path = os.path.join(tmp, "f32.bin"), os.path.join(tmp, f"{fmt}.bin")
-        write_synth_ggmf(cfg, synth_params(cfg, seed=3), src)
-        quantize_model_file(src, path, fmt, verbose=False)
+        cfg, path = small_file(tmp, version, fmt)
         gpu = ServingModel(path, precision="quant", device=dev)
         cpu = ServingModel(path, precision="quant", device="cpu")
     toks = np.random.default_rng(4).integers(0, cfg.n_vocab, 20)
@@ -1606,6 +1828,24 @@ def small_file_check(dev, version: str, fmt: str) -> float:
     print(f"small file (v{version} {fmt}, L=2, C=256, V=256): card vs CPU worst {worst:.3e} of "
           f"the scale (limit {QUANT_SMALL_REL}), argmax equal")
     return worst
+
+
+def small_parity_check(dev, version: str, fmt: str) -> float:
+    """RWKVModel (the parity engine) on the card against the CPU on a small
+    file (L=2, C=256, V=256) in `fmt`: 20 tokens in chunks of 8, then 4
+    greedy steps (``parity_run``), a dense file within PARITY_DENSE_REL, a
+    quantized one within PARITY_SMALL_QUANT_REL. Returns the worst reading."""
+    from rwkv_tpu_torch.models.model import RWKVModel
+
+    with tempfile.TemporaryDirectory(prefix="rwkv_smoke_") as tmp:
+        cfg, path = small_file(tmp, version, fmt)
+        gpu, cpu = RWKVModel(path, device=dev), RWKVModel(path, device="cpu")
+    band = PARITY_DENSE_REL if fmt in ("FP32", "FP16") else PARITY_SMALL_QUANT_REL
+    toks = np.random.default_rng(4).integers(0, cfg.n_vocab, 20).tolist()
+    r = parity_run(gpu, cpu, toks, 8, 4, band, f"v{version} {fmt} (L=2, C=256)")
+    print(f"small parity file (v{version} {fmt}, L=2, C=256, V=256): {parity_line(r)}, limit "
+          f"{band}; prompt argmax equal, greedy picks equal at {r['agree']} of 4 steps")
+    return r["rel"]
 
 
 def batcher_requests(model, cfg, n: int, max_len: int, new_tokens: int, seed: int):
@@ -1948,8 +2188,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     print(f"[{time.perf_counter() - t_start:.1f} s] the model files")
-    # -- the model files: Q5_1, Q4_0, Q4_1 (and Q5_1 on K3), then q8 and q8r
-    launches.update(phase_files(cfg, params, prompt, card))
+    # -- the model files: Q5_1, Q4_0, Q4_1 (and Q5_1 on K3), then q8 and q8r;
+    # then the parity engine and the tools on the same files
+    with tempfile.TemporaryDirectory(prefix="rwkv_smoke_") as tmp:
+        launches.update(phase_files(cfg, params, prompt, card, tmp))
+        print(f"[{time.perf_counter() - t_start:.1f} s] the parity engine and the tools")
+        launches.update(phase_parity(cfg, params, card, tmp))
 
     small_model_check(dev)
     small_model_check(dev, "7.0", "bf16")
@@ -2055,6 +2299,8 @@ def main() -> int:
     for version in ("7.0", "6.0", "5.2", "5.1", "4.0"):
         for fmt in ("Q5_1", "Q4_0"):
             small_file_check(dev, version, fmt)
+        for fmt in ("FP16", "Q4_1", "Q5_0", "Q8_0", "Q5_K"):
+            small_parity_check(dev, version, fmt)
 
     print(f"[{time.perf_counter() - t_start:.1f} s] the kernels line")
     # name, source, TPU kernel replaced, result key, path whose launches count

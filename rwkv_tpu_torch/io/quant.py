@@ -313,27 +313,30 @@ def _make_qkx2_quants(xb: np.ndarray, nmax: int, rmin: float, rdelta: float,
     Weighted least-squares fit of x ~= scale*L + min with L in [0, nmax],
     weights = av_x + |x| (av_x = rms of the sub-block), iterating nstep+1
     candidate inverse scales and keeping the best squared-error fit.
-    Serial f32 accumulation order matches the C loops bit-for-bit.
+    Serial f32 accumulation order matches the C loops bit-for-bit. The
+    work runs on the transposed [32, B] layout, so each of a sub-block's 32
+    serial steps is one contiguous row (the same operations in the same
+    order as on [B, 32] columns, so the same bits).
 
     Returns (L [B, 32] int32 codes, scale [B] f32, the_min [B] f32).
     """
-    xb = np.ascontiguousarray(xb, dtype=np.float32)
-    B, n = xb.shape
+    xt = np.ascontiguousarray(np.asarray(xb, dtype=np.float32).T)
+    n, B = xt.shape
     assert n == 32
     # weights[l] = av_x + |x[l]|, av_x = sqrt(sum(x^2)/32)
     sum_x2 = np.zeros(B, np.float32)
     for l in range(n):
-        sum_x2 += xb[:, l] * xb[:, l]
+        sum_x2 += xt[l] * xt[l]
     av_x = np.sqrt(sum_x2 / np.float32(32.0), dtype=np.float32)
-    w = av_x[:, None] + np.abs(xb)
+    w = av_x[None, :] + np.abs(xt)
 
-    mn = xb.min(axis=1)
-    mx = xb.max(axis=1)
+    mn = xt.min(axis=0)
+    mx = xt.max(axis=0)
     sum_w = np.zeros(B, np.float32)
     sum_x = np.zeros(B, np.float32)
     for l in range(n):
-        sum_w += w[:, l]
-        sum_x += w[:, l] * xb[:, l]
+        sum_w += w[l]
+        sum_x += w[l] * xt[l]
     mn = np.minimum(mn, np.float32(0.0))  # if (min > 0) min = 0
     degenerate = mx == mn
 
@@ -341,12 +344,12 @@ def _make_qkx2_quants(xb: np.ndarray, nmax: int, rmin: float, rdelta: float,
         iscale = (np.float32(nmax) / (mx - mn)).astype(np.float32)
         scale = (np.float32(1.0) / iscale).astype(np.float32)
         L = np.clip(
-            _nearest_int(iscale[:, None] * (xb - mn[:, None])), 0, nmax
+            _nearest_int(iscale[None, :] * (xt - mn[None, :])), 0, nmax
         )
     best_mad = np.zeros(B, np.float32)
     for l in range(n):
-        diff = scale * L[:, l].astype(np.float32) + mn - xb[:, l]
-        best_mad += w[:, l] * (diff * diff)
+        diff = scale * L[l].astype(np.float32) + mn - xt[l]
+        best_mad += w[l] * (diff * diff)
 
     cur_min = mn.copy()  # mutated on acceptance, feeds later iscales (as C)
     for is_ in range(nstep + 1):
@@ -357,17 +360,18 @@ def _make_qkx2_quants(xb: np.ndarray, nmax: int, rmin: float, rdelta: float,
             ).astype(np.float32)
         with np.errstate(invalid="ignore"):
             Laux = np.clip(
-                _nearest_int(iscale[:, None] * (xb - cur_min[:, None])),
+                _nearest_int(iscale[None, :] * (xt - cur_min[None, :])),
                 0, nmax,
             )
+        laux = Laux.astype(np.float32)
         sum_l = np.zeros(B, np.float32)
         sum_l2 = np.zeros(B, np.float32)
         sum_xl = np.zeros(B, np.float32)
         for l in range(n):
-            la = Laux[:, l].astype(np.float32)
-            sum_l += w[:, l] * la
-            sum_l2 += w[:, l] * la * la
-            sum_xl += w[:, l] * la * xb[:, l]
+            la = laux[l]
+            sum_l += w[l] * la
+            sum_l2 += w[l] * la * la
+            sum_xl += w[l] * la * xt[l]
         D = sum_w * sum_l2 - sum_l * sum_l
         with np.errstate(divide="ignore", invalid="ignore"):
             this_scale = ((sum_w * sum_xl - sum_x * sum_l) / D).astype(np.float32)
@@ -378,17 +382,17 @@ def _make_qkx2_quants(xb: np.ndarray, nmax: int, rmin: float, rdelta: float,
         this_scale = np.where(pos, alt_scale, this_scale)
         mad = np.zeros(B, np.float32)
         for l in range(n):
-            diff = this_scale * Laux[:, l].astype(np.float32) + this_min - xb[:, l]
-            mad += w[:, l] * (diff * diff)
+            diff = this_scale * laux[l] + this_min - xt[l]
+            mad += w[l] * (diff * diff)
         accept = (D > 0.0) & (mad < best_mad)
-        L = np.where(accept[:, None], Laux, L)
+        L = np.where(accept[None, :], Laux, L)
         best_mad = np.where(accept, mad, best_mad)
         scale = np.where(accept, this_scale, scale)
         cur_min = np.where(accept, this_min, cur_min)
 
-    L = np.where(degenerate[:, None], 0, L)
+    L = np.where(degenerate[None, :], 0, L)
     scale = np.where(degenerate, np.float32(0.0), scale)
-    return L, scale, (-cur_min).astype(np.float32)
+    return np.ascontiguousarray(L.T), scale, (-cur_min).astype(np.float32)
 
 
 def _pack_k_scales(ls: np.ndarray, lm: np.ndarray) -> np.ndarray:

@@ -6,7 +6,9 @@ semantics:
 
 - numpy on the host (``softmax``, ``sample_logits``, ``sample_probs``,
   ``apply_penalties``), copies of the JAX package's functions, for the
-  batcher's per-token ``step``;
+  batcher's per-token ``step`` and the tools (``sample_logits`` and
+  ``apply_penalties`` also take logits as a tensor on any device,
+  ``host_logits``);
 - torch on the logits' device (``device_penalized_logits``,
   ``device_sample``) for the batcher's decode loop on the card, where the
   logits, counts and sampling controls never leave the device.
@@ -28,6 +30,14 @@ import numpy as np
 import torch
 
 
+def host_logits(logits) -> np.ndarray:
+    """`logits` as a float32 numpy array: a tensor (on any device) copied
+    to the host, anything else through ``np.asarray``."""
+    if isinstance(logits, torch.Tensor):
+        return logits.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(logits, dtype=np.float32)
+
+
 def softmax(x: np.ndarray, axis: int = -1) -> np.ndarray:
     x = np.asarray(x, dtype=np.float32)
     x = x - x.max(axis=axis, keepdims=True)
@@ -44,7 +54,7 @@ def sample_logits(
     rng: Optional[np.random.Generator] = None,
 ) -> int:
     return sample_probs(
-        softmax(np.asarray(logits, dtype=np.float32)),
+        softmax(host_logits(logits)),
         temperature=temperature,
         top_p=top_p,
         top_k=top_k,
@@ -107,7 +117,7 @@ def apply_penalties(
     frequency_penalty: float = 0.0,
 ) -> np.ndarray:
     """Presence/frequency penalties as used by the chat front-end."""
-    out = np.asarray(logits, dtype=np.float32).copy()
+    out = host_logits(logits).copy()
     for tok, count in token_counts.items():
         out[tok] -= presence_penalty + count * frequency_penalty
     return out

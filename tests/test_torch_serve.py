@@ -137,10 +137,11 @@ def test_bf16_prefill_matches_jax(models):
 
 
 def test_serving_model_rejects_unported_options(models):
-    """What is still refused: an unknown precision (ValueError); mm on a
-    quantized file's Weight, which needs the ggml-parity matmul that is not
-    ported (a dense one runs); a model file path goes to the loader (a
-    missing one raises there)."""
+    """What is still refused: an unknown precision (ValueError); a model
+    file path goes to the loader (a missing one raises there). mm on a
+    quantized file's Weight, refused before the ggml-parity matmul was
+    ported, now runs it and agrees with the JAX package's mm within 2e-6 of
+    sum |x| |W| (a dense Weight runs an f32 product)."""
     _, tc, _, tp = models
     with pytest.raises(ValueError, match="precision"):
         ServingModel((tc, tp), precision="fp8", megakernel=True, device="cpu")
@@ -150,8 +151,15 @@ def test_serving_model_rejects_unported_options(models):
     codes = rng.integers(-8, 8, (4, 2, 32)).astype(np.int8)
     quant = TWeight.from_codes(codes, np.ones((4, 2), np.float32), None, "Q4_0")
     x = torch.from_numpy(rng.standard_normal((3, 64)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="_quant_matmul"):
-        t_mm(x, quant)
+    import jax.numpy as jnp
+
+    from rwkv_tpu.ops.parity import Weight as JWeight, mm as j_mm
+
+    jquant = JWeight(kind="quant", q=jnp.asarray(codes), d=jnp.ones((4, 2), jnp.float32),
+                     fmt="Q4_0")
+    ref = np.asarray(j_mm(jnp.asarray(x.numpy()), jquant))
+    scale = float((x.abs() @ quant.dense().abs().T).max())
+    assert float(np.abs(t_mm(x, quant).numpy() - ref).max()) <= 2e-6 * scale
     dense = TWeight(kind="dense", w=quant.dense())
     torch.testing.assert_close(t_mm(x, dense), x @ quant.dense().T, rtol=1e-6, atol=1e-6)
     with pytest.raises(FileNotFoundError):
