@@ -145,6 +145,23 @@
      text on Q5_1 through the parity engine and ``--serve quant`` (K2, K9
      min), two turns of ``ChatSession`` and a replay from its snapshot;
      the phase's time;
+   - the reservoir layer, ``utils.profiling`` and the native library
+     (``phase_reservoir``) on the parity phase's 169M FP32 and Q5_1
+     ``RWKVModel``s, card against CPU (no kernel: the JAX package runs the
+     reservoir in XLA): ``ReservoirRWKV`` (768 units) fits 8 seeded
+     sequences of 64 tokens (warmup 2), predicts and scores, activations
+     within PARITY_DENSE_REL / PARITY_QUANT_REL and predictions within
+     RES_RIDGE_REL; on FP32 the enhanced reservoir's MLP ([256, 128], the
+     CPU's start and activations carried to the card), online SGD / RLS
+     and hierarchical readouts within RES_READOUT_REL, and
+     ``ESNChatbot.respond`` for 16
+     tokens with the card's tokens equal to the CPU's; ms a token of the
+     activations in one pass and in a token-by-token ``eval`` loop, the fit
+     and MLP seconds; ``profiling.trace`` around a reservoir run and one K3
+     decode step (the trace must hold device activity and K3's kernel),
+     ``StepTimer`` over 64 K3 steps beside ``device_ms``; the native library
+     built with g++, the FP32 file quantized to Q5_1 and Q8_0 byte-equal to
+     the Python quantizer, both times;
    - the tensor-parallel B=1 path (``tp_serving_path``, ``tp_paths``):
      ``ServingModel(mesh=make_mesh(1, 2, devices=[cuda:0, cuda:0]),
      megakernel=True)`` on the v7 World 1.5B width, the v6 1.6B width, the
@@ -1527,7 +1544,7 @@ def phase_files(cfg, params, prompt, card, tmp: str) -> dict:
     with megakernel=True (K9 in prefill, K3 in decode); then q8 and q8r on
     (cfg, params), prefill and 16 decode steps. The FP32, Q5_1 and Q4_0
     files stay in `tmp` for ``phase_parity``. Returns the launches of each
-    path."""
+    path and the seconds the port's Python quantizer took for each format."""
     import os
 
     import torch
@@ -1536,7 +1553,7 @@ def phase_files(cfg, params, prompt, card, tmp: str) -> dict:
     from rwkv_tpu_torch.models.serve import ServingModel
     from rwkv_tpu_torch.tools.synth_file import write_synth_ggmf
 
-    launches = {}
+    launches, seconds = {}, {}
     src = os.path.join(tmp, "v7-169m-FP32.bin")
     t0 = time.perf_counter()
     write_synth_ggmf(cfg, params, src)
@@ -1547,6 +1564,7 @@ def phase_files(cfg, params, prompt, card, tmp: str) -> dict:
         t0 = time.perf_counter()
         quantize_model_file(src, path, fmt, verbose=False)
         t1 = time.perf_counter()
+        seconds[fmt] = t1 - t0
         model = ServingModel(path, precision="quant")
         print(f"{fmt}: quantized in {t1 - t0:.1f} s ({os.path.getsize(path) / 1e6:.1f} MB), "
               f"loaded in {time.perf_counter() - t1:.1f} s")
@@ -1568,7 +1586,7 @@ def phase_files(cfg, params, prompt, card, tmp: str) -> dict:
                                                  needed=("K2", f"K9 {form}"), n_decode=16)
         del model
         torch.cuda.empty_cache()
-    return launches
+    return launches, seconds
 
 
 # -- the ggml-parity engine and the tools -------------------------------------
@@ -1659,7 +1677,8 @@ def phase_parity(cfg, params, card, tmp: str) -> dict:
     --megakernel`` (K1, K2, K3), perplexity over TOOLS_TEXT on Q5_1 through
     the parity engine and through ``--serve quant`` (K2, K9 min), and two
     turns of ChatSession with a replay from its snapshot. Returns the
-    launches of the serve routes."""
+    launches of the serve routes and the card and CPU models of the FP32
+    and Q5_1 files, {fmt: (card, cpu)}, for ``phase_reservoir``."""
     import contextlib
     import io
     import os
@@ -1696,7 +1715,7 @@ def phase_parity(cfg, params, card, tmp: str) -> dict:
               f"{PARITY_CHUNK}-token chunk, {r['ms_token']:.2f} ms a token "
               f"(both models loaded in {t_load:.1f} s)")
         if fmt in ("FP32", "Q5_1"):
-            models[fmt] = gpu
+            models[fmt] = (gpu, cpu)
         del gpu, cpu
     torch.cuda.empty_cache()
 
@@ -1712,7 +1731,7 @@ def phase_parity(cfg, params, card, tmp: str) -> dict:
         took = [ln for ln in out.getvalue().splitlines() if ln.startswith("Took")]
         return streams[0], took[0]
 
-    stream, took = gen(models["FP32"])
+    stream, took = gen(models["FP32"][0])
     print(f"generation loop, parity engine FP32: tokens {stream[:8]}...; {took}")
     serve = load_model(path["FP32"], "w4a8", True)
     gen(serve)  # warm-up
@@ -1725,7 +1744,7 @@ def phase_parity(cfg, params, card, tmp: str) -> dict:
         raise AssertionError("generation loop: token out of range")
 
     text = encode(TOOLS_TEXT)
-    ppl, ms = measure_perplexity(models["Q5_1"], text)
+    ppl, ms = measure_perplexity(models["Q5_1"][0], text)
     serve = load_model(path["Q5_1"], "quant")
     measure_perplexity(serve, text[:4])  # warm-up
     (ppl_s, ms_s), launches["tools quant"] = counted(
@@ -1739,7 +1758,7 @@ def phase_parity(cfg, params, card, tmp: str) -> dict:
 
     script = json.loads((PROMPTS_DIR / "English-Chat.json").read_text())
     user, bot, sep = script["user"], script["bot"], script["separator"]
-    chat = ChatSession(models["FP32"], decode, encode, seed=0)
+    chat = ChatSession(models["FP32"][0], decode, encode, seed=0)
     t0 = time.perf_counter()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -1760,10 +1779,325 @@ def phase_parity(cfg, params, card, tmp: str) -> dict:
     print(f"ChatSession, parity engine FP32: {n_init}-token persona prompt, two turns of "
           f"{[len(r) for r in replies]} tokens, the replay from the snapshot equal, "
           f"{time.perf_counter() - t0:.1f} s")
-    del models, chat
+    del chat
     torch.cuda.empty_cache()
     print(f"parity engine and tools phase: {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, models
+
+
+# -- the reservoir layer, profiling and the native library -------------------
+
+# phase_reservoir: RES_SEQS seeded sequences of RES_LEN tokens, the first
+# RES_WARMUP of each left out of the fits. The reservoir's activations on the
+# card are held to the CPU's within the parity engine's bands
+# (PARITY_DENSE_REL, PARITY_QUANT_REL: they are its FFN rows). Readouts are
+# held within RES_RIDGE_REL / RES_READOUT_REL of the CPU's predictions'
+# scale, about twice the worst reading of this phase over task seeds 23-30
+# on the H100 (scripts/reservoir_card_readings.py; PERF.md section 6): ridge
+# FP32 3.93e-6, Q5_1 5.81e-4; SGD 2.90e-7, RLS 6.74e-7, hierarchical
+# 6.13e-7; the MLP trained on the CPU's activations on both devices ("mlp")
+# and read end to end on the card's own ("mlp e2e") 2.84e-3 (seed 23: 200
+# Adam epochs take float32 sum-order differences apart: one relu gate opens
+# on one device only). The first step of a tanh MLP from the same start
+# ("mlp grad": gradients over their largest; "mlp step": the change over
+# the rate) holds the card's training arithmetic tight: seeds 23-26
+# 3.8e-8-1.07e-7 and 1.49e-5, fake data of the phase's shapes 1.98e-7 and
+# 1.49e-5, where the card reads 1.24e-4 on TF32 products, 2.25e-3 on bf16
+# ones, and a step of 9.91e-3 with its rate 1% off
+# (scripts/probe_reservoir_mlp_step.py); "mlp grad" is about five times the
+# worst, "mlp step" an ulp of the largest weight over the rate (2.98e-5 up
+# to 0.5) with room.
+RES_SEQS, RES_LEN, RES_WARMUP, RES_CHAT_TOKENS, RES_SEED = 8, 64, 2, 16, 23
+RES_READOUT_SEQS = 4  # the enhanced readouts fit on the first 4 sequences
+RES_RIDGE_REL = {"FP32": 8e-6, "Q5_1": 1.2e-3}
+RES_READOUT_REL = {"mlp grad": 1e-6, "mlp step": 1e-4, "mlp": 6e-3, "mlp e2e": 6e-3,
+                   "online sgd": 6e-7, "online rls": 1.4e-6, "hierarchical": 1.3e-6}
+
+
+def host_rel(a, b) -> float:
+    """max |a - b| over max |b|, numpy arrays (b the CPU's)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape or not np.isfinite(a).all():
+        raise AssertionError(f"shapes {a.shape} vs {b.shape}, or values not finite")
+    return float(np.abs(a - b).max() / max(float(np.abs(b).max()), 1e-30))
+
+
+def recorded(res) -> list:
+    """Every activation array `res` computes from now on, in a list."""
+    seen, inner = [], res._get_reservoir_activations
+
+    def wrapper(tokens, return_states=False):
+        out = inner(tokens, return_states)
+        seen.append(out[0] if return_states else out)
+        return out
+
+    res._get_reservoir_activations = wrapper
+    return seen
+
+
+def trace_check(tr, label: str, card: str, kernel=None) -> None:
+    """The Chrome trace of `tr` exists and holds device activity (and a
+    kernel whose name holds `kernel`); prints what it holds."""
+    import torch
+
+    if tr.path is None or not tr.path.exists():
+        raise AssertionError(f"trace of {label}: no trace file")
+    events = json.loads(tr.path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    device = [e for e in tr.profiler.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels or not device:
+        raise AssertionError(f"trace of {label}: no device activity ({len(events)} trace "
+                             f"events, {len(tr.profiler.events())} profiler events)")
+    found = [e for e in kernels if kernel and kernel in e.get("name", "")]
+    if kernel and not found:
+        raise AssertionError(f"trace of {label}: no {kernel} among "
+                             f"{sorted({e.get('name', '')[:60] for e in kernels})}")
+    busy = sum(float(e.get("dur", 0)) for e in kernels)
+    extra = (f"; {kernel} {sum(float(e['dur']) for e in found) / 1e3:.4f} ms in "
+             f"{len(found)} launch(es)" if kernel else "")
+    print(f"trace of {label} on {card}: {tr.path.name} ({tr.path.stat().st_size / 1e3:.0f} kB), "
+          f"{len(kernels)} kernels, device busy {busy / 1e3:.4f} ms{extra}")
+
+
+def mlp_first_step(start: dict, make, x, y, cpu_device, card_device) -> tuple:
+    """Card against CPU for a ``MultiLayerReadout`` (``make(device)``) from
+    the state `start` on the same (x, y): the first backward's gradients
+    (max |card - CPU| over all parameters, over the largest |CPU| of them
+    all: a tensor's own largest can be a cancelled sum, as the output
+    bias's is for some targets), and the first Adam step of ``fit`` (max
+    |card - CPU| of the parameters' change over the learning rate, where
+    the CPU's gradient is above 1e-3 of that largest: the step is
+    lr * g / (|g| + eps), so a gradient near zero may take either sign on
+    the two devices)."""
+    import torch
+
+    grads, steps = {}, {}
+    for where, dev in (("cpu", cpu_device), ("card", card_device)):
+        m = make(dev)
+        m.load_state_dict(start)
+        yt = m._tensor(np.asarray(y, np.float32).reshape(len(x), -1))
+        torch.mean((m(m._tensor(x)) - yt) ** 2).backward()
+        grads[where] = {k: p.grad.cpu().numpy() for k, p in m.named_parameters()}
+        m.fit(x, y, epochs=1)
+        steps[where] = {k: p.detach().cpu().numpy() - start[k].cpu().numpy()
+                        for k, p in m.named_parameters()}
+    scale = max(float(np.abs(g).max()) for g in grads["cpu"].values())
+    grad = max(float(np.abs(grads["card"][k] - g).max()) for k, g in grads["cpu"].items())
+    step = max(float(np.abs(steps["card"][k] - steps["cpu"][k])[np.abs(g) > 1e-3 * scale]
+                     .max(initial=0.0)) for k, g in grads["cpu"].items())
+    return grad / max(scale, 1e-30), step / m.learning_rate
+
+
+def phase_reservoir(models, model, state, token, card, tmp: str, py_seconds: dict) -> None:
+    """The reservoir layer at the 169M width on the card against the CPU,
+    on ``phase_parity``'s RWKVModels, {fmt: (card, cpu)}: the ridge
+    ``ReservoirRWKV`` (every unit) on FP32 and Q5_1, fit, predict and score
+    over RES_SEQS sequences of RES_LEN tokens; on FP32 the enhanced
+    reservoir's MLP (the CPU's start and activations carried to the
+    card), online (SGD,
+    RLS) and hierarchical readouts (on the first RES_READOUT_SEQS
+    sequences), and ``ESNChatbot.respond`` for RES_CHAT_TOKENS tokens with
+    the same seed. Then ``utils.profiling``:
+    traces of a reservoir run and of one K3 decode step of `model` (the
+    169M w8a8 ServingModel, from `state` and `token`), and ``StepTimer``
+    over 64 K3 steps beside ``device_ms``. Then the native library: built
+    with g++, the FP32 file quantized to Q5_1 and Q8_0, byte-equal to the
+    port's Python quantizer (its Q5_1 time `py_seconds` from
+    ``phase_files``)."""
+    import os
+
+    import torch
+
+    from rwkv_tpu_torch import native
+    from rwkv_tpu_torch.io.quant import dtype_from_name
+    from rwkv_tpu_torch.io.quantize import quantize_model_file
+    from rwkv_tpu_torch.reservoir import (EnhancedReservoirRWKV, ESNChatbot, MultiLayerReadout,
+                                          ReservoirRWKV)
+    from rwkv_tpu_torch.reservoir.esn import esn_create_config
+    from rwkv_tpu_torch.tools.card import device_ms
+    from rwkv_tpu_torch.utils.profiling import StepTimer, annotate, trace
+    from rwkv_tpu_torch.utils.tokenizer import get_tokenizer
+
+    t_phase = time.perf_counter()
+    gpu, cpu = models["FP32"]
+    vocab, units = gpu.n_vocab, gpu.n_embed
+    rng = np.random.default_rng(RES_SEED)
+    xs = [rng.integers(0, vocab, RES_LEN).tolist() for _ in range(RES_SEQS)]
+    ys = np.array([[x[-1] / vocab] for x in xs], np.float32)
+
+    # activations: one pass a sequence against a token-by-token eval loop
+    res = ReservoirRWKV(gpu, units=units)
+    res.run(xs[0])  # warm-up
+    acts, one_pass = host_seconds(lambda: res.run(xs[1]))
+
+    def token_loop():
+        st, rows = gpu.init_state(), []
+        for t in xs[1]:
+            _, st = gpu.eval(t, st, compute_logits=False)
+            rows.append(st["ffn_xx"][0, :units].cpu().numpy())
+        return np.stack(rows)
+
+    rows, loop = host_seconds(token_loop)
+    err = host_rel(acts, rows)
+    if err > PARITY_DENSE_REL:
+        raise AssertionError(f"reservoir: one pass vs token by token {err:.3e}")
+    print(f"reservoir activations, 169M FP32 on {card}: {one_pass * 1e3 / RES_LEN:.3f} ms a "
+          f"token in one {RES_LEN}-token pass, {loop * 1e3 / RES_LEN:.3f} ms a token in a "
+          f"token-by-token eval loop ({loop / one_pass:.1f}x); the two {err:.3e} apart")
+
+    for fmt, limit in (("FP32", PARITY_DENSE_REL), ("Q5_1", PARITY_QUANT_REL)):
+        runs = {}
+        for where, m in zip(("card", "cpu"), models[fmt]):
+            r = ReservoirRWKV(m, units=units)
+            seen = recorded(r)
+            _, fit_s = host_seconds(lambda: r.fit(xs, ys, warmup=RES_WARMUP))
+            runs[where] = (seen[:RES_SEQS], fit_s, r.predict(xs[0]),
+                           r.score(xs, ys, warmup=RES_WARMUP))
+        act = max(host_rel(a, b) for a, b in zip(runs["card"][0], runs["cpu"][0]))
+        pred = host_rel(runs["card"][2], runs["cpu"][2])
+        print(f"reservoir ridge 169M {fmt} on {card}: activations card vs CPU {act:.3e} of the "
+              f"scale (limit {limit}), predictions {pred:.3e} (limit {RES_RIDGE_REL[fmt]}); "
+              f"R^2 {runs['card'][3]:.6f} card, {runs['cpu'][3]:.6f} CPU; fit "
+              f"{runs['card'][1]:.3f} s on the card, {runs['cpu'][1]:.3f} s on the CPU "
+              f"({RES_SEQS} x {RES_LEN} tokens, warmup {RES_WARMUP}, {units} units)")
+        if act > limit or pred > RES_RIDGE_REL[fmt] or not np.isfinite(runs["card"][3]):
+            raise AssertionError(f"reservoir ridge {fmt}: card vs CPU out of its limits")
+
+    # The MLP: the CPU's readout fits on the CPU's activations, and the
+    # card's, from the same start, on those same activations (the card's
+    # own are held above), so that `shared` measures the card's training
+    # arithmetic alone; `e2e` runs the card's activations through the
+    # card's MLP. 200 Adam epochs can take float32 sum-order differences
+    # far apart, so the tight check is the first step's (`mlp_first_step`).
+    e_cpu = EnhancedReservoirRWKV(cpu, readout_type="mlp")
+    e_card = EnhancedReservoirRWKV(gpu, readout_type="mlp")
+    start = {k: v.clone() for k, v in e_cpu.custom_readout.state_dict().items()}
+    e_card.custom_readout.load_state_dict(start)
+    seen, cpu_mlp, card_mlp = {}, e_cpu.custom_readout, e_card.custom_readout
+    cpu_fit, cpu_predict, card_fit = cpu_mlp.fit, cpu_mlp.predict, card_mlp.fit
+
+    def recording_fit(x, y):
+        seen["fit"] = (x, y)
+        out, seen["cpu_s"] = host_seconds(lambda: cpu_fit(x, y))
+        return out
+
+    def recording_predict(x):
+        seen["predict"] = x
+        return cpu_predict(x)
+
+    def shared_fit(x, y):  # the card's own activations are left unused
+        out, seen["card_s"] = host_seconds(lambda: card_fit(*seen["fit"]))
+        return out
+
+    cpu_mlp.fit, cpu_mlp.predict, card_mlp.fit = recording_fit, recording_predict, shared_fit
+    fit_s = {}
+    for where, e in (("cpu", e_cpu), ("card", e_card)):
+        _, fit_s[where] = host_seconds(lambda: e.fit(xs[:RES_READOUT_SEQS],
+                                                     ys[:RES_READOUT_SEQS], warmup=RES_WARMUP))
+    ref = e_cpu.predict(xs[0])
+    shared = host_rel(card_mlp.predict(seen["predict"]), ref)
+    e2e = host_rel(e_card.predict(xs[0]), ref)
+    # The first step on a tanh MLP of the same shapes from the same start:
+    # a relu gate whose input float32 sums leave near zero may open on one
+    # device and not the other, which moves the gradients by far more than
+    # the arithmetic does (task seed 23, PERF.md section 6).
+    grad, step = mlp_first_step(
+        start, lambda dev: MultiLayerReadout(units, hidden_layers=cpu_mlp.hidden_layers,
+                                             activation="tanh", device=dev),
+        *seen["fit"], cpu.device, gpu.device)
+    print(f"enhanced reservoir, mlp readout, 169M FP32 on {card}: card vs CPU on the CPU's "
+          f"activations from one start: a tanh MLP's first gradients {grad:.3e} of the scale "
+          f"(limit {RES_READOUT_REL['mlp grad']}), first Adam step {step:.3e} of the rate (limit "
+          f"{RES_READOUT_REL['mlp step']}), predictions after 200 epochs {shared:.3e} (limit "
+          f"{RES_READOUT_REL['mlp']}); end to end on the card's activations {e2e:.3e} (limit "
+          f"{RES_READOUT_REL['mlp e2e']}); fit {fit_s['card']:.3f} s on the card, "
+          f"{fit_s['cpu']:.3f} s on the CPU, of it the MLP's 200 epochs {seen['card_s']:.3f} s "
+          f"on the card, {seen['cpu_s']:.3f} s on the CPU")
+    if (grad > RES_READOUT_REL["mlp grad"] or step > RES_READOUT_REL["mlp step"]
+            or shared > RES_READOUT_REL["mlp"] or e2e > RES_READOUT_REL["mlp e2e"]):
+        raise AssertionError(f"reservoir mlp: card vs CPU gradients {grad:.3e}, step "
+                             f"{step:.3e}, 200 epochs {shared:.3e}, end to end {e2e:.3e}")
+
+    for name, readout, rc in (("online sgd", "online", {"method": "sgd"}),
+                              ("online rls", "online", {"method": "rls"}),
+                              ("hierarchical", "hierarchical", {})):
+        outs, secs = {}, {}
+        for where, m in (("cpu", cpu), ("card", gpu)):
+            e = EnhancedReservoirRWKV(m, readout_type=readout, readout_config=rc)
+            _, secs[where] = host_seconds(lambda: e.fit(xs[:RES_READOUT_SEQS],
+                                                        ys[:RES_READOUT_SEQS], warmup=RES_WARMUP))
+            outs[where] = e.predict(xs[0])
+        if isinstance(outs["cpu"], dict):
+            if sorted(outs["card"]) != sorted(outs["cpu"]):
+                raise AssertionError(f"reservoir {name}: readouts {sorted(outs['card'])}")
+            err = max(host_rel(outs["card"][k], outs["cpu"][k]) for k in outs["cpu"])
+        else:
+            err = host_rel(outs["card"], outs["cpu"])
+        print(f"enhanced reservoir, {name} readout, 169M FP32 on {card}: predictions card vs "
+              f"CPU {err:.3e} of the scale (limit {RES_READOUT_REL[name]}); fit "
+              f"{secs['card']:.3f} s on the card, {secs['cpu']:.3f} s on the CPU")
+        if err > RES_READOUT_REL[name]:
+            raise AssertionError(f"reservoir {name}: card vs CPU {err:.3e}")
+
+    decode, encode = get_tokenizer("auto", vocab)
+    chats = {}
+    for where, m in (("card", gpu), ("cpu", cpu)):
+        bot = ESNChatbot(m, esn_create_config("creative"), seed=0)
+        reply, chat_s = host_seconds(
+            lambda: bot.respond("Hello, who are you?", encode, decode, RES_CHAT_TOKENS))
+        chats[where] = (bot.conversation.history_tokens, reply, chat_s)
+    if chats["card"][0] != chats["cpu"][0]:
+        raise AssertionError(f"ESNChatbot: the card's tokens {chats['card'][0]} differ from "
+                             f"the CPU's {chats['cpu'][0]}")
+    n_out = len(chats["card"][0]) - len(encode("Hello, who are you?"))
+    print(f"ESNChatbot.respond, 169M FP32, creative, seed 0, on {card}: {n_out} tokens equal "
+          f"to the CPU's, {chats['card'][2]:.2f} s on the card ({chats['cpu'][2]:.2f} s on "
+          f"the CPU); reply {chats['card'][1][:40]!r}")
+
+    # The process's first profiler sessions: on the H100 machine (torch
+    # 2.11) a one-step session begun a minute or more after the first one
+    # records no device activity (PERF.md section 7).
+    trace_dir = os.path.join(tmp, "traces")
+    model.decode(token, state)  # warm-up
+    with trace(trace_dir) as tr:
+        with annotate("k3_decode_step"):
+            model.decode(token, state)
+    trace_check(tr, "one K3 decode step (169M w8a8)", card, kernel="v7_decode_kernel")
+    with trace(trace_dir) as tr:
+        with annotate("reservoir_run"):
+            res.run(xs[2])
+    trace_check(tr, "one reservoir run (169M FP32, 64 tokens)", card)
+    timer, st, tok = StepTimer(), state, token
+    for _ in range(64):
+        timer.start()
+        lg, st = model.decode(tok, st)
+        timer.stop(lg)
+        tok = lg[0].argmax().reshape(1)
+    dev = device_ms(lambda: model.decode(token, state), reps=50)
+    print(f"StepTimer over 64 K3 decode steps (169M w8a8) on {card}: {timer.summary()}; "
+          f"device_ms of one step {dev:.4f} ms")
+
+    _, build_s = host_seconds(lambda: native.build(force=True))
+    src = os.path.join(tmp, "v7-169m-FP32.bin")
+    for fmt in ("Q5_1", "Q8_0"):
+        py_path = os.path.join(tmp, f"v7-169m-{fmt}.bin")
+        if fmt not in py_seconds:
+            _, py_seconds[fmt] = host_seconds(
+                lambda: quantize_model_file(src, py_path, fmt, verbose=False))
+        nat_path = os.path.join(tmp, f"v7-169m-{fmt}-native.bin")
+        _, nat_s = host_seconds(
+            lambda: native.quantize_model_file(src, nat_path, int(dtype_from_name(fmt))))
+        with open(py_path, "rb") as a, open(nat_path, "rb") as b:
+            same = a.read() == b.read()
+        if not same:
+            raise AssertionError(f"native {fmt} file differs from the Python quantizer's")
+        print(f"native quantizer, 169M FP32 -> {fmt} on this card's host ({card}): "
+              f"{nat_s:.2f} s on {os.cpu_count()} threads, the Python quantizer "
+              f"{py_seconds[fmt]:.2f} s ({py_seconds[fmt] / nat_s:.1f}x), files byte-equal "
+              f"({os.path.getsize(nat_path) / 1e6:.1f} MB)")
+        os.unlink(nat_path)
+    print(f"native library built in {build_s:.1f} s; reservoir, profiling and native "
+          f"phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 # The card's ServingModel(path, "quant") against the CPU's on small files:
@@ -2191,9 +2525,16 @@ def main() -> int:
     # -- the model files: Q5_1, Q4_0, Q4_1 (and Q5_1 on K3), then q8 and q8r;
     # then the parity engine and the tools on the same files
     with tempfile.TemporaryDirectory(prefix="rwkv_smoke_") as tmp:
-        launches.update(phase_files(cfg, params, prompt, card, tmp))
+        file_launches, quant_seconds = phase_files(cfg, params, prompt, card, tmp)
+        launches.update(file_launches)
         print(f"[{time.perf_counter() - t_start:.1f} s] the parity engine and the tools")
-        launches.update(phase_parity(cfg, params, card, tmp))
+        parity_launches, parity_models = phase_parity(cfg, params, card, tmp)
+        launches.update(parity_launches)
+        print(f"[{time.perf_counter() - t_start:.1f} s] the reservoir layer, profiling and "
+              f"the native library")
+        phase_reservoir(parity_models, model, state, token, card, tmp, quant_seconds)
+        del parity_models
+        torch.cuda.empty_cache()
 
     small_model_check(dev)
     small_model_check(dev, "7.0", "bf16")

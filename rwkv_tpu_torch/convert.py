@@ -11,6 +11,11 @@ parameter tree: the same structure with CPU float32 tensors and
 ``ops.parity.Weight`` quant leaves, as ``models.synth.synth_params`` and
 ``models.loader.load_params`` build it. So a tree that the JAX package
 loaded from a file crosses over whole.
+
+``mlp_readout_from_jax(params, readout)`` loads the JAX
+``MultiLayerReadout``'s parameters (a list of ``(w [in, out], b [out])``
+numpy pairs) into the port's ``reservoir.enhanced.MultiLayerReadout``, so
+both train from the same start.
 """
 
 from __future__ import annotations
@@ -49,3 +54,22 @@ def params_from_numpy(cfg: ModelConfig, tree: dict) -> dict:
             {k: _tensor(v) for k, v in blk.items()} for blk in tree["blocks"]
         ],
     }
+
+
+def mlp_readout_from_jax(params, readout):
+    """Copy JAX's MLP readout parameters, ``[(w [in, out], b [out]), ...]``,
+    into `readout` (a ``MultiLayerReadout`` of the same sizes, on any
+    device) as its ``nn.Linear`` weights [out, in] and biases; returns it,
+    ready to predict or to train on."""
+    if len(params) != len(readout.layers):
+        raise ValueError(f"{len(params)} layers given, the readout has {len(readout.layers)}")
+    with torch.no_grad():
+        for (w, b), layer in zip(params, readout.layers):
+            w = np.asarray(w, dtype=np.float32)
+            if w.shape != (layer.in_features, layer.out_features):
+                raise ValueError(f"weight {w.shape}, expected "
+                                 f"{(layer.in_features, layer.out_features)}")
+            layer.weight.copy_(torch.from_numpy(np.array(w.T, order="C")))
+            layer.bias.copy_(torch.from_numpy(np.array(b, dtype=np.float32)))
+    readout.is_fitted = True
+    return readout

@@ -392,10 +392,16 @@ def forward(
     tokens: torch.Tensor,
     cfg: ModelConfig,
     compute_logits: bool = True,
+    ffn_rows: bool = False,
 ):
     """One forward pass over `tokens` [T] with recurrent `state` (arrays
     [L, ...]: v5-v7 ``heads``, v4 ``aa`` / ``bb`` / ``pp``). Returns
-    (logits [n_vocab] for the last token, or None, new state)."""
+    (logits [n_vocab] for the last token, or None, new state).
+
+    With `ffn_rows` it also returns layer 0's post-layernorm FFN input
+    rows [T, C]: row t is the ``ffn_xx[0]`` a token-by-token run carries
+    after token t (the reservoir's activations), the last row the new
+    state's own."""
     major = cfg.version_major
     if major not in (4, 5, 6, 7):
         raise NotImplementedError(f"RWKV v{cfg.version} has no forward graph")
@@ -403,6 +409,7 @@ def forward(
     x = layer_norm(emb.float(), *params["ln0"])
 
     v_first = None
+    rows = None
     new_att_xx, new_ffn_xx = [], []
     new_heads, new_aa, new_bb, new_pp = [], [], [], []
     for i, layer in enumerate(params["blocks"]):
@@ -429,6 +436,9 @@ def forward(
             new_aa.append(aa)
             new_bb.append(bb)
             new_pp.append(pp)
+        if ffn_rows and i == 0:
+            # the token shift's input: the last row is ffn_xx's new carry
+            rows = layer_norm(x, layer["ln2.weight"], layer["ln2.bias"])
         x = x + dx
         if major >= 5:
             new_heads.append(heads)
@@ -447,4 +457,6 @@ def forward(
     if compute_logits:
         xo = layer_norm(x[-1], *params["ln_out"])
         logits = mm(xo[None, :], params["head"])[0]
+    if ffn_rows:
+        return logits, new_state, rows
     return logits, new_state

@@ -7,8 +7,9 @@ first byte we keep the candidate tokens sorted by descending length, and
 match by slicing — simpler, allocation-light, and fast in CPython for the
 65529-entry v20230424 vocabulary.
 
-A copy of ``rwkv_tpu.utils.world_tokenizer`` without its optional native
-trie: the pure-Python tokenizer gives the same tokens.
+A copy of ``rwkv_tpu.utils.world_tokenizer``: the default tokenizer is
+the native trie (``native.NativeWorldTokenizer``) when the port's native
+library is built, which gives the same tokens.
 
 Vocabulary file format: `<idx> <python-literal token> <byte-length>` per
 line, where the literal is either a str (utf-8 encoded) or a bytes literal.
@@ -86,6 +87,12 @@ class WorldTokenizer:
 
 @functools.lru_cache(maxsize=1)
 def _default():
+    # Prefer the native trie (bit-exact with this implementation,
+    # tests/test_torch_native.py) when the shared library is built.
+    from rwkv_tpu_torch import native
+
+    if native.is_available():
+        return native.NativeWorldTokenizer()
     return WorldTokenizer()
 
 

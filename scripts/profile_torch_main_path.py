@@ -37,15 +37,15 @@ sys.path.insert(0, str(ROOT))
 
 def traced(fn, label: str) -> None:
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from rwkv_tpu_torch.utils.profiling import trace
+
+    with trace(None) as tr:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.events()
+    events = tr.profiler.events()
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     if not device:
         raise RuntimeError("the profiler recorded no device activity")

@@ -156,8 +156,11 @@ bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxl
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 14, names
-for need in ("io", "io.quant", "io.ggmf", "io.quantize", "models.loader", "tools.synth_file"):
+for need in ("io", "io.quant", "io.ggmf", "io.quantize", "models.loader", "tools.synth_file",
+             "reservoir", "reservoir.reservoir", "reservoir.enhanced", "reservoir.esn",
+             "utils.profiling", "native"):
     assert "rwkv_tpu_torch." + need in names, need
+assert "optax" not in sys.modules
 """
 
 
@@ -171,6 +174,32 @@ def test_port_imports_neither_jax_nor_rwkv_tpu():
     out = subprocess.run([sys.executable, "-c", _IMPORT_CHECK], cwd=str(REPO), env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+_LAZY_NAMES = r"""
+import sys
+import rwkv_tpu_torch
+assert "rwkv_tpu_torch.models" not in sys.modules
+for name in ("RWKVModel", "ServingModel", "ContinuousBatcher", "ReservoirRWKV", "ModelConfig",
+             "get_tokenizer"):
+    obj = getattr(rwkv_tpu_torch, name)
+    assert obj.__name__ == name and obj.__module__.startswith("rwkv_tpu_torch."), obj
+try:
+    rwkv_tpu_torch.NoSuchName
+except AttributeError:
+    pass
+else:
+    raise SystemExit("an unknown name resolved")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "rwkv_tpu", "optax"))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_top_level_names_resolve_lazily_without_jax():
+    out = subprocess.run([sys.executable, "-c", _LAZY_NAMES], cwd=str(REPO), env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "ok" in out.stdout, out.stdout + out.stderr
 
 
 _DEVICE_CHECK = r"""

@@ -13,7 +13,12 @@ Bands, each against the largest value of the reference tensor:
   again; readings to 3.8e-3); 2e-2 with equal argmax against JAX's XLA
   path, which keeps x in f32 (readings to 1.1e-2).
 Greedy tokens must be equal where the band is 1e-4 or 5e-3 and for q8r in
-interpret mode."""
+interpret mode.
+
+The version matrix (every file format, ``q8``, ``q8r`` against the XLA
+path, the decode kernels' pack of a Q5_1 file) runs in
+``test_torch_quant_serve_v{7,6,52,51,4}.py``, one file a version, through
+the ``check_*`` functions here."""
 
 import numpy as np
 import pytest
@@ -31,7 +36,6 @@ from rwkv_tpu_torch.models.synth import synth_config, synth_params
 from rwkv_tpu_torch.ops import megakernel as TM
 from rwkv_tpu_torch.tools.synth_file import write_synth_ggmf
 
-VERSIONS = ["4.0", "5.1", "5.2", "6.0", "7.0"]
 SHAPE = (2, 256, 256, 64)  # L, C, V, S
 PROMPT = np.random.default_rng(0).integers(0, 256, 20)  # buckets 16 + 4
 
@@ -42,20 +46,36 @@ def _rel(got, ref) -> float:
     return float(np.abs(got - ref).max() / max(float(np.abs(ref).max()), 1e-30))
 
 
+FILE_FORMATS = ["Q4_0", "Q4_1", "Q5_1", "Q8_0", "Q4_K"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one intra-op thread: the suite runs six
+    workers on the host's cores, where each worker's default pool of
+    spinning threads multiplies small ops' time."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def fp32_file(tmp_path_factory, version: str) -> str:
+    """The synth model of `version` (seed 1) as an FP32 ggmf file."""
+    cfg = synth_config(version, *SHAPE)
+    path = str(tmp_path_factory.mktemp("quant_serve") / f"v{version}.bin")
+    write_synth_ggmf(cfg, synth_params(cfg, seed=1), path)
+    return path
+
+
 @pytest.fixture(scope="module")
 def fp32_files(tmp_path_factory):
-    d = tmp_path_factory.mktemp("quant_serve")
-    out = {}
-    for version in VERSIONS:
-        cfg = synth_config(version, *SHAPE)
-        out[version] = str(d / f"v{version}.bin")
-        write_synth_ggmf(cfg, synth_params(cfg, seed=1), out[version])
-    return out
+    return {version: fp32_file(tmp_path_factory, version) for version in ("5.2", "7.0")}
 
 
-def _quantized(fp32_files, tmp_path, version, fmt) -> str:
+def _quantized(src: str, tmp_path, fmt) -> str:
     path = str(tmp_path / f"{fmt}.bin")
-    quantize_model_file(fp32_files[version], path, fmt, verbose=False)
+    quantize_model_file(src, path, fmt, verbose=False)
     return path
 
 
@@ -79,10 +99,10 @@ def _serve_pair(jmodel, tmodel, band: float, n_decode: int = 8, tokens_equal: bo
         assert ts[k].shape == tuple(np.asarray(js[k]).shape), k
 
 
-@pytest.mark.parametrize("fmt", ["Q4_0", "Q4_1", "Q5_1", "Q8_0", "Q4_K"])
-@pytest.mark.parametrize("version", VERSIONS)
-def test_serving_model_on_a_quantized_file_matches_jax(fp32_files, tmp_path, version, fmt):
-    path = _quantized(fp32_files, tmp_path, version, fmt)
+def check_quantized_file(src: str, tmp_path, fmt: str):
+    """ServingModel(path, "quant") on the FP32 file `src` quantized to `fmt`
+    against JAX's, within 5e-3 and with equal greedy tokens."""
+    path = _quantized(src, tmp_path, fmt)
     jmodel = JSV.ServingModel(path, precision="quant")
     tmodel = TSV.ServingModel(path, precision="quant", device="cpu")
     assert tmodel.config.__dict__ == jmodel.config.__dict__
@@ -96,8 +116,8 @@ def _synth_pair(version, lora_dim=64):
     return (jc, j_synth_params(jc, seed=2, lora_dim=lora_dim)), (tc, synth_params(tc, seed=2, lora_dim=lora_dim))
 
 
-@pytest.mark.parametrize("version", VERSIONS)
-def test_q8_matches_jax(version):
+def check_q8(version: str):
+    """q8 (every matrix int8, activations f32) against JAX within 1e-4."""
     jsrc, tsrc = _synth_pair(version)
     tmodel = TSV.ServingModel(tsrc, precision="q8", device="cpu")
     assert tmodel.params["head"].form == tmodel.params["blocks"]["ffn.key.weight"].form == "plain"
@@ -115,8 +135,8 @@ def test_q8r_matches_jax_kernel_in_interpret_mode():
     _serve_pair(jmodel, tmodel, 1e-2)
 
 
-@pytest.mark.parametrize("version", ["4.0", "5.1", "5.2", "6.0"])
-def test_q8r_within_band_of_jax_xla_path(version):
+def check_q8r_xla(version: str):
+    """q8r against JAX's XLA path (x kept in f32) within 2e-2."""
     jsrc, tsrc = _synth_pair(version)
     _serve_pair(JSV.ServingModel(jsrc, precision="q8r"),
                 TSV.ServingModel(tsrc, precision="q8r", device="cpu"), 2e-2, n_decode=4,
@@ -126,7 +146,7 @@ def test_q8r_within_band_of_jax_xla_path(version):
 def test_w8a8_on_a_quantized_file_keeps_the_blocks(fp32_files, tmp_path):
     """As in JAX, a file-quantized leaf keeps its blocks under w8a8 (K9's
     min form on a Q5_1 file); only dense leaves become w8a8 rows (K1)."""
-    path = _quantized(fp32_files, tmp_path, "5.2", "Q5_1")
+    path = _quantized(fp32_files["5.2"], tmp_path, "Q5_1")
     tmodel = TSV.ServingModel(path, precision="w8a8", device="cpu")
     assert tmodel.params["blocks"]["att.key.weight"].form == "min"
     assert tmodel.params["head"].form == "w8a8"
@@ -139,12 +159,11 @@ _T_BUILD = {7: TM.build_mega_pack, 6: TM.build_mega_pack_v6, 5: TM.build_mega_pa
             4: TM.build_mega_pack_v4}
 
 
-@pytest.mark.parametrize("version", VERSIONS)
-def test_megakernel_pack_of_a_quantized_file_bit_equal_jax(fp32_files, tmp_path, version):
+def check_megakernel_pack(src: str, tmp_path):
     """The decode kernels' w8 pack of a Q5_1 file (the blocks dequantized
     on the host, then rowwise int8): codes and row scales equal JAX's
     build_mega_pack*(quant=True, head=True) on the same loaded params."""
-    path = _quantized(fp32_files, tmp_path, version, "Q5_1")
+    path = _quantized(src, tmp_path, "Q5_1")
     (jc, jp), (tc, tp) = j_load_params(path), load_params(path)
     major = tc.version_major
     jpack, tpack = _J_BUILD[major](jp, jc, quant=True, head=True), _T_BUILD[major](tp, tc)
@@ -161,7 +180,7 @@ def test_megakernel_on_a_quantized_file_decodes_through_the_w8_pack(fp32_files, 
     """megakernel=True on a Q5_1 v7 file: prefill on K9's plain forms, B=1
     decode on K3's plain version over the w8 pack of the dequantized
     weights, equal to v7_decode_step_ref on that pack."""
-    path = _quantized(fp32_files, tmp_path, "7.0", "Q5_1")
+    path = _quantized(fp32_files["7.0"], tmp_path, "Q5_1")
     model = TSV.ServingModel(path, precision=precision, megakernel=True, device="cpu")
     assert model._mega_k3 and not model._mega["w4"]
     logits, state = model.prefill(PROMPT)
